@@ -5,6 +5,9 @@ The weight ``W_sp [out, in]`` has a static ``SparseTopology``; the trainable
 values live in the block panel (``layout="panel"``) and the forward is ONE
 panel SpMM launch with every batch dim folded into the dense columns. The
 bias (and ReLU, with ``fuse_relu``) is applied in the kernel's epilogue.
+The backward is one SDDMM (the values' gradient, exactly 0 at masked slots,
+so an optimizer never moves a pruned weight) and one transposed SpMM (the
+input's gradient).
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Sparse transformer, forward (counterpart of
-``sputnik_tpu/models/transformer.py``).
+"""Sparse transformer (counterpart of ``sputnik_tpu/models/transformer.py``).
 
 The reference's transformer driver scenario: per-batch-element masks (a
 ``ManyMaskTopology`` converted to CSR once, at construction), fused QKV
@@ -7,9 +6,10 @@ projection in the head-interleaved layout, MLP, N stacked layers,
 optional pre-LN residual blocks. Activations are ``[b, s, h]``; attention
 replicas are ``[b*heads, s, hd]`` with ``r = b_idx*heads + h``.
 
-Attention layouts: ``"flash"`` (default) runs the sparse-flash kernel at
-any sequence length; ``"xla"`` is the dense-masked plain path (outside any
-kernel, as in JAX). ``"panel"``, ``"csr"`` and ``"auto"`` are not ported.
+Attention layouts, both trainable: ``"flash"`` (default) runs the
+sparse-flash kernels, forward and backward, at any sequence length;
+``"xla"`` is the dense-masked plain path (outside any kernel, as in JAX).
+``"panel"``, ``"csr"`` and ``"auto"`` are not ported.
 The dense layers are ``nn.Linear``/``nn.LayerNorm`` with flax's defaults
 (LayerNorm epsilon 1e-6, tanh-approximated gelu, LeCun-normal kernels).
 """
@@ -26,7 +26,7 @@ from torch import nn
 
 from .. import many_mask as mm
 from ..ops.batched_panel import BatchedPanelSpec
-from ..ops.fused_attention import fused_sparse_attention
+from ..ops.fused_attention import fused_sparse_attention, warm_flash_meta
 from ..ops.kernels.flash_sparse import KERNEL_TILE
 
 __all__ = [
@@ -129,6 +129,8 @@ class SparseCoreAttention(nn.Module):
             return x.transpose(1, 2).reshape(b * x.shape[2], s, hd)
 
         spec = cached_batched_spec(mt, h, KERNEL_TILE, KERNEL_TILE)
+        warm_flash_meta(spec, q.device, backward=torch.is_grad_enabled(),
+                        hd=hd)
         ctx = fused_sparse_attention(spec, fold(q), fold(k), fold(v),
                                      scale=scale, group=h // kv)
         return ctx.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
@@ -231,8 +233,7 @@ class TransformerLayer(nn.Module):
 
 
 class SparseTransformer(nn.Module):
-    """N sparse-attention layers over per-batch masks (forward only: the
-    kernels' backward is not ported yet)."""
+    """N sparse-attention layers over per-batch masks."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, num_layers: int,
                  hidden_size: int, num_heads: int, ffn_hidden_size: int,

@@ -5,8 +5,8 @@
 replicas each (``R = B * heads``, replica ``r`` uses mask ``r // heads``)
 and their stacked block metadata. The batched SpMM/SDDMM kernels of the JAX
 package (``_k_spmm_bh``, ``_k_sddmm_bh``, ``_k_spmm_t_bh``) are not ported
-yet (ROADMAP B6-B8); the fused attention forward reads this spec's flash
-metadata (``flash_meta``).
+yet (ROADMAP B6-B8); the fused attention reads this spec's flash metadata
+(``flash_meta``, and ``flash_bwd_meta`` for the two-kernel backward).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..blocking import stack_block_meta
-from .kernels.flash_sparse import build_flash_meta
+from .kernels.flash_sparse import build_flash_bwd_meta, build_flash_meta
 
 __all__ = ["BatchedPanelSpec"]
 
@@ -40,7 +40,7 @@ class BatchedPanelSpec:
         self.n = topologies[0].n
         self.m_pad = self.mb * bm
         self.n_pad = self.kb * bk
-        self._flash_np = None
+        self._flash_np = {}
         self._flash_dev = {}
 
     @classmethod
@@ -70,17 +70,26 @@ class BatchedPanelSpec:
             out[r, :, : v.max_bpr] = flat[: v.dump].reshape(v.values_shape)
         return out
 
-    def flash_meta(self, device) -> dict:
-        """``kernels.flash_sparse.build_flash_meta`` of this spec as tensors
-        on ``device`` (ints stay ints): built on the host once, moved once
-        per device."""
-        if self._flash_np is None:
-            self._flash_np = build_flash_meta(self.views)
-        device = torch.device(device)
-        got = self._flash_dev.get(device)
+    def _device_meta(self, kind: str, build, device) -> dict:
+        """``build(views)`` as tensors on ``device`` (ints stay ints): built
+        on the host once, moved once per device."""
+        if kind not in self._flash_np:
+            self._flash_np[kind] = build(self.views)
+        key = (kind, torch.device(device))
+        got = self._flash_dev.get(key)
         if got is None:
-            got = {k: (torch.as_tensor(v, device=device)
+            got = {k: (torch.as_tensor(v, device=key[1])
                        if isinstance(v, np.ndarray) else v)
-                   for k, v in self._flash_np.items()}
-            self._flash_dev[device] = got
+                   for k, v in self._flash_np[kind].items()}
+            self._flash_dev[key] = got
         return got
+
+    def flash_meta(self, device) -> dict:
+        """``kernels.flash_sparse.build_flash_meta`` of this spec on
+        ``device``."""
+        return self._device_meta("fwd", build_flash_meta, device)
+
+    def flash_bwd_meta(self, device) -> dict:
+        """``kernels.flash_sparse.build_flash_bwd_meta`` of this spec on
+        ``device`` (the two-kernel backward's transposed walk)."""
+        return self._device_meta("bwd", build_flash_bwd_meta, device)

@@ -39,6 +39,11 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_sparse_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "spmm_t_panel_f32": [_P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "flash_sparse_bwd_fused_f32": [_P] * 15 + [_I] * 9 + [_F, _P],
+    "flash_sparse_bwd_dq_f32": [_P] * 13 + [_I] * 9 + [_F, _P],
+    "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
 }
 
 _lock = threading.Lock()

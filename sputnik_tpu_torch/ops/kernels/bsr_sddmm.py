@@ -49,8 +49,7 @@ def bsr_sddmm_panel(block_cols, nblocks, lhs, rhs, mask):
     if not lhs.is_cuda:
         return bsr_sddmm_panel_plain(block_cols, nblocks, lhs, rhs, mask)
 
-    guard_no_grad("bsr_sddmm_panel", "B1 and B3 (the SDDMM backward SpMMs)",
-                  lhs, rhs)
+    guard_no_grad("bsr_sddmm_panel", "panel_api.sddmm", lhs, rhs)
     dev = lhs.device
     check_operands("bsr_sddmm_panel", dev,
                    block_cols=(block_cols, torch.int32),

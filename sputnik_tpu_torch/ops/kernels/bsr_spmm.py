@@ -68,7 +68,8 @@ def bsr_spmm_panel(block_cols, nblocks, panel, dense, bias=None, *,
         return bsr_spmm_panel_plain(block_cols, nblocks, panel, dense, bias,
                                     rows=rows, epilogue=epilogue)
 
-    guard_no_grad("bsr_spmm_panel", "B3 (bsr_spmm_t_panel) and B4",
+    guard_no_grad("bsr_spmm_panel",
+                  "panel_api.spmm / spmm_bias / spmm_bias_relu",
                   panel, dense, bias)
     dev = panel.device
     if bias is None:

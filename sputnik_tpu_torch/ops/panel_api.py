@@ -1,4 +1,5 @@
-"""Panel-native ops, forward (counterpart of ``sputnik_tpu/ops/panel_api.py``).
+"""Panel-native differentiable ops (counterpart of
+``sputnik_tpu/ops/panel_api.py``).
 
 The device layout of sparse values is the block panel
 ``f32[mb, max_bpr, bm, bk]`` (``blocking.BlockView``), and the ops close
@@ -6,15 +7,21 @@ over it:
 
   * ``spmm`` / ``spmm_bias`` / ``spmm_bias_relu``: panel x dense -> dense
     (the panel SpMM kernel and its epilogues)
+  * ``spmm_t``: panel^T x dense -> dense (the transposed SpMM kernel, off
+    the original panel through transposed block metadata)
   * ``sddmm``: dense x dense -> panel (the panel SDDMM kernel)
   * ``sparse_softmax``: panel -> panel (plain PyTorch, as in JAX)
 
-Every op also takes a leading replica dimension, ``R`` panels over the one
-topology (``[R, mb, max_bpr, bm, bk]`` with dense operands ``[R, n, q]``):
-that is how ``SparseAttention`` runs its ``b*heads`` replicas in one launch.
-CSR <-> panel conversion happens once at the boundary. Tiles are Hopper's
-own (64 x 64 by default); outputs, never panel bytes, are comparable with
-the JAX package's.
+Each op is a ``torch.autograd.Function`` whose backward is the JAX
+package's ``custom_vjp`` algebra on the same kernels: SpMM <- SDDMM +
+SpMM^T, SDDMM <- SpMM + SpMM^T, softmax <- ``p * (g - rowsum(p * g))``.
+Panel gradients are exactly 0 at masked and padded slots, so an optimizer
+never moves a pruned weight. Every op also takes a leading replica
+dimension, ``R`` panels over the one topology (``[R, mb, max_bpr, bm, bk]``
+with dense operands ``[R, n, q]``): that is how ``SparseAttention`` runs its
+``b*heads`` replicas in one launch. CSR <-> panel conversion happens once at
+the boundary. Tiles are Hopper's own (64 x 64 by default); outputs, never
+panel bytes, are comparable with the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,9 +30,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from torch.autograd.function import once_differentiable
 
 from .kernels.bsr_sddmm import bsr_sddmm_panel
 from .kernels.bsr_spmm import bsr_spmm_panel
+from .kernels.bsr_spmm_t import bsr_spmm_t_panel
 
 __all__ = [
     "PanelSpec",
@@ -38,6 +49,7 @@ __all__ = [
     "spmm",
     "spmm_bias",
     "spmm_bias_relu",
+    "spmm_t",
     "sddmm",
     "sparse_softmax",
 ]
@@ -118,18 +130,28 @@ class PanelSpec:
         return self._view
 
     def meta(self, device) -> dict:
-        """``block_cols`` i32[mb*max_bpr], ``nblocks`` i32[mb] and the f32
-        element ``mask`` [mb, max_bpr, bm, bk] on ``device``."""
+        """Block metadata on ``device``: ``block_cols`` i32[mb*max_bpr],
+        ``nblocks`` i32[mb], the f32 element ``mask`` [mb, max_bpr, bm, bk],
+        and the transposed walk of ``BlockView.transpose_meta``: ``t_src_i``
+        / ``t_src_s`` i32[kb*max_bpc] and ``t_nblocks`` i32[kb]."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
             bv = self._view
+            t_nblocks, t_src = bv.transpose_meta()
             got = dict(
                 block_cols=torch.as_tensor(bv.block_cols.reshape(-1),
                                            device=device),
                 nblocks=torch.as_tensor(bv.nblocks, device=device),
                 mask=torch.as_tensor(bv.mask, dtype=torch.float32,
-                                     device=device))
+                                     device=device),
+                t_src_i=torch.as_tensor(
+                    np.ascontiguousarray(t_src[:, :, 0]).reshape(-1),
+                    device=device),
+                t_src_s=torch.as_tensor(
+                    np.ascontiguousarray(t_src[:, :, 1]).reshape(-1),
+                    device=device),
+                t_nblocks=torch.as_tensor(t_nblocks, device=device))
             self._meta[device] = got
         return got
 
@@ -159,18 +181,150 @@ def _replicated(panel) -> bool:
     return panel.dim() == 5
 
 
+# Raw launches on replicated operands (``[R, ...]``, contiguous). They
+# record no gradient: the Functions below call them in forward and backward.
+
+
+def _raw_spmm(spec, panel, dense, bias=None, epilogue="none"):
+    meta = spec.meta(panel.device)
+    return bsr_spmm_panel(meta["block_cols"], meta["nblocks"], panel,
+                          dense.contiguous(), bias, rows=spec.topo.m,
+                          epilogue=epilogue)
+
+
+def _raw_spmm_t(spec, panel, g, rows):
+    meta = spec.meta(panel.device)
+    return bsr_spmm_t_panel(meta["t_src_i"], meta["t_src_s"],
+                            meta["t_nblocks"], panel, g.contiguous(),
+                            rows=rows)
+
+
+def _raw_sddmm(spec, lhs, rhs):
+    meta = spec.meta(lhs.device)
+    return bsr_sddmm_panel(meta["block_cols"], meta["nblocks"],
+                           lhs.contiguous(), rhs.contiguous(), meta["mask"])
+
+
+class _SpMM(torch.autograd.Function):
+    """``epilogue(A @ dense (+ bias))``; backward (JAX ``_spmm_bwd`` /
+    ``_spmm_br_bwd``): ``ge = g`` (masked by ``out > 0`` under ReLU),
+    d_panel = SDDMM(ge, dense), d_dense = SpMM^T(panel, ge),
+    d_bias = the sum of ``ge`` over replicas and columns."""
+
+    @staticmethod
+    def forward(ctx, spec, panel, dense, bias, epilogue):
+        out = _raw_spmm(spec, panel, dense, bias, epilogue)
+        ctx.spec, ctx.epilogue = spec, epilogue
+        ctx.save_for_backward(panel, dense,
+                              out if epilogue == "bias_relu" else None)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        panel, dense, out = ctx.saved_tensors
+        spec = ctx.spec
+        if out is not None:
+            g = torch.where(out > 0, g, 0.0)
+        g = g.contiguous()
+        need = ctx.needs_input_grad
+        d_panel = _raw_sddmm(spec, g, dense) if need[1] else None
+        d_dense = (_raw_spmm_t(spec, panel, g, dense.shape[1])
+                   if need[2] else None)
+        d_bias = g.sum(dim=(0, 2)) if need[3] else None
+        return None, d_panel, d_dense, d_bias, None
+
+
+class _SpMMT(torch.autograd.Function):
+    """``A^T @ dense``; backward (JAX ``_spmm_t_bwd``): d_panel =
+    SDDMM(dense, g), d_dense = SpMM(panel, g)."""
+
+    @staticmethod
+    def forward(ctx, spec, panel, dense):
+        ctx.spec = spec
+        ctx.save_for_backward(panel, dense)
+        return _raw_spmm_t(spec, panel, dense, spec.topo.n)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        panel, dense = ctx.saved_tensors
+        spec, g = ctx.spec, g.contiguous()
+        need = ctx.needs_input_grad
+        d_panel = _raw_sddmm(spec, dense, g) if need[1] else None
+        d_dense = _raw_spmm(spec, panel, g) if need[2] else None
+        if d_dense is not None and d_dense.shape[1] != dense.shape[1]:
+            d_dense = F.pad(d_dense, (0, 0, 0, dense.shape[1] - spec.topo.m))
+        return None, d_panel, d_dense
+
+
+class _SDDMM(torch.autograd.Function):
+    """Sampled ``lhs @ rhs^T``; backward (JAX ``_sddmm_bwd``) on the masked
+    panel cotangent ``gp``: d_lhs = SpMM(gp, rhs), d_rhs = SpMM^T(gp, lhs)."""
+
+    @staticmethod
+    def forward(ctx, spec, lhs, rhs):
+        ctx.spec = spec
+        ctx.save_for_backward(lhs, rhs)
+        return _raw_sddmm(spec, lhs, rhs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        lhs, rhs = ctx.saved_tensors
+        spec = ctx.spec
+        # the output is 0 at masked and padded slots whatever the inputs:
+        # a cotangent there carries no gradient
+        g = torch.where(spec.meta(g.device)["mask"] != 0, g, 0.0)
+        need = ctx.needs_input_grad
+        d_lhs = d_rhs = None
+        if need[1]:
+            d_lhs = _raw_spmm(spec, g, rhs)
+            if d_lhs.shape[1] != lhs.shape[1]:
+                d_lhs = F.pad(d_lhs, (0, 0, 0, lhs.shape[1] - spec.topo.m))
+        if need[2]:
+            d_rhs = _raw_spmm_t(spec, g, lhs, rhs.shape[1])
+        return None, d_lhs, d_rhs
+
+
+class _SparseSoftmax(torch.autograd.Function):
+    """Masked row softmax; backward (JAX ``_softmax_bwd``):
+    ``p * (g - rowsum(p * g))`` over the panel's row axes."""
+
+    @staticmethod
+    def forward(ctx, spec, panel):
+        mask = spec.meta(panel.device)["mask"] != 0
+        v = torch.where(mask, panel, _NEG_LARGE)
+        row_max = v.amax(dim=(-3, -1), keepdim=True).clamp(min=_NEG_LARGE)
+        e = torch.where(mask, torch.exp(v - row_max), 0.0)
+        denom = e.sum(dim=(-3, -1), keepdim=True)
+        p = e / denom.clamp(min=torch.finfo(panel.dtype).tiny)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return None, p * (g - (p * g).sum(dim=(-3, -1), keepdim=True))
+
+
+def _rep(x, rep):
+    return x if rep else x[None]
+
+
+def _unrep(x, rep):
+    return x if rep else x[0]
+
+
 def _spmm(spec, panel, dense, bias, epilogue):
     spec = _spec(spec)
     t, bv = spec.topo, spec.view
     rep = _replicated(panel)
     _check_rows("dense", dense, t.n, bv.n_pad, 3 if rep else 2)
-    meta = spec.meta(panel.device)
-    out = bsr_spmm_panel(
-        meta["block_cols"], meta["nblocks"],
-        (panel if rep else panel[None]).contiguous(),
-        (dense if rep else dense[None]).contiguous(),
-        bias, rows=t.m, epilogue=epilogue)
-    return out if rep else out[0]
+    out = _SpMM.apply(spec, _rep(panel, rep).contiguous(),
+                      _rep(dense, rep).contiguous(), bias, epilogue)
+    return _unrep(out, rep)
 
 
 def spmm(spec, panel, dense):
@@ -189,6 +343,19 @@ def spmm_bias_relu(spec, panel, dense, bias):
     return _spmm(spec, panel, dense, bias, "bias_relu")
 
 
+def spmm_t(spec, panel, dense):
+    """``A_panel^T @ dense``: ``[n, q]`` from ``dense [m, q]``, or with
+    replicas ``[R, ...] x [R, m, q] -> [R, n, q]``; off the original panel
+    (no transposed panel is built)."""
+    spec = _spec(spec)
+    t, bv = spec.topo, spec.view
+    rep = _replicated(panel)
+    _check_rows("dense", dense, t.m, bv.m_pad, 3 if rep else 2)
+    out = _SpMMT.apply(spec, _rep(panel, rep).contiguous(),
+                       _rep(dense, rep).contiguous())
+    return _unrep(out, rep)
+
+
 def sddmm(spec, lhs, rhs):
     """Sampled ``lhs @ rhs^T`` -> panel values: ``[m, d] x [n, d]`` -> panel,
     or with replicas ``[R, m, d] x [R, n, d] -> [R, *panel]``."""
@@ -199,13 +366,10 @@ def sddmm(spec, lhs, rhs):
         raise ValueError(f"lhs must be rank 2 or 3, got {tuple(lhs.shape)}")
     _check_rows("lhs", lhs, t.m, bv.m_pad, rank)
     _check_rows("rhs", rhs, t.n, bv.n_pad, rank)
-    meta = spec.meta(lhs.device)
     rep = rank == 3
-    out = bsr_sddmm_panel(meta["block_cols"], meta["nblocks"],
-                          (lhs if rep else lhs[None]).contiguous(),
-                          (rhs if rep else rhs[None]).contiguous(),
-                          meta["mask"])
-    return out if rep else out[0]
+    out = _SDDMM.apply(spec, _rep(lhs, rep).contiguous(),
+                       _rep(rhs, rep).contiguous())
+    return _unrep(out, rep)
 
 
 def sparse_softmax(spec, panel):
@@ -214,9 +378,4 @@ def sparse_softmax(spec, panel):
     row without nonzeros gives 0."""
     spec = _spec(spec)
     _replicated(panel)
-    mask = spec.meta(panel.device)["mask"] != 0
-    v = torch.where(mask, panel, _NEG_LARGE)
-    row_max = v.amax(dim=(-3, -1), keepdim=True).clamp(min=_NEG_LARGE)
-    e = torch.where(mask, torch.exp(v - row_max), 0.0)
-    denom = e.sum(dim=(-3, -1), keepdim=True)
-    return e / denom.clamp(min=torch.finfo(panel.dtype).tiny)
+    return _SparseSoftmax.apply(spec, panel)

@@ -131,8 +131,9 @@ def test_flash_meta_cached_per_device():
 
 
 def test_plain_path_is_differentiable_on_cpu():
-    """Gradients flow through the plain version on the CPU (the kernels'
-    backward is not ported; on CUDA the wrapper refuses grad mode)."""
+    """Gradients flow on the CPU, through the autograd Function's plain
+    backward (``tests/test_torch_flash_backward.py`` holds them against
+    JAX)."""
     _, tspec = _specs(_masks())
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(B * H, B * H))

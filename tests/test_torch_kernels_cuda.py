@@ -17,8 +17,11 @@ import torch
 import sputnik_tpu_torch as stt
 from sputnik_tpu_torch.ops.kernels.bsr_sddmm import (bsr_sddmm_panel,
                                                       bsr_sddmm_panel_plain)
+from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
 from sputnik_tpu_torch.ops.kernels.bsr_spmm import (bsr_spmm_panel,
                                                      bsr_spmm_panel_plain)
+from sputnik_tpu_torch.ops.kernels.bsr_spmm_t import (bsr_spmm_t_panel,
+                                                       bsr_spmm_t_panel_plain)
 from sputnik_tpu_torch.ops.kernels.flash_sparse import (
     flash_sparse_attention_fwd, flash_sparse_attention_fwd_plain)
 from sputnik_tpu_torch.patterns import driver_masks
@@ -167,13 +170,143 @@ def test_kernels_match_plain_on_random_shapes(dev, seed):
 
 
 def test_kernels_refuse_grad_mode(dev):
+    """A raw kernel launch records no gradient, so in grad mode the wrapper
+    refuses it and names the autograd op; the modules train through those
+    ops, whose backward launches the backward kernels."""
     topo = stt.SparseTopology.from_dense_mask(np.ones((64, 64)))
     lin = stt.SparseLinear(topo).to(dev)
-    x = torch.randn(4, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lin(x)
-    with torch.no_grad():
-        assert lin(x).shape == (4, 64)
+    x = torch.randn(4, 64, device=dev, requires_grad=True)
+    meta = lin.spec.meta(dev)
+    with pytest.raises(RuntimeError, match="panel_api.spmm"):
+        bsr_spmm_panel(meta["block_cols"], meta["nblocks"], lin.values[None],
+                       x.T.contiguous()[None], rows=64)
+    before = bsr_spmm_t_panel.launches
+    y = lin(x)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert bsr_spmm_t_panel.launches == before + 1
+    assert x.grad is not None and lin.values.grad is not None
+    w = torch.from_numpy(lin.unpack_dense(lin.values)).to(dev)
+    ref_x = torch.autograd.grad((x @ w.T + lin.bias).square().sum(), x)[0]
+    _close(x.grad, ref_x)
+
+
+def _bwd_problem(dev, b, heads, s, hd, group, seed):
+    rng = np.random.RandomState(seed)
+    masks = driver_masks(b, s)                   # row s // 2 fully masked
+    if b > 1:
+        masks[1] *= rng.rand(s, s) < 0.5
+        masks[1][:, s // 3: s // 3 + 70] = 0.0   # keys no query attends
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    R = b * heads
+    q, g = (torch.from_numpy(rng.randn(R, s, hd).astype(np.float32)).to(dev)
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(R // group, s, hd).astype(np.float32)
+                             ).to(dev) for _ in range(2))
+    fm = spec.flash_meta(dev)
+    kw = dict(heads=heads, scale=hd ** -0.5, group=group)
+    out, m, l = flash_sparse_attention_fwd_plain(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k, v, max_bpr=fm["max_bpr"], **kw)
+    D = (g * out).sum(-1)
+    return spec, (q, k, v, g, m, l, D), kw
+
+
+@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+@pytest.mark.parametrize("group", [1, 2])
+def test_flash_backward_kernels_match_plain(dev, hd, group):
+    """B10a / B10b / B10c against their plain versions: s = 200 (not a
+    multiple of 64), a fully-masked row (dq exactly 0) and key columns no
+    query attends (dk = dv = 0)."""
+    b, heads, s = 2, 4, 200
+    spec, ops, kw = _bwd_problem(dev, b, heads, s, hd, group, seed=hd + group)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    rargs = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+             fm["is_partial"], fm["pmask"], *ops)
+    targs = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+             bm["t_is_partial"], bm["pmask"], *ops)
+    ref = fs.flash_sparse_bwd_fused_plain(*rargs, max_bpr=fm["max_bpr"], **kw)
+    got = fs.flash_sparse_bwd_fused(*rargs, max_bpr=fm["max_bpr"], **kw)
+    dq = fs.flash_sparse_bwd_dq(*rargs, max_bpr=fm["max_bpr"], **kw)
+    dk, dv = fs.flash_sparse_bwd_dkv(*targs, max_bpc=bm["max_bpc"], **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        _close(a, r)
+    _close(dq, ref[0])
+    _close(dk, ref[1])
+    _close(dv, ref[2])
+    for x in (got[0], dq):
+        assert torch.all(x[:heads, s // 2] == 0)  # fully-masked row
+    dead = slice(s // 3 + 6, s // 3 + 64)         # no query of mask 1 reads
+    rk = heads // group                           # first KV replica of b=1
+    assert torch.all(dk[rk:, dead] == 0) and torch.all(dv[rk:, dead] == 0)
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (32, 96), (128, 48)])
+def test_spmm_t_kernel_matches_plain_and_dense(dev, tiles):
+    """B3 against its plain version and a dense ``A^T @ G``, with an empty
+    block column (written as exact zeros) and ragged edges."""
+    rng = np.random.RandomState(5)
+    m, n, q, R = 200, 150, 130, 3
+    mask = rng.rand(m, n) < 0.1
+    mask[:, : tiles[1] + 5] = False
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    spec = stt.PanelSpec(topo, *tiles)
+    meta = _meta(spec, dev)
+    w = (mask * rng.randn(m, n)).astype(np.float32)
+    vals = stt.SparseMatrix(w).values
+    panel = torch.from_numpy(np.stack([
+        stt.ops.panel_api.values_to_panel_np(topo, vals * (r + 1), *tiles)
+        for r in range(R)])).to(dev)
+    g = torch.from_numpy(rng.randn(R, m, q).astype(np.float32)).to(dev)
+    args = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel, g)
+    got = bsr_spmm_t_panel(*args, rows=n)
+    torch.cuda.synchronize()
+    _close(got, bsr_spmm_t_panel_plain(*args, rows=n))
+    a = torch.from_numpy(w).to(dev)
+    _close(got, torch.stack([(r + 1) * a.T @ g[r] for r in range(R)]))
+    assert torch.all(got[:, : tiles[1]] == 0)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_backward_kernels_match_plain_on_random_shapes(dev, seed):
+    """Seeded sweep over ragged shapes, tiles, densities, hd and GQA groups
+    for B3 and B10a/b/c."""
+    rng = np.random.RandomState(200 + seed)
+    m, n = rng.randint(1, 300, size=2)
+    bm, bk = rng.choice([16, 32, 48, 64, 96, 128], size=2)
+    mask = rng.rand(m, n) < rng.choice([0.01, 0.1, 0.5])
+    spec = stt.PanelSpec(stt.SparseTopology.from_dense_mask(mask), int(bm),
+                         int(bk))
+    meta = _meta(spec, dev)
+    R, q = rng.randint(1, 4), rng.randint(1, 200)
+    panel = torch.from_numpy(rng.randn(R, *spec.view.values_shape).astype(
+        np.float32)).to(dev) * meta["mask"]
+    g = torch.from_numpy(rng.randn(R, m, q).astype(np.float32)).to(dev)
+    args = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel, g)
+    _close(bsr_spmm_t_panel(*args, rows=n),
+           bsr_spmm_t_panel_plain(*args, rows=n))
+
+    b, heads = rng.randint(1, 4), int(rng.choice([1, 2, 4]))
+    s, hd = int(rng.randint(2, 300)), int(rng.choice([32, 64, 100, 128]))
+    group = int(rng.choice([1, heads]))
+    spec, ops, kw = _bwd_problem(dev, b, heads, s, hd, group, seed)
+    fm, bmeta = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    rargs = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+             fm["is_partial"], fm["pmask"], *ops)
+    ref = fs.flash_sparse_bwd_fused_plain(*rargs, max_bpr=fm["max_bpr"], **kw)
+    for a, r in zip(fs.flash_sparse_bwd_fused(
+            *rargs, max_bpr=fm["max_bpr"], **kw), ref):
+        _close(a, r)
+    _close(fs.flash_sparse_bwd_dq(*rargs, max_bpr=fm["max_bpr"], **kw),
+           ref[0])
+    dk, dv = fs.flash_sparse_bwd_dkv(
+        bmeta["t_src_i"], bmeta["t_nblocks"], bmeta["t_mask_slot"],
+        bmeta["t_is_partial"], bmeta["pmask"], *ops,
+        max_bpc=bmeta["max_bpc"], **kw)
+    _close(dk, ref[1])
+    _close(dv, ref[2])
 
 
 def test_wrappers_check_operands(dev):

@@ -3,8 +3,9 @@
   * ``import sputnik_tpu_torch`` loads no JAX module;
   * the kernel modules import without ``nvcc`` or ``triton``, and a missing
     ``nvcc`` makes a build raise instead of falling back;
-  * CPU tensors never launch a kernel: every launch counter stays 0;
-  * on CUDA the wrappers refuse grad mode (no backward is ported yet).
+  * CPU tensors never launch a kernel, forward or backward: every launch
+    counter stays 0;
+  * a raw kernel launch refuses grad mode and names the autograd op to use.
 """
 
 import os
@@ -30,7 +31,8 @@ def _run(code, env=None):
 
 def test_import_loads_no_jax():
     r = _run("import sys, sputnik_tpu_torch, sputnik_tpu_torch.models, "
-             "sputnik_tpu_torch.bridge\n"
+             "sputnik_tpu_torch.bridge, "
+             "sputnik_tpu_torch.examples.train_sparse_transformer\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -43,6 +45,7 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
     r = _run("import sys\n"
              "import sputnik_tpu_torch.ops.kernels.bsr_spmm\n"
              "import sputnik_tpu_torch.ops.kernels.bsr_sddmm\n"
+             "import sputnik_tpu_torch.ops.kernels.bsr_spmm_t\n"
              "import sputnik_tpu_torch.ops.kernels.flash_sparse\n"
              "from sputnik_tpu_torch.ops.kernels import _build\n"
              "assert 'triton' not in sys.modules\n"
@@ -56,8 +59,13 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
 
 def test_build_key_covers_every_source():
     cu, cuh = _build._sources()
-    assert {p.name for p in cu} == {"bsr_spmm.cu", "bsr_sddmm.cu",
-                                    "flash_sparse_fwd.cu"}
+    assert {p.name for p in cu} == {"bsr_spmm.cu", "bsr_spmm_t.cu",
+                                    "bsr_sddmm.cu", "flash_sparse_fwd.cu",
+                                    "flash_sparse_bwd.cu"}
+    assert set(_build._SIGNATURES) == {
+        "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
+        "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
+        "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -75,21 +83,22 @@ def test_cpu_tensors_launch_no_kernel():
         uniform_mask(s, s, sparsity=0.9, seed=1)))
     lin = stt.SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(32)),
                            fuse_relu=True)
-    x = torch.randn(2, s, 32)
-    with torch.no_grad():
-        y = lin(attn(model(x)))
-    assert torch.isfinite(y).all()
+    x = torch.randn(2, s, 32, requires_grad=True)
+    y = lin(attn(model(x)))
+    y.square().sum().backward()
+    assert torch.isfinite(y).all() and torch.isfinite(x.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
+    assert len(wrappers) == 7
     assert all(v == 0 for v in before.values())
 
 
 def test_grad_guard_raises_only_when_grad_is_needed():
     a = torch.zeros(2, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B9x"):
-        kernels.guard_no_grad("k", "B9x", a)
+    with pytest.raises(RuntimeError, match="call panel_api.spmm to train"):
+        kernels.guard_no_grad("k", "panel_api.spmm", a)
     with torch.no_grad():
-        kernels.guard_no_grad("k", "B9x", a)
-    kernels.guard_no_grad("k", "B9x", torch.zeros(2), None)
+        kernels.guard_no_grad("k", "panel_api.spmm", a)
+    kernels.guard_no_grad("k", "panel_api.spmm", torch.zeros(2), None)
 
 
 def test_operand_checks():
