@@ -11,7 +11,10 @@ Phases, each printing its lines:
      forward and the three backward kernels at R=32 s=512 hd=64, the
      backward also at hd 32 / 128 and GQA group 2) and at the shapes the
      main paths give them; both backward routes timed at the driver shape
-     and at s=4096;
+     and at s=4096; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
+     f32 and int8 caches; qlen 1 and 4; GQA group 1 and 4, the latter
+     with R_kv=8 as run (f) gives it) and the ragged append (R=32,
+     bit-exact) at the serving shapes;
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -22,9 +25,17 @@ Phases, each printing its lines:
         single-pass flash backward and 1 through the two-kernel backward,
         then the SparseAttention takes 3 Adam steps (SpMM, transposed SpMM
         and SDDMM in its backward);
+     c. serving at benchmarks/serving.py's full width (SparseLM 6 layers,
+        b=4, P=1024, h=1024, 8 heads, ffn 4096, V=32000, causal masks;
+        LMServer(s_max=P+64, bk=1024), bf16 cache): (a) greedy generate of
+        64 tokens, (b) sampled (T=0.8, top_k=40, seeded generator), (c)
+        prompt_lengths [1024, 900, 700, 512] through the ragged append,
+        (d) decode_multi q=4 + rollback, (e) int8 cache, (f) GQA
+        kv_heads=2 on 2 layers; one decode_step under the sync debug mode;
   4. the outputs, losses and gradients against the same modules' plain path
-     on the CPU, and the forward / training-step times and peak device
-     memory.
+     on the CPU (serving: fp32-cache logits and greedy tokens, teacher
+     forced, of the MHA model and of run (f)'s GQA model), and the forward / training-step / prefill / decode times and
+     peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0).
 TF32 is switched off, so every product here runs in full fp32.
@@ -33,6 +44,7 @@ TF32 is switched off, so every product here runs in full fp32.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -59,6 +71,10 @@ REPLACES = {
                             "sputnik_tpu/ops/pallas/flash_sparse.py:445"),
     "flash_sparse_bwd_dkv": ("sputnik_tpu_torch/csrc/flash_sparse_bwd.cu",
                              "sputnik_tpu/ops/pallas/flash_sparse.py:529"),
+    "decode_attention": ("sputnik_tpu_torch/csrc/decode_attention.cu",
+                         "sputnik_tpu/ops/pallas/decode_attention.py:51"),
+    "ragged_append": ("sputnik_tpu_torch/csrc/ragged_append.cu",
+                      "sputnik_tpu/ops/pallas/ragged_append.py:54"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 
@@ -597,6 +613,389 @@ def phase_train(stt, torch, dev, wrappers):
     return launches
 
 
+def phase_serving_kernels(stt, torch, dev, kres):
+    """B19 and B21 against their plain versions at the serving shapes, and
+    their times."""
+    from sputnik_tpu_torch.ops import decode as D
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from sputnik_tpu_torch.ops.kernels.ragged_append import (
+        ragged_append_kernel, ragged_append_plain)
+
+    print("phase 2c: serving kernels vs plain PyTorch at the serving shapes",
+          flush=True)
+    rng = np.random.RandomState(30)
+    R, hd, bk, s_max = 32, 128, 1024, 2048
+    r = kres["decode_attention"]
+    # group 1: the MHA serving runs (kv_len 1088 everywhere); group 4: run
+    # (f)'s GQA shape (8 KV replicas, one per 4 query replicas), lengths
+    # differing per KV replica, tables expanded as ops.decode does
+    gqa_lens = [1088, 1000, 900, 1025, 700, 1024, 513, 0]
+    for dtype, qlen, group in itertools.product(
+            (torch.bfloat16, torch.float32, torch.int8), (1, 4), (1, 4)):
+        R_kv = R // group
+        kv = torch.from_numpy(rng.randn(2, R_kv, s_max, hd).astype(
+            np.float32)).to(dev)
+        if group == 1:
+            lens = torch.full((R,), 1088, dtype=torch.int32, device=dev)
+            lens[R - 1] = 0                       # an empty replica
+        else:
+            lens = torch.tensor(gqa_lens, dtype=torch.int32, device=dev)
+        cache = D.prefill_kv(D.init_kv_cache(R_kv, s_max, hd, dtype,
+                                             device=dev),
+                             kv[0], kv[1], lens)
+        tbl, valid = D.decode_block_table(cache.kv_len, s_max=s_max, bk=bk,
+                                          window_blocks=2, sink_blocks=0)
+        tbl, valid = (t.repeat_interleave(group, 0).contiguous()
+                      for t in (tbl, valid))
+        q = torch.from_numpy(rng.randn(R, qlen, hd).astype(
+            np.float32)).to(dev)
+        args = (tbl, valid, cache.kv_len, q, cache.k, cache.v,
+                cache.k_scale, cache.v_scale)
+        kw = dict(bk=bk, qlen=qlen, group=group, scale=hd ** -0.5)
+        got = decode_attention_kernel(*args, **kw)
+        _compare(f"decode_attention R={R} R_kv={R_kv} group={group} S=2 "
+                 f"bk={bk} hd={hd} {str(dtype)[6:]} qlen={qlen}", got,
+                 decode_attention_plain(*args, **kw), TOL_KERNEL, r)
+        if not torch.all(got[R - group:] == 0):
+            _fail("decode_attention: the empty replica is not exactly 0")
+        if dtype == torch.bfloat16 and qlen == 1 and group == 1:
+            timed = [(args, kw, int(valid.sum()), int(lens.sum()))]
+    # Times at the serving shape (bf16, kv_len 1088): L2-warm, the same
+    # cache every call (its 16.5 MiB of attended K/V stay in the 50 MB L2),
+    # and cold, four caches in turn (134 MB), as a decode step finds it.
+    (args, kw, n_valid, n_keys), = timed
+    for _ in range(3):
+        kv = torch.from_numpy(rng.randn(2, R, s_max, hd).astype(
+            np.float32)).to(dev)
+        c = D.prefill_kv(D.init_kv_cache(R, s_max, hd, torch.bfloat16,
+                                         device=dev), kv[0], kv[1], args[2])
+        timed.append(((args[0], args[1], c.kv_len, args[3], c.k, c.v,
+                       c.k_scale, c.v_scale), kw, n_valid, n_keys))
+    turn = itertools.count()
+
+    def cold(fn):
+        return lambda: fn(*timed[next(turn) % 4][0], **kw)
+
+    warm_ms = _time_ms(lambda: decode_attention_kernel(*args, **kw))
+    r["ms"] = _time_ms(cold(decode_attention_kernel))
+    r["plain_ms"] = _time_ms(cold(decode_attention_plain))
+    warm_plain = _time_ms(lambda: decode_attention_plain(*args, **kw))
+    tabled = n_valid * bk * hd * 2 * 2
+    attended = n_keys * hd * 2 * 2
+    for tag, ms, plain in (("cold L2", r["ms"], r["plain_ms"]),
+                           ("warm L2", warm_ms, warm_plain)):
+        print(f"  decode_attention R={R} S=2 bk={bk} hd={hd} bf16 kv_len "
+              f"1088, {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms; "
+              f"tabled KV {tabled / 2**20:.1f} MiB -> "
+              f"{tabled / ms / 1e6:.1f} GB/s, attended KV "
+              f"{attended / 2**20:.1f} MiB -> {attended / ms / 1e6:.1f} GB/s "
+              f"(of 3350 GB/s)", flush=True)
+    del kv, cache, timed
+
+    r = kres["ragged_append"]
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        k, v = (torch.from_numpy(rng.randn(R, s_max, hd).astype(
+            np.float32) * 40).to(dtype).to(dev) for _ in range(2))
+        ks, vs = (torch.rand(R, s_max, device=dev) for _ in range(2))
+        toks = (torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
+                                 ).to(dtype).to(dev),
+                torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
+                                 ).to(dtype).to(dev),
+                torch.rand(R, device=dev), torch.rand(R, device=dev))
+        pos = torch.from_numpy(rng.randint(0, s_max + 1, R).astype(
+            np.int32)).to(dev)
+        ok = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
+        bufs = [k, v, ks, vs]
+        want = [t.clone() for t in bufs]
+        ragged_append_plain(pos, ok, *toks, *want)
+        ragged_append_kernel(pos, ok, *toks, *bufs)
+        for got, ref in zip(bufs, want):
+            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+                _fail(f"ragged_append {dtype}: not bit-identical to plain")
+        r["max_abs_err"] = 0.0
+        print(f"  ragged_append R={R} s_max={s_max} hd={hd} "
+              f"{str(dtype)[6:]}: bit-identical to plain", flush=True)
+        if dtype == torch.bfloat16:
+            r["ms"] = _time_ms(lambda: ragged_append_kernel(pos, ok, *toks,
+                                                            *bufs))
+            r["plain_ms"] = _time_ms(lambda: ragged_append_plain(
+                pos, ok, *toks, *bufs))
+            print(f"  ragged_append R={R} hd={hd} bf16: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
+                  flush=True)
+
+
+def _teacher_forced_logits(server, prompt, tokens):
+    """The head's logits at the prompt's last position, then after each of
+    ``tokens[:, :-1]`` fed through ``decode_step``: ``[n, b, vocab]``."""
+    import torch
+
+    with torch.no_grad():
+        caches = server.init_caches(prompt.shape[0])
+        y, caches = server.decoder.prefill(server.lm.embed(prompt), caches)
+        out = [server.lm.head(y[:, -1])]
+        for t in range(tokens.shape[1] - 1):
+            logits, caches = server.decode_step(tokens[:, t], caches)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def phase_serving(stt, torch, dev, wrappers):
+    """The serving path at benchmarks/serving.py's full width, launches
+    counted; held against the CPU by teacher forcing."""
+    from sputnik_tpu_torch.models import LMServer, SparseLM
+    from sputnik_tpu_torch.patterns import causal_mask
+
+    b, P, h, heads, layers, ffn, V, n_new, bk = (4, 1024, 1024, 8, 6, 4096,
+                                                 32000, 64, 1024)
+    print(f"phase 3c: serving path — SparseLM {layers}L b={b} P={P} h={h} "
+          f"heads={heads} ffn={ffn} V={V}, LMServer(s_max=P+64, bk={bk}), "
+          f"{n_new} new tokens", flush=True)
+    masks = np.broadcast_to(causal_mask(P), (b, P, P)).copy()
+    t0 = time.perf_counter()
+    cpu_lm = SparseLM.from_masks(
+        masks, vocab_size=V, num_layers=layers, hidden_size=h,
+        num_heads=heads, ffn_hidden_size=ffn, use_residual=True,
+        use_layernorm=True, activation="gelu",
+        generator=torch.Generator().manual_seed(20)).eval()
+    lm = copy.deepcopy(cpu_lm).to(dev)
+    cpu_gqa = SparseLM.from_masks(
+        masks, vocab_size=V, num_layers=2, hidden_size=h, num_heads=heads,
+        num_kv_heads=2, ffn_hidden_size=ffn, use_residual=True,
+        use_layernorm=True, activation="gelu",
+        generator=torch.Generator().manual_seed(22)).eval()
+    gqa_lm = copy.deepcopy(cpu_gqa).to(dev)
+    prompt = torch.from_numpy(np.random.RandomState(21).randint(
+        0, V, (b, P)))
+    pd = prompt.to(dev)
+    lens = [1024, 900, 700, 512]
+    print(f"  models built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def server(model=lm, dtype=torch.bfloat16):
+        return LMServer(model, s_max=P + 64, bk=bk, cache_dtype=dtype)
+
+    srv = server()
+    srv.generate(pd, 2)                     # builds metadata, warms up
+    torch.cuda.synchronize()
+    total = {n: 0 for n in wrappers}
+
+    def run(label, fn, expect):
+        """``fn()`` with every counter at 0 just before; the counts read
+        just after must equal ``expect`` (kernel -> launches)."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: w.launches for n, w in wrappers.items()}
+        for n, c in got.items():
+            total[n] += c
+        for n, want in expect.items():
+            if got[n] != want:
+                _fail(f"serving {label}: {got[n]} launches of {n}, "
+                      f"expected {want}")
+        print(f"  {label}: launches {dict((n, c) for n, c in got.items() if c)}",
+              flush=True)
+        return out
+
+    def check_tokens(label, toks, n):
+        if toks.shape != (b, n) or not ((toks >= 0) & (toks < V)).all():
+            _fail(f"serving {label}: tokens {tuple(toks.shape)} out of range")
+
+    steps = n_new - 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    toks_a, caches_a = run("(a) greedy generate, bf16 cache",
+                           lambda: srv.generate(pd, n_new),
+                           {"flash_sparse_attention_fwd": layers,
+                            "decode_attention": layers * steps,
+                            "ragged_append": 0})
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_tokens("(a)", toks_a, n_new)
+    if caches_a[0].kv_len.tolist() != [P + steps] * (b * heads):
+        _fail(f"serving (a): kv_len {caches_a[0].kv_len.tolist()[:4]}...")
+
+    gen = torch.Generator(device=dev)
+    toks_b = run("(b) sampled generate T=0.8 top_k=40",
+                 lambda: srv.generate(pd, n_new, gen.manual_seed(5),
+                                      temperature=0.8, top_k=40)[0],
+                 {"flash_sparse_attention_fwd": layers,
+                  "decode_attention": layers * steps, "ragged_append": 0})
+    check_tokens("(b)", toks_b, n_new)
+    again = srv.generate(pd, n_new, gen.manual_seed(5), temperature=0.8,
+                         top_k=40)[0]
+    if not torch.equal(toks_b, again):
+        _fail("serving (b): the same generator seed gave other tokens")
+
+    toks_c, caches_c = run(
+        f"(c) generate, prompt_lengths={lens}",
+        lambda: srv.generate(pd, n_new, prompt_lengths=lens),
+        {"flash_sparse_attention_fwd": layers,
+         "decode_attention": layers * steps,
+         "ragged_append": layers * steps})
+    check_tokens("(c)", toks_c, n_new)
+    want_len = [n + steps for n in lens for _ in range(heads)]
+    if caches_c[0].kv_len.tolist() != want_len:
+        _fail(f"serving (c): kv_len {caches_c[0].kv_len.tolist()}")
+
+    def speculative():
+        dec_ = srv.decoder
+        caches = srv.init_caches(b)
+        y, caches = dec_.prefill(srv.lm.embed(pd), caches)
+        draft = toks_a[:, :4]
+        seq = tuple(c.clone() for c in caches)
+        y_multi, caches = dec_.decode_multi(srv.lm.embed(draft), caches)
+        if caches[0].kv_len.tolist() != [P + 4] * (b * heads):
+            _fail("serving (d): decode_multi did not advance kv_len by 4")
+        caches = dec_.rollback(caches, 3)
+        y_next, caches = dec_.decode_step(
+            srv.lm.embed(toks_a[:, 1])[:, None], caches)
+        ys = []
+        for i in range(4):
+            y1, seq = dec_.decode_step(srv.lm.embed(draft[:, i])[:, None],
+                                       seq)
+            ys.append(y1)
+        return y_multi, torch.cat(ys, 1), y_next, caches
+
+    y_multi, y_seq, y_next, caches_d = run(
+        "(d) decode_multi q=4, rollback 3, decode_step (+ 4 sequential steps)",
+        speculative, {"flash_sparse_attention_fwd": layers,
+                      "decode_attention": layers * 6, "ragged_append": 0})
+    _compare("(d) decode_multi vs 4 sequential decode_steps", y_multi, y_seq,
+             TOL_MODEL)
+    _compare("(d) decode_step after rollback vs sequential step 2",
+             y_next[:, 0], y_seq[:, 1], TOL_MODEL)
+    if caches_d[0].kv_len.tolist() != [P + 2] * (b * heads):
+        _fail("serving (d): kv_len after rollback + step")
+
+    srv8 = server(dtype=torch.int8)
+    toks_e = run("(e) greedy generate, int8 cache",
+                 lambda: srv8.generate(pd, n_new)[0],
+                 {"flash_sparse_attention_fwd": layers,
+                  "decode_attention": layers * steps, "ragged_append": 0})
+    check_tokens("(e)", toks_e, n_new)
+    gqa = server(gqa_lm)
+    toks_f = run("(f) greedy generate, GQA kv_heads=2, 2 layers",
+                 lambda: gqa.generate(pd, 16)[0],
+                 {"flash_sparse_attention_fwd": 2,
+                  "decode_attention": 2 * 15, "ragged_append": 0})
+    if toks_f.shape != (b, 16):
+        _fail("serving (f): token shape")
+    agree = {k: float((t == toks_a).float().mean()) for k, t in
+             (("int8 cache", toks_e), ("bf16 sampled", toks_b))}
+    print(f"  share of greedy bf16 tokens matched: {agree}", flush=True)
+
+    print("  one decode_step under torch.cuda.set_sync_debug_mode('error')",
+          flush=True)
+    caches = srv.init_caches(b)
+    with torch.no_grad():
+        _, caches = srv.decoder.prefill(srv.lm.embed(pd), caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, caches = srv.decode_step(toks_a[:, 0], caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+    print("phase 4c: serving vs the CPU plain path (fp32 cache, teacher "
+          "forcing the card's greedy tokens); serving times", flush=True)
+    def hold(label, model, cpu_model, n):
+        """Greedy generate with an fp32 cache on the card, then the same
+        tokens teacher-forced through the card and through the CPU copy."""
+        srv32 = server(model, torch.float32)
+        toks32, _ = srv32.generate(pd, n)
+        gpu_logits = _teacher_forced_logits(srv32, pd, toks32).cpu()
+        if not torch.equal(gpu_logits.argmax(-1).T, toks32.cpu()):
+            _fail(f"serving {label}: teacher-forced argmax differs from "
+                  f"generate's tokens")
+        t0 = time.perf_counter()
+        cpu_srv = LMServer(cpu_model, s_max=P + 64, bk=bk,
+                           cache_dtype=torch.float32)
+        cpu_logits = _teacher_forced_logits(cpu_srv, prompt, toks32.cpu())
+        print(f"  {label} CPU reference: prefill + {n - 1} steps in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _compare(f"{label} fp32-cache logits, {n} positions x {b} sequences",
+                 gpu_logits, cpu_logits, TOL_MODEL)
+        bound = TOL_MODEL * max(1.0, cpu_logits.abs().max().item())
+        top2 = cpu_logits.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        miss = (cpu_logits.argmax(-1).T != toks32.cpu()) & (gap.T >= bound)
+        if miss.any():
+            _fail(f"serving {label}: {int(miss.sum())} greedy card tokens "
+                  f"are not the CPU argmax with a top-2 gap >= {bound:.3e}")
+        print(f"  {label} greedy card tokens: all {b * n} are the CPU argmax "
+              f"(or within a top-2 gap < {bound:.3e}: "
+              f"{int((gap < bound).sum())} positions)", flush=True)
+
+    hold("MHA", lm, cpu_lm, n_new)
+    hold("(f) GQA kv_heads=2", gqa_lm, cpu_gqa, 16)
+
+    caches = srv.init_caches(b)
+
+    def prefill():
+        with torch.no_grad():
+            y, _ = srv.decoder.prefill(srv.lm.embed(pd), caches)
+            return srv.lm.head(y[:, -1])
+
+    prefill_ms = _time_ms(prefill, reps=5, inner=1, warmup=1)
+    _, caches = srv.decoder.prefill(srv.lm.embed(pd), caches)
+    tok = toks_a[:, 0]
+    for _ in range(3):
+        srv.decode_step(tok, tuple(c.clone() for c in caches))
+    torch.cuda.synchronize()
+    times = []
+    for i in range(32):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, caches = srv.decode_step(toks_a[:, i], caches)
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    step_ms = sorted(s.elapsed_time(e) for s, e in times)
+    med = statistics.median(step_ms)
+    print(f"  prefill (b={b}, P={P}, head on the last position) "
+          f"{prefill_ms:.4f} ms (median of 5); decode_step bf16 cache "
+          f"{med:.4f} ms/token (median of 32 steps, min {step_ms[0]:.4f}, "
+          f"max {step_ms[-1]:.4f}) -> {b / med * 1e3:.1f} tokens/s; "
+          f"generate({n_new}) {gen_s:.3f} s wall incl. prefill; peak "
+          f"device memory of (a) {peak / 2**20:.1f} MiB", flush=True)
+    try:
+        _profile_decode(torch, srv, caches, toks_a)
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    return total
+
+
+def _profile_decode(torch, srv, caches, toks):
+    """Device time by kernel over 8 decode steps (torch.profiler), and the
+    device's busy share of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = tuple(c.clone() for c in caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(8):
+            _, caches = srv.decode_step(toks[:, i], caches)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    busy = sum(t for _, t, _ in rows)
+    print(f"  profile of 8 decode steps: {wall_ms:.3f} ms wall (profiled), "
+          f"device kernels {busy:.3f} ms -> busy {busy / wall_ms:.1%}; by "
+          f"device time:", flush=True)
+    for key, t, n in sorted(rows, key=lambda x: -x[1])[:12]:
+        print(f"    {t / 8:.4f} ms/step  {n / 8:.0f} launches/step  "
+              f"{key[:90]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -630,9 +1029,11 @@ def main() -> int:
     kres = {n: {} for n in wrappers}
     phase_kernels(stt, torch, dev, kres)
     phase_flash_backward(stt, torch, dev, kres)
+    phase_serving_kernels(stt, torch, dev, kres)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
-    launches = {n: fwd[n] + train[n] for n in wrappers}
+    serve = phase_serving(stt, torch, dev, wrappers)
+    launches = {n: fwd[n] + train[n] + serve[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

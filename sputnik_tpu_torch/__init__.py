@@ -17,8 +17,12 @@ from .many_mask import (
     sparse_softmax_many_mask,
     spmm_many_mask,
 )
-from .models import SparseAttention, SparseLinear, SparseTransformer
-from .ops import PanelSpec, fused_sparse_attention
+from .models import (LMServer, SparseAttention, SparseDecoder, SparseLinear,
+                     SparseLM, SparseTransformer, sample_logits)
+from .ops import (KVCache, PanelSpec, append_kv, append_kv_seq,
+                  decode_attention, decode_block_table, fused_sparse_attention,
+                  init_kv_cache, insert_kv_slot, prefill_kv,
+                  table_from_topology_row)
 from .ops.batched_panel import BatchedPanelSpec
 from .topology import SparseMatrix, SparseTopology, diffsort
 
@@ -27,23 +31,36 @@ __version__ = "0.1.0"
 __all__ = [
     "BatchedPanelSpec",
     "BlockView",
+    "KVCache",
+    "LMServer",
     "ManyMaskTopology",
     "PanelSpec",
     "SparseAttention",
+    "SparseDecoder",
+    "SparseLM",
     "SparseLinear",
     "SparseMatrix",
     "SparseTopology",
     "SparseTransformer",
+    "append_kv",
+    "append_kv_seq",
     "bridge",
     "build_blocks",
     "csr_transpose_many_mask",
+    "decode_attention",
+    "decode_block_table",
     "diffsort",
     "fused_sparse_attention",
+    "init_kv_cache",
+    "insert_kv_slot",
     "models",
     "ops",
     "patterns",
+    "prefill_kv",
+    "sample_logits",
     "sddmm_many_mask",
     "sparse_softmax_many_mask",
     "spmm_many_mask",
     "stack_block_meta",
+    "table_from_topology_row",
 ]

@@ -7,6 +7,8 @@ takes) becomes a ``state_dict`` for ``load_state_dict``:
     ``[out, in]``, so kernels are transposed;
   * flax ``nn.LayerNorm`` ``scale`` is ``nn.LayerNorm.weight``;
   * flax ``layer_<i>`` submodules are ``layers.<i>``;
+  * a ``SparseLM``'s ``embed.embedding`` ``[vocab, h]`` is
+    ``nn.Embedding.weight`` as it is (no transpose);
   * ``SparseLinear`` values go JAX panel (JAX tiles, read from the panel's
     shape) -> CSR values -> the port's panel (the port's tiles). Panel
     bytes are never copied: the two packages tile differently.
@@ -21,7 +23,7 @@ import torch
 
 from .ops import panel_api as P
 
-__all__ = ["transformer_state_dict",
+__all__ = ["transformer_state_dict", "lm_state_dict",
            "sparse_linear_state_dict", "sparse_attention_state_dict"]
 
 
@@ -56,6 +58,22 @@ def transformer_state_dict(params) -> dict:
                 raise KeyError(f"unexpected flax leaf {name}.{key}")
 
     walk(_unwrap(params), [])
+    return out
+
+
+def lm_state_dict(params) -> dict:
+    """Flax ``SparseLM`` params -> the port's ``SparseLM`` state_dict:
+    ``embed``, ``ln_f`` (a LayerNorm), the untied ``lm_head`` (transposed)
+    and ``core.*`` through ``transformer_state_dict``."""
+    p = _unwrap(params)
+    out = {"embed.weight": _t(p["embed"]["embedding"])}
+    out.update({f"core.{k}": v
+                for k, v in transformer_state_dict(p["core"]).items()})
+    if "ln_f" in p:
+        out["ln_f.weight"] = _t(p["ln_f"]["scale"])
+        out["ln_f.bias"] = _t(p["ln_f"]["bias"])
+    if "lm_head" in p:
+        out["lm_head.weight"] = _t(np.asarray(p["lm_head"]["kernel"]).T)
     return out
 
 

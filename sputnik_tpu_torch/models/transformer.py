@@ -48,15 +48,17 @@ _NOT_PORTED = {
 _LN_EPS = 1e-6   # flax nn.LayerNorm's default
 
 
-def _linear(fan_in: int, fan_out: int, generator, device) -> nn.Linear:
+def _linear(fan_in: int, fan_out: int, generator, device,
+            bias: bool = True) -> nn.Linear:
     """``nn.Linear`` initialised like flax ``nn.Dense``: LeCun-normal
     (truncated at 2 std) weight, zero bias."""
-    lin = nn.Linear(fan_in, fan_out)
+    lin = nn.Linear(fan_in, fan_out, bias=bias)
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
-        lin.bias.zero_()
+        if bias:
+            lin.bias.zero_()
     return lin.to(device)
 
 
@@ -244,6 +246,8 @@ class SparseTransformer(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.mask_topology = mask_topology
+        self.num_layers, self.hidden_size = num_layers, hidden_size
+        self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.layers = nn.ModuleList([
             TransformerLayer(mask_topology, hidden_size, num_heads,
                              ffn_hidden_size, num_kv_heads, activation,

@@ -6,7 +6,9 @@ counts its own launches in ``<wrapper>.launches``. A raw launch returns a
 tensor without a ``grad_fn``: gradients flow through the autograd ops of
 ``ops.panel_api`` and ``ops.fused_attention``, whose backward launches the
 backward kernels. So with grad mode on and an input that requires grad, a
-wrapper raises on CUDA and names the autograd op to call instead.
+wrapper raises on CUDA and names the autograd op to call instead. The
+serving kernels (decode attention, ragged append) have no autograd op:
+serving never differentiates.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ def kernel_wrappers():
     from .bsr_sddmm import bsr_sddmm_panel
     from .bsr_spmm import bsr_spmm_panel
     from .bsr_spmm_t import bsr_spmm_t_panel
+    from .decode_attention import decode_attention_kernel
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
                                flash_sparse_bwd_fused)
+    from .ragged_append import ragged_append_kernel
 
     return {"bsr_spmm_panel": bsr_spmm_panel,
             "bsr_spmm_t_panel": bsr_spmm_t_panel,
@@ -53,4 +57,6 @@ def kernel_wrappers():
             "flash_sparse_attention_fwd": flash_sparse_attention_fwd,
             "flash_sparse_bwd_fused": flash_sparse_bwd_fused,
             "flash_sparse_bwd_dq": flash_sparse_bwd_dq,
-            "flash_sparse_bwd_dkv": flash_sparse_bwd_dkv}
+            "flash_sparse_bwd_dkv": flash_sparse_bwd_dkv,
+            "decode_attention": decode_attention_kernel,
+            "ragged_append": ragged_append_kernel}

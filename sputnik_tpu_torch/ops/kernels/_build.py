@@ -1,10 +1,13 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 All ``csrc/*.cu`` files compile into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds, not minutes):
+interface (no PyTorch headers, so a build takes seconds, not minutes). Each
+source compiles in its own ``nvcc`` process, all started together, and the
+objects are linked once:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libsputnik_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o <obj>.o csrc/<source>.cu      # one per source
+    nvcc -shared -o _build/libsputnik_kernels_<hash>.so <obj>.o ...
 
 The build happens at first use, into ``sputnik_tpu_torch/_build/``, keyed by
 a hash of the sources and flags, so a source change never reuses a stale
@@ -28,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: every pointer and the stream as void*, sizes as int.
@@ -44,6 +47,8 @@ _SIGNATURES = {
     "flash_sparse_bwd_fused_f32": [_P] * 15 + [_I] * 9 + [_F, _P],
     "flash_sparse_bwd_dq_f32": [_P] * 13 + [_I] * 9 + [_F, _P],
     "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
+    "decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -82,23 +87,42 @@ def build_log() -> str:
 
 
 def _compile(so: Path) -> None:
-    """Compile to a temp file, then rename: a concurrent first use in another
-    process never loads a half-written library."""
+    """Compile every source at once (one ``nvcc`` each), link, then rename:
+    a concurrent first use in another process never loads a half-written
+    library."""
     _BUILD.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{src.stem}.o" for src in cu]
     tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-           *map(str, cu)]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen(
+        [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(cu, objs)]
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        logs = []
+        for src, p in zip(cu, procs):
+            out, _ = p.communicate(timeout=900)
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({p.returncode}):\n{out}")
+            logs.append(f"== {src.name}\n{out}")
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-        so.with_suffix(".log").write_text(r.stdout + r.stderr)
+                f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
+        so.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, so)
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for path in (tmp, *objs):
+            if path.exists():
+                path.unlink()
 
 
 def library() -> ctypes.CDLL:

@@ -322,3 +322,122 @@ def test_wrappers_check_operands(dev):
         bsr_spmm_panel(meta["block_cols"], meta["nblocks"], panel,
                        dense.transpose(1, 2).contiguous().transpose(1, 2),
                        rows=64)
+
+
+_CACHE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.int8}
+
+
+def _decode_problem(dev, dtype, hd, bk, qlen, group, seed):
+    """Caches written by ``prefill_kv`` (the int8 ones quantised), one
+    replica near capacity, one empty, one a few keys into its second
+    block; sinks + window tables from ``decode_block_table``, expanded to
+    query replicas."""
+    from sputnik_tpu_torch.ops import decode as D
+
+    rng = np.random.RandomState(seed)
+    R_kv, nb = 3, 2 if bk >= 512 else 4
+    s_max = nb * bk
+    lens = np.array([s_max - 1, 0, bk + 3], np.int32)
+    ks, vs = (torch.from_numpy(rng.randn(R_kv, s_max, hd).astype(
+        np.float32)).to(dev) for _ in range(2))
+    cache = D.prefill_kv(
+        D.init_kv_cache(R_kv, s_max, hd, _CACHE_DTYPES[dtype], device=dev),
+        ks, vs, torch.from_numpy(lens).to(dev))
+    tbl, valid = D.decode_block_table(cache.kv_len, s_max=s_max, bk=bk,
+                                      window_blocks=2, sink_blocks=1)
+    tbl = tbl.repeat_interleave(group, 0).contiguous()
+    valid = valid.repeat_interleave(group, 0).contiguous()
+    q = torch.from_numpy(rng.randn(R_kv * group, qlen, hd).astype(
+        np.float32)).to(dev)
+    return cache, tbl, valid, q
+
+
+@pytest.mark.parametrize("bk", [8, 32, 1024])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
+def test_decode_attention_kernel_matches_plain(dev, dtype, hd, bk):
+    """B19 against its plain version over qlen 1 / 4 / 8 and GQA group
+    1 / 2 / 4; the empty replica's rows are exactly 0."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+
+    for qlen in (1, 4, 8):
+        for group in (1, 2, 4):
+            cache, tbl, valid, q = _decode_problem(
+                dev, dtype, hd, bk, qlen, group, seed=hd + bk + qlen + group)
+            args = (tbl, valid, cache.kv_len, q, cache.k, cache.v,
+                    cache.k_scale, cache.v_scale)
+            kw = dict(bk=bk, qlen=qlen, group=group, scale=hd ** -0.5)
+            before = decode_attention_kernel.launches
+            got = decode_attention_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            assert decode_attention_kernel.launches == before + 1
+            _close(got, decode_attention_plain(*args, **kw))
+            assert torch.all(got[group:2 * group] == 0)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_decode_attention_kernel_invalid_and_empty_tables(dev, seed):
+    """Random valid masks (skipped slots), block ids out of range (skipped
+    too), an all-invalid replica (exactly 0), repeated block ids and head
+    dims that are not a multiple of 4 (the scalar load path)."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+
+    rng = np.random.RandomState(300 + seed)
+    dtype = sorted(_CACHE_DTYPES)[seed % 3]
+    hd = (30, 16, 100, 7)[seed]
+    cache, _, _, q = _decode_problem(dev, dtype, hd, 32, 2, 1, seed)
+    R, S = q.shape[0], 5
+    nb = cache.s_max // 32
+    tbl = torch.from_numpy(rng.randint(-1, nb + 2, (R, S)).astype(
+        np.int32)).to(dev)                       # some ids out of range
+    valid = torch.from_numpy((rng.rand(R, S) < 0.6).astype(np.int32)).to(dev)
+    valid[0] = 0
+    args = (tbl, valid, cache.kv_len, q, cache.k, cache.v, cache.k_scale,
+            cache.v_scale)
+    kw = dict(bk=32, qlen=2, group=1, scale=0.3)
+    got = decode_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, decode_attention_plain(*args, **kw))
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("hd", [7, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
+def test_ragged_append_kernel_bit_exact(dev, dtype, hd):
+    """B21 against its plain version, bit for bit: a frozen slot, a full
+    slot and a write at the last row keep every other byte as it was."""
+    from sputnik_tpu_torch.ops.kernels.ragged_append import (
+        ragged_append_kernel, ragged_append_plain)
+
+    rng = np.random.RandomState(hd)
+    R, s_max = 6, 96
+    dt = _CACHE_DTYPES[dtype]
+
+    def rand(*shape):
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 50)
+        return x.to(dt).to(dev)
+
+    pos = torch.tensor([0, 31, 32, 95, 96, 40], dtype=torch.int32,
+                       device=dev)
+    ok = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
+    bufs = [rand(R, s_max, hd), rand(R, s_max, hd),
+            torch.rand(R, s_max, device=dev), torch.rand(R, s_max, device=dev)]
+    toks = (rand(R, hd), rand(R, hd), torch.rand(R, device=dev),
+            torch.rand(R, device=dev))
+    orig = [b.clone() for b in bufs]
+    want = [b.clone() for b in bufs]
+    ragged_append_plain(pos, ok, *toks, *want)
+    before = ragged_append_kernel.launches
+    ragged_append_kernel(pos, ok, *toks, *bufs)
+    torch.cuda.synchronize()
+    assert ragged_append_kernel.launches == before + 1
+    for got, ref, old in zip(bufs, want, orig):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        # the frozen slot (2) and the full one (4) keep every byte
+        for r in (2, 4):
+            assert torch.equal(got[r].view(torch.uint8),
+                               old[r].view(torch.uint8))
+    assert torch.equal(bufs[0][3, 95], toks[0][3])

@@ -32,7 +32,8 @@ def _run(code, env=None):
 def test_import_loads_no_jax():
     r = _run("import sys, sputnik_tpu_torch, sputnik_tpu_torch.models, "
              "sputnik_tpu_torch.bridge, "
-             "sputnik_tpu_torch.examples.train_sparse_transformer\n"
+             "sputnik_tpu_torch.examples.train_sparse_transformer, "
+             "sputnik_tpu_torch.examples.generate\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -47,6 +48,8 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.bsr_sddmm\n"
              "import sputnik_tpu_torch.ops.kernels.bsr_spmm_t\n"
              "import sputnik_tpu_torch.ops.kernels.flash_sparse\n"
+             "import sputnik_tpu_torch.ops.kernels.decode_attention\n"
+             "import sputnik_tpu_torch.ops.kernels.ragged_append\n"
              "from sputnik_tpu_torch.ops.kernels import _build\n"
              "assert 'triton' not in sys.modules\n"
              "try:\n"
@@ -61,11 +64,14 @@ def test_build_key_covers_every_source():
     cu, cuh = _build._sources()
     assert {p.name for p in cu} == {"bsr_spmm.cu", "bsr_spmm_t.cu",
                                     "bsr_sddmm.cu", "flash_sparse_fwd.cu",
-                                    "flash_sparse_bwd.cu"}
+                                    "flash_sparse_bwd.cu",
+                                    "decode_attention.cu",
+                                    "ragged_append.cu"}
     assert set(_build._SIGNATURES) == {
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
-        "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32"}
+        "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
+        "decode_attention", "ragged_append"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -87,8 +93,14 @@ def test_cpu_tensors_launch_no_kernel():
     y = lin(attn(model(x)))
     y.square().sum().backward()
     assert torch.isfinite(y).all() and torch.isfinite(x.grad).all()
+    lm = stt.SparseLM.from_masks(
+        driver_masks(2, 16), vocab_size=11, num_layers=1, hidden_size=32,
+        num_heads=2, ffn_hidden_size=64)
+    toks, _ = stt.LMServer(lm, s_max=24, bk=8).generate(
+        torch.zeros(2, 16, dtype=torch.long), 3, prompt_lengths=[9, 16])
+    assert toks.shape == (2, 3)
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 7
+    assert len(wrappers) == 9
     assert all(v == 0 for v in before.values())
 
 
