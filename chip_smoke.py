@@ -75,8 +75,19 @@ REPLACES = {
                          "sputnik_tpu/ops/pallas/decode_attention.py:51"),
     "ragged_append": ("sputnik_tpu_torch/csrc/ragged_append.cu",
                       "sputnik_tpu/ops/pallas/ragged_append.py:54"),
+    "paged_attention": ("sputnik_tpu_torch/csrc/decode_attention.cu",
+                        "sputnik_tpu/ops/pallas/paged_attention.py:51"),
+    "paged_append": ("sputnik_tpu_torch/csrc/ragged_append.cu",
+                     "sputnik_tpu/ops/pallas/paged_attention.py:188"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
+# The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): fp32
+# outside the tensor cores, which is what every kernel here computes in,
+# and device memory. A bound is the larger of operations / PEAK_F32 and
+# bytes / PEAK_BYTES, counting each input byte read once and each output
+# byte written once, and only the work this run's data needs.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def _fail(msg: str):
@@ -120,6 +131,34 @@ def _compare(name, got, ref, tol, results=None):
         _fail(f"{name}: max_abs_err {err} > {bound}")
     if results is not None:
         results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(r, flops, nbytes):
+    """The least time of the timed call (``r["ms"]``): the larger of its
+    operations over the fp32 peak and its bytes over the memory rate."""
+    ops_ms = flops / PEAK_F32 * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    r["bound_ms"] = max(ops_ms, bytes_ms)
+    r["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+          f"{r['bound_ms'] / r['ms']:.1%} of it", flush=True)
+
+
+def _library_ms(name, fn, **kw):
+    """The time of one PyTorch call computing the kernel's function, a
+    yardstick the port never calls; None (printed) where it fails here."""
+    try:
+        ms = _time_ms(fn, **kw)
+    except Exception as e:  # a yardstick, not a check of the port
+        print(f"  library call for {name} failed: {e!r}", flush=True)
+        return None
+    print(f"  library call for {name}: {ms:.4f} ms", flush=True)
+    return ms
 
 
 def phase_kernels(stt, torch, dev, kres):
@@ -183,6 +222,14 @@ def phase_kernels(stt, torch, dev, kres):
           f"({flop / r['ms'] / 1e9:.2f} TFLOP/s), bias_relu {ms_relu:.4f} ms, "
           f"plain {r['plain_ms']:.4f} ms, dense fp32 torch.matmul "
           f"{dense_ms:.4f} ms", flush=True)
+    # the work of the stored panel (every occupied tile, zeros included);
+    # the elements alone need density x that
+    print(f"  spmm element count: {2.0 * mat.topology.nnz * size / 1e9:.3f} "
+          f"GFLOP ({2.0 * mat.topology.nnz * size / PEAK_F32 * 1e3:.4f} ms "
+          f"at the fp32 peak)", flush=True)
+    r["library_ms"] = dense_ms          # torch.matmul on the densified A
+    _bound(r, flop, _nbytes(meta["block_cols"], meta["nblocks"], panel,
+                            dense) + size * size * 4)
 
     # -- transposed SpMM (B3) at the same headline: A^T @ G, G = dense
     r = kres["bsr_spmm_t_panel"]
@@ -204,6 +251,8 @@ def phase_kernels(stt, torch, dev, kres):
           f"({flop / r['ms'] / 1e9:.2f} TFLOP/s), plain "
           f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {dense_t_ms:.4f} ms",
           flush=True)
+    r["library_ms"] = dense_t_ms
+    _bound(r, flop, _nbytes(*targs) + size * size * 4)
     del panel, dense, a_dense, got
 
     # -- SDDMM at 4096^2 d=0.1, d=64
@@ -228,7 +277,21 @@ def phase_kernels(stt, torch, dev, kres):
     r["ms"], r["plain_ms"] = _time_ms(sd_kern), _time_ms(sd_plain)
     print(f"  sddmm {size}^2 dim {d}: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms", flush=True)
-    del lhs, rhs, got
+    # library: cuSPARSE's SDDMM on the CSR pattern, (lhs @ rhs^T) at nnz
+    topo = mat.topology
+    csr = torch.sparse_csr_tensor(      # column_indices is padded past nnz
+        torch.from_numpy(np.asarray(topo.row_offsets, np.int64)),
+        torch.from_numpy(np.asarray(topo.column_indices[:topo.nnz],
+                                    np.int64)),
+        torch.ones(topo.nnz), (size, size)).to(dev)
+    rhs_t = rhs[0].T.contiguous()
+    r["library_ms"] = _library_ms(
+        "sddmm (torch.sparse.sampled_addmm, CSR)",
+        lambda: torch.sparse.sampled_addmm(csr, lhs[0], rhs_t, beta=0.0))
+    _bound(r, 2.0 * bv.num_blocks * spec.bm * spec.bk * d,
+           _nbytes(meta["block_cols"], meta["nblocks"], lhs, rhs,
+                   meta["mask"]) + _nbytes(got))
+    del lhs, rhs, got, csr, rhs_t
 
     # -- sparse-flash forward at the reference transformer's attention:
     #    R=32, s=512, hd=64
@@ -254,6 +317,13 @@ def phase_kernels(stt, torch, dev, kres):
         lambda: flash_sparse_attention_fwd_plain(*fargs, **fkw))
     print(f"  flash R={b * heads} s={s} hd={hd}: kernel {r['ms']:.4f} ms, "
           f"plain {r['plain_ms']:.4f} ms", flush=True)
+    sdpa = _sdpa_inputs(torch, dev, b, heads, q, k, v)
+    r["library_ms"] = _library_ms(
+        "flash forward (F.scaled_dot_product_attention, boolean mask)",
+        lambda: sdpa["fwd"]())
+    tiles = _flash_tiles(fm, heads)
+    _bound(r, 4.0 * tiles * hd,
+           _nbytes(*fargs[:5], q, k, v) + _nbytes(out, m, l))
 
     # -- SpMM / SDDMM at the shapes SparseAttention gives them
     e, heads = 512, 8
@@ -296,6 +366,42 @@ def phase_kernels(stt, torch, dev, kres):
              bsr_spmm_t_panel(*pt, rows=e),
              bsr_spmm_t_panel_plain(*pt, rows=e), TOL_KERNEL,
              kres["bsr_spmm_t_panel"])
+
+
+def _flash_tiles(fm, heads) -> float:
+    """Key-query pairs the flash kernels visit: the occupied tiles of the
+    masks (``nblocks``), each ``bm x bk``, once per head."""
+    _, _, bm, bk = fm["pmask"].shape
+    return float(fm["nblocks"].sum().item()) * heads * bm * bk
+
+
+def _sdpa_inputs(torch, dev, b, heads, q, k, v, g=None):
+    """``F.scaled_dot_product_attention`` on the flash kernels' operands
+    (``[b * heads, s, hd]`` viewed as ``[b, heads, s, hd]``, the driver's
+    masks as a boolean ``attn_mask``): the library call timed beside the
+    flash kernels. ``fwd()`` runs it; ``bwd()`` its backward for ``g``."""
+    import torch.nn.functional as F
+
+    from sputnik_tpu_torch.patterns import driver_masks
+
+    s, hd = q.shape[1], q.shape[2]
+    mask = torch.from_numpy(driver_masks(b, s) != 0).to(dev)[:, None]
+    q4, k4, v4 = (t.reshape(b, heads, s, hd).detach().clone()
+                  for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                              scale=hd ** -0.5)
+
+    out = {"fwd": fwd}
+    if g is not None:
+        qg, kg, vg = (t.requires_grad_() for t in (q4, k4, v4))
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                           scale=hd ** -0.5)
+        g4 = g.reshape(b, heads, s, hd)
+        out["bwd"] = lambda: torch.autograd.grad(o, (qg, kg, vg), g4,
+                                                 retain_graph=True)
+    return out
 
 
 def _flash_problem(stt, torch, dev, b, heads, s, hd, group, seed):
@@ -370,11 +476,27 @@ def phase_flash_backward(stt, torch, dev, kres):
             _fail(f"flash backward {tag}: the fully-masked row's dq is not "
                   f"exactly 0")
         if (hd, group) == (64, 1):
+            q, k, v, g = rows[5:9]
+            sdpa = _sdpa_inputs(torch, dev, b, heads, q, k, v, g)
+            lib = _library_ms("flash backward (the backward of "
+                              "F.scaled_dot_product_attention: dq, dk, dv)",
+                              sdpa["bwd"])
+            tiles = _flash_tiles({"nblocks": rows[1], "pmask": rows[4]},
+                                 heads)
+            # per key-query pair and head dim: the recomputed QK^T and
+            # dO V^T, then dV, dQ, dK (fused), dQ (dq), dV and dK (dkv)
+            work = {"flash_sparse_bwd_fused": (10, rows, (q, k, v)),
+                    "flash_sparse_bwd_dq": (6, rows, (q,)),
+                    "flash_sparse_bwd_dkv": (8, cols, (k, v))}
             for name, (kern, plain) in calls.items():
                 kres[name]["ms"] = _time_ms(kern)
                 kres[name]["plain_ms"] = _time_ms(plain)
+                kres[name]["library_ms"] = lib
                 print(f"  {name} {tag}: kernel {kres[name]['ms']:.4f} ms, "
                       f"plain {kres[name]['plain_ms']:.4f} ms", flush=True)
+                per, ins, outs = work[name]
+                _bound(kres[name], per * tiles * hd,
+                       _nbytes(*ins) + _nbytes(*outs))
             two = _time_ms(lambda: (calls["flash_sparse_bwd_dq"][0](),
                                     calls["flash_sparse_bwd_dkv"][0]()))
             print(f"  backward routes at the driver shape ({tag}): "
@@ -613,6 +735,39 @@ def phase_train(stt, torch, dev, wrappers):
     return launches
 
 
+def _decode_library_ms(torch, timed, R, s_max, hd):
+    """One ``F.scaled_dot_product_attention`` call over a contiguous bf16
+    cache (its keys masked to ``kv_len``), cold like the kernel: four
+    caches in turn. A paged pool has no such call."""
+    import torch.nn.functional as F
+
+    calls = []
+    for (_, _, kv_len, q, k, v, _, _), _, _, _ in timed:
+        keys = torch.arange(s_max, device=q.device)
+        mask = (keys[None] < kv_len[:, None])[:, None, None]
+        calls.append((q.to(k.dtype)[:, None], k[:, None], v[:, None], mask))
+    turn = itertools.count()
+
+    def call():
+        q4, k4, v4, m4 = calls[next(turn) % len(calls)]
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                              scale=hd ** -0.5)
+
+    return _library_ms("decode attention (F.scaled_dot_product_attention "
+                       "over the cache, cold)", call)
+
+
+def _decode_bound(r, *, tables, q, k, n_keys, group):
+    """B19 / B20a: the attended K/V rows (``n_keys``: keys below ``kv_len``
+    in valid slots, summed over KV replicas, each read once) with their two
+    scales, the tables, ``q`` and the output (``q``'s size); two products
+    of ``qlen x hd`` per attended key and query replica."""
+    _, qlen, hd = q.shape
+    per_key = 2 * hd * k.element_size() + 2 * 4
+    _bound(r, 4.0 * qlen * hd * n_keys * group,
+           n_keys * per_key + _nbytes(*tables) + 2 * _nbytes(q))
+
+
 def phase_serving_kernels(stt, torch, dev, kres):
     """B19 and B21 against their plain versions at the serving shapes, and
     their times."""
@@ -681,6 +836,9 @@ def phase_serving_kernels(stt, torch, dev, kres):
     r["ms"] = _time_ms(cold(decode_attention_kernel))
     r["plain_ms"] = _time_ms(cold(decode_attention_plain))
     warm_plain = _time_ms(lambda: decode_attention_plain(*args, **kw))
+    r["library_ms"] = _decode_library_ms(torch, timed, R, s_max, hd)
+    _decode_bound(r, tables=args[:3], q=args[3], k=args[4], n_keys=n_keys,
+                  group=1)
     tabled = n_valid * bk * hd * 2 * 2
     attended = n_keys * hd * 2 * 2
     for tag, ms, plain in (("cold L2", r["ms"], r["plain_ms"]),
@@ -724,15 +882,179 @@ def phase_serving_kernels(stt, torch, dev, kres):
             print(f"  ragged_append R={R} hd={hd} bf16: kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
                   flush=True)
+            # no single PyTorch call writes four buffers under a guard
+            r["library_ms"] = None
+            _append_bound(r, toks, (pos, ok), int(ok.sum()))
+
+
+def _append_bound(r, toks, index, n_writes):
+    """B21 / B20b: the tokens and the index arrays read once, the written
+    rows (K and V) and scales; no arithmetic, so bytes bound it (and in
+    practice the launch)."""
+    tok_k = toks[0]
+    row = 2 * tok_k.shape[1] * tok_k.element_size() + 2 * 4
+    _bound(r, 0.0, _nbytes(*toks, *index) + n_writes * row)
+
+
+def phase_paged_kernels(stt, torch, dev, kres):
+    """B20a and B20b against their plain versions at the paged serving
+    shapes (a shuffled pool of 96 1024-token pages, R = 32, hd = 128), and
+    their times."""
+    import dataclasses
+
+    from sputnik_tpu_torch.ops import paged as PG
+    from sputnik_tpu_torch.ops.kernels.paged_append import (
+        paged_append_kernel, paged_append_plain)
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+
+    print("phase 2d: paged kernels vs plain PyTorch at the paged serving "
+          "shapes", flush=True)
+    rng = np.random.RandomState(31)
+    R, hd, bk, mb, n_pages = 32, 128, 1024, 2, 96
+    gqa_lens = [1088, 1000, 900, 1025, 700, 1024, 513, 0]
+
+    def pool_of(dtype, R_kv, lens, seed):
+        """A pool whose pages were allocated in a shuffled order, filled
+        with each replica's ``mb * bk`` prompt tokens."""
+        prng = np.random.RandomState(seed)
+        cache, pool = PG.init_paged_cache(R_kv, n_pages, bk, hd, mb,
+                                          dtype=dtype, device=dev)
+        pool.free(list(prng.permutation(pool.allocate(n_pages))))
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cache = PG.ensure_pages(dataclasses.replace(cache, kv_len=lens),
+                                pool, 0)
+        for r_, n in enumerate(lens.tolist()):
+            cache = PG.ensure_pages(cache, pool, mb * bk - n, replicas=[r_])
+        kv = torch.from_numpy(prng.randn(2, R_kv, mb * bk, hd).astype(
+            np.float32)).to(dev)
+        return PG.write_prompt_pages(cache, kv[0], kv[1],
+                                     replica_pages=cache.page_table.cpu(),
+                                     lengths=lens)
+
+    r = kres["paged_attention"]
+    timed = None
+    for dtype, qlen, group in itertools.product(
+            (torch.bfloat16, torch.float32, torch.int8), (1, 4), (1, 4)):
+        R_kv = R // group
+        lens = [1088] * (R - 1) + [0] if group == 1 else gqa_lens
+        cache = pool_of(dtype, R_kv, lens, seed=qlen + 10 * group)
+        phys, logical, valid = (
+            t.repeat_interleave(group, 0).contiguous()
+            for t in PG.paged_block_table(cache, window_blocks=mb))
+        if torch.equal(phys, logical):
+            _fail("paged tables: the pages are the logical blocks")
+        q = torch.from_numpy(rng.randn(R, qlen, hd).astype(
+            np.float32)).to(dev)
+        args = (phys, logical, valid, cache.kv_len, q, cache.k, cache.v,
+                cache.k_scale, cache.v_scale)
+        kw = dict(qlen=qlen, group=group, scale=hd ** -0.5)
+        got = paged_attention_kernel(*args, **kw)
+        _compare(f"paged_attention R={R} R_kv={R_kv} group={group} S={mb} "
+                 f"bk={bk} hd={hd} {str(dtype)[6:]} qlen={qlen}", got,
+                 paged_attention_plain(*args, **kw), TOL_KERNEL, r)
+        if not torch.all(got[R - group:] == 0):
+            _fail("paged_attention: the empty replica is not exactly 0")
+        if dtype == torch.bfloat16 and qlen == 1 and group == 1:
+            timed = [args]
+            n_keys = sum(lens)
+    # cold L2, as a decode step finds it: four pools (4 x 51 MB) in turn
+    for seed in range(3):
+        c = pool_of(torch.bfloat16, R, [1088] * (R - 1) + [0], seed=50 + seed)
+        timed.append(timed[0][:3] + (c.kv_len, timed[0][4], c.k, c.v,
+                                     c.k_scale, c.v_scale))
+    kw = dict(qlen=1, group=1, scale=hd ** -0.5)
+    turn = itertools.count()
+
+    def cold(fn):
+        return lambda: fn(*timed[next(turn) % 4], **kw)
+
+    r["ms"] = _time_ms(cold(paged_attention_kernel))
+    r["plain_ms"] = _time_ms(cold(paged_attention_plain))
+    warm_ms = _time_ms(lambda: paged_attention_kernel(*timed[0], **kw))
+    print(f"  paged_attention R={R} S={mb} bk={bk} hd={hd} bf16 kv_len "
+          f"1088: kernel {r['ms']:.4f} ms cold L2 ({warm_ms:.4f} warm), "
+          f"plain {r['plain_ms']:.4f} ms", flush=True)
+    # no PyTorch call reads K/V through a page table
+    r["library_ms"] = None
+    _decode_bound(r, tables=timed[0][:4], q=timed[0][4], k=timed[0][5],
+                  n_keys=n_keys, group=1)
+    del timed, cache
+
+    r = kres["paged_append"]
+    P = n_pages + 1
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        k, v = (torch.from_numpy(rng.randn(P, bk, hd).astype(
+            np.float32) * 40).to(dtype).to(dev) for _ in range(2))
+        ks, vs = (torch.rand(P, bk, device=dev) for _ in range(2))
+        toks = (torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
+                                 ).to(dtype).to(dev),
+                torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
+                                 ).to(dtype).to(dev),
+                torch.rand(R, device=dev), torch.rand(R, device=dev))
+        # distinct pages for the writers; some ids and offsets out of range
+        page = torch.from_numpy(rng.permutation(P + 4)[:R].astype(
+            np.int32) - 2).to(dev)
+        off = torch.from_numpy(rng.randint(0, bk + 8, R).astype(
+            np.int32)).to(dev)
+        ok = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
+        bufs = [k, v, ks, vs]
+        want = [t.clone() for t in bufs]
+        paged_append_plain(page, off, ok, *toks, *want)
+        paged_append_kernel(page, off, ok, *toks, *bufs)
+        for got, ref in zip(bufs, want):
+            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
+                _fail(f"paged_append {dtype}: not bit-identical to plain")
+        r["max_abs_err"] = 0.0
+        print(f"  paged_append R={R} P={P} bk={bk} hd={hd} "
+              f"{str(dtype)[6:]}: bit-identical to plain", flush=True)
+        if dtype == torch.bfloat16:
+            r["ms"] = _time_ms(lambda: paged_append_kernel(
+                page, off, ok, *toks, *bufs))
+            r["plain_ms"] = _time_ms(lambda: paged_append_plain(
+                page, off, ok, *toks, *bufs))
+            print(f"  paged_append R={R} hd={hd} bf16: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
+                  flush=True)
+            r["library_ms"] = None      # as for B21
+            writes = ((ok == 1) & (page >= 0) & (page < P) & (off >= 0)
+                      & (off < bk))
+            _append_bound(r, toks, (page, off, ok), int(writes.sum()))
+
+
+def _counted(wrappers, total, label, fn, expect):
+    """``fn()`` with every launch counter at 0 just before; the counts read
+    just after are added to ``total`` and must equal ``expect`` (kernel ->
+    launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {n: w.launches for n, w in wrappers.items()}
+    for n, c in got.items():
+        total[n] += c
+    for n, want in expect.items():
+        if got[n] != want:
+            _fail(f"{label}: {got[n]} launches of {n}, expected {want}")
+    print(f"  {label}: launches {dict((n, c) for n, c in got.items() if c)}",
+          flush=True)
+    return out
 
 
 def _teacher_forced_logits(server, prompt, tokens):
     """The head's logits at the prompt's last position, then after each of
-    ``tokens[:, :-1]`` fed through ``decode_step``: ``[n, b, vocab]``."""
+    ``tokens[:, :-1]`` fed through ``decode_step``: ``[n, b, vocab]``. A
+    paged server reserves every page first, as ``generate`` does."""
     import torch
 
     with torch.no_grad():
         caches = server.init_caches(prompt.shape[0])
+        if hasattr(server.decoder, "reserve"):
+            caches = server.decoder.reserve(
+                caches, prompt.shape[1] + tokens.shape[1])
         y, caches = server.decoder.prefill(server.lm.embed(prompt), caches)
         out = [server.lm.head(y[:, -1])]
         for t in range(tokens.shape[1] - 1):
@@ -781,23 +1103,8 @@ def phase_serving(stt, torch, dev, wrappers):
     total = {n: 0 for n in wrappers}
 
     def run(label, fn, expect):
-        """``fn()`` with every counter at 0 just before; the counts read
-        just after must equal ``expect`` (kernel -> launches)."""
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {n: w.launches for n, w in wrappers.items()}
-        for n, c in got.items():
-            total[n] += c
-        for n, want in expect.items():
-            if got[n] != want:
-                _fail(f"serving {label}: {got[n]} launches of {n}, "
-                      f"expected {want}")
-        print(f"  {label}: launches {dict((n, c) for n, c in got.items() if c)}",
-              flush=True)
-        return out
+        return _counted(wrappers, total, f"serving {label}", fn,
+                        dict(expect, paged_attention=0, paged_append=0))
 
     def check_tokens(label, toks, n):
         if toks.shape != (b, n) or not ((toks >= 0) & (toks < V)).all():
@@ -928,8 +1235,9 @@ def phase_serving(stt, torch, dev, wrappers):
         print(f"  {label} greedy card tokens: all {b * n} are the CPU argmax "
               f"(or within a top-2 gap < {bound:.3e}: "
               f"{int((gap < bound).sum())} positions)", flush=True)
+        return toks32, gpu_logits
 
-    hold("MHA", lm, cpu_lm, n_new)
+    mha32 = hold("MHA", lm, cpu_lm, n_new)
     hold("(f) GQA kv_heads=2", gqa_lm, cpu_gqa, 16)
 
     caches = srv.init_caches(b)
@@ -966,6 +1274,191 @@ def phase_serving(stt, torch, dev, wrappers):
         _profile_decode(torch, srv, caches, toks_a)
     except Exception as e:  # a measurement, not a check of the path
         print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    shared = dict(lm=lm, cpu_lm=cpu_lm, pd=pd, prompt=prompt, toks_a=toks_a,
+                  mha32=mha32, decode_ms=med)
+    return total, shared
+
+
+def phase_paged_serving(stt, torch, dev, wrappers, ctx):
+    """The paged serving path at the same full width, launches counted:
+    greedy tokens equal to the contiguous server's, the serve_paged flow
+    (prefix stored once, a partial-page share, ragged decode with freezes,
+    the pool drained) on 1024-token pages and as the example at its own
+    config; then an fp32 pool held against the CPU and the contiguous
+    server."""
+    from sputnik_tpu_torch.examples import serve_paged
+    from sputnik_tpu_torch.models import LMServer
+
+    lm, pd, toks_a = ctx["lm"], ctx["pd"], ctx["toks_a"]
+    b, P, heads, layers, n_new, bk, n_pages = 4, 1024, 8, 6, 64, 1024, 96
+    hd = lm.core.hidden_size // heads
+    steps = n_new - 1
+    print(f"phase 3d: paged serving path — the same SparseLM, "
+          f"LMServer(s_max=P+64, bk={bk}, n_pages={n_pages}), bf16 pool "
+          f"({2 * (n_pages + 1) * bk * hd * 2 / 1e6:.1f} MB a layer)",
+          flush=True)
+    total = {n: 0 for n in wrappers}
+    none = {"decode_attention": 0, "ragged_append": 0}
+
+    def server(dtype=torch.bfloat16, model=lm):
+        return LMServer(model, s_max=P + 64, bk=bk, n_pages=n_pages,
+                        cache_dtype=dtype)
+
+    psrv = server()
+    psrv.generate(pd, 2)                            # warms up
+    t0 = time.perf_counter()
+    toks, caches = _counted(
+        wrappers, total, "paged (a) greedy generate, bf16 pool",
+        lambda: psrv.generate(pd, n_new),
+        dict(none, flash_sparse_attention_fwd=layers,
+             paged_attention=layers * steps, paged_append=layers * steps))
+    gen_s = time.perf_counter() - t0
+    same = int((toks == toks_a).sum())
+    print(f"  paged greedy tokens equal to the contiguous server's: "
+          f"{same}/{toks.numel()}; generate({n_new}) {gen_s:.3f} s wall",
+          flush=True)
+    if not torch.equal(toks, toks_a):
+        _fail("paged (a): greedy tokens differ from the contiguous server's")
+    if caches[0].kv_len.tolist() != [P + steps] * (b * heads):
+        _fail(f"paged (a): kv_len {caches[0].kv_len.tolist()[:4]}...")
+    held = -(-(P + n_new) // bk) * b * heads     # generate's one reserve
+    if psrv.decoder.free_pages != [n_pages - held] * layers:
+        _fail(f"paged (a): free pages {psrv.decoder.free_pages}")
+
+    budgets = [4, 3, 2, 1]
+    part = 1000                     # not a multiple of bk: a copied tail
+
+    def prefix_flow():
+        """The system prompt prefilled once (slot 0), shared whole into
+        slots 1 and 2 and its first 1000 tokens into slot 3 (a partial
+        page: copied); ragged decode with freezes; every slot released."""
+        dec = psrv.decoder
+        caches = dec.init_caches(b)
+        x = psrv.lm.embed(pd[:1].expand(b, -1))
+        _, caches = dec.prefill(x, caches, lengths=torch.tensor(
+            [P, 0, 0, 0], device=dev))
+        for dst, n in ((1, P), (2, P), (3, part)):
+            caches = dec.release(caches, dst)
+            caches = dec.share_prefix(caches, 0, dst, n)
+        live = n_pages - dec.free_pages[0]
+        tbl = caches[0].page_table.cpu()
+        prefix = P // bk * heads
+        print(f"  prefix of {P} tokens shared into slots 1, 2 and its first "
+              f"{part} into slot 3: {live} pages live a layer ({prefix} "
+              f"prefix + {heads} copied tails; {b * prefix} unshared)",
+              flush=True)
+        if live != prefix + heads or not torch.equal(
+                tbl[heads:3 * heads, 0], tbl[:heads, 0].repeat(2)):
+            _fail(f"paged (c): the prefix is not stored once ({live} pages)")
+        for c in caches:
+            for h in range(heads):
+                src = tbl[h, part // bk]
+                dst = tbl[3 * heads + h, part // bk]
+                if src == dst or not all(torch.equal(t[dst], t[src]) for t in
+                                         (c.k, c.v, c.k_scale, c.v_scale)):
+                    _fail("paged (c): the partial page was not copied")
+        ys = []
+        for t in range(max(budgets)):
+            act = torch.tensor([n > t for n in budgets], device=dev)
+            caches = dec.reserve(caches, 1)
+            logits, caches = psrv.decode_step_ragged(
+                toks_a[:1, t].expand(b), caches, act)
+            ys.append(logits)
+        want = [n + k for n, k in zip((P, P, P, part), budgets)]
+        got = caches[0].kv_len.tolist()[::heads]
+        if got != want:
+            _fail(f"paged (c): kv_len by slot {got}, expected {want}")
+        _compare("(c) slot 1 (shared prefix) vs slot 0, first step logits",
+                 ys[0][1], ys[0][0], TOL_MODEL)
+        for s_ in range(b):
+            caches = dec.release(caches, s_)
+        if dec.free_pages != [n_pages] * layers:
+            _fail(f"paged (c): the pool did not drain: {dec.free_pages}")
+        print("  every slot released: the pool drained on every layer",
+              flush=True)
+
+    _counted(wrappers, total, "paged (c) prefix flow, ragged decode",
+             prefix_flow, dict(none, flash_sparse_attention_fwd=layers,
+                               paged_attention=layers * max(budgets),
+                               paged_append=layers * max(budgets)))
+    out = _counted(
+        wrappers, total, "paged (d) examples/serve_paged at its config",
+        lambda: serve_paged.main([]),
+        dict(none, flash_sparse_attention_fwd=6, paged_attention=6 * 32,
+             paged_append=6 * 32))
+    print(f"  serve_paged: {out}", flush=True)
+
+    print("  one paged decode_step under torch.cuda.set_sync_debug_mode("
+          "'error')", flush=True)
+    caches = psrv.decoder.reserve(psrv.init_caches(b), P + 48)
+    with torch.no_grad():
+        _, caches = psrv.decoder.prefill(psrv.lm.embed(pd), caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, caches = psrv.decode_step(toks_a[:, 0], caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # decode ms/token of the two servers in turns (ABBA, 4 rounds of 8
+    # steps each): host time varies between calls and within one
+    flat = LMServer(lm, s_max=P + 64, bk=bk, cache_dtype=torch.bfloat16)
+    fcaches = flat.init_caches(b)
+    with torch.no_grad():
+        _, fcaches = flat.decoder.prefill(flat.lm.embed(pd), fcaches)
+        _, fcaches = flat.decode_step(toks_a[:, 0], fcaches)
+    step_ms = {"contiguous": [], "paged": []}
+    state = {"contiguous": (flat, fcaches), "paged": (psrv, caches)}
+    i = 1
+    for rnd in range(4):
+        order = ("contiguous", "paged") if rnd % 2 == 0 else ("paged",
+                                                             "contiguous")
+        for name in order:
+            srv_, cs_ = state[name]
+            times = []
+            for j in range(8):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, cs_ = srv_.decode_step(toks_a[:, i + j], cs_)
+                end.record()
+                times.append((start, end))
+            torch.cuda.synchronize()
+            step_ms[name] += [s_.elapsed_time(e) for s_, e in times]
+            state[name] = (srv_, cs_)
+        i += 8
+    caches = state["paged"][1]
+    med = {n: statistics.median(t) for n, t in step_ms.items()}
+    print(f"  decode_step bf16, in turns (4 rounds x 8 steps each, ABBA): "
+          f"paged {med['paged']:.4f} ms/token (min "
+          f"{min(step_ms['paged']):.4f}, max {max(step_ms['paged']):.4f}), "
+          f"contiguous {med['contiguous']:.4f} (min "
+          f"{min(step_ms['contiguous']):.4f}, max "
+          f"{max(step_ms['contiguous']):.4f}); phase 4c read the contiguous "
+          f"step at {ctx['decode_ms']:.4f}", flush=True)
+    del flat, fcaches, state
+    try:
+        _profile_decode(torch, psrv, caches, toks_a)
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+
+    n = 16
+    print(f"phase 4d: paged fp32 pool vs the CPU and vs the contiguous "
+          f"server on the card ({n} positions, teacher forcing phase 4c's "
+          f"greedy tokens)", flush=True)
+    toks32, flat_logits = ctx["mha32"]
+    gpu = _teacher_forced_logits(server(torch.float32), pd,
+                                 toks32[:, :n]).cpu()
+    _compare("paged vs contiguous fp32 logits on the card", gpu,
+             flat_logits[:n], TOL_KERNEL)
+    print(f"  paged and contiguous fp32 logits bit-identical: "
+          f"{torch.equal(gpu, flat_logits[:n])}", flush=True)
+    t0 = time.perf_counter()
+    cpu = _teacher_forced_logits(server(torch.float32, ctx["cpu_lm"]),
+                                 ctx["prompt"], toks32[:, :n].cpu())
+    print(f"  CPU reference (paged, plain versions): prefill + {n - 1} "
+          f"steps in {time.perf_counter() - t0:.1f} s", flush=True)
+    _compare(f"paged fp32-pool logits, {n} positions x {b} sequences, vs "
+             f"the CPU", gpu, cpu, TOL_MODEL)
     return total
 
 
@@ -1030,10 +1523,12 @@ def main() -> int:
     phase_kernels(stt, torch, dev, kres)
     phase_flash_backward(stt, torch, dev, kres)
     phase_serving_kernels(stt, torch, dev, kres)
+    phase_paged_kernels(stt, torch, dev, kres)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
-    serve = phase_serving(stt, torch, dev, wrappers)
-    launches = {n: fwd[n] + train[n] + serve[n] for n in wrappers}
+    serve, ctx = phase_serving(stt, torch, dev, wrappers)
+    paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
+    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")
@@ -1048,7 +1543,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

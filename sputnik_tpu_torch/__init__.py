@@ -17,12 +17,15 @@ from .many_mask import (
     sparse_softmax_many_mask,
     spmm_many_mask,
 )
-from .models import (LMServer, SparseAttention, SparseDecoder, SparseLinear,
-                     SparseLM, SparseTransformer, sample_logits)
-from .ops import (KVCache, PanelSpec, append_kv, append_kv_seq,
-                  decode_attention, decode_block_table, fused_sparse_attention,
-                  init_kv_cache, insert_kv_slot, prefill_kv,
-                  table_from_topology_row)
+from .models import (LMServer, PagedDecoder, SparseAttention, SparseDecoder,
+                     SparseLinear, SparseLM, SparseTransformer, sample_logits)
+from .ops import (KVCache, PagedKVCache, PagePool, PanelSpec, append_kv,
+                  append_kv_seq, append_paged, append_paged_seq,
+                  decode_attention, decode_block_table, ensure_pages,
+                  free_pages_of, fused_sparse_attention, init_kv_cache,
+                  init_paged_cache, insert_kv_slot, paged_attention,
+                  paged_block_table, prefill_kv, share_prefix,
+                  table_from_topology_row, write_prompt_pages)
 from .ops.batched_panel import BatchedPanelSpec
 from .topology import SparseMatrix, SparseTopology, diffsort
 
@@ -34,6 +37,9 @@ __all__ = [
     "KVCache",
     "LMServer",
     "ManyMaskTopology",
+    "PagePool",
+    "PagedDecoder",
+    "PagedKVCache",
     "PanelSpec",
     "SparseAttention",
     "SparseDecoder",
@@ -44,23 +50,32 @@ __all__ = [
     "SparseTransformer",
     "append_kv",
     "append_kv_seq",
+    "append_paged",
+    "append_paged_seq",
     "bridge",
     "build_blocks",
     "csr_transpose_many_mask",
     "decode_attention",
     "decode_block_table",
     "diffsort",
+    "ensure_pages",
+    "free_pages_of",
     "fused_sparse_attention",
     "init_kv_cache",
+    "init_paged_cache",
     "insert_kv_slot",
     "models",
     "ops",
+    "paged_attention",
+    "paged_block_table",
     "patterns",
     "prefill_kv",
     "sample_logits",
     "sddmm_many_mask",
+    "share_prefix",
     "sparse_softmax_many_mask",
     "spmm_many_mask",
     "stack_block_meta",
     "table_from_topology_row",
+    "write_prompt_pages",
 ]

@@ -1,8 +1,13 @@
 // Decode attention: qlen <= 8 query rows per replica against the KV blocks
-// its block table names, online softmax across the table's slots.
+// its block table names, online softmax across the table's slots; over a
+// per-replica block cache (B19) or over a shared page pool (B20a).
 //
-// Replaces the TPU kernel
-// sputnik_tpu/ops/pallas/decode_attention.py:decode_attention_kernel.
+// Replaces the TPU kernels
+// sputnik_tpu/ops/pallas/decode_attention.py:decode_attention_kernel and
+// sputnik_tpu/ops/pallas/paged_attention.py:paged_attention_kernel. The two
+// compute the same attention and differ only in where a table slot's keys
+// live, so one kernel body serves both, templated on an address policy
+// (ContigAddr, PagedAddr below); the contiguous one is described first.
 // q is f32 [R, qlen, hd] (unscaled; the kernel multiplies by `scale`), the
 // caches k / v are [R_kv, s_max, hd] in f32, bf16 or int8 with per-token
 // dequant scales k_scale / v_scale f32 [R_kv, s_max] (ones for fp caches),
@@ -41,6 +46,14 @@
 // every row and contribute nothing: they are neither loaded nor summed.
 // Split-KV across blocks, one read of K/V per GQA group and TMA are later
 // work.
+//
+// Paged (B20a): k / v are a page pool [P_alloc, bk, hd] with scales
+// f32 [P_alloc, bk], shared by every replica; per query replica the table
+// gives for each slot a PHYSICAL page id `phys` (the rows it reads,
+// page * bk .. page * bk + bk - 1 of the pool) and a LOGICAL block id
+// (the keys' positions, logical * bk + j, for the causal mask). A page id
+// outside [0, P_alloc) is a skipped slot. Everything else, the bound
+// included, is as above.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,17 +140,46 @@ __device__ __forceinline__ int byte_at(int w, int i) {
   return (int)(int8_t)((w >> (8 * i)) & 0xff);
 }
 
-template <typename T, bool INT8>
+// Where table slot `i` (= r * S + s) of KV replica rk reads: the position of
+// its first key (key0) and the row of that key in k / v and in the scales
+// (base). False: the slot is skipped.
+struct ContigAddr {  // B19: tbl holds block ids of the replica's own cache
+  const int* tbl;
+  int s_max;
+  __device__ __forceinline__ bool resolve(int i, int rk, int bk, int& key0,
+                                          size_t& base) const {
+    const int blk = tbl[i];
+    if (blk < 0 || blk >= s_max / bk) return false;
+    key0 = blk * bk;
+    base = (size_t)rk * s_max + key0;
+    return true;
+  }
+};
+
+struct PagedAddr {  // B20a: physical page for the rows, logical for positions
+  const int* phys;
+  const int* logical;
+  int n_pages;  // P_alloc
+  __device__ __forceinline__ bool resolve(int i, int, int bk, int& key0,
+                                          size_t& base) const {
+    const int page = phys[i];
+    if (page < 0 || page >= n_pages) return false;
+    key0 = logical[i] * bk;
+    base = (size_t)page * bk;
+    return true;
+  }
+};
+
+template <typename T, bool INT8, typename Addr>
 __global__ void __launch_bounds__(THREADS)
-decode_attention_kernel(const int* __restrict__ tbl,
-                        const int* __restrict__ valid,
+decode_attention_kernel(Addr addr, const int* __restrict__ valid,
                         const int* __restrict__ kv_len,
                         const float* __restrict__ q,
                         const T* __restrict__ kc, const T* __restrict__ vc,
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         float* __restrict__ out, int S, int bk, int qlen,
-                        int group, int hd, int s_max, float scale, int vec_i) {
+                        int group, int hd, float scale, int vec_i) {
   // scores / probabilities [qlen][bk], reused at the end for the warps'
   // partial outputs [WARPS][qlen][HD_MAX]
   extern __shared__ __align__(16) float smem[];
@@ -191,14 +233,15 @@ decode_attention_kernel(const int* __restrict__ tbl,
   __syncthreads();
 
   for (int s = 0; s < S; ++s) {
-    const int blk = tbl[r * S + s];
-    // an out-of-range block id counts as an invalid slot, never a read
-    if (valid[r * S + s] != 1 || blk < 0 || blk >= s_max / bk) continue;
-    const int key0 = blk * bk;
+    int key0;
+    size_t base;
+    // an out-of-range block or page id counts as an invalid slot, never a
+    // read
+    if (valid[r * S + s] != 1 || !addr.resolve(r * S + s, rk, bk, key0, base))
+      continue;
     // keys past len - 1 are masked for every row: skipping them is exact
     const int kend = min(bk, len - key0);
     if (kend <= 0) continue;  // the slot's update is the identity
-    const size_t base = (size_t)rk * s_max + key0;
 
     // -- scores of the block, every row
     for (int j0 = warp * UNROLL; j0 < kend; j0 += WARPS * UNROLL) {
@@ -346,20 +389,37 @@ decode_attention_kernel(const int* __restrict__ tbl,
   }
 }
 
-template <typename T, bool INT8>
-int launch(const void* tbl, const void* valid, const void* kv_len,
-           const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, void* out, int R, int S, int bk, int qlen,
-           int group, int hd, int s_max, float scale, int vec,
-           cudaStream_t stream) {
+template <typename T, bool INT8, typename Addr>
+int launch(Addr addr, const void* valid, const void* kv_len, const void* q,
+           const void* k, const void* v, const void* ks, const void* vs,
+           void* out, int R, int S, int bk, int qlen, int group, int hd,
+           float scale, int vec, cudaStream_t stream) {
   const int floats = std::max(qlen * bk, WARPS * qlen * HD_MAX);
-  decode_attention_kernel<T, INT8>
+  decode_attention_kernel<T, INT8, Addr>
       <<<R, THREADS, floats * sizeof(float), stream>>>(
-          (const int*)tbl, (const int*)valid, (const int*)kv_len,
-          (const float*)q, (const T*)k, (const T*)v, (const float*)ks,
-          (const float*)vs, (float*)out, S, bk, qlen, group, hd, s_max, scale,
-          vec);
+          addr, (const int*)valid, (const int*)kv_len, (const float*)q,
+          (const T*)k, (const T*)v, (const float*)ks, (const float*)vs,
+          (float*)out, S, bk, qlen, group, hd, scale, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename Addr>
+int dispatch(Addr addr, const void* valid, const void* kv_len, const void* q,
+             const void* k, const void* v, const void* ks, const void* vs,
+             void* out, int R, int S, int bk, int qlen, int group, int hd,
+             int dtype, int vec, float scale, void* stream) {
+  if (qlen < 1 || qlen > QMAX || hd < 1 || hd > HD_MAX || bk < 1 ||
+      bk > 1024)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define STT_DEC_ARGS                                                         \
+  addr, valid, kv_len, q, k, v, ks, vs, out, R, S, bk, qlen, group, hd, scale, \
+      vec, st
+  if (dtype == 0) return launch<float, false>(STT_DEC_ARGS);
+  if (dtype == 1) return launch<__nv_bfloat16, false>(STT_DEC_ARGS);
+  if (dtype == 2) return launch<int8_t, true>(STT_DEC_ARGS);
+#undef STT_DEC_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace stt_decode
@@ -377,16 +437,23 @@ extern "C" int decode_attention(const void* tbl, const void* valid,
                                 int s_max, int dtype, int vec, float scale,
                                 void* stream) {
   using namespace stt_decode;
-  if (qlen < 1 || qlen > QMAX || hd < 1 || hd > HD_MAX || bk < 1 ||
-      bk > 1024)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-#define STT_DEC_ARGS                                                        \
-  tbl, valid, kv_len, q, k, v, ks, vs, out, R, S, bk, qlen, group, hd, s_max, \
-      scale, vec, st
-  if (dtype == 0) return launch<float, false>(STT_DEC_ARGS);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(STT_DEC_ARGS);
-  if (dtype == 2) return launch<int8_t, true>(STT_DEC_ARGS);
-#undef STT_DEC_ARGS
-  return (int)cudaErrorInvalidValue;
+  return dispatch(ContigAddr{(const int*)tbl, s_max}, valid, kv_len, q, k, v,
+                  ks, vs, out, R, S, bk, qlen, group, hd, dtype, vec, scale,
+                  stream);
+}
+
+// Paged (B20a): k / v [n_pages, bk, hd] (the whole pool, P_alloc rows),
+// scales f32 [n_pages, bk], phys / logical / valid i32 [R, S] per QUERY
+// replica, kv_len i32 [R_kv]; everything else as decode_attention.
+extern "C" int paged_attention(const void* phys, const void* logical,
+                               const void* valid, const void* kv_len,
+                               const void* q, const void* k, const void* v,
+                               const void* ks, const void* vs, void* out,
+                               int R, int S, int bk, int qlen, int group,
+                               int hd, int n_pages, int dtype, int vec,
+                               float scale, void* stream) {
+  using namespace stt_decode;
+  return dispatch(PagedAddr{(const int*)phys, (const int*)logical, n_pages},
+                  valid, kv_len, q, k, v, ks, vs, out, R, S, bk, qlen, group,
+                  hd, dtype, vec, scale, stream);
 }

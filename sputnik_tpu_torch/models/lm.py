@@ -10,9 +10,10 @@
     ``torch.Generator``: a categorical sample with no host sync. JAX's
     ``categorical`` is Gumbel-max too, but the two random streams differ,
     so only greedy decoding matches the JAX package token for token.
-  * ``LMServer``: token-in / token-out generation over ``SparseDecoder``;
-    ``generate`` runs eagerly (prefill, then a Python loop of decode steps
-    with in-loop sampling, all on the device).
+  * ``LMServer``: token-in / token-out generation over ``SparseDecoder``
+    (or ``PagedDecoder`` with ``n_pages=``); ``generate`` runs eagerly
+    (prefill, then a Python loop of decode steps with in-loop sampling,
+    all on the device).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .serving import SparseDecoder
+from .serving_paged import PagedDecoder
 from .transformer import SparseTransformer, _linear
 
 __all__ = ["SparseLM", "LMServer", "sample_logits",
@@ -133,17 +135,15 @@ class LMServer:
     the model's own sparse topology); decode attends full-causal or
     sinks + window over the block KV cache.
 
-    ``n_pages`` (paged serving) and ``decoder`` (tensor-parallel serving)
-    are not ported yet and raise ``NotImplementedError``."""
+    ``n_pages``: serve from a KV page pool of that many pages per layer
+    (``PagedDecoder``; ``s_max`` is then the per-sequence length cap and
+    ``bk`` the page size). ``decoder`` (tensor-parallel serving) is not
+    ported yet and raises ``NotImplementedError``."""
 
     def __init__(self, lm: SparseLM, *, s_max: Optional[int] = None,
                  bk: int = 256, window: Optional[int] = None, sinks: int = 0,
                  cache_dtype=torch.bfloat16, n_pages: Optional[int] = None,
                  decoder: Optional[SparseDecoder] = None):
-        if n_pages is not None:
-            raise NotImplementedError(
-                "paged serving (n_pages=) is not ported yet — ROADMAP A13 "
-                "(kernels B20a, B20b)")
         if decoder is not None:
             raise NotImplementedError(
                 "an external decoder (decoder=, tensor-parallel serving) is "
@@ -151,9 +151,12 @@ class LMServer:
         if s_max is None:
             raise ValueError("s_max is required")
         self.lm = lm
-        self.decoder = SparseDecoder(lm.core, s_max=s_max, bk=bk,
-                                     window=window, sinks=sinks,
-                                     cache_dtype=cache_dtype)
+        kw = dict(s_max=s_max, bk=bk, window=window, sinks=sinks,
+                  cache_dtype=cache_dtype)
+        if n_pages is not None:
+            self.decoder = PagedDecoder(lm.core, n_pages=n_pages, **kw)
+        else:
+            self.decoder = SparseDecoder(lm.core, **kw)
 
     def init_caches(self, batch: int):
         return self.decoder.init_caches(batch)
@@ -208,6 +211,10 @@ class LMServer:
         b = tokens.shape[0]
         dev = tokens.device
         caches = self.init_caches(b)
+        if isinstance(self.decoder, PagedDecoder):
+            # paged pool: the prompt's and every decode token's pages in ONE
+            # host step, so the decode loop never syncs
+            caches = self.decoder.reserve(caches, tokens.shape[1] + n_new)
         lens = None if prompt_lengths is None else torch.as_tensor(
             prompt_lengths, device=dev).long()
 

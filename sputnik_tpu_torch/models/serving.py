@@ -9,7 +9,9 @@ lengths), ``decode_step_ragged`` (per-slot lengths, continuous batching)
 and ``decode_multi`` (speculative verification) append this step's K/V
 and attend over the on-device block table through the decode-attention
 kernel. Caches are written in place (``ops/decode.py``). Every method runs
-under ``torch.no_grad``: serving never differentiates.
+under ``torch.no_grad``: serving never differentiates. ``PagedDecoder``
+(``serving_paged.py``) keeps this prefill and overrides its two cache
+hooks, ``_prefill_setup`` and ``_prefill_write``.
 
 Not ported yet: ``cast_params`` (bf16-stored weights) and the
 tensor-parallel ``reduce_fn`` hook (ROADMAP A12, A17).
@@ -131,6 +133,16 @@ class SparseDecoder:
 
     # -- prefill -------------------------------------------------------------
 
+    def _prefill_setup(self, caches, T: int):
+        """Hook: cache-family-specific validation / allocation before the
+        prompt pass (paged decoders reserve the prompt's pages)."""
+        return caches
+
+    def _prefill_write(self, cache, k3, v3, len_r):
+        """Hook: bulk-write one layer's folded ``[R_kv, T, hd]`` K/V into
+        its cache (paged decoders write pool pages instead)."""
+        return prefill_kv(cache, k3, v3, len_r)
+
     @torch.no_grad()
     def prefill(self, x, caches: Sequence[KVCache], lengths=None):
         """Run the prompt ``x [b, T, h]`` through the model (sparse-flash
@@ -146,6 +158,7 @@ class SparseDecoder:
         b, T, _ = x.shape
         if T != mt.m:
             raise ValueError(f"prompt length {T} != mask rows {mt.m}")
+        caches = self._prefill_setup(caches, T)
         len_r = None if lengths is None else torch.as_tensor(
             lengths, device=x.device).to(torch.int32).repeat_interleave(
                 self.kv_heads)
@@ -161,8 +174,8 @@ class SparseDecoder:
         new_caches = []
         for layer, cache in zip(self.model.layers, caches):
             x, (k, v) = self._block(layer, x, attn)
-            new_caches.append(prefill_kv(cache, self._fold(k), self._fold(v),
-                                         len_r))
+            new_caches.append(self._prefill_write(cache, self._fold(k),
+                                                  self._fold(v), len_r))
         return x, tuple(new_caches)
 
     # -- decode --------------------------------------------------------------

@@ -7,8 +7,8 @@ tensor without a ``grad_fn``: gradients flow through the autograd ops of
 ``ops.panel_api`` and ``ops.fused_attention``, whose backward launches the
 backward kernels. So with grad mode on and an input that requires grad, a
 wrapper raises on CUDA and names the autograd op to call instead. The
-serving kernels (decode attention, ragged append) have no autograd op:
-serving never differentiates.
+serving kernels (decode and paged attention, ragged and paged append) have
+no autograd op: serving never differentiates.
 """
 
 from __future__ import annotations
@@ -49,6 +49,8 @@ def kernel_wrappers():
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
                                flash_sparse_bwd_fused)
+    from .paged_append import paged_append_kernel
+    from .paged_attention import paged_attention_kernel
     from .ragged_append import ragged_append_kernel
 
     return {"bsr_spmm_panel": bsr_spmm_panel,
@@ -59,4 +61,6 @@ def kernel_wrappers():
             "flash_sparse_bwd_dq": flash_sparse_bwd_dq,
             "flash_sparse_bwd_dkv": flash_sparse_bwd_dkv,
             "decode_attention": decode_attention_kernel,
-            "ragged_append": ragged_append_kernel}
+            "ragged_append": ragged_append_kernel,
+            "paged_attention": paged_attention_kernel,
+            "paged_append": paged_append_kernel}

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
     "decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
     "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
+    "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "paged_append": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -25,14 +25,14 @@ import torch
 from . import check_operands
 from ._build import check, library
 
-__all__ = ["decode_attention_kernel", "decode_attention_plain", "QPAD",
-           "MAX_BK", "MAX_HD"]
+__all__ = ["decode_attention_kernel", "decode_attention_plain",
+           "attend_slots_plain", "QPAD", "MAX_BK", "MAX_HD", "DTYPES"]
 
 _NEG_LARGE = -1e30
 QPAD = 8        # most query rows per replica (speculative verification)
 MAX_BK = 1024   # largest KV block
 MAX_HD = 128    # largest head dim
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
@@ -59,56 +59,77 @@ def _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
         raise ValueError("scales must be [R_kv, s_max]")
     if kv_len.shape != (R_kv,):
         raise ValueError(f"kv_len {tuple(kv_len.shape)} != ({R_kv},)")
-    if k_cache.dtype not in _DTYPES or v_cache.dtype != k_cache.dtype:
+    if k_cache.dtype not in DTYPES or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"cache dtype {k_cache.dtype} / {v_cache.dtype}: "
-                        f"expected one of {list(_DTYPES)}")
+                        f"expected one of {list(DTYPES)}")
 
 
-def decode_attention_plain(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
-                           v_scale, *, bk: int, qlen: int, group: int,
-                           scale: float):
-    """Plain version: the kernel's slot-by-slot online softmax, vectorised
-    over replicas, one step per table slot."""
+def attend_slots_plain(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
+                       kv_len, *, bk: int, qlen: int, group: int,
+                       scale: float):
+    """The kernel's slot-by-slot online softmax, vectorised over replicas,
+    one step per table slot, over keys addressed as rows: slot ``s`` of
+    query replica ``r`` reads rows ``base[r, s] + j`` of ``k_rows`` /
+    ``v_rows`` (``[N, hd]``) and ``ks_rows`` / ``vs_rows`` (``[N]``), at
+    positions ``key0[r, s] + j`` (``j < bk``), where ``live[r, s]``. The
+    plain version of B19 and of B20a (paged), which differ only in
+    ``base`` / ``key0``."""
     R, _, hd = q.shape
-    S = tbl.shape[1]
+    S = base.shape[1]
     dev = q.device
-    rk = (torch.arange(R, device=dev) // group)[:, None]        # [R, 1]
-    int8 = k_cache.dtype == torch.int8
+    rk = torch.arange(R, device=dev) // group                    # [R]
+    int8 = k_rows.dtype == torch.int8
     qv = q.float() * scale
     if int8:
         qs = qv.abs().amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
         qv = torch.clamp(torch.round(qv / qs), -127, 127)
     kin = torch.arange(bk, device=dev)
-    qpos = (kv_len.long()[rk[:, 0]][:, None] - qlen
+    qpos = (kv_len.long()[rk][:, None] - qlen
             + torch.arange(qlen, device=dev)[None])             # [R, qlen]
     m = q.new_full((R, qlen), _NEG_LARGE, dtype=torch.float32)
     l = torch.zeros_like(m)
     acc = torch.zeros((R, qlen, hd), device=dev, dtype=torch.float32)
-    nb = k_cache.shape[1] // bk
     for s in range(S):
-        blk = tbl[:, s].long()
-        live = ((valid[:, s] == 1) & (blk >= 0) & (blk < nb))[:, None]
-        keys = blk.clamp(0, nb - 1)[:, None] * bk + kin[None]  # [R, bk]
-        kb = k_cache[rk, keys].float()                          # [R, bk, hd]
-        vb = v_cache[rk, keys].float()
+        rows = base[:, s, None] + kin[None]                     # [R, bk]
+        keys = key0[:, s, None] + kin[None]
+        kb = k_rows[rows].float()                               # [R, bk, hd]
+        vb = v_rows[rows].float()
         sc = qv @ kb.transpose(1, 2)                            # [R, qlen, bk]
-        sc = (sc * qs if int8 else sc) * k_scale[rk, keys][:, None]
+        sc = (sc * qs if int8 else sc) * ks_rows[rows][:, None]
         sc = torch.where(keys[:, None] <= qpos[..., None], sc, _NEG_LARGE)
         m_new = torch.maximum(m, sc.amax(-1))
         p = torch.exp(sc - m_new[..., None])
         p = torch.where(sc <= _NEG_LARGE / 2, 0.0, p)
         corr = torch.exp(m - m_new)
         l_new = l * corr + p.sum(-1)
-        pv = p * v_scale[rk, keys][:, None]
+        pv = p * vs_rows[rows][:, None]
         if int8:
             ps = pv.amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
             ctx = (torch.clamp(torch.round(pv / ps), 0, 127) @ vb) * ps
         else:
             ctx = pv @ vb
-        acc = torch.where(live[..., None], acc * corr[..., None] + ctx, acc)
-        l = torch.where(live, l_new, l)
-        m = torch.where(live, m_new, m)
+        on = live[:, s, None]
+        acc = torch.where(on[..., None], acc * corr[..., None] + ctx, acc)
+        l = torch.where(on, l_new, l)
+        m = torch.where(on, m_new, m)
     return acc / l.clamp(min=1e-30)[..., None]
+
+
+def decode_attention_plain(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
+                           v_scale, *, bk: int, qlen: int, group: int,
+                           scale: float):
+    """Plain version: the slots' keys are rows ``rk * s_max + blk * bk + j``
+    of the replica's own cache, at positions ``blk * bk + j``."""
+    R_kv, s_max, hd = k_cache.shape
+    nb = s_max // bk
+    rk = (torch.arange(q.shape[0], device=q.device) // group)[:, None]
+    blk = tbl.long()
+    live = (valid == 1) & (blk >= 0) & (blk < nb)
+    key0 = blk.clamp(0, nb - 1) * bk
+    return attend_slots_plain(
+        q, k_cache.reshape(-1, hd), v_cache.reshape(-1, hd),
+        k_scale.reshape(-1), v_scale.reshape(-1), rk * s_max + key0, key0,
+        live, kv_len, bk=bk, qlen=qlen, group=group, scale=scale)
 
 
 def decode_attention_kernel(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
@@ -142,7 +163,7 @@ def decode_attention_kernel(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
         tbl.data_ptr(), valid.data_ptr(), kv_len.data_ptr(), q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), R, tbl.shape[1], bk, qlen, group,
-        hd, s_max, _DTYPES[dt], vec, float(scale),
+        hd, s_max, DTYPES[dt], vec, float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "decode_attention")
     decode_attention_kernel.launches += 1

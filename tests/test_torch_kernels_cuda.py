@@ -10,6 +10,8 @@ Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|) (f32 sums
 taken in another order). TF32 is switched off for the plain versions.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -441,3 +443,146 @@ def test_ragged_append_kernel_bit_exact(dev, dtype, hd):
             assert torch.equal(got[r].view(torch.uint8),
                                old[r].view(torch.uint8))
     assert torch.equal(bufs[0][3, 95], toks[0][3])
+
+
+def _paged_problem(dev, dtype, hd, bk, seed):
+    """A pool filled through ``write_prompt_pages`` with pages allocated in
+    a shuffled order: one replica near its capacity, one empty, one a few
+    keys into its second block; sinks + window tables from
+    ``paged_block_table`` (per KV replica). Also returns the same tokens in
+    a contiguous cache."""
+    from sputnik_tpu_torch.ops import decode as D
+    from sputnik_tpu_torch.ops import paged as PG
+
+    rng = np.random.RandomState(seed)
+    R_kv, mb = 3, 2 if bk >= 512 else 3
+    n_pages = R_kv * mb + 2
+    cache, pool = PG.init_paged_cache(R_kv, n_pages, bk, hd, mb,
+                                      dtype=_CACHE_DTYPES[dtype], device=dev)
+    pool.free(list(rng.permutation(pool.allocate(n_pages))))
+    lens = torch.tensor([mb * bk - 1, 0, bk + 3], dtype=torch.int32,
+                        device=dev)
+    cache = dataclasses.replace(cache, kv_len=lens)
+    for r, n in enumerate(lens.tolist()):      # every replica: all mb pages
+        cache = PG.ensure_pages(cache, pool, mb * bk - n, replicas=[r])
+    ks, vs = (torch.from_numpy(rng.randn(R_kv, mb * bk, hd).astype(
+        np.float32)).to(dev) for _ in range(2))
+    cache = PG.write_prompt_pages(cache, ks, vs,
+                                  replica_pages=cache.page_table.cpu(),
+                                  lengths=lens)
+    flat = D.prefill_kv(D.init_kv_cache(R_kv, mb * bk, hd,
+                                        _CACHE_DTYPES[dtype], device=dev),
+                        ks, vs, lens)
+    tables = PG.paged_block_table(cache, window_blocks=2, sink_blocks=1)
+    return cache, flat, tables
+
+
+def _paged_args(cache, tables, q, group):
+    phys, logical, valid = (t.repeat_interleave(group, 0).contiguous()
+                            for t in tables)
+    return (phys, logical, valid, cache.kv_len, q, cache.k, cache.v,
+            cache.k_scale, cache.v_scale)
+
+
+@pytest.mark.parametrize("bk", [128, 256, 1024])
+@pytest.mark.parametrize("hd", [7, 30, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
+def test_paged_attention_kernel_matches_plain(dev, dtype, hd, bk):
+    """B20a against its plain version over qlen 1 / 4 / 8 and GQA group
+    1 / 4 on a shuffled pool; the empty replica's rows are exactly 0, and
+    the paged kernel gives B19's bits on the same tokens (the same body)."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel)
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+
+    cache, flat, tables = _paged_problem(dev, dtype, hd, bk, seed=hd + bk)
+    assert not torch.equal(tables[0], tables[1])   # pages are not blocks
+    rng = np.random.RandomState(hd)
+    for qlen in (1, 4, 8):
+        for group in (1, 4):
+            q = torch.from_numpy(rng.randn(3 * group, qlen, hd).astype(
+                np.float32)).to(dev)
+            args = _paged_args(cache, tables, q, group)
+            kw = dict(qlen=qlen, group=group, scale=hd ** -0.5)
+            before = paged_attention_kernel.launches
+            got = paged_attention_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            assert paged_attention_kernel.launches == before + 1
+            _close(got, paged_attention_plain(*args, **kw))
+            assert torch.all(got[group:2 * group] == 0)
+            same = decode_attention_kernel(
+                args[1], args[2], flat.kv_len, q, flat.k, flat.v,
+                flat.k_scale, flat.v_scale, bk=bk, **kw)
+            assert torch.equal(got, same)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_paged_attention_kernel_invalid_slots_and_pages(dev, seed):
+    """Random valid masks, page ids outside the pool (skipped), an
+    all-invalid replica (exactly 0), repeated pages."""
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+
+    rng = np.random.RandomState(400 + seed)
+    dtype = sorted(_CACHE_DTYPES)[seed % 3]
+    hd = (30, 16, 100, 7)[seed]
+    cache, _, tables = _paged_problem(dev, dtype, hd, 128, seed)
+    R, S = 3, 5
+    P = cache.k.shape[0]
+    phys = torch.from_numpy(rng.randint(-2, P + 2, (R, S)).astype(
+        np.int32)).to(dev)
+    logical = torch.from_numpy(rng.randint(0, 3, (R, S)).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy((rng.rand(R, S) < 0.7).astype(np.int32)).to(dev)
+    valid[0] = 0
+    q = torch.from_numpy(rng.randn(R, 2, hd).astype(np.float32)).to(dev)
+    args = (phys, logical, valid, cache.kv_len, q, cache.k, cache.v,
+            cache.k_scale, cache.v_scale)
+    kw = dict(qlen=2, group=1, scale=0.3)
+    got = paged_attention_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, paged_attention_plain(*args, **kw))
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize("hd", [7, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
+def test_paged_append_kernel_bit_exact(dev, dtype, hd):
+    """B20b against its plain version, bit for bit: a frozen replica, a
+    page id outside the pool, a negative one and an offset past the page
+    write nothing anywhere; the last row of a page is written."""
+    from sputnik_tpu_torch.ops.kernels.paged_append import (
+        paged_append_kernel, paged_append_plain)
+
+    rng = np.random.RandomState(hd + 1)
+    P, bk = 9, 128
+    dt = _CACHE_DTYPES[dtype]
+
+    def rand(*shape):
+        x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 50)
+        return x.to(dt).to(dev)
+
+    page = torch.tensor([3, 0, 8, 9, -1, 5, 6], dtype=torch.int32,
+                        device=dev)
+    off = torch.tensor([0, 127, 5, 0, 0, 128, 40], dtype=torch.int32,
+                       device=dev)
+    ok = torch.tensor([1, 1, 0, 1, 1, 1, 1], dtype=torch.int32, device=dev)
+    R = page.shape[0]
+    bufs = [rand(P, bk, hd), rand(P, bk, hd), torch.rand(P, bk, device=dev),
+            torch.rand(P, bk, device=dev)]
+    toks = (rand(R, hd), rand(R, hd), torch.rand(R, device=dev),
+            torch.rand(R, device=dev))
+    orig = [b.clone() for b in bufs]
+    want = [b.clone() for b in bufs]
+    paged_append_plain(page, off, ok, *toks, *want)
+    before = paged_append_kernel.launches
+    paged_append_kernel(page, off, ok, *toks, *bufs)
+    torch.cuda.synchronize()
+    assert paged_append_kernel.launches == before + 1
+    for got, ref, old in zip(bufs, want, orig):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        changed = (got != old).reshape(P * bk, -1).any(-1).nonzero()
+        assert set(changed[:, 0].tolist()) <= {3 * bk, 127, 6 * bk + 40}
+    assert torch.equal(bufs[0][0, 127], toks[0][1])
+    assert torch.equal(bufs[3][6, 40], toks[3][6])

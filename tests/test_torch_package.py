@@ -33,7 +33,10 @@ def test_import_loads_no_jax():
     r = _run("import sys, sputnik_tpu_torch, sputnik_tpu_torch.models, "
              "sputnik_tpu_torch.bridge, "
              "sputnik_tpu_torch.examples.train_sparse_transformer, "
-             "sputnik_tpu_torch.examples.generate\n"
+             "sputnik_tpu_torch.examples.generate, "
+             "sputnik_tpu_torch.examples.serve_paged, "
+             "sputnik_tpu_torch.ops.paged, "
+             "sputnik_tpu_torch.models.serving_paged\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -50,6 +53,10 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.flash_sparse\n"
              "import sputnik_tpu_torch.ops.kernels.decode_attention\n"
              "import sputnik_tpu_torch.ops.kernels.ragged_append\n"
+             "import sputnik_tpu_torch.ops.kernels.paged_attention\n"
+             "import sputnik_tpu_torch.ops.kernels.paged_append\n"
+             "import sputnik_tpu_torch.ops.paged\n"
+             "import sputnik_tpu_torch.models.serving_paged\n"
              "from sputnik_tpu_torch.ops.kernels import _build\n"
              "assert 'triton' not in sys.modules\n"
              "try:\n"
@@ -71,7 +78,8 @@ def test_build_key_covers_every_source():
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
-        "decode_attention", "ragged_append"}
+        "decode_attention", "ragged_append", "paged_attention",
+        "paged_append"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -99,8 +107,14 @@ def test_cpu_tensors_launch_no_kernel():
     toks, _ = stt.LMServer(lm, s_max=24, bk=8).generate(
         torch.zeros(2, 16, dtype=torch.long), 3, prompt_lengths=[9, 16])
     assert toks.shape == (2, 3)
+    lm128 = stt.SparseLM.from_masks(
+        driver_masks(2, 128), vocab_size=11, num_layers=1, hidden_size=32,
+        num_heads=2, ffn_hidden_size=64)
+    toks, _ = stt.LMServer(lm128, s_max=256, bk=128, n_pages=8).generate(
+        torch.zeros(2, 128, dtype=torch.long), 3)
+    assert toks.shape == (2, 3)
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 9
+    assert len(wrappers) == 11
     assert all(v == 0 for v in before.values())
 
 

@@ -197,8 +197,6 @@ def test_generate_greedy_tokens_equal_jax(lm_pair, case):
 
 def test_unported_server_options_raise(lm_pair):
     tlm = lm_pair[2]
-    with pytest.raises(NotImplementedError, match="A13"):
-        LMServer(tlm, s_max=32, n_pages=8)
     with pytest.raises(NotImplementedError, match="A17"):
         LMServer(tlm, s_max=32, decoder=object())
     with pytest.raises(ValueError, match="generator"):
