@@ -14,7 +14,11 @@ Phases, each printing its lines:
      and at s=4096; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
      f32 and int8 caches; qlen 1 and 4; GQA group 1 and 4, the latter
      with R_kv=8 as run (f) gives it) and the ragged append (R=32,
-     bit-exact) at the serving shapes;
+     bit-exact) at the serving shapes; the paged kernels at the paged
+     serving shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
+     MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
+     C=640; timed) and at the panel attention's (b=4 DISTINCT masks, 8
+     heads, s=512, hd=64, and GQA) (2e);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -32,10 +36,18 @@ Phases, each printing its lines:
         prompt_lengths [1024, 900, 700, 512] through the ragged append,
         (d) decode_multi q=4 + rollback, (e) int8 cache, (f) GQA
         kv_heads=2 on 2 layers; one decode_step under the sync debug mode;
+     d. paged serving from a KV page pool (LMServer(n_pages=));
+     e. MoE training at examples/train_moe_transformer.py's full config
+        (6 layers, every 2nd a top-2 SparseMoE of 8 experts): the example's
+        10 Adam steps with its self-checks, 6 launches each of B6, B7, B8 a
+        step; then the driver config with attention_layout="panel", 1 step
+        (12 each of B6, B7, B8);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
-     forced, of the MHA model and of run (f)'s GQA model), and the forward / training-step / prefill / decode times and
-     peak device memory.
+     forced, of the MHA model and of run (f)'s GQA model; the paged pool;
+     the first MoE step's routing, losses and router / expert gradients and
+     the panel model's forward), and the forward / training-step / prefill /
+     decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0).
 TF32 is switched off, so every product here runs in full fp32.
@@ -79,8 +91,18 @@ REPLACES = {
                         "sputnik_tpu/ops/pallas/paged_attention.py:51"),
     "paged_append": ("sputnik_tpu_torch/csrc/ragged_append.cu",
                      "sputnik_tpu/ops/pallas/paged_attention.py:188"),
+    "spmm_bh": ("sputnik_tpu_torch/csrc/bsr_spmm.cu",
+                "sputnik_tpu/ops/batched_panel.py:123"),
+    "sddmm_bh": ("sputnik_tpu_torch/csrc/bsr_sddmm.cu",
+                 "sputnik_tpu/ops/batched_panel.py:177"),
+    "spmm_t_bh": ("sputnik_tpu_torch/csrc/bsr_spmm_t.cu",
+                  "sputnik_tpu/ops/batched_panel.py:238"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
+# the MoE example's default step count: Adam's first steps at lr 1e-3
+# overshoot (the loss rises for ~3 steps at the full config, as the driver
+# config's does in phase 3b), so "the loss decreases" is checked over these
+MOE_STEPS = 10
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): fp32
 # outside the tensor cores, which is what every kernel here computes in,
 # and device memory. A bound is the larger of operations / PEAK_F32 and
@@ -116,8 +138,11 @@ def _time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _compare(name, got, ref, tol, results=None):
-    """max |got - ref| against ``tol * max(1, max |ref|)``; raises."""
+def _compare(name, got, ref, tol, results=None, floor=1.0):
+    """max |got - ref| against ``tol * max(floor, max |ref|)``; raises.
+    ``floor=0`` makes the limit relative, for values far below 1 such as
+    gradients; then an all-zero ``ref`` fails too, so that a zeroed ``got``
+    cannot pass."""
     import torch
 
     if got.shape != ref.shape:
@@ -125,8 +150,12 @@ def _compare(name, got, ref, tol, results=None):
     if not torch.isfinite(got).all():
         _fail(f"{name}: non-finite values")
     err = (got.float() - ref.float()).abs().max().item()
-    bound = tol * max(1.0, ref.abs().max().item())
-    print(f"  {name}: max_abs_err {err:.3e} (bound {bound:.3e})", flush=True)
+    ref_max = ref.abs().max().item()
+    bound = tol * max(floor, ref_max)
+    print(f"  {name}: max_abs_err {err:.3e} (bound {bound:.3e}, max|ref| "
+          f"{ref_max:.3e})", flush=True)
+    if floor == 0 and not ref_max > 0:
+        _fail(f"{name}: the reference is all zeros")
     if not err <= bound:
         _fail(f"{name}: max_abs_err {err} > {bound}")
     if results is not None:
@@ -147,6 +176,26 @@ def _bound(r, flops, nbytes):
     print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
           f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
           f"{r['bound_ms'] / r['ms']:.1%} of it", flush=True)
+
+
+def _sparse_bound(r, nnz, heads, width, dense_bytes):
+    """The bound of a sparse product from what its data needs: 2 operations
+    per nonzero, replica and dense column (``width``); bytes of the pattern
+    (a 4-byte column index per nonzero, shared by a mask's ``heads``
+    replicas), of the values (4 bytes per nonzero and replica, read or
+    written) and of the dense operands and output (``dense_bytes``). The
+    zeros a panel stores in its occupied tiles, and its padding, are the
+    kernel's choice, not the function's work."""
+    _bound(r, 2.0 * nnz * heads * width,
+           4 * nnz + 4 * nnz * heads + dense_bytes)
+
+
+def _stored_note(name, tiles, width):
+    """Prints the work of the stored panel (every occupied tile, zeros
+    included) beside the bound, which counts the nonzeros alone."""
+    print(f"    {name}: the stored panel's {2.0 * tiles * width / 1e9:.3f} "
+          f"GFLOP would take {2.0 * tiles * width / PEAK_F32 * 1e3:.4f} ms "
+          f"at the fp32 peak (not the bound)", flush=True)
 
 
 def _library_ms(name, fn, **kw):
@@ -222,14 +271,10 @@ def phase_kernels(stt, torch, dev, kres):
           f"({flop / r['ms'] / 1e9:.2f} TFLOP/s), bias_relu {ms_relu:.4f} ms, "
           f"plain {r['plain_ms']:.4f} ms, dense fp32 torch.matmul "
           f"{dense_ms:.4f} ms", flush=True)
-    # the work of the stored panel (every occupied tile, zeros included);
-    # the elements alone need density x that
-    print(f"  spmm element count: {2.0 * mat.topology.nnz * size / 1e9:.3f} "
-          f"GFLOP ({2.0 * mat.topology.nnz * size / PEAK_F32 * 1e3:.4f} ms "
-          f"at the fp32 peak)", flush=True)
     r["library_ms"] = dense_ms          # torch.matmul on the densified A
-    _bound(r, flop, _nbytes(meta["block_cols"], meta["nblocks"], panel,
-                            dense) + size * size * 4)
+    nnz = mat.topology.nnz
+    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4)
+    _stored_note("spmm", bv.num_blocks * spec.bm * spec.bk, size)
 
     # -- transposed SpMM (B3) at the same headline: A^T @ G, G = dense
     r = kres["bsr_spmm_t_panel"]
@@ -252,7 +297,7 @@ def phase_kernels(stt, torch, dev, kres):
           f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {dense_t_ms:.4f} ms",
           flush=True)
     r["library_ms"] = dense_t_ms
-    _bound(r, flop, _nbytes(*targs) + size * size * 4)
+    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4)
     del panel, dense, a_dense, got
 
     # -- SDDMM at 4096^2 d=0.1, d=64
@@ -288,9 +333,7 @@ def phase_kernels(stt, torch, dev, kres):
     r["library_ms"] = _library_ms(
         "sddmm (torch.sparse.sampled_addmm, CSR)",
         lambda: torch.sparse.sampled_addmm(csr, lhs[0], rhs_t, beta=0.0))
-    _bound(r, 2.0 * bv.num_blocks * spec.bm * spec.bk * d,
-           _nbytes(meta["block_cols"], meta["nblocks"], lhs, rhs,
-                   meta["mask"]) + _nbytes(got))
+    _sparse_bound(r, nnz, 1, d, _nbytes(lhs, rhs))
     del lhs, rhs, got, csr, rhs_t
 
     # -- sparse-flash forward at the reference transformer's attention:
@@ -321,8 +364,7 @@ def phase_kernels(stt, torch, dev, kres):
     r["library_ms"] = _library_ms(
         "flash forward (F.scaled_dot_product_attention, boolean mask)",
         lambda: sdpa["fwd"]())
-    tiles = _flash_tiles(fm, heads)
-    _bound(r, 4.0 * tiles * hd,
+    _bound(r, 4.0 * _flash_pairs(b, heads, s) * hd,
            _nbytes(*fargs[:5], q, k, v) + _nbytes(out, m, l))
 
     # -- SpMM / SDDMM at the shapes SparseAttention gives them
@@ -368,11 +410,12 @@ def phase_kernels(stt, torch, dev, kres):
              kres["bsr_spmm_t_panel"])
 
 
-def _flash_tiles(fm, heads) -> float:
-    """Key-query pairs the flash kernels visit: the occupied tiles of the
-    masks (``nblocks``), each ``bm x bk``, once per head."""
-    _, _, bm, bk = fm["pmask"].shape
-    return float(fm["nblocks"].sum().item()) * heads * bm * bk
+def _flash_pairs(b, heads, s) -> float:
+    """Key-query pairs the driver's masks keep, once per head: the work the
+    data needs (the kernels also visit the masked pairs of partial tiles)."""
+    from sputnik_tpu_torch.patterns import driver_masks
+
+    return float((driver_masks(b, s) != 0).sum()) * heads
 
 
 def _sdpa_inputs(torch, dev, b, heads, q, k, v, g=None):
@@ -481,8 +524,7 @@ def phase_flash_backward(stt, torch, dev, kres):
             lib = _library_ms("flash backward (the backward of "
                               "F.scaled_dot_product_attention: dq, dk, dv)",
                               sdpa["bwd"])
-            tiles = _flash_tiles({"nblocks": rows[1], "pmask": rows[4]},
-                                 heads)
+            pairs = _flash_pairs(b, heads, s)
             # per key-query pair and head dim: the recomputed QK^T and
             # dO V^T, then dV, dQ, dK (fused), dQ (dq), dV and dK (dkv)
             work = {"flash_sparse_bwd_fused": (10, rows, (q, k, v)),
@@ -495,7 +537,7 @@ def phase_flash_backward(stt, torch, dev, kres):
                 print(f"  {name} {tag}: kernel {kres[name]['ms']:.4f} ms, "
                       f"plain {kres[name]['plain_ms']:.4f} ms", flush=True)
                 per, ins, outs = work[name]
-                _bound(kres[name], per * tiles * hd,
+                _bound(kres[name], per * pairs * hd,
                        _nbytes(*ins) + _nbytes(*outs))
             two = _time_ms(lambda: (calls["flash_sparse_bwd_dq"][0](),
                                     calls["flash_sparse_bwd_dkv"][0]()))
@@ -1462,18 +1504,17 @@ def phase_paged_serving(stt, torch, dev, wrappers, ctx):
     return total
 
 
-def _profile_decode(torch, srv, caches, toks):
-    """Device time by kernel over 8 decode steps (torch.profiler), and the
-    device's busy share of the window's wall time."""
+def _profile_steps(torch, label, step, n=8):
+    """Device time by kernel over ``n`` calls ``step(i)`` (torch.profiler),
+    and the device's busy share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    caches = tuple(c.clone() for c in caches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(8):
-            _, caches = srv.decode_step(toks[:, i], caches)
+        for i in range(n):
+            step(i)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
@@ -1481,12 +1522,400 @@ def _profile_decode(torch, srv, caches, toks):
             if getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA")]
     busy = sum(t for _, t, _ in rows)
-    print(f"  profile of 8 decode steps: {wall_ms:.3f} ms wall (profiled), "
+    print(f"  profile of {n} {label}: {wall_ms:.3f} ms wall (profiled), "
           f"device kernels {busy:.3f} ms -> busy {busy / wall_ms:.1%}; by "
           f"device time:", flush=True)
-    for key, t, n in sorted(rows, key=lambda x: -x[1])[:12]:
-        print(f"    {t / 8:.4f} ms/step  {n / 8:.0f} launches/step  "
+    for key, t, c in sorted(rows, key=lambda x: -x[1])[:12]:
+        print(f"    {t / n:.4f} ms/step  {c / n:.0f} launches/step  "
               f"{key[:90]}", flush=True)
+
+
+def _profile_decode(torch, srv, caches, toks):
+    """Device time by kernel over 8 decode steps."""
+    caches = tuple(c.clone() for c in caches)
+
+    def step(i):
+        nonlocal caches
+        _, caches = srv.decode_step(toks[:, i], caches)
+
+    _profile_steps(torch, "decode steps", step)
+
+
+# -- the MoE bank and the panel attention layout (B6, B7, B8) --------------
+
+
+def _bh_problem(stt, torch, dev, topologies, heads, seed):
+    """A ``BatchedPanelSpec`` over ``topologies`` x ``heads`` with random
+    values on its occupied elements, on the card."""
+    rng = np.random.RandomState(seed)
+    spec = stt.BatchedPanelSpec(topologies, heads=heads)
+    meta = spec.panel_meta(dev)
+    panels = torch.from_numpy(rng.randn(spec.R, *spec.panel_shape).astype(
+        np.float32)).to(dev)
+    panels = (panels.view(spec.B, heads, *spec.panel_shape)
+              * meta["mask"][:, None]).reshape(panels.shape)
+    return spec, meta, panels, rng
+
+
+def _bh_tiles(meta, heads) -> float:
+    """Occupied tiles over all replicas (each mask's ``nblocks``, once per
+    head): the stored-panel work of one batched call."""
+    return float(meta["nblocks"].sum().item()) * heads
+
+
+def _dense_bank(torch, panels, spec, topo):
+    """The bank's panels densified ``[E, m, n]`` (the library yardstick's
+    operand)."""
+    from sputnik_tpu_torch.ops import panel_api as P
+
+    out = np.zeros((panels.shape[0], topo.m, topo.n), np.float32)
+    rows, cols = topo.row_ids[:topo.nnz], topo.column_indices[:topo.nnz]
+    for e, p in enumerate(panels.cpu().numpy()):
+        out[e, rows, cols] = P.panel_to_values_np(topo, p, spec.bm,
+                                                  spec.bk)[:topo.nnz]
+    return torch.from_numpy(out).to(panels.device)
+
+
+def phase_batched_kernels(stt, torch, dev, kres, small=False):
+    """Phase 2e: B6 / B7 / B8 against their plain versions at the MoE bank's
+    shape (E = 8 experts over the example's d = 0.3 topologies, q = d = C =
+    640; timed) and at the panel attention's (b = 4 DISTINCT masks, 8
+    heads, s = 512, hd = 64, and a GQA case with K/V expanded 4x)."""
+    from sputnik_tpu_torch.examples.train_moe_transformer import build
+    from sputnik_tpu_torch.ops.kernels import batched_panel as K
+
+    print("phase 2e: batched many-mask kernels (B6 spmm_bh, B7 sddmm_bh, B8 "
+          "spmm_t_bh) vs plain PyTorch at the MoE bank and panel attention "
+          "shapes", flush=True)
+    model, x, _ = build(small, "cpu")
+    moe = model.layers[1].mlp
+    E, T = moe.num_experts, x.shape[0] * x.shape[1]
+    C = max(int(np.ceil(T / E * moe.top_k * moe.capacity_factor)), 1)
+    f, h = moe.topo_in.m, moe.topo_in.n
+    sp_in, meta_in, p_in, rng = _bh_problem(stt, torch, dev, [moe.topo_in],
+                                            E, 20)
+    xin = torch.from_numpy(rng.randn(E, h, C).astype(np.float32)).to(dev)
+    gy = torch.from_numpy(rng.randn(E, f, C).astype(np.float32)).to(dev)
+    print(f"  bank: E={E} experts, topo_in [{f}, {h}] nnz "
+          f"{moe.topo_in.nnz} (d=0.3), C={C}; panels "
+          f"{tuple(p_in.shape)}, {_bh_tiles(meta_in, E) / E:.0f} of "
+          f"{sp_in.mb * sp_in.kb} tiles occupied", flush=True)
+
+    # B6: the bank's first projection y1 = W_in[e] @ xin[e]
+    r = kres["spmm_bh"]
+    a6 = (meta_in["block_cols"], meta_in["nblocks"], p_in, xin)
+    kw6 = dict(heads=E, rows=f)
+    _compare(f"spmm_bh bank [{E},{f},{h}] x [{E},{h},{C}]",
+             K.spmm_bh_kernel(*a6, **kw6), K.spmm_bh_kernel_plain(*a6, **kw6),
+             TOL_KERNEL, r)
+    r["ms"] = _time_ms(lambda: K.spmm_bh_kernel(*a6, **kw6))
+    r["plain_ms"] = _time_ms(lambda: K.spmm_bh_kernel_plain(*a6, **kw6),
+                             reps=3, inner=2)
+    w_in = _dense_bank(torch, p_in, sp_in, moe.topo_in)
+    _compare("spmm_bh bank vs torch.bmm on the densified weights",
+             K.spmm_bh_kernel(*a6, **kw6), torch.bmm(w_in, xin), TOL_KERNEL)
+    r["library_ms"] = _library_ms("spmm_bh (torch.bmm, densified bank)",
+                                  lambda: torch.bmm(w_in, xin))
+    tiles_in = _bh_tiles(meta_in, E) * sp_in.bm * sp_in.bk
+    nnz_in = moe.topo_in.nnz
+    print(f"  spmm_bh bank: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    _sparse_bound(r, nnz_in, E, C, _nbytes(xin) + E * f * C * 4)
+    _stored_note("spmm_bh bank", tiles_in, C)
+
+    # B7: the bank's values gradient d_W_in = sddmm(g_y1, xin), D = C
+    r = kres["sddmm_bh"]
+    a7 = (meta_in["block_cols"], meta_in["nblocks"], gy, xin,
+          meta_in["mask"])
+    got = K.sddmm_bh_kernel(*a7, heads=E)
+    _compare(f"sddmm_bh bank [{E},{f},{C}] x [{E},{h},{C}]", got,
+             K.sddmm_bh_kernel_plain(*a7, heads=E), TOL_KERNEL, r)
+    off = (meta_in["mask"] == 0)[:, None].expand(
+        1, E, *sp_in.panel_shape).reshape(got.shape)
+    if not torch.all(got[off] == 0):
+        _fail("sddmm_bh: masked or padded panel slots are not exactly 0")
+    r["ms"] = _time_ms(lambda: K.sddmm_bh_kernel(*a7, heads=E))
+    r["plain_ms"] = _time_ms(lambda: K.sddmm_bh_kernel_plain(*a7, heads=E),
+                             reps=3, inner=2)
+    topo = moe.topo_in
+    crow = torch.from_numpy(np.asarray(topo.row_offsets, np.int64))
+    col = torch.from_numpy(np.asarray(topo.column_indices[:topo.nnz],
+                                      np.int64))
+    csr = torch.sparse_csr_tensor(crow.expand(E, -1).contiguous(),
+                                  col.expand(E, -1).contiguous(),
+                                  torch.ones(E, topo.nnz), (E, f, h)).to(dev)
+    xin_t = xin.transpose(1, 2).contiguous()
+    r["library_ms"] = _library_ms(
+        "sddmm_bh (torch.sparse.sampled_addmm, batched CSR)",
+        lambda: torch.sparse.sampled_addmm(csr, gy, xin_t, beta=0.0))
+    print(f"  sddmm_bh bank: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, xin))
+    del got, csr
+
+    # B8: the bank's input gradient d_xin = W_in^T @ g_y1
+    r = kres["spmm_t_bh"]
+    a8 = (meta_in["t_src_i"], meta_in["t_src_s"], meta_in["t_nblocks"], p_in,
+          gy)
+    kw8 = dict(heads=E, rows=h)
+    got = K.spmm_t_bh_kernel(*a8, **kw8)
+    _compare(f"spmm_t_bh bank [{E},{h},{f}] x [{E},{f},{C}]", got,
+             K.spmm_t_bh_kernel_plain(*a8, **kw8), TOL_KERNEL, r)
+    _compare("spmm_t_bh bank vs torch.bmm(W^T, g)", got,
+             torch.bmm(w_in.transpose(1, 2), gy), TOL_KERNEL)
+    r["ms"] = _time_ms(lambda: K.spmm_t_bh_kernel(*a8, **kw8))
+    r["plain_ms"] = _time_ms(lambda: K.spmm_t_bh_kernel_plain(*a8, **kw8),
+                             reps=3, inner=2)
+    r["library_ms"] = _library_ms(
+        "spmm_t_bh (torch.bmm, densified bank transposed)",
+        lambda: torch.bmm(w_in.transpose(1, 2), gy))
+    print(f"  spmm_t_bh bank: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, got))
+    del got, w_in
+
+    # the bank's second projection: topo_out [h, f] x [E, f, C]
+    sp_o, meta_o, p_o, rng = _bh_problem(stt, torch, dev, [moe.topo_out], E,
+                                         21)
+    a1 = torch.from_numpy(rng.randn(E, f, C).astype(np.float32)).to(dev)
+    ao = (meta_o["block_cols"], meta_o["nblocks"], p_o, a1)
+    _compare(f"spmm_bh bank out [{E},{h},{f}] x [{E},{f},{C}]",
+             K.spmm_bh_kernel(*ao, heads=E, rows=h),
+             K.spmm_bh_kernel_plain(*ao, heads=E, rows=h), TOL_KERNEL,
+             kres["spmm_bh"])
+    g2 = torch.from_numpy(rng.randn(E, h, C).astype(np.float32)).to(dev)
+    ao7 = (meta_o["block_cols"], meta_o["nblocks"], g2, a1, meta_o["mask"])
+    _compare("sddmm_bh bank out (d W_out)", K.sddmm_bh_kernel(*ao7, heads=E),
+             K.sddmm_bh_kernel_plain(*ao7, heads=E), TOL_KERNEL,
+             kres["sddmm_bh"])
+    ao8 = (meta_o["t_src_i"], meta_o["t_src_s"], meta_o["t_nblocks"], p_o, g2)
+    _compare("spmm_t_bh bank out (d a1)",
+             K.spmm_t_bh_kernel(*ao8, heads=E, rows=f),
+             K.spmm_t_bh_kernel_plain(*ao8, heads=E, rows=f), TOL_KERNEL,
+             kres["spmm_t_bh"])
+    del p_in, p_o, a1, g2, xin, gy
+
+    # the panel attention: b = 4 DISTINCT masks (tril(k=-i), a fully-masked
+    # row in mask 0), 8 heads, s = 512, hd = 64; and GQA (2 KV heads)
+    b, heads, s, hd = (4, 8, 512, 64) if not small else (2, 2, 64, 16)
+    masks = np.stack([np.tril(np.ones((s, s), np.float32), k=-i)
+                      for i in range(b)])
+    masks[0, s // 2] = 0.0
+    mt = stt.ManyMaskTopology.from_dense_masks(masks)
+    sp, meta, w, rng = _bh_problem(stt, torch, dev, mt.topologies, heads, 22)
+    R = sp.R
+    q, k, v = (torch.from_numpy(rng.randn(R, s, hd).astype(np.float32)
+                                ).to(dev) for _ in range(3))
+    print(f"  attention: b={b} distinct masks, heads={heads}, s={s}, hd={hd}; "
+          f"occupied tiles per mask {meta['nblocks'].sum(1).tolist()} of "
+          f"{sp.mb * sp.kb}; scores panel {tuple(w.shape)}", flush=True)
+    at7 = (meta["block_cols"], meta["nblocks"], q, k, meta["mask"])
+    sc = K.sddmm_bh_kernel(*at7, heads=heads)
+    _compare(f"sddmm_bh attention R={R} s={s} hd={hd}", sc,
+             K.sddmm_bh_kernel_plain(*at7, heads=heads), TOL_KERNEL,
+             kres["sddmm_bh"])
+    kv = heads // 4 or 1
+    k_kv = torch.from_numpy(rng.randn(b * kv, s, hd).astype(np.float32)).to(
+        dev).repeat_interleave(heads // kv, dim=0)
+    gq = (meta["block_cols"], meta["nblocks"], q, k_kv, meta["mask"])
+    _compare(f"sddmm_bh attention GQA ({kv} KV heads, expanded)",
+             K.sddmm_bh_kernel(*gq, heads=heads),
+             K.sddmm_bh_kernel_plain(*gq, heads=heads), TOL_KERNEL,
+             kres["sddmm_bh"])
+    p = stt.sparse_softmax_bh(sp, sc * hd ** -0.5)
+    at6 = (meta["block_cols"], meta["nblocks"], p, v)
+    ctx = K.spmm_bh_kernel(*at6, heads=heads, rows=s)
+    _compare(f"spmm_bh attention P @ V R={R}", ctx,
+             K.spmm_bh_kernel_plain(*at6, heads=heads, rows=s), TOL_KERNEL,
+             kres["spmm_bh"])
+    if not torch.all(ctx[:heads, s // 2] == 0):
+        _fail("panel attention: mask 0's fully-masked row is not exactly 0")
+    at8 = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], p, q)
+    _compare(f"spmm_t_bh attention P^T @ G R={R}",
+             K.spmm_t_bh_kernel(*at8, heads=heads, rows=s),
+             K.spmm_t_bh_kernel_plain(*at8, heads=heads, rows=s), TOL_KERNEL,
+             kres["spmm_t_bh"])
+    ms = {n: _time_ms(fn) for n, fn in (
+        ("sddmm_bh", lambda: K.sddmm_bh_kernel(*at7, heads=heads)),
+        ("spmm_bh", lambda: K.spmm_bh_kernel(*at6, heads=heads, rows=s)),
+        ("spmm_t_bh", lambda: K.spmm_t_bh_kernel(*at8, heads=heads,
+                                                  rows=s)))}
+    # the bound of each from the masks' nonzeros: hd-wide operands, the
+    # pattern and one value per nonzero and head
+    nnz = float(masks.sum())
+    dense = _nbytes(q, k)
+    bound = max(2.0 * nnz * heads * hd / PEAK_F32,
+                (4 * nnz + 4 * nnz * heads + dense) / PEAK_BYTES) * 1e3
+    print(f"  attention shape (not the JSON's timed call): sddmm_bh "
+          f"{ms['sddmm_bh']:.4f} ms, spmm_bh {ms['spmm_bh']:.4f} ms, "
+          f"spmm_t_bh {ms['spmm_t_bh']:.4f} ms; bound of each {bound:.4f} "
+          f"ms ({nnz:.0f} mask nonzeros; the stored scores panel is "
+          f"{_nbytes(sc) / 1e6:.1f} MB)", flush=True)
+
+
+def _moe_grads(model):
+    """The router and expert values' gradients of every MoE layer, on the
+    CPU."""
+    from sputnik_tpu_torch.examples.train_moe_transformer import moe_layers
+
+    return {f"layers.{i}.mlp.{n}": p.grad.detach().cpu().clone()
+            for i, moe in moe_layers(model).items()
+            for n, p in moe.named_parameters()}
+
+
+def _step_times(torch, fn, n):
+    """Host-clock milliseconds of ``n`` calls of ``fn``, each ending in a
+    device synchronize."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_moe_train(stt, torch, dev, wrappers, small=False):
+    """Phase 3e: the MoE transformer at the example's full config (b=4,
+    s=512, h=512, ffn 2048, 6 layers, 8 heads, 8 experts top-2, MoE every
+    2nd layer) takes the example's 10 Adam steps through its ``train_step``
+    with its self-checks, and the driver config under ``attention_layout=
+    "panel"`` takes one; launches checked against the VJP algebra. Phase
+    4e: the first MoE step (routing, losses, router and expert gradients)
+    and the panel model's forward against the same modules on the CPU."""
+    from sputnik_tpu_torch.examples import train_moe_transformer as ex
+    from sputnik_tpu_torch.examples.train_sparse_transformer import (
+        train_step)
+    from sputnik_tpu_torch.models import SparseTransformer
+    from sputnik_tpu_torch.patterns import driver_masks
+
+    layers = 4 if small else 6
+    print(f"phase 3e: MoE training path — the example's config "
+          f"({'small' if small else 'full'}), {layers} layers, MoE every 2nd "
+          f"(top-2, d=0.3), {MOE_STEPS} Adam steps (the example's default); "
+          f"then the driver config with attention_layout='panel', 1 step",
+          flush=True)
+    cpu_model, x, y = ex.build(small, "cpu")
+    model = copy.deepcopy(cpu_model).to(dev)
+    xd, yd = x.to(dev), y.to(dev)
+    moes = ex.moe_layers(model)
+    n_moe = len(moes)
+    with torch.no_grad():                 # builds the device metadata
+        out0 = model(xd).cpu()
+    routes = {i: m.last_experts.cpu() for i, m in moes.items()}
+    probs = {i: m.last_probs.cpu() for i, m in moes.items()}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    total = {n: 0 for n in wrappers}
+    # per MoE layer: two B6 forward; B7 (values) + B8 (input) for each
+    # projection backward; the attention is flash (B9, then B10a)
+    bank = {"spmm_bh": 2 * n_moe, "sddmm_bh": 2 * n_moe,
+            "spmm_t_bh": 2 * n_moe, "flash_sparse_attention_fwd": layers,
+            "flash_sparse_bwd_fused": layers, "flash_sparse_bwd_dq": 0,
+            "flash_sparse_bwd_dkv": 0, "bsr_spmm_panel": 0,
+            "bsr_sddmm_panel": 0, "bsr_spmm_t_panel": 0}
+    steps, grads0 = [], None
+    for i in range(MOE_STEPS):
+        steps.append(_counted(wrappers, total, f"MoE step {i}",
+                              lambda: ex.train_step(model, opt, xd, yd),
+                              bank))
+        if i == 0:
+            grads0 = _moe_grads(model)
+            for j, moe in moes.items():
+                gv = moe.w_in_values.grad
+                if not (torch.isfinite(gv).all() and gv.abs().sum() > 0):
+                    _fail(f"MoE layer {j}: w_in_values has no finite nonzero "
+                          f"gradient on step 1")
+    mse = [float(m) for m, _ in steps]
+    aux = [float(a) for _, a in steps]
+    print(f"  MoE mse {mse}, aux {aux}", flush=True)
+    if not all(np.isfinite(aux)):
+        _fail(f"MoE aux loss not finite: {aux}")
+    if not mse[-1] < mse[0]:
+        _fail(f"MoE loss did not decrease: {mse}")
+    moe_ms = _step_times(torch, lambda: ex.train_step(model, opt, xd, yd), 8)
+    _profile_steps(torch, "MoE training steps",
+                   lambda i: ex.train_step(model, opt, xd, yd), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ex.train_step(model, opt, xd, yd)
+    torch.cuda.synchronize()
+    moe_peak = torch.cuda.max_memory_allocated(dev)
+
+    b, s, h, heads, p_layers, ffn = (
+        (4, 512, 512, 8, 6, 2048) if not small else (2, 64, 32, 2, 2, 64))
+    gen = torch.Generator().manual_seed(30)
+    cpu_panel = SparseTransformer.from_masks(
+        driver_masks(b, s), num_layers=p_layers, hidden_size=h,
+        num_heads=heads, ffn_hidden_size=ffn, use_residual=True,
+        use_layernorm=True, activation="gelu", attention_layout="panel",
+        generator=gen)
+    panel = copy.deepcopy(cpu_panel).to(dev)
+    xp, yp = (torch.randn(b, s, h, generator=torch.Generator().manual_seed(sd))
+              for sd in (31, 32))
+    xpd, ypd = xp.to(dev), yp.to(dev)
+    with torch.no_grad():
+        outp = panel(xpd).cpu()
+    popt = torch.optim.Adam(panel.parameters(), lr=1e-3)
+    loss_p = _counted(
+        wrappers, total, "panel-layout step",
+        lambda: train_step(panel, popt, xpd, ypd),
+        # per layer: B7 + B6 forward; B7 + B8 (spmm_bh's VJP) and B6 + B8
+        # (sddmm_bh's VJP) backward
+        {"spmm_bh": 2 * p_layers, "sddmm_bh": 2 * p_layers,
+         "spmm_t_bh": 2 * p_layers, "flash_sparse_attention_fwd": 0,
+         "bsr_spmm_panel": 0, "bsr_sddmm_panel": 0, "bsr_spmm_t_panel": 0})
+    panel_ms = _step_times(torch, lambda: train_step(panel, popt, xpd, ypd),
+                           5)
+    _profile_steps(torch, "panel-layout training steps",
+                   lambda i: train_step(panel, popt, xpd, ypd), 3)
+    print(f"  panel-layout loss {float(loss_p):.6f}", flush=True)
+    for tag, t in (("MoE training step", moe_ms),
+                   ("panel-layout training step", panel_ms)):
+        print(f"  {tag}: median {statistics.median(t):.4f} ms, min "
+              f"{min(t):.4f}, max {max(t):.4f} over {len(t)} steps (host "
+              f"clock, synchronized)", flush=True)
+    print(f"  MoE step peak device memory {moe_peak / 2**20:.1f} MiB",
+          flush=True)
+
+    print("phase 4e: the first MoE step and the panel forward vs the CPU "
+          "plain path", flush=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref0 = cpu_model(x)
+    for i, m in ex.moe_layers(cpu_model).items():
+        p_sorted = probs[i].sort(dim=-1, descending=True).values
+        margin = float((p_sorted[:, :2] - p_sorted[:, 1:3]).min())
+        same = torch.equal(routes[i], m.last_experts)
+        print(f"  MoE layer {i}: routing of {routes[i].shape[0]} tokens equal "
+              f"to the CPU's: {same}; smallest top-1/top-2 probability "
+              f"margin {margin:.3e}", flush=True)
+        if not same:
+            _fail(f"MoE layer {i}: the card routes differently from the CPU "
+                  f"(smallest margin {margin:.3e})")
+    _compare("MoE forward output", out0, ref0, TOL_MODEL)
+    cpu_opt = torch.optim.Adam(cpu_model.parameters(), lr=1e-3)
+    cmse, caux = ex.train_step(cpu_model, cpu_opt, x, y)
+    _compare("MoE step-0 mse", torch.tensor([mse[0]]), cmse[None],
+             TOL_MODEL)
+    _compare("MoE step-0 aux", torch.tensor([aux[0]]), caux[None],
+             TOL_MODEL)
+    # relative limits: a zeroed gradient is off by max|ref|, 1 / TOL_MODEL
+    # times its limit; each expert-values check is shown to fail on one
+    for name, ref_g in _moe_grads(cpu_model).items():
+        _compare(f"MoE step-0 gradient {name}", grads0[name], ref_g,
+                 TOL_MODEL, floor=0.0)
+        if name.endswith("_values"):
+            try:
+                _compare(f"  planted fault, {name} zeroed",
+                         torch.zeros_like(ref_g), ref_g, TOL_MODEL, floor=0.0)
+            except RuntimeError:
+                continue
+            _fail(f"a zeroed {name} passed its check")
+    with torch.no_grad():
+        _compare("panel-layout forward output", outp, cpu_panel(xp),
+                 TOL_MODEL)
+    print(f"  CPU reference in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
 
 
 def main() -> int:
@@ -1524,11 +1953,14 @@ def main() -> int:
     phase_flash_backward(stt, torch, dev, kres)
     phase_serving_kernels(stt, torch, dev, kres)
     phase_paged_kernels(stt, torch, dev, kres)
+    phase_batched_kernels(stt, torch, dev, kres)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
     paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
-    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] for n in wrappers}
+    moe = phase_moe_train(stt, torch, dev, wrappers)
+    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n]
+                for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

@@ -18,7 +18,8 @@ from .many_mask import (
     spmm_many_mask,
 )
 from .models import (LMServer, PagedDecoder, SparseAttention, SparseDecoder,
-                     SparseLinear, SparseLM, SparseTransformer, sample_logits)
+                     SparseLinear, SparseLM, SparseMoE, SparseTransformer,
+                     sample_logits)
 from .ops import (KVCache, PagedKVCache, PagePool, PanelSpec, append_kv,
                   append_kv_seq, append_paged, append_paged_seq,
                   decode_attention, decode_block_table, ensure_pages,
@@ -26,7 +27,8 @@ from .ops import (KVCache, PagedKVCache, PagePool, PanelSpec, append_kv,
                   init_paged_cache, insert_kv_slot, paged_attention,
                   paged_block_table, prefill_kv, share_prefix,
                   table_from_topology_row, write_prompt_pages)
-from .ops.batched_panel import BatchedPanelSpec
+from .ops.batched_panel import (BatchedPanelSpec, sddmm_bh, sparse_softmax_bh,
+                                spmm_bh)
 from .topology import SparseMatrix, SparseTopology, diffsort
 
 __version__ = "0.1.0"
@@ -46,6 +48,7 @@ __all__ = [
     "SparseLM",
     "SparseLinear",
     "SparseMatrix",
+    "SparseMoE",
     "SparseTopology",
     "SparseTransformer",
     "append_kv",
@@ -71,9 +74,12 @@ __all__ = [
     "patterns",
     "prefill_kv",
     "sample_logits",
+    "sddmm_bh",
     "sddmm_many_mask",
     "share_prefix",
+    "sparse_softmax_bh",
     "sparse_softmax_many_mask",
+    "spmm_bh",
     "spmm_many_mask",
     "stack_block_meta",
     "table_from_topology_row",

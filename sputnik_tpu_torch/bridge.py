@@ -9,9 +9,13 @@ takes) becomes a ``state_dict`` for ``load_state_dict``:
   * flax ``layer_<i>`` submodules are ``layers.<i>``;
   * a ``SparseLM``'s ``embed.embedding`` ``[vocab, h]`` is
     ``nn.Embedding.weight`` as it is (no transpose);
-  * ``SparseLinear`` values go JAX panel (JAX tiles, read from the panel's
-    shape) -> CSR values -> the port's panel (the port's tiles). Panel
-    bytes are never copied: the two packages tile differently.
+  * ``SparseLinear`` values and ``SparseMoE`` expert values (per expert)
+    go JAX panel (JAX tiles, read from the panel's shape) -> CSR values ->
+    the port's panel (the port's tiles). Panel bytes are never copied: the
+    two packages tile differently.
+
+A flax gradient tree has the params' structure, so the same functions map
+JAX gradients onto the port's parameter names.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from .ops import panel_api as P
 
-__all__ = ["transformer_state_dict", "lm_state_dict",
+__all__ = ["transformer_state_dict", "lm_state_dict", "moe_state_dict",
            "sparse_linear_state_dict", "sparse_attention_state_dict"]
 
 
@@ -35,10 +39,33 @@ def _unwrap(params):
     return params["params"] if "params" in params else params
 
 
-def transformer_state_dict(params) -> dict:
+def _expert_panels(moe, panels, which: str) -> torch.Tensor:
+    """JAX expert-bank panels ``[E, mb, max_bpr, bm, bk]`` -> the port's."""
+    panels = np.asarray(panels, np.float32)
+    if panels.ndim != 5 or panels.shape[0] != moe.num_experts:
+        raise ValueError(f"expected [{moe.num_experts}, mb, max_bpr, bm, bk] "
+                         f"expert panels, got {panels.shape}")
+    topo = moe.topo_in if which == "in" else moe.topo_out
+    flat = [P.panel_to_values_np(topo, p, panels.shape[3], panels.shape[4])
+            for p in panels]
+    return _t(moe.panel_values(flat, which))
+
+
+def moe_state_dict(params, moe) -> dict:
+    """Flax ``SparseMoE`` params -> the port's ``SparseMoE`` state_dict (the
+    router kernel transposed, the expert values re-tiled per expert)."""
+    p = _unwrap(params)
+    return {"router.weight": _t(np.asarray(p["router"]["kernel"]).T),
+            "w_in_values": _expert_panels(moe, p["w_in_values"], "in"),
+            "w_out_values": _expert_panels(moe, p["w_out_values"], "out")}
+
+
+def transformer_state_dict(params, model=None) -> dict:
     """Flax ``SparseTransformer`` params -> the port's ``SparseTransformer``
-    state_dict (dense layers and LayerNorms; the sparse attention core has
-    no parameters)."""
+    state_dict (dense layers, LayerNorms and MoE routers; the sparse
+    attention core has no parameters). MoE expert values need ``model``,
+    the port's ``SparseTransformer``: its ``SparseMoE`` layers hold the
+    topologies and the port's tiles."""
     out = {}
 
     def walk(node, path):
@@ -48,7 +75,14 @@ def transformer_state_dict(params) -> dict:
                                          key)])
                 continue
             name = ".".join(path)
-            if key == "kernel":
+            if key in ("w_in_values", "w_out_values"):
+                if model is None:
+                    raise ValueError(f"{name}.{key}: MoE expert values need "
+                                     f"the port's model (model=...)")
+                out[f"{name}.{key}"] = _expert_panels(
+                    model.get_submodule(name), val,
+                    "in" if key == "w_in_values" else "out")
+            elif key == "kernel":
                 out[f"{name}.weight"] = _t(np.asarray(val).T)
             elif key == "scale":
                 out[f"{name}.weight"] = _t(val)

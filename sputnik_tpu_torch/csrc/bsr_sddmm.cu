@@ -1,9 +1,16 @@
 // Panel SDDMM: out[r, i, s] = (lhs[r] @ rhs[r]^T)[tile (i, block_cols[i, s])]
 // times the tile's element mask, written into the block panel.
 //
-// Replaces the TPU kernel sputnik_tpu/ops/pallas/bsr_sddmm.py:bsr_sddmm_panel.
+// Replaces two TPU kernels: sputnik_tpu/ops/pallas/bsr_sddmm.py:
+// bsr_sddmm_panel (B4, one topology for every replica) and
+// sputnik_tpu/ops/batched_panel.py:_k_sddmm_bh (B7, the many-mask batch).
 // lhs is [R, M, D], rhs [R, Nr, D] (stored row-major, the transpose is fused
-// in the contraction), mask [mb, max_bpr, bm, bk] shared by all replicas.
+// in the contraction). Replica r reads the metadata and element mask of mask
+// r / heads (stacked per mask: block_cols [B, mb * max_bpr], nblocks
+// [B, mb], mask [B, mb, max_bpr, bm, bk]); B4 is the case heads = R. B7
+// computes the panel attention's scores (D = head dim) and the MoE expert
+// bank's values gradient, where D is the capacity C (640 at the MoE
+// example's full config): the D loop below stages any depth 32 at a time.
 //
 // What bounds it on an H100: each occupied 64 x 64 tile reads 2 x 64 x D
 // operand floats and writes 64 x 64 results, 2 x 64^2 x D FLOPs. At the
@@ -27,8 +34,8 @@ sddmm_panel_kernel(const int* __restrict__ block_cols,
                    const float* __restrict__ lhs,
                    const float* __restrict__ rhs,
                    const float* __restrict__ mask, float* __restrict__ out,
-                   int mb, int max_bpr, int bm, int bk, int M, int Nr,
-                   int D) {
+                   int heads, int mb, int max_bpr, int bm, int bk, int M,
+                   int Nr, int D) {
   __shared__ __align__(16) float As[TK][TILE_LD];
   __shared__ __align__(16) float Bs[TK][TILE_LD];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -38,7 +45,11 @@ sddmm_panel_kernel(const int* __restrict__ block_cols,
   const int slot = blockIdx.y;  // i * max_bpr + s
   const int i = slot / max_bpr, s = slot % max_bpr;
   const int r = blockIdx.z;
+  const int mask_id = r / heads;  // this replica's mask
+  block_cols += (size_t)mask_id * mb * max_bpr;
+  nblocks += (size_t)mask_id * mb;
   const size_t tile_elems = (size_t)bm * bk;
+  mask += (size_t)mask_id * mb * max_bpr * tile_elems;
   float* o = out + ((size_t)r * mb * max_bpr + slot) * tile_elems;
 
   if (s >= nblocks[i]) {  // padded slot: exact zeros
@@ -98,7 +109,24 @@ extern "C" int sddmm_panel_f32(const void* block_cols, const void* nblocks,
   dim3 grid(slices, mb * max_bpr, R);
   stt::sddmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)block_cols, (const int*)nblocks, (const float*)lhs,
-      (const float*)rhs, (const float*)mask, (float*)out, mb, max_bpr, bm,
+      (const float*)rhs, (const float*)mask, (float*)out, R, mb, max_bpr, bm,
       bk, M, Nr, D);
+  return (int)cudaGetLastError();
+}
+
+// The many-mask batch (B7): block_cols [B, mb * max_bpr], nblocks [B, mb],
+// mask [B, mb, max_bpr, bm, bk]; replica r reads mask r / heads.
+extern "C" int sddmm_bh_f32(const void* block_cols, const void* nblocks,
+                            const void* lhs, const void* rhs,
+                            const void* mask, void* out, int R, int heads,
+                            int mb, int max_bpr, int bm, int bk, int M,
+                            int Nr, int D, void* stream) {
+  const int slices = ((bm + stt::TILE - 1) / stt::TILE) *
+                     ((bk + stt::TILE - 1) / stt::TILE);
+  dim3 grid(slices, mb * max_bpr, R);
+  stt::sddmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)block_cols, (const int*)nblocks, (const float*)lhs,
+      (const float*)rhs, (const float*)mask, (float*)out, heads, mb, max_bpr,
+      bm, bk, M, Nr, D);
   return (int)cudaGetLastError();
 }

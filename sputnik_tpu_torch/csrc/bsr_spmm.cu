@@ -1,10 +1,16 @@
 // Panel SpMM: out[r] = epilogue(A_panel[r] @ dense[r] (+ bias)).
 //
-// Replaces the TPU kernel sputnik_tpu/ops/pallas/bsr_spmm.py:bsr_spmm_panel.
+// Replaces two TPU kernels: sputnik_tpu/ops/pallas/bsr_spmm.py:
+// bsr_spmm_panel (B1, one topology for every replica) and
+// sputnik_tpu/ops/batched_panel.py:_k_spmm_bh (B6, the many-mask batch).
 // The sparse operand is the block panel values[R, mb, max_bpr, bm, bk]
 // (blocking.BlockView); row-block i holds nblocks[i] occupied tiles whose
-// block columns are block_cols[i * max_bpr + s]. All R replicas share one
-// topology (SparseAttention's b*heads replicas; R = 1 for SparseLinear).
+// block columns are block_cols[i * max_bpr + s]. Replica r reads the block
+// metadata of mask r / heads (metadata stacked per mask: block_cols
+// [B, mb * max_bpr], nblocks [B, mb]); B1 is the case heads = R, one mask
+// for all replicas (SparseAttention's b*heads; R = 1 for SparseLinear). B6
+// runs the MoE expert bank (B = 1, heads = experts) and the panel
+// attention layout's P @ V (B = batch, one mask per batch element).
 //
 // What bounds it on an H100: at the repo's headline (4096^2, d = 0.1,
 // element-random) every 64 x 64 tile is occupied, so the work is a dense
@@ -31,8 +37,8 @@ spmm_panel_kernel(const int* __restrict__ block_cols,
                   const float* __restrict__ panel,
                   const float* __restrict__ dense,
                   const float* __restrict__ bias, float* __restrict__ out,
-                  int mb, int max_bpr, int bm, int bk, int K, int N, int M,
-                  int epilogue) {
+                  int heads, int mb, int max_bpr, int bm, int bk, int K, int N,
+                  int M, int epilogue) {
   __shared__ __align__(16) float As[TK][TILE_LD];
   __shared__ __align__(16) float Bs[TK][TILE_LD];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -41,6 +47,9 @@ spmm_panel_kernel(const int* __restrict__ block_cols,
   const int i = blockIdx.y / slices;
   const int r0 = (blockIdx.y % slices) * TILE;
   const int r = blockIdx.z;
+  const int mask_id = r / heads;  // this replica's mask
+  block_cols += (size_t)mask_id * mb * max_bpr;
+  nblocks += (size_t)mask_id * mb;
   const size_t tile_elems = (size_t)bm * bk;
   const float* pan = panel + (size_t)r * mb * max_bpr * tile_elems;
   const float* den = dense + (size_t)r * K * N;
@@ -98,7 +107,22 @@ extern "C" int spmm_panel_f32(const void* block_cols, const void* nblocks,
   dim3 grid((N + stt::TILE - 1) / stt::TILE, mb * slices, R);
   stt::spmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)block_cols, (const int*)nblocks, (const float*)panel,
-      (const float*)dense, (const float*)bias, (float*)out, mb, max_bpr, bm,
-      bk, K, N, M, epilogue);
+      (const float*)dense, (const float*)bias, (float*)out, R, mb, max_bpr,
+      bm, bk, K, N, M, epilogue);
+  return (int)cudaGetLastError();
+}
+
+// The many-mask batch (B6): block_cols [B, mb * max_bpr], nblocks [B, mb],
+// replica r reads mask r / heads (R = B * heads); no epilogue.
+extern "C" int spmm_bh_f32(const void* block_cols, const void* nblocks,
+                           const void* panel, const void* dense, void* out,
+                           int R, int heads, int mb, int max_bpr, int bm,
+                           int bk, int K, int N, int M, void* stream) {
+  const int slices = (bm + stt::TILE - 1) / stt::TILE;
+  dim3 grid((N + stt::TILE - 1) / stt::TILE, mb * slices, R);
+  stt::spmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)block_cols, (const int*)nblocks, (const float*)panel,
+      (const float*)dense, nullptr, (float*)out, heads, mb, max_bpr, bm, bk,
+      K, N, M, 0);
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,20 @@
 // Transposed panel SpMM: out[r] = A_panel[r]^T @ G[r], straight off the
 // ORIGINAL panel (no transposed panel is ever built).
 //
-// Replaces the TPU kernel
-// sputnik_tpu/ops/pallas/bsr_spmm_t.py:bsr_spmm_t_panel. The panel is
-// values[R, mb, max_bpr, bm, bk] (blocking.BlockView); the transposed
-// topology is block metadata only (BlockView.transpose_meta): block column
-// j holds t_nblocks[j] tiles, the u-th being panel tile
-// (t_src_i[j * max_bpc + u], t_src_s[j * max_bpc + u]). Padded slots
-// (u >= t_nblocks[j]) repeat the last valid source and are never visited,
-// or that tile would be added twice. G is [R, M, Q] (M <= mb * bm), the
-// output [R, rows, Q] with rows <= kb * bk. It is the d_dense of spmm and
-// the d_rhs of sddmm, so it runs in every backward of the panel ops.
+// Replaces two TPU kernels: sputnik_tpu/ops/pallas/bsr_spmm_t.py:
+// bsr_spmm_t_panel (B3, one topology for every replica) and
+// sputnik_tpu/ops/batched_panel.py:_k_spmm_t_bh (B8, the many-mask batch).
+// The panel is values[R, mb, max_bpr, bm, bk] (blocking.BlockView); the
+// transposed topology is block metadata only (BlockView.transpose_meta):
+// block column j holds t_nblocks[j] tiles, the u-th being panel tile
+// (t_src_i[j * max_bpc + u], t_src_s[j * max_bpc + u]). Replica r reads the
+// metadata of mask r / heads (stacked per mask: t_src_i / t_src_s
+// [B, kb * max_bpc], t_nblocks [B, kb]); B3 is the case heads = R. Padded
+// slots (u >= t_nblocks[j]) repeat the last valid source and are never
+// visited, or that tile would be added twice. G is [R, M, Q] (M <= mb * bm),
+// the output [R, rows, Q] with rows <= kb * bk. It is the d_dense of spmm
+// and the d_rhs of sddmm, so it runs in every backward of the panel ops
+// (B8: the MoE bank's input gradient, the panel attention's dv and dk).
 //
 // What bounds it on an H100: the same work as the forward SpMM (B1) with
 // the tile transposed: 2 * bm * bk * Q FLOPs per occupied tile against one
@@ -36,8 +40,8 @@ spmm_t_panel_kernel(const int* __restrict__ t_src_i,
                     const int* __restrict__ t_nblocks,
                     const float* __restrict__ panel,
                     const float* __restrict__ g, float* __restrict__ out,
-                    int mb, int max_bpr, int max_bpc, int bm, int bk, int M,
-                    int Q, int rows) {
+                    int heads, int mb, int max_bpr, int kb, int max_bpc,
+                    int bm, int bk, int M, int Q, int rows) {
   __shared__ __align__(16) float As[TK][TILE_LD];
   __shared__ __align__(16) float Bs[TK][TILE_LD];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -46,6 +50,10 @@ spmm_t_panel_kernel(const int* __restrict__ t_src_i,
   const int j = blockIdx.y / slices;
   const int c0 = (blockIdx.y % slices) * TILE;  // first tile column here
   const int r = blockIdx.z;
+  const int mask_id = r / heads;  // this replica's mask
+  t_src_i += (size_t)mask_id * kb * max_bpc;
+  t_src_s += (size_t)mask_id * kb * max_bpc;
+  t_nblocks += (size_t)mask_id * kb;
   const size_t tile_elems = (size_t)bm * bk;
   const float* pan = panel + (size_t)r * mb * max_bpr * tile_elems;
   const float* G = g + (size_t)r * M * Q;
@@ -100,7 +108,23 @@ extern "C" int spmm_t_panel_f32(const void* t_src_i, const void* t_src_s,
   dim3 grid((Q + stt::TILE - 1) / stt::TILE, kb * slices, R);
   stt::spmm_t_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)t_src_i, (const int*)t_src_s, (const int*)t_nblocks,
-      (const float*)panel, (const float*)g, (float*)out, mb, max_bpr, max_bpc,
-      bm, bk, M, Q, rows);
+      (const float*)panel, (const float*)g, (float*)out, R, mb, max_bpr, kb,
+      max_bpc, bm, bk, M, Q, rows);
+  return (int)cudaGetLastError();
+}
+
+// The many-mask batch (B8): t_src_i / t_src_s [B, kb * max_bpc], t_nblocks
+// [B, kb]; replica r reads mask r / heads.
+extern "C" int spmm_t_bh_f32(const void* t_src_i, const void* t_src_s,
+                             const void* t_nblocks, const void* panel,
+                             const void* g, void* out, int R, int heads,
+                             int mb, int max_bpr, int kb, int max_bpc, int bm,
+                             int bk, int M, int Q, int rows, void* stream) {
+  const int slices = (bk + stt::TILE - 1) / stt::TILE;
+  dim3 grid((Q + stt::TILE - 1) / stt::TILE, kb * slices, R);
+  stt::spmm_t_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)t_src_i, (const int*)t_src_s, (const int*)t_nblocks,
+      (const float*)panel, (const float*)g, (float*)out, heads, mb, max_bpr,
+      kb, max_bpc, bm, bk, M, Q, rows);
   return (int)cudaGetLastError();
 }

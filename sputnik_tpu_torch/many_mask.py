@@ -5,8 +5,13 @@ over one ``m x n`` shape, each mask's CSR padded to the shared ``nnz_pad``,
 and ``R = b*h`` operand replicas where the ``h`` heads of a batch element
 share its mask (replica ``r`` uses mask ``r // h``).
 
-The ops are plain PyTorch over ``ops/plain_ops.py``. They are the oracle
-the kernel paths are checked against, not kernels.
+The ops are plain PyTorch over ``ops/plain_ops.py`` (the JAX package has no
+kernel here either): the oracle the kernel paths are checked against, and
+the ``layout="csr"`` attention of ``models/transformer.py``. They are
+``torch.autograd.Function``s with the JAX package's ``custom_vjp`` algebra
+(``sputnik_tpu/many_mask.py``): SpMM <- SDDMM + SpMM over the transposed
+masks, SDDMM <- SpMM + SpMM over the transposed masks, softmax <-
+``p * (g - rowsum(p * g))``.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from torch.autograd.function import once_differentiable
 
 from .ops import plain_ops
 from .topology import DEFAULT_PAD_TO, SparseTopology, _round_up
@@ -112,8 +119,11 @@ def _heads(mt, x) -> int:
     return r // mt.b
 
 
-def spmm_many_mask(mt, values, dense):
-    """``values [R, nnz_pad] x dense [R, k, n] -> [R, m, n]``."""
+def _idx(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
+
+
+def _spmm_impl(mt, values, dense):
     h = _heads(mt, values)
     return torch.stack([
         plain_ops.spmm(values[r], mt.column_indices[r // h],
@@ -121,8 +131,7 @@ def spmm_many_mask(mt, values, dense):
         for r in range(values.shape[0])])
 
 
-def sddmm_many_mask(mt, lhs, rhs):
-    """``lhs [R, m, d] x rhs [R, n, d] -> values [R, nnz_pad]``."""
+def _sddmm_impl(mt, lhs, rhs):
     h = _heads(mt, lhs)
     return torch.stack([
         plain_ops.sddmm(lhs[r], rhs[r], mt.row_ids[r // h],
@@ -130,8 +139,7 @@ def sddmm_many_mask(mt, lhs, rhs):
         for r in range(lhs.shape[0])])
 
 
-def sparse_softmax_many_mask(mt, values):
-    """Ragged row softmax per mask: ``[R, nnz_pad] -> [R, nnz_pad]``."""
+def _softmax_impl(mt, values):
     h = _heads(mt, values)
     return torch.stack([
         plain_ops.sparse_softmax(values[r], mt.row_ids[r // h],
@@ -139,11 +147,94 @@ def sparse_softmax_many_mask(mt, values):
         for r in range(values.shape[0])])
 
 
+def _transpose_values(mt, values):
+    """Replicated values in the transposed masks' slot order."""
+    h = _heads(mt, values)
+    _, perm = mt.transpose()
+    idx = _idx(perm, values.device)
+    return torch.stack([values[r].index_select(0, idx[r // h])
+                        for r in range(values.shape[0])])
+
+
+class _SpMM(torch.autograd.Function):
+    """JAX ``_mm_spmm_bwd``: d_values = SDDMM(g, dense), d_dense = SpMM over
+    the transposed masks of the transposed values."""
+
+    @staticmethod
+    def forward(ctx, mt, values, dense):
+        ctx.mt = mt
+        ctx.save_for_backward(values, dense)
+        return _spmm_impl(mt, values, dense)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        values, dense = ctx.saved_tensors
+        mt, need = ctx.mt, ctx.needs_input_grad
+        d_values = _sddmm_impl(mt, g, dense) if need[1] else None
+        d_dense = (_spmm_impl(mt.transpose()[0],
+                              _transpose_values(mt, values), g)
+                   if need[2] else None)
+        return None, d_values, d_dense
+
+
+class _SDDMM(torch.autograd.Function):
+    """JAX ``_mm_sddmm_bwd``: d_lhs = SpMM(g, rhs), d_rhs = SpMM over the
+    transposed masks of the transposed cotangent."""
+
+    @staticmethod
+    def forward(ctx, mt, lhs, rhs):
+        ctx.mt = mt
+        ctx.save_for_backward(lhs, rhs)
+        return _sddmm_impl(mt, lhs, rhs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        lhs, rhs = ctx.saved_tensors
+        mt, need = ctx.mt, ctx.needs_input_grad
+        d_lhs = _spmm_impl(mt, g, rhs) if need[1] else None
+        d_rhs = (_spmm_impl(mt.transpose()[0], _transpose_values(mt, g), lhs)
+                 if need[2] else None)
+        return None, d_lhs, d_rhs
+
+
+class _Softmax(torch.autograd.Function):
+    """JAX ``_mm_softmax_bwd``: ``p * (g - rowsum(p * g))`` per CSR row."""
+
+    @staticmethod
+    def forward(ctx, mt, values):
+        p = _softmax_impl(mt, values)
+        ctx.mt = mt
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        mt = ctx.mt
+        h = _heads(mt, p)
+        ri = _idx(mt.row_ids, p.device).repeat_interleave(h, dim=0)  # [R, nnz]
+        rs = p.new_zeros((p.shape[0], mt.m + 1)).scatter_add(1, ri, p * g)
+        return None, p * (g - rs.gather(1, ri))
+
+
+def spmm_many_mask(mt, values, dense):
+    """``values [R, nnz_pad] x dense [R, k, n] -> [R, m, n]``."""
+    return _SpMM.apply(mt, values, dense)
+
+
+def sddmm_many_mask(mt, lhs, rhs):
+    """``lhs [R, m, d] x rhs [R, n, d] -> values [R, nnz_pad]``."""
+    return _SDDMM.apply(mt, lhs, rhs)
+
+
+def sparse_softmax_many_mask(mt, values):
+    """Ragged row softmax per mask: ``[R, nnz_pad] -> [R, nnz_pad]``."""
+    return _Softmax.apply(mt, values)
+
+
 def csr_transpose_many_mask(mt, values):
     """Per-mask CSR transpose of replicated values -> ``(mt_t, values_t)``."""
-    h = _heads(mt, values)
-    mt_t, perm = mt.transpose()
-    idx = torch.as_tensor(perm, dtype=torch.int64, device=values.device)
-    out = torch.stack([values[r].index_select(0, idx[r // h])
-                       for r in range(values.shape[0])])
-    return mt_t, out
+    return mt.transpose()[0], _transpose_values(mt, values)

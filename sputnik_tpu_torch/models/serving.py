@@ -3,7 +3,8 @@
 
 ``SparseDecoder`` is bound to a ``SparseTransformer`` module and reads its
 parameters, so no method takes a ``params`` argument. ``prefill`` runs the
-prompt through the sparse-flash kernel on the model's own masks and
+prompt through the sparse-flash kernel on the model's own masks (the
+batched panel chain on a ``attention_layout="panel"`` model) and
 bulk-writes every layer's K/V into its cache; ``decode_step`` (uniform
 lengths), ``decode_step_ragged`` (per-slot lengths, continuous batching)
 and ``decode_multi`` (speculative verification) append this step's K/V
@@ -146,7 +147,8 @@ class SparseDecoder:
     @torch.no_grad()
     def prefill(self, x, caches: Sequence[KVCache], lengths=None):
         """Run the prompt ``x [b, T, h]`` through the model (sparse-flash
-        attention on the model's masks) and bulk-write every layer's K/V
+        attention on the model's masks; the batched panel chain on a
+        ``attention_layout="panel"`` model) and bulk-write every layer's K/V
         into ``caches``. Returns ``(y [b, T, h], caches)``.
 
         ``lengths`` (``[b]``, optional): per-sequence prompt lengths of a
@@ -162,14 +164,13 @@ class SparseDecoder:
         len_r = None if lengths is None else torch.as_tensor(
             lengths, device=x.device).to(torch.int32).repeat_interleave(
                 self.kv_heads)
-        warm_flash_meta(self.spec, x.device, backward=False)
-        scale = 1.0 / float(np.sqrt(self.hd))
-
-        def attn(q, k, v):
-            ctx = fused_sparse_attention(self.spec, self._fold(q),
-                                         self._fold(k), self._fold(v),
-                                         scale=scale, group=self.group)
-            return self._unfold(ctx, b)
+        if self.model.attention_layout == "panel":
+            # the model's own batched chain SDDMM -> softmax -> SpMM (the
+            # attention core has no parameters: every layer's is the same)
+            attn = self.model.layers[0].self_attention.core
+        else:
+            warm_flash_meta(self.spec, x.device, backward=False)
+            attn = self._flash_attn
 
         new_caches = []
         for layer, cache in zip(self.model.layers, caches):
@@ -177,6 +178,14 @@ class SparseDecoder:
             new_caches.append(self._prefill_write(cache, self._fold(k),
                                                   self._fold(v), len_r))
         return x, tuple(new_caches)
+
+    def _flash_attn(self, q, k, v):
+        """Prompt attention through the sparse-flash kernel (GQA native)."""
+        scale = 1.0 / float(np.sqrt(self.hd))
+        ctx = fused_sparse_attention(self.spec, self._fold(q), self._fold(k),
+                                     self._fold(v), scale=scale,
+                                     group=self.group)
+        return self._unfold(ctx, q.shape[0])
 
     # -- decode --------------------------------------------------------------
 

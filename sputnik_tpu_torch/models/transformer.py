@@ -6,10 +6,14 @@ projection in the head-interleaved layout, MLP, N stacked layers,
 optional pre-LN residual blocks. Activations are ``[b, s, h]``; attention
 replicas are ``[b*heads, s, hd]`` with ``r = b_idx*heads + h``.
 
-Attention layouts, both trainable: ``"flash"`` (default) runs the
+Attention layouts, all trainable: ``"flash"`` (default) runs the
 sparse-flash kernels, forward and backward, at any sequence length;
-``"xla"`` is the dense-masked plain path (outside any kernel, as in JAX).
-``"panel"``, ``"csr"`` and ``"auto"`` are not ported.
+``"panel"`` runs the batched panel chain SDDMM -> softmax -> SpMM over the
+per-mask block metadata (kernels B7, B6; B6-B8 in the backward); ``"csr"``
+the flat many-mask ops (plain PyTorch, as in JAX); ``"xla"`` the
+dense-masked plain path (outside any kernel, as in JAX). ``"auto"`` is not
+ported. ``moe`` / ``moe_every`` replace every ``moe_every``-th layer's MLP
+by a ``SparseMoE`` of its own (``models/moe.py``).
 The dense layers are ``nn.Linear``/``nn.LayerNorm`` with flax's defaults
 (LayerNorm epsilon 1e-6, tanh-approximated gelu, LeCun-normal kernels).
 """
@@ -25,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import many_mask as mm
-from ..ops.batched_panel import BatchedPanelSpec
+from ..ops.batched_panel import (BatchedPanelSpec, sddmm_bh, spmm_bh,
+                                 sparse_softmax_bh)
 from ..ops.fused_attention import fused_sparse_attention, warm_flash_meta
 from ..ops.kernels.flash_sparse import KERNEL_TILE
 
@@ -40,11 +45,10 @@ __all__ = [
 ]
 
 _NOT_PORTED = {
-    "panel": "the batched panel kernels, ROADMAP A7 / B6-B8",
-    "csr": "the many-mask autograd path, ROADMAP A7",
     "auto": "the xla/flash crossover, to be re-measured on the H100 "
             "(ROADMAP A9)",
 }
+_LAYOUTS = ("flash", "xla", "panel", "csr")
 _LN_EPS = 1e-6   # flax nn.LayerNorm's default
 
 
@@ -89,7 +93,8 @@ def dense_masks_for(mt: mm.ManyMaskTopology, device) -> torch.Tensor:
 
 class SparseCoreAttention(nn.Module):
     """Masked softmax attention with per-batch masks (no parameters). The
-    flash layout tiles the masks at the kernel's 64 x 64."""
+    flash and panel layouts tile the masks at 64 x 64 and share one
+    ``BatchedPanelSpec``."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, num_heads: int,
                  layout: str = "flash"):
@@ -97,7 +102,7 @@ class SparseCoreAttention(nn.Module):
         if layout in _NOT_PORTED:
             raise NotImplementedError(
                 f"layout={layout!r} is not ported yet — {_NOT_PORTED[layout]}")
-        if layout not in ("flash", "xla"):
+        if layout not in _LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
         self.mask_topology = mask_topology
         self.num_heads = num_heads
@@ -131,10 +136,25 @@ class SparseCoreAttention(nn.Module):
             return x.transpose(1, 2).reshape(b * x.shape[2], s, hd)
 
         spec = cached_batched_spec(mt, h, KERNEL_TILE, KERNEL_TILE)
-        warm_flash_meta(spec, q.device, backward=torch.is_grad_enabled(),
-                        hd=hd)
-        ctx = fused_sparse_attention(spec, fold(q), fold(k), fold(v),
-                                     scale=scale, group=h // kv)
+        if self.layout == "flash":
+            # GQA native in the kernel: query replicas read their KV replica
+            warm_flash_meta(spec, q.device, backward=torch.is_grad_enabled(),
+                            hd=hd)
+            ctx = fused_sparse_attention(spec, fold(q), fold(k), fold(v),
+                                         scale=scale, group=h // kv)
+        else:
+            # the unfused chains index K/V per query replica
+            if kv != h:
+                k = k.repeat_interleave(h // kv, dim=2)
+                v = v.repeat_interleave(h // kv, dim=2)
+            q3, k3, v3 = fold(q), fold(k), fold(v)
+            if self.layout == "panel":
+                w = sparse_softmax_bh(spec, sddmm_bh(spec, q3, k3) * scale)
+                ctx = spmm_bh(spec, w, v3)
+            else:
+                w = mm.sparse_softmax_many_mask(
+                    mt, mm.sddmm_many_mask(mt, q3, k3) * scale)
+                ctx = mm.spmm_many_mask(mt, w, v3)
         return ctx.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
 
 
@@ -203,14 +223,17 @@ class MLP(nn.Module):
 
 class TransformerLayer(nn.Module):
     """Attention -> MLP; ``use_residual``/``use_layernorm`` give the pre-LN
-    block."""
+    block. With ``moe`` (the keyword arguments of a ``SparseMoE``) the MLP
+    is a ``SparseMoE`` of this layer's own: its own router and expert
+    values."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, hidden_size: int,
                  num_heads: int, ffn_hidden_size: int,
                  num_kv_heads: Optional[int] = None,
                  activation: Optional[str] = None, use_residual: bool = False,
                  use_layernorm: bool = False,
-                 attention_layout: str = "flash", *,
+                 attention_layout: str = "flash",
+                 moe: Optional[dict] = None, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.use_residual = use_residual
@@ -224,8 +247,13 @@ class TransformerLayer(nn.Module):
             mask_topology, hidden_size, num_heads, num_kv_heads,
             attention_layout, generator=generator, device=device)
         self.ln_mlp = ln()
-        self.mlp = MLP(hidden_size, ffn_hidden_size, activation,
-                       generator=generator, device=device)
+        if moe is not None:
+            from .moe import SparseMoE
+
+            self.mlp = SparseMoE(**moe, generator=generator, device=device)
+        else:
+            self.mlp = MLP(hidden_size, ffn_hidden_size, activation,
+                           generator=generator, device=device)
 
     def forward(self, x):
         attn = self.self_attention(self.ln_attn(x))
@@ -235,25 +263,37 @@ class TransformerLayer(nn.Module):
 
 
 class SparseTransformer(nn.Module):
-    """N sparse-attention layers over per-batch masks."""
+    """N sparse-attention layers over per-batch masks.
+
+    ``moe`` (the keyword arguments of a ``SparseMoE``: ``topo_in``,
+    ``topo_out``, ``num_experts``, ...) with ``moe_every = k`` makes layers
+    ``k-1, 2k-1, ...`` MoE layers, each with its own router and expert
+    values (k = 2 is the Switch default). ``aux_loss()`` sums their router
+    aux losses of the last forward. Serving decoders reject MoE models."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, num_layers: int,
                  hidden_size: int, num_heads: int, ffn_hidden_size: int,
                  num_kv_heads: Optional[int] = None,
                  activation: Optional[str] = None, use_residual: bool = False,
                  use_layernorm: bool = False,
-                 attention_layout: str = "flash", *,
+                 attention_layout: str = "flash",
+                 moe: Optional[dict] = None, moe_every: int = 0, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        if moe_every and moe is None:
+            raise ValueError("moe_every set but no moe module given")
         self.mask_topology = mask_topology
         self.num_layers, self.hidden_size = num_layers, hidden_size
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+        self.attention_layout, self.moe_every = attention_layout, moe_every
         self.layers = nn.ModuleList([
             TransformerLayer(mask_topology, hidden_size, num_heads,
                              ffn_hidden_size, num_kv_heads, activation,
                              use_residual, use_layernorm, attention_layout,
+                             moe if (moe_every and i % moe_every
+                                     == moe_every - 1) else None,
                              generator=generator, device=device)
-            for _ in range(num_layers)])
+            for i in range(num_layers)])
 
     @classmethod
     def from_masks(cls, masks: np.ndarray, **kwargs) -> "SparseTransformer":
@@ -265,3 +305,12 @@ class SparseTransformer(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return x
+
+    def aux_loss(self) -> torch.Tensor:
+        """The sum of the MoE layers' router aux losses from the last
+        forward (0 without MoE layers)."""
+        losses = [layer.mlp.aux_loss for layer in self.layers
+                  if getattr(layer.mlp, "aux_loss", None) is not None]
+        if not losses:
+            return torch.zeros((), device=next(self.parameters()).device)
+        return torch.stack(losses).sum()

@@ -4,9 +4,10 @@ Every wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; a failed build or launch raises. Each wrapper
 counts its own launches in ``<wrapper>.launches``. A raw launch returns a
 tensor without a ``grad_fn``: gradients flow through the autograd ops of
-``ops.panel_api`` and ``ops.fused_attention``, whose backward launches the
-backward kernels. So with grad mode on and an input that requires grad, a
-wrapper raises on CUDA and names the autograd op to call instead. The
+``ops.panel_api``, ``ops.batched_panel`` and ``ops.fused_attention``, whose
+backward launches the backward kernels. So with grad mode on and an input
+that requires grad, a wrapper raises on CUDA and names the autograd op to
+call instead. The
 serving kernels (decode and paged attention, ragged and paged append) have
 no autograd op: serving never differentiates.
 """
@@ -42,6 +43,8 @@ def guard_no_grad(kernel: str, autograd_op: str, *tensors) -> None:
 
 def kernel_wrappers():
     """The kernel wrappers of the port, by name (each has ``.launches``)."""
+    from .batched_panel import (sddmm_bh_kernel, spmm_bh_kernel,
+                                spmm_t_bh_kernel)
     from .bsr_sddmm import bsr_sddmm_panel
     from .bsr_spmm import bsr_spmm_panel
     from .bsr_spmm_t import bsr_spmm_t_panel
@@ -63,4 +66,7 @@ def kernel_wrappers():
             "decode_attention": decode_attention_kernel,
             "ragged_append": ragged_append_kernel,
             "paged_attention": paged_attention_kernel,
-            "paged_append": paged_append_kernel}
+            "paged_append": paged_append_kernel,
+            "spmm_bh": spmm_bh_kernel,
+            "sddmm_bh": sddmm_bh_kernel,
+            "spmm_t_bh": spmm_t_bh_kernel}

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
     "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
     "paged_append": [_P] * 11 + [_I] * 5 + [_P],
+    "spmm_bh_f32": [_P] * 5 + [_I] * 9 + [_P],
+    "sddmm_bh_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "spmm_t_bh_f32": [_P] * 6 + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()

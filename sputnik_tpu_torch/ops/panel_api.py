@@ -287,13 +287,13 @@ class _SDDMM(torch.autograd.Function):
         return None, d_lhs, d_rhs
 
 
-class _SparseSoftmax(torch.autograd.Function):
-    """Masked row softmax; backward (JAX ``_softmax_bwd``):
-    ``p * (g - rowsum(p * g))`` over the panel's row axes."""
+class _MaskedSoftmax(torch.autograd.Function):
+    """Row softmax over the panel's row axes (-3, -1) where the bool
+    ``mask`` (broadcast against the panel) is set; backward (JAX
+    ``_softmax_bwd`` / ``_sm_bh_bwd``): ``p * (g - rowsum(p * g))``."""
 
     @staticmethod
-    def forward(ctx, spec, panel):
-        mask = spec.meta(panel.device)["mask"] != 0
+    def forward(ctx, panel, mask):
         v = torch.where(mask, panel, _NEG_LARGE)
         row_max = v.amax(dim=(-3, -1), keepdim=True).clamp(min=_NEG_LARGE)
         e = torch.where(mask, torch.exp(v - row_max), 0.0)
@@ -306,7 +306,14 @@ class _SparseSoftmax(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
-        return None, p * (g - (p * g).sum(dim=(-3, -1), keepdim=True))
+        return p * (g - (p * g).sum(dim=(-3, -1), keepdim=True)), None
+
+
+def masked_softmax(panel, mask):
+    """The masked row softmax of ``sparse_softmax`` and
+    ``batched_panel.sparse_softmax_bh``, over a bool ``mask`` that
+    broadcasts against ``panel``."""
+    return _MaskedSoftmax.apply(panel, mask)
 
 
 def _rep(x, rep):
@@ -378,4 +385,4 @@ def sparse_softmax(spec, panel):
     row without nonzeros gives 0."""
     spec = _spec(spec)
     _replicated(panel)
-    return _SparseSoftmax.apply(spec, panel)
+    return masked_softmax(panel, spec.meta(panel.device)["mask"] != 0)

@@ -221,13 +221,13 @@ def test_gradcheck_float64():
 def test_warm_flash_meta_builds_the_route_tables():
     _, tspec = _specs()
     tfa.warm_flash_meta(tspec, "cpu", backward=True, hd=HD)
-    assert set(k for k, _ in tspec._flash_dev) == {"fwd"}   # fused route
+    assert set(k for k, _ in tspec._meta_dev) == {"fwd"}   # fused route
     old = tfa._FUSED_BWD_ACC_BYTES
     tfa._FUSED_BWD_ACC_BYTES = 0
     try:
         tfa.warm_flash_meta(tspec, "cpu", backward=False, hd=HD)
-        assert set(k for k, _ in tspec._flash_dev) == {"fwd"}
+        assert set(k for k, _ in tspec._meta_dev) == {"fwd"}
         tfa.warm_flash_meta(tspec, "cpu", backward=True, hd=HD)
-        assert set(k for k, _ in tspec._flash_dev) == {"fwd", "bwd"}
+        assert set(k for k, _ in tspec._meta_dev) == {"fwd", "bwd"}
     finally:
         tfa._FUSED_BWD_ACC_BYTES = old

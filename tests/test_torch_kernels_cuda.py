@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import sputnik_tpu_torch as stt
+from sputnik_tpu_torch.ops import kernels
+from sputnik_tpu_torch.ops.kernels import batched_panel as kbp
 from sputnik_tpu_torch.ops.kernels.bsr_sddmm import (bsr_sddmm_panel,
                                                       bsr_sddmm_panel_plain)
 from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
@@ -586,3 +588,145 @@ def test_paged_append_kernel_bit_exact(dev, dtype, hd):
         assert set(changed[:, 0].tolist()) <= {3 * bk, 127, 6 * bk + 40}
     assert torch.equal(bufs[0][0, 127], toks[0][1])
     assert torch.equal(bufs[3][6, 40], toks[3][6])
+
+
+# -- the many-mask batch (B6 spmm_bh, B7 sddmm_bh, B8 spmm_t_bh) -----------
+
+def _bh_problem(dev, tiles, heads, seed=7):
+    """Three DISTINCT masks over [150, 130] (per-mask densities, an empty
+    row band and an empty column band in two of them), so a replica that
+    read its neighbour's metadata would read other tiles."""
+    rng = np.random.RandomState(seed)
+    m, n = 150, 130
+    masks = np.stack([rng.rand(m, n) < d for d in (0.05, 0.2, 0.6)])
+    masks[0, 40:110] = False            # empty row blocks
+    masks[1, :, 20:90] = False          # empty column blocks
+    masks[2, 7] = False                 # one empty row
+    spec = stt.BatchedPanelSpec(
+        [stt.SparseTopology.from_dense_mask(mk) for mk in masks],
+        heads=heads, bm=tiles[0], bk=tiles[1])
+    meta = spec.panel_meta(dev)
+    R = spec.R
+    panels = torch.from_numpy(rng.randn(R, *spec.panel_shape).astype(
+        np.float32)).to(dev)
+    panels = (panels.view(spec.B, heads, *spec.panel_shape)
+              * meta["mask"][:, None]).reshape(panels.shape)
+    return spec, meta, panels, rng
+
+
+_BH_TILES = [(16, 16), (64, 64), (128, 128), (48, 64), (64, 48)]
+
+
+@pytest.mark.parametrize("tiles", _BH_TILES)
+@pytest.mark.parametrize("q", [7, 64, 640])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_spmm_bh_kernel_matches_plain(dev, tiles, q, heads):
+    spec, meta, panels, rng = _bh_problem(dev, tiles, heads)
+    dense = torch.from_numpy(rng.randn(spec.R, spec.n, q).astype(
+        np.float32)).to(dev)
+    args = (meta["block_cols"], meta["nblocks"], panels, dense)
+    before = kbp.spmm_bh_kernel.launches
+    got = kbp.spmm_bh_kernel(*args, heads=heads, rows=spec.m)
+    torch.cuda.synchronize()
+    assert kbp.spmm_bh_kernel.launches == before + 1
+    _close(got, kbp.spmm_bh_kernel_plain(*args, heads=heads, rows=spec.m))
+
+
+@pytest.mark.parametrize("tiles", _BH_TILES)
+@pytest.mark.parametrize("d", [7, 64, 640])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_sddmm_bh_kernel_matches_plain_with_exact_zeros(dev, tiles, d, heads):
+    spec, meta, _, rng = _bh_problem(dev, tiles, heads)
+    lhs = torch.from_numpy(rng.randn(spec.R, spec.m, d).astype(
+        np.float32)).to(dev)
+    rhs = torch.from_numpy(rng.randn(spec.R, spec.n, d).astype(
+        np.float32)).to(dev)
+    args = (meta["block_cols"], meta["nblocks"], lhs, rhs, meta["mask"])
+    got = kbp.sddmm_bh_kernel(*args, heads=heads)
+    torch.cuda.synchronize()
+    _close(got, kbp.sddmm_bh_kernel_plain(*args, heads=heads))
+    off = (meta["mask"] == 0)[:, None].expand(
+        spec.B, heads, *spec.panel_shape).reshape(got.shape)
+    assert torch.all(got[off] == 0)     # masked + padded: exact zeros
+
+
+@pytest.mark.parametrize("tiles", _BH_TILES)
+@pytest.mark.parametrize("q", [7, 64, 640])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_spmm_t_bh_kernel_matches_plain(dev, tiles, q, heads):
+    spec, meta, panels, rng = _bh_problem(dev, tiles, heads)
+    g = torch.from_numpy(rng.randn(spec.R, spec.m, q).astype(
+        np.float32)).to(dev)
+    args = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panels, g)
+    got = kbp.spmm_t_bh_kernel(*args, heads=heads, rows=spec.n)
+    torch.cuda.synchronize()
+    _close(got, kbp.spmm_t_bh_kernel_plain(*args, heads=heads, rows=spec.n))
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (48, 96)])
+def test_single_topology_kernels_are_the_batch_with_one_mask(dev, tiles):
+    """B1 / B3 / B4 share their bodies with B6 / B7 / B8: with one mask for
+    every replica (heads = R) they give the same bits."""
+    rng = np.random.RandomState(9)
+    m, n, q, R = 150, 170, 70, 3
+    topo = stt.SparseTopology.from_dense_mask(rng.rand(m, n) < 0.1)
+    pspec = stt.PanelSpec(topo, *tiles)
+    meta = _meta(pspec, dev)
+    bspec = stt.BatchedPanelSpec([topo], heads=R, bm=tiles[0], bk=tiles[1])
+    bmeta = bspec.panel_meta(dev)
+    panel = torch.from_numpy(rng.randn(R, *pspec.view.values_shape).astype(
+        np.float32)).to(dev) * meta["mask"]
+    dense = torch.from_numpy(rng.randn(R, n, q).astype(np.float32)).to(dev)
+    assert torch.equal(
+        bsr_spmm_panel(meta["block_cols"], meta["nblocks"], panel, dense,
+                       rows=m),
+        kbp.spmm_bh_kernel(bmeta["block_cols"], bmeta["nblocks"], panel,
+                           dense, heads=R, rows=m))
+    g = torch.from_numpy(rng.randn(R, m, q).astype(np.float32)).to(dev)
+    assert torch.equal(
+        bsr_spmm_t_panel(meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"],
+                         panel, g, rows=n),
+        kbp.spmm_t_bh_kernel(bmeta["t_src_i"], bmeta["t_src_s"],
+                             bmeta["t_nblocks"], panel, g, heads=R, rows=n))
+    lhs = torch.from_numpy(rng.randn(R, m, q).astype(np.float32)).to(dev)
+    assert torch.equal(
+        bsr_sddmm_panel(meta["block_cols"], meta["nblocks"], lhs, dense,
+                        meta["mask"]),
+        kbp.sddmm_bh_kernel(bmeta["block_cols"], bmeta["nblocks"], lhs, dense,
+                            bmeta["mask"], heads=R))
+
+
+def test_batched_ops_train_through_the_kernels(dev):
+    """The panel attention chain on distinct masks: forward and gradients
+    on the card against the same ops on the CPU (plain versions), with
+    launches of B6, B7 and B8."""
+    b, heads, s, hd = 3, 2, 100, 32
+    masks = np.stack([np.tril(np.ones((s, s), np.float32), k=-i)
+                      for i in range(b)])
+    masks[0, 7] = 0.0
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    rng = np.random.RandomState(4)
+    cpu = [torch.from_numpy(rng.randn(b * heads, s, hd).astype(np.float32)
+                            ).requires_grad_() for _ in range(3)]
+    gpu = [t.detach().to(dev).requires_grad_() for t in cpu]
+    cot = torch.from_numpy(rng.randn(b * heads, s, hd).astype(np.float32))
+
+    def chain(q, k, v):
+        w = stt.sparse_softmax_bh(spec, stt.sddmm_bh(spec, q, k) * 0.2)
+        return stt.spmm_bh(spec, w, v)
+
+    before = {n: w.launches for n, w in kernels.kernel_wrappers().items()}
+    out = chain(*gpu)
+    (out * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n]
+           for n, w in kernels.kernel_wrappers().items()}
+    assert got["spmm_bh"] == 2 and got["sddmm_bh"] == 2
+    assert got["spmm_t_bh"] == 2
+    ref = chain(*cpu)
+    (ref * cot).sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+    assert torch.all(out[:heads, 7].detach() == 0)  # mask 0's empty row

@@ -120,11 +120,25 @@ def test_transformer_xla_layout_matches_flax():
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("num_kv_heads", [None, 2])
+@pytest.mark.parametrize("layout", ["panel", "csr"])
+def test_transformer_panel_and_csr_layouts_match_flax(layout, num_kv_heads):
+    """The batched panel chain (distinct per-mask metadata; GQA by K/V
+    expansion) and the flat many-mask chain against flax's same layout."""
+    jm, params, tm, x = _entry_models(num_kv_heads, layout)
+    ref = np.asarray(jax.jit(jm.apply)(params, x))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x)).numpy()
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
 def test_unported_layouts_raise():
     mt = stt.ManyMaskTopology.from_dense_masks(driver_masks(1, 16))
-    for layout in ("panel", "csr", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseCoreAttention(mt, 2, layout=layout)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        SparseCoreAttention(mt, 2, layout="auto")
+    with pytest.raises(ValueError, match="unknown layout"):
+        SparseCoreAttention(mt, 2, layout="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(8)),
                      layout="csr")

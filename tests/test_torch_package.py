@@ -35,6 +35,8 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.examples.train_sparse_transformer, "
              "sputnik_tpu_torch.examples.generate, "
              "sputnik_tpu_torch.examples.serve_paged, "
+             "sputnik_tpu_torch.examples.train_moe_transformer, "
+             "sputnik_tpu_torch.models.moe, "
              "sputnik_tpu_torch.ops.paged, "
              "sputnik_tpu_torch.models.serving_paged\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -55,6 +57,8 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.ragged_append\n"
              "import sputnik_tpu_torch.ops.kernels.paged_attention\n"
              "import sputnik_tpu_torch.ops.kernels.paged_append\n"
+             "import sputnik_tpu_torch.ops.kernels.batched_panel\n"
+             "import sputnik_tpu_torch.models.moe\n"
              "import sputnik_tpu_torch.ops.paged\n"
              "import sputnik_tpu_torch.models.serving_paged\n"
              "from sputnik_tpu_torch.ops.kernels import _build\n"
@@ -79,7 +83,7 @@ def test_build_key_covers_every_source():
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
         "decode_attention", "ragged_append", "paged_attention",
-        "paged_append"}
+        "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -97,9 +101,15 @@ def test_cpu_tensors_launch_no_kernel():
         uniform_mask(s, s, sparsity=0.9, seed=1)))
     lin = stt.SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(32)),
                            fuse_relu=True)
+    topo = stt.SparseTopology.from_dense_mask(
+        uniform_mask(32, 32, sparsity=0.5, seed=2))
+    panel_moe = stt.SparseTransformer.from_masks(
+        driver_masks(2, s), num_layers=2, hidden_size=32, num_heads=2,
+        ffn_hidden_size=32, attention_layout="panel", moe_every=2,
+        moe=dict(topo_in=topo, topo_out=topo, num_experts=2, top_k=2))
     x = torch.randn(2, s, 32, requires_grad=True)
-    y = lin(attn(model(x)))
-    y.square().sum().backward()
+    y = lin(attn(panel_moe(model(x))))
+    (y.square().sum() + panel_moe.aux_loss()).backward()
     assert torch.isfinite(y).all() and torch.isfinite(x.grad).all()
     lm = stt.SparseLM.from_masks(
         driver_masks(2, 16), vocab_size=11, num_layers=1, hidden_size=32,
@@ -114,7 +124,7 @@ def test_cpu_tensors_launch_no_kernel():
         torch.zeros(2, 128, dtype=torch.long), 3)
     assert toks.shape == (2, 3)
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 11
+    assert len(wrappers) == 14
     assert all(v == 0 for v in before.values())
 
 

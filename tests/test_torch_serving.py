@@ -85,8 +85,8 @@ def test_sparse_lm_matches_flax(tie):
     assert ("lm_head.weight" in tlm.state_dict()) == (not tie)
 
 
-def _decoder_pair(kv_heads, window, sinks):
-    cfg = dict(CFG, num_kv_heads=kv_heads)
+def _decoder_pair(kv_heads, window, sinks, layout="flash"):
+    cfg = dict(CFG, num_kv_heads=kv_heads, attention_layout=layout)
     x = np.random.RandomState(3).randn(B, P, 32).astype(np.float32)
     jm = JLM.from_masks(_causal(B, P), vocab_size=V, **cfg).core
     params = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(1),
@@ -149,6 +149,25 @@ def test_decoder_steps_match_jax():
     ty, tc = td.decode_step(torch.from_numpy(xt), tc)
     check(jy, jc, ty, tc)
     assert tc[0].kv_len.tolist() == [P + 2] * (B * td.kv_heads)
+
+
+@pytest.mark.parametrize("kv_heads", [2, 1])
+def test_panel_layout_prefill_matches_jax(kv_heads):
+    """A ``attention_layout="panel"`` model prefills through the batched
+    panel chain (GQA by K/V expansion), as the JAX decoder does: prompt
+    activations and cached K 1e-4 of JAX's, then one decode step."""
+    jd, params, td, x = _decoder_pair(kv_heads, None, 0, layout="panel")
+    tol = dict(atol=1e-4, rtol=1e-4)
+    jy, jc = jax.jit(jd.prefill)(params, jnp.asarray(x), jd.init_caches(B))
+    ty, tc = td.prefill(torch.from_numpy(x), td.init_caches(B))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **tol)
+    for j, t in zip(jc, tc):
+        np.testing.assert_allclose(t.k[:, :P].numpy(),
+                                   np.asarray(j.k)[:, :P, :td.hd], **tol)
+    xt = np.random.RandomState(6).randn(B, 1, 32).astype(np.float32)
+    jy, _ = jax.jit(jd.decode_step)(params, jnp.asarray(xt), jc)
+    ty, _ = td.decode_step(torch.from_numpy(xt), tc)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **tol)
 
 
 def test_decode_multi_equals_sequential_steps():

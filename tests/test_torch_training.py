@@ -98,7 +98,7 @@ def test_sparse_attention_gradients_match_flax():
 
 
 @pytest.mark.parametrize("num_kv_heads", [None, 2])
-@pytest.mark.parametrize("layout", ["flash", "xla"])
+@pytest.mark.parametrize("layout", ["flash", "xla", "panel", "csr"])
 def test_transformer_gradients_match_flax(layout, num_kv_heads):
     """``__graft_entry__``'s config (b=2, s=128, h=128, 4 heads, 2 layers,
     ffn 256, causal masks with a fully-masked row)."""
@@ -150,6 +150,17 @@ def test_three_adam_steps_match_optax():
     same bridged parameters, at ``__graft_entry__``'s config."""
     jm, params, tm, x = _entry_models()
     y = np.random.RandomState(6).randn(*x.shape).astype(np.float32)
+    ref, _ = _optax_losses(jm.apply, params, x, y, 3)
+    _check_losses(_port_losses(tm, x, y, 3), ref)
+
+
+@pytest.mark.parametrize("layout", ["panel", "csr"])
+def test_unfused_layouts_train_like_optax(layout):
+    """Three Adam steps through the batched panel chain (B7 -> softmax ->
+    B6 forward, B6-B8 backward on the card) and through the flat many-mask
+    ops, against optax on the same layout."""
+    jm, params, tm, x = _entry_models(layout=layout)
+    y = np.random.RandomState(7).randn(*x.shape).astype(np.float32)
     ref, _ = _optax_losses(jm.apply, params, x, y, 3)
     _check_losses(_port_losses(tm, x, y, 3), ref)
 
