@@ -18,7 +18,9 @@ Phases, each printing its lines:
      serving shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
      MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
      C=640; timed) and at the panel attention's (b=4 DISTINCT masks, 8
-     heads, s=512, hd=64, and GQA) (2e);
+     heads, s=512, hd=64, and GQA) (2e); the sparse softmax B5 at the flat
+     attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
+     an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -46,8 +48,10 @@ Phases, each printing its lines:
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
      the first MoE step's routing, losses and router / expert gradients and
-     the panel model's forward), and the forward / training-step / prefill /
-     decode times and peak device memory.
+     the panel model's forward; the flat chain under set_backend("xla") and
+     the csr SparseLinear, also against the panel layer on the card), and
+     the forward / training-step / prefill / decode times and peak device
+     memory.
 It prints one JSON line of per-kernel results, then, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0).
 TF32 is switched off, so every product here runs in full fp32.
@@ -97,6 +101,8 @@ REPLACES = {
                  "sputnik_tpu/ops/batched_panel.py:177"),
     "spmm_t_bh": ("sputnik_tpu_torch/csrc/bsr_spmm_t.cu",
                   "sputnik_tpu/ops/batched_panel.py:238"),
+    "ell_softmax": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
+                    "sputnik_tpu/ops/pallas/ell_softmax.py:31"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # the MoE example's default step count: Adam's first steps at lr 1e-3
@@ -164,6 +170,29 @@ def _compare(name, got, ref, tol, results=None, floor=1.0):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _compare_each(name, got, ref, rtol):
+    """Each slot's |got - ref| against ``rtol * |ref|`` (floored at f32
+    ``tiny``, so an exact 0 must stay 0); raises. For outputs spread over
+    many magnitudes far below 1, such as a softmax's, where a limit from
+    max|ref| would pass a kernel that zeroed its small outputs."""
+    import torch
+
+    if got.shape != ref.shape:
+        _fail(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        _fail(f"{name}: non-finite values")
+    ref = ref.float()
+    scale = ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    rel = ((got.float() - ref).abs() / scale).max().item()
+    live = ref[ref != 0].abs()
+    med = live.median().item() if live.numel() else 0.0
+    print(f"  {name}: max_rel_err {rel:.3e} per slot (limit {rtol:.0e} x "
+          f"|plain|; median |plain| {med:.3e}, so a limit {rtol * med:.3e} "
+          f"there)", flush=True)
+    if not rel <= rtol:
+        _fail(f"{name}: max_rel_err {rel} > {rtol}")
 
 
 def _bound(r, flops, nbytes):
@@ -1918,6 +1947,288 @@ def phase_moe_train(stt, torch, dev, wrappers, small=False):
     return total
 
 
+# -- the flat op set, B5 and dynamic sparse training ------------------------
+
+
+def _bench_matrix(stt):
+    """``bench.py``'s sparse operand: 4096^2, element-random d = 0.1, from
+    ``RandomState(0)`` as phase 2 draws it."""
+    rng = np.random.RandomState(0)
+    size, density = 4096, 0.1
+    w = ((rng.rand(size, size) < density) * rng.randn(size, size)
+         ).astype(np.float32)
+    return w, stt.SparseMatrix(w)
+
+
+def _softmax_library_ms(torch, topo, vals):
+    """``torch.sparse.softmax`` over the coalesced COO of the same pattern
+    (replicas as a leading sparse dim), which also takes the softmax over
+    the specified entries only: B5's yardstick."""
+    R, nnz = vals.shape[0], topo.nnz
+    rows = torch.from_numpy(topo.row_ids[:nnz].astype(np.int64))
+    cols = torch.from_numpy(topo.column_indices[:nnz].astype(np.int64))
+    idx = torch.stack([torch.arange(R).repeat_interleave(nnz),
+                       rows.repeat(R), cols.repeat(R)]).to(vals.device)
+    coo = torch.sparse_coo_tensor(idx, vals[:, :nnz].reshape(-1),
+                                  (R, topo.m, topo.n)).coalesce()
+    return _library_ms("sparse softmax (torch.sparse.softmax, COO)",
+                       lambda: torch.sparse.softmax(coo, dim=2))
+
+
+def _attention_mask():
+    """The reference SparseAttention's score mask: [512, 512] at sparsity
+    0.9 (``tests/test_attention.py``), row 37 emptied."""
+    from sputnik_tpu_torch.patterns import uniform_mask
+
+    mask = uniform_mask(512, 512, sparsity=0.9, seed=0)
+    mask[37] = 0.0
+    return mask
+
+
+def phase_softmax_kernel(stt, torch, dev, kres, mat):
+    """Phase 2f: B5 against its plain version at (a) the reference
+    SparseAttention's flat layout (32 replicas of one [512, 512] mask, an
+    emptied row, a row of -inf scores, padding slots) and (b) ``bench.py``'s
+    pattern (4096^2 d=0.1, r = 1; timed into the JSON line)."""
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import ell_softmax_kernel
+    from sputnik_tpu_torch.ops.plain_ops import sparse_softmax
+
+    print("phase 2f: sparse softmax (B5 ell_softmax) vs plain PyTorch at the "
+          "flat attention layout and bench.py's pattern; each slot at a "
+          "relative limit, besides the max|plain| one", flush=True)
+    r = kres["ell_softmax"]
+    rng = np.random.RandomState(60)
+    ta = stt.SparseTopology.from_dense_mask(_attention_mask(), pad_to=64)
+    cases = (("(a) attention R=32 s=512 d=0.1", ta, 32),
+             ("(b) bench 4096^2 d=0.1 r=1", mat.topology, 1))
+    for tag, topo, R in cases:
+        vals = (rng.randn(R, topo.nnz_pad) * 4).astype(np.float32)
+        ro = topo.row_offsets
+        vals[:, ro[5]:ro[6]] = -np.inf            # a row of -inf scores
+        row_offsets = torch.from_numpy(ro).to(dev)
+        row_ids = torch.from_numpy(topo.row_ids.astype(np.int64)).to(dev)
+        valid = torch.from_numpy(topo.valid).to(dev)
+        v = torch.from_numpy(vals).to(dev)
+
+        def kern():
+            return ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz)
+
+        def plain():
+            return sparse_softmax(v, row_ids, valid, topo.m)
+
+        got, ref = kern(), plain()
+        _compare(f"softmax {tag}", got, ref, TOL_KERNEL, r)
+        _compare_each(f"softmax {tag}", got, ref, TOL_KERNEL)
+        # the check is shown to fail on a kernel that zeroes its outputs
+        # below the median, which the max|plain| limit lets pass
+        small = (ref != 0) & (ref < ref[ref != 0].median())
+        try:
+            _compare_each(f"  planted fault, softmax {tag} small outputs "
+                          f"zeroed", torch.where(small, 0.0, got), ref,
+                          TOL_KERNEL)
+        except RuntimeError:
+            pass
+        else:
+            _fail(f"softmax {tag}: zeroed small outputs passed the check")
+        del ref
+        zero = got[:, topo.nnz:].abs().max().item() if \
+            topo.nnz_pad > topo.nnz else 0.0
+        if zero != 0 or not torch.all(got[:, ro[5]:ro[6]] == 0):
+            _fail(f"softmax {tag}: padding or -inf row not exactly 0")
+        empty = int((topo.row_lengths == 0).sum())
+        print(f"  {tag}: nnz {topo.nnz} nnz_pad {topo.nnz_pad}, {empty} "
+              f"empty rows; padding and the -inf row exactly 0", flush=True)
+        t = {"ms": _time_ms(kern), "plain_ms": _time_ms(plain)}
+        print(f"  softmax {tag}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms", flush=True)
+        t["library_ms"] = _softmax_library_ms(
+            torch, topo, torch.where(torch.isinf(v), -30.0, v))
+        _bound(t, 4.0 * R * topo.nnz, 8 * R * topo.nnz + 4 * (topo.m + 1))
+    r.update(t)                                   # the JSON line holds (b)
+
+
+def phase_flat_path(stt, torch, dev, wrappers, mat, w):
+    """Phases 3f / 4f: the flat op set through its public calls, launches
+    counted. (i) ``bench.py``'s flat row: eager ``stt.spmm(topo, values,
+    dense)`` at 4096^3 d=0.1, first call and steady state, against the
+    panel route, the scatter alone and dense ``torch.matmul``; (ii) the
+    reference's attention chain on the flat [32, nnz] layout, hd = 64,
+    forward and backward, against a CPU copy under ``set_backend("xla")``;
+    (iii) a csr ``SparseLinear`` (b=4, seq 512, 768 -> 3072, bias, d=0.1)
+    against the panel layer with the same weights and its CPU copy. Phase
+    3g: the dynamic sparse training examples at their default sizes."""
+    from sputnik_tpu_torch.examples import (dynamic_sparse_training,
+                                            train_block_sparse)
+    from sputnik_tpu_torch.models import SparseLinear
+    from sputnik_tpu_torch.ops import dispatch
+    from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.patterns import uniform_mask
+
+    total = {n: 0 for n in wrappers}
+    size = w.shape[0]
+    print(f"phase 3f: the flat op set — (i) stt.spmm {size}^3 d=0.1 with "
+          f"CSR values per call; (ii) the attention chain on [32, nnz]; "
+          f"(iii) a csr SparseLinear", flush=True)
+    # a fresh topology object: the first call builds its panel spec
+    mt = mat.topology
+    topo = stt.SparseTopology(mt.m, mt.n, mt.row_offsets, mt.column_indices)
+    values = torch.from_numpy(mat.values).to(dev)
+    rng = np.random.RandomState(61)
+    dense = torch.from_numpy(rng.randn(size, size).astype(np.float32)).to(dev)
+    host = []
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stt.spmm(topo, values, dense)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    out = _counted(wrappers, total, "flat spmm, first call", call,
+                   {"bsr_spmm_panel": 1})
+    _counted(wrappers, total, "flat spmm, second call", call,
+             {"bsr_spmm_panel": 1})
+    a_dense = torch.from_numpy(w).to(dev)
+    _compare(f"flat spmm {size}^3 vs torch.matmul of the densified A", out,
+             a_dense @ dense, TOL_MODEL)
+    spec = dispatch.flat_spec(topo)
+    panel = dispatch.to_panel(spec, values)
+    ms = {"flat": _time_ms(lambda: stt.spmm(topo, values, dense), reps=5,
+                           inner=5),
+          "panel": _time_ms(lambda: P.spmm(spec, panel, dense), reps=5,
+                            inner=5),
+          "scatter": _time_ms(lambda: dispatch.to_panel(spec, values)),
+          "dense": _time_ms(lambda: a_dense @ dense, reps=5, inner=5)}
+    print(f"  flat spmm: first call {host[0]:.1f} ms (host clock; builds the "
+          f"64x64 panel spec and the device index maps), second "
+          f"{host[1]:.4f} ms; steady {ms['flat']:.4f} ms vs the panel route "
+          f"{ms['panel']:.4f} ms (B1 alone), the values -> panel scatter "
+          f"alone {ms['scatter']:.4f} ms = {ms['scatter'] / ms['flat']:.2%} "
+          f"of the steady call; dense fp32 torch.matmul {ms['dense']:.4f} ms",
+          flush=True)
+    del panel, out, a_dense, dense
+
+    # (ii) the attention chain: sddmm -> scale -> sparse_softmax -> spmm
+    R, s, hd = 32, 512, 64
+    ta = stt.SparseTopology.from_dense_mask(_attention_mask())
+    cpu = [torch.from_numpy(rng.randn(R, s, hd).astype(np.float32)
+                            ).requires_grad_() for _ in range(3)]
+    gpu = [x.detach().to(dev).requires_grad_() for x in cpu]
+
+    def chain(q, k, v):
+        p = stt.sparse_softmax(ta, stt.sddmm(ta, q, k) * hd ** -0.5)
+        return stt.spmm(ta, p, v)
+
+    def step():
+        for x in gpu:
+            x.grad = None
+        out = chain(*gpu)
+        out.sum().backward()
+        return out
+
+    # forward B4 + B5 + B1; backward: spmm's B4 + B3, sddmm's B1 + B3
+    out = _counted(wrappers, total, "flat attention chain, forward + "
+                   "backward", step, {"bsr_sddmm_panel": 2, "ell_softmax": 1,
+                                      "bsr_spmm_panel": 2,
+                                      "bsr_spmm_t_panel": 2})
+    grads = [x.grad.cpu() for x in gpu]
+    chain_ms = _step_times(torch, step, 10)
+    print(f"  flat chain step (R={R}, s={s}, hd={hd}): median "
+          f"{statistics.median(chain_ms):.4f} ms, min {min(chain_ms):.4f}, "
+          f"max {max(chain_ms):.4f} (host clock, synchronized)", flush=True)
+    try:
+        _profile_steps(torch, "flat chain steps", lambda i: step())
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+
+    # (iii) a csr SparseLinear and the panel layer with the same weights
+    lt = stt.SparseTopology.from_dense_mask(
+        uniform_mask(3072, 768, sparsity=0.9, seed=5))
+    cpu_lin = SparseLinear(lt, layout="csr",
+                           generator=torch.Generator().manual_seed(62))
+    with torch.no_grad():
+        cpu_lin.bias.copy_(torch.from_numpy(rng.randn(3072).astype(
+            np.float32)))
+    lin = copy.deepcopy(cpu_lin).to(dev)
+    pan = SparseLinear(lt).to(dev)
+    with torch.no_grad():
+        pan.values.copy_(torch.from_numpy(pan.pack_dense(
+            cpu_lin.unpack_dense(cpu_lin.values))))
+        pan.bias.copy_(cpu_lin.bias)
+    x = torch.from_numpy(rng.randn(4, 512, 768).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(4, 512, 3072).astype(np.float32))
+    xs = {k: x.to(dev).clone().requires_grad_() for k in ("csr", "panel")}
+
+    def lin_step(layer, xd):
+        y = layer(xd)
+        (y * cot.to(dev)).sum().backward()
+        return y
+
+    y = _counted(wrappers, total, "csr SparseLinear forward + backward",
+                 lambda: lin_step(lin, xs["csr"]),
+                 {"bsr_spmm_panel": 1, "bsr_sddmm_panel": 1,
+                  "bsr_spmm_t_panel": 1})
+    y_pan = lin_step(pan, xs["panel"])
+
+    print("phase 4f: the flat path vs the CPU (chain under "
+          "set_backend('xla'); csr SparseLinear on the panel route's plain "
+          "versions) and the panel layer", flush=True)
+    t0 = time.perf_counter()
+    stt.set_backend("xla")
+    try:
+        ref = chain(*cpu)
+        ref.sum().backward()
+    finally:
+        stt.set_backend("auto")
+    _compare("flat chain output", out.detach().cpu(), ref.detach(), TOL_MODEL)
+    if not torch.all(out[:, 37] == 0):
+        _fail("flat chain: the emptied row's output is not exactly 0")
+    for name, got, x_ in zip("qkv", grads, cpu):
+        _compare(f"flat chain d{name}", got, x_.grad, TOL_MODEL)
+    _compare("csr SparseLinear vs the panel layer (card)", y.detach(),
+             y_pan.detach(), TOL_MODEL)
+    _compare("csr SparseLinear input grad vs the panel layer (card)",
+             xs["csr"].grad, xs["panel"].grad, TOL_MODEL)
+    _compare("csr SparseLinear values grad vs the panel layer (card)",
+             lin.values.grad.cpu(),
+             torch.from_numpy(pan.to_csr(pan.values.grad)), TOL_MODEL)
+    xc = x.detach().clone().requires_grad_()
+    stt.set_backend("pallas")
+    try:
+        y_cpu = cpu_lin(xc)
+        (y_cpu * cot).sum().backward()
+    finally:
+        stt.set_backend("auto")
+    _compare("csr SparseLinear vs its CPU copy", y.detach().cpu(),
+             y_cpu.detach(), TOL_MODEL)
+    _compare("csr SparseLinear values grad vs its CPU copy",
+             lin.values.grad.cpu(), cpu_lin.values.grad, TOL_MODEL)
+    _compare("csr SparseLinear bias grad vs its CPU copy",
+             lin.bias.grad.cpu(), cpu_lin.bias.grad, TOL_MODEL)
+    _compare("csr SparseLinear input grad vs its CPU copy",
+             xs["csr"].grad.cpu(), xc.grad, TOL_MODEL)
+    print(f"  CPU references in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    print("phase 3g: dynamic sparse training — dynamic_sparse_training.py "
+          "(csr, panel) and train_block_sparse.py at their default sizes",
+          flush=True)
+    runs = [(f"dynamic_sparse_training --layout {lay}",
+             lambda lay=lay: dynamic_sparse_training.main(["--layout", lay]))
+            for lay in ("csr", "panel")]
+    runs.append(("train_block_sparse", lambda: train_block_sparse.main([])))
+    for label, fn in runs:
+        before = dict(total)
+        res = _counted(wrappers, total, label, fn, {})
+        # the forward and the values' gradient (the inputs need none)
+        for n in ("bsr_spmm_panel", "bsr_sddmm_panel"):
+            if total[n] == before[n]:
+                _fail(f"{label}: kernel {n} was not launched")
+        print(f"  {label}: {res}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1954,12 +2265,15 @@ def main() -> int:
     phase_serving_kernels(stt, torch, dev, kres)
     phase_paged_kernels(stt, torch, dev, kres)
     phase_batched_kernels(stt, torch, dev, kres)
+    w, mat = _bench_matrix(stt)
+    phase_softmax_kernel(stt, torch, dev, kres, mat)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
     paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
     moe = phase_moe_train(stt, torch, dev, wrappers)
-    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n]
+    flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
+    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n] + flat[n]
                 for n in wrappers}
     for n, c in launches.items():
         if c == 0:

@@ -1,10 +1,16 @@
-"""Block-CSR view of a CSR topology (``sputnik_tpu/blocking.py``).
+"""Derived views of a CSR topology (``sputnik_tpu/blocking.py``).
 
-The matrix is cut into ``bm x bk`` tiles; tiles holding at least one
-nonzero are densified and listed per row-block, padded to the most blocks
-any row-block holds (``max_bpr``). This is the layout the panel kernels
-walk: a CUDA block loads the occupied tile's values and the dense rows its
-block column names.
+ELL view: rows padded to a common length ``l_pad`` (a multiple of
+``lane``), values in a dense ``[m, l_pad]`` panel. The JAX package's TPU
+softmax kernel works on it; the port's CUDA softmax reads the CSR rows
+directly, so here it is host structure for parity and for callers that
+want the layout.
+
+Block-CSR view: the matrix is cut into ``bm x bk`` tiles; tiles holding
+at least one nonzero are densified and listed per row-block, padded to the
+most blocks any row-block holds (``max_bpr``). This is the layout the
+panel kernels walk: a CUDA block loads the occupied tile's values and the
+dense rows its block column names.
 
 Padding conventions are the JAX package's: padded element slots point at a
 dump slot one past the end of the flattened panel, and padded block slots
@@ -20,7 +26,52 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["BlockView", "build_blocks", "stack_block_meta"]
+__all__ = ["EllView", "BlockView", "build_ell", "build_blocks",
+           "stack_block_meta"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class EllView:
+    """Row-padded (ELLPACK) view of a CSR topology."""
+
+    m: int
+    l_pad: int                 # padded row length (multiple of `lane`)
+    scatter_idx: np.ndarray    # i32[nnz_pad] -> flat index into m*l_pad (+1 dump)
+    gather_idx: np.ndarray     # i32[nnz_pad] <- flat index to read back
+    cols: np.ndarray           # i32[m, l_pad], padding -> 0
+    mask: np.ndarray           # bool[m, l_pad]
+
+    @property
+    def values_shape(self) -> Tuple[int, int]:
+        return (self.m, self.l_pad)
+
+    @property
+    def dump(self) -> int:
+        return self.m * self.l_pad
+
+
+def build_ell(topo, *, lane: int = 128) -> EllView:
+    nnz, nnz_pad, m = topo.nnz, topo.nnz_pad, topo.m
+    rows = topo.row_ids[:nnz].astype(np.int64)
+    lengths = topo.row_lengths.astype(np.int64)
+    l_pad = _round_up(max(int(lengths.max(initial=0)), 1), lane)
+
+    pos_in_row = np.arange(nnz, dtype=np.int64) - topo.row_offsets[rows]
+    flat = rows * l_pad + pos_in_row
+    dump = m * l_pad
+
+    scatter_idx = np.full(nnz_pad, dump, dtype=np.int32)
+    scatter_idx[:nnz] = flat
+    cols = np.zeros((m, l_pad), dtype=np.int32)
+    mask = np.zeros((m, l_pad), dtype=bool)
+    cols.reshape(-1)[flat] = topo.column_indices[:nnz]
+    mask.reshape(-1)[flat] = True
+    return EllView(m=m, l_pad=int(l_pad), scatter_idx=scatter_idx,
+                   gather_idx=scatter_idx, cols=cols, mask=mask)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,7 @@ takes) becomes a ``state_dict`` for ``load_state_dict``:
   * ``SparseLinear`` values and ``SparseMoE`` expert values (per expert)
     go JAX panel (JAX tiles, read from the panel's shape) -> CSR values ->
     the port's panel (the port's tiles). Panel bytes are never copied: the
-    two packages tile differently.
+    two packages tile differently. CSR-layout values cross as they are.
 
 A flax gradient tree has the params' structure, so the same functions map
 JAX gradients onto the port's parameter names.
@@ -112,17 +112,18 @@ def lm_state_dict(params) -> dict:
 
 
 def sparse_linear_state_dict(params, linear) -> dict:
-    """Flax ``SparseLinear`` params (panel layout) -> the port's
-    ``SparseLinear`` state_dict."""
+    """Flax ``SparseLinear`` params, panel or csr layout -> the port's
+    ``SparseLinear`` state_dict, in the port layer's layout."""
     params = _unwrap(params)
-    panel = np.asarray(params["values"], np.float32)
-    if panel.ndim != 4:
-        raise ValueError(f"expected a [mb, max_bpr, bm, bk] panel, got "
-                         f"{panel.shape}")
+    values = np.asarray(params["values"], np.float32)
     topo = linear.topology
-    vals = P.panel_to_values_np(topo, panel, panel.shape[2], panel.shape[3])
-    sd = {"values": _t(P.values_to_panel_np(topo, vals, linear.spec.bm,
-                                            linear.spec.bk))}
+    if values.ndim == 4:            # a JAX panel, at JAX's tiles
+        values = P.panel_to_values_np(topo, values, values.shape[2],
+                                      values.shape[3])
+    elif values.shape != (topo.nnz_pad,):
+        raise ValueError(f"expected a [mb, max_bpr, bm, bk] panel or "
+                         f"[{topo.nnz_pad}] csr values, got {values.shape}")
+    sd = {"values": _t(linear.to_layout(values))}
     if "bias" in params:
         sd["bias"] = _t(params["bias"])
     return sd

@@ -147,7 +147,7 @@ class LMServer:
         if decoder is not None:
             raise NotImplementedError(
                 "an external decoder (decoder=, tensor-parallel serving) is "
-                "not ported yet — ROADMAP A17")
+                "not ported yet — ROADMAP A9")
         if s_max is None:
             raise ValueError("s_max is required")
         self.lm = lm

@@ -18,7 +18,7 @@ a zero row for an unrouted (-1) or over-capacity (>= C) position as
 The aux loss of the last forward is ``self.aux_loss`` (flax sows it into
 ``intermediates``), and its routing is ``self.last_experts`` /
 ``self.last_probs``. Not ported: expert parallelism (``mesh=``, ROADMAP
-A17) and the JAX package's bf16 operand streaming, which it turns on only
+A9) and the JAX package's bf16 operand streaming, which it turns on only
 on a TPU.
 """
 
@@ -52,7 +52,7 @@ class SparseMoE(nn.Module):
       activation: ``"gelu"`` (tanh form), ``"relu"`` or ``None``.
       bank_tiles: ``(bm, bk)`` of the expert bank's panels; ``None`` is the
         port's 64 x 64 (``panel_api.DEFAULT_BLOCK``).
-      mesh: expert parallelism; not ported (ROADMAP A17).
+      mesh: expert parallelism; not ported (ROADMAP A9).
       generator, device: initialisation (router LeCun-normal like flax
         ``nn.Dense``, expert values Kaiming-uniform over the nonzeros) and
         placement.
@@ -67,7 +67,7 @@ class SparseMoE(nn.Module):
         if mesh is not None:
             raise NotImplementedError(
                 "SparseMoE(mesh=...) is not ported yet — expert parallelism "
-                "over a device mesh, ROADMAP A17")
+                "over a device mesh, ROADMAP A9")
         h, f = topo_in.n, topo_in.m
         if topo_out.m != h or topo_out.n != f:
             raise ValueError(f"topo_out must be [{h}, {f}], got "

@@ -15,7 +15,7 @@ under ``torch.no_grad``: serving never differentiates. ``PagedDecoder``
 hooks, ``_prefill_setup`` and ``_prefill_write``.
 
 Not ported yet: ``cast_params`` (bf16-stored weights) and the
-tensor-parallel ``reduce_fn`` hook (ROADMAP A12, A17).
+tensor-parallel ``reduce_fn`` hook (ROADMAP A5, A9).
 """
 
 from __future__ import annotations

@@ -46,7 +46,7 @@ __all__ = [
 
 _NOT_PORTED = {
     "auto": "the xla/flash crossover, to be re-measured on the H100 "
-            "(ROADMAP A9)",
+            "(ROADMAP A3)",
 }
 _LAYOUTS = ("flash", "xla", "panel", "csr")
 _LN_EPS = 1e-6   # flax nn.LayerNorm's default

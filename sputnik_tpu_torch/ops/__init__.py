@@ -1,8 +1,12 @@
-"""Op layers of the port: plain CSR ops, panel ops, fused attention, decode
-ops over a block KV cache and over a KV page pool."""
+"""Op layers of the port: the flat CSR op set and its dispatch, plain CSR
+ops, panel ops (also as ``ops.panel``), fused attention, decode ops over a
+block KV cache and over a KV page pool."""
 
-from . import (batched_panel, decode, fused_attention, paged, panel_api,
-               plain_ops)
+from . import (api, batched_panel, decode, dispatch, fused_attention, paged,
+               panel_api, plain_ops)
+from . import panel_api as panel
+from .api import (csr_transpose, get_backend, left_spmm, sddmm, set_backend,
+                  sparse_softmax, spmm, spmm_bias, spmm_bias_relu)
 from .decode import (KVCache, append_kv, append_kv_seq, decode_attention,
                      decode_block_table, init_kv_cache, insert_kv_slot,
                      pad_quantize_tokens, prefill_kv, table_from_topology_row)
@@ -13,8 +17,11 @@ from .paged import (PagedKVCache, PagePool, append_paged, append_paged_seq,
                     write_prompt_pages)
 from .panel_api import PanelSpec
 
-__all__ = ["batched_panel", "decode", "fused_attention", "paged", "panel_api",
-           "plain_ops", "fused_sparse_attention", "PanelSpec", "KVCache",
+__all__ = ["api", "batched_panel", "decode", "dispatch", "fused_attention",
+           "paged", "panel", "panel_api", "plain_ops", "csr_transpose",
+           "get_backend", "left_spmm", "sddmm", "set_backend",
+           "sparse_softmax", "spmm", "spmm_bias", "spmm_bias_relu",
+           "fused_sparse_attention", "PanelSpec", "KVCache",
            "append_kv", "append_kv_seq", "decode_attention",
            "decode_block_table", "init_kv_cache", "insert_kv_slot",
            "pad_quantize_tokens", "prefill_kv", "table_from_topology_row",

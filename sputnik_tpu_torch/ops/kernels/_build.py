@@ -54,6 +54,7 @@ _SIGNATURES = {
     "spmm_bh_f32": [_P] * 5 + [_I] * 9 + [_P],
     "sddmm_bh_f32": [_P] * 6 + [_I] * 9 + [_P],
     "spmm_t_bh_f32": [_P] * 6 + [_I] * 11 + [_P],
+    "ell_softmax_f32": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -113,7 +113,8 @@ class PanelSpec:
     """Static ``(topology, bm, bk)`` bundle for panel ops.
 
     Holds the block metadata as device tensors, built once per device
-    (``spec.meta(device)``)."""
+    (``spec.meta(device)``; the flat API's index maps in
+    ``spec.flat_meta(device)``)."""
 
     __slots__ = ("topo", "bm", "bk", "_view", "_meta")
 
@@ -153,6 +154,25 @@ class PanelSpec:
                     device=device),
                 t_nblocks=torch.as_tensor(t_nblocks, device=device))
             self._meta[device] = got
+        return got
+
+    def flat_meta(self, device) -> dict:
+        """Index maps of the flat (CSR-ordered) API on ``device``: ``slot``
+        int64[nnz] (each nonzero's offset in the flattened panel),
+        ``row_offsets`` i32[m + 1] and ``row_ids`` int64[nnz_pad] (padding
+        slots -> m). Built once per device, like :meth:`meta`."""
+        device = torch.device(device)
+        key = ("flat", device)
+        got = self._meta.get(key)
+        if got is None:
+            t = self.topo
+            got = dict(
+                slot=torch.as_tensor(self._view.scatter_idx[: t.nnz],
+                                     dtype=torch.int64, device=device),
+                row_offsets=torch.as_tensor(t.row_offsets, device=device),
+                row_ids=torch.as_tensor(t.row_ids, dtype=torch.int64,
+                                        device=device))
+            self._meta[key] = got
         return got
 
     def __repr__(self):

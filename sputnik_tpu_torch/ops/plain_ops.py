@@ -9,6 +9,8 @@ and the many-mask path; autograd differentiates them as they stand.
   * ``spmm``   : A_sp[m, k] @ B[k, n]
   * ``sddmm``  : (L[m, d] @ R[n, d]^T) sampled at the nonzeros
   * ``sparse_softmax``: row-wise over the nonzeros of each CSR row
+  * ``softmax_vjp``: its VJP, ``p * (g - rowsum(p * g))`` (also the flat
+    softmax's backward on the kernel route, as in JAX)
 """
 
 from __future__ import annotations
@@ -16,12 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["spmm", "sddmm", "sparse_softmax"]
+__all__ = ["spmm", "sddmm", "sparse_softmax", "softmax_vjp"]
 
 _NEG_LARGE = -1e30
 
 
 def _idx(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
 
 
@@ -46,18 +50,29 @@ def sddmm(lhs, rhs, row_ids, col_ids, valid):
 
 
 def sparse_softmax(values, row_ids, valid, m: int):
-    """Row-wise softmax over the nonzeros of each CSR row; empty rows have
-    no slots, padding slots give 0."""
+    """Row-wise softmax over the nonzeros of each CSR row, over the last
+    axis (leading replica axes allowed); empty rows have no slots, padding
+    slots give 0. ``row_ids`` / ``valid`` are host arrays or tensors."""
     dev = values.device
     ri = _idx(row_ids, dev)
-    va = torch.as_tensor(np.asarray(valid), device=dev)
+    va = (valid.to(dev) if isinstance(valid, torch.Tensor)
+          else torch.as_tensor(np.asarray(valid), device=dev))
     vm = torch.where(va, values, torch.full_like(values, _NEG_LARGE))
-    row_max = torch.full((m + 1,), _NEG_LARGE, dtype=values.dtype,
-                         device=dev)
-    row_max = row_max.scatter_reduce(0, ri, vm, reduce="amax",
-                                     include_self=True)
-    e = torch.exp(vm - row_max[ri])
+    seg = (*values.shape[:-1], m + 1)
+    row_max = values.new_full(seg, _NEG_LARGE).scatter_reduce(
+        -1, ri.expand_as(vm), vm, reduce="amax", include_self=True)
+    e = torch.exp(vm - row_max.index_select(-1, ri))
     e = torch.where(va, e, torch.zeros_like(e))
-    denom = values.new_zeros((m + 1,)).index_add(0, ri, e)
+    denom = values.new_zeros(seg).index_add(-1, ri, e)
     denom = denom.clamp(min=torch.finfo(values.dtype).tiny)
-    return e / denom[ri]
+    return e / denom.index_select(-1, ri)
+
+
+def softmax_vjp(p, g, row_ids, m: int):
+    """The CSR softmax's VJP, ``p * (g - rowsum(p * g))``, over the last
+    axis (leading replica axes allowed). ``p`` is 0 at padding slots, so
+    their cotangents vanish."""
+    ri = _idx(row_ids, p.device)
+    pg = p * g
+    rs = pg.new_zeros((*pg.shape[:-1], m + 1)).index_add(-1, ri, pg)
+    return p * (g - rs.index_select(-1, ri))

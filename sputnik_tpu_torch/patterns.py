@@ -15,6 +15,8 @@ import numpy as np
 __all__ = [
     "uniform_mask",
     "sparsify_uniform",
+    "init_uniform",
+    "init_range",
     "causal_mask",
     "driver_masks",
     "local_window_mask",
@@ -51,6 +53,16 @@ def sparsify_uniform(dense: np.ndarray, sparsity: float, *,
     flat = dense.reshape(-1)
     flat[dormant] = 0.0
     return flat.reshape(dense.shape)
+
+
+def init_uniform(shape, *, low: float = 0.0, high: float = 1.0, seed=0):
+    return _rng(seed).uniform(low, high, size=shape).astype(np.float32)
+
+
+def init_range(shape):
+    """1..N values (offset so nothing is accidentally zero)."""
+    return (np.arange(int(np.prod(shape)), dtype=np.float32)
+            + 1.0).reshape(shape)
 
 
 def uniform_mask(m: int, n: int, *, sparsity: float = 0.9,

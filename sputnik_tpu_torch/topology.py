@@ -61,12 +61,13 @@ class SparseTopology:
     """Static sparsity pattern of an ``m x n`` matrix (host-side numpy).
 
     Compared and hashed by identity; derived structure (transpose
-    permutation, block views) is cached on the instance.
+    permutation, block views and the flat API's ``PanelSpec``) is cached on
+    the instance.
     """
 
     __slots__ = ("m", "n", "nnz", "nnz_pad", "row_offsets",
                  "column_indices", "row_ids", "row_swizzle", "valid",
-                 "_transpose_cache", "_block_cache")
+                 "_transpose_cache", "_block_cache", "_ell_cache")
 
     def __init__(self, m: int, n: int, row_offsets: np.ndarray,
                  column_indices: np.ndarray, *, pad_to: int = DEFAULT_PAD_TO,
@@ -103,6 +104,7 @@ class SparseTopology:
         self.valid = np.arange(self.nnz_pad) < nnz
         self._transpose_cache = None
         self._block_cache = {}
+        self._ell_cache = {}
 
     @classmethod
     def from_dense_mask(cls, mask: np.ndarray, *,
@@ -117,6 +119,10 @@ class SparseTopology:
         density = self.nnz / max(self.m * self.n, 1)
         return (f"SparseTopology(m={self.m}, n={self.n}, nnz={self.nnz}, "
                 f"nnz_pad={self.nnz_pad}, density={density:.4f})")
+
+    @property
+    def row_lengths(self) -> np.ndarray:
+        return (self.row_offsets[1:] - self.row_offsets[:-1]).astype(np.int32)
 
     def to_dense_mask(self) -> np.ndarray:
         out = np.zeros((self.m, self.n), dtype=np.float32)
@@ -150,6 +156,16 @@ class SparseTopology:
         topo_t._transpose_cache = (self, inv)
         self._transpose_cache = (topo_t, perm)
         return self._transpose_cache
+
+    def ell(self, *, lane: int = 128):
+        """Row-padded (ELLPACK) view, rows padded to a multiple of ``lane``;
+        cached per ``lane``. The 128 default is the JAX package's (a TPU
+        lane width); the port's own callers need no ELL panel."""
+        if lane not in self._ell_cache:
+            from .blocking import build_ell
+
+            self._ell_cache[lane] = build_ell(self, lane=lane)
+        return self._ell_cache[lane]
 
     def block(self, bm: int = 64, bk: int = 64):
         key = (bm, bk)

@@ -76,6 +76,23 @@ def test_block_view_matches(kind, tiles):
             _eq(a, b, "transpose_meta")
 
 
+@pytest.mark.parametrize("lane", [128, 8])
+@pytest.mark.parametrize("kind", KINDS)
+def test_ell_view_and_row_lengths_match(kind, lane):
+    for mask in _masks(kind):
+        t = stt.SparseTopology.from_dense_mask(mask)
+        j = JTopology.from_dense_mask(mask)
+        _eq(t.row_lengths, j.row_lengths, "row_lengths")
+        assert t.row_lengths.dtype == j.row_lengths.dtype
+        ev, jv = t.ell(lane=lane), j.ell(lane=lane)
+        assert isinstance(ev, stt.EllView) and t.ell(lane=lane) is ev
+        assert (ev.m, ev.l_pad, ev.values_shape, ev.dump) == (
+            jv.m, jv.l_pad, jv.values_shape, jv.dump)
+        for f in ("scatter_idx", "gather_idx", "cols", "mask"):
+            _eq(getattr(ev, f), getattr(jv, f), f"ell {f}")
+            assert getattr(ev, f).dtype == getattr(jv, f).dtype
+
+
 @pytest.mark.parametrize("tiles", TILES)
 @pytest.mark.parametrize("kind", KINDS)
 def test_stacked_and_flash_meta_match(kind, tiles):
@@ -119,6 +136,8 @@ def test_many_mask_topology_matches(kind):
     ("causal_topology", (33,), dict(band=7)),
     ("local_window_topology", (33, 5), {}),
     ("block_random_topology", (40, 48, 8, 16), dict(density=0.25, seed=5)),
+    ("init_uniform", ((6, 7),), dict(low=-2.0, high=3.0, seed=8)),
+    ("init_range", ((3, 5),), {}),
 ])
 def test_pattern_generators_match(name, args, kwargs):
     from sputnik_tpu import patterns as jp

@@ -730,3 +730,95 @@ def test_batched_ops_train_through_the_kernels(dev):
     for a, r in zip(gpu, cpu):
         _close(a.grad.cpu(), r.grad)
     assert torch.all(out[:heads, 7].detach() == 0)  # mask 0's empty row
+
+
+@pytest.mark.parametrize("m,n,density,R,pad_to", [
+    (64, 2000, 0.9, 1, 4),       # rows past 512 slots: the strided path
+    (512, 512, 0.1, 32, 4),      # the attention shape, 32 replicas
+    (200, 700, 0.74, 3, 64),     # rows either side of 512, nnz_pad > nnz
+    (1, 33, 1.0, 2, 8),          # one row
+])
+def test_ell_softmax_kernel_matches_plain(dev, m, n, density, R, pad_to):
+    """B5 against its plain version: long rows, an empty row, a row of
+    -inf scores, replicas and padding slots (exact zeros)."""
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import ell_softmax_kernel
+    from sputnik_tpu_torch.ops.plain_ops import sparse_softmax
+
+    rng = np.random.RandomState(m + n)
+    mask = rng.rand(m, n) < density
+    if m > 2:
+        mask[m // 2] = False                          # an empty row
+    topo = stt.SparseTopology.from_dense_mask(mask, pad_to=pad_to)
+    vals = (rng.randn(R, topo.nnz_pad) * 4).astype(np.float32)
+    ro = topo.row_offsets
+    if m > 3:
+        vals[:, ro[1]:ro[2]] = -np.inf                # a row of -inf scores
+        vals[:, ro[3]:ro[3] + 5] = -np.inf            # some -inf slots
+    row_offsets = torch.from_numpy(ro).to(dev)
+    row_ids = torch.from_numpy(topo.row_ids.astype(np.int64)).to(dev)
+    v = torch.from_numpy(vals).to(dev)
+    before = ell_softmax_kernel.launches
+    got = ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz)
+    torch.cuda.synchronize()
+    assert ell_softmax_kernel.launches == before + 1
+    ref = sparse_softmax(v, row_ids, row_ids < topo.m, topo.m)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+    # each slot at 1e-4 x |plain| (floored at f32 tiny): the outputs span
+    # many magnitudes below 1, where the max|plain| limit above is flat
+    scale = ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    rel = ((got - ref).abs() / scale).max().item()
+    assert rel <= 1e-4, (rel, ref[ref != 0].abs().median().item())
+    assert torch.all(got[:, topo.nnz:] == 0)
+    if m > 3:
+        assert torch.all(got[:, ro[1]:ro[2]] == 0)
+
+
+def test_flat_chain_trains_through_the_kernels(dev):
+    """The flat attention chain (sddmm -> scale -> sparse_softmax -> spmm)
+    on replicated values and a csr SparseLinear, forward and gradients on
+    the card against the same calls on the CPU oracle; launches B4, B5, B1
+    forward and B1, B3, B4 backward."""
+    rng = np.random.RandomState(9)
+    R, s, hd = 4, 300, 32
+    mask = rng.rand(s, s) < 0.2
+    mask[17] = False
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    cpu = [torch.from_numpy(rng.randn(R, s, hd).astype(np.float32)
+                            ).requires_grad_() for _ in range(3)]
+    gpu = [t.detach().to(dev).requires_grad_() for t in cpu]
+    cot = torch.from_numpy(rng.randn(R, s, hd).astype(np.float32))
+
+    def chain(q, k, v):
+        p = stt.sparse_softmax(topo, stt.sddmm(topo, q, k) * hd ** -0.5)
+        return stt.spmm(topo, p, v)
+
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = chain(*gpu)
+    torch.cuda.synchronize()
+    fwd = {n: w.launches - before[n] for n, w in wr.items()}
+    assert (fwd["bsr_sddmm_panel"], fwd["ell_softmax"],
+            fwd["bsr_spmm_panel"]) == (1, 1, 1)
+    (out * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items()}
+    assert (got["bsr_spmm_panel"], got["bsr_spmm_t_panel"],
+            got["bsr_sddmm_panel"]) == (2, 2, 2)
+    ref = chain(*cpu)
+    (ref * cot).sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+    assert torch.all(out[:, 17].detach() == 0)
+
+    lin = stt.SparseLinear(stt.SparseTopology.from_dense_mask(
+        rng.rand(96, 80) < 0.1), layout="csr")
+    lin_gpu = stt.SparseLinear(lin.topology, layout="csr").to(dev)
+    lin_gpu.load_state_dict(lin.state_dict())
+    x = torch.from_numpy(rng.randn(3, 7, 80).astype(np.float32))
+    y_cpu, y_gpu = lin(x), lin_gpu(x.to(dev))
+    y_cpu.square().sum().backward()
+    y_gpu.square().sum().backward()
+    _close(y_gpu.detach().cpu(), y_cpu.detach())
+    _close(lin_gpu.values.grad.cpu(), lin.values.grad)

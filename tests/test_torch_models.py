@@ -62,6 +62,99 @@ def test_sparse_linear_matches_flax(fuse_relu):
         tl.pack_dense(tl.unpack_dense(tl.values)), tl.values.detach().numpy())
 
 
+@pytest.mark.parametrize("jax_layout", ["csr", "panel"])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("fuse_relu", [False, True])
+def test_csr_sparse_linear_matches_flax(fuse_relu, backend, jax_layout):
+    """The csr layer (flat values through ``left_spmm`` / ``spmm_bias_relu``,
+    oracle and panel routes) against flax ``SparseLinear(layout="csr")``;
+    flax weights of either layout cross through ``bridge``; forward and the
+    values / bias / input gradients at atol = rtol = 1e-4."""
+    rng = np.random.RandomState(3)
+    mask = (rng.rand(48, 40) < 0.3).astype(np.float32)
+    mask[7] = 0.0
+    x = rng.randn(3, 5, 40).astype(np.float32)
+    jt = JTopology.from_dense_mask(mask)
+    jcsr = JLinear(topology=jt, fuse_relu=fuse_relu, layout="csr")
+    params = _randomise_biases(jcsr.init(jax.random.PRNGKey(2), x), 4)
+    if jax_layout == "panel":
+        jpan = JLinear(topology=jt, fuse_relu=fuse_relu)
+        w = jcsr.unpack_dense(params["params"]["values"])
+        src = {"params": dict(params["params"], values=jpan.pack_dense(w))}
+    else:
+        src = params
+    ref, vjp = jax.vjp(lambda p, xx: jcsr.apply(p, xx), params, x)
+    g = rng.randn(*ref.shape).astype(np.float32)
+    jg_params, jg_x = vjp(g)
+
+    tl = SparseLinear(stt.SparseTopology.from_dense_mask(mask),
+                      fuse_relu=fuse_relu, layout="csr")
+    tl.load_state_dict(bridge.sparse_linear_state_dict(src, tl))
+    xt = torch.from_numpy(x).requires_grad_()
+    stt.set_backend(backend)
+    try:
+        got = tl(xt)
+        got.backward(torch.from_numpy(g))
+    finally:
+        stt.set_backend("auto")
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(tl.values.grad.numpy(),
+                               np.asarray(jg_params["params"]["values"]),
+                               **TOL)
+    np.testing.assert_allclose(tl.bias.grad.numpy(),
+                               np.asarray(jg_params["params"]["bias"]), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg_x), **TOL)
+    np.testing.assert_array_equal(
+        tl.unpack_dense(tl.values),
+        jcsr.unpack_dense(params["params"]["values"]))
+    np.testing.assert_array_equal(
+        tl.pack_dense(tl.unpack_dense(tl.values)), tl.values.detach().numpy())
+
+
+def test_csr_and_panel_layers_agree():
+    """One weight in both layouts gives one output (the panel kernels'
+    plain versions behind both), and the csr init is Kaiming-uniform over
+    the nonzeros with 0 at padding."""
+    rng = np.random.RandomState(5)
+    topo = stt.SparseTopology.from_dense_mask(rng.rand(40, 24) < 0.25)
+    csr = SparseLinear(topo, layout="csr",
+                       generator=torch.Generator().manual_seed(1))
+    pan = SparseLinear(topo, bm=16, bk=8)
+    with torch.no_grad():
+        pan.values.copy_(torch.from_numpy(pan.pack_dense(
+            csr.unpack_dense(csr.values))))
+        pan.bias.normal_()
+        csr.bias.copy_(pan.bias)
+    x = torch.from_numpy(rng.randn(2, 6, 24).astype(np.float32))
+    torch.testing.assert_close(csr(x), pan(x), atol=1e-5, rtol=1e-5)
+    v = csr.values.detach()
+    assert v.shape == (topo.nnz_pad,) and torch.all(v[topo.nnz:] == 0)
+    bound = np.sqrt(3.0 / (topo.nnz / topo.m))
+    assert v.abs().max() <= bound and v[: topo.nnz].std() > 0.3 * bound
+
+
+def test_csr_layer_runs_the_flat_spec():
+    """A csr layer's spec is the one its flat forward runs (one per
+    topology, kept by the topology), also after a topology swap; tiles
+    other than the flat op set's raise."""
+    from sputnik_tpu_torch.ops import dispatch
+
+    rng = np.random.RandomState(6)
+    topo = stt.SparseTopology.from_dense_mask(rng.rand(40, 24) < 0.25)
+    csr = SparseLinear(topo, layout="csr")
+    assert csr.spec is dispatch.flat_spec(topo)
+    assert csr.spec is dispatch.flat_spec(topo)
+    assert (csr.spec.bm, csr.spec.bk) == stt.ops.panel_api.DEFAULT_BLOCK
+    other = stt.SparseTopology.from_dense_mask(rng.rand(40, 24) < 0.25)
+    csr.set_topology(other)
+    assert csr.topology is other and csr.spec is dispatch.flat_spec(other)
+    pan = SparseLinear(topo, bm=16, bk=8)
+    pan.set_topology(other)
+    assert (pan.spec.topo, pan.spec.bm, pan.spec.bk) == (other, 16, 8)
+    with pytest.raises(ValueError, match="tiles"):
+        SparseLinear(topo, layout="csr", bm=16, bk=8)
+
+
 def test_sparse_attention_matches_flax():
     rng = np.random.RandomState(1)
     s, e, heads = 40, 32, 2
@@ -135,13 +228,13 @@ def test_transformer_panel_and_csr_layouts_match_flax(layout, num_kv_heads):
 
 def test_unported_layouts_raise():
     mt = stt.ManyMaskTopology.from_dense_masks(driver_masks(1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         SparseCoreAttention(mt, 2, layout="auto")
     with pytest.raises(ValueError, match="unknown layout"):
         SparseCoreAttention(mt, 2, layout="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown layout"):
         SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(8)),
-                     layout="csr")
+                     layout="dense")
 
 
 def test_generator_makes_init_reproducible():

@@ -194,7 +194,7 @@ def test_moe_layers_own_their_parameters_and_bad_configs_raise():
     with pytest.raises(ValueError, match="no moe module"):
         stt.SparseTransformer(mt, 2, 16, 2, 32, moe_every=2)
     topo = stt.SparseTopology.from_dense_mask(np.ones((8, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         SparseMoE(topo, stt.SparseTopology.from_dense_mask(np.ones((4, 8))),
                   2, mesh=object())
     with pytest.raises(ValueError, match="transformer_state_dict|model"):

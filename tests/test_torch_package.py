@@ -38,7 +38,11 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.examples.train_moe_transformer, "
              "sputnik_tpu_torch.models.moe, "
              "sputnik_tpu_torch.ops.paged, "
-             "sputnik_tpu_torch.models.serving_paged\n"
+             "sputnik_tpu_torch.models.serving_paged, "
+             "sputnik_tpu_torch.ops.api, sputnik_tpu_torch.ops.dispatch, "
+             "sputnik_tpu_torch.training, "
+             "sputnik_tpu_torch.examples.dynamic_sparse_training, "
+             "sputnik_tpu_torch.examples.train_block_sparse\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -58,6 +62,8 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.paged_attention\n"
              "import sputnik_tpu_torch.ops.kernels.paged_append\n"
              "import sputnik_tpu_torch.ops.kernels.batched_panel\n"
+             "import sputnik_tpu_torch.ops.kernels.ell_softmax\n"
+             "import sputnik_tpu_torch.ops.dispatch\n"
              "import sputnik_tpu_torch.models.moe\n"
              "import sputnik_tpu_torch.ops.paged\n"
              "import sputnik_tpu_torch.models.serving_paged\n"
@@ -77,13 +83,14 @@ def test_build_key_covers_every_source():
                                     "bsr_sddmm.cu", "flash_sparse_fwd.cu",
                                     "flash_sparse_bwd.cu",
                                     "decode_attention.cu",
-                                    "ragged_append.cu"}
+                                    "ragged_append.cu", "ell_softmax.cu"}
     assert set(_build._SIGNATURES) == {
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
         "decode_attention", "ragged_append", "paged_attention",
-        "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32"}
+        "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
+        "ell_softmax_f32"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -101,6 +108,8 @@ def test_cpu_tensors_launch_no_kernel():
         uniform_mask(s, s, sparsity=0.9, seed=1)))
     lin = stt.SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(32)),
                            fuse_relu=True)
+    csr = stt.SparseLinear(stt.SparseTopology.from_dense_mask(np.eye(32)),
+                           layout="csr")
     topo = stt.SparseTopology.from_dense_mask(
         uniform_mask(32, 32, sparsity=0.5, seed=2))
     panel_moe = stt.SparseTransformer.from_masks(
@@ -108,8 +117,17 @@ def test_cpu_tensors_launch_no_kernel():
         ffn_hidden_size=32, attention_layout="panel", moe_every=2,
         moe=dict(topo_in=topo, topo_out=topo, num_experts=2, top_k=2))
     x = torch.randn(2, s, 32, requires_grad=True)
-    y = lin(attn(panel_moe(model(x))))
+    y = csr(lin(attn(panel_moe(model(x)))))
     (y.square().sum() + panel_moe.aux_loss()).backward()
+    for backend in ("auto", "pallas"):       # the flat chain, both routes
+        stt.set_backend(backend)
+        try:
+            q = x[0, :32].detach().requires_grad_()
+            p = stt.sparse_softmax(topo, stt.sddmm(topo, q, q))
+            stt.spmm(topo, p, q).sum().backward()
+        finally:
+            stt.set_backend("auto")
+        assert torch.isfinite(q.grad).all()
     assert torch.isfinite(y).all() and torch.isfinite(x.grad).all()
     lm = stt.SparseLM.from_masks(
         driver_masks(2, 16), vocab_size=11, num_layers=1, hidden_size=32,
@@ -124,7 +142,7 @@ def test_cpu_tensors_launch_no_kernel():
         torch.zeros(2, 128, dtype=torch.long), 3)
     assert toks.shape == (2, 3)
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 14
+    assert len(wrappers) == 15 and "ell_softmax" in wrappers
     assert all(v == 0 for v in before.values())
 
 
@@ -159,3 +177,39 @@ def test_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_BUILD", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.library()
+
+
+def test_exports_match_the_jax_package():
+    """The names of ``sputnik_tpu`` and ``sputnik_tpu.ops`` exist in the
+    port, less the unported int8 family and compressed layout; ``ops.panel``
+    is ``ops.panel_api``."""
+    import sputnik_tpu as st
+
+    unported = {"int8", "CompressedView"}
+    assert set(st.__all__) - set(stt.__all__) == unported
+    assert set(st.ops.__all__) - set(stt.ops.__all__) == {"int8"}
+    assert all(hasattr(stt, n) for n in stt.__all__)
+    assert all(hasattr(stt.ops, n) for n in stt.ops.__all__)
+    assert stt.ops.panel is stt.ops.panel_api and stt.panel is stt.ops.panel
+    assert stt.spmm_bias is stt.spmm_bias_relu
+    for name in ("SparseLinear", "sparse_kaiming_values"):
+        assert hasattr(stt.models, name)
+    from sputnik_tpu import training as jtr
+    assert set(stt.training.__all__) == set(jtr.__all__)
+
+
+def test_set_backend_is_per_thread_and_checked():
+    import threading
+
+    seen = []
+    stt.set_backend("xla")
+    try:
+        t = threading.Thread(target=lambda: seen.append(stt.get_backend()))
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive() and seen == ["auto"]
+        assert stt.get_backend() == "xla"
+        with pytest.raises(ValueError, match="backend"):
+            stt.set_backend("cuda")
+    finally:
+        stt.set_backend("auto")
