@@ -21,6 +21,10 @@ Phases, each printing its lines:
      heads, s=512, hd=64, and GQA) (2e); the sparse softmax B5 at the flat
      attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
      an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
+     the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024), B17
+     at B4's shape and B18a at the int8 example's attention and at B9's
+     shape, each also shown >= 10x its limit away from the fp32 kernel's
+     result, so that a kernel computing in fp32 would fail (2h);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -44,14 +48,20 @@ Phases, each printing its lines:
         10 Adam steps with its self-checks, 6 launches each of B6, B7, B8 a
         step; then the driver config with attention_layout="panel", 1 step
         (12 each of B6, B7, B8);
+     f, g. the flat op set and dynamic sparse training;
+     h. int8 serving at examples/serve_sparse_int8.py's full width (h=1024,
+        s=2048, 8 heads): its int8 forward (B18a + B16a) and fp32 forward
+        (B9 + B1), the example itself, one spmm_qat SGD step (B16a; B16b +
+        B17) and one attention_qat step (B18a; B9 + B10a);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
      the first MoE step's routing, losses and router / expert gradients and
      the panel model's forward; the flat chain under set_backend("xla") and
-     the csr SparseLinear, also against the panel layer on the card), and
-     the forward / training-step / prefill / decode times and peak device
-     memory.
+     the csr SparseLinear, also against the panel layer on the card; the
+     int8 attention, projection and spmm_qat gradients under
+     set_backend("pallas")), and the forward / training-step / prefill /
+     decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0).
 TF32 is switched off, so every product here runs in full fp32.
@@ -103,6 +113,15 @@ REPLACES = {
                   "sputnik_tpu/ops/batched_panel.py:238"),
     "ell_softmax": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
                     "sputnik_tpu/ops/pallas/ell_softmax.py:31"),
+    "bsr_spmm_panel_int8": ("sputnik_tpu_torch/csrc/bsr_spmm_int8.cu",
+                            "sputnik_tpu/ops/pallas/bsr_spmm_int8.py:44"),
+    "bsr_spmm_t_panel_int8": ("sputnik_tpu_torch/csrc/bsr_spmm_int8.cu",
+                              "sputnik_tpu/ops/pallas/bsr_spmm_int8.py:121"),
+    "bsr_sddmm_panel_int8": ("sputnik_tpu_torch/csrc/bsr_spmm_int8.cu",
+                             "sputnik_tpu/ops/pallas/bsr_spmm_int8.py:198"),
+    "flash_sparse_attention_fwd_int8": (
+        "sputnik_tpu_torch/csrc/flash_sparse_int8.cu",
+        "sputnik_tpu/ops/pallas/flash_sparse_int8.py:54"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # the MoE example's default step count: Adam's first steps at lr 1e-3
@@ -110,11 +129,13 @@ TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # config's does in phase 3b), so "the loss decreases" is checked over these
 MOE_STEPS = 10
 # The H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): fp32
-# outside the tensor cores, which is what every kernel here computes in,
-# and device memory. A bound is the larger of operations / PEAK_F32 and
-# bytes / PEAK_BYTES, counting each input byte read once and each output
-# byte written once, and only the work this run's data needs.
+# outside the tensor cores, which is what the fp32 kernels compute in, int8
+# (the rate of the int8 kernels' operations) and device memory. A bound is
+# the larger of operations / peak and bytes / PEAK_BYTES, counting each
+# input byte read once and each output byte written once, and only the work
+# this run's data needs.
 PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -195,15 +216,17 @@ def _compare_each(name, got, ref, rtol):
         _fail(f"{name}: max_rel_err {rel} > {rtol}")
 
 
-def _bound(r, flops, nbytes):
+def _bound(r, flops, nbytes, peak=PEAK_F32):
     """The least time of the timed call (``r["ms"]``): the larger of its
-    operations over the fp32 peak and its bytes over the memory rate."""
-    ops_ms = flops / PEAK_F32 * 1e3
+    operations over ``peak`` (fp32 unless given) and its bytes over the
+    memory rate."""
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     r["bound_ms"] = max(ops_ms, bytes_ms)
     r["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     print(f"    bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-          f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+          f"({flops / 1e9:.3f} G op at {peak / 1e12:.0f} T/s, "
+          f"{nbytes / 1e6:.2f} MB); kernel at "
           f"{r['bound_ms'] / r['ms']:.1%} of it", flush=True)
 
 
@@ -2229,6 +2252,371 @@ def phase_flat_path(stt, torch, dev, wrappers, mat, w):
     return total
 
 
+# -- the int8 serving family (B16a, B16b, B17, B18a) -------------------------
+
+
+def _int8_distance(name, plain, fp32):
+    """The plain int8 result's distance from the fp32 kernel's on the same
+    inputs must be >= 10x the kernel limit: a kernel that skipped a
+    quantisation would then fail its own check."""
+    lim = TOL_KERNEL * max(1.0, plain.abs().max().item())
+    dist = (plain.float() - fp32.float()).abs().max().item()
+    print(f"  {name}: plain int8 vs fp32 max distance {dist:.3e} = "
+          f"{dist / lim:.1f}x the kernel limit {lim:.3e}", flush=True)
+    if not dist >= 10 * lim:
+        _fail(f"{name}: int8 is within 10x the kernel limit of fp32")
+
+
+def _dense_codes(torch, topo, values_q):
+    """The int8 panel's codes scattered into a dense int8 matrix (the
+    library yardstick's operand)."""
+    from sputnik_tpu_torch.ops import panel_api as P
+
+    bm, bk = values_q.shape[2:]
+    vals = P.panel_to_values_np(topo, values_q.cpu().numpy(), bm, bk)
+    a = np.zeros((topo.m, topo.n), np.int8)
+    nnz = topo.nnz
+    a[topo.row_ids[:nnz], topo.column_indices[:nnz]] = vals[:nnz]
+    return torch.from_numpy(a).to(values_q.device)
+
+
+def _int8_flash_case(stt, torch, dev, r, label, masks, heads, hd, seed,
+                     timed):
+    """B18a against its plain version and B9 on one problem; ``timed``
+    fills the JSON entry ``r`` (ms, plain, library, bound)."""
+    import torch.nn.functional as F
+
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as f8
+    from sputnik_tpu_torch.ops.kernels.flash_sparse import (
+        flash_sparse_attention_fwd)
+
+    b, s = masks.shape[0], masks.shape[1]
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    fm = spec.flash_meta(dev)
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(b * heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(3))
+    args = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], q, k, v)
+    kw = dict(heads=heads, max_bpr=fm["max_bpr"], scale=hd ** -0.5)
+    out, m, l = f8.flash_sparse_attention_fwd_int8(*args, **kw)
+    ref, m_ref, l_ref = f8.flash_sparse_attention_fwd_int8_plain(*args, **kw)
+    _compare(f"flash int8 {label}", out, ref, TOL_KERNEL, r)
+    _compare(f"flash int8 {label} row denominators l", l, l_ref, TOL_KERNEL)
+    n_diff = int(((out - ref).abs() > 1e-6).sum().item())
+    print(f"  flash int8 {label}: {n_diff} of {out.numel()} outputs differ "
+          f"from plain by more than 1e-6", flush=True)
+    empty = torch.from_numpy(masks.sum(-1) == 0).to(dev).repeat_interleave(
+        heads, 0)
+    if not torch.all(out[empty] == 0):
+        _fail(f"flash int8 {label}: a fully-masked row is not exactly 0")
+    fp32, _, _ = flash_sparse_attention_fwd(*args, **kw)
+    _int8_distance(f"flash int8 {label}", ref, fp32)
+    if not timed:
+        return
+    r["ms"] = _time_ms(lambda: f8.flash_sparse_attention_fwd_int8(*args,
+                                                                  **kw))
+    r["plain_ms"] = _time_ms(
+        lambda: f8.flash_sparse_attention_fwd_int8_plain(*args, **kw),
+        reps=3, inner=2)
+    fp32_ms = _time_ms(lambda: flash_sparse_attention_fwd(*args, **kw))
+    mask = torch.from_numpy(masks != 0).to(dev)[:, None]
+    q4, k4, v4 = (x.reshape(b, heads, s, hd) for x in (q, k, v))
+    r["library_ms"] = _library_ms(
+        "flash int8 (F.scaled_dot_product_attention, f32, bool mask)",
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                               scale=hd ** -0.5))
+    qb, kb_, vb = (x.bfloat16() for x in (q4, k4, v4))
+    bf16_ms = _library_ms(
+        "flash int8 (F.scaled_dot_product_attention, bf16, bool mask)",
+        lambda: F.scaled_dot_product_attention(qb, kb_, vb, attn_mask=mask,
+                                               scale=hd ** -0.5))
+    print(f"  flash int8 {label}: kernel {r['ms']:.4f} ms, fp32 B9 "
+          f"{fp32_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA bf16 "
+          f"{bf16_ms} ms", flush=True)
+    pairs = float((masks != 0).sum()) * heads
+    _bound(r, 4.0 * pairs * hd, _nbytes(*args[:5], q, k, v, out, m, l),
+           PEAK_INT8)
+
+
+def phase_int8_kernels(stt, torch, dev, kres, w, mat):
+    """Phase 2h: B16a, B16b, B17 and B18a against their plain versions on
+    the card, each also held >= 10x its limit away from the fp32 kernel."""
+    from sputnik_tpu_torch import int8
+    from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.ops.int8_api import _tile_width
+    from sputnik_tpu_torch.ops.kernels import bsr_spmm_int8 as k8
+    from sputnik_tpu_torch.ops.kernels.bsr_sddmm import bsr_sddmm_panel
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_panel
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_t import bsr_spmm_t_panel
+    from sputnik_tpu_torch.patterns import driver_masks
+
+    print("phase 2h: int8 kernels (B16a, B16b, B17, B18a) vs plain PyTorch "
+          "on the card", flush=True)
+    size, topo = w.shape[0], mat.topology
+    spec = P.PanelSpec(topo)
+    bn = _tile_width(spec, size)    # JAX's width rule: 1024 at 4096 columns
+    panel_np = P.values_to_panel_np(topo, mat.values, spec.bm, spec.bk)
+    qp = int8.quantize_panel(spec, panel_np).to(dev)
+    panel = torch.from_numpy(panel_np).to(dev)
+    meta = spec.meta(dev)
+    nnz = topo.nnz
+    rng = np.random.RandomState(70)
+    dense = torch.from_numpy(rng.randn(size, size).astype(np.float32)).to(dev)
+    a_q = _dense_codes(torch, topo, qp.values_q)
+    a_f = torch.from_numpy(w).to(dev)
+
+    # B16a at bench.py's 4096^3, 64 x 64 panel, bn = 1024
+    r = kres["bsr_spmm_panel_int8"]
+    args = (meta["block_cols"], meta["nblocks"], qp.values_q, qp.scales,
+            dense)
+
+    def kern():
+        return k8.bsr_spmm_panel_int8(*args, rows=size, bn=bn)
+
+    def plain():
+        return k8.bsr_spmm_panel_int8_plain(*args, rows=size, bn=bn)
+
+    got, ref = kern(), plain()
+    _compare(f"spmm int8 {size}^3 bn={bn}", got, ref, TOL_KERNEL, r)
+    _int8_distance("spmm int8", ref, bsr_spmm_panel(
+        meta["block_cols"], meta["nblocks"], panel[None], dense[None],
+        rows=size)[0])
+    del got, ref
+    r["ms"] = _time_ms(kern)
+    r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
+    d_q = k8.quant_tile(dense, spec.bk, bn)[0]
+    r["library_ms"] = _library_ms(
+        "spmm int8 (torch._int_mm: densified int8 A x int8 dense -> int32, "
+        "cuBLASLt, no per-tile rescale)", lambda: torch._int_mm(a_q, d_q))
+    f32_ms = _time_ms(lambda: a_f @ dense)
+    print(f"  spmm int8 {size}^3: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, dense fp32 torch.matmul {f32_ms:.4f} ms",
+          flush=True)
+    _bound(r, 2.0 * nnz * size, 5 * nnz + _nbytes(dense) + size * size * 4,
+           PEAK_INT8)
+
+    # B16b: A_q^T @ G at the same headline, bq = 1024
+    r = kres["bsr_spmm_t_panel_int8"]
+    targs = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"],
+             qp.values_q, qp.scales, dense)
+
+    def t_kern():
+        return k8.bsr_spmm_t_panel_int8(*targs, rows=size, bq=bn)
+
+    def t_plain():
+        return k8.bsr_spmm_t_panel_int8_plain(*targs, rows=size, bq=bn)
+
+    got, ref = t_kern(), t_plain()
+    _compare(f"spmm_t int8 {size}^3 bq={bn}", got, ref, TOL_KERNEL, r)
+    _int8_distance("spmm_t int8", ref, bsr_spmm_t_panel(
+        meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel[None],
+        dense[None], rows=size)[0])
+    del got, ref
+    r["ms"] = _time_ms(t_kern)
+    r["plain_ms"] = _time_ms(t_plain, reps=3, inner=2)
+    g_q = k8.quant_tile(dense, spec.bm, bn)[0]
+    a_qt = a_q.T.contiguous()
+    r["library_ms"] = _library_ms(
+        "spmm_t int8 (torch._int_mm: densified A_q^T x int8 G)",
+        lambda: torch._int_mm(a_qt, g_q))
+    f32_ms = _time_ms(lambda: a_f.T @ dense)
+    print(f"  spmm_t int8 {size}^3: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {f32_ms:.4f} ms",
+          flush=True)
+    _bound(r, 2.0 * nnz * size, 5 * nnz + _nbytes(dense) + size * size * 4,
+           PEAK_INT8)
+    del dense, a_q, a_qt, a_f, d_q, g_q
+
+    # B17 at B4's shape: 4096^2 d=0.1, dim 64 (one 128-deep chunk)
+    r = kres["bsr_sddmm_panel_int8"]
+    d = 64
+    lhs = torch.from_numpy(rng.randn(size, d).astype(np.float32)).to(dev)
+    rhs = torch.from_numpy(rng.randn(size, d).astype(np.float32)).to(dev)
+    sargs = (meta["block_cols"], meta["nblocks"], lhs, rhs, meta["mask"])
+    got = k8.bsr_sddmm_panel_int8(*sargs)
+    ref = k8.bsr_sddmm_panel_int8_plain(*sargs)
+    _compare(f"sddmm int8 {size}^2 dim {d}", got, ref, TOL_KERNEL, r)
+    if not torch.all(got[meta["mask"] == 0] == 0):
+        _fail("sddmm int8: padded or masked panel slots are not exactly 0")
+    _int8_distance("sddmm int8", ref, bsr_sddmm_panel(
+        meta["block_cols"], meta["nblocks"], lhs[None], rhs[None],
+        meta["mask"])[0])
+    del got, ref
+    r["ms"] = _time_ms(lambda: k8.bsr_sddmm_panel_int8(*sargs))
+    r["plain_ms"] = _time_ms(lambda: k8.bsr_sddmm_panel_int8_plain(*sargs),
+                             reps=3, inner=2)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(topo.row_offsets, np.int64)),
+        torch.from_numpy(np.asarray(topo.column_indices[:nnz], np.int64)),
+        torch.ones(nnz), (size, size)).to(dev)
+    rhs_t = rhs.T.contiguous()
+    r["library_ms"] = _library_ms(
+        "sddmm int8 (torch.sparse.sampled_addmm, f32 CSR)",
+        lambda: torch.sparse.sampled_addmm(csr, lhs, rhs_t, beta=0.0))
+    print(f"  sddmm int8 {size}^2 dim {d}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    _bound(r, 2.0 * nnz * d, 8 * nnz + _nbytes(lhs, rhs), PEAK_INT8)
+    del lhs, rhs, csr, rhs_t
+
+    # B18a at the int8 example's attention (R=8, s=2048, hd=128, causal),
+    # timed into the JSON line; then at B9's shape (R=32, s=512, hd=64,
+    # the driver's masks with a fully-masked row)
+    r = kres["flash_sparse_attention_fwd_int8"]
+    s = 2048
+    _int8_flash_case(stt, torch, dev, r, "R=8 s=2048 hd=128 causal",
+                     np.tril(np.ones((1, s, s), np.float32)), 8, 128, 71,
+                     timed=True)
+    b9 = {}
+    _int8_flash_case(stt, torch, dev, b9, "R=32 s=512 hd=64 driver",
+                     driver_masks(4, 512), 8, 64, 72, timed=True)
+    r["max_abs_err"] = max(r["max_abs_err"], b9["max_abs_err"])
+    print(f"  flash int8 at B9's shape: {b9['ms']:.4f} ms (B9 0.1034 ms, "
+          f"PERF.md)", flush=True)
+
+
+def phase_int8_path(stt, torch, dev, wrappers):
+    """Phases 3h / 4h: the int8 serving path at the example's full width,
+    launches counted, and its quantised training steps; held against the
+    CPU under ``set_backend("pallas")``."""
+    from sputnik_tpu_torch import int8
+    from sputnik_tpu_torch.examples import serve_sparse_int8 as ex8
+
+    total = {n: 0 for n in wrappers}
+    print("phase 3h: int8 serving — serve_sparse_int8 at h=1024 s=2048 "
+          "heads=8 (128x128 weight panel, 64x64 flash tiles)", flush=True)
+    ex = ex8.setup(False, dev)
+    x = ex["x"]
+    with torch.no_grad():
+        y8 = _counted(wrappers, total, "int8 forward",
+                      lambda: ex["forward_int8"](x),
+                      {"flash_sparse_attention_fwd_int8": 1,
+                       "bsr_spmm_panel_int8": 1,
+                       "flash_sparse_attention_fwd": 0,
+                       "bsr_spmm_panel": 0})
+        _counted(wrappers, total, "fp32 forward",
+                 lambda: ex["forward_f32"](x),
+                 {"flash_sparse_attention_fwd": 1, "bsr_spmm_panel": 1,
+                  "flash_sparse_attention_fwd_int8": 0,
+                  "bsr_spmm_panel_int8": 0})
+        ctx8 = int8.attention_int8(ex["bspec"], x, x, x)
+    calls = 2 + ex8.ITERS
+    res = _counted(wrappers, total, "serve_sparse_int8.main()",
+                   lambda: ex8.main([]),
+                   {"flash_sparse_attention_fwd_int8": calls,
+                    "bsr_spmm_panel_int8": calls,
+                    "flash_sparse_attention_fwd": calls,
+                    "bsr_spmm_panel": calls})
+    print(f"  the example: fp32 {res['ms_fp32']:.4f} ms, int8 "
+          f"{res['ms_int8']:.4f} ms a forward (CUDA events, {ex8.ITERS} "
+          f"calls), int8 {res['ms_fp32'] / res['ms_int8']:.3f}x faster; "
+          f"rel err {res['rel_err']:.4f} (< 0.1)", flush=True)
+    for label, fwd in (("int8 forwards", ex["forward_int8"]),
+                       ("fp32 forwards", ex["forward_f32"])):
+        try:
+            with torch.no_grad():
+                _profile_steps(torch, label, lambda i, f=fwd: f(x))
+        except Exception as e:  # a measurement, not a check of the path
+            print(f"  torch.profiler gave no device times: {e!r}",
+                  flush=True)
+
+    # one spmm_qat SGD step on the example's weight, dense = the int8
+    # attention's flattened output [h, s]
+    spec = ex["spec"]
+    rng = np.random.RandomState(73)
+    panel_cpu = (ex["qp"].values_q.float().cpu()
+                 * ex["qp"].scales.cpu()[:, :, None, None])
+    dense_cpu = ctx8.transpose(0, 1).reshape(ex["s"], ex["h"]).T.cpu()
+    cot = torch.from_numpy(rng.randn(ex["h"], ex["s"]).astype(np.float32))
+    panel = panel_cpu.to(dev, copy=True).requires_grad_()
+    dense = dense_cpu.to(dev, copy=True).requires_grad_()
+
+    def qat_loss(p, d, c):
+        return (int8.spmm_qat(spec, p, d) * c).sum()
+
+    def qat_step():
+        loss = qat_loss(panel, dense, cot.to(dev))
+        loss.backward()
+        return loss
+
+    loss0 = _counted(wrappers, total, "spmm_qat step (forward + backward)",
+                     qat_step, {"bsr_spmm_panel_int8": 1,
+                                "bsr_spmm_t_panel_int8": 1,
+                                "bsr_sddmm_panel_int8": 1})
+    lr = 1e-4
+    with torch.no_grad():
+        panel -= lr * panel.grad
+        loss1 = qat_loss(panel, dense, cot.to(dev))
+    print(f"  spmm_qat SGD step (lr {lr}): loss {loss0.item():.4f} -> "
+          f"{loss1.item():.4f}", flush=True)
+    if not loss1.item() < loss0.item():
+        _fail("spmm_qat: the SGD step did not lower the loss")
+
+    # one attention_qat step: B18a forward, B9 + B10a backward; the
+    # gradients are the fp32 fused attention's (B10a adds dk / dv with
+    # atomics, so in another order)
+    bspec = ex["bspec"]
+    qkv = [x.detach().clone().requires_grad_() for _ in range(3)]
+    acot = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(dev)
+
+    def attn_step():
+        out = int8.attention_qat(bspec, *qkv)
+        (out * acot).sum().backward()
+        return out
+
+    _counted(wrappers, total, "attention_qat step (forward + backward)",
+             attn_step, {"flash_sparse_attention_fwd_int8": 1,
+                         "flash_sparse_attention_fwd": 1,
+                         "flash_sparse_bwd_fused": 1})
+    ref = [x.detach().clone().requires_grad_() for _ in range(3)]
+    (stt.fused_sparse_attention(bspec, *ref) * acot).sum().backward()
+    for name, a, b in zip("qkv", qkv, ref):
+        _compare(f"attention_qat d{name} vs the fp32 fused attention's",
+                 a.grad, b.grad, TOL_KERNEL, floor=0)
+
+    print("phase 4h: the int8 path vs the CPU under set_backend('pallas') "
+          "(full size: s=2048)", flush=True)
+    t0 = time.perf_counter()
+    cpu = ex8.setup(False, "cpu")
+    stt.set_backend("pallas")
+    try:
+        with torch.no_grad():
+            ctx_cpu = int8.attention_int8(cpu["bspec"], cpu["x"], cpu["x"],
+                                          cpu["x"])
+            # the projection from the card's attention output: the same
+            # activation codes on both sides
+            y_from_card = cpu["project"](ctx8.cpu(), lambda d: int8.spmm_int8(
+                cpu["spec"], cpu["qp"], d))
+            y_cpu = cpu["project"](ctx_cpu, lambda d: int8.spmm_int8(
+                cpu["spec"], cpu["qp"], d))
+        p_c = panel_cpu.clone().requires_grad_()
+        d_c = dense_cpu.clone().requires_grad_()
+        qat_loss(p_c, d_c, cot).backward()
+    finally:
+        stt.set_backend("auto")
+    _compare("int8 attention vs the CPU", ctx8.cpu(), ctx_cpu, TOL_MODEL)
+    n_diff = int(((ctx8.cpu() - ctx_cpu).abs() > 1e-6).sum())
+    print(f"  int8 attention: {n_diff} of {ctx_cpu.numel()} outputs differ "
+          f"from the CPU by more than 1e-6", flush=True)
+    _compare("int8 projection of the card's attention output vs the CPU",
+             y8.cpu(), y_from_card, TOL_MODEL)
+    # end to end, a last-place difference in the attention output can move
+    # an activation code by one step (|w| x d_scale, ~4e-3 here): the chain
+    # is held at the W8A8 class, 1e-2 x max|ref|, and the count shown
+    lim = TOL_MODEL * max(1.0, y_cpu.abs().max().item())
+    n_off = int(((y8.cpu() - y_cpu).abs() > lim).sum())
+    print(f"  int8 forward end to end: {n_off} of {y_cpu.numel()} outputs "
+          f"beyond {lim:.3e} (where an activation code moved)", flush=True)
+    _compare("int8 forward end to end vs the CPU", y8.cpu(), y_cpu, 1e-2)
+    _compare("spmm_qat dense gradient vs the CPU", dense.grad.cpu(),
+             d_c.grad, TOL_MODEL, floor=0)
+    _compare("spmm_qat panel gradient vs the CPU", panel.grad.cpu(),
+             p_c.grad, TOL_MODEL, floor=0)
+    print(f"  CPU reference in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2267,14 +2655,16 @@ def main() -> int:
     phase_batched_kernels(stt, torch, dev, kres)
     w, mat = _bench_matrix(stt)
     phase_softmax_kernel(stt, torch, dev, kres, mat)
+    phase_int8_kernels(stt, torch, dev, kres, w, mat)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
     paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
     moe = phase_moe_train(stt, torch, dev, wrappers)
     flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
+    int8 = phase_int8_path(stt, torch, dev, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n] + flat[n]
-                for n in wrappers}
+                + int8[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

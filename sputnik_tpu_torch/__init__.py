@@ -8,7 +8,8 @@ kernels under ``csrc/`` (built with ``nvcc`` at first use); CPU tensors run
 each kernel's plain PyTorch version. The flat op set (``spmm``,
 ``left_spmm``, ``sddmm``, ``sparse_softmax``, ``csr_transpose``,
 ``spmm_bias_relu``) keeps the reference's CSR-ordered values and the JAX
-package's ``set_backend`` names. This package never imports JAX.
+package's ``set_backend`` names; ``int8`` is the W8A8 serving family. This
+package never imports JAX.
 """
 
 from . import bridge, models, ops, patterns, training
@@ -27,7 +28,7 @@ from .ops import (KVCache, PagedKVCache, PagePool, PanelSpec, append_kv,
                   append_kv_seq, append_paged, append_paged_seq,
                   csr_transpose, decode, decode_attention, decode_block_table,
                   ensure_pages, free_pages_of, fused_sparse_attention,
-                  get_backend, init_kv_cache, init_paged_cache,
+                  get_backend, init_kv_cache, init_paged_cache, int8,
                   insert_kv_slot, left_spmm, paged_attention,
                   paged_block_table, panel, prefill_kv, sddmm, set_backend,
                   share_prefix, sparse_softmax, spmm, spmm_bias,
@@ -77,6 +78,7 @@ __all__ = [
     "init_kv_cache",
     "init_paged_cache",
     "insert_kv_slot",
+    "int8",
     "left_spmm",
     "models",
     "ops",

@@ -12,7 +12,10 @@ takes) becomes a ``state_dict`` for ``load_state_dict``:
   * ``SparseLinear`` values and ``SparseMoE`` expert values (per expert)
     go JAX panel (JAX tiles, read from the panel's shape) -> CSR values ->
     the port's panel (the port's tiles). Panel bytes are never copied: the
-    two packages tile differently. CSR-layout values cross as they are.
+    two packages tile differently. CSR-layout values cross as they are;
+  * an int8 ``QuantizedPanel`` crosses as it is (``quantized_panel``): its
+    tiles are its quantisation grid, so the port uses the JAX panel's
+    ``(bm, bk)``.
 
 A flax gradient tree has the params' structure, so the same functions map
 JAX gradients onto the port's parameter names.
@@ -28,7 +31,8 @@ import torch
 from .ops import panel_api as P
 
 __all__ = ["transformer_state_dict", "lm_state_dict", "moe_state_dict",
-           "sparse_linear_state_dict", "sparse_attention_state_dict"]
+           "sparse_linear_state_dict", "sparse_attention_state_dict",
+           "quantized_panel"]
 
 
 def _t(x) -> torch.Tensor:
@@ -138,3 +142,23 @@ def sparse_attention_state_dict(params, attention) -> dict:
         sd = sparse_linear_state_dict(params[name], getattr(attention, name))
         out.update({f"{name}.{k}": v for k, v in sd.items()})
     return out
+
+
+def quantized_panel(values_q, scales, device=None):
+    """A JAX ``QuantizedPanel``'s arrays (anything ``numpy.asarray`` takes:
+    int8 ``[mb, max_bpr, bm, bk]`` and f32 ``[mb, max_bpr]``) -> the port's
+    ``int8.QuantizedPanel``, byte for byte, on ``device`` (the host if
+    None). With the same ``(bm, bk)`` the port's ``int8.quantize_panel``
+    gives the same arrays."""
+    from .ops.int8_api import QuantizedPanel
+
+    values_q = np.asarray(values_q)
+    scales = np.asarray(scales)
+    if values_q.dtype != np.int8 or values_q.ndim != 4:
+        raise ValueError(f"values_q must be an int8 [mb, max_bpr, bm, bk] "
+                         f"array, got {values_q.dtype} {values_q.shape}")
+    if scales.shape != values_q.shape[:2]:
+        raise ValueError(f"scales {scales.shape} != {values_q.shape[:2]}")
+    qp = QuantizedPanel(torch.from_numpy(values_q.copy()),
+                        torch.from_numpy(scales.astype(np.float32)))
+    return qp if device is None else qp.to(device)

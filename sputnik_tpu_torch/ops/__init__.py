@@ -1,9 +1,11 @@
 """Op layers of the port: the flat CSR op set and its dispatch, plain CSR
 ops, panel ops (also as ``ops.panel``), fused attention, decode ops over a
-block KV cache and over a KV page pool."""
+block KV cache and over a KV page pool, and the int8 serving family (also
+as ``ops.int8``)."""
 
-from . import (api, batched_panel, decode, dispatch, fused_attention, paged,
-               panel_api, plain_ops)
+from . import (api, batched_panel, decode, dispatch, fused_attention,
+               int8_api, paged, panel_api, plain_ops)
+from . import int8_api as int8
 from . import panel_api as panel
 from .api import (csr_transpose, get_backend, left_spmm, sddmm, set_backend,
                   sparse_softmax, spmm, spmm_bias, spmm_bias_relu)
@@ -18,8 +20,8 @@ from .paged import (PagedKVCache, PagePool, append_paged, append_paged_seq,
 from .panel_api import PanelSpec
 
 __all__ = ["api", "batched_panel", "decode", "dispatch", "fused_attention",
-           "paged", "panel", "panel_api", "plain_ops", "csr_transpose",
-           "get_backend", "left_spmm", "sddmm", "set_backend",
+           "int8", "int8_api", "paged", "panel", "panel_api", "plain_ops",
+           "csr_transpose", "get_backend", "left_spmm", "sddmm", "set_backend",
            "sparse_softmax", "spmm", "spmm_bias", "spmm_bias_relu",
            "fused_sparse_attention", "PanelSpec", "KVCache",
            "append_kv", "append_kv_seq", "decode_attention",

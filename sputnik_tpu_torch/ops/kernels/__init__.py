@@ -4,8 +4,9 @@ Every wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; a failed build or launch raises. Each wrapper
 counts its own launches in ``<wrapper>.launches``. A raw launch returns a
 tensor without a ``grad_fn``: gradients flow through the autograd ops of
-``ops.panel_api``, ``ops.batched_panel``, ``ops.api`` (the flat softmax)
-and ``ops.fused_attention``, whose backward launches the backward kernels.
+``ops.panel_api``, ``ops.batched_panel``, ``ops.api`` (the flat softmax),
+``ops.fused_attention`` and ``ops.int8_api`` (``spmm_qat``,
+``attention_qat``), whose backward launches the backward kernels.
 So with grad mode on and an input that requires grad, a wrapper raises on
 CUDA and names the autograd op to call instead. The serving kernels (decode and paged attention, ragged and paged append) have
 no autograd op: serving never differentiates.
@@ -46,12 +47,15 @@ def kernel_wrappers():
                                 spmm_t_bh_kernel)
     from .bsr_sddmm import bsr_sddmm_panel
     from .bsr_spmm import bsr_spmm_panel
+    from .bsr_spmm_int8 import (bsr_sddmm_panel_int8, bsr_spmm_panel_int8,
+                                bsr_spmm_t_panel_int8)
     from .bsr_spmm_t import bsr_spmm_t_panel
     from .decode_attention import decode_attention_kernel
     from .ell_softmax import ell_softmax_kernel
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
                                flash_sparse_bwd_fused)
+    from .flash_sparse_int8 import flash_sparse_attention_fwd_int8
     from .paged_append import paged_append_kernel
     from .paged_attention import paged_attention_kernel
     from .ragged_append import ragged_append_kernel
@@ -70,4 +74,8 @@ def kernel_wrappers():
             "spmm_bh": spmm_bh_kernel,
             "sddmm_bh": sddmm_bh_kernel,
             "spmm_t_bh": spmm_t_bh_kernel,
-            "ell_softmax": ell_softmax_kernel}
+            "ell_softmax": ell_softmax_kernel,
+            "bsr_spmm_panel_int8": bsr_spmm_panel_int8,
+            "bsr_spmm_t_panel_int8": bsr_spmm_t_panel_int8,
+            "bsr_sddmm_panel_int8": bsr_sddmm_panel_int8,
+            "flash_sparse_attention_fwd_int8": flash_sparse_attention_fwd_int8}

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "sddmm_bh_f32": [_P] * 6 + [_I] * 9 + [_P],
     "spmm_t_bh_f32": [_P] * 6 + [_I] * 11 + [_P],
     "ell_softmax_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "spmm_panel_int8": [_P] * 8 + [_I] * 8 + [_P],
+    "spmm_t_panel_int8": [_P] * 9 + [_I] * 10 + [_P],
+    "sddmm_panel_int8": [_P] * 10 + [_I] * 7 + [_P],
+    "flash_sparse_fwd_int8": [_P] * 11 + [_I] * 8 + [_F, _P],
 }
 
 _lock = threading.Lock()

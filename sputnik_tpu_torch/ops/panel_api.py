@@ -110,19 +110,22 @@ def panel_kaiming_values(topo, bm: int, bk: int, *, gain: float = 1.0,
 
 
 class PanelSpec:
-    """Static ``(topology, bm, bk)`` bundle for panel ops.
+    """Static ``(topology, bm, bk[, bn])`` bundle for panel ops.
 
     Holds the block metadata as device tensors, built once per device
     (``spec.meta(device)``; the flat API's index maps in
-    ``spec.flat_meta(device)``)."""
+    ``spec.flat_meta(device)``). ``bn``, JAX's slot, overrides the width
+    rule of the int8 ops' activation tiles (``int8_api``); no other op
+    reads it."""
 
-    __slots__ = ("topo", "bm", "bk", "_view", "_meta")
+    __slots__ = ("topo", "bm", "bk", "bn", "_view", "_meta")
 
     def __init__(self, topo, bm: Optional[int] = None,
-                 bk: Optional[int] = None):
+                 bk: Optional[int] = None, bn: Optional[int] = None):
         self.topo = topo
         self.bm = bm or DEFAULT_BLOCK[0]
         self.bk = bk or DEFAULT_BLOCK[1]
+        self.bn = bn
         self._view = topo.block(self.bm, self.bk)
         self._meta = {}
 
@@ -176,7 +179,8 @@ class PanelSpec:
         return got
 
     def __repr__(self):
-        return f"PanelSpec({self.topo!r}, bm={self.bm}, bk={self.bk})"
+        return (f"PanelSpec({self.topo!r}, bm={self.bm}, bk={self.bk}, "
+                f"bn={self.bn})")
 
 
 def _spec(spec) -> PanelSpec:

@@ -1,0 +1,292 @@
+"""The int8 (W8A8) serving family of the PyTorch port on the CPU against the
+JAX package's ``sputnik_tpu.int8``.
+
+Each case makes its inputs with numpy from a seed and runs both packages
+with the same ``(bm, bk, bn)``: under ``set_backend("pallas")`` the port
+runs its kernels' plain versions and JAX its Pallas kernels in interpret
+mode, on the same quantisation grid; ``"auto"`` and ``"xla"`` run JAX's
+off-TPU fp32 route in both. Tolerances: the quantised arrays exactly; the
+SpMM family 1e-5 x max|ref| (the integer products are exact, only the f32
+rescale sums differ in order); attention 1e-4 x max|ref| (the f32 softmax,
+and exp in another implementation, which could move one rounded p).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sputnik_tpu as st
+import sputnik_tpu_torch as stt
+from sputnik_tpu import int8 as jq8
+from sputnik_tpu import many_mask as jmm
+from sputnik_tpu.ops import batched_panel as jbp
+from sputnik_tpu.ops import panel_api as JP
+from sputnik_tpu_torch import bridge
+from sputnik_tpu_torch import int8 as tq8
+from sputnik_tpu_torch.ops import panel_api as TP
+from sputnik_tpu_torch.ops.batched_panel import BatchedPanelSpec
+from sputnik_tpu_torch.ops.fused_attention import fused_sparse_attention
+
+M, K, Q = 96, 80, 48
+TILE = 16
+
+
+def _close(got, ref, rtol):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    assert np.isfinite(got).all()
+    err = np.abs(got - ref).max() if ref.size else 0.0
+    bound = rtol * max(np.abs(ref).max() if ref.size else 0.0, 1e-30)
+    assert err <= bound, (err, bound)
+
+
+class _backend:
+    """Both packages' ``set_backend`` for the block, reset in a finally."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        st.set_backend(self.name)
+        stt.set_backend(self.name)
+
+    def __exit__(self, *exc):
+        st.set_backend("auto")
+        stt.set_backend("auto")
+
+
+def _matrix(seed=10, m=M, k=K, density=0.3):
+    rng = np.random.RandomState(seed)
+    a = ((rng.rand(m, k) < density) * rng.randn(m, k)).astype(np.float32)
+    a[5] = 0.0                                  # an empty row block slice
+    return a, rng
+
+
+def _specs(a, bn=None):
+    jm, tm = st.SparseMatrix(a), stt.SparseMatrix(a)
+    jspec = JP.PanelSpec(jm.topology, bm=TILE, bk=TILE, bn=bn)
+    tspec = TP.PanelSpec(tm.topology, bm=TILE, bk=TILE, bn=bn)
+    panel = JP.values_to_panel_np(jm.topology, jm.values, TILE, TILE)
+    return jspec, tspec, panel
+
+
+def test_quantized_arrays_equal_jax():
+    """quantize_panel, the in-graph quantiser and the bridge give JAX's
+    arrays byte for byte."""
+    a, _ = _matrix()
+    jspec, tspec, panel = _specs(a)
+    jqp = jq8.quantize_panel(jspec, panel)
+    tqp = tq8.quantize_panel(tspec, panel)
+    np.testing.assert_array_equal(tqp.values_q.numpy(),
+                                  np.asarray(jqp.values_q))
+    np.testing.assert_array_equal(tqp.scales.numpy(), np.asarray(jqp.scales))
+    assert tqp.values_q.dtype == torch.int8
+    assert tqp.scales.dtype == torch.float32
+    jg = jq8.quantize_panel_jnp(jnp.asarray(panel))
+    tg = tq8.quantize_panel_tensor(torch.from_numpy(panel))
+    np.testing.assert_array_equal(tg.values_q.numpy(), np.asarray(jg.values_q))
+    np.testing.assert_array_equal(tg.scales.numpy(), np.asarray(jg.scales))
+    bq = bridge.quantized_panel(np.asarray(jqp.values_q),
+                                np.asarray(jqp.scales))
+    assert torch.equal(bq.values_q, tqp.values_q)
+    assert torch.equal(bq.scales, tqp.scales)
+    moved = bq.to("cpu")
+    assert isinstance(moved, tq8.QuantizedPanel)
+    with pytest.raises(ValueError, match="int8"):
+        bridge.quantized_panel(np.asarray(jqp.scales), np.asarray(jqp.scales))
+
+
+def test_panel_spec_bn_slot():
+    a, _ = _matrix()
+    jspec, tspec, _ = _specs(a, bn=32)
+    assert tspec.bn == jspec.bn == 32
+    assert "bn=32" in repr(tspec)
+    assert TP.PanelSpec(tspec.topo).bn is None
+
+
+@pytest.mark.parametrize("bn,q", [(None, Q), (32, Q), (None, 200),
+                                  (16, 40)])
+def test_spmm_family_matches_jax(bn, q):
+    """spmm_int8 / spmm_t_int8 on JAX's grid: bn set or by the width rule,
+    ragged last column tiles (48 of 128, 16 of 32, 200 of 2 x 128)."""
+    a, rng = _matrix()
+    jspec, tspec, panel = _specs(a, bn)
+    jqp = jq8.quantize_panel(jspec, panel)
+    tqp = tq8.quantize_panel(tspec, panel)
+    dense = rng.randn(K, q).astype(np.float32)
+    g = rng.randn(M, q).astype(np.float32)
+    with _backend("pallas"):
+        jout = jq8.spmm_int8(jspec, jqp, jnp.asarray(dense))
+        joutt = jq8.spmm_t_int8(jspec, jqp, jnp.asarray(g))
+        tout = tq8.spmm_int8(tspec, tqp, torch.from_numpy(dense))
+        toutt = tq8.spmm_t_int8(tspec, tqp, torch.from_numpy(g))
+    _close(tout, jout, 1e-5)
+    _close(toutt, joutt, 1e-5)
+    # W8A8 error against fp32, and not fp32 itself
+    rel = np.abs(tout.numpy() - a @ dense).max() / np.abs(a @ dense).max()
+    assert 1e-4 < rel < 5e-2, rel
+
+
+@pytest.mark.parametrize("d", [32, 160])
+def test_sddmm_int8_matches_jax(d):
+    """One 128-deep chunk, and two with a ragged second chunk."""
+    a, rng = _matrix(seed=11)
+    jspec, tspec, _ = _specs(a)
+    lhs = rng.randn(M, d).astype(np.float32)
+    rhs = rng.randn(K, d).astype(np.float32)
+    with _backend("pallas"):
+        jp = jq8.sddmm_int8(jspec, jnp.asarray(lhs), jnp.asarray(rhs))
+        tp = tq8.sddmm_int8(tspec, torch.from_numpy(lhs),
+                            torch.from_numpy(rhs))
+    # compare values at the nonzeros (the panels share the 16 x 16 tiles)
+    t = tspec.topo
+    jv = JP.panel_to_values_np(jspec.topo, np.asarray(jp), TILE, TILE)[:t.nnz]
+    tv = TP.panel_to_values_np(t, tp.numpy(), TILE, TILE)[:t.nnz]
+    _close(tv, jv, 1e-5)
+    assert np.all(tp.numpy()[tspec.view.mask == 0] == 0)
+
+
+def _attention_specs(bm, bk, masks, heads):
+    jspec = jbp.BatchedPanelSpec.from_many_mask(
+        jmm.ManyMaskTopology.from_dense_masks(masks), heads=heads, bm=bm,
+        bk=bk)
+    tspec = BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads, bm=bm,
+        bk=bk)
+    return jspec, tspec
+
+
+def _attention_problem(bm, bk, seed=11, s=64, hd=16, heads=2):
+    rng = np.random.RandomState(seed)
+    masks = np.stack([np.tril(np.ones((s, s), np.float32)),
+                      (rng.rand(s, s) < 0.4).astype(np.float32)])
+    masks[0, 9] = 0.0                          # a fully-masked row
+    jspec, tspec = _attention_specs(bm, bk, masks, heads)
+    R = 2 * heads
+    qkv = [rng.randn(R, s, hd).astype(np.float32) for _ in range(4)]
+    return jspec, tspec, qkv
+
+
+@pytest.mark.parametrize("bm,bk", [(32, 32), (16, 32), (64, 64)])
+def test_attention_int8_matches_jax(bm, bk):
+    jspec, tspec, (q, k, v, _) = _attention_problem(bm, bk)
+    with _backend("pallas"):
+        jout = jq8.attention_int8(jspec, *map(jnp.asarray, (q, k, v)))
+        tout = tq8.attention_int8(tspec, *map(torch.from_numpy, (q, k, v)))
+    _close(tout, jout, 1e-4)
+    assert torch.all(tout[:2, 9] == 0)         # the fully-masked row
+    with _backend("xla"):
+        ref = tq8.attention_int8(tspec, *map(torch.from_numpy, (q, k, v)))
+    rel = (tout - ref).abs().max() / ref.abs().max()
+    assert 1e-3 < rel < 6e-2, rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_qat_matches_jax(dtype):
+    """Forward and both gradients under the int8 algebra, at f32 and bf16
+    activations; gradient dtypes as JAX's (dense's and the panel's)."""
+    a, rng = _matrix(seed=12)
+    jspec, tspec, panel = _specs(a)
+    dense = rng.randn(K, Q).astype(np.float32)
+    cot = rng.randn(M, Q).astype(np.float32)
+    jd = jnp.asarray(dense, getattr(jnp, dtype))
+    td = torch.from_numpy(dense).to(getattr(torch, dtype)).requires_grad_()
+    tp = torch.from_numpy(panel).requires_grad_()
+    with _backend("pallas"):
+        jout = jq8.spmm_qat(jspec, jnp.asarray(panel), jd)
+        jgp, jgd = jax.grad(
+            lambda p, d: jnp.sum(jq8.spmm_qat(jspec, p, d) * cot),
+            argnums=(0, 1))(jnp.asarray(panel), jd)
+        tout = tq8.spmm_qat(tspec, tp, td)
+        (tout * torch.from_numpy(cot)).sum().backward()
+    _close(tout.detach(), jout, 1e-5)
+    assert td.grad.dtype == td.dtype and tp.grad.dtype == tp.dtype
+    assert str(jgd.dtype) == dtype
+    _close(td.grad.float(), np.asarray(jgd, np.float32), 1e-2
+           if dtype == "bfloat16" else 1e-5)
+    t = tspec.topo
+    jv = JP.panel_to_values_np(jspec.topo, np.asarray(jgp), TILE, TILE)
+    tv = TP.panel_to_values_np(t, tp.grad.numpy(), TILE, TILE)
+    _close(tv[:t.nnz], jv[:t.nnz], 1e-5)
+
+
+def test_attention_qat_matches_jax():
+    """The forward equals attention_int8; the gradients equal the fp32
+    fused chain's (JAX: atol 1e-6) and JAX's attention_qat gradients."""
+    jspec, tspec, (q, k, v, cot) = _attention_problem(32, 32, seed=13)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    tcot = torch.from_numpy(cot)
+    with _backend("pallas"):
+        out = tq8.attention_qat(tspec, tq, tk, tv)
+        ref_fwd = tq8.attention_int8(tspec, tq.detach(), tk.detach(),
+                                     tv.detach())
+        (out * tcot).sum().backward()
+        fq, fk, fv = (x.detach().clone().requires_grad_() for x in (tq, tk,
+                                                                   tv))
+        (fused_sparse_attention(tspec, fq, fk, fv) * tcot).sum().backward()
+        jg = jax.grad(lambda a, b, c: jnp.sum(
+            jq8.attention_qat(jspec, a, b, c) * cot),
+            argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(out.detach().numpy(), ref_fwd.numpy(),
+                               atol=1e-6)
+    for a, b, c in zip((tq, tk, tv), (fq, fk, fv), jg):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6)
+        _close(a.grad, c, 1e-4)
+
+
+@pytest.mark.parametrize("route", ["auto", "xla"])
+def test_fp32_routes_match_jax(route):
+    """JAX's off-TPU route on CPU tensors: the fp32 oracle on the
+    dequantised panel, fp32 SDDMM and fused attention."""
+    a, rng = _matrix(seed=14)
+    jspec, tspec, panel = _specs(a)
+    jqp = jq8.quantize_panel(jspec, panel)
+    tqp = tq8.quantize_panel(tspec, panel)
+    dense = rng.randn(K, Q).astype(np.float32)
+    g = rng.randn(M, Q).astype(np.float32)
+    lhs, rhs = rng.randn(M, 24).astype(np.float32), rng.randn(
+        K, 24).astype(np.float32)
+    ajspec, atspec, (q, k, v, _) = _attention_problem(32, 32, seed=15)
+    with _backend(route):
+        pairs = [
+            (jq8.spmm_int8(jspec, jqp, jnp.asarray(dense)),
+             tq8.spmm_int8(tspec, tqp, torch.from_numpy(dense))),
+            (jq8.spmm_t_int8(jspec, jqp, jnp.asarray(g)),
+             tq8.spmm_t_int8(tspec, tqp, torch.from_numpy(g))),
+            (jq8.attention_int8(ajspec, *map(jnp.asarray, (q, k, v))),
+             tq8.attention_int8(atspec, *map(torch.from_numpy, (q, k, v))))]
+        jsd = jq8.sddmm_int8(jspec, jnp.asarray(lhs), jnp.asarray(rhs))
+        tsd = tq8.sddmm_int8(tspec, torch.from_numpy(lhs),
+                             torch.from_numpy(rhs))
+    for j, t in pairs:
+        _close(t, j, 1e-5)
+    nnz = tspec.topo.nnz
+    _close(TP.panel_to_values_np(tspec.topo, tsd.numpy(), TILE, TILE)[:nnz],
+           JP.panel_to_values_np(jspec.topo, np.asarray(jsd), TILE,
+                                 TILE)[:nnz], 1e-5)
+    # the fp32 route is the dequantised product
+    deq = (tqp.values_q.float() * tqp.scales[:, :, None, None]).numpy()
+    dq_dense = TP.panel_to_values_np(tspec.topo, deq, TILE, TILE)
+    ref = np.zeros((M, K), np.float32)
+    t = tspec.topo
+    ref[t.row_ids[:nnz], t.column_indices[:nnz]] = dq_dense[:nnz]
+    _close(pairs[0][1], ref @ dense, 1e-5)
+
+
+def test_attention_qat_backward_argument():
+    _, tspec, (q, k, v, _) = _attention_problem(32, 32)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="B18b"):
+        tq8.attention_qat(tspec, *args, backward="int8")
+    with pytest.raises(ValueError, match="backward"):
+        tq8.attention_qat(tspec, *args, backward="int4")
+
+
+def test_serve_sparse_int8_example_small_cpu():
+    from sputnik_tpu_torch.examples import serve_sparse_int8
+
+    res = serve_sparse_int8.main(["--small", "--device", "cpu"])
+    assert 0 < res["rel_err"] < 0.1
+    assert stt.get_backend() == "auto"

@@ -19,6 +19,8 @@ import torch
 import sputnik_tpu_torch as stt
 from sputnik_tpu_torch.ops import kernels
 from sputnik_tpu_torch.ops.kernels import batched_panel as kbp
+from sputnik_tpu_torch.ops.kernels import bsr_spmm_int8 as kbi8
+from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as kfi8
 from sputnik_tpu_torch.ops.kernels.bsr_sddmm import (bsr_sddmm_panel,
                                                       bsr_sddmm_panel_plain)
 from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
@@ -822,3 +824,146 @@ def test_flat_chain_trains_through_the_kernels(dev):
     y_gpu.square().sum().backward()
     _close(y_gpu.detach().cpu(), y_cpu.detach())
     _close(lin_gpu.values.grad.cpu(), lin.values.grad)
+
+
+# -- the int8 family (B16a, B16b, B17, B18a) ----------------------------------
+
+
+def _int8_problem(dev, tiles, seed=0):
+    """A 90%-sparse [200, 150] weight with empty row blocks at tile
+    granularity, quantised on the card's tiles."""
+    from sputnik_tpu_torch import int8
+
+    rng = np.random.RandomState(seed)
+    m, n = 200, 150
+    mask = rng.rand(m, n) < 0.1
+    mask[tiles[0]: 2 * tiles[0]] = False          # an empty row block
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    spec = stt.PanelSpec(topo, *tiles)
+    w = (mask * rng.randn(m, n)).astype(np.float32)
+    panel = stt.ops.panel_api.values_to_panel_np(
+        topo, stt.SparseMatrix(w).values, *tiles)
+    qp = int8.quantize_panel(spec, panel).to(dev)
+    return spec, qp, _meta(spec, dev), rng
+
+
+@pytest.mark.parametrize("tiles", [(16, 16), (64, 64), (128, 128), (48, 48),
+                                   (32, 96)])
+@pytest.mark.parametrize("bn,q", [(128, 130), (512, 700), (1024, 1100),
+                                  (48, 100)])
+def test_spmm_int8_kernels_match_plain(dev, tiles, bn, q):
+    """B16a and B16b against their plain versions over tiles, bn and ragged
+    widths; the empty row block is exactly 0; a bf16 dense operand is the
+    f32 one upcast."""
+    spec, qp, meta, rng = _int8_problem(dev, tiles)
+    bm = tiles[0]
+    dense = torch.from_numpy(rng.randn(150, q).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(200, q).astype(np.float32)).to(dev)
+    args = (meta["block_cols"], meta["nblocks"], qp.values_q, qp.scales)
+    before = kbi8.bsr_spmm_panel_int8.launches
+    got = kbi8.bsr_spmm_panel_int8(*args, dense, rows=200, bn=bn)
+    torch.cuda.synchronize()
+    assert kbi8.bsr_spmm_panel_int8.launches == before + 1
+    _close(got, kbi8.bsr_spmm_panel_int8_plain(*args, dense, rows=200, bn=bn))
+    assert torch.all(got[bm: 2 * bm] == 0)
+    bf = dense.to(torch.bfloat16)
+    _close(kbi8.bsr_spmm_panel_int8(*args, bf, rows=200, bn=bn),
+           kbi8.bsr_spmm_panel_int8_plain(*args, bf.float(), rows=200, bn=bn))
+    targs = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"],
+             qp.values_q, qp.scales)
+    got = kbi8.bsr_spmm_t_panel_int8(*targs, g, rows=150, bq=bn)
+    torch.cuda.synchronize()
+    _close(got, kbi8.bsr_spmm_t_panel_int8_plain(*targs, g, rows=150, bq=bn))
+
+
+@pytest.mark.parametrize("tiles", [(16, 16), (64, 64), (128, 128), (48, 48),
+                                   (32, 96)])
+@pytest.mark.parametrize("d", [20, 128, 300])
+def test_sddmm_int8_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
+    spec, _, meta, rng = _int8_problem(dev, tiles, seed=1)
+    lhs = torch.from_numpy(rng.randn(200, d).astype(np.float32)).to(dev)
+    rhs = torch.from_numpy(rng.randn(150, d).astype(np.float32)).to(dev)
+    args = (meta["block_cols"], meta["nblocks"], lhs, rhs, meta["mask"])
+    got = kbi8.bsr_sddmm_panel_int8(*args)
+    torch.cuda.synchronize()
+    _close(got, kbi8.bsr_sddmm_panel_int8_plain(*args))
+    keep = torch.from_numpy(spec.view.mask).to(dev)
+    assert torch.all(got[~keep] == 0)      # padded + masked: exact zeros
+
+
+@pytest.mark.parametrize("hd", [16, 64, 100, 128])
+@pytest.mark.parametrize("random_mask", [False, True])
+def test_flash_int8_kernel_matches_plain(dev, hd, random_mask):
+    b, heads, s = 2, 4, 200
+    masks = driver_masks(b, s)                   # row s // 2 fully masked
+    if random_mask:
+        masks[1] *= (np.random.RandomState(2).rand(s, s) < 0.5)
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    meta = spec.flash_meta(dev)
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(b * heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(3))
+    args = (meta["block_cols"], meta["nblocks"], meta["mask_slot"],
+            meta["is_partial"], meta["pmask"], q, k, v)
+    kw = dict(heads=heads, max_bpr=meta["max_bpr"], scale=hd ** -0.5)
+    out, m, l = kfi8.flash_sparse_attention_fwd_int8(*args, **kw)
+    torch.cuda.synchronize()
+    ref, m_ref, l_ref = kfi8.flash_sparse_attention_fwd_int8_plain(*args,
+                                                                   **kw)
+    _close(out, ref)
+    _close(l, l_ref)
+    live = l_ref > 0
+    _close(m[live], m_ref[live])
+    assert torch.all(out[:, s // 2] == 0)      # fully-masked row: exact 0
+    assert torch.all(m[:, s // 2] == -1e30) and torch.all(l[:, s // 2] == 0)
+
+
+def test_flash_int8_kernel_refuses_other_tiles(dev):
+    masks = driver_masks(1, 128)
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=1, bm=32, bk=32)
+    meta = spec.flash_meta(dev)
+    q = torch.zeros(1, 128, 32, device=dev)
+    with pytest.raises(ValueError, match="64x64"):
+        kfi8.flash_sparse_attention_fwd_int8(
+            meta["block_cols"], meta["nblocks"], meta["mask_slot"],
+            meta["is_partial"], meta["pmask"], q, q, q, heads=1,
+            max_bpr=meta["max_bpr"], scale=1.0)
+
+
+def test_int8_kernels_refuse_grad_mode_and_qat_trains_through_them(dev):
+    from sputnik_tpu_torch import int8
+
+    spec, qp, meta, rng = _int8_problem(dev, (64, 64), seed=4)
+    dense = torch.from_numpy(rng.randn(150, 96).astype(np.float32)).to(
+        dev).requires_grad_()
+    with pytest.raises(RuntimeError, match="int8.spmm_qat"):
+        kbi8.bsr_spmm_panel_int8(meta["block_cols"], meta["nblocks"],
+                                 qp.values_q, qp.scales, dense, rows=200,
+                                 bn=128)
+    panel = (qp.values_q.float() * qp.scales[:, :, None, None]
+             ).requires_grad_()
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    cot = torch.from_numpy(rng.randn(200, 96).astype(np.float32))
+    y = int8.spmm_qat(spec, panel, dense)
+    (y * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    got = {n: wr[n].launches - before[n] for n in
+           ("bsr_spmm_panel_int8", "bsr_spmm_t_panel_int8",
+            "bsr_sddmm_panel_int8")}
+    assert got == {"bsr_spmm_panel_int8": 1, "bsr_spmm_t_panel_int8": 1,
+                   "bsr_sddmm_panel_int8": 1}
+    cpu_panel = panel.detach().cpu().requires_grad_()
+    cpu_dense = dense.detach().cpu().requires_grad_()
+    stt.set_backend("pallas")
+    try:
+        y_cpu = int8.spmm_qat(stt.PanelSpec(spec.topo, 64, 64), cpu_panel,
+                              cpu_dense)
+        (y_cpu * cot).sum().backward()
+    finally:
+        stt.set_backend("auto")
+    _close(y.detach().cpu(), y_cpu.detach())
+    _close(dense.grad.cpu(), cpu_dense.grad)
+    _close(panel.grad.cpu(), cpu_panel.grad)

@@ -42,7 +42,9 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.ops.api, sputnik_tpu_torch.ops.dispatch, "
              "sputnik_tpu_torch.training, "
              "sputnik_tpu_torch.examples.dynamic_sparse_training, "
-             "sputnik_tpu_torch.examples.train_block_sparse\n"
+             "sputnik_tpu_torch.examples.train_block_sparse, "
+             "sputnik_tpu_torch.ops.int8_api, "
+             "sputnik_tpu_torch.examples.serve_sparse_int8\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -63,6 +65,9 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.paged_append\n"
              "import sputnik_tpu_torch.ops.kernels.batched_panel\n"
              "import sputnik_tpu_torch.ops.kernels.ell_softmax\n"
+             "import sputnik_tpu_torch.ops.kernels.bsr_spmm_int8\n"
+             "import sputnik_tpu_torch.ops.kernels.flash_sparse_int8\n"
+             "import sputnik_tpu_torch.ops.int8_api\n"
              "import sputnik_tpu_torch.ops.dispatch\n"
              "import sputnik_tpu_torch.models.moe\n"
              "import sputnik_tpu_torch.ops.paged\n"
@@ -83,14 +88,17 @@ def test_build_key_covers_every_source():
                                     "bsr_sddmm.cu", "flash_sparse_fwd.cu",
                                     "flash_sparse_bwd.cu",
                                     "decode_attention.cu",
-                                    "ragged_append.cu", "ell_softmax.cu"}
+                                    "ragged_append.cu", "ell_softmax.cu",
+                                    "bsr_spmm_int8.cu",
+                                    "flash_sparse_int8.cu"}
     assert set(_build._SIGNATURES) == {
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
         "decode_attention", "ragged_append", "paged_attention",
         "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
-        "ell_softmax_f32"}
+        "ell_softmax_f32", "spmm_panel_int8", "spmm_t_panel_int8",
+        "sddmm_panel_int8", "flash_sparse_fwd_int8"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -141,8 +149,24 @@ def test_cpu_tensors_launch_no_kernel():
     toks, _ = stt.LMServer(lm128, s_max=256, bk=128, n_pages=8).generate(
         torch.zeros(2, 128, dtype=torch.long), 3)
     assert toks.shape == (2, 3)
+    spec = stt.PanelSpec(topo, 16, 16)
+    panel = torch.from_numpy(stt.ops.panel_api.values_to_panel_np(
+        topo, np.ones(topo.nnz_pad, np.float32), 16, 16)).requires_grad_()
+    d = torch.randn(32, 8, requires_grad=True)
+    bspec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(driver_masks(1, s)), heads=2)
+    qkv = torch.randn(3, 2, s, 16, requires_grad=True)
+    for backend in ("auto", "pallas"):       # the int8 family, both routes
+        stt.set_backend(backend)
+        try:
+            (stt.int8.spmm_qat(spec, panel, d).sum()
+             + stt.int8.attention_qat(bspec, *qkv).sum()).backward()
+        finally:
+            stt.set_backend("auto")
+    assert torch.isfinite(qkv.grad).all() and torch.isfinite(panel.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 15 and "ell_softmax" in wrappers
+    assert len(wrappers) == 19 and "ell_softmax" in wrappers
+    assert "flash_sparse_attention_fwd_int8" in wrappers
     assert all(v == 0 for v in before.values())
 
 
@@ -181,13 +205,19 @@ def test_build_failure_raises(tmp_path, monkeypatch):
 
 def test_exports_match_the_jax_package():
     """The names of ``sputnik_tpu`` and ``sputnik_tpu.ops`` exist in the
-    port, less the unported int8 family and compressed layout; ``ops.panel``
-    is ``ops.panel_api``."""
+    port, less the unported compressed layout; ``ops.panel`` is
+    ``ops.panel_api`` and ``int8`` is ``ops.int8_api``, whose names are
+    JAX's but for the in-graph quantiser's torch name."""
     import sputnik_tpu as st
 
-    unported = {"int8", "CompressedView"}
+    unported = {"CompressedView"}
     assert set(st.__all__) - set(stt.__all__) == unported
-    assert set(st.ops.__all__) - set(stt.ops.__all__) == {"int8"}
+    assert set(st.ops.__all__) - set(stt.ops.__all__) == set()
+    assert stt.int8 is stt.ops.int8 is stt.ops.int8_api
+    assert set(st.int8.__all__) - set(stt.int8.__all__) == {
+        "quantize_panel_jnp"}
+    assert set(stt.int8.__all__) - set(st.int8.__all__) == {
+        "quantize_panel_tensor"}
     assert all(hasattr(stt, n) for n in stt.__all__)
     assert all(hasattr(stt.ops, n) for n in stt.ops.__all__)
     assert stt.ops.panel is stt.ops.panel_api and stt.panel is stt.ops.panel
