@@ -22,9 +22,10 @@ Phases, each printing its lines:
      attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
      an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
      the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024), B17
-     at B4's shape and B18a at the int8 example's attention and at B9's
-     shape, each also shown >= 10x its limit away from the fp32 kernel's
-     result, so that a kernel computing in fp32 would fail (2h);
+     at B4's shape, B18a and the int8 flash backward B18b / B18c at the
+     int8 example's attention and at B9's shape, each also shown >= 10x its
+     limit away from the fp32 kernel's result (B1, B3, B4, B9, B10b,
+     B10c), so that a kernel computing in fp32 would fail (2h);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -52,14 +53,18 @@ Phases, each printing its lines:
      h. int8 serving at examples/serve_sparse_int8.py's full width (h=1024,
         s=2048, 8 heads): its int8 forward (B18a + B16a) and fp32 forward
         (B9 + B1), the example itself, one spmm_qat SGD step (B16a; B16b +
-        B17) and one attention_qat step (B18a; B9 + B10a);
+        B17), one attention_qat step (B18a; B9 + B10a) and one
+        attention_qat(backward="int8") step (B18a; B18b + B18c), its
+        gradients within tpu_smoke.py's 4e-1 of the fp32 fused attention's,
+        the two steps timed in turns;
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
      the first MoE step's routing, losses and router / expert gradients and
      the panel model's forward; the flat chain under set_backend("xla") and
      the csr SparseLinear, also against the panel layer on the card; the
-     int8 attention, projection and spmm_qat gradients under
+     int8 attention, projection, spmm_qat gradients and
+     attention_qat(backward="int8") gradients under
      set_backend("pallas")), and the forward / training-step / prefill /
      decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
@@ -122,6 +127,12 @@ REPLACES = {
     "flash_sparse_attention_fwd_int8": (
         "sputnik_tpu_torch/csrc/flash_sparse_int8.cu",
         "sputnik_tpu/ops/pallas/flash_sparse_int8.py:54"),
+    "flash_sparse_bwd_dq_int8": (
+        "sputnik_tpu_torch/csrc/flash_sparse_int8_bwd.cu",
+        "sputnik_tpu/ops/pallas/flash_sparse_int8.py:189"),
+    "flash_sparse_bwd_dkv_int8": (
+        "sputnik_tpu_torch/csrc/flash_sparse_int8_bwd.cu",
+        "sputnik_tpu/ops/pallas/flash_sparse_int8.py:298"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # the MoE example's default step count: Adam's first steps at lr 1e-3
@@ -2340,6 +2351,93 @@ def _int8_flash_case(stt, torch, dev, r, label, masks, heads, hd, seed,
            PEAK_INT8)
 
 
+def _int8_flash_bwd_case(stt, torch, dev, kres, label, masks, heads, hd,
+                         seed, timed):
+    """B18b and B18c against their plain versions and the fp32 B10b / B10c
+    on one problem (the int8 forward's out, m and l, D = rowsum(g * out));
+    ``timed`` fills their JSON entries (ms, plain, library, bound)."""
+    import torch.nn.functional as F
+
+    from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as f8
+
+    b, s = masks.shape[0], masks.shape[1]
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(b * heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(4))
+    kw = dict(heads=heads, scale=hd ** -0.5)
+    out, m, l = f8.flash_sparse_attention_fwd_int8(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k, v, max_bpr=fm["max_bpr"], **kw)
+    D = (g * out).sum(-1)
+    ops = (q, k, v, g, m, l, D)
+    rows = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], *ops)
+    cols = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], *ops)
+    rkw, ckw = dict(kw, max_bpr=fm["max_bpr"]), dict(kw, max_bpc=bm["max_bpc"])
+    calls = {
+        "flash_sparse_bwd_dq_int8": (
+            ("dq",), lambda: (f8.flash_sparse_bwd_dq_int8(*rows, **rkw),),
+            lambda: (f8.flash_sparse_bwd_dq_int8_plain(*rows, **rkw),),
+            lambda: (fs.flash_sparse_bwd_dq(*rows, **rkw),)),
+        "flash_sparse_bwd_dkv_int8": (
+            ("dk", "dv"), lambda: f8.flash_sparse_bwd_dkv_int8(*cols, **ckw),
+            lambda: f8.flash_sparse_bwd_dkv_int8_plain(*cols, **ckw),
+            lambda: fs.flash_sparse_bwd_dkv(*cols, **ckw))}
+    for name, (parts, kern, plain, fp32) in calls.items():
+        for part, got, ref, f32 in zip(parts, kern(), plain(), fp32()):
+            tag = f"{name} {part} {label}"
+            _compare(tag, got, ref, TOL_KERNEL, kres[name])
+            n_diff = int(((got - ref).abs() > 1e-6 * ref.abs().max()).sum())
+            print(f"  {tag}: {n_diff} of {got.numel()} entries differ from "
+                  f"plain by more than 1e-6 x max|plain|", flush=True)
+            _int8_distance(tag, ref, f32)
+    empty = torch.from_numpy(masks.sum(-1) == 0).to(dev).repeat_interleave(
+        heads, 0)
+    if not torch.all(calls["flash_sparse_bwd_dq_int8"][1]()[0][empty] == 0):
+        _fail(f"flash int8 dq {label}: a fully-masked row is not exactly 0")
+    if not timed:
+        return
+    mask = torch.from_numpy(masks != 0).to(dev)[:, None]
+
+    def sdpa_bwd(dtype):
+        q4, k4, v4 = (x.reshape(b, heads, s, hd).to(dtype).requires_grad_()
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                           scale=hd ** -0.5)
+        g4 = g.reshape(b, heads, s, hd).to(dtype)
+        return lambda: torch.autograd.grad(o, (q4, k4, v4), g4,
+                                           retain_graph=True)
+
+    lib = _library_ms("flash int8 backward (the backward of "
+                      "F.scaled_dot_product_attention, f32, bool mask: dq, "
+                      "dk, dv)", sdpa_bwd(torch.float32))
+    bf16_ms = _library_ms("flash int8 backward (SDPA backward, bf16, bool "
+                          "mask)", sdpa_bwd(torch.bfloat16))
+    pairs = float((masks != 0).sum()) * heads
+    # per kept pair and head dim: QK^T and GV^T recomputed, then dS K (dq);
+    # dS^T Q and P^T G (dk, dv)
+    work = {"flash_sparse_bwd_dq_int8": (6, rows),
+            "flash_sparse_bwd_dkv_int8": (8, cols)}
+    for name, (parts, kern, plain, fp32) in calls.items():
+        r = kres[name]
+        r["ms"] = _time_ms(kern)
+        r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
+        r["library_ms"] = lib
+        f32_ms = _time_ms(fp32)
+        print(f"  {name} {label}: kernel {r['ms']:.4f} ms, fp32 "
+              f"{'B10b' if len(parts) == 1 else 'B10c'} {f32_ms:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, SDPA backward f32 {lib} ms, "
+              f"bf16 {bf16_ms} ms", flush=True)
+        per, args = work[name]
+        _bound(r, per * pairs * hd, _nbytes(*args[:5], *ops, *kern()),
+               PEAK_INT8)
+
+
 def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     """Phase 2h: B16a, B16b, B17 and B18a against their plain versions on
     the card, each also held >= 10x its limit away from the fp32 kernel."""
@@ -2352,8 +2450,8 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     from sputnik_tpu_torch.ops.kernels.bsr_spmm_t import bsr_spmm_t_panel
     from sputnik_tpu_torch.patterns import driver_masks
 
-    print("phase 2h: int8 kernels (B16a, B16b, B17, B18a) vs plain PyTorch "
-          "on the card", flush=True)
+    print("phase 2h: int8 kernels (B16a, B16b, B17, B18a, B18b, B18c) vs "
+          "plain PyTorch on the card", flush=True)
     size, topo = w.shape[0], mat.topology
     spec = P.PanelSpec(topo)
     bn = _tile_width(spec, size)    # JAX's width rule: 1024 at 4096 columns
@@ -2475,6 +2573,22 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     print(f"  flash int8 at B9's shape: {b9['ms']:.4f} ms (B9 0.1034 ms, "
           f"PERF.md)", flush=True)
 
+    # B18b / B18c at the same two problems, timed into the JSON line at the
+    # example's attention
+    _int8_flash_bwd_case(stt, torch, dev, kres, "R=8 s=2048 hd=128 causal",
+                         np.tril(np.ones((1, s, s), np.float32)), 8, 128, 74,
+                         timed=True)
+    b9 = {n: {} for n in ("flash_sparse_bwd_dq_int8",
+                          "flash_sparse_bwd_dkv_int8")}
+    _int8_flash_bwd_case(stt, torch, dev, b9, "R=32 s=512 hd=64 driver",
+                         driver_masks(4, 512), 8, 64, 75, timed=True)
+    for name, r9 in b9.items():
+        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"],
+                                        r9["max_abs_err"])
+        print(f"  {name} at B9's shape: {r9['ms']:.4f} ms, plain "
+              f"{r9['plain_ms']:.4f} ms, bound {r9['bound_ms']:.4f} ms",
+              flush=True)
+
 
 def phase_int8_path(stt, torch, dev, wrappers):
     """Phases 3h / 4h: the int8 serving path at the example's full width,
@@ -2575,6 +2689,49 @@ def phase_int8_path(stt, torch, dev, wrappers):
         _compare(f"attention_qat d{name} vs the fp32 fused attention's",
                  a.grad, b.grad, TOL_KERNEL, floor=0)
 
+    # one attention_qat(backward="int8") step: B18a forward, B18b + B18c
+    # backward from B18a's own m and l, and no fp32 flash kernel; its
+    # gradients are held at tpu_smoke.py's 4e-1 of the fp32 fused ones
+    qkv8 = [x.detach().clone().requires_grad_() for _ in range(3)]
+
+    def attn8_step(tensors=qkv8):
+        out = int8.attention_qat(bspec, *tensors, backward="int8")
+        (out * acot).sum().backward()
+        return out
+
+    _counted(wrappers, total, "attention_qat(backward='int8') step "
+             "(forward + backward)", attn8_step,
+             {"flash_sparse_attention_fwd_int8": 1,
+              "flash_sparse_bwd_dq_int8": 1, "flash_sparse_bwd_dkv_int8": 1,
+              "flash_sparse_attention_fwd": 0, "flash_sparse_bwd_fused": 0,
+              "flash_sparse_bwd_dq": 0, "flash_sparse_bwd_dkv": 0})
+    grads8 = [a.grad.detach().clone() for a in qkv8]
+    for name, a, b in zip("qkv", grads8, ref):
+        _compare(f"attention_qat(backward='int8') d{name} vs the fp32 fused "
+                 f"attention's (tpu_smoke.py's limit)", a, b.grad, 4e-1,
+                 floor=0)
+    steps = {}
+    for label, fn in (("fp32", attn_step), ("int8", attn8_step),
+                      ("int8 ", attn8_step), ("fp32 ", attn_step)):
+        steps.setdefault(label.strip(), []).append(_time_ms(fn, reps=5,
+                                                            inner=3))
+    fp32_ms, int8_ms = min(steps["fp32"]), min(steps["int8"])
+    print(f"  attention_qat step (forward + backward, CUDA events, in turns "
+          f"fp32 / int8 / int8 / fp32): backward='fp32' (B18a + B9 + B10a) "
+          f"{steps['fp32'][0]:.4f} / {steps['fp32'][1]:.4f} ms, "
+          f"backward='int8' (B18a + B18b + B18c) {steps['int8'][0]:.4f} / "
+          f"{steps['int8'][1]:.4f} ms: "
+          f"{'int8' if int8_ms < fp32_ms else 'fp32'} faster by "
+          f"{max(fp32_ms, int8_ms) / min(fp32_ms, int8_ms):.3f}x",
+          flush=True)
+    for label, fn in (("attention_qat(backward='int8') steps", attn8_step),
+                      ("attention_qat(backward='fp32') steps", attn_step)):
+        try:
+            _profile_steps(torch, label, lambda i, f=fn: f())
+        except Exception as e:  # a measurement, not a check of the path
+            print(f"  torch.profiler gave no device times: {e!r}",
+                  flush=True)
+
     print("phase 4h: the int8 path vs the CPU under set_backend('pallas') "
           "(full size: s=2048)", flush=True)
     t0 = time.perf_counter()
@@ -2593,6 +2750,9 @@ def phase_int8_path(stt, torch, dev, wrappers):
         p_c = panel_cpu.clone().requires_grad_()
         d_c = dense_cpu.clone().requires_grad_()
         qat_loss(p_c, d_c, cot).backward()
+        qkv_c = [cpu["x"].clone().requires_grad_() for _ in range(3)]
+        (int8.attention_qat(cpu["bspec"], *qkv_c, backward="int8")
+         * acot.cpu()).sum().backward()
     finally:
         stt.set_backend("auto")
     _compare("int8 attention vs the CPU", ctx8.cpu(), ctx_cpu, TOL_MODEL)
@@ -2613,6 +2773,18 @@ def phase_int8_path(stt, torch, dev, wrappers):
              d_c.grad, TOL_MODEL, floor=0)
     _compare("spmm_qat panel gradient vs the CPU", panel.grad.cpu(),
              p_c.grad, TOL_MODEL, floor=0)
+    # the card's exp and forward sums (so D) differ from the CPU's in the
+    # last place, which can move a ds or p code by one step: held at the
+    # W8A8 class, 1e-2 x max|ref|, with the count beyond TOL_MODEL shown
+    for name, a, c in zip("qkv", grads8, qkv_c):
+        ref = c.grad
+        lim = TOL_MODEL * ref.abs().max().item()
+        n_off = int(((a.cpu() - ref).abs() > lim).sum())
+        print(f"  attention_qat(backward='int8') d{name}: {n_off} of "
+              f"{ref.numel()} entries beyond {lim:.3e} from the CPU",
+              flush=True)
+        _compare(f"attention_qat(backward='int8') d{name} vs the CPU",
+                 a.cpu(), ref, 1e-2, floor=0)
     print(f"  CPU reference in {time.perf_counter() - t0:.1f} s", flush=True)
     return total
 

@@ -86,4 +86,29 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
+// --- the flash backward kernels' pieces (fp32 and int8).
+
+// Row statistics of query row block i of replica r: m, max(l, 1e-30) and
+// D = rowsum(g * out) (0 past s_q), one row per thread of the first 64.
+__device__ __forceinline__ void stage_stats(float* Ms, float* Ls, float* Dr,
+                                            const float* m, const float* l,
+                                            const float* D, int r, int i,
+                                            int mb, int s_q) {
+  const int t = threadIdx.x;
+  if (t < TILE) {
+    const int gr = i * TILE + t;
+    const size_t at = (size_t)r * mb * TILE + gr;
+    Ms[t] = m[at];
+    Ls[t] = fmaxf(l[at], 1e-30f);
+    Dr[t] = gr < s_q ? D[(size_t)r * s_q + gr] : 0.f;
+  }
+}
+
+// Allow `kernel` `bytes` of dynamic shared memory (above 48 KB).
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace stt

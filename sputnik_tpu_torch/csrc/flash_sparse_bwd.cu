@@ -77,21 +77,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// Row statistics of query row block i of replica r: m, max(l, 1e-30), D.
-__device__ __forceinline__ void stage_stats(float* Ms, float* Ls, float* Dr,
-                                            const float* m, const float* l,
-                                            const float* D, int r, int i,
-                                            int mb, int s_q) {
-  const int t = threadIdx.x;
-  if (t < TILE) {
-    const int gr = i * TILE + t;
-    const size_t at = (size_t)r * mb * TILE + gr;
-    Ms[t] = m[at];
-    Ls[t] = fmaxf(l[at], 1e-30f);
-    Dr[t] = gr < s_q ? D[(size_t)r * s_q + gr] : 0.f;
-  }
-}
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -361,12 +346,6 @@ flash_bwd_dkv_kernel(const int* __restrict__ t_src_i,
   }
   store_tile<HD, false>(dk + koff, j * TILE, s_kv, hd, ak);
   store_tile<HD, false>(dv + koff, j * TILE, s_kv, hd, av);
-}
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int HD, bool WITH_KV>

@@ -16,7 +16,11 @@ their result (``kernels/bsr_spmm_int8.py``, ``kernels/flash_sparse_int8.py``):
     (B17), cast to the primal dtypes;
   * ``attention_qat(backward="fp32")``: the int8 forward (B18a) with the
     fp32 fused attention's gradients at the same ``(q, k, v)`` (B9
-    recomputes ``m`` and ``l``, then B10a or B10b + B10c).
+    recomputes ``m`` and ``l``, then B10a or B10b + B10c);
+  * ``attention_qat(backward="int8")``, the full-int8 training path: the
+    int8 forward (B18a), then the int8 backward from B18a's own ``out``,
+    ``m`` and ``l``: dq over the row walk (B18b), dk and dv over the
+    transposed walk (B18c), cast to the primal dtypes.
 
 Routes (``ops.api.set_backend``, the JAX package's names):
 
@@ -25,7 +29,7 @@ Routes (``ops.api.set_backend``, the JAX package's names):
     the Pallas kernels off a TPU);
   * ``"auto"`` (default): the kernels on CUDA tensors; on CPU tensors JAX's
     off-TPU route: the fp32 oracle on the dequantised panel and fp32 fused
-    attention;
+    attention (both ways for ``attention_qat(backward="int8")``);
   * ``"xla"``: that fp32 route on any device.
 
 The activation tile width of B16a / B16b is ``spec.bn``, else JAX's rule:
@@ -47,7 +51,9 @@ from .fused_attention import _fused_bwd, _fused_fwd, fused_sparse_attention
 from .kernels.bsr_spmm_int8 import (bsr_sddmm_panel_int8, bsr_spmm_panel_int8,
                                     bsr_spmm_t_panel_int8, div127,
                                     quantize_panel_np)
-from .kernels.flash_sparse_int8 import flash_sparse_attention_fwd_int8
+from .kernels.flash_sparse_int8 import (flash_sparse_attention_fwd_int8,
+                                        flash_sparse_bwd_dkv_int8,
+                                        flash_sparse_bwd_dq_int8)
 from .panel_api import (PanelSpec, _check_rows, _spec, panel_to_values,
                         values_to_panel)
 
@@ -200,16 +206,25 @@ def _check_attention(spec: BatchedPanelSpec, q, k, v):
                          f"{(spec.R, spec.n, q.shape[2])}")
 
 
-def _attention_int8(spec: BatchedPanelSpec, q, k, v, scale: float):
-    """The int8 flash forward (B18a) -> ``(out, m, l)``. A q that is not
-    f32 is scaled in its own dtype first, as JAX's ``q * scale``."""
+def _int8_operands(q, k, v, scale: float):
+    """The f32 operands of the int8 flash kernels and the scale the kernels
+    apply to q: a q that is not f32 is scaled in its own dtype first, as
+    JAX's ``q * scale`` (whose Python scale is rounded to q's dtype before
+    the product), and the kernels then quantise that tensor."""
     if q.dtype != torch.float32:
-        q, scale = (q * scale).float(), 1.0
+        s = torch.full((), scale, dtype=q.dtype, device=q.device)
+        q, scale = (q * s).float(), 1.0
+    return (q.contiguous(), k.float().contiguous(), v.float().contiguous(),
+            scale)
+
+
+def _attention_int8(spec: BatchedPanelSpec, q, k, v, scale: float):
+    """The int8 flash forward (B18a) on ``_int8_operands`` -> ``(out, m,
+    l)``."""
     meta = spec.flash_meta(q.device)
     return flash_sparse_attention_fwd_int8(
         meta["block_cols"], meta["nblocks"], meta["mask_slot"],
-        meta["is_partial"], meta["pmask"], q.contiguous(),
-        k.float().contiguous(), v.float().contiguous(), heads=spec.heads,
+        meta["is_partial"], meta["pmask"], q, k, v, heads=spec.heads,
         max_bpr=meta["max_bpr"], scale=scale)
 
 
@@ -223,7 +238,7 @@ def attention_int8(spec: BatchedPanelSpec, q, k, v, scale=None):
     scale = float(scale)
     if not _kernel_route(q):
         return fused_sparse_attention(spec, q, k, v, scale=scale)
-    return _attention_int8(spec, q, k, v, scale)[0]
+    return _attention_int8(spec, *_int8_operands(q, k, v, scale))[0]
 
 
 class _AttentionQAT(torch.autograd.Function):
@@ -251,21 +266,65 @@ class _AttentionQAT(torch.autograd.Function):
                 dv.to(v.dtype), None)
 
 
+class _AttentionInt8Train(torch.autograd.Function):
+    """JAX ``_attention_int8_train``: the int8 forward (B18a); the backward
+    recomputes p from the forward's own ``m`` and ``l`` on the same codes and
+    runs every contraction on int8: dq (B18b), dk and dv (B18c)."""
+
+    @staticmethod
+    def forward(ctx, spec, q, k, v, scale):
+        qf, kf, vf, q_scale = _int8_operands(q, k, v, scale)
+        out, m, l = _attention_int8(spec, qf, kf, vf, q_scale)
+        ctx.spec, ctx.scale, ctx.q_scale = spec, scale, q_scale
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.save_for_backward(qf, kf, vf, out, m, l)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        qf, kf, vf, out, m, l = ctx.saved_tensors
+        spec, dev = ctx.spec, qf.device
+        g = g.float().contiguous()
+        D = (g * out).sum(-1)
+        ops = (qf, kf, vf, g, m, l, D)
+        kw = dict(heads=spec.heads, scale=ctx.q_scale)
+        fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+        dq = flash_sparse_bwd_dq_int8(
+            fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], *ops, max_bpr=fm["max_bpr"], **kw)
+        dk, dv = flash_sparse_bwd_dkv_int8(
+            bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], *ops, max_bpc=bm["max_bpc"],
+            **kw)
+        q_dt, k_dt, v_dt = ctx.dtypes
+        return (None, (dq * ctx.scale).to(q_dt), dk.to(k_dt), dv.to(v_dt),
+                None)
+
+
 def attention_qat(spec: BatchedPanelSpec, q, k, v, scale=None,
                   backward: str = "fp32"):
     """Quantisation-aware-training sparse attention: the int8 fused
-    forward (what serving runs) with the fp32 fused gradients
-    (``backward="fp32"``, the fake-quant recipe). ``backward="int8"``, the
-    full-int8 training path, needs the int8 flash backward kernels (B18b,
-    B18c), which are not ported yet."""
+    forward (what serving runs), with a choice of backward:
+
+    * ``backward="fp32"`` (default): the fp32 fused gradients at the same
+      ``(q, k, v)`` (straight-through, the fake-quant recipe);
+    * ``backward="int8"``: the full-int8 training path: p is recomputed
+      from the int8 forward's stats on the same per-tile codes, and the
+      backward's four contractions (QK^T, GV^T, dS K and dS^T Q, P^T G) run
+      on int8 codes (B18b, B18c); a gradient error against fp32 of a few
+      1e-2 of max|grad| (the W8A8 class), growing with the sequence to
+      ~1e-1 at 2048. On CPU tensors under ``"auto"``, and under ``"xla"``,
+      it is the fp32 fused attention both ways, as JAX's off-TPU route.
+
+    The gradients come back in the primal dtypes."""
     _check_attention(spec, q, k, v)
     if scale is None:
         scale = 1.0 / np.sqrt(q.shape[-1])
     if backward == "int8":
-        raise NotImplementedError(
-            "attention_qat(backward='int8') needs the int8 flash backward "
-            "kernels B18b / B18c (ROADMAP queue B), not ported yet; use "
-            "backward='fp32'")
+        if not _kernel_route(q):
+            return fused_sparse_attention(spec, q, k, v, scale=float(scale))
+        return _AttentionInt8Train.apply(spec, q, k, v, float(scale))
     if backward != "fp32":
         raise ValueError(f"backward must be 'fp32' or 'int8', "
                          f"got {backward!r}")

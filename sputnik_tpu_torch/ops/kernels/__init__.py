@@ -55,7 +55,9 @@ def kernel_wrappers():
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
                                flash_sparse_bwd_fused)
-    from .flash_sparse_int8 import flash_sparse_attention_fwd_int8
+    from .flash_sparse_int8 import (flash_sparse_attention_fwd_int8,
+                                    flash_sparse_bwd_dkv_int8,
+                                    flash_sparse_bwd_dq_int8)
     from .paged_append import paged_append_kernel
     from .paged_attention import paged_attention_kernel
     from .ragged_append import ragged_append_kernel
@@ -78,4 +80,6 @@ def kernel_wrappers():
             "bsr_spmm_panel_int8": bsr_spmm_panel_int8,
             "bsr_spmm_t_panel_int8": bsr_spmm_t_panel_int8,
             "bsr_sddmm_panel_int8": bsr_sddmm_panel_int8,
-            "flash_sparse_attention_fwd_int8": flash_sparse_attention_fwd_int8}
+            "flash_sparse_attention_fwd_int8": flash_sparse_attention_fwd_int8,
+            "flash_sparse_bwd_dq_int8": flash_sparse_bwd_dq_int8,
+            "flash_sparse_bwd_dkv_int8": flash_sparse_bwd_dkv_int8}

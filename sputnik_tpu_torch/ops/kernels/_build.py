@@ -59,6 +59,8 @@ _SIGNATURES = {
     "spmm_t_panel_int8": [_P] * 9 + [_I] * 10 + [_P],
     "sddmm_panel_int8": [_P] * 10 + [_I] * 7 + [_P],
     "flash_sparse_fwd_int8": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
+    "flash_sparse_bwd_dkv_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -435,6 +435,23 @@ def _bwd_row_operands(name, block_cols, nblocks, mask_slot, is_partial,
         raise ValueError("block metadata shapes disagree")
 
 
+def _bwd_col_operands(name, t_src_i, t_nblocks, t_mask_slot, t_is_partial,
+                      pmask, q, k, v, g, m, l, D, max_bpc):
+    B, kb = t_nblocks.shape
+    _, _, bm, bk = pmask.shape
+    _check_kernel_shape(bm, bk, q.shape[2])
+    i32, f32 = torch.int32, torch.float32
+    check_operands(name, q.device, t_src_i=(t_src_i, i32),
+                   t_nblocks=(t_nblocks, i32), t_mask_slot=(t_mask_slot, i32),
+                   t_is_partial=(t_is_partial, i32), pmask=(pmask, f32),
+                   q=(q, f32), k=(k, f32), v=(v, f32), g=(g, f32),
+                   m=(m, f32), l=(l, f32), D=(D, f32))
+    if (t_src_i.shape != (B, kb * max_bpc)
+            or t_mask_slot.shape != t_src_i.shape
+            or t_is_partial.shape != t_src_i.shape):
+        raise ValueError("transposed metadata shapes disagree")
+
+
 def flash_sparse_bwd_fused(block_cols, nblocks, mask_slot, is_partial, pmask,
                            q, k, v, g, m, l, D, *, heads: int, max_bpr: int,
                            scale: float, group: int = 1):
@@ -532,19 +549,10 @@ def flash_sparse_bwd_dkv(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
 
     guard_no_grad("flash_sparse_bwd_dkv",
                   "fused_attention.fused_sparse_attention", q, k, v, g)
+    _bwd_col_operands("flash_sparse_bwd_dkv", t_src_i, t_nblocks,
+                      t_mask_slot, t_is_partial, pmask, q, k, v, g, m, l, D,
+                      max_bpc)
     R, s_q, hd = q.shape
-    _check_kernel_shape(bm, bk, hd)
-    i32, f32 = torch.int32, torch.float32
-    check_operands("flash_sparse_bwd_dkv", q.device,
-                   t_src_i=(t_src_i, i32), t_nblocks=(t_nblocks, i32),
-                   t_mask_slot=(t_mask_slot, i32),
-                   t_is_partial=(t_is_partial, i32), pmask=(pmask, f32),
-                   q=(q, f32), k=(k, f32), v=(v, f32), g=(g, f32),
-                   m=(m, f32), l=(l, f32), D=(D, f32))
-    if (t_src_i.shape != (B, kb * max_bpc)
-            or t_mask_slot.shape != t_src_i.shape
-            or t_is_partial.shape != t_src_i.shape):
-        raise ValueError("transposed metadata shapes disagree")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv

@@ -1,19 +1,28 @@
-"""Int8 sparse-flash attention forward: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Int8 sparse-flash attention, forward and backward: the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
-Replaces ``sputnik_tpu/ops/pallas/flash_sparse_int8.py:
-flash_sparse_attention_fwd_int8`` (B18a); the kernel is
-``csrc/flash_sparse_int8.cu``. It reads B9's flash metadata
-(``BatchedPanelSpec.flash_meta``) and returns B9's ``(out, m, l)``.
+Replaces three kernels of ``sputnik_tpu/ops/pallas/flash_sparse_int8.py``:
+``flash_sparse_attention_fwd_int8`` (B18a, ``csrc/flash_sparse_int8.cu``)
+and the backward ``flash_sparse_bwd_dq_int8`` (B18b) and
+``flash_sparse_bwd_dkv_int8`` (B18c, both ``csrc/flash_sparse_int8_bwd.cu``).
+They read B9's flash metadata (``BatchedPanelSpec.flash_meta`` and, for
+B18c, ``flash_bwd_meta``); the forward returns B9's ``(out, m, l)`` and the
+backward takes them as B10b / B10c do.
 
-The quantisation grid is the TPU kernel's and part of the result:
-``q * scale`` per ``[bm, hd]`` row block (once per row block), ``k`` and
-``v`` per ``[bk, hd]`` key block; the scores are the exact integer product
-rescaled by ``q_s * k_s``; ``p = exp(sc - m_new)`` over the whole ``bk``-wide
-tile, ``l`` sums the unquantised ``p``, and PV takes
-``p_q = clip(round(p * 127), 0, 127)`` rescaled by ``v_s / 127``. The kernel
-runs 64 x 64 tiles and raises on any other, since another tile would be
-another grid; the plain version runs any tile.
+The quantisation grid is the TPU kernels' and part of the result:
+``q * scale`` and ``g`` per ``[bm, hd]`` row block, ``k`` and ``v`` per
+``[bk, hd]`` key block; the scores are the exact integer product
+rescaled by ``q_s * k_s``; ``p = exp(sc - m_new)`` over the whole
+``bk``-wide tile, ``l`` sums the unquantised ``p``, and PV takes
+``p_q = clip(round(p * 127), 0, 127)`` rescaled by ``v_s / 127``. The
+backward recomputes, per occupied tile and from the forward's ``m`` and
+``l``, ``p = exp(sc - m) / max(l, 1e-30)`` (0 where ``sc <= -5e29``),
+``dp = int(g_q v_q^T) * (g_s * v_s)`` and ``ds = p * (dp - D)``, which is
+quantised per ``[bm, bk]`` tile; then ``dq += int(ds_q k_q) * (ds_s * k_s)``
+(B18b, with respect to ``q * scale``), ``dk += int(ds_q^T q_q) * (ds_s *
+q_s)`` and ``dv += int(p_q^T g_q) * (g_s / 127)`` (B18c). The kernels run
+64 x 64 tiles and raise on any other, since another tile would be another
+grid; the plain versions run any tile.
 """
 
 from __future__ import annotations
@@ -24,12 +33,16 @@ import torch.nn.functional as F
 from . import check_operands, guard_no_grad
 from ._build import check, library
 from .bsr_spmm_int8 import div127, quant_tile
-from .flash_sparse import _check_kernel_shape
+from .flash_sparse import (_bwd_col_operands, _bwd_row_operands, _check_bwd,
+                           _check_kernel_shape)
 
 __all__ = ["flash_sparse_attention_fwd_int8",
-           "flash_sparse_attention_fwd_int8_plain"]
+           "flash_sparse_attention_fwd_int8_plain",
+           "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dq_int8_plain",
+           "flash_sparse_bwd_dkv_int8", "flash_sparse_bwd_dkv_int8_plain"]
 
 _NEG_LARGE = -1e30
+_QAT = "int8.attention_qat"   # the autograd op over these kernels
 
 
 def _quant_blocks(x, n_blocks, rows):
@@ -119,8 +132,7 @@ def flash_sparse_attention_fwd_int8(block_cols, nblocks, mask_slot,
             block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v,
             heads=heads, max_bpr=max_bpr, scale=scale)
 
-    guard_no_grad("flash_sparse_attention_fwd_int8", "int8.attention_qat",
-                  q, k, v)
+    guard_no_grad("flash_sparse_attention_fwd_int8", _QAT, q, k, v)
     _check_kernel_shape(bm, bk, hd)
     dev = q.device
     i32, f32 = torch.int32, torch.float32
@@ -151,3 +163,205 @@ def flash_sparse_attention_fwd_int8(block_cols, nblocks, mask_slot,
 
 
 flash_sparse_attention_fwd_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward (B18b, B18c): B10b / B10c's walks with every contraction on int8
+# codes. The plain versions form sc, p, dp and ds with the kernels'
+# operations in the kernels' order (the scale product first, a true divide
+# by max(l, 1e-30) and by 127), so every code they quantise is the
+# kernels'.
+# ---------------------------------------------------------------------------
+
+
+def _bwd_tiles(q, g, m, l, D, scale, mb, bm):
+    """The row-block side of the backward: codes and scales of ``q * scale``
+    and ``g`` per ``[bm, hd]`` block, and ``m``, ``max(l, 1e-30)`` and
+    ``D`` cut into ``[R, mb, bm]``."""
+    R, s_q, _ = q.shape
+    q_q, q_s = _quant_blocks(q.float() * scale, mb, bm)
+    g_q, g_s = _quant_blocks(g, mb, bm)
+    return (q_q, q_s, g_q, g_s, m.view(R, mb, bm),
+            l.clamp(min=1e-30).view(R, mb, bm),
+            F.pad(D, (0, mb * bm - s_q)).view(R, mb, bm))
+
+
+def _tile_grads(sc, dp, dead, m, l, d):
+    """``(p, ds_q, ds_s)`` of score tiles ``[..., bm, bk]``: ``p`` from the
+    forward's stats, ``ds = p * (dp - D)`` quantised per tile (float64
+    codes)."""
+    sc = torch.where(dead, _NEG_LARGE, sc)
+    p = torch.exp(sc - m[..., None]) / l[..., None]
+    p = torch.where(sc <= _NEG_LARGE / 2, 0.0, p)
+    ds = p * (dp - d[..., None])
+    lead, (bm, bk) = ds.shape[:-2], ds.shape[-2:]
+    ds_q, ds_s = quant_tile(ds.reshape(-1, bk), bm, bk)
+    return p, ds_q.double().view(ds.shape), ds_s.view(lead)
+
+
+def flash_sparse_bwd_dq_int8_plain(block_cols, nblocks, mask_slot,
+                                   is_partial, pmask, q, k, v, g, m, l, D, *,
+                                   heads: int, max_bpr: int, scale: float):
+    """Plain version of B18b: the row walk, vectorised over replicas and row
+    blocks, one step per block slot; the integer products in float64,
+    exact."""
+    B, _, bm, bk = pmask.shape
+    mb = nblocks.shape[1]
+    R, s_q, hd = q.shape
+    kb = max(-(-k.shape[1] // bk), 1)
+    dev = q.device
+    ridx = torch.arange(R, device=dev)
+    bidx = ridx // heads
+    r2 = ridx[:, None]
+    q_q, q_s, g_q, g_s, m_t, l_t, d_t = _bwd_tiles(q, g, m, l, D, scale, mb,
+                                                   bm)
+    k_q, k_s = _quant_blocks(k, kb, bk)
+    v_q, v_s = _quant_blocks(v, kb, bk)
+    cols = block_cols.long().view(B, mb, max_bpr)[bidx]
+    slots = mask_slot.long().view(B, mb, max_bpr)[bidx]
+    part = is_partial.view(B, mb, max_bpr)[bidx] != 0
+    nblk = nblocks.long()[bidx]                               # [R, mb]
+    dq = torch.zeros((R, mb, bm, hd), device=dev)
+    for s in range(max_bpr):
+        c = cols[:, :, s]                                     # [R, mb]
+        kk = k_q[r2, c]                                       # [R,mb,bk,hd]
+        sc = (q_q @ kk.transpose(-1, -2)).float() * (
+            q_s * k_s[r2, c])[..., None, None]
+        dp = (g_q @ v_q[r2, c].transpose(-1, -2)).float() * (
+            g_s * v_s[r2, c])[..., None, None]
+        pm = pmask[bidx[:, None], slots[:, :, s]]
+        _, ds_q, ds_s = _tile_grads(
+            sc, dp, part[:, :, s, None, None] & (pm == 0), m_t, l_t, d_t)
+        step = (ds_q @ kk).float() * (ds_s * k_s[r2, c])[..., None, None]
+        dq = torch.where((s < nblk)[..., None, None], dq + step, dq)
+    return dq.reshape(R, mb * bm, hd)[:, :s_q]
+
+
+def flash_sparse_bwd_dkv_int8_plain(t_src_i, t_nblocks, t_mask_slot,
+                                    t_is_partial, pmask, q, k, v, g, m, l, D,
+                                    *, heads: int, max_bpc: int,
+                                    scale: float):
+    """Plain version of B18c: the transposed (column) walk, vectorised over
+    replicas and column blocks, one step per slot; the integer products in
+    float64, exact."""
+    B, _, bm, bk = pmask.shape
+    kb = t_nblocks.shape[1]
+    R, s_q, hd = q.shape
+    s_kv = k.shape[1]
+    mb = m.shape[1] // bm
+    dev = q.device
+    ridx = torch.arange(R, device=dev)
+    bidx = ridx // heads
+    r2 = ridx[:, None]
+    q_q, q_s, g_q, g_s, m_t, l_t, d_t = _bwd_tiles(q, g, m, l, D, scale, mb,
+                                                   bm)
+    k_q, k_s = _quant_blocks(k, kb, bk)                       # [R,kb,bk,hd]
+    v_q, v_s = _quant_blocks(v, kb, bk)
+    src = t_src_i.long().view(B, kb, max_bpc)[bidx]           # [R,kb,max_bpc]
+    slots = t_mask_slot.long().view(B, kb, max_bpc)[bidx]
+    part = t_is_partial.view(B, kb, max_bpc)[bidx] != 0
+    tn = t_nblocks.long()[bidx]                               # [R, kb]
+    dk = torch.zeros((R, kb, bk, hd), device=dev)
+    dv = torch.zeros((R, kb, bk, hd), device=dev)
+    for u in range(max_bpc):
+        i = src[:, :, u]                                      # [R, kb]
+        qq, qs, gg, gs = q_q[r2, i], q_s[r2, i], g_q[r2, i], g_s[r2, i]
+        sc = (qq @ k_q.transpose(-1, -2)).float() * (
+            qs * k_s)[..., None, None]
+        dp = (gg @ v_q.transpose(-1, -2)).float() * (
+            gs * v_s)[..., None, None]
+        pm = pmask[bidx[:, None], slots[:, :, u]]
+        p, ds_q, ds_s = _tile_grads(
+            sc, dp, part[:, :, u, None, None] & (pm == 0), m_t[r2, i],
+            l_t[r2, i], d_t[r2, i])
+        p_q = torch.clamp(torch.round(p * 127.0), 0, 127).double()
+        live = (u < tn)[..., None, None]
+        dk = torch.where(live, dk + (ds_q.transpose(-1, -2) @ qq).float() * (
+            ds_s * qs)[..., None, None], dk)
+        dv = torch.where(live, dv + (p_q.transpose(-1, -2) @ gg).float() *
+                         div127(gs)[..., None, None], dv)
+    return (dk.reshape(R, kb * bk, hd)[:, :s_kv],
+            dv.reshape(R, kb * bk, hd)[:, :s_kv])
+
+
+
+def flash_sparse_bwd_dq_int8(block_cols, nblocks, mask_slot, is_partial,
+                             pmask, q, k, v, g, m, l, D, *, heads: int,
+                             max_bpr: int, scale: float):
+    """Int8 dq of the sparse-flash backward over the forward's row walk.
+
+    Metadata as ``flash_sparse.build_flash_meta`` (device tensors); q
+    (unscaled; ``q * scale`` is what is quantised), g f32[R, s_q, hd]; k, v
+    f32[R, s_kv, hd]; m, l f32[R, mb*bm] as the int8 forward returns them;
+    D = rowsum(g * out) f32[R, s_q]. Returns dq f32[R, s_q, hd] with
+    respect to ``q * scale``.
+    """
+    B, mb = nblocks.shape
+    _check_bwd(q, k, v, g, m, l, D, R_meta=B * heads, heads=heads, group=1,
+               m_rows=mb * pmask.shape[2])
+    if not q.is_cuda:
+        return flash_sparse_bwd_dq_int8_plain(
+            block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v, g, m,
+            l, D, heads=heads, max_bpr=max_bpr, scale=scale)
+
+    guard_no_grad("flash_sparse_bwd_dq_int8", _QAT, q, k, v, g)
+    _bwd_row_operands("flash_sparse_bwd_dq_int8", block_cols, nblocks,
+                      mask_slot, is_partial, pmask, q, k, v, g, m, l, D,
+                      max_bpr)
+    R, s_q, hd = q.shape
+    dq = torch.empty_like(q)
+    if R == 0 or mb == 0:
+        return dq
+    err = library().flash_sparse_bwd_dq_int8(
+        block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
+        is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
+        dq.data_ptr(), R, heads, mb, max_bpr, pmask.shape[1], s_q,
+        k.shape[1], hd, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_sparse_bwd_dq_int8")
+    flash_sparse_bwd_dq_int8.launches += 1
+    return dq
+
+
+def flash_sparse_bwd_dkv_int8(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
+                              pmask, q, k, v, g, m, l, D, *, heads: int,
+                              max_bpc: int, scale: float):
+    """Int8 dk, dv of the sparse-flash backward over the transposed
+    (column) walk of ``flash_sparse.build_flash_bwd_meta``, no atomics:
+    operands as :func:`flash_sparse_bwd_dq_int8`, returns ``(dk, dv)``
+    f32[R, s_kv, hd]."""
+    B, kb = t_nblocks.shape
+    _, n_partial, bm, bk = pmask.shape
+    _check_bwd(q, k, v, g, m, l, D, R_meta=B * heads, heads=heads, group=1,
+               m_rows=m.shape[1])
+    if m.shape[1] % bm or kb * bk < k.shape[1]:
+        raise ValueError("row statistics or column blocks do not match the "
+                         "tiles")
+    if not q.is_cuda:
+        return flash_sparse_bwd_dkv_int8_plain(
+            t_src_i, t_nblocks, t_mask_slot, t_is_partial, pmask, q, k, v, g,
+            m, l, D, heads=heads, max_bpc=max_bpc, scale=scale)
+
+    guard_no_grad("flash_sparse_bwd_dkv_int8", _QAT, q, k, v, g)
+    _bwd_col_operands("flash_sparse_bwd_dkv_int8", t_src_i, t_nblocks,
+                      t_mask_slot, t_is_partial, pmask, q, k, v, g, m, l, D,
+                      max_bpc)
+    R, s_q, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    err = library().flash_sparse_bwd_dkv_int8(
+        t_src_i.data_ptr(), t_nblocks.data_ptr(), t_mask_slot.data_ptr(),
+        t_is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
+        D.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, heads,
+        m.shape[1] // bm, kb, max_bpc, n_partial, s_q, k.shape[1], hd,
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_sparse_bwd_dkv_int8")
+    flash_sparse_bwd_dkv_int8.launches += 1
+    return dk, dv
+
+
+flash_sparse_bwd_dq_int8.launches = 0
+flash_sparse_bwd_dkv_int8.launches = 0

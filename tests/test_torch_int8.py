@@ -276,12 +276,150 @@ def test_fp32_routes_match_jax(route):
 
 
 def test_attention_qat_backward_argument():
+    """``backward="int8"`` runs (it raised before its kernels were ported);
+    any other name but "fp32" raises."""
     _, tspec, (q, k, v, _) = _attention_problem(32, 32)
     args = [torch.from_numpy(x) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="B18b"):
-        tq8.attention_qat(tspec, *args, backward="int8")
+    with _backend("pallas"):
+        out = tq8.attention_qat(tspec, *args, backward="int8")
+    assert out.shape == args[0].shape and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="backward"):
         tq8.attention_qat(tspec, *args, backward="int4")
+
+
+def _qat_grads(jspec, tspec, q, k, v, cot, dtype="float32"):
+    """Port and JAX ``attention_qat(backward="int8")`` gradients at ``dtype``
+    primals under the current routes: (port out, port grads, JAX grads)."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    out = tq8.attention_qat(tspec, tq, tk, tv, backward="int8")
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    jg = jax.grad(lambda a, b, c: jnp.sum(jq8.attention_qat(
+        jspec, a, b, c, backward="int8").astype(jnp.float32) * cot),
+        argnums=(0, 1, 2))(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    return out, (tq.grad, tk.grad, tv.grad), jg
+
+
+@pytest.mark.parametrize("bm,bk", [(32, 32), (16, 32), (64, 64)])
+def test_attention_qat_int8_backward_matches_jax(bm, bk):
+    """The full-int8 training path under ``set_backend("pallas")``: the
+    port's plain B18a / B18b / B18c against JAX's Pallas kernels in
+    interpret mode on the same grid. The forward is attention_int8's; the
+    gradients JAX's within 1e-3 x max|ref| (the same integer products and
+    codes; f32 sums, D = rowsum(g * out) and exp in another order or
+    implementation), and within JAX's own 8e-2 of the fp32 fused chain
+    (the W8A8 class); the fully-masked row's dq is exactly 0."""
+    jspec, tspec, (q, k, v, cot) = _attention_problem(bm, bk, seed=13)
+    with _backend("pallas"):
+        out, grads, jg = _qat_grads(jspec, tspec, q, k, v, cot)
+        ref_fwd = tq8.attention_int8(tspec, *map(torch.from_numpy,
+                                                 (q, k, v)))
+        fq, fk, fv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        (fused_sparse_attention(tspec, fq, fk, fv)
+         * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref_fwd.numpy(),
+                               atol=1e-6)
+    for name, got, j, f in zip("qkv", grads, jg, (fq, fk, fv)):
+        assert got.dtype == torch.float32
+        _close(got, np.asarray(j), 1e-3)
+        rel = (got - f.grad).abs().max() / f.grad.abs().max()
+        assert 1e-3 < rel < 8e-2, (name, rel)
+    assert torch.all(grads[0][:2, 9] == 0)     # the fully-masked row
+
+
+def test_flash_int8_backward_plain_matches_jax_kernels():
+    """The plain B18b / B18c against JAX's ``flash_sparse_bwd_dq_int8`` /
+    ``flash_sparse_bwd_dkv_int8`` in interpret mode, called directly on the
+    same padded operands (rows to the mask's, head dims to 128 lanes; the
+    stats and D packed into JAX's 128-lane layout)."""
+    from sputnik_tpu.ops.pallas import flash_sparse_int8 as jfs8
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as tfs8
+
+    jspec, tspec, (q, k, v, g) = _attention_problem(32, 32, seed=16)
+    fm, bmeta = tspec.flash_meta("cpu"), tspec.flash_bwd_meta("cpu")
+    R, s, hd = q.shape
+    m_pad, scale = tspec.mb * 32, hd ** -0.5
+
+    def pad(x):
+        return np.pad(x, ((0, 0), (0, m_pad - x.shape[1]), (0, 128 - hd)))
+
+    qp, kp, vp, gp = map(pad, (q, k, v, g))
+    fwd = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+           fm["is_partial"], fm["pmask"])
+    out, stats = jfs8.flash_sparse_attention_fwd_int8(
+        *(np.asarray(x) for x in fwd), qp * np.float32(scale), kp, vp, R=R,
+        heads=2, mb=tspec.mb, max_bpr=fm["max_bpr"], bm=32, bk=32,
+        interpret=True)
+    out, stats = np.asarray(out), np.asarray(stats)
+    D = (gp * out).sum(-1)
+    dcoef = np.broadcast_to(D[:, :, None], (R, m_pad, 128))
+    common = dict(R=R, heads=2, bm=32, bk=32, interpret=True)
+    jops = (qp * np.float32(scale), kp, vp, gp, stats, dcoef)
+    jdq = jfs8.flash_sparse_bwd_dq_int8(
+        *(np.asarray(x) for x in fwd), *jops, mb=tspec.mb,
+        max_bpr=fm["max_bpr"], **common)
+    tcols = (bmeta["t_src_i"], bmeta["t_nblocks"], bmeta["t_mask_slot"],
+             bmeta["t_is_partial"], bmeta["pmask"])
+    jdk, jdv = jfs8.flash_sparse_bwd_dkv_int8(
+        *(np.asarray(x) for x in tcols), *jops, kb=tspec.kb,
+        max_bpc=bmeta["max_bpc"], **common)
+    tops = (*map(torch.from_numpy, (qp, kp, vp, gp)),
+            torch.from_numpy(stats[:, :, 0].copy()),
+            torch.from_numpy(stats[:, :, 1].copy()), torch.from_numpy(D))
+    kw = dict(heads=2, scale=scale)
+    tdq = tfs8.flash_sparse_bwd_dq_int8(*fwd, *tops, max_bpr=fm["max_bpr"],
+                                        **kw)
+    tdk, tdv = tfs8.flash_sparse_bwd_dkv_int8(*tcols, *tops,
+                                              max_bpc=bmeta["max_bpc"], **kw)
+    _close(tdq, np.asarray(jdq), 1e-5)
+    _close(tdk, np.asarray(jdk), 1e-5)
+    _close(tdv, np.asarray(jdv), 1e-5)
+    assert torch.all(tdq[:2, 9] == 0)          # the fully-masked row
+
+
+def test_attention_qat_int8_backward_bf16_primals():
+    """JAX's bf16 case (``test_pallas.py``'s int8-backward attention): bf16
+    q / k / v give bf16 gradients, here also equal in value to JAX's. hd =
+    32, so the scale 1/sqrt(32) must be rounded to bf16 before ``q *
+    scale``, as JAX rounds a Python scalar to the array's dtype: the f32
+    forward then equals JAX's at attention_int8's 1e-4 x max|ref| (an
+    unrounded scale moves q codes: 5e-4). Gradients at 1e-2 x max|ref|:
+    they are rounded once from f32 to bf16, so one rounding step (2^-8
+    relative) may part them."""
+    masks = np.tril(np.ones((1, 32, 32), np.float32))
+    jspec, tspec = _attention_specs(16, 16, masks, heads=1)
+    rng = np.random.RandomState(18)
+    q = rng.randn(1, 32, 32).astype(np.float32)
+    cot = rng.randn(1, 32, 32).astype(np.float32)
+    qkv = (q, q + 1, q - 1)
+    with _backend("pallas"):
+        out, grads, jg = _qat_grads(jspec, tspec, *qkv, cot,
+                                    dtype="bfloat16")
+        jout = jq8.attention_int8(jspec, *(jnp.asarray(x, jnp.bfloat16)
+                                           for x in qkv))
+    assert out.dtype == torch.float32
+    _close(out.detach(), jout, 1e-4)
+    for got, j in zip(grads, jg):
+        assert got.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        _close(got.float(), np.asarray(j, np.float32), 1e-2)
+
+
+@pytest.mark.parametrize("route", ["auto", "xla"])
+def test_attention_qat_int8_backward_fp32_routes(route):
+    """On CPU tensors under "auto", and under "xla", ``backward="int8"`` is
+    the fp32 fused attention both ways, as JAX's off-TPU route."""
+    jspec, tspec, (q, k, v, cot) = _attention_problem(32, 32, seed=19)
+    with _backend(route):
+        out, grads, jg = _qat_grads(jspec, tspec, q, k, v, cot)
+        fq, fk, fv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        ref = fused_sparse_attention(tspec, fq, fk, fv)
+        (ref * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  ref.detach().numpy())
+    for got, j, f in zip(grads, jg, (fq, fk, fv)):
+        assert torch.equal(got, f.grad)
+        _close(got, np.asarray(j), 1e-5)
 
 
 def test_serve_sparse_int8_example_small_cpu():

@@ -826,7 +826,7 @@ def test_flat_chain_trains_through_the_kernels(dev):
     _close(lin_gpu.values.grad.cpu(), lin.values.grad)
 
 
-# -- the int8 family (B16a, B16b, B17, B18a) ----------------------------------
+# -- the int8 family (B16a, B16b, B17, B18a, B18b, B18c) ----------------------
 
 
 def _int8_problem(dev, tiles, seed=0):
@@ -930,6 +930,136 @@ def test_flash_int8_kernel_refuses_other_tiles(dev):
             meta["block_cols"], meta["nblocks"], meta["mask_slot"],
             meta["is_partial"], meta["pmask"], q, q, q, heads=1,
             max_bpr=meta["max_bpr"], scale=1.0)
+
+
+def _int8_bwd_problem(dev, hd, random_mask, seed=5):
+    """The int8 backward kernels' operands: the driver's masks (row s // 2
+    fully masked), keys 128-191 (one whole column block) attended by no
+    query, seeded q / k / v / g and the int8 forward's out, m, l with
+    D = rowsum(g * out)."""
+    b, heads, s = 2, 4, 200
+    masks = driver_masks(b, s)
+    if random_mask:
+        masks[1] *= (np.random.RandomState(2).rand(s, s) < 0.5)
+    masks[:, :, 128:192] = 0.0
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    rng = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rng.randn(b * heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(4))
+    kw = dict(heads=heads, scale=hd ** -0.5)
+    out, m, l = kfi8.flash_sparse_attention_fwd_int8(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k, v, max_bpr=fm["max_bpr"], **kw)
+    D = (g * out).sum(-1)
+    ops = (q, k, v, g, m, l, D)
+    rows = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], *ops)
+    cols = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], *ops)
+    return rows, cols, dict(kw, max_bpr=fm["max_bpr"]), dict(
+        kw, max_bpc=bm["max_bpc"])
+
+
+@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+@pytest.mark.parametrize("random_mask", [False, True])
+def test_flash_int8_backward_kernels_match_plain(dev, hd, random_mask):
+    """B18b and B18c against their plain versions: one launch each; the
+    fully-masked row's dq and an unattended column block's dk / dv are
+    exactly 0; the int8 gradients are not the fp32 kernels' (B10b /
+    B10c)."""
+    rows, cols, rkw, ckw = _int8_bwd_problem(dev, hd, random_mask)
+    dq_k, dkv_k = kfi8.flash_sparse_bwd_dq_int8, kfi8.flash_sparse_bwd_dkv_int8
+    before = (dq_k.launches, dkv_k.launches)
+    dq = dq_k(*rows, **rkw)
+    dk, dv = dkv_k(*cols, **ckw)
+    torch.cuda.synchronize()
+    assert (dq_k.launches, dkv_k.launches) == (before[0] + 1, before[1] + 1)
+    ref_dq = kfi8.flash_sparse_bwd_dq_int8_plain(*rows, **rkw)
+    ref_dk, ref_dv = kfi8.flash_sparse_bwd_dkv_int8_plain(*cols, **ckw)
+    _close(dq, ref_dq)
+    _close(dk, ref_dk)
+    _close(dv, ref_dv)
+    assert torch.all(dq[:, 100] == 0)           # fully-masked row
+    assert torch.all(dk[:, 128:192] == 0) and torch.all(dv[:, 128:192] == 0)
+    f32_dq = fs.flash_sparse_bwd_dq(*rows, **rkw)
+    f32_dk, _ = fs.flash_sparse_bwd_dkv(*cols, **ckw)
+    for got, f32 in ((ref_dq, f32_dq), (ref_dk, f32_dk)):
+        assert (got - f32).abs().max() > 10e-4 * max(1.0, got.abs().max())
+
+
+def test_flash_int8_backward_kernels_refuse_other_tiles(dev):
+    masks = driver_masks(1, 128)
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=1, bm=32, bk=32)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    x = torch.zeros(1, 128, 32, device=dev)
+    st = torch.zeros(1, 128, device=dev)
+    ops = (x, x, x, x, st, st, st)
+    with pytest.raises(ValueError, match="64x64"):
+        kfi8.flash_sparse_bwd_dq_int8(
+            fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], *ops, heads=1,
+            max_bpr=fm["max_bpr"], scale=1.0)
+    with pytest.raises(ValueError, match="64x64"):
+        kfi8.flash_sparse_bwd_dkv_int8(
+            bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], *ops, heads=1,
+            max_bpc=bm["max_bpc"], scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_qat_int8_backward_trains_through_the_kernels(dev, dtype):
+    """``attention_qat(backward="int8")`` on the card: B18a, B18b and B18c
+    once each and no fp32 flash kernel; the gradients in the primals' dtype
+    and equal to the CPU plain route's (``set_backend("pallas")``); the
+    raw backward kernels refuse grad mode."""
+    from sputnik_tpu_torch import int8
+
+    b, heads, s, hd = 2, 4, 200, 64
+    masks = driver_masks(b, s)
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    rng = np.random.RandomState(6)
+    host = [torch.from_numpy(rng.randn(b * heads, s, hd).astype(np.float32))
+            .to(dtype) for _ in range(4)]
+    qkv = [x.to(dev).requires_grad_() for x in host[:3]]
+    cot = host[3].float()
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = int8.attention_qat(spec, *qkv, backward="int8")
+    (out * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items()
+           if w.launches != before[n]}
+    assert got == {"flash_sparse_attention_fwd_int8": 1,
+                   "flash_sparse_bwd_dq_int8": 1,
+                   "flash_sparse_bwd_dkv_int8": 1}
+    cpu = [x.detach().cpu().requires_grad_() for x in qkv]
+    stt.set_backend("pallas")
+    try:
+        out_cpu = int8.attention_qat(spec, *cpu, backward="int8")
+        (out_cpu * cot).sum().backward()
+    finally:
+        stt.set_backend("auto")
+    _close(out.detach().cpu(), out_cpu.detach())
+    # Limit 1e-2 x max|ref| (the W8A8 class): the CPU's exp and the
+    # forward's f32 sums (so D) differ from the card's in the last place,
+    # which can move a ds or p code by one step; in bf16 also one rounding
+    # step (2^-8) of the gradient.
+    for a, c in zip(qkv, cpu):
+        assert a.grad.dtype == dtype
+        err = (a.grad.cpu().float() - c.grad.float()).abs().max()
+        assert err <= 1e-2 * c.grad.float().abs().max(), err
+    fm = spec.flash_meta(dev)
+    g = torch.zeros_like(out)
+    st = torch.zeros(b * heads, fm["nblocks"].shape[1] * 64, device=dev)
+    with pytest.raises(RuntimeError, match="int8.attention_qat"):
+        kfi8.flash_sparse_bwd_dq_int8(
+            fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], qkv[0].float(), out, out, g, st,
+            st, g[..., 0], heads=heads, max_bpr=fm["max_bpr"], scale=1.0)
 
 
 def test_int8_kernels_refuse_grad_mode_and_qat_trains_through_them(dev):

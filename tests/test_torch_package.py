@@ -90,7 +90,8 @@ def test_build_key_covers_every_source():
                                     "decode_attention.cu",
                                     "ragged_append.cu", "ell_softmax.cu",
                                     "bsr_spmm_int8.cu",
-                                    "flash_sparse_int8.cu"}
+                                    "flash_sparse_int8.cu",
+                                    "flash_sparse_int8_bwd.cu"}
     assert set(_build._SIGNATURES) == {
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
@@ -98,7 +99,8 @@ def test_build_key_covers_every_source():
         "decode_attention", "ragged_append", "paged_attention",
         "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
         "ell_softmax_f32", "spmm_panel_int8", "spmm_t_panel_int8",
-        "sddmm_panel_int8", "flash_sparse_fwd_int8"}
+        "sddmm_panel_int8", "flash_sparse_fwd_int8",
+        "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -160,13 +162,16 @@ def test_cpu_tensors_launch_no_kernel():
         stt.set_backend(backend)
         try:
             (stt.int8.spmm_qat(spec, panel, d).sum()
-             + stt.int8.attention_qat(bspec, *qkv).sum()).backward()
+             + stt.int8.attention_qat(bspec, *qkv).sum()
+             + stt.int8.attention_qat(bspec, *qkv,
+                                      backward="int8").sum()).backward()
         finally:
             stt.set_backend("auto")
     assert torch.isfinite(qkv.grad).all() and torch.isfinite(panel.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 19 and "ell_softmax" in wrappers
-    assert "flash_sparse_attention_fwd_int8" in wrappers
+    assert len(wrappers) == 21 and "ell_softmax" in wrappers
+    assert {"flash_sparse_attention_fwd_int8", "flash_sparse_bwd_dq_int8",
+            "flash_sparse_bwd_dkv_int8"} <= set(wrappers)
     assert all(v == 0 for v in before.values())
 
 
