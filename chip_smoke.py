@@ -25,7 +25,12 @@ Phases, each printing its lines:
      at B4's shape, B18a and the int8 flash backward B18b / B18c at the
      int8 example's attention and at B9's shape, each also shown >= 10x its
      limit away from the fp32 kernel's result (B1, B3, B4, B9, B10b,
-     B10c), so that a kernel computing in fp32 would fail (2h);
+     B10c), so that a kernel computing in fp32 would fail (2h); the
+     compressed (true-BSR) kernels B13a / B13b (every epilogue; widths 64
+     and 4096, B1 / B3 on the ELL panel of the same topology beside them),
+     B14 and B15a / B15b (B15b also slot by slot, with a planted fault) on
+     the skewed 4096^2 pattern (a 32-wide band plus three dense rows) at
+     64x64 tiles (2i);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -57,6 +62,12 @@ Phases, each printing its lines:
         attention_qat(backward="int8") step (B18a; B18b + B18c), its
         gradients within tpu_smoke.py's 4e-1 of the fp32 fused attention's,
         the two steps timed in turns;
+     i. the compressed chain: sddmm -> sparse_softmax -> spmm through
+        stt.panel on PanelSpec(compressed=True) at the skewed 4096^2
+        pattern, hd=64, forward and backward (B14 x 2, B15a, B15b, B13a x
+        3, B13b x 2 a step; no ELL kernel), the step timed against the ELL
+        layout's in turns; 5 SGD steps on a compressed-panel regression
+        (the loss falls);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -65,7 +76,8 @@ Phases, each printing its lines:
      the csr SparseLinear, also against the panel layer on the card; the
      int8 attention, projection, spmm_qat gradients and
      attention_qat(backward="int8") gradients under
-     set_backend("pallas")), and the forward / training-step / prefill /
+     set_backend("pallas"); the compressed chain's output and gradients),
+     and the forward / training-step / prefill /
      decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0).
@@ -133,6 +145,16 @@ REPLACES = {
     "flash_sparse_bwd_dkv_int8": (
         "sputnik_tpu_torch/csrc/flash_sparse_int8_bwd.cu",
         "sputnik_tpu/ops/pallas/flash_sparse_int8.py:298"),
+    "bsr_spmm_panel_c": ("sputnik_tpu_torch/csrc/bsr_spmm.cu",
+                         "sputnik_tpu/ops/pallas/bsr_compressed.py:32"),
+    "bsr_spmm_t_panel_c": ("sputnik_tpu_torch/csrc/bsr_spmm_t.cu",
+                           "sputnik_tpu/ops/pallas/bsr_compressed.py:103"),
+    "bsr_sddmm_panel_c": ("sputnik_tpu_torch/csrc/bsr_sddmm.cu",
+                          "sputnik_tpu/ops/pallas/bsr_compressed.py:163"),
+    "c_softmax_stats": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
+                        "sputnik_tpu/ops/pallas/bsr_compressed.py:253"),
+    "c_softmax_apply": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
+                        "sputnik_tpu/ops/pallas/bsr_compressed.py:331"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # the MoE example's default step count: Adam's first steps at lr 1e-3
@@ -2789,6 +2811,330 @@ def phase_int8_path(stt, torch, dev, wrappers):
     return total
 
 
+def _skewed_mask(m=4096, n=4096):
+    """``tests/test_sharded_compressed.py``'s skewed pattern scaled to
+    ``bench.py``'s 4096 x 4096: a 32-wide band (sliding-window attention)
+    plus the dense rows 7, 140 and m - 3 (three global tokens)."""
+    rows = np.arange(m)
+    lo = np.maximum(0, rows * n // m - 16)
+    cols = np.arange(n)
+    mask = (cols[None, :] >= lo[:, None]) & (cols[None, :] < lo[:, None] + 32)
+    mask[[7, 140, m - 3]] = True
+    return mask
+
+
+def _bsr_tensor(torch, spec, panel):
+    """The compressed panel as a ``torch.sparse_bsr_tensor`` of the same
+    tiles (the same true-BSR layout), for the library yardstick."""
+    bv = spec.view
+    offs = torch.from_numpy(bv.block_offsets.astype(np.int64))
+    cols = torch.from_numpy(bv.block_cols[: bv.num_blocks].astype(np.int64))
+    return torch.sparse_bsr_tensor(
+        offs.to(panel.device), cols.to(panel.device),
+        panel[: bv.num_blocks], (bv.m_pad, bv.n_pad))
+
+
+def phase_compressed_kernels(stt, torch, dev, kres):
+    """Phase 2i: the compressed (true-BSR) kernels B13a, B13b, B14, B15a,
+    B15b against their plain versions on the skewed 4096 x 4096 pattern at
+    64 x 64 tiles (sliding window plus three global tokens): the chain's
+    shapes (widths 64, timed into the JSON line) and bench.py's width
+    4096; B1 / B3 on the ELL panel of the same topology beside them."""
+    from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_panel
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_t import bsr_spmm_t_panel
+
+    print("phase 2i: compressed (true-BSR) kernels (B13a, B13b, B14, B15a, "
+          "B15b) vs plain PyTorch on the skewed 4096^2 pattern, 64x64 tiles",
+          flush=True)
+    rng = np.random.RandomState(90)
+    mask = _skewed_mask()
+    w = (mask * rng.randn(*mask.shape)).astype(np.float32)
+    mat = stt.SparseMatrix(w)
+    topo, nnz = mat.topology, mat.topology.nnz
+    spec = P.PanelSpec(topo, 64, 64, compressed=True)
+    espec = P.PanelSpec(topo, 64, 64)
+    bv, ev = spec.view, espec.view
+    meta, emeta = spec.meta(dev), espec.meta(dev)
+    panel = torch.from_numpy(P.values_to_panel_np(
+        topo, mat.values, 64, 64, compressed=True)).to(dev)[None]
+    epanel = torch.from_numpy(P.values_to_panel_np(
+        topo, mat.values, 64, 64)).to(dev)[None]
+    print(f"  pattern: nnz {nnz} (d={nnz / topo.m / topo.n:.4f}), "
+          f"{bv.num_blocks} real tiles, max_bpr {ev.max_bpr}; compressed "
+          f"panel {_nbytes(panel) / 1e6:.2f} MB "
+          f"{tuple(panel.shape[1:])}, ELL panel {_nbytes(epanel) / 1e6:.2f} "
+          f"MB {tuple(epanel.shape[1:])}", flush=True)
+    a_dense = torch.from_numpy(w).to(dev)
+    bsr = _bsr_tensor(torch, spec, panel[0])
+    size = topo.m
+
+    # -- B13a and B13b at the chain's width 64 (JSON) and bench's 4096
+    for width in (4096, 64):
+        x = torch.from_numpy(rng.randn(1, size, width).astype(np.float32)
+                             ).to(dev)
+        bias = torch.from_numpy(rng.randn(size).astype(np.float32)).to(dev)
+        cargs = (meta["block_offsets"], meta["block_cols"], panel, x)
+        eargs = (emeta["block_cols"], emeta["nblocks"], epanel, x)
+
+        def c_kern(epi="none"):
+            return kc.bsr_spmm_panel_c(*cargs, None if epi == "none" else
+                                       bias, rows=size, epilogue=epi)
+
+        def c_plain(epi="none"):
+            return kc.bsr_spmm_panel_c_plain(
+                *cargs, None if epi == "none" else bias, rows=size,
+                epilogue=epi)
+
+        r = {}
+        for epi in ("none", "bias", "bias_relu"):
+            _compare(f"spmm_c width {width} epilogue={epi}", c_kern(epi),
+                     c_plain(epi), TOL_KERNEL, r)
+        _compare(f"spmm_c width {width} vs dense torch.matmul", c_kern()[0],
+                 a_dense @ x[0], TOL_KERNEL)
+        _compare(f"B1 (ELL panel) width {width} vs spmm_c",
+                 bsr_spmm_panel(*eargs, rows=size), c_kern(), TOL_KERNEL)
+        r["ms"], r["plain_ms"] = _time_ms(c_kern), _time_ms(c_plain)
+        ell_ms = _time_ms(lambda: bsr_spmm_panel(*eargs, rows=size))
+        dense_ms = _time_ms(lambda: a_dense @ x[0])
+        print(f"  spmm_c width {width}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; B1 on the ELL panel {ell_ms:.4f} ms "
+              f"(B13a {ell_ms / r['ms']:.2f}x faster); dense fp32 "
+              f"torch.matmul {dense_ms:.4f} ms", flush=True)
+        r["library_ms"] = _library_ms(
+            f"spmm_c width {width} (torch.sparse_bsr_tensor @ dense, the "
+            f"same 64x64 tiles)", lambda: bsr @ x[0])
+        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(x))
+        _stored_note("spmm_c", bv.num_blocks * 64 * 64, width)
+        _stored_note("B1 (ELL)", ev.mb * ev.max_bpr * 64 * 64, width)
+        if width == 64:
+            kres["bsr_spmm_panel_c"].update(r)
+
+        g = torch.from_numpy(rng.randn(1, size, width).astype(np.float32)
+                             ).to(dev)
+        targs = (meta["t_gblk"], meta["t_rows"], meta["t_nblocks"], panel, g)
+        eargs = (emeta["t_src_i"], emeta["t_src_s"], emeta["t_nblocks"],
+                 epanel, g)
+        r = {}
+        got = kc.bsr_spmm_t_panel_c(*targs, rows=size)
+        _compare(f"spmm_t_c width {width}", got,
+                 kc.bsr_spmm_t_panel_c_plain(*targs, rows=size), TOL_KERNEL,
+                 r)
+        _compare(f"spmm_t_c width {width} vs dense a.T @ G", got[0],
+                 a_dense.T @ g[0], TOL_KERNEL)
+        _compare(f"B3 (ELL panel) width {width} vs spmm_t_c",
+                 bsr_spmm_t_panel(*eargs, rows=size), got, TOL_KERNEL)
+        r["ms"] = _time_ms(lambda: kc.bsr_spmm_t_panel_c(*targs, rows=size))
+        r["plain_ms"] = _time_ms(
+            lambda: kc.bsr_spmm_t_panel_c_plain(*targs, rows=size))
+        ell_ms = _time_ms(lambda: bsr_spmm_t_panel(*eargs, rows=size))
+        r["library_ms"] = _time_ms(lambda: a_dense.T @ g[0])
+        print(f"  spmm_t_c width {width}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; B3 on the ELL panel {ell_ms:.4f} ms; "
+              f"library: dense fp32 a.T @ G {r['library_ms']:.4f} ms",
+              flush=True)
+        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(g))
+        if width == 64:
+            kres["bsr_spmm_t_panel_c"].update(r)
+        del x, g, got
+
+    # -- B14 at the chain's d = 64, scaled as attention scores
+    d = 64
+    q, k = (torch.from_numpy((rng.randn(1, size, d) * d ** -0.25).astype(
+        np.float32)).to(dev) for _ in range(2))
+    sargs = (meta["block_rows"], meta["block_cols"], q, k, meta["mask"])
+    r = kres["bsr_sddmm_panel_c"]
+    scores = kc.bsr_sddmm_panel_c(*sargs)
+    _compare(f"sddmm_c d={d}", scores, kc.bsr_sddmm_panel_c_plain(*sargs),
+             TOL_KERNEL, r)
+    if not (torch.all(scores[0, -1] == 0)
+            and torch.all(scores[0][meta["mask"] == 0] == 0)):
+        _fail("sddmm_c: the dump tile or a masked slot is not exactly 0")
+    r["ms"] = _time_ms(lambda: kc.bsr_sddmm_panel_c(*sargs))
+    r["plain_ms"] = _time_ms(lambda: kc.bsr_sddmm_panel_c_plain(*sargs))
+    print(f"  sddmm_c d={d}: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(np.asarray(topo.row_offsets, np.int64)),
+        torch.from_numpy(np.asarray(topo.column_indices[:nnz], np.int64)),
+        torch.ones(nnz), (size, size)).to(dev)
+    k_t = k[0].T.contiguous()
+    r["library_ms"] = _library_ms(
+        "sddmm_c (torch.sparse.sampled_addmm, CSR)",
+        lambda: torch.sparse.sampled_addmm(csr, q[0], k_t, beta=0.0))
+    _sparse_bound(r, nnz, 1, d, _nbytes(q, k))
+    _stored_note("sddmm_c", bv.num_blocks * 64 * 64, d)
+    del csr, k_t
+
+    # -- B15a / B15b on the chain's scores
+    stats_args = (meta["block_offsets"], scores, meta["mask"])
+    m, l = kc.c_softmax_stats(*stats_args)
+    m_ref, l_ref = kc.c_softmax_stats_plain(*stats_args)
+    r = kres["c_softmax_stats"]
+    _compare("c_softmax_stats row_max (exactly equal)", m, m_ref, 0.0, r)
+    _compare("c_softmax_stats row_denom", l, l_ref, TOL_KERNEL, r, floor=0)
+    _compare_each("c_softmax_stats row_denom", l, l_ref, TOL_KERNEL)
+    aargs = (meta["block_rows"], scores, meta["mask"], m, l)
+    p = kc.c_softmax_apply(*aargs)
+    p_ref = kc.c_softmax_apply_plain(*aargs)
+    ra = kres["c_softmax_apply"]
+    _compare("c_softmax_apply", p, p_ref, TOL_KERNEL, ra)
+    _compare_each("c_softmax_apply", p, p_ref, TOL_KERNEL)
+    small = (p_ref != 0) & (p_ref < p_ref[p_ref != 0].median())
+    try:
+        _compare_each("  planted fault, c_softmax_apply small outputs "
+                      "zeroed", torch.where(small, 0.0, p), p_ref, TOL_KERNEL)
+    except RuntimeError:
+        pass
+    else:
+        _fail("c_softmax_apply: zeroed small outputs passed the check")
+    if not (torch.all(p[0, -1] == 0)
+            and torch.all(p[0][meta["mask"] == 0] == 0)):
+        _fail("c_softmax_apply: the dump tile or a masked slot is not 0")
+    rows = p[0].sum(dim=-1).new_zeros(bv.m_pad).index_add_(
+        0, (meta["block_rows"].long()[:, None] * 64
+            + torch.arange(64, device=dev)).reshape(-1),
+        p[0].sum(dim=-1).reshape(-1))[:size]
+    _compare("c_softmax rows sum to 1", rows, torch.ones_like(rows), 1e-5)
+    r["ms"] = _time_ms(lambda: kc.c_softmax_stats(*stats_args))
+    r["plain_ms"] = _time_ms(lambda: kc.c_softmax_stats_plain(*stats_args))
+    ra["ms"] = _time_ms(lambda: kc.c_softmax_apply(*aargs))
+    ra["plain_ms"] = _time_ms(lambda: kc.c_softmax_apply_plain(*aargs))
+    print(f"  c_softmax_stats: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms; c_softmax_apply: kernel {ra['ms']:.4f} "
+          f"ms, plain {ra['plain_ms']:.4f} ms", flush=True)
+    vals = P.panel_to_values(topo, scores[0], 64, 64, compressed=True)[None]
+    lib = _softmax_library_ms(torch, topo, vals)
+    r["library_ms"] = ra["library_ms"] = lib   # one call does both passes
+    # bytes of the nonzeros: B15a reads the scores and a 4-byte index per
+    # nonzero and writes m, l; B15b reads them again and writes p
+    _bound(r, 3.0 * nnz, 8 * nnz + 8 * size)
+    _bound(ra, 2.0 * nnz, 12 * nnz + 8 * size)
+    tiles = (bv.num_blocks + 1) * 64 * 64
+    print(f"    c_softmax: the stored panel is {8 * tiles / 1e6:.2f} MB of "
+          f"scores and mask read by B15a, {12 * tiles / 1e6:.2f} MB moved by "
+          f"B15b: {8 * tiles / PEAK_BYTES * 1e3:.4f} / "
+          f"{12 * tiles / PEAK_BYTES * 1e3:.4f} ms (not the bound)",
+          flush=True)
+
+
+def phase_compressed_path(stt, torch, dev, wrappers):
+    """Phases 3i / 4i: the compressed attention chain (sddmm ->
+    sparse_softmax -> spmm through ``stt.panel`` on
+    ``PanelSpec(compressed=True)``) forward and backward on the skewed
+    4096 x 4096 pattern, hd = 64, launches counted (no ELL kernel), held
+    against the port's CPU plain route; the chain step timed against the
+    ELL layout's; then SGD on a compressed-panel regression."""
+    from sputnik_tpu_torch.ops import panel_api as P
+
+    total = {n: 0 for n in wrappers}
+    print("phase 3i: compressed chain — sddmm -> sparse_softmax -> spmm on "
+          "PanelSpec(compressed=True), skewed 4096^2, 64x64 tiles, hd=64",
+          flush=True)
+    topo = stt.SparseTopology.from_dense_mask(_skewed_mask())
+    spec = P.PanelSpec(topo, 64, 64, compressed=True)
+    espec = P.PanelSpec(topo, 64, 64)
+    s, hd = topo.m, 64
+    rng = np.random.RandomState(91)
+    host = [rng.randn(s, hd).astype(np.float32) for _ in range(3)]
+    cot = torch.from_numpy(rng.randn(s, hd).astype(np.float32))
+
+    def chain(sp, q, k, v):
+        w = stt.panel.sparse_softmax(sp, stt.panel.sddmm(sp, q, k)
+                                     * hd ** -0.5)
+        return stt.panel.spmm(sp, w, v), w
+
+    gpu = [torch.from_numpy(x).to(dev).requires_grad_() for x in host]
+    cot_d = cot.to(dev)
+
+    def step():
+        out, w = chain(spec, *gpu)
+        (out * cot_d).sum().backward()
+        return out, w
+
+    out, w = _counted(
+        wrappers, total, "compressed chain forward + backward", step,
+        {"bsr_sddmm_panel_c": 2, "c_softmax_stats": 1, "c_softmax_apply": 1,
+         "bsr_spmm_panel_c": 3, "bsr_spmm_t_panel_c": 2,
+         "bsr_spmm_panel": 0, "bsr_spmm_t_panel": 0, "bsr_sddmm_panel": 0,
+         "ell_softmax": 0})
+    if not (torch.all(w[-1] == 0) and torch.all(
+            w[spec.meta(dev)["mask"] == 0] == 0)):
+        _fail("compressed chain: the dump tile or a masked slot of the "
+              "softmax is not exactly 0")
+    if not all(torch.isfinite(x.grad).all() for x in gpu):
+        _fail("compressed chain: non-finite gradients")
+
+    def timed_step(sp):
+        for x in gpu:
+            x.grad = None
+        out, _ = chain(sp, *gpu)
+        (out * cot_d).sum().backward()
+
+    times = {"compressed": [], "ELL": []}
+    for name in ("compressed", "ELL", "ELL", "compressed"):
+        sp = spec if name == "compressed" else espec
+        times[name].append(_time_ms(lambda sp=sp: timed_step(sp), reps=5,
+                                    inner=5))
+    print(f"  chain step (forward + backward, CUDA events, in turns "
+          f"compressed / ELL / ELL / compressed): compressed "
+          f"{times['compressed'][0]:.4f} / {times['compressed'][1]:.4f} ms, "
+          f"ELL {times['ELL'][0]:.4f} / {times['ELL'][1]:.4f} ms", flush=True)
+    try:
+        _profile_steps(torch, "compressed chain steps",
+                       lambda i: timed_step(spec))
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+
+    # SGD on a spmm regression over a compressed panel (B13a; B14)
+    mat = stt.SparseMatrix((_skewed_mask() * rng.randn(s, s)).astype(
+        np.float32))
+    target_panel = torch.from_numpy(P.values_to_panel_np(
+        mat.topology, mat.values, 64, 64, compressed=True)).to(dev)
+    rspec = P.PanelSpec(mat.topology, 64, 64, compressed=True)
+    x = torch.from_numpy(rng.randn(s, hd).astype(np.float32)).to(dev)
+    y = stt.panel.spmm(rspec, target_panel, x).detach()
+    panel = torch.nn.Parameter(P.panel_kaiming_values(
+        mat.topology, 64, 64, compressed=True,
+        generator=torch.Generator().manual_seed(0)).to(dev))
+    opt = torch.optim.SGD([panel], lr=10.0)
+
+    def sgd_step():
+        opt.zero_grad()
+        loss = (stt.panel.spmm(rspec, panel, x) - y).square().mean()
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    steps = 5
+    losses = _counted(wrappers, total, f"{steps} SGD steps on a compressed "
+                      f"panel", lambda: [sgd_step() for _ in range(steps)],
+                      {"bsr_spmm_panel_c": steps, "bsr_sddmm_panel_c": steps,
+                       "bsr_spmm_t_panel_c": 0, "bsr_spmm_panel": 0})
+    print(f"  SGD losses {[round(v, 6) for v in losses]}", flush=True)
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        _fail(f"compressed SGD: the loss did not fall ({losses})")
+    if not torch.all(panel.detach()[-1] == 0):
+        _fail("compressed SGD: the dump tile moved")
+
+    print("phase 4i: the compressed chain vs the CPU plain route (full size)",
+          flush=True)
+    t0 = time.perf_counter()
+    cpu = [torch.from_numpy(x).requires_grad_() for x in host]
+    ref, w_ref = chain(spec, *cpu)
+    (ref * cot).sum().backward()
+    _compare("compressed chain output vs the CPU", out.detach().cpu(),
+             ref.detach(), TOL_MODEL)
+    _compare("compressed chain softmax vs the CPU", w.detach().cpu(),
+             w_ref.detach(), TOL_MODEL)
+    for name, a, c in zip("qkv", gpu, cpu):
+        _compare(f"compressed chain d{name} vs the CPU", a.grad.cpu(),
+                 c.grad, TOL_MODEL, floor=0)
+    print(f"  CPU reference in {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2828,6 +3174,7 @@ def main() -> int:
     w, mat = _bench_matrix(stt)
     phase_softmax_kernel(stt, torch, dev, kres, mat)
     phase_int8_kernels(stt, torch, dev, kres, w, mat)
+    phase_compressed_kernels(stt, torch, dev, kres)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
@@ -2835,8 +3182,9 @@ def main() -> int:
     moe = phase_moe_train(stt, torch, dev, wrappers)
     flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
     int8 = phase_int8_path(stt, torch, dev, wrappers)
+    comp = phase_compressed_path(stt, torch, dev, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n] + flat[n]
-                + int8[n] for n in wrappers}
+                + int8[n] + comp[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

@@ -8,12 +8,15 @@ kernels under ``csrc/`` (built with ``nvcc`` at first use); CPU tensors run
 each kernel's plain PyTorch version. The flat op set (``spmm``,
 ``left_spmm``, ``sddmm``, ``sparse_softmax``, ``csr_transpose``,
 ``spmm_bias_relu``) keeps the reference's CSR-ordered values and the JAX
-package's ``set_backend`` names; ``int8`` is the W8A8 serving family. This
+package's ``set_backend`` names; ``int8`` is the W8A8 serving family;
+``PanelSpec(..., compressed=True)`` runs the panel ops on the true-BSR
+layout (``CompressedView``). This
 package never imports JAX.
 """
 
 from . import bridge, models, ops, patterns, training
-from .blocking import BlockView, EllView, build_blocks, stack_block_meta
+from .blocking import (BlockView, CompressedView, EllView, build_blocks,
+                       build_compressed, stack_block_meta)
 from .many_mask import (
     ManyMaskTopology,
     csr_transpose_many_mask,
@@ -43,6 +46,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BatchedPanelSpec",
     "BlockView",
+    "CompressedView",
     "EllView",
     "KVCache",
     "LMServer",
@@ -65,6 +69,7 @@ __all__ = [
     "append_paged_seq",
     "bridge",
     "build_blocks",
+    "build_compressed",
     "csr_transpose",
     "csr_transpose_many_mask",
     "decode",

@@ -17,17 +17,24 @@ dump slot one past the end of the flattened panel, and padded block slots
 repeat the row-block's last valid column (0 for an empty row-block) and
 carry all-zero values. The arrays equal the JAX package's exactly at the
 same ``(bm, bk)``.
+
+Compressed (true-BSR) view: the occupied tiles stored back to back,
+``[num_blocks + 1, bm, bk]``, row-block ``i`` owning tiles
+``block_offsets[i] .. block_offsets[i + 1]``; the last tile is an
+always-zero dump. A skewed pattern (a few dense rows among banded ones)
+stores only its real tiles instead of ``mb * max_bpr``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
 
-__all__ = ["EllView", "BlockView", "build_ell", "build_blocks",
-           "stack_block_meta"]
+__all__ = ["EllView", "BlockView", "CompressedView", "build_ell",
+           "build_blocks", "build_compressed", "stack_block_meta"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -224,3 +231,109 @@ def stack_block_meta(views):
     return dict(block_cols=cols, nblocks=nblk, mask=mask, t_src_i=ti,
                 t_src_s=ts_, t_nblocks=tn, max_bpr=int(max_bpr),
                 max_bpc=int(max_bpc), mb=mb, kb=kb, bm=bm, bk=bk)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedView:
+    """True-BSR (offset-indexed) view: the occupied tiles back to back.
+
+    Values live as ``[num_blocks + 1, bm, bk]``; the last tile is the dump,
+    all zeros, where padded element slots point. Row-block ``i`` owns
+    tiles ``block_offsets[i] .. block_offsets[i + 1]``.
+    """
+
+    bm: int
+    bk: int
+    mb: int
+    kb: int
+    num_blocks: int
+    max_bpr: int               # most real tiles of any row-block
+    block_offsets: np.ndarray  # i32[mb + 1]
+    block_cols: np.ndarray     # i32[num_blocks + 1] (dump repeats last)
+    block_rows: np.ndarray     # i32[num_blocks + 1] row-block of each tile
+    scatter_idx: np.ndarray    # i32[nnz_pad] -> flat (num_blocks+1)*bm*bk
+    gather_idx: np.ndarray     # i32[nnz_pad] <- same
+    mask: np.ndarray           # bool[num_blocks + 1, bm, bk]
+
+    @property
+    def m_pad(self) -> int:
+        return self.mb * self.bm
+
+    @property
+    def n_pad(self) -> int:
+        return self.kb * self.bk
+
+    @property
+    def values_shape(self) -> Tuple[int, int, int]:
+        return (self.num_blocks + 1, self.bm, self.bk)
+
+    @property
+    def dump(self) -> int:
+        return (self.num_blocks + 1) * self.bm * self.bk
+
+    @functools.cached_property
+    def _transposed(self):
+        pairs = [[] for _ in range(self.kb)]
+        for g in range(self.num_blocks):
+            pairs[int(self.block_cols[g])].append(
+                (g, int(self.block_rows[g])))
+        max_bpc = max(max((len(p) for p in pairs), default=1), 1)
+        t_nblocks = np.array([len(p) for p in pairs], dtype=np.int32)
+        t_src = np.full((self.kb, max_bpc, 2), self.num_blocks, np.int32)
+        t_src[:, :, 1] = 0
+        for j, p in enumerate(pairs):
+            for u, (g, rb) in enumerate(p):
+                t_src[j, u] = (g, rb)
+            if 0 < len(p) < max_bpc:
+                t_src[j, len(p):] = t_src[j, len(p) - 1]
+        return t_nblocks, t_src
+
+    def transpose_meta(self):
+        """``(t_nblocks i32[kb], t_src i32[kb, max_bpc, 2])``: for each block
+        column ``j``, the ``(global tile id, row_block)`` pairs of its tiles;
+        padded slots repeat the last valid pair (the dump tile and row-block
+        0 for an empty column). Built once (a ``cached_property``: nothing
+        is set on the frozen instance through ``object.__setattr__``)."""
+        return self._transposed
+
+
+def build_compressed(topo, *, bm: int, bk: int) -> CompressedView:
+    """The compressed view, derived from the (cached) ``BlockView`` by index
+    remapping alone."""
+    bv = topo.block(bm, bk)
+    mb, max_bpr = bv.mb, bv.max_bpr
+    starts = np.zeros(mb + 1, np.int64)
+    np.cumsum(bv.nblocks, out=starts[1:])
+    num_blocks = int(starts[-1])
+
+    block_cols = np.zeros(num_blocks + 1, np.int32)
+    block_rows = np.zeros(num_blocks + 1, np.int32)
+    for i in range(mb):
+        nb = int(bv.nblocks[i])
+        block_cols[starts[i]: starts[i] + nb] = bv.block_cols[i, :nb]
+        block_rows[starts[i]: starts[i] + nb] = i
+    if num_blocks:
+        block_cols[num_blocks] = block_cols[num_blocks - 1]
+        block_rows[num_blocks] = block_rows[num_blocks - 1]
+
+    # element scatter indices: ELL slot -> compressed slot
+    tile = bm * bk
+    old = bv.scatter_idx.astype(np.int64)
+    blk = old // tile
+    within = old % tile
+    rb = blk // max_bpr
+    s = blk % max_bpr
+    is_pad = old >= bv.dump
+    gblk = np.where(is_pad, num_blocks, starts[np.minimum(rb, mb - 1)] + s)
+    flat = (gblk * tile + np.where(is_pad, 0, within)).astype(np.int32)
+
+    mask = np.zeros((num_blocks + 1, bm, bk), bool)
+    mask.reshape(-1)[flat[~is_pad]] = True
+
+    return CompressedView(
+        bm=bm, bk=bk, mb=mb, kb=bv.kb, num_blocks=num_blocks,
+        max_bpr=int(bv.nblocks.max(initial=1)),
+        block_offsets=starts.astype(np.int32),
+        block_cols=block_cols, block_rows=block_rows,
+        scatter_idx=flat, gather_idx=flat, mask=mask,
+    )

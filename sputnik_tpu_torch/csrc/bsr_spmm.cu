@@ -27,18 +27,60 @@
 // bias / bias+ReLU epilogue applied in registers; a row block without
 // occupied tiles writes exactly 0 (+ bias). Any bm, bk works: partial
 // slices are zero-filled. wgmma/TMA pipelining is later work.
+//
+// Compressed (B13a): also replaces sputnik_tpu/ops/pallas/bsr_compressed.py:
+// bsr_spmm_panel_c. The panel is the true-BSR layout values[R, T, bm, bk]
+// (blocking.CompressedView, T = num_blocks + 1 with a dump tile last):
+// row block i walks s < block_offsets[i + 1] - block_offsets[i], its tile
+// is values[block_offsets[i] + s] and its block column
+// block_cols[block_offsets[i] + s]. The body is the same; only the address
+// policy (EllRows, CompressedRows below) differs, so B1 and B6 compile to
+// what they were. The compressed softmax backward also runs it for its
+// ragged row sums (dense = a ones column). Its bound is B1's on the tiles
+// it stores: no padded tiles exist to skip.
 #include "common.cuh"
 
 namespace stt {
 
+// The tiles of row block i of replica r: `count` of them, the s-th being
+// panel tile `first + s` (counted from the replica's panel) in block column
+// cols[s]; `tiles` is the number of tiles of one replica's panel.
+struct RowWalk {
+  const int* cols;
+  int first;
+  int count;
+};
+
+struct EllRows {  // B1 / B6: row block i owns slots i * max_bpr + s
+  const int* block_cols;  // [B, mb * max_bpr]
+  const int* nblocks;     // [B, mb]
+  int heads, mb, max_bpr;
+  __device__ size_t tiles() const { return (size_t)mb * max_bpr; }
+  __device__ RowWalk row(int r, int i) const {
+    const int mask_id = r / heads;  // this replica's mask
+    const int first = i * max_bpr;
+    return {block_cols + (size_t)mask_id * mb * max_bpr + first, first,
+            nblocks[(size_t)mask_id * mb + i]};
+  }
+};
+
+struct CompressedRows {  // B13a: row block i owns tiles offs[i] .. offs[i+1]
+  const int* block_offsets;  // [mb + 1]
+  const int* block_cols;     // [T]
+  int n_tiles;               // T = num_blocks + 1
+  __device__ size_t tiles() const { return (size_t)n_tiles; }
+  __device__ RowWalk row(int, int i) const {
+    const int first = block_offsets[i];
+    return {block_cols + first, first, block_offsets[i + 1] - first};
+  }
+};
+
+template <typename Rows>
 __global__ void __launch_bounds__(THREADS)
-spmm_panel_kernel(const int* __restrict__ block_cols,
-                  const int* __restrict__ nblocks,
-                  const float* __restrict__ panel,
+spmm_panel_kernel(Rows rows, const float* __restrict__ panel,
                   const float* __restrict__ dense,
                   const float* __restrict__ bias, float* __restrict__ out,
-                  int heads, int mb, int max_bpr, int bm, int bk, int K, int N,
-                  int M, int epilogue) {
+                  int bm, int bk, int K, int N, int M, int epilogue) {
   __shared__ __align__(16) float As[TK][TILE_LD];
   __shared__ __align__(16) float Bs[TK][TILE_LD];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -47,18 +89,15 @@ spmm_panel_kernel(const int* __restrict__ block_cols,
   const int i = blockIdx.y / slices;
   const int r0 = (blockIdx.y % slices) * TILE;
   const int r = blockIdx.z;
-  const int mask_id = r / heads;  // this replica's mask
-  block_cols += (size_t)mask_id * mb * max_bpr;
-  nblocks += (size_t)mask_id * mb;
+  const RowWalk walk = rows.row(r, i);
   const size_t tile_elems = (size_t)bm * bk;
-  const float* pan = panel + (size_t)r * mb * max_bpr * tile_elems;
+  const float* pan = panel + (size_t)r * rows.tiles() * tile_elems;
   const float* den = dense + (size_t)r * K * N;
 
   float acc[4][4] = {};
-  const int nb = nblocks[i];
-  for (int s = 0; s < nb; ++s) {
-    const int c = block_cols[i * max_bpr + s];
-    const float* a_tile = pan + ((size_t)i * max_bpr + s) * tile_elems;
+  for (int s = 0; s < walk.count; ++s) {
+    const int c = walk.cols[s];
+    const float* a_tile = pan + ((size_t)walk.first + s) * tile_elems;
     for (int k0 = 0; k0 < bk; k0 += TK) {
       for (int e = tid; e < TILE * TK; e += THREADS) {
         const int row = e / TK, k = e % TK;  // coalesced along k
@@ -94,6 +133,18 @@ spmm_panel_kernel(const int* __restrict__ block_cols,
   }
 }
 
+template <typename Rows>
+int launch_spmm(Rows rows, const void* panel, const void* dense,
+                const void* bias, void* out, int R, int mb, int bm, int bk,
+                int K, int N, int M, int epilogue, void* stream) {
+  const int slices = (bm + TILE - 1) / TILE;
+  dim3 grid((N + TILE - 1) / TILE, mb * slices, R);
+  spmm_panel_kernel<Rows><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      rows, (const float*)panel, (const float*)dense, (const float*)bias,
+      (float*)out, bm, bk, K, N, M, epilogue);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace stt
 
 // epilogue: 0 none, 1 bias, 2 bias + ReLU. panel [R, mb, max_bpr, bm, bk],
@@ -103,13 +154,10 @@ extern "C" int spmm_panel_f32(const void* block_cols, const void* nblocks,
                               const void* bias, void* out, int R, int mb,
                               int max_bpr, int bm, int bk, int K, int N,
                               int M, int epilogue, void* stream) {
-  const int slices = (bm + stt::TILE - 1) / stt::TILE;
-  dim3 grid((N + stt::TILE - 1) / stt::TILE, mb * slices, R);
-  stt::spmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)block_cols, (const int*)nblocks, (const float*)panel,
-      (const float*)dense, (const float*)bias, (float*)out, R, mb, max_bpr,
-      bm, bk, K, N, M, epilogue);
-  return (int)cudaGetLastError();
+  return stt::launch_spmm(
+      stt::EllRows{(const int*)block_cols, (const int*)nblocks, R, mb,
+                   max_bpr},
+      panel, dense, bias, out, R, mb, bm, bk, K, N, M, epilogue, stream);
 }
 
 // The many-mask batch (B6): block_cols [B, mb * max_bpr], nblocks [B, mb],
@@ -118,11 +166,23 @@ extern "C" int spmm_bh_f32(const void* block_cols, const void* nblocks,
                            const void* panel, const void* dense, void* out,
                            int R, int heads, int mb, int max_bpr, int bm,
                            int bk, int K, int N, int M, void* stream) {
-  const int slices = (bm + stt::TILE - 1) / stt::TILE;
-  dim3 grid((N + stt::TILE - 1) / stt::TILE, mb * slices, R);
-  stt::spmm_panel_kernel<<<grid, stt::THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)block_cols, (const int*)nblocks, (const float*)panel,
-      (const float*)dense, nullptr, (float*)out, heads, mb, max_bpr, bm, bk,
-      K, N, M, 0);
-  return (int)cudaGetLastError();
+  return stt::launch_spmm(
+      stt::EllRows{(const int*)block_cols, (const int*)nblocks, heads, mb,
+                   max_bpr},
+      panel, dense, nullptr, out, R, mb, bm, bk, K, N, M, 0, stream);
+}
+
+// The compressed panel (B13a): block_offsets [mb + 1], block_cols [T],
+// panel [R, T, bm, bk] (T = num_blocks + 1), dense [R, K, N], bias [M],
+// out [R, M, N]; epilogue as spmm_panel_f32.
+extern "C" int spmm_panel_c_f32(const void* block_offsets,
+                                const void* block_cols, const void* panel,
+                                const void* dense, const void* bias,
+                                void* out, int R, int mb, int T, int bm,
+                                int bk, int K, int N, int M, int epilogue,
+                                void* stream) {
+  return stt::launch_spmm(
+      stt::CompressedRows{(const int*)block_offsets, (const int*)block_cols,
+                          T},
+      panel, dense, bias, out, R, mb, bm, bk, K, N, M, epilogue, stream);
 }

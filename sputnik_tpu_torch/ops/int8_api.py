@@ -76,6 +76,7 @@ class QuantizedPanel:
 def quantize_panel(spec: PanelSpec, panel) -> QuantizedPanel:
     """f32 panel -> int8 panel + scales (symmetric per-tile absmax), on the
     host; the arrays equal the JAX package's byte for byte."""
+    _ell_spec(spec)
     if isinstance(panel, torch.Tensor):
         panel = panel.detach().cpu().numpy()
     q, s = quantize_panel_np(np.asarray(panel, np.float32))
@@ -98,6 +99,16 @@ def _dq(qp: QuantizedPanel) -> torch.Tensor:
     return qp.values_q.float() * qp.scales[:, :, None, None]
 
 
+def _ell_spec(spec) -> PanelSpec:
+    """The int8 ops run on the ELL panel (as JAX's); a compressed spec is
+    refused, not misread."""
+    spec = _spec(spec)
+    if spec.compressed:
+        raise ValueError("the int8 ops take the ELL panel layout, not a "
+                         "compressed PanelSpec")
+    return spec
+
+
 def _flat(spec: PanelSpec, panel: torch.Tensor) -> torch.Tensor:
     return panel_to_values(spec.topo, panel, spec.bm, spec.bk)
 
@@ -110,7 +121,7 @@ def _tile_width(spec: PanelSpec, n: int) -> int:
 def spmm_int8(spec, qp: QuantizedPanel, dense):
     """W8A8 SpMM: int8 weights x the dense ``[n, N]`` operand quantised per
     ``[bk, bn]`` tile -> f32 ``[m, N]``."""
-    spec = _spec(spec)
+    spec = _ell_spec(spec)
     t, bv = spec.topo, spec.view
     _check_rows("dense", dense, t.n, bv.n_pad, 2)
     if not _kernel_route(dense):
@@ -125,7 +136,7 @@ def spmm_t_int8(spec, qp: QuantizedPanel, g):
     """W8A8 ``A^T @ G`` off the int8 panel through the transposed block
     metadata (no value movement): ``g [m, Q]`` quantised per ``[bm, bq]``
     tile -> f32 ``[n, Q]``."""
-    spec = _spec(spec)
+    spec = _ell_spec(spec)
     t, bv = spec.topo, spec.view
     _check_rows("g", g, t.m, bv.m_pad, 2)
     if not _kernel_route(g):
@@ -143,7 +154,7 @@ def sddmm_int8(spec, lhs, rhs):
     """Int8 SDDMM: ``lhs [m, d]`` and ``rhs [n, d]`` quantised per
     ``[bm, 128]`` / ``[bk, 128]`` tile, the sampled product returned as an
     f32 panel (exact 0 at masked and padded slots)."""
-    spec = _spec(spec)
+    spec = _ell_spec(spec)
     t, bv = spec.topo, spec.view
     _check_rows("lhs", lhs, t.m, bv.m_pad, 2)
     _check_rows("rhs", rhs, t.n, bv.n_pad, 2)
@@ -191,7 +202,7 @@ def spmm_qat(spec, panel, dense):
     ``dense [n, N]`` -> f32 ``[m, N]``; the backward runs the int8
     transposed SpMM and the int8 SDDMM (~1e-2 gradient error against the
     fp32 chain, the W8A8 class)."""
-    spec = _spec(spec)
+    spec = _ell_spec(spec)
     if panel.dim() != 4:
         raise ValueError(f"panel must be rank 4, got {tuple(panel.shape)}")
     return _SpMMQAT.apply(spec, panel, dense)

@@ -4,7 +4,7 @@ Every wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors; a failed build or launch raises. Each wrapper
 counts its own launches in ``<wrapper>.launches``. A raw launch returns a
 tensor without a ``grad_fn``: gradients flow through the autograd ops of
-``ops.panel_api``, ``ops.batched_panel``, ``ops.api`` (the flat softmax),
+``ops.panel_api`` (both layouts), ``ops.batched_panel``, ``ops.api`` (the flat softmax),
 ``ops.fused_attention`` and ``ops.int8_api`` (``spmm_qat``,
 ``attention_qat``), whose backward launches the backward kernels.
 So with grad mode on and an input that requires grad, a wrapper raises on
@@ -45,6 +45,9 @@ def kernel_wrappers():
     """The kernel wrappers of the port, by name (each has ``.launches``)."""
     from .batched_panel import (sddmm_bh_kernel, spmm_bh_kernel,
                                 spmm_t_bh_kernel)
+    from .bsr_compressed import (bsr_sddmm_panel_c, bsr_spmm_panel_c,
+                                 bsr_spmm_t_panel_c, c_softmax_apply,
+                                 c_softmax_stats)
     from .bsr_sddmm import bsr_sddmm_panel
     from .bsr_spmm import bsr_spmm_panel
     from .bsr_spmm_int8 import (bsr_sddmm_panel_int8, bsr_spmm_panel_int8,
@@ -82,4 +85,9 @@ def kernel_wrappers():
             "bsr_sddmm_panel_int8": bsr_sddmm_panel_int8,
             "flash_sparse_attention_fwd_int8": flash_sparse_attention_fwd_int8,
             "flash_sparse_bwd_dq_int8": flash_sparse_bwd_dq_int8,
-            "flash_sparse_bwd_dkv_int8": flash_sparse_bwd_dkv_int8}
+            "flash_sparse_bwd_dkv_int8": flash_sparse_bwd_dkv_int8,
+            "bsr_spmm_panel_c": bsr_spmm_panel_c,
+            "bsr_spmm_t_panel_c": bsr_spmm_t_panel_c,
+            "bsr_sddmm_panel_c": bsr_sddmm_panel_c,
+            "c_softmax_stats": c_softmax_stats,
+            "c_softmax_apply": c_softmax_apply}

@@ -61,6 +61,11 @@ _SIGNATURES = {
     "flash_sparse_fwd_int8": [_P] * 11 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dkv_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "spmm_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "spmm_t_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "sddmm_panel_c_f32": [_P] * 6 + [_I] * 7 + [_P],
+    "c_softmax_stats_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "c_softmax_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -12,6 +12,14 @@ over it:
   * ``sddmm``: dense x dense -> panel (the panel SDDMM kernel)
   * ``sparse_softmax``: panel -> panel (plain PyTorch, as in JAX)
 
+``PanelSpec(..., compressed=True)`` selects the true-BSR layout
+(``blocking.CompressedView``): panels ``f32[num_blocks + 1, bm, bk]``, only
+the occupied tiles, back to back. The same ops and Functions run on it
+through the compressed kernels (SpMM B13a, SpMM^T B13b, SDDMM B14), and
+``sparse_softmax`` through the two compressed softmax kernels (row
+statistics B15a, normalise B15b); the dump tile ``num_blocks`` is exactly
+0 in every output and gradient.
+
 Each op is a ``torch.autograd.Function`` whose backward is the JAX
 package's ``custom_vjp`` algebra on the same kernels: SpMM <- SDDMM +
 SpMM^T, SDDMM <- SpMM + SpMM^T, softmax <- ``p * (g - rowsum(p * g))``.
@@ -34,6 +42,8 @@ import torch.nn.functional as F
 
 from torch.autograd.function import once_differentiable
 
+from ..blocking import build_compressed
+from .kernels import bsr_compressed as _c
 from .kernels.bsr_sddmm import bsr_sddmm_panel
 from .kernels.bsr_spmm import bsr_spmm_panel
 from .kernels.bsr_spmm_t import bsr_spmm_t_panel
@@ -61,35 +71,53 @@ DEFAULT_BLOCK = (64, 64)
 _NEG_LARGE = -1e30
 
 
-def values_to_panel_np(topo, values: np.ndarray, bm: int, bk: int):
-    """Host-side CSR values -> panel (module init / weight import).
-    Dtype-preserving."""
-    bv = topo.block(bm, bk)
+def _view(topo, bm: int, bk: int, compressed: bool = False):
+    """The ELL ``BlockView`` or, with ``compressed``, the ``CompressedView``
+    of ``topo`` at ``(bm, bk)``. The compressed view is built once per
+    topology and tile and kept in the topology's block cache beside the
+    block view it derives from (nothing is set on the frozen view)."""
+    if not compressed:
+        return topo.block(bm, bk)
+    key = ("compressed", bm, bk)
+    view = topo._block_cache.get(key)
+    if view is None:
+        view = topo._block_cache[key] = build_compressed(topo, bm=bm, bk=bk)
+    return view
+
+
+def values_to_panel_np(topo, values: np.ndarray, bm: int, bk: int,
+                       *, compressed: bool = False):
+    """Host-side CSR values -> panel (module init / weight import), ELL or,
+    with ``compressed``, true-BSR. Dtype-preserving."""
+    bv = _view(topo, bm, bk, compressed)
     values = np.asarray(values)
     flat = np.zeros(bv.dump + 1, dtype=values.dtype)
     flat[bv.scatter_idx] = values
     return flat[: bv.dump].reshape(bv.values_shape)
 
 
-def panel_to_values_np(topo, panel: np.ndarray, bm: int, bk: int):
+def panel_to_values_np(topo, panel: np.ndarray, bm: int, bk: int,
+                       *, compressed: bool = False):
     """Host-side panel -> CSR values (export). Dtype-preserving."""
-    bv = topo.block(bm, bk)
+    bv = _view(topo, bm, bk, compressed)
     panel = np.asarray(panel)
     flat = np.concatenate([panel.reshape(-1), np.zeros(1, panel.dtype)])
     return flat[np.minimum(bv.gather_idx, bv.dump)]
 
 
-def values_to_panel(topo, values: torch.Tensor, bm: int, bk: int):
+def values_to_panel(topo, values: torch.Tensor, bm: int, bk: int,
+                    *, compressed: bool = False):
     """Tensor CSR values -> panel (boundary op, not for per-step use)."""
-    bv = topo.block(bm, bk)
+    bv = _view(topo, bm, bk, compressed)
     idx = torch.as_tensor(bv.scatter_idx, dtype=torch.int64,
                           device=values.device)
     flat = values.new_zeros(bv.dump + 1).index_copy(0, idx, values)
     return flat[: bv.dump].reshape(bv.values_shape)
 
 
-def panel_to_values(topo, panel: torch.Tensor, bm: int, bk: int):
-    bv = topo.block(bm, bk)
+def panel_to_values(topo, panel: torch.Tensor, bm: int, bk: int,
+                    *, compressed: bool = False):
+    bv = _view(topo, bm, bk, compressed)
     idx = torch.as_tensor(np.minimum(bv.gather_idx, bv.dump),
                           dtype=torch.int64, device=panel.device)
     flat = torch.cat([panel.reshape(-1), panel.new_zeros(1)])
@@ -98,10 +126,12 @@ def panel_to_values(topo, panel: torch.Tensor, bm: int, bk: int):
 
 def panel_kaiming_values(topo, bm: int, bk: int, *, gain: float = 1.0,
                          generator: Optional[torch.Generator] = None,
-                         dtype=torch.float32) -> torch.Tensor:
-    """Kaiming-uniform init over the nonzero slots, in panel layout (zeros
-    elsewhere), on the CPU; move it with ``.to(device)``."""
-    bv = topo.block(bm, bk)
+                         dtype=torch.float32,
+                         compressed: bool = False) -> torch.Tensor:
+    """Kaiming-uniform init over the nonzero slots, in panel layout (ELL or,
+    with ``compressed``, true-BSR; zeros elsewhere), on the CPU; move it
+    with ``.to(device)``."""
+    bv = _view(topo, bm, bk, compressed)
     fan_in = max(float(topo.nnz) / max(topo.m, 1), 1.0)
     bound = gain * float(np.sqrt(3.0 / fan_in))
     vals = torch.empty(bv.values_shape, dtype=dtype)
@@ -110,23 +140,27 @@ def panel_kaiming_values(topo, bm: int, bk: int, *, gain: float = 1.0,
 
 
 class PanelSpec:
-    """Static ``(topology, bm, bk[, bn])`` bundle for panel ops.
+    """Static ``(topology, bm, bk[, bn], compressed)`` bundle for panel ops;
+    equal (and hashed alike) for the same topology object and fields.
 
     Holds the block metadata as device tensors, built once per device
     (``spec.meta(device)``; the flat API's index maps in
     ``spec.flat_meta(device)``). ``bn``, JAX's slot, overrides the width
     rule of the int8 ops' activation tiles (``int8_api``); no other op
-    reads it."""
+    reads it. ``compressed=True`` selects the true-BSR layout
+    (``blocking.CompressedView``): panels ``[num_blocks + 1, bm, bk]``."""
 
-    __slots__ = ("topo", "bm", "bk", "bn", "_view", "_meta")
+    __slots__ = ("topo", "bm", "bk", "bn", "compressed", "_view", "_meta")
 
     def __init__(self, topo, bm: Optional[int] = None,
-                 bk: Optional[int] = None, bn: Optional[int] = None):
+                 bk: Optional[int] = None, bn: Optional[int] = None,
+                 compressed: bool = False):
         self.topo = topo
         self.bm = bm or DEFAULT_BLOCK[0]
         self.bk = bk or DEFAULT_BLOCK[1]
         self.bn = bn
-        self._view = topo.block(self.bm, self.bk)
+        self.compressed = bool(compressed)
+        self._view = _view(topo, self.bm, self.bk, self.compressed)
         self._meta = {}
 
     @property
@@ -134,28 +168,44 @@ class PanelSpec:
         return self._view
 
     def meta(self, device) -> dict:
-        """Block metadata on ``device``: ``block_cols`` i32[mb*max_bpr],
-        ``nblocks`` i32[mb], the f32 element ``mask`` [mb, max_bpr, bm, bk],
-        and the transposed walk of ``BlockView.transpose_meta``: ``t_src_i``
-        / ``t_src_s`` i32[kb*max_bpc] and ``t_nblocks`` i32[kb]."""
+        """Block metadata on ``device``.
+
+        ELL: ``block_cols`` i32[mb*max_bpr], ``nblocks`` i32[mb], the f32
+        element ``mask`` [mb, max_bpr, bm, bk], and the transposed walk of
+        ``BlockView.transpose_meta``: ``t_src_i`` / ``t_src_s``
+        i32[kb*max_bpc] and ``t_nblocks`` i32[kb].
+
+        Compressed: ``block_offsets`` i32[mb+1], ``block_cols`` and
+        ``block_rows`` i32[num_blocks+1], the f32 ``mask`` [num_blocks+1,
+        bm, bk], and the transposed walk of ``CompressedView.transpose_meta``
+        by global tile id: ``t_gblk`` / ``t_rows`` i32[kb*max_bpc] and
+        ``t_nblocks`` i32[kb]."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
             bv = self._view
             t_nblocks, t_src = bv.transpose_meta()
-            got = dict(
-                block_cols=torch.as_tensor(bv.block_cols.reshape(-1),
-                                           device=device),
-                nblocks=torch.as_tensor(bv.nblocks, device=device),
-                mask=torch.as_tensor(bv.mask, dtype=torch.float32,
-                                     device=device),
-                t_src_i=torch.as_tensor(
-                    np.ascontiguousarray(t_src[:, :, 0]).reshape(-1),
-                    device=device),
-                t_src_s=torch.as_tensor(
-                    np.ascontiguousarray(t_src[:, :, 1]).reshape(-1),
-                    device=device),
-                t_nblocks=torch.as_tensor(t_nblocks, device=device))
+            t_a, t_b = (np.ascontiguousarray(t_src[:, :, c]).reshape(-1)
+                        for c in (0, 1))
+            mask = torch.as_tensor(bv.mask, dtype=torch.float32,
+                                   device=device)
+            if self.compressed:
+                got = dict(
+                    block_offsets=torch.as_tensor(bv.block_offsets,
+                                                  device=device),
+                    block_cols=torch.as_tensor(bv.block_cols, device=device),
+                    block_rows=torch.as_tensor(bv.block_rows, device=device),
+                    mask=mask, t_gblk=torch.as_tensor(t_a, device=device),
+                    t_rows=torch.as_tensor(t_b, device=device),
+                    t_nblocks=torch.as_tensor(t_nblocks, device=device))
+            else:
+                got = dict(
+                    block_cols=torch.as_tensor(bv.block_cols.reshape(-1),
+                                               device=device),
+                    nblocks=torch.as_tensor(bv.nblocks, device=device),
+                    mask=mask, t_src_i=torch.as_tensor(t_a, device=device),
+                    t_src_s=torch.as_tensor(t_b, device=device),
+                    t_nblocks=torch.as_tensor(t_nblocks, device=device))
             self._meta[device] = got
         return got
 
@@ -178,9 +228,18 @@ class PanelSpec:
             self._meta[key] = got
         return got
 
+    def __hash__(self):
+        return hash((id(self.topo), self.bm, self.bk, self.bn,
+                     self.compressed))
+
+    def __eq__(self, other):
+        return (isinstance(other, PanelSpec) and self.topo is other.topo
+                and (self.bm, self.bk, self.bn, self.compressed)
+                == (other.bm, other.bk, other.bn, other.compressed))
+
     def __repr__(self):
         return (f"PanelSpec({self.topo!r}, bm={self.bm}, bk={self.bk}, "
-                f"bn={self.bn})")
+                f"bn={self.bn}, compressed={self.compressed})")
 
 
 def _spec(spec) -> PanelSpec:
@@ -198,26 +257,37 @@ def _check_rows(name, x, n_true, n_pad, rank):
                          f"(or tile-padded {n_pad})")
 
 
-def _replicated(panel) -> bool:
-    if panel.dim() not in (4, 5):
-        raise ValueError(f"panel must be rank 4 (or 5 with replicas), got "
-                         f"{tuple(panel.shape)}")
-    return panel.dim() == 5
+def _replicated(spec, panel) -> bool:
+    rank = 3 if spec.compressed else 4     # the layout's own panel rank
+    if panel.dim() not in (rank, rank + 1):
+        raise ValueError(f"panel must be rank {rank} (or {rank + 1} with "
+                         f"replicas), got {tuple(panel.shape)}")
+    return panel.dim() == rank + 1
 
 
-# Raw launches on replicated operands (``[R, ...]``, contiguous). They
-# record no gradient: the Functions below call them in forward and backward.
+# Raw launches on replicated operands (``[R, ...]``, contiguous), the kernel
+# chosen by the spec's layout. They record no gradient: the Functions below
+# call them in forward and backward.
 
 
-def _raw_spmm(spec, panel, dense, bias=None, epilogue="none"):
+def _raw_spmm(spec, panel, dense, bias=None, epilogue="none", rows=None):
     meta = spec.meta(panel.device)
+    rows = spec.topo.m if rows is None else rows
+    if spec.compressed:
+        return _c.bsr_spmm_panel_c(meta["block_offsets"], meta["block_cols"],
+                                   panel, dense.contiguous(), bias, rows=rows,
+                                   epilogue=epilogue)
     return bsr_spmm_panel(meta["block_cols"], meta["nblocks"], panel,
-                          dense.contiguous(), bias, rows=spec.topo.m,
+                          dense.contiguous(), bias, rows=rows,
                           epilogue=epilogue)
 
 
 def _raw_spmm_t(spec, panel, g, rows):
     meta = spec.meta(panel.device)
+    if spec.compressed:
+        return _c.bsr_spmm_t_panel_c(meta["t_gblk"], meta["t_rows"],
+                                     meta["t_nblocks"], panel, g.contiguous(),
+                                     rows=rows)
     return bsr_spmm_t_panel(meta["t_src_i"], meta["t_src_s"],
                             meta["t_nblocks"], panel, g.contiguous(),
                             rows=rows)
@@ -225,6 +295,10 @@ def _raw_spmm_t(spec, panel, g, rows):
 
 def _raw_sddmm(spec, lhs, rhs):
     meta = spec.meta(lhs.device)
+    if spec.compressed:
+        return _c.bsr_sddmm_panel_c(meta["block_rows"], meta["block_cols"],
+                                    lhs.contiguous(), rhs.contiguous(),
+                                    meta["mask"])
     return bsr_sddmm_panel(meta["block_cols"], meta["nblocks"],
                            lhs.contiguous(), rhs.contiguous(), meta["mask"])
 
@@ -340,6 +414,43 @@ def masked_softmax(panel, mask):
     return _MaskedSoftmax.apply(panel, mask)
 
 
+class _CompressedSoftmax(torch.autograd.Function):
+    """Row softmax over the compressed panel ``[R, num_blocks + 1, bm, bk]``,
+    whose rows are ragged across back-to-back tiles: the row statistics
+    (B15a, online over each row-block's tiles), then each tile normalised
+    against its row-block's statistics (B15b). Backward (JAX
+    ``_softmax_bwd``, compressed branch): ``p * (g - rowsum(p * g))``, the
+    ragged row sum by the compressed SpMM (B13a) against a ones column and
+    taken back to each tile through ``block_rows``. The cotangent is
+    zeroed at masked slots and at the dump tile first (the output is 0
+    there whatever the input), so a NaN there cannot leak: the gradient
+    is exactly 0 at every masked slot and at the dump tile."""
+
+    @staticmethod
+    def forward(ctx, spec, panel):
+        meta = spec.meta(panel.device)
+        row_max, row_denom = _c.c_softmax_stats(meta["block_offsets"], panel,
+                                                meta["mask"])
+        p = _c.c_softmax_apply(meta["block_rows"], panel, meta["mask"],
+                               row_max, row_denom)
+        ctx.spec = spec
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        spec, bv = ctx.spec, ctx.spec.view
+        meta = spec.meta(g.device)
+        g = torch.where(meta["mask"] != 0, g, 0.0)
+        pg = (p * g).contiguous()
+        ones = pg.new_ones((pg.shape[0], bv.n_pad, 1))
+        rs = _raw_spmm(spec, pg, ones, rows=bv.m_pad)       # [R, m_pad, 1]
+        rs_b = rs.view(-1, bv.mb, bv.bm, 1)[:, meta["block_rows"].long()]
+        return None, p * (g - rs_b)
+
+
 def _rep(x, rep):
     return x if rep else x[None]
 
@@ -351,7 +462,7 @@ def _unrep(x, rep):
 def _spmm(spec, panel, dense, bias, epilogue):
     spec = _spec(spec)
     t, bv = spec.topo, spec.view
-    rep = _replicated(panel)
+    rep = _replicated(spec, panel)
     _check_rows("dense", dense, t.n, bv.n_pad, 3 if rep else 2)
     out = _SpMM.apply(spec, _rep(panel, rep).contiguous(),
                       _rep(dense, rep).contiguous(), bias, epilogue)
@@ -380,7 +491,7 @@ def spmm_t(spec, panel, dense):
     (no transposed panel is built)."""
     spec = _spec(spec)
     t, bv = spec.topo, spec.view
-    rep = _replicated(panel)
+    rep = _replicated(spec, panel)
     _check_rows("dense", dense, t.m, bv.m_pad, 3 if rep else 2)
     out = _SpMMT.apply(spec, _rep(panel, rep).contiguous(),
                        _rep(dense, rep).contiguous())
@@ -408,5 +519,8 @@ def sparse_softmax(spec, panel):
     without a leading replica dimension); masked slots stay exactly 0 and a
     row without nonzeros gives 0."""
     spec = _spec(spec)
-    _replicated(panel)
+    rep = _replicated(spec, panel)
+    if spec.compressed:
+        return _unrep(_CompressedSoftmax.apply(
+            spec, _rep(panel, rep).contiguous()), rep)
     return masked_softmax(panel, spec.meta(panel.device)["mask"] != 0)

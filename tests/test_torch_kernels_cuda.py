@@ -1097,3 +1097,223 @@ def test_int8_kernels_refuse_grad_mode_and_qat_trains_through_them(dev):
     _close(y.detach().cpu(), y_cpu.detach())
     _close(dense.grad.cpu(), cpu_dense.grad)
     _close(panel.grad.cpu(), cpu_panel.grad)
+
+
+# -- the compressed (true-BSR) kernels B13a, B13b, B14, B15a, B15b -----------
+
+_C_KINDS = ["skewed", "uniform", "empty_row", "all_zero"]
+_C_TILES = [(32, 32), (64, 64), (64, 128)]
+
+
+def _c_topology(kind, tiles):
+    """A skewed band with dense rows (``test_sharded_compressed``'s shape),
+    exactly one tile per row-block (the dump is never walked), a band with
+    an empty row and an empty row-block, or no nonzeros at all."""
+    rng = np.random.RandomState(_C_KINDS.index(kind))
+    bm, bk = tiles
+    if kind == "skewed":
+        m, n = 320, 384
+        mask = np.zeros((m, n), bool)
+        for r in range(m):
+            lo = max(0, r * n // m - 16)
+            mask[r, lo: lo + 32] = True
+        mask[[7, 140, m - 3]] = True
+    elif kind == "uniform":
+        m = 4 * bm
+        mask = np.zeros((m, 4 * bk), bool)
+        for i in range(4):
+            mask[i * bm:(i + 1) * bm, i * bk:(i + 1) * bk] = (
+                rng.rand(bm, bk) < 0.5)
+    elif kind == "empty_row":
+        m, n = 3 * bm + 5, 200
+        mask = rng.rand(m, n) < 0.1
+        mask[3] = False
+        mask[bm: 2 * bm] = False                  # an empty row-block
+    else:
+        mask = np.zeros((150, 130), bool)
+    return stt.SparseTopology.from_dense_mask(mask)
+
+
+def _c_problem(dev, kind, tiles, R=2, seed=0):
+    topo = _c_topology(kind, tiles)
+    spec = stt.PanelSpec(topo, *tiles, compressed=True)
+    meta = _meta(spec, dev)
+    rng = np.random.RandomState(seed)
+    panel = torch.from_numpy(rng.randn(R, *spec.view.values_shape).astype(
+        np.float32)).to(dev) * meta["mask"]
+    return topo, spec, meta, panel, rng
+
+
+def _nan_filled_pool(dev, shape):
+    """Leave a freed NaN-filled block of ``shape`` in the caching allocator,
+    which the next allocation of that size takes: an output slot a kernel
+    skips then reads NaN."""
+    junk = torch.full(shape, float("nan"), device=dev)
+    ptr = junk.data_ptr()
+    del junk
+    return ptr
+
+
+def _close_each(got, ref, rtol=1e-4):
+    """Each slot at ``rtol x |plain|`` (floored at f32 tiny, so an exact 0
+    stays 0): softmax outputs lie far below 1."""
+    scale = ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    rel = ((got - ref).abs() / scale).max().item() if ref.numel() else 0.0
+    assert rel <= rtol, rel
+
+
+@pytest.mark.parametrize("tiles", _C_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS)
+@pytest.mark.parametrize("epilogue", ["none", "bias", "bias_relu"])
+def test_spmm_c_kernel_matches_plain(dev, kind, tiles, epilogue):
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
+    R, q = panel.shape[0], 70
+    dense = torch.from_numpy(rng.randn(R, topo.n, q).astype(np.float32)
+                             ).to(dev)
+    bias = torch.from_numpy(rng.randn(topo.m).astype(np.float32)).to(dev)
+    args = (meta["block_offsets"], meta["block_cols"], panel, dense,
+            None if epilogue == "none" else bias)
+    before = kc.bsr_spmm_panel_c.launches
+    got = kc.bsr_spmm_panel_c(*args, rows=topo.m, epilogue=epilogue)
+    torch.cuda.synchronize()
+    assert kc.bsr_spmm_panel_c.launches == before + 1
+    ref = kc.bsr_spmm_panel_c_plain(*args, rows=topo.m, epilogue=epilogue)
+    _close(got, ref)
+    bv = spec.view
+    for i in np.flatnonzero(np.diff(bv.block_offsets) == 0):
+        lo, hi = i * bv.bm, min((i + 1) * bv.bm, topo.m)
+        want = (torch.zeros_like(got[:, lo:hi]) if epilogue == "none"
+                else bias[lo:hi, None].expand_as(got[:, lo:hi]))
+        if epilogue == "bias_relu":
+            want = want.clamp(min=0)
+        assert torch.equal(got[:, lo:hi], want)   # no tiles: exact 0 + bias
+
+
+@pytest.mark.parametrize("tiles", _C_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS)
+def test_spmm_t_c_kernel_matches_plain(dev, kind, tiles):
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
+    R, q = panel.shape[0], 70
+    g = torch.from_numpy(rng.randn(R, topo.m, q).astype(np.float32)).to(dev)
+    args = (meta["t_gblk"], meta["t_rows"], meta["t_nblocks"], panel, g)
+    before = kc.bsr_spmm_t_panel_c.launches
+    got = kc.bsr_spmm_t_panel_c(*args, rows=topo.n)
+    torch.cuda.synchronize()
+    assert kc.bsr_spmm_t_panel_c.launches == before + 1
+    _close(got, kc.bsr_spmm_t_panel_c_plain(*args, rows=topo.n))
+    bv = spec.view
+    w = torch.zeros(R, bv.m_pad, bv.n_pad, device=dev)
+    for gb in range(bv.num_blocks):       # the dense matrix of each replica
+        i, c = int(bv.block_rows[gb]), int(bv.block_cols[gb])
+        w[:, i * bv.bm:(i + 1) * bv.bm, c * bv.bk:(c + 1) * bv.bk] = \
+            panel[:, gb]
+    _close(got, (w[:, :topo.m, :topo.n].transpose(1, 2) @ g))
+    t_nblocks = meta["t_nblocks"].cpu().numpy()
+    for j in np.flatnonzero(t_nblocks == 0):
+        assert torch.all(got[:, j * bv.bk:(j + 1) * bv.bk] == 0)
+
+
+@pytest.mark.parametrize("tiles", _C_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS)
+def test_sddmm_c_kernel_matches_plain_with_exact_zeros(dev, kind, tiles):
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
+    R, d = panel.shape[0], 100
+    lhs = torch.from_numpy(rng.randn(R, topo.m, d).astype(np.float32)
+                           ).to(dev)
+    rhs = torch.from_numpy(rng.randn(R, topo.n, d).astype(np.float32)
+                           ).to(dev)
+    args = (meta["block_rows"], meta["block_cols"], lhs, rhs, meta["mask"])
+    before = kc.bsr_sddmm_panel_c.launches
+    ptr = _nan_filled_pool(dev, tuple(panel.shape))
+    got = kc.bsr_sddmm_panel_c(*args)
+    torch.cuda.synchronize()
+    assert kc.bsr_sddmm_panel_c.launches == before + 1
+    print("output in the NaN-filled block:", got.data_ptr() == ptr)
+    _close(got, kc.bsr_sddmm_panel_c_plain(*args))
+    assert torch.all(got[:, -1] == 0)                 # the dump tile
+    assert torch.all(got[:, meta["mask"] == 0] == 0)  # masked slots
+
+
+@pytest.mark.parametrize("tiles", _C_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS)
+def test_softmax_c_kernels_match_plain(dev, kind, tiles):
+    """B15a (m exactly, l relatively: the online sums run in another
+    order) and B15b, each slot at 1e-4 x |plain|; a row of -inf scores and
+    the dump tile give exact zeros."""
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
+    panel = panel * 4
+    bv = spec.view
+    if bv.num_blocks:                       # a row of -inf scores
+        g0 = int(bv.block_offsets[0])
+        panel[:, g0:int(bv.block_offsets[1]), 0] = float("-inf")
+        panel = torch.where(meta["mask"] != 0, panel, 0.0)
+    before = (kc.c_softmax_stats.launches, kc.c_softmax_apply.launches)
+    m, l = kc.c_softmax_stats(meta["block_offsets"], panel, meta["mask"])
+    m_ref, l_ref = kc.c_softmax_stats_plain(meta["block_offsets"], panel,
+                                            meta["mask"])
+    assert torch.equal(m, m_ref)
+    _close_each(l, l_ref, 1e-5)
+    ptr = _nan_filled_pool(dev, tuple(panel.shape))
+    got = kc.c_softmax_apply(meta["block_rows"], panel, meta["mask"], m, l)
+    torch.cuda.synchronize()
+    print("output in the NaN-filled block:", got.data_ptr() == ptr)
+    assert (kc.c_softmax_stats.launches, kc.c_softmax_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = kc.c_softmax_apply_plain(meta["block_rows"], panel, meta["mask"],
+                                   m_ref, l_ref)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+    _close_each(got, ref)
+    assert torch.all(got[:, -1] == 0) and torch.all(got[:, meta["mask"] == 0]
+                                                    == 0)
+    if bv.num_blocks:
+        assert torch.all(got[:, g0:int(bv.block_offsets[1]), 0] == 0)
+
+
+def test_compressed_chain_trains_through_the_kernels(dev):
+    """The compressed attention chain (sddmm -> sparse_softmax -> spmm)
+    forward and backward on the card against the CPU: B14, B15a, B15b and
+    B13a forward, B13a x 2, B13b x 2 and B14 backward, no ELL kernel; the
+    dump tile of every panel gradient exactly 0."""
+    rng = np.random.RandomState(12)
+    topo = _c_topology("skewed", (64, 64))
+    spec = stt.PanelSpec(topo, 64, 64, compressed=True)
+    s, hd = topo.m, 32
+    cpu = [torch.from_numpy(rng.randn(r, hd).astype(np.float32))
+           .requires_grad_() for r in (s, topo.n, topo.n)]
+    gpu = [t.detach().to(dev).requires_grad_() for t in cpu]
+    cot = torch.from_numpy(rng.randn(s, hd).astype(np.float32))
+
+    def chain(q, k, v):
+        w = stt.panel.sparse_softmax(spec, stt.panel.sddmm(spec, q, k)
+                                     * hd ** -0.5)
+        return stt.panel.spmm(spec, w, v)
+
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = chain(*gpu)
+    (out * cot.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items() if
+           w.launches != before[n]}
+    assert got == {"bsr_sddmm_panel_c": 2, "c_softmax_stats": 1,
+                   "c_softmax_apply": 1, "bsr_spmm_panel_c": 3,
+                   "bsr_spmm_t_panel_c": 2}, got
+    ref = chain(*cpu)
+    (ref * cot).sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+    panel = torch.from_numpy(rng.randn(*spec.view.values_shape).astype(
+        np.float32)).to(dev).requires_grad_()
+    stt.panel.spmm(spec, panel, gpu[2].detach()).square().sum().backward()
+    assert torch.all(panel.grad[-1] == 0)
+    assert torch.all(panel.grad[torch.from_numpy(~spec.view.mask)] == 0)

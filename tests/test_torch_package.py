@@ -65,6 +65,7 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.ops.kernels.paged_append\n"
              "import sputnik_tpu_torch.ops.kernels.batched_panel\n"
              "import sputnik_tpu_torch.ops.kernels.ell_softmax\n"
+             "import sputnik_tpu_torch.ops.kernels.bsr_compressed\n"
              "import sputnik_tpu_torch.ops.kernels.bsr_spmm_int8\n"
              "import sputnik_tpu_torch.ops.kernels.flash_sparse_int8\n"
              "import sputnik_tpu_torch.ops.int8_api\n"
@@ -91,7 +92,8 @@ def test_build_key_covers_every_source():
                                     "ragged_append.cu", "ell_softmax.cu",
                                     "bsr_spmm_int8.cu",
                                     "flash_sparse_int8.cu",
-                                    "flash_sparse_int8_bwd.cu"}
+                                    "flash_sparse_int8_bwd.cu",
+                                    "bsr_compressed.cu"}
     assert set(_build._SIGNATURES) == {
         "spmm_panel_f32", "spmm_t_panel_f32", "sddmm_panel_f32",
         "flash_sparse_fwd_f32", "flash_sparse_bwd_fused_f32",
@@ -100,7 +102,9 @@ def test_build_key_covers_every_source():
         "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
         "ell_softmax_f32", "spmm_panel_int8", "spmm_t_panel_int8",
         "sddmm_panel_int8", "flash_sparse_fwd_int8",
-        "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8"}
+        "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8",
+        "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
+        "c_softmax_stats_f32", "c_softmax_apply_f32"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -168,8 +172,16 @@ def test_cpu_tensors_launch_no_kernel():
         finally:
             stt.set_backend("auto")
     assert torch.isfinite(qkv.grad).all() and torch.isfinite(panel.grad).all()
+    cspec = stt.PanelSpec(topo, 16, 16, compressed=True)  # the true-BSR chain
+    q = x[0, :32].detach().requires_grad_()
+    w = stt.panel.sparse_softmax(cspec, stt.panel.sddmm(cspec, q, q))
+    (stt.panel.spmm(cspec, w, q).sum()
+     + stt.panel.spmm_t(cspec, w, q).sum()).backward()
+    assert torch.isfinite(q.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 21 and "ell_softmax" in wrappers
+    assert len(wrappers) == 26 and "ell_softmax" in wrappers
+    assert {"bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
+            "c_softmax_stats", "c_softmax_apply"} <= set(wrappers)
     assert {"flash_sparse_attention_fwd_int8", "flash_sparse_bwd_dq_int8",
             "flash_sparse_bwd_dkv_int8"} <= set(wrappers)
     assert all(v == 0 for v in before.values())
@@ -210,13 +222,12 @@ def test_build_failure_raises(tmp_path, monkeypatch):
 
 def test_exports_match_the_jax_package():
     """The names of ``sputnik_tpu`` and ``sputnik_tpu.ops`` exist in the
-    port, less the unported compressed layout; ``ops.panel`` is
+    port (the compressed layout's ``CompressedView`` too); ``ops.panel`` is
     ``ops.panel_api`` and ``int8`` is ``ops.int8_api``, whose names are
     JAX's but for the in-graph quantiser's torch name."""
     import sputnik_tpu as st
 
-    unported = {"CompressedView"}
-    assert set(st.__all__) - set(stt.__all__) == unported
+    assert set(st.__all__) - set(stt.__all__) == set()
     assert set(st.ops.__all__) - set(stt.ops.__all__) == set()
     assert stt.int8 is stt.ops.int8 is stt.ops.int8_api
     assert set(st.int8.__all__) - set(stt.int8.__all__) == {
