@@ -30,7 +30,12 @@ Phases, each printing its lines:
      and 4096, B1 / B3 on the ELL panel of the same topology beside them),
      B14 and B15a / B15b (B15b also slot by slot, with a planted fault) on
      the skewed 4096^2 pattern (a 32-wide band plus three dense rows) at
-     64x64 tiles (2i);
+     64x64 tiles (2i); the sequence-parallel kernels B2 (the halo SpMM's
+     interior and halo passes at 8192^2 window 1024, q=512, summing to B1
+     over the shard), B11a and B11b (every band of a ring shard at s=8192
+     causal, R=4, hd=64, carried and finished against B9 / B10a over the
+     shard's keys) (2j); bf16 and mixed operands of the panel ops and a
+     bf16 SparseLinear launching the f32 kernels, JAX's dtypes out (2m);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
         s=512, h=512, 8 heads, ffn 2048, residual, LayerNorm, gelu,
@@ -68,6 +73,16 @@ Phases, each printing its lines:
         3, B13b x 2 a step; no ELL kernel), the step timed against the ELL
         layout's in turns; 5 SGD steps on a compressed-panel regression
         (the loss falls);
+     j. ring flash attention at examples/train_seq_parallel.py's full
+        config on 4 shards of the one card (s=8192 causal, R=4, hd=64):
+        natural and zigzag order (group 1: B11a and B11b, 16 launches
+        each) and GQA group 2 (B11a; B10b + B10c), forward and backward,
+        both orders timed in turns, the example's toy regression for 4
+        SGD steps (the loss falls);
+     k. the halo SpMM at benchmarks/scaling.py's banded problem (8192^2,
+        causal window 1024, q=512, 4 shards): the interior / halo split
+        (B2 x 2 a shard; B4 + B3 a shard backward), then the ragged
+        exchange (8000^2) and the all_gather (a random 4096^2 mask, B1);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -76,7 +91,9 @@ Phases, each printing its lines:
      the csr SparseLinear, also against the panel layer on the card; the
      int8 attention, projection, spmm_qat gradients and
      attention_qat(backward="int8") gradients under
-     set_backend("pallas"); the compressed chain's output and gradients),
+     set_backend("pallas"); the compressed chain's output and gradients;
+     the ring's output and gradients, also against dense causal attention
+     on the card; the halo SpMM's, banded also against the dense product),
      and the forward / training-step / prefill /
      decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
@@ -155,6 +172,14 @@ REPLACES = {
                         "sputnik_tpu/ops/pallas/bsr_compressed.py:253"),
     "c_softmax_apply": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
                         "sputnik_tpu/ops/pallas/bsr_compressed.py:331"),
+    "bsr_spmm_panel_sel": ("sputnik_tpu_torch/csrc/bsr_spmm.cu",
+                           "sputnik_tpu/ops/pallas/bsr_spmm.py:153"),
+    "flash_sparse_ring_band_fwd": (
+        "sputnik_tpu_torch/csrc/flash_sparse_fwd.cu",
+        "sputnik_tpu/ops/pallas/flash_sparse.py:653"),
+    "flash_sparse_ring_band_bwd": (
+        "sputnik_tpu_torch/csrc/flash_sparse_bwd.cu",
+        "sputnik_tpu/ops/pallas/flash_sparse.py:772"),
 }
 TOL_LOSS = 1e-3     # relative, losses after the first Adam step
 # the MoE example's default step count: Adam's first steps at lr 1e-3
@@ -3135,6 +3160,533 @@ def phase_compressed_path(stt, torch, dev, wrappers):
     return total
 
 
+# -- the sequence-parallel layer (B2, B11a, B11b) and the dtype repair ------
+
+# examples/train_seq_parallel.py's full config (s = ndev * 2048, R = 4,
+# hd = 64) at 4 shards, benchmarks/ring_moe_pipeline.py's s / hd / R
+RING_S, RING_R, RING_HD, NDEV = 8192, 4, 64, 4
+# benchmarks/scaling.py's banded problem (_mk_problem(banded=True)): a
+# causal local window of size // 8, at width q = 512
+HALO_S, HALO_W, HALO_Q = 8192, 1024, 512
+
+
+def _ring_spec(stt, zigzag):
+    from sputnik_tpu_torch.patterns import causal_topology
+
+    return stt.parallel.RingFlashSpec(stt.parallel.RowPartition(
+        causal_topology(RING_S), NDEV, balance=False, zigzag=zigzag))
+
+
+def _halo_problem(stt, case, seed):
+    """(spec, panels, dense_sh [ndev, n_loc, q], values) on the host for the
+    halo SpMM's three branches: "banded" (benchmarks/scaling.py's window
+    at 8192^2: the interior / halo split), "ragged" (the window at 8000^2:
+    n_loc = 2000 is no whole number of 64-blocks, so the exchange without
+    the split) and "random" (4096^2 d=0.01, balanced rows: the halo spans
+    everything, so the all_gather)."""
+    from sputnik_tpu_torch.patterns import causal_topology
+
+    rng = np.random.RandomState(seed)
+    if case == "random":
+        s = HALO_S // 2
+        topo = stt.SparseTopology.from_dense_mask(rng.rand(s, s) < 0.01)
+    else:
+        s = HALO_S if case == "banded" else HALO_S - 3 * 64
+        topo = causal_topology(s, band=s // 8)
+    part = stt.parallel.RowPartition(topo, NDEV, balance=case == "random")
+    spec = stt.parallel.ShardedPanelSpec(part)
+    values = rng.randn(topo.nnz_pad).astype(np.float32)
+    panels = spec.stack_values(values)
+    dense = rng.randn(NDEV, topo.n // NDEV, HALO_Q).astype(np.float32)
+    return spec, panels, dense, values
+
+
+def _ring_band_problem(stt, torch, dev, spec, seed):
+    """Seeded q (pre-scaled) [R, m_pad_loc, hd] and the key bands k, v
+    [ndev, R, n_loc, hd] of one shard of the ring, on the card."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy((rng.randn(RING_R, spec.m_pad_loc, RING_HD)
+                          * RING_HD ** -0.5).astype(np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.randn(NDEV, RING_R, spec.n_loc, RING_HD)
+                             .astype(np.float32)).to(dev) for _ in range(2))
+    return q, k, v
+
+
+def _band_mask(spec, d, band):
+    """The sliced (shard d, band) topology of a natural-order ring."""
+    from sputnik_tpu_torch.parallel.ring_flash import _slice_columns
+
+    return _slice_columns(spec.part.shards[d],
+                          [(band * spec.n_loc, (band + 1) * spec.n_loc)])
+
+
+def phase_parallel_kernels(stt, torch, dev, kres):
+    """Phase 2j: B2, B11a and B11b against their plain versions on the
+    card at the shapes the sequence-parallel paths give them, timed, with
+    the algebraic checks: B2's interior pass plus its halo pass equals B1
+    over the same shard; a shard's bands carried through B11a and finished
+    equal B9 over its whole key range; its bands through B11b equal
+    B10a."""
+    import torch.nn.functional as F
+
+    from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm import (
+        bsr_spmm_panel, bsr_spmm_panel_sel, bsr_spmm_panel_sel_plain)
+    from sputnik_tpu_torch.parallel.sharded_ops import (_ov_split_dev,
+                                                        _ov_split_meta)
+
+    print(f"phase 2j: sequence-parallel kernels (B2 bsr_spmm_panel_sel, "
+          f"B11a / B11b ring band steps) vs plain PyTorch: B2 at the halo "
+          f"SpMM's {HALO_S}^2 window {HALO_W}, q={HALO_Q}, {NDEV} shards; "
+          f"B11a / B11b at the ring's s={RING_S} causal, R={RING_R}, "
+          f"hd={RING_HD}, {NDEV} shards", flush=True)
+    # -- B2: shard 1's interior and halo passes
+    spec, panels_np, dense_np, _ = _halo_problem(stt, "banded", 100)
+    n_loc = dense_np.shape[1]
+    panels = torch.from_numpy(panels_np).to(dev)
+    full = torch.from_numpy(dense_np.reshape(-1, HALO_Q)).to(dev)
+    d = 1
+    own = full[d * n_loc: (d + 1) * n_loc]
+    halo = full.clone()
+    halo[d * n_loc: (d + 1) * n_loc] = 0.0    # the halo-only buffer
+    sm, st = _ov_split_dev(spec, n_loc, dev), _ov_split_meta(spec, n_loc)
+    r = kres["bsr_spmm_panel_sel"]
+    outs = {}
+    for name, src in (("interior", own), ("halo", halo)):
+        args = (sm[name[0]]["cols"][d], sm[name[0]]["nblk"][d],
+                sm[name[0]]["sel"][d], panels[d], src)
+        outs[name] = bsr_spmm_panel_sel(*args)
+        _compare(f"spmm_sel {name} pass shard {d}", outs[name],
+                 bsr_spmm_panel_sel_plain(*args), TOL_KERNEL, r)
+    meta = spec.meta(dev)
+    b1 = bsr_spmm_panel(meta["block_cols"][d], meta["nblocks"][d],
+                        panels[d][None], full[None], rows=spec.m_pad_loc)[0]
+    _compare(f"spmm_sel interior + halo vs B1 over shard {d}",
+             outs["interior"] + outs["halo"], b1, TOL_KERNEL)
+    ii = st["i"]
+    cols = ii["cols"][d].reshape(spec.mb, ii["maxb"])
+    sel = ii["sel"][d].reshape(spec.mb, ii["maxb"])
+    nblk = ii["nblk"][d]
+    tiles = [(i, s) for i in range(spec.mb) for s in range(int(nblk[i]))]
+    nnz_sel = int(sum(spec.mask[d, i, sel[i, s]].sum() for i, s in tiles))
+    a_sel = torch.zeros(spec.m_pad_loc, n_loc, device=dev)
+    for i, s in tiles:
+        c = int(cols[i, s])
+        a_sel[i * 64:(i + 1) * 64, c * 64:(c + 1) * 64] = panels[d, i,
+                                                               sel[i, s]]
+    _compare("spmm_sel interior vs torch.matmul on its densified tiles",
+             outs["interior"], a_sel @ own, TOL_KERNEL)
+    args = (sm["i"]["cols"][d], sm["i"]["nblk"][d], sm["i"]["sel"][d],
+            panels[d], own)
+    r["ms"] = _time_ms(lambda: bsr_spmm_panel_sel(*args))
+    r["plain_ms"] = _time_ms(lambda: bsr_spmm_panel_sel_plain(*args))
+    r["library_ms"] = _time_ms(lambda: a_sel @ own)
+    print(f"  spmm_sel interior pass shard {d} ({len(tiles)} tiles, nnz "
+          f"{nnz_sel}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+          f"ms; library: torch.matmul on the densified tiles "
+          f"{r['library_ms']:.4f} ms", flush=True)
+    _sparse_bound(r, nnz_sel, 1, HALO_Q, _nbytes(own, outs["interior"]))
+    _stored_note("spmm_sel interior", len(tiles) * 64 * 64, HALO_Q)
+    del panels, full, halo, a_sel, outs, b1
+
+    # -- B11a / B11b: the last shard's bands, each step against its plain
+    # version, then the finished carry against B9 / B10a over all its keys
+    spec = _ring_spec(stt, False)
+    q, k, v = _ring_band_problem(stt, torch, dev, spec, 101)
+    d, R, rows = NDEV - 1, RING_R, spec.m_pad_loc
+    rmeta = spec.meta(dev)
+
+    def band_meta(band):
+        return [rmeta[key][d, band] for key in (
+            "block_cols", "nblocks", "mask_slot", "is_partial", "pmask")]
+
+    acc = torch.zeros(R, rows, RING_HD, device=dev)
+    m = torch.full((R, rows), -1e30, device=dev)
+    l = torch.zeros(R, rows, device=dev)
+    rf = kres["flash_sparse_ring_band_fwd"]
+    for t in range(NDEV):
+        band = (d - t) % NDEV
+        args = (*band_meta(band), q, k[band], v[band])
+        want = fs.flash_sparse_ring_band_fwd_plain(
+            *args, acc.clone(), m.clone(), l.clone(), max_bpr=spec.max_bpr)
+        fs.flash_sparse_ring_band_fwd(*args, acc, m, l,
+                                      max_bpr=spec.max_bpr)
+        for name, got, ref in zip(("acc", "m", "l"), (acc, m, l), want):
+            _compare(f"ring_band_fwd shard {d} band {band} {name}", got,
+                     ref, TOL_KERNEL, rf)
+    out = acc / l.clamp(min=1e-30)[..., None]
+    view = spec.part.shards[d].block(64, 64)
+    fm = {key: torch.from_numpy(x).to(dev) for key, x in
+          fs.build_flash_meta([view]).items() if isinstance(x, np.ndarray)}
+    k_full = spec.unshard_kv(k).contiguous()
+    v_full = spec.unshard_kv(v).contiguous()
+    ref, m_ref, l_ref = fs.flash_sparse_attention_fwd(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k_full, v_full, heads=R, max_bpr=view.max_bpr,
+        scale=1.0)
+    _compare(f"ring: {NDEV} bands carried through B11a vs B9 over shard "
+             f"{d}'s keys", out, ref, TOL_KERNEL)
+    _compare("ring: carried m vs B9's (exactly equal)", m, m_ref, 0.0)
+
+    g = torch.from_numpy(np.random.RandomState(102).randn(
+        R, rows, RING_HD).astype(np.float32)).to(dev)
+    D = (g * out).sum(-1)
+    dq = torch.zeros_like(q)
+    dks, dvs = torch.zeros_like(k), torch.zeros_like(v)
+    rb = kres["flash_sparse_ring_band_bwd"]
+    for t in range(NDEV):
+        band = (d - t) % NDEV
+        args = (*band_meta(band), q, k[band], v[band], g, m, l, D)
+        want = fs.flash_sparse_ring_band_bwd_plain(
+            *args, dq.clone(), dks[band].clone(), dvs[band].clone(),
+            max_bpr=spec.max_bpr)
+        fs.flash_sparse_ring_band_bwd(*args, dq, dks[band], dvs[band],
+                                      max_bpr=spec.max_bpr)
+        for name, got, want_ in zip(("dq", "dk", "dv"),
+                                    (dq, dks[band], dvs[band]), want):
+            _compare(f"ring_band_bwd shard {d} band {band} {name}", got,
+                     want_, TOL_KERNEL, rb)
+    rq, rk, rv = fs.flash_sparse_bwd_fused(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k_full, v_full, g, m, l, D, heads=R,
+        max_bpr=view.max_bpr, scale=1.0)
+    for name, got, want in (("dq", dq, rq),
+                            ("dk", spec.unshard_kv(dks), rk),
+                            ("dv", spec.unshard_kv(dvs), rv)):
+        _compare(f"ring: {NDEV} bands through B11b vs B10a over shard {d}'s "
+                 f"keys, {name}", got, want, TOL_KERNEL)
+
+    # times at the fullest band: shard ndev-1's band 0, every tile full
+    band = 0
+    sliced = _band_mask(spec, d, band)
+    pairs = float(sliced.nnz) * R
+    mask_b = torch.from_numpy(sliced.to_dense_mask() != 0).to(dev)
+    fargs = (*band_meta(band), q, k[band], v[band])
+    carry = [x.clone() for x in (acc, m, l)]
+    rf["ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_fwd(
+        *fargs, *carry, max_bpr=spec.max_bpr))
+    rf["plain_ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_fwd_plain(
+        *fargs, *carry, max_bpr=spec.max_bpr), reps=3, inner=2)
+    q4, k4, v4 = q[None], k[band][None], v[band][None]
+    rf["library_ms"] = _library_ms(
+        "ring_band_fwd (F.scaled_dot_product_attention, the band's bool "
+        "mask)", lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask_b, scale=1.0))
+    print(f"  ring_band_fwd shard {d} band {band} ({int(pairs)} pairs): "
+          f"kernel {rf['ms']:.4f} ms, plain {rf['plain_ms']:.4f} ms",
+          flush=True)
+    _bound(rf, 4 * pairs * RING_HD,
+           _nbytes(q, k[band], v[band]) + 2 * _nbytes(*carry))
+    bargs = (*band_meta(band), q, k[band], v[band], g, m, l, D)
+    gcarry = [x.clone() for x in (dq, dks[band], dvs[band])]
+    rb["ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_bwd(
+        *bargs, *gcarry, max_bpr=spec.max_bpr))
+    rb["plain_ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_bwd_plain(
+        *bargs, *gcarry, max_bpr=spec.max_bpr), reps=3, inner=2)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
+    o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask_b,
+                                       scale=1.0)
+    rb["library_ms"] = _library_ms(
+        "ring_band_bwd (the backward of F.scaled_dot_product_attention, the "
+        "band's bool mask)", lambda: torch.autograd.grad(
+            o, (qg, kg, vg), g[None], retain_graph=True))
+    print(f"  ring_band_bwd shard {d} band {band}: kernel {rb['ms']:.4f} "
+          f"ms, plain {rb['plain_ms']:.4f} ms", flush=True)
+    _bound(rb, 10 * pairs * RING_HD,
+           _nbytes(q, k[band], v[band], g, m, l, D) + 2 * _nbytes(*gcarry))
+
+
+def _ring_dense(torch, q, k, v, group, scale):
+    """Dense causal attention in plain torch, natural order: the ring's
+    reference on the card."""
+    s = q.shape[1]
+    kf, vf = (x.repeat_interleave(group, 0) for x in (k, v))
+    sc = (q @ kf.transpose(-1, -2)) * scale
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(sc.masked_fill(~causal, -1e30), -1) @ vf
+
+
+def phase_ring_path(stt, torch, dev, wrappers):
+    """Phases 3j / 4j: ``ring_flash_attention`` at the example's config
+    (s = 8192 causal, R = 4, hd = 64, 4 shards, 64 x 64 tiles): natural
+    and zigzag order with group 1 (B11a, B11b: ndev^2 launches each a
+    step) and GQA group 2 (B11a; B10b + B10c), forward and backward,
+    held against dense causal attention on the card and the CPU plain
+    route; the step timed in both orders; the example's toy regression
+    (predict the previous position) for 4 SGD steps, the loss falling."""
+    total = {n: 0 for n in wrappers}
+    print(f"phase 3j: ring flash attention — s={RING_S} causal, R={RING_R}, "
+          f"hd={RING_HD}, {NDEV} shards on the one card, 64x64 tiles",
+          flush=True)
+    t0 = time.perf_counter()
+    specs = {"natural": _ring_spec(stt, False),
+             "zigzag": _ring_spec(stt, True)}
+    print(f"  specs built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, spec in specs.items():
+        print(f"  ring_compute_balance {name}: "
+              f"{spec.ring_compute_balance()}", flush=True)
+    n2 = NDEV * NDEV
+    cases = (("natural", 1), ("zigzag", 1), ("natural", 2))
+    rng = np.random.RandomState(110)
+    results = {}
+    for name, group in cases:
+        spec = specs[name]
+        label = f"ring {name} group {group}"
+        host = [rng.randn(r, RING_S, RING_HD).astype(np.float32)
+                for r in (RING_R, RING_R // group, RING_R // group)]
+        cot = torch.from_numpy(rng.randn(RING_R, RING_S, RING_HD).astype(
+            np.float32))
+
+        def sharded(x, i):
+            x = torch.from_numpy(x)
+            return (spec.shard_queries(x) if i == 0 else spec.shard_keys(x))
+
+        gpu = [sharded(x, i).contiguous().to(dev).requires_grad_()
+               for i, x in enumerate(host)]
+        cot_sh = spec.shard_queries(cot).contiguous().to(dev)
+
+        def step(gpu=gpu, spec=spec, group=group, cot_sh=cot_sh):
+            out = stt.parallel.ring_flash_attention(spec, *gpu, group=group)
+            (out * cot_sh).sum().backward()
+            return out
+
+        bwd = ({"flash_sparse_ring_band_bwd": n2, "flash_sparse_bwd_dq": 0,
+                "flash_sparse_bwd_dkv": 0} if group == 1 else
+               {"flash_sparse_ring_band_bwd": 0, "flash_sparse_bwd_dq": n2,
+                "flash_sparse_bwd_dkv": n2})
+        out = _counted(wrappers, total, f"{label} forward + backward", step,
+                       {"flash_sparse_ring_band_fwd": n2, **bwd,
+                        "flash_sparse_attention_fwd": 0,
+                        "flash_sparse_bwd_fused": 0})
+        results[(name, group)] = (spec, host, cot, gpu, out.detach())
+
+    print("phase 4j: the ring vs dense causal attention on the card and vs "
+          "the CPU plain route (full size)", flush=True)
+    for (name, group), (spec, host, cot, gpu, out) in results.items():
+        label = f"ring {name} group {group}"
+        dense = [torch.from_numpy(x).to(dev).requires_grad_() for x in host]
+        ref = _ring_dense(torch, *dense, group, RING_HD ** -0.5)
+        (ref * cot.to(dev)).sum().backward()
+        _compare(f"{label} output vs dense attention", spec.unshard_output(
+            out), ref.detach(), TOL_MODEL)
+        grads = [spec.unshard_output(gpu[0].grad)] + [
+            spec.unshard_kv(x.grad) for x in gpu[1:]]
+        for gname, got, d_ in zip(("dq", "dk", "dv"), grads, dense):
+            _compare(f"{label} {gname} vs dense attention", got, d_.grad,
+                     TOL_MODEL, floor=0)
+        del dense, ref
+        t0 = time.perf_counter()
+        cpu = [x.detach().cpu().requires_grad_() for x in gpu]
+        ref = stt.parallel.ring_flash_attention(spec, *cpu, group=group)
+        (ref * spec.shard_queries(cot)).sum().backward()
+        _compare(f"{label} output vs the CPU", out.cpu(), ref.detach(),
+                 TOL_MODEL)
+        for gname, a, c in zip(("dq", "dk", "dv"), gpu, cpu):
+            _compare(f"{label} {gname} vs the CPU", a.grad.cpu(), c.grad,
+                     TOL_MODEL, floor=0)
+        print(f"  CPU reference in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    times = {"natural": [], "zigzag": []}
+    for name in ("natural", "zigzag", "zigzag", "natural"):
+        spec, _, _, gpu, _ = results[(name, 1)]
+        cot_sh = torch.ones_like(gpu[0])
+
+        def timed(spec=spec, gpu=gpu, cot_sh=cot_sh):
+            for x in gpu:
+                x.grad = None
+            out = stt.parallel.ring_flash_attention(spec, *gpu)
+            (out * cot_sh).sum().backward()
+
+        times[name].append(_time_ms(timed, reps=5, inner=3))
+    print(f"  ring step (forward + backward, group 1, CUDA events, in turns "
+          f"natural / zigzag / zigzag / natural): natural "
+          f"{times['natural'][0]:.4f} / {times['natural'][1]:.4f} ms, "
+          f"zigzag {times['zigzag'][0]:.4f} / {times['zigzag'][1]:.4f} ms",
+          flush=True)
+    try:
+        spec, _, _, gpu, _ = results[("zigzag", 1)]
+        _profile_steps(torch, "zigzag ring steps", lambda i: (
+            stt.parallel.ring_flash_attention(spec, *gpu).sum().backward()))
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+
+    # the example's toy regression: predict the previous position
+    spec = specs["natural"]
+    x = (rng.randn(RING_R, RING_S, RING_HD) * 0.5).astype(np.float32)
+    x_sh = spec.shard_queries(torch.from_numpy(x)).contiguous().to(dev)
+    t_sh = spec.shard_queries(torch.from_numpy(np.roll(x, 1, axis=1))
+                              ).contiguous().to(dev)
+    w = {n: torch.ones((), device=dev, requires_grad=True) for n in "qkv"}
+    steps, losses = 4, []
+
+    def sgd_step():
+        loss = (stt.parallel.ring_flash_attention(
+            spec, x_sh * w["q"], x_sh * w["k"], x_sh * w["v"])
+            - t_sh).square().mean()
+        loss.backward()
+        with torch.no_grad():
+            for p in w.values():
+                p -= 0.5 * p.grad
+                p.grad = None
+        return loss.item()
+
+    losses = _counted(wrappers, total, f"{steps} SGD steps of the example's "
+                      f"regression", lambda: [sgd_step() for _ in
+                                              range(steps)],
+                      {"flash_sparse_ring_band_fwd": steps * n2,
+                       "flash_sparse_ring_band_bwd": steps * n2})
+    print(f"  SGD losses {[round(v, 6) for v in losses]}", flush=True)
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        _fail(f"ring SGD: the loss did not fall ({losses})")
+    return total
+
+
+def phase_halo_path(stt, torch, dev, wrappers):
+    """Phases 3k / 4k: ``sharded_spmm_halo`` at benchmarks/scaling.py's
+    banded problem (8192^2, causal window 1024, q = 512, 4 shards, 64 x 64
+    tiles: the interior / halo split, B2 x 2 a shard; backward B4 + B3 a
+    shard), then the ragged exchange without the split (8000^2, n_loc =
+    2000) and the all_gather (a random 4096^2 d=0.01 mask), forward and
+    backward, held against the CPU plain route and, for the banded case,
+    against the dense product on the card."""
+    from sputnik_tpu_torch.parallel.sharded_ops import _halo_plan
+
+    total = {n: 0 for n in wrappers}
+    print(f"phase 3k: halo SpMM — {HALO_S}^2 causal window {HALO_W}, "
+          f"q={HALO_Q}, {NDEV} shards, 64x64 tiles; then the ragged and "
+          f"the all_gather branches", flush=True)
+    runs = {}
+    for case, seed in (("banded", 120), ("ragged", 121), ("random", 122)):
+        spec, panels_np, dense_np, values = _halo_problem(stt, case, seed)
+        n_loc = dense_np.shape[1]
+        plan = _halo_plan(spec, n_loc)
+        branch = ("all_gather" if plan is None else "split"
+                  if n_loc % spec.bk == 0 else "ragged")
+        if branch != {"banded": "split", "ragged": "ragged",
+                      "random": "all_gather"}[case]:
+            _fail(f"halo {case}: took the {branch} branch")
+        print(f"  {case}: {spec.part.topo}, n_loc {n_loc}, halo plan "
+              f"{plan} -> the {branch} branch", flush=True)
+        gpu = [torch.from_numpy(x).to(dev).requires_grad_()
+               for x in (panels_np, dense_np)]
+        cot = torch.from_numpy(np.random.RandomState(seed + 50).randn(
+            NDEV, spec.m_pad_loc, HALO_Q).astype(np.float32))
+        cot_d = cot.to(dev)
+
+        def step(spec=spec, gpu=gpu, cot_d=cot_d):
+            out = stt.parallel.sharded_spmm_halo(spec, *gpu)
+            (out * cot_d).sum().backward()
+            return out
+
+        fwd = ({"bsr_spmm_panel_sel": 2 * NDEV, "bsr_spmm_panel": 0}
+               if branch == "split" else
+               {"bsr_spmm_panel_sel": 0, "bsr_spmm_panel": NDEV})
+        out = _counted(wrappers, total, f"halo {case} forward + backward",
+                       step, {**fwd, "bsr_sddmm_panel": NDEV,
+                              "bsr_spmm_t_panel": NDEV})
+        runs[case] = (spec, gpu, cot, out.detach(), values, dense_np)
+        if case == "banded":
+            def fwd_only(spec=spec, gpu=gpu):
+                with torch.no_grad():
+                    stt.parallel.sharded_spmm_halo(spec, *gpu)
+
+            def timed(spec=spec, gpu=gpu, cot_d=cot_d):
+                for x in gpu:
+                    x.grad = None
+                (stt.parallel.sharded_spmm_halo(spec, *gpu)
+                 * cot_d).sum().backward()
+
+            print(f"  halo {case}: forward {_time_ms(fwd_only):.4f} ms, "
+                  f"forward + backward {_time_ms(timed, reps=5):.4f} ms "
+                  f"(CUDA events)", flush=True)
+
+    print("phase 4k: the halo SpMM vs the CPU plain route (full size) and, "
+          "banded, vs the dense product on the card", flush=True)
+    for case, (spec, gpu, cot, out, values, dense_np) in runs.items():
+        t0 = time.perf_counter()
+        cpu = [x.detach().cpu().requires_grad_() for x in gpu]
+        ref = stt.parallel.sharded_spmm_halo(spec, *cpu)
+        (ref * cot).sum().backward()
+        _compare(f"halo {case} output vs the CPU", out.cpu(), ref.detach(),
+                 TOL_MODEL)
+        _compare(f"halo {case} d_panels vs the CPU", gpu[0].grad.cpu(),
+                 cpu[0].grad, TOL_MODEL, floor=0)
+        _compare(f"halo {case} d_dense vs the CPU", gpu[1].grad.cpu(),
+                 cpu[1].grad, TOL_MODEL, floor=0)
+        print(f"  CPU reference in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if case == "banded":
+            topo = spec.part.topo
+            a = torch.zeros(topo.m, topo.n, device=dev)
+            a[torch.from_numpy(topo.row_ids[: topo.nnz].astype(np.int64)),
+              torch.from_numpy(topo.column_indices[: topo.nnz].astype(
+                  np.int64))] = torch.from_numpy(values[: topo.nnz]).to(dev)
+            want = a @ torch.from_numpy(dense_np.reshape(-1, HALO_Q)).to(dev)
+            got = spec.part.unpermute_rows(out.reshape(-1, HALO_Q))
+            _compare(f"halo {case} output vs the dense product", got, want,
+                     TOL_MODEL)
+            del a, want
+    return total
+
+
+def phase_dtype_repair(stt, torch, dev, wrappers):
+    """Phase 2m: bf16 and mixed operands through ``stt.panel.spmm`` /
+    ``sddmm`` (ELL and compressed) and a bf16 ``SparseLinear`` on an f32
+    input launch the f32 kernels once each and return JAX's dtypes."""
+    from sputnik_tpu_torch.models import SparseLinear
+
+    print("phase 2m: bf16 / mixed panel operands on the card (f32 kernels, "
+          "promoted dtypes)", flush=True)
+    total = {n: 0 for n in wrappers}
+    rng = np.random.RandomState(130)
+    mask = rng.rand(2048, 2048) < 0.05
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    dense = torch.from_numpy(rng.randn(2048, 256).astype(np.float32))
+    for compressed in (False, True):
+        spec = stt.PanelSpec(topo, 64, 64, compressed=compressed)
+        panel = stt.panel.panel_kaiming_values(
+            topo, 64, 64, compressed=compressed,
+            generator=torch.Generator().manual_seed(1))
+        ks, kd = (("bsr_spmm_panel_c", "bsr_sddmm_panel_c") if compressed
+                  else ("bsr_spmm_panel", "bsr_sddmm_panel"))
+        tag = "compressed" if compressed else "ELL"
+        pb, db = panel.to(dev).bfloat16(), dense.to(dev).bfloat16()
+        out = _counted(wrappers, total, f"{tag} spmm bf16 x bf16",
+                       lambda: stt.panel.spmm(spec, pb, db), {ks: 1})
+        mixed = _counted(wrappers, total, f"{tag} spmm bf16 x f32",
+                         lambda: stt.panel.spmm(spec, pb, dense.to(dev)),
+                         {ks: 1})
+        sc = _counted(wrappers, total, f"{tag} sddmm bf16 x bf16",
+                      lambda: stt.panel.sddmm(spec, db[:, :64], db[:, :64]),
+                      {kd: 1})
+        if (out.dtype, mixed.dtype, sc.dtype) != (
+                torch.bfloat16, torch.float32, torch.bfloat16):
+            _fail(f"{tag}: dtypes {out.dtype}, {mixed.dtype}, {sc.dtype}")
+        ref = stt.panel.spmm(spec, pb.float().cpu(), db.float().cpu())
+        _compare(f"{tag} bf16 spmm vs the CPU in f32", out.float().cpu(),
+                 ref, 2e-2)
+    layer = SparseLinear(topo, dtype=torch.bfloat16, device=dev,
+                         generator=torch.Generator().manual_seed(2))
+    x = dense.T[:8].contiguous().to(dev).requires_grad_()
+
+    def lin():
+        y = layer(x)
+        y.sum().backward()
+        return y
+
+    y = _counted(wrappers, total, "bf16 SparseLinear forward + backward",
+                 lin, {"bsr_spmm_panel": 1, "bsr_sddmm_panel": 1,
+                       "bsr_spmm_t_panel": 1})
+    if (y.dtype, layer.values.grad.dtype, x.grad.dtype) != (
+            torch.float32, torch.bfloat16, torch.float32):
+        _fail(f"bf16 SparseLinear: dtypes {y.dtype}, "
+              f"{layer.values.grad.dtype}, {x.grad.dtype}")
+    print(f"  dtypes: bf16 x bf16 -> bf16, bf16 x f32 -> f32; bf16 "
+          f"SparseLinear on f32 -> {y.dtype}, value grad "
+          f"{layer.values.grad.dtype}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3175,6 +3727,8 @@ def main() -> int:
     phase_softmax_kernel(stt, torch, dev, kres, mat)
     phase_int8_kernels(stt, torch, dev, kres, w, mat)
     phase_compressed_kernels(stt, torch, dev, kres)
+    phase_parallel_kernels(stt, torch, dev, kres)
+    phase_dtype_repair(stt, torch, dev, wrappers)
     fwd = phase_main_path(stt, torch, dev, wrappers)
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
@@ -3183,8 +3737,10 @@ def main() -> int:
     flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
     int8 = phase_int8_path(stt, torch, dev, wrappers)
     comp = phase_compressed_path(stt, torch, dev, wrappers)
+    ring = phase_ring_path(stt, torch, dev, wrappers)
+    halo = phase_halo_path(stt, torch, dev, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n] + flat[n]
-                + int8[n] + comp[n] for n in wrappers}
+                + int8[n] + comp[n] + ring[n] + halo[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

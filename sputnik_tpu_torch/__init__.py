@@ -10,11 +10,12 @@ each kernel's plain PyTorch version. The flat op set (``spmm``,
 ``spmm_bias_relu``) keeps the reference's CSR-ordered values and the JAX
 package's ``set_backend`` names; ``int8`` is the W8A8 serving family;
 ``PanelSpec(..., compressed=True)`` runs the panel ops on the true-BSR
-layout (``CompressedView``). This
-package never imports JAX.
+layout (``CompressedView``); ``parallel`` holds the row partition,
+sequence-parallel ring flash attention and the halo SpMM. This package
+never imports JAX.
 """
 
-from . import bridge, models, ops, patterns, training
+from . import bridge, models, ops, parallel, patterns, training
 from .blocking import (BlockView, CompressedView, EllView, build_blocks,
                        build_compressed, stack_block_meta)
 from .many_mask import (
@@ -90,6 +91,7 @@ __all__ = [
     "paged_attention",
     "paged_block_table",
     "panel",
+    "parallel",
     "patterns",
     "prefill_kv",
     "sample_logits",

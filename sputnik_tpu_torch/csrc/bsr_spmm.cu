@@ -38,17 +38,30 @@
 // what they were. The compressed softmax backward also runs it for its
 // ragged row sums (dense = a ones column). Its bound is B1's on the tiles
 // it stores: no padded tiles exist to skip.
+//
+// Slot-selected (B2): also replaces sputnik_tpu/ops/pallas/bsr_spmm.py:
+// bsr_spmm_panel_sel, B1 over a SUBSET of each row block's tiles. The panel
+// keeps B1's layout values[mb, max_bpr_full, bm, bk]; row block i walks
+// s < nblocks[i] entries of a sub-walk of max_bpr slots, the s-th being
+// panel slot slot_sel[i * max_bpr + s] in block column
+// block_cols[i * max_bpr + s] (SelRows below). The result holds only the
+// subset's share. Its one caller is the interior / halo split of the
+// sequence-parallel halo SpMM (parallel/sharded_ops.py), which runs it
+// twice a shard, on the local dense shard and on the halo rows, and sums
+// the two. Its bound is B1's on the selected tiles.
 #include "common.cuh"
 
 namespace stt {
 
 // The tiles of row block i of replica r: `count` of them, the s-th being
-// panel tile `first + s` (counted from the replica's panel) in block column
-// cols[s]; `tiles` is the number of tiles of one replica's panel.
+// panel tile `first + s` (or `first + slots[s]` where a sub-walk selects
+// the slots), counted from the replica's panel, in block column cols[s].
 struct RowWalk {
   const int* cols;
   int first;
   int count;
+  const int* slots;  // null: the walk visits the row block's tiles in order
+  __device__ int tile(int s) const { return first + (slots ? slots[s] : s); }
 };
 
 struct EllRows {  // B1 / B6: row block i owns slots i * max_bpr + s
@@ -60,7 +73,7 @@ struct EllRows {  // B1 / B6: row block i owns slots i * max_bpr + s
     const int mask_id = r / heads;  // this replica's mask
     const int first = i * max_bpr;
     return {block_cols + (size_t)mask_id * mb * max_bpr + first, first,
-            nblocks[(size_t)mask_id * mb + i]};
+            nblocks[(size_t)mask_id * mb + i], nullptr};
   }
 };
 
@@ -71,7 +84,19 @@ struct CompressedRows {  // B13a: row block i owns tiles offs[i] .. offs[i+1]
   __device__ size_t tiles() const { return (size_t)n_tiles; }
   __device__ RowWalk row(int, int i) const {
     const int first = block_offsets[i];
-    return {block_cols + first, first, block_offsets[i + 1] - first};
+    return {block_cols + first, first, block_offsets[i + 1] - first, nullptr};
+  }
+};
+
+struct SelRows {  // B2: row block i walks slot_sel[i * max_bpr + s]
+  const int* block_cols;  // [mb * max_bpr] (the sub-walk's)
+  const int* nblocks;     // [mb]
+  const int* slot_sel;    // [mb * max_bpr] panel slot of each entry
+  int mb, max_bpr, max_bpr_full;
+  __device__ size_t tiles() const { return (size_t)mb * max_bpr_full; }
+  __device__ RowWalk row(int, int i) const {
+    const size_t at = (size_t)i * max_bpr;
+    return {block_cols + at, i * max_bpr_full, nblocks[i], slot_sel + at};
   }
 };
 
@@ -97,7 +122,7 @@ spmm_panel_kernel(Rows rows, const float* __restrict__ panel,
   float acc[4][4] = {};
   for (int s = 0; s < walk.count; ++s) {
     const int c = walk.cols[s];
-    const float* a_tile = pan + ((size_t)walk.first + s) * tile_elems;
+    const float* a_tile = pan + (size_t)walk.tile(s) * tile_elems;
     for (int k0 = 0; k0 < bk; k0 += TK) {
       for (int e = tid; e < TILE * TK; e += THREADS) {
         const int row = e / TK, k = e % TK;  // coalesced along k
@@ -185,4 +210,19 @@ extern "C" int spmm_panel_c_f32(const void* block_offsets,
       stt::CompressedRows{(const int*)block_offsets, (const int*)block_cols,
                           T},
       panel, dense, bias, out, R, mb, bm, bk, K, N, M, epilogue, stream);
+}
+
+// The slot-selected sub-walk (B2): block_cols / slot_sel [mb * max_bpr],
+// nblocks [mb], panel [mb, max_bpr_full, bm, bk], dense [K, N],
+// out [M, N]; one replica, no epilogue.
+extern "C" int spmm_panel_sel_f32(const void* block_cols,
+                                  const void* nblocks, const void* slot_sel,
+                                  const void* panel, const void* dense,
+                                  void* out, int mb, int max_bpr,
+                                  int max_bpr_full, int bm, int bk, int K,
+                                  int N, int M, void* stream) {
+  return stt::launch_spmm(
+      stt::SelRows{(const int*)block_cols, (const int*)nblocks,
+                   (const int*)slot_sel, mb, max_bpr, max_bpr_full},
+      panel, dense, nullptr, out, 1, mb, bm, bk, K, N, M, 0, stream);
 }

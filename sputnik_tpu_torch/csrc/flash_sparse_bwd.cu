@@ -50,6 +50,19 @@
 //     registers: no atomics, and a column no query attends writes 0.
 // Rows past s_q and keys past s_kv are bound-checked, never padded in
 // memory. hd <= 128 (templates 32 / 64 / 128, as the forward).
+//
+// Ring band (B11b): also replaces
+// sputnik_tpu/ops/pallas/flash_sparse.py:flash_sparse_ring_band_bwd, one
+// step of the ring backward (parallel/ring_flash.py): the fused row walk
+// with CARRY = true over one key band's tiles, recomputing p from the
+// FINAL m, l of the whole ring's forward, with D = rowsum(g * out). It
+// advances the three gradient carries in place: dq [R, mb * 64, hd] is
+// read and added to once per row block, dk / dv [R, s_kv, hd] (the band's
+// accumulators, rotating with the band) take the tiles' fp32 atomics
+// without being zeroed first. q comes pre-scaled (scale = 1); the band's
+// metadata is one mask for every replica; group 1 only, as on the TPU
+// (GQA rings run B10b + B10c and sum the group). Its bound is B10a's on
+// the band's tiles plus the carries' read and write.
 #include "common.cuh"
 
 namespace stt {
@@ -182,8 +195,12 @@ __device__ __forceinline__ void acc_keys(const float* W, const float* X,
   }
 }
 
-// Store (or atomically add) a [4 keys/rows][CPT dims] register tile.
-template <int HD, bool ATOMIC>
+// How store_tile lands a tile.
+enum Store { STORE_WRITE, STORE_ADD, STORE_ATOMIC };
+
+// Write, add (one owner per element: a carried dq) or atomically add a
+// [4 keys/rows][CPT dims] register tile.
+template <int HD, Store MODE>
 __device__ __forceinline__ void store_tile(float* dst, int row0, int nrows,
                                            int hd, float acc[4][HD / 16]) {
   constexpr int CPT = HD / 16;
@@ -197,8 +214,10 @@ __device__ __forceinline__ void store_tile(float* dst, int row0, int nrows,
       const int d = tx * CPT + jj;
       if (d >= hd) continue;
       float* at = dst + (size_t)gr * hd + d;
-      if constexpr (ATOMIC)
+      if constexpr (MODE == STORE_ATOMIC)
         atomicAdd(at, acc[ii][jj]);
+      else if constexpr (MODE == STORE_ADD)
+        *at += acc[ii][jj];
       else
         *at = acc[ii][jj];
     }
@@ -225,7 +244,7 @@ __device__ __forceinline__ BwdSmem carve(float* smem) {
   return s;
 }
 
-template <int HD, bool WITH_KV>
+template <int HD, bool WITH_KV, bool CARRY>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_rows_kernel(const int* __restrict__ block_cols,
                       const int* __restrict__ nblocks,
@@ -278,17 +297,18 @@ flash_bwd_rows_kernel(const int* __restrict__ block_cols,
 #pragma unroll
         for (int jj = 0; jj < CPT; ++jj) part[ii][jj] = 0.f;
       acc_keys<HD>(sm.Ds, sm.Qs, part);
-      store_tile<HD, true>(dk + koff, c * TILE, s_kv, hd, part);
+      store_tile<HD, STORE_ATOMIC>(dk + koff, c * TILE, s_kv, hd, part);
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
         for (int jj = 0; jj < CPT; ++jj) part[ii][jj] = 0.f;
       acc_keys<HD>(sm.Ps, sm.Gs, part);
-      store_tile<HD, true>(dv + koff, c * TILE, s_kv, hd, part);
+      store_tile<HD, STORE_ATOMIC>(dv + koff, c * TILE, s_kv, hd, part);
     }
     __syncthreads();
   }
-  store_tile<HD, false>(dq + qoff, i * TILE, s_q, hd, acc);
+  constexpr Store dq_mode = CARRY ? STORE_ADD : STORE_WRITE;
+  store_tile<HD, dq_mode>(dq + qoff, i * TILE, s_q, hd, acc);
 }
 
 template <int HD>
@@ -344,11 +364,11 @@ flash_bwd_dkv_kernel(const int* __restrict__ t_src_i,
       acc_keys<HD>(sm.Ps, sm.Gs, av);
     }
   }
-  store_tile<HD, false>(dk + koff, j * TILE, s_kv, hd, ak);
-  store_tile<HD, false>(dv + koff, j * TILE, s_kv, hd, av);
+  store_tile<HD, STORE_WRITE>(dk + koff, j * TILE, s_kv, hd, ak);
+  store_tile<HD, STORE_WRITE>(dv + koff, j * TILE, s_kv, hd, av);
 }
 
-template <int HD, bool WITH_KV>
+template <int HD, bool WITH_KV, bool CARRY>
 int launch_rows(const int* cols, const int* nblk, const int* slot,
                 const int* part, const float* pmask, const float* q,
                 const float* k, const float* v, const float* g, const float* m,
@@ -357,9 +377,10 @@ int launch_rows(const int* cols, const int* nblk, const int* slot,
                 int n_partial, int s_q, int s_kv, int hd, float scale,
                 cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<HD>();
-  const int err = set_smem(flash_bwd_rows_kernel<HD, WITH_KV>, smem);
+  const int err = set_smem(flash_bwd_rows_kernel<HD, WITH_KV, CARRY>, smem);
   if (err) return err;
-  flash_bwd_rows_kernel<HD, WITH_KV><<<dim3(mb, R), THREADS, smem, stream>>>(
+  flash_bwd_rows_kernel<HD, WITH_KV, CARRY>
+      <<<dim3(mb, R), THREADS, smem, stream>>>(
       cols, nblk, slot, part, pmask, q, k, v, g, m, l, D, dq, dk, dv, heads,
       group, mb, max_bpr, n_partial, s_q, s_kv, hd, scale);
   return (int)cudaGetLastError();
@@ -382,7 +403,7 @@ int launch_dkv(const int* ti, const int* tn, const int* tslot,
   return (int)cudaGetLastError();
 }
 
-template <bool WITH_KV>
+template <bool WITH_KV, bool CARRY = false>
 int rows_by_hd(const void* block_cols, const void* nblocks,
                const void* mask_slot, const void* is_partial,
                const void* pmask, const void* q, const void* k,
@@ -397,9 +418,9 @@ int rows_by_hd(const void* block_cols, const void* nblocks,
       (const float*)l, (const float*)D, (float*)dq, (float*)dk, (float*)dv,  \
       R, heads, group, mb, max_bpr, n_partial, s_q, s_kv, hd, scale,         \
       (cudaStream_t)stream
-  if (hd <= 32) return launch_rows<32, WITH_KV>(STT_ROWS_ARGS);
-  if (hd <= 64) return launch_rows<64, WITH_KV>(STT_ROWS_ARGS);
-  if (hd <= 128) return launch_rows<128, WITH_KV>(STT_ROWS_ARGS);
+  if (hd <= 32) return launch_rows<32, WITH_KV, CARRY>(STT_ROWS_ARGS);
+  if (hd <= 64) return launch_rows<64, WITH_KV, CARRY>(STT_ROWS_ARGS);
+  if (hd <= 128) return launch_rows<128, WITH_KV, CARRY>(STT_ROWS_ARGS);
 #undef STT_ROWS_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -454,4 +475,20 @@ extern "C" int flash_sparse_bwd_dkv_f32(
   if (hd <= 128) return stt::launch_dkv<128>(STT_DKV_ARGS);
 #undef STT_DKV_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// One ring-backward step (B11b): q / g [R, mb * 64, hd] (q pre-scaled),
+// k / v [R, s_kv, hd] (the band, group 1), the FINAL m / l [R, mb * 64],
+// D [R, mb * 64], the band's metadata (one mask for all replicas), and the
+// carries dq [R, mb * 64, hd], dk / dv [R, s_kv, hd], advanced in place.
+extern "C" int flash_sparse_ring_bwd_f32(
+    const void* block_cols, const void* nblocks, const void* mask_slot,
+    const void* is_partial, const void* pmask, const void* q, const void* k,
+    const void* v, const void* g, const void* m, const void* l, const void* D,
+    void* dq, void* dk, void* dv, int R, int mb, int max_bpr, int n_partial,
+    int s_kv, int hd, void* stream) {
+  return stt::rows_by_hd<true, true>(
+      block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v, g, m, l, D,
+      dq, dk, dv, R, R, 1, mb, max_bpr, n_partial, mb * stt::TILE, s_kv, hd,
+      1.f, stream);
 }

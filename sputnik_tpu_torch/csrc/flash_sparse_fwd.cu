@@ -26,6 +26,21 @@
 // so a fully-masked row yields m = -1e30, l = 0 and an output of exactly 0
 // (a -inf sentinel would give exp(-inf - -inf) = NaN). The output is
 // acc / max(l, 1e-30); m and l are written per row as [R, mb * 64].
+//
+// Ring band (B11a): also replaces
+// sputnik_tpu/ops/pallas/flash_sparse.py:flash_sparse_ring_band_fwd, one
+// step of the sequence-parallel ring (parallel/ring_flash.py): the same
+// body with CARRY = true continues the online softmax across key bands.
+// Each block loads its rows' carried unnormalised accumulator acc
+// [R, mb * 64, hd] and running max / denominator m, l [R, mb * 64] instead
+// of zeroing them, walks the band's occupied tiles, and writes all three
+// back unnormalised, in place; the caller finishes with acc / max(l, 1e-30)
+// after the last band. The cross-band merge is the in-tile one: exp(m_old -
+// m_new) rescales the carry, so a band with no tile for a row leaves it
+// untouched. q comes pre-scaled (scale = 1); the band's metadata is one
+// mask for every replica (heads = R). The TPU kernel's 128-lane stats
+// layout and hd_pad are TPU layouts: m and l are plain vectors here. Its
+// bound is B9's on the band's tiles plus the carry's read and write.
 #include "common.cuh"
 
 namespace stt {
@@ -38,7 +53,7 @@ constexpr size_t flash_smem_bytes() {
          (2 * HD * TILE_LD + TILE * TILE_LD + TILE * (HD + 4));
 }
 
-template <int HD>
+template <int HD, bool CARRY>
 __global__ void __launch_bounds__(THREADS)
 flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
                         const int* __restrict__ nblocks,
@@ -72,14 +87,22 @@ flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
     QsT[d][row] = (gr < s_q && d < hd) ? Q[(size_t)gr * hd + d] * scale : 0.f;
   }
 
+  const size_t m_pad = (size_t)mb * TILE;
   float m_i[4], l_i[4], acc[4][CPT];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
-    m_i[ii] = NEG_LARGE;
-    l_i[ii] = 0.f;
+    const int gr = i * TILE + ty * 4 + ii;
+    m_i[ii] = CARRY ? m_out[(size_t)r * m_pad + gr] : NEG_LARGE;
+    l_i[ii] = CARRY ? l_out[(size_t)r * m_pad + gr] : 0.f;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] = 0.f;
+    for (int jj = 0; jj < CPT; ++jj) {
+      const int d = tx * CPT + jj;
+      acc[ii][jj] = CARRY && gr < s_q && d < hd
+                        ? out[((size_t)r * s_q + gr) * hd + d] : 0.f;
+    }
   }
+  // every thread has read its rows' carry before tx == 0 writes m, l back
+  if (CARRY) __syncthreads();
 
   const size_t meta0 = ((size_t)b * mb + i) * max_bpr;
   const int nb = nblocks[b * mb + i];
@@ -154,7 +177,6 @@ flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
     __syncthreads();
   }
 
-  const size_t m_pad = (size_t)mb * TILE;
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     const int gr = i * TILE + ty * 4 + ii;
@@ -163,7 +185,7 @@ flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
       l_out[(size_t)r * m_pad + gr] = l_i[ii];
     }
     if (gr >= s_q) continue;
-    const float den = fmaxf(l_i[ii], 1e-30f);
+    const float den = CARRY ? 1.f : fmaxf(l_i[ii], 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < CPT; ++jj) {
       const int d = tx * CPT + jj;
@@ -172,7 +194,7 @@ flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
   }
 }
 
-template <int HD>
+template <int HD, bool CARRY = false>
 int launch_flash(const int* cols, const int* nblk, const int* slot,
                  const int* part, const float* pmask, const float* q,
                  const float* k, const float* v, float* out, float* m_out,
@@ -181,11 +203,11 @@ int launch_flash(const int* cols, const int* nblk, const int* slot,
                  float scale, cudaStream_t stream) {
   constexpr size_t smem = flash_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sparse_fwd_kernel<HD>,
+      flash_sparse_fwd_kernel<HD, CARRY>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(mb, R);
-  flash_sparse_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+  flash_sparse_fwd_kernel<HD, CARRY><<<grid, THREADS, smem, stream>>>(
       cols, nblk, slot, part, pmask, q, k, v, out, m_out, l_out, heads,
       group, mb, max_bpr, n_partial, s_q, s_kv, hd, scale);
   return (int)cudaGetLastError();
@@ -211,5 +233,26 @@ extern "C" int flash_sparse_fwd_f32(
   if (hd <= 64) return stt::launch_flash<64>(STT_FLASH_ARGS);
   if (hd <= 128) return stt::launch_flash<128>(STT_FLASH_ARGS);
 #undef STT_FLASH_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// One ring step (B11a): q [R, mb * 64, hd] pre-scaled, k/v [R / group,
+// s_kv, hd] (the band), the band's metadata (one mask for all replicas),
+// and the carry acc [R, mb * 64, hd], m / l [R, mb * 64], advanced in place.
+extern "C" int flash_sparse_ring_fwd_f32(
+    const void* block_cols, const void* nblocks, const void* mask_slot,
+    const void* is_partial, const void* pmask, const void* q, const void* k,
+    const void* v, void* acc, void* m, void* l, int R, int group, int mb,
+    int max_bpr, int n_partial, int s_kv, int hd, void* stream) {
+#define STT_RING_ARGS                                                        \
+  (const int*)block_cols, (const int*)nblocks, (const int*)mask_slot,        \
+      (const int*)is_partial, (const float*)pmask, (const float*)q,          \
+      (const float*)k, (const float*)v, (float*)acc, (float*)m, (float*)l,   \
+      R, R, group, mb, max_bpr, n_partial, mb * stt::TILE, s_kv, hd, 1.f,    \
+      (cudaStream_t)stream
+  if (hd <= 32) return stt::launch_flash<32, true>(STT_RING_ARGS);
+  if (hd <= 64) return stt::launch_flash<64, true>(STT_RING_ARGS);
+  if (hd <= 128) return stt::launch_flash<128, true>(STT_RING_ARGS);
+#undef STT_RING_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -26,7 +26,8 @@ the card see ``PERF.md``), bf16 operand streaming, the cache of jitted
 closures and the 128 x 128 size floor.
 
 Operands compute in float32, the kernels' type (float64 stays float64, for
-the plain versions on the CPU); results take the promoted input dtype.
+the plain versions on the CPU); results take the promoted input dtype
+(``panel_api``'s promotion; the softmax casts here).
 """
 
 from __future__ import annotations
@@ -54,10 +55,6 @@ def flat_spec(topo) -> P.PanelSpec:
     return spec
 
 
-def _work(dtype) -> torch.dtype:
-    return torch.float64 if dtype == torch.float64 else torch.float32
-
-
 def to_panel(spec, values):
     """CSR values ``[..., nnz_pad]`` -> panel ``[..., mb, max_bpr, bm, bk]``
     (0 off the nonzeros); its gradient is the gather back."""
@@ -82,25 +79,21 @@ def to_values(spec, panel):
 def spmm(topo, values, dense):
     """``values [nnz_pad] x dense [k, n]`` or ``[r, nnz_pad] x [r, k, n]``
     (one launch for all replicas)."""
-    dt = torch.promote_types(values.dtype, dense.dtype)
-    w, spec = _work(dt), flat_spec(topo)
-    return P.spmm(spec, to_panel(spec, values.to(w)), dense.to(w)).to(dt)
+    spec = flat_spec(topo)
+    return P.spmm(spec, to_panel(spec, values), dense)
 
 
 def spmm_bias_relu(topo, values, dense, bias):
     """The fused ``relu(A @ dense + bias[:, None])`` epilogue of B1."""
-    dt = torch.promote_types(values.dtype, dense.dtype)
-    w, spec = _work(dt), flat_spec(topo)
-    return P.spmm_bias_relu(spec, to_panel(spec, values.to(w)), dense.to(w),
-                            bias.to(w)).to(dt)
+    spec = flat_spec(topo)
+    return P.spmm_bias_relu(spec, to_panel(spec, values), dense, bias)
 
 
 def sddmm(topo, lhs, rhs):
     """Sampled ``lhs @ rhs^T`` at the nonzeros: ``[m, d] x [n, d] ->
     [nnz_pad]`` or ``[r, m, d] x [r, n, d] -> [r, nnz_pad]``."""
-    dt = torch.promote_types(lhs.dtype, rhs.dtype)
-    w, spec = _work(dt), flat_spec(topo)
-    return to_values(spec, P.sddmm(spec, lhs.to(w), rhs.to(w))).to(dt)
+    spec = flat_spec(topo)
+    return to_values(spec, P.sddmm(spec, lhs, rhs))
 
 
 class _SparseSoftmax(torch.autograd.Function):
@@ -129,6 +122,7 @@ def sparse_softmax(topo, values):
     """Row softmax over the nonzeros of ``values [nnz_pad]`` or
     ``[r, nnz_pad]`` (one launch for all replicas)."""
     dt = values.dtype
-    v = values.to(_work(dt)).reshape(-1, values.shape[-1]).contiguous()
+    v = values.to(P.work_dtype(dt)).reshape(-1, values.shape[-1])
+    v = v.contiguous()
     p = _SparseSoftmax.apply(flat_spec(topo), v)
     return p.view(values.shape).to(dt)

@@ -5,8 +5,9 @@ version only for CPU tensors; a failed build or launch raises. Each wrapper
 counts its own launches in ``<wrapper>.launches``. A raw launch returns a
 tensor without a ``grad_fn``: gradients flow through the autograd ops of
 ``ops.panel_api`` (both layouts), ``ops.batched_panel``, ``ops.api`` (the flat softmax),
-``ops.fused_attention`` and ``ops.int8_api`` (``spmm_qat``,
-``attention_qat``), whose backward launches the backward kernels.
+``ops.fused_attention``, ``ops.int8_api`` (``spmm_qat``,
+``attention_qat``) and ``parallel`` (``ring_flash_attention``,
+``sharded_spmm_halo``), whose backward launches the backward kernels.
 So with grad mode on and an input that requires grad, a wrapper raises on
 CUDA and names the autograd op to call instead. The serving kernels (decode and paged attention, ragged and paged append) have
 no autograd op: serving never differentiates.
@@ -49,7 +50,7 @@ def kernel_wrappers():
                                  bsr_spmm_t_panel_c, c_softmax_apply,
                                  c_softmax_stats)
     from .bsr_sddmm import bsr_sddmm_panel
-    from .bsr_spmm import bsr_spmm_panel
+    from .bsr_spmm import bsr_spmm_panel, bsr_spmm_panel_sel
     from .bsr_spmm_int8 import (bsr_sddmm_panel_int8, bsr_spmm_panel_int8,
                                 bsr_spmm_t_panel_int8)
     from .bsr_spmm_t import bsr_spmm_t_panel
@@ -57,7 +58,9 @@ def kernel_wrappers():
     from .ell_softmax import ell_softmax_kernel
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
-                               flash_sparse_bwd_fused)
+                               flash_sparse_bwd_fused,
+                               flash_sparse_ring_band_bwd,
+                               flash_sparse_ring_band_fwd)
     from .flash_sparse_int8 import (flash_sparse_attention_fwd_int8,
                                     flash_sparse_bwd_dkv_int8,
                                     flash_sparse_bwd_dq_int8)
@@ -90,4 +93,7 @@ def kernel_wrappers():
             "bsr_spmm_t_panel_c": bsr_spmm_t_panel_c,
             "bsr_sddmm_panel_c": bsr_sddmm_panel_c,
             "c_softmax_stats": c_softmax_stats,
-            "c_softmax_apply": c_softmax_apply}
+            "c_softmax_apply": c_softmax_apply,
+            "bsr_spmm_panel_sel": bsr_spmm_panel_sel,
+            "flash_sparse_ring_band_fwd": flash_sparse_ring_band_fwd,
+            "flash_sparse_ring_band_bwd": flash_sparse_ring_band_bwd}

@@ -66,6 +66,9 @@ _SIGNATURES = {
     "sddmm_panel_c_f32": [_P] * 6 + [_I] * 7 + [_P],
     "c_softmax_stats_f32": [_P] * 5 + [_I] * 5 + [_P],
     "c_softmax_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "spmm_panel_sel_f32": [_P] * 6 + [_I] * 8 + [_P],
+    "flash_sparse_ring_fwd_f32": [_P] * 11 + [_I] * 7 + [_P],
+    "flash_sparse_ring_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,17 @@
 """Sparse-flash attention, forward and backward: the metadata builders, the
 CUDA kernels' wrappers and their plain PyTorch versions.
 
-Replaces four kernels of ``sputnik_tpu/ops/pallas/flash_sparse.py``:
+Replaces six kernels of ``sputnik_tpu/ops/pallas/flash_sparse.py``:
 ``flash_sparse_attention_fwd`` (``csrc/flash_sparse_fwd.cu``) and the
 backward ``flash_sparse_bwd_fused``, ``flash_sparse_bwd_dq`` and
-``flash_sparse_bwd_dkv`` (``csrc/flash_sparse_bwd.cu``). The kernels run
-64 x 64 tiles; the plain versions run the same blockwise algebra at any tile
-size. The forward returns the row statistics (running max ``m`` and
-denominator ``l``) the backward recomputes the probabilities from.
+``flash_sparse_bwd_dkv`` (``csrc/flash_sparse_bwd.cu``), and the
+sequence-parallel ring's band steps ``flash_sparse_ring_band_fwd`` (B11a,
+the forward's body carrying its accumulator and row statistics across key
+bands) and ``flash_sparse_ring_band_bwd`` (B11b, the fused backward's body
+carrying dq, dk and dv). The kernels run 64 x 64 tiles; the plain versions
+run the same blockwise algebra at any tile size. The forward returns the
+row statistics (running max ``m`` and denominator ``l``) the backward
+recomputes the probabilities from.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ __all__ = ["build_flash_meta", "build_flash_bwd_meta",
            "flash_sparse_bwd_fused", "flash_sparse_bwd_fused_plain",
            "flash_sparse_bwd_dq", "flash_sparse_bwd_dq_plain",
            "flash_sparse_bwd_dkv", "flash_sparse_bwd_dkv_plain",
+           "flash_sparse_ring_band_fwd", "flash_sparse_ring_band_fwd_plain",
+           "flash_sparse_ring_band_bwd", "flash_sparse_ring_band_bwd_plain",
            "KERNEL_TILE"]
 
 _NEG_LARGE = -1e30
@@ -154,12 +160,12 @@ def build_flash_bwd_meta(views):
                 t_is_partial=tpart, max_bpc=int(max_bpc), **fmeta)
 
 
-def flash_sparse_attention_fwd_plain(block_cols, nblocks, mask_slot,
-                                     is_partial, pmask, q, k, v, *,
-                                     heads: int, max_bpr: int, scale: float,
-                                     group: int = 1):
-    """Plain version: the kernel's blockwise online softmax, vectorised
-    over replicas and row blocks, one step per block slot."""
+def _online_softmax_plain(block_cols, nblocks, mask_slot, is_partial, pmask,
+                          q, k, v, carry, *, heads, max_bpr, scale, group):
+    """The forward kernel's blockwise online softmax from the carry
+    ``(acc [R, mb, bm, hd], m, l [R, mb, bm])`` (``None``: zeros and
+    -1e30), vectorised over replicas and row blocks, one step per block
+    slot. Returns the advanced carry, ``acc`` unnormalised."""
     B, _, bm, bk = pmask.shape
     mb = nblocks.shape[1]
     R, s_q, hd = q.shape
@@ -176,9 +182,12 @@ def flash_sparse_attention_fwd_plain(block_cols, nblocks, mask_slot,
     part = is_partial.view(B, mb, max_bpr)[bidx] != 0
     nblk = nblocks.long()[bidx]                               # [R, mb]
 
-    m = q.new_full((R, mb, bm), _NEG_LARGE)
-    l = q.new_zeros((R, mb, bm))
-    acc = q.new_zeros((R, mb, bm, hd))
+    if carry is None:
+        acc = q.new_zeros((R, mb, bm, hd))
+        m = q.new_full((R, mb, bm), _NEG_LARGE)
+        l = q.new_zeros((R, mb, bm))
+    else:
+        acc, m, l = carry
     for s in range(max_bpr):
         sc = q_t @ k_t[kidx, cols[:, :, s]].transpose(-1, -2)  # [R,mb,bm,bk]
         pm = pmask[bidx[:, None], slots[:, :, s]]
@@ -193,9 +202,22 @@ def flash_sparse_attention_fwd_plain(block_cols, nblocks, mask_slot,
                           acc * corr[..., None] + p @ v_t[kidx, cols[:, :, s]],
                           acc)
         m = torch.where(live, m_new, m)
+    return acc, m, l
+
+
+def flash_sparse_attention_fwd_plain(block_cols, nblocks, mask_slot,
+                                     is_partial, pmask, q, k, v, *,
+                                     heads: int, max_bpr: int, scale: float,
+                                     group: int = 1):
+    """Plain version: the kernel's blockwise online softmax, vectorised
+    over replicas and row blocks, one step per block slot."""
+    R, s_q, hd = q.shape
+    acc, m, l = _online_softmax_plain(
+        block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v, None,
+        heads=heads, max_bpr=max_bpr, scale=scale, group=group)
     out = acc / l.clamp(min=1e-30)[..., None]
-    return (out.reshape(R, mb * bm, hd)[:, :s_q], m.reshape(R, mb * bm),
-            l.reshape(R, mb * bm))
+    return (out.reshape(R, -1, hd)[:, :s_q], m.reshape(R, -1),
+            l.reshape(R, -1))
 
 
 def flash_sparse_attention_fwd(block_cols, nblocks, mask_slot, is_partial,
@@ -571,3 +593,175 @@ def flash_sparse_bwd_dkv(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
 flash_sparse_bwd_fused.launches = 0
 flash_sparse_bwd_dq.launches = 0
 flash_sparse_bwd_dkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The sequence-parallel ring's band steps. One band's metadata is one mask
+# for every replica (block_cols / mask_slot / is_partial [mb * max_bpr],
+# nblocks [mb], pmask [n_partial, bm, bk]: a band of RingFlashSpec's stacked
+# tables), q comes pre-scaled and spans the shard's padded rows
+# [R, mb * bm, hd], k / v are the band's keys [R // group, n_loc, hd]. Each
+# step advances its carry IN PLACE, on the card and on the CPU alike.
+# ---------------------------------------------------------------------------
+
+
+def _band(block_cols, nblocks, mask_slot, is_partial, pmask):
+    """One band's metadata as the B = 1 tables of the batched versions."""
+    return (block_cols[None], nblocks[None], mask_slot[None],
+            is_partial[None], pmask[None])
+
+
+def _check_band(name, block_cols, nblocks, pmask, q, k, v, max_bpr, group):
+    if any(t.dim() != 3 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must be rank 3")
+    R, rows, hd = q.shape
+    (mb,) = nblocks.shape
+    bm = pmask.shape[-2]
+    if rows != mb * bm:
+        raise ValueError(f"{name}: q has {rows} rows, the band's row blocks "
+                         f"{mb * bm}")
+    if group < 1 or R % group:
+        raise ValueError(f"{name}: group {group} must divide replicas {R}")
+    if k.shape != (R // group, k.shape[1], hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)} with group "
+                         f"{group}")
+    if block_cols.shape != (mb * max_bpr,):
+        raise ValueError(f"{name}: block_cols {tuple(block_cols.shape)} != "
+                         f"({mb * max_bpr},)")
+    if R > 65535:
+        raise ValueError("grid too large for one launch")
+
+
+def flash_sparse_ring_band_fwd_plain(block_cols, nblocks, mask_slot,
+                                     is_partial, pmask, q, k, v, acc, m, l,
+                                     *, max_bpr: int, group: int = 1):
+    """Plain version of B11a: the carry ``(acc, m, l)`` advanced over the
+    band, returned as new tensors."""
+    R, rows, hd = q.shape
+    bm = pmask.shape[-2]
+    carry = (acc.reshape(R, -1, bm, hd), m.reshape(R, -1, bm),
+             l.reshape(R, -1, bm))
+    a, mm, ll = _online_softmax_plain(
+        *_band(block_cols, nblocks, mask_slot, is_partial, pmask), q, k, v,
+        carry, heads=R, max_bpr=max_bpr, scale=1.0, group=group)
+    return a.reshape(R, rows, hd), mm.reshape(R, rows), ll.reshape(R, rows)
+
+
+def flash_sparse_ring_band_fwd(block_cols, nblocks, mask_slot, is_partial,
+                               pmask, q, k, v, acc, m, l, *, max_bpr: int,
+                               group: int = 1):
+    """One ring step of sparse flash attention over one key band (B11a).
+
+    Band metadata as above, q f32[R, mb * bm, hd] pre-scaled, k / v
+    f32[R // group, n_loc, hd], and the carry: the unnormalised accumulator
+    acc f32[R, mb * bm, hd] and the running max / denominator m, l
+    f32[R, mb * bm] (seed them with 0 and -1e30 / 0). Advances the carry in
+    place and returns it; after the last band the output is
+    ``acc / max(l, 1e-30)``.
+    """
+    _check_band("flash_sparse_ring_band_fwd", block_cols, nblocks, pmask, q,
+                k, v, max_bpr, group)
+    R, rows, hd = q.shape
+    if acc.shape != q.shape or m.shape != (R, rows) or l.shape != m.shape:
+        raise ValueError("the carry does not match q")
+    if not q.is_cuda:
+        for t, new in zip((acc, m, l), flash_sparse_ring_band_fwd_plain(
+                block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v,
+                acc, m, l, max_bpr=max_bpr, group=group)):
+            t.copy_(new)
+        return acc, m, l
+
+    guard_no_grad("flash_sparse_ring_band_fwd",
+                  "parallel.ring_flash_attention", q, k, v)
+    _check_kernel_shape(pmask.shape[-2], pmask.shape[-1], hd)
+    i32, f32 = torch.int32, torch.float32
+    check_operands("flash_sparse_ring_band_fwd", q.device,
+                   block_cols=(block_cols, i32), nblocks=(nblocks, i32),
+                   mask_slot=(mask_slot, i32), is_partial=(is_partial, i32),
+                   pmask=(pmask, f32), q=(q, f32), k=(k, f32), v=(v, f32),
+                   acc=(acc, f32), m=(m, f32), l=(l, f32))
+    if R == 0:
+        return acc, m, l
+    err = library().flash_sparse_ring_fwd_f32(
+        block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
+        is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), R, group,
+        nblocks.shape[0], max_bpr, pmask.shape[0], k.shape[1], hd,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, "flash_sparse_ring_band_fwd")
+    flash_sparse_ring_band_fwd.launches += 1
+    return acc, m, l
+
+
+def flash_sparse_ring_band_bwd_plain(block_cols, nblocks, mask_slot,
+                                     is_partial, pmask, q, k, v, g, m, l, D,
+                                     dq, dk, dv, *, max_bpr: int):
+    """Plain version of B11b: the carries ``(dq, dk, dv)`` advanced by the
+    band's gradients, returned as new tensors."""
+    R = q.shape[0]
+    gq, gk, gv = _bwd_rows_plain(
+        *_band(block_cols, nblocks, mask_slot, is_partial, pmask), q, k, v,
+        g, m, l, D, heads=R, max_bpr=max_bpr, scale=1.0, group=1,
+        want_kv=True)
+    return dq + gq, dk + gk, dv + gv
+
+
+def flash_sparse_ring_band_bwd(block_cols, nblocks, mask_slot, is_partial,
+                               pmask, q, k, v, g, m, l, D, dq, dk, dv, *,
+                               max_bpr: int):
+    """One ring-backward step over one key band (B11b), group 1 only.
+
+    Band metadata, q (pre-scaled) and k / v as
+    :func:`flash_sparse_ring_band_fwd` with ``R_kv = R``; g f32[R, mb * bm,
+    hd]; the ring forward's FINAL m, l f32[R, mb * bm] and D = rowsum(g *
+    out) f32[R, mb * bm]. Adds the band's dq (with respect to the pre-scaled
+    q), dk and dv to the carries dq f32[R, mb * bm, hd] and dk, dv
+    f32[R, n_loc, hd] in place and returns them. The kernel adds each
+    tile's dk / dv with atomics, so their summation order varies from run
+    to run.
+    """
+    name = "flash_sparse_ring_band_bwd"
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: group 1 only (k has {k.shape[0]} "
+                         f"replicas, q {q.shape[0]}); a GQA ring runs the "
+                         f"two-kernel backward")
+    _check_band(name, block_cols, nblocks, pmask, q, k, v, max_bpr, 1)
+    R, rows, hd = q.shape
+    if (g.shape != q.shape or dq.shape != q.shape or dk.shape != k.shape
+            or dv.shape != k.shape or m.shape != (R, rows)
+            or l.shape != m.shape or D.shape != m.shape):
+        raise ValueError(f"{name}: g, the statistics or the carries do not "
+                         f"match q and k")
+    if not q.is_cuda:
+        for t, new in zip((dq, dk, dv), flash_sparse_ring_band_bwd_plain(
+                block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v,
+                g, m, l, D, dq, dk, dv, max_bpr=max_bpr)):
+            t.copy_(new)
+        return dq, dk, dv
+
+    guard_no_grad(name, "parallel.ring_flash_attention", q, k, v, g)
+    _check_kernel_shape(pmask.shape[-2], pmask.shape[-1], hd)
+    i32, f32 = torch.int32, torch.float32
+    check_operands(name, q.device,
+                   block_cols=(block_cols, i32), nblocks=(nblocks, i32),
+                   mask_slot=(mask_slot, i32), is_partial=(is_partial, i32),
+                   pmask=(pmask, f32), q=(q, f32), k=(k, f32), v=(v, f32),
+                   g=(g, f32), m=(m, f32), l=(l, f32), D=(D, f32),
+                   dq=(dq, f32), dk=(dk, f32), dv=(dv, f32))
+    if R == 0:
+        return dq, dk, dv
+    err = library().flash_sparse_ring_bwd_f32(
+        block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
+        is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, nblocks.shape[0],
+        max_bpr, pmask.shape[0], k.shape[1], hd,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, name)
+    flash_sparse_ring_band_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_sparse_ring_band_fwd.launches = 0
+flash_sparse_ring_band_bwd.launches = 0

@@ -30,6 +30,14 @@ with dense operands ``[R, n, q]``): that is how ``SparseAttention`` runs its
 ``b*heads`` replicas in one launch. CSR <-> panel conversion happens once at
 the boundary. Tiles are Hopper's own (64 x 64 by default); outputs, never
 panel bytes, are comparable with the JAX package's.
+
+Dtypes follow JAX's ``_match_dtypes``: a mixed pair (a bf16 panel with an
+f32 dense operand, or the reverse) promotes as ``torch.promote_types``
+does, and the result takes the promoted dtype (``sparse_softmax`` the
+panel's). The ops compute in float32, the kernels' type (float64 stays
+float64, for the plain versions on the CPU): each operand is cast at the
+op's boundary, and the autograd of that cast hands every gradient back in
+its primal's dtype, as JAX's custom_vjps cast their cotangents.
 """
 
 from __future__ import annotations
@@ -244,6 +252,20 @@ class PanelSpec:
 
 def _spec(spec) -> PanelSpec:
     return spec if isinstance(spec, PanelSpec) else PanelSpec(spec)
+
+
+def work_dtype(dtype) -> torch.dtype:
+    """The dtype an op computes in for a promoted ``dtype``: float32, the
+    kernels' type, or float64 (the plain versions on the CPU)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _promote(a, b):
+    """``(a, b, out_dtype)``: the pair cast to the work dtype of their
+    promoted dtype, which the op's result takes."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    w = work_dtype(dt)
+    return a.to(w), b.to(w), dt
 
 
 def _check_rows(name, x, n_true, n_pad, rank):
@@ -464,9 +486,12 @@ def _spmm(spec, panel, dense, bias, epilogue):
     t, bv = spec.topo, spec.view
     rep = _replicated(spec, panel)
     _check_rows("dense", dense, t.n, bv.n_pad, 3 if rep else 2)
+    panel, dense, dt = _promote(panel, dense)
+    if bias is not None:
+        bias = bias.to(panel.dtype)
     out = _SpMM.apply(spec, _rep(panel, rep).contiguous(),
                       _rep(dense, rep).contiguous(), bias, epilogue)
-    return _unrep(out, rep)
+    return _unrep(out, rep).to(dt)
 
 
 def spmm(spec, panel, dense):
@@ -493,9 +518,10 @@ def spmm_t(spec, panel, dense):
     t, bv = spec.topo, spec.view
     rep = _replicated(spec, panel)
     _check_rows("dense", dense, t.m, bv.m_pad, 3 if rep else 2)
+    panel, dense, dt = _promote(panel, dense)
     out = _SpMMT.apply(spec, _rep(panel, rep).contiguous(),
                        _rep(dense, rep).contiguous())
-    return _unrep(out, rep)
+    return _unrep(out, rep).to(dt)
 
 
 def sddmm(spec, lhs, rhs):
@@ -509,9 +535,10 @@ def sddmm(spec, lhs, rhs):
     _check_rows("lhs", lhs, t.m, bv.m_pad, rank)
     _check_rows("rhs", rhs, t.n, bv.n_pad, rank)
     rep = rank == 3
+    lhs, rhs, dt = _promote(lhs, rhs)
     out = _SDDMM.apply(spec, _rep(lhs, rep).contiguous(),
                        _rep(rhs, rep).contiguous())
-    return _unrep(out, rep)
+    return _unrep(out, rep).to(dt)
 
 
 def sparse_softmax(spec, panel):
@@ -520,7 +547,10 @@ def sparse_softmax(spec, panel):
     row without nonzeros gives 0."""
     spec = _spec(spec)
     rep = _replicated(spec, panel)
+    dt = panel.dtype
+    panel = panel.to(work_dtype(dt))
     if spec.compressed:
         return _unrep(_CompressedSoftmax.apply(
-            spec, _rep(panel, rep).contiguous()), rep)
-    return masked_softmax(panel, spec.meta(panel.device)["mask"] != 0)
+            spec, _rep(panel, rep).contiguous()), rep).to(dt)
+    return masked_softmax(panel,
+                          spec.meta(panel.device)["mask"] != 0).to(dt)

@@ -1317,3 +1317,270 @@ def test_compressed_chain_trains_through_the_kernels(dev):
     stt.panel.spmm(spec, panel, gpu[2].detach()).square().sum().backward()
     assert torch.all(panel.grad[-1] == 0)
     assert torch.all(panel.grad[torch.from_numpy(~spec.view.mask)] == 0)
+
+
+# -- the sequence-parallel layer: B2, B11a, B11b --------------------------
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spmm_sel_kernel_matches_plain(dev, seed):
+    """B2 on random sub-walks: a random subset of each row block's tiles,
+    in a random order, against its plain version and against B1 on the
+    panel with the other tiles zeroed."""
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm import (
+        bsr_spmm_panel_sel, bsr_spmm_panel_sel_plain)
+
+    rng = np.random.RandomState(seed)
+    m, n, q = 640, 512, [64, 200, 7, 512][seed]
+    mask = rng.rand(m, n) < 0.05
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    spec = stt.PanelSpec(topo, 64, 64)
+    bv = spec.view
+    panel = torch.from_numpy(stt.ops.panel_api.values_to_panel_np(
+        topo, stt.SparseMatrix((mask * rng.randn(m, n)).astype(
+            np.float32)).values, 64, 64)).to(dev)
+    sub = max(bv.max_bpr // 2, 1)
+    cols = np.zeros((bv.mb, sub), np.int32)
+    sel = np.zeros((bv.mb, sub), np.int32)
+    nblk = np.zeros(bv.mb, np.int32)
+    keep = torch.zeros(bv.mb, bv.max_bpr, dtype=torch.bool)
+    for i in range(bv.mb):
+        pick = rng.permutation(int(bv.nblocks[i]))[:sub]
+        nblk[i] = len(pick)
+        sel[i, : len(pick)] = pick
+        cols[i, : len(pick)] = bv.block_cols[i, pick]
+        keep[i, pick] = True
+    dense = torch.from_numpy(rng.randn(n, q).astype(np.float32)).to(dev)
+    args = [torch.from_numpy(x.reshape(-1)).to(dev) for x in (cols, nblk,
+                                                              sel)]
+    before = bsr_spmm_panel_sel.launches
+    got = bsr_spmm_panel_sel(*args, panel, dense)
+    torch.cuda.synchronize()
+    assert bsr_spmm_panel_sel.launches == before + 1
+    _close(got, bsr_spmm_panel_sel_plain(*args, panel, dense))
+    meta = _meta(spec, dev)
+    kept = torch.where(keep.to(dev)[:, :, None, None], panel, 0.0)
+    _close(got[:m], bsr_spmm_panel(meta["block_cols"], meta["nblocks"],
+                                   kept[None], dense[None], rows=m)[0])
+
+
+def _ring_problem(dev, s, hd, group, zigzag, seed=3):
+    part = stt.parallel.RowPartition(stt.SparseTopology.from_dense_mask(
+        np.tril(np.ones((s, s), np.float32))), 4, balance=False,
+        zigzag=zigzag)
+    spec = stt.parallel.RingFlashSpec(part)
+    rng = np.random.RandomState(seed)
+    R = 2 * group
+    q = torch.from_numpy((rng.randn(R, spec.m_pad_loc, hd) * hd ** -0.5)
+                         .astype(np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.randn(4, R // group, spec.n_loc, hd)
+                             .astype(np.float32)).to(dev) for _ in range(2))
+    return spec, q, k, v
+
+
+def _ring_meta(spec, dev, d, band):
+    meta = spec.meta(dev)
+    return [meta[k][d, band] for k in ("block_cols", "nblocks", "mask_slot",
+                                       "is_partial", "pmask")]
+
+
+@pytest.mark.parametrize("zigzag", [False, True])
+@pytest.mark.parametrize("hd,group", [(32, 1), (64, 1), (64, 2), (128, 1)])
+def test_ring_band_fwd_kernel_matches_plain(dev, hd, group, zigzag):
+    """B11a carried over every band of a shard, band by band against its
+    plain version, then finished against B9 over the whole key range."""
+    spec, q, k, v = _ring_problem(dev, 1024, hd, group, zigzag)
+    d, R, rows = 2, q.shape[0], q.shape[1]
+    acc = torch.zeros(R, rows, hd, device=dev)
+    m = torch.full((R, rows), -1e30, device=dev)
+    l = torch.zeros(R, rows, device=dev)
+    before = fs.flash_sparse_ring_band_fwd.launches
+    for t in range(4):
+        band = (d - t) % 4
+        args = (*_ring_meta(spec, dev, d, band), q, k[band], v[band])
+        want = fs.flash_sparse_ring_band_fwd_plain(
+            *args, acc.clone(), m.clone(), l.clone(), max_bpr=spec.max_bpr,
+            group=group)
+        got = fs.flash_sparse_ring_band_fwd(*args, acc, m, l,
+                                            max_bpr=spec.max_bpr,
+                                            group=group)
+        torch.cuda.synchronize()
+        assert got[0] is acc and got[1] is m and got[2] is l   # in place
+        for a, b in zip(got, want):
+            _close(a, b)
+    assert fs.flash_sparse_ring_band_fwd.launches == before + 4
+    k_full = spec.unshard_kv(k.cpu()).to(dev).contiguous()
+    v_full = spec.unshard_kv(v.cpu()).to(dev).contiguous()
+    view = spec.part.shards[d].block(64, 64)
+    fm = {key: torch.from_numpy(x).to(dev) for key, x in
+          fs.build_flash_meta([view]).items() if isinstance(x, np.ndarray)}
+    ref, m_ref, l_ref = flash_sparse_attention_fwd(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k_full, v_full, heads=R, max_bpr=view.max_bpr,
+        scale=1.0, group=group)
+    _close(acc / l.clamp(min=1e-30)[..., None], ref)
+    assert torch.equal(m, m_ref)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_ring_band_bwd_kernel_matches_plain(dev, hd):
+    """B11b over every band of a shard from random carries, band by band
+    against its plain version, then against B10a over the whole key
+    range."""
+    spec, q, k, v = _ring_problem(dev, 1024, hd, 1, False, seed=4)
+    d, R, rows = 3, q.shape[0], q.shape[1]
+    acc = torch.zeros(R, rows, hd, device=dev)
+    m = torch.full((R, rows), -1e30, device=dev)
+    l = torch.zeros(R, rows, device=dev)
+    for t in range(4):
+        band = (d - t) % 4
+        fs.flash_sparse_ring_band_fwd(*_ring_meta(spec, dev, d, band), q,
+                                      k[band], v[band], acc, m, l,
+                                      max_bpr=spec.max_bpr)
+    out = acc / l.clamp(min=1e-30)[..., None]
+    g = torch.randn_like(q)
+    D = (g * out).sum(-1)
+    dq = torch.zeros_like(q)
+    dks, dvs = torch.zeros_like(k), torch.zeros_like(v)
+    before = fs.flash_sparse_ring_band_bwd.launches
+    for t in range(4):
+        band = (d - t) % 4
+        args = (*_ring_meta(spec, dev, d, band), q, k[band], v[band], g, m,
+                l, D)
+        want = fs.flash_sparse_ring_band_bwd_plain(
+            *args, dq.clone(), dks[band].clone(), dvs[band].clone(),
+            max_bpr=spec.max_bpr)
+        got = fs.flash_sparse_ring_band_bwd(*args, dq, dks[band], dvs[band],
+                                            max_bpr=spec.max_bpr)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            _close(a, b)
+    assert fs.flash_sparse_ring_band_bwd.launches == before + 4
+    view = spec.part.shards[d].block(64, 64)
+    fm = {key: torch.from_numpy(x).to(dev) for key, x in
+          fs.build_flash_meta([view]).items() if isinstance(x, np.ndarray)}
+    k_full, v_full = (spec.unshard_kv(x.cpu()).to(dev).contiguous()
+                      for x in (k, v))
+    rq, rk, rv = fs.flash_sparse_bwd_fused(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k_full, v_full, g, m, l, D, heads=R,
+        max_bpr=view.max_bpr, scale=1.0)
+    _close(dq, rq)
+    _close(spec.unshard_kv(dks.cpu()), rk.cpu())
+    _close(spec.unshard_kv(dvs.cpu()), rv.cpu())
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_ring_flash_attention_trains_through_the_kernels(dev, group):
+    """ring_flash_attention forward and backward on the card against the
+    CPU: ndev^2 launches of B11a, and of B11b (group 1) or of B10b and
+    B10c (group 2)."""
+    s, hd, R = 1024, 64, 2 * group
+    part = stt.parallel.RowPartition(stt.SparseTopology.from_dense_mask(
+        np.tril(np.ones((s, s), np.float32))), 4, zigzag=True)
+    spec = stt.parallel.RingFlashSpec(part)
+    rng = np.random.RandomState(group)
+    cpu = [spec.shard_queries(torch.from_numpy(rng.randn(R, s, hd).astype(
+        np.float32))).contiguous().requires_grad_()]
+    cpu += [spec.shard_keys(torch.from_numpy(rng.randn(R // group, s, hd)
+                                             .astype(np.float32)))
+            .contiguous().requires_grad_() for _ in range(2)]
+    gpu = [t.detach().to(dev).requires_grad_() for t in cpu]
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = stt.parallel.ring_flash_attention(spec, *gpu, group=group)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items()
+           if w.launches != before[n]}
+    bwd = ({"flash_sparse_ring_band_bwd": 16} if group == 1 else
+           {"flash_sparse_bwd_dq": 16, "flash_sparse_bwd_dkv": 16})
+    assert got == {"flash_sparse_ring_band_fwd": 16, **bwd}, got
+    ref = stt.parallel.ring_flash_attention(spec, *cpu, group=group)
+    ref.square().sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+
+
+@pytest.mark.parametrize("case", ["split", "ragged", "gathered"])
+def test_sharded_spmm_halo_trains_through_the_kernels(dev, case):
+    """sharded_spmm_halo forward and backward on the card against the CPU,
+    in its three branches: B2 x 2 a shard (split) or B1 (ragged,
+    gathered) forward, B4 + B3 a shard backward."""
+    rng = np.random.RandomState(5)
+    n, ndev = 1024, 4
+    if case == "gathered":
+        A = ((rng.rand(n, n) < 0.05) * rng.randn(n, n)).astype(np.float32)
+    else:
+        rows = np.arange(n)[:, None] - np.arange(n)[None, :]
+        A = ((rows >= 0) & (rows < 96)) * rng.randn(n, n).astype(np.float32)
+    n_loc = n // ndev if case != "ragged" else None
+    if case == "ragged":
+        A = A[:1000, :1000]
+        n = 1000
+        n_loc = n // ndev                       # 250: not whole 64-blocks
+    mat = stt.SparseMatrix(A.astype(np.float32))
+    part = stt.parallel.RowPartition(mat.topology, ndev,
+                                     balance=case == "gathered")
+    spec = stt.parallel.ShardedPanelSpec(part)
+    from sputnik_tpu_torch.parallel.sharded_ops import _halo_plan
+    plan = _halo_plan(spec, n_loc)
+    assert (plan is None) == (case == "gathered")
+    assert (n_loc % 64 == 0) == (case != "ragged")
+    cpu = [torch.from_numpy(spec.stack_values(mat.values)).requires_grad_(),
+           torch.from_numpy(rng.randn(ndev, n_loc, 96).astype(np.float32))
+           .requires_grad_()]
+    gpu = [t.detach().to(dev).requires_grad_() for t in cpu]
+    wr = kernels.kernel_wrappers()
+    before = {nm: w.launches for nm, w in wr.items()}
+    out = stt.parallel.sharded_spmm_halo(spec, *gpu)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    got = {nm: w.launches - before[nm] for nm, w in wr.items()
+           if w.launches != before[nm]}
+    fwd = ({"bsr_spmm_panel_sel": 2 * ndev} if case == "split"
+           else {"bsr_spmm_panel": ndev})
+    assert got == {**fwd, "bsr_sddmm_panel": ndev,
+                   "bsr_spmm_t_panel": ndev}, got
+    ref = stt.parallel.sharded_spmm_halo(spec, *cpu)
+    ref.square().sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_bf16_panel_operands_launch_the_f32_kernels(dev, compressed):
+    """bf16 (and mixed) operands of stt.panel.spmm / sddmm cast to f32 at
+    the op's boundary: one launch of the f32 kernel each, the promoted
+    dtype out, gradients in their primals' dtypes."""
+    rng = np.random.RandomState(9)
+    mask = rng.rand(256, 192) < 0.1
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    spec = stt.PanelSpec(topo, 64, 64, compressed=compressed)
+    panel = stt.panel.panel_kaiming_values(
+        topo, 64, 64, compressed=compressed).to(dev).bfloat16()
+    dense = torch.randn(192, 32, device=dev).bfloat16()
+    lhs = torch.randn(256, 32, device=dev)
+    spmm_k, sddmm_k = (("bsr_spmm_panel_c", "bsr_sddmm_panel_c")
+                       if compressed else
+                       ("bsr_spmm_panel", "bsr_sddmm_panel"))
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = stt.panel.spmm(spec, panel, dense)
+    scores = stt.panel.sddmm(spec, lhs, dense)
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items()
+           if w.launches != before[n]}
+    assert got == {spmm_k: 1, sddmm_k: 1}, got
+    assert out.dtype == torch.bfloat16 and scores.dtype == torch.float32
+    ref = stt.panel.spmm(spec, panel.float().cpu(), dense.float().cpu())
+    err = (out.float().cpu() - ref).abs().max().item()
+    assert err <= 2e-2 * max(1.0, ref.abs().max().item()), err
+    layer = stt.SparseLinear(topo, dtype=torch.bfloat16, device=dev)
+    x = torch.randn(5, 192, device=dev, requires_grad=True)
+    y = layer(x)
+    y.sum().backward()
+    assert y.dtype == torch.float32 and layer.values.grad.dtype == \
+        torch.bfloat16 and x.grad.dtype == torch.float32

@@ -44,7 +44,12 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.examples.dynamic_sparse_training, "
              "sputnik_tpu_torch.examples.train_block_sparse, "
              "sputnik_tpu_torch.ops.int8_api, "
-             "sputnik_tpu_torch.examples.serve_sparse_int8\n"
+             "sputnik_tpu_torch.examples.serve_sparse_int8, "
+             "sputnik_tpu_torch.parallel, "
+             "sputnik_tpu_torch.parallel.partition, "
+             "sputnik_tpu_torch.parallel.ring_flash, "
+             "sputnik_tpu_torch.parallel.sharded_ops, "
+             "sputnik_tpu_torch.parallel._mesh\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")
@@ -73,6 +78,7 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
              "import sputnik_tpu_torch.models.moe\n"
              "import sputnik_tpu_torch.ops.paged\n"
              "import sputnik_tpu_torch.models.serving_paged\n"
+             "import sputnik_tpu_torch.parallel\n"
              "from sputnik_tpu_torch.ops.kernels import _build\n"
              "assert 'triton' not in sys.modules\n"
              "try:\n"
@@ -104,7 +110,8 @@ def test_build_key_covers_every_source():
         "sddmm_panel_int8", "flash_sparse_fwd_int8",
         "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8",
         "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
-        "c_softmax_stats_f32", "c_softmax_apply_f32"}
+        "c_softmax_stats_f32", "c_softmax_apply_f32", "spmm_panel_sel_f32",
+        "flash_sparse_ring_fwd_f32", "flash_sparse_ring_bwd_f32"}
     assert [p.name for p in cuh] == ["common.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
@@ -178,8 +185,30 @@ def test_cpu_tensors_launch_no_kernel():
     (stt.panel.spmm(cspec, w, q).sum()
      + stt.panel.spmm_t(cspec, w, q).sum()).backward()
     assert torch.isfinite(q.grad).all()
+    # the sequence-parallel layer: the ring (both backward routes) and the
+    # halo SpMM's split branch
+    part = stt.parallel.RowPartition(stt.SparseTopology.from_dense_mask(
+        np.tril(np.ones((64, 64)))), 2, bm=8, balance=False)
+    ring = stt.parallel.RingFlashSpec(part, bm=8, bk=16)
+    for group in (1, 2):
+        qkv_sh = [torch.randn(2, 2 // r, 32, 8, requires_grad=True)
+                  for r in (1, group, group)]
+        stt.parallel.ring_flash_attention(ring, *qkv_sh,
+                                          group=group).sum().backward()
+        assert all(torch.isfinite(t.grad).all() for t in qkv_sh)
+    band = np.tril(np.ones((64, 64))) - np.tril(np.ones((64, 64)), -9)
+    hpart = stt.parallel.RowPartition(stt.SparseTopology.from_dense_mask(
+        band), 2, bm=8, balance=False)
+    hspec = stt.parallel.ShardedPanelSpec(hpart, bm=8, bk=16)
+    panels = torch.from_numpy(hspec.stack_values(np.ones(
+        hpart.topo.nnz_pad, np.float32))).requires_grad_()
+    dense_sh = torch.randn(2, 32, 4, requires_grad=True)
+    stt.parallel.sharded_spmm_halo(hspec, panels, dense_sh).sum().backward()
+    assert torch.isfinite(dense_sh.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 26 and "ell_softmax" in wrappers
+    assert len(wrappers) == 29 and "ell_softmax" in wrappers
+    assert {"bsr_spmm_panel_sel", "flash_sparse_ring_band_fwd",
+            "flash_sparse_ring_band_bwd"} <= set(wrappers)
     assert {"bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
             "c_softmax_stats", "c_softmax_apply"} <= set(wrappers)
     assert {"flash_sparse_attention_fwd_int8", "flash_sparse_bwd_dq_int8",
@@ -194,6 +223,40 @@ def test_grad_guard_raises_only_when_grad_is_needed():
     with torch.no_grad():
         kernels.guard_no_grad("k", "panel_api.spmm", a)
     kernels.guard_no_grad("k", "panel_api.spmm", torch.zeros(2), None)
+
+
+def test_sequence_parallel_wrappers_refuse_grad_mode():
+    """The three raw wrappers of the sequence-parallel layer, handed
+    tensors that report a CUDA device, refuse a tensor that requires grad
+    before anything reaches the card, and name the autograd op to use."""
+    from unittest import mock
+
+    from sputnik_tpu_torch.ops.kernels import bsr_spmm, flash_sparse
+
+    i = torch.zeros(1, dtype=torch.int32)
+    x = torch.zeros(1, 64, 8, requires_grad=True)
+    stats = torch.zeros(1, 64)
+    calls = {
+        "sharded_spmm_halo": lambda: bsr_spmm.bsr_spmm_panel_sel(
+            i, i, i, torch.zeros(1, 1, 64, 64, requires_grad=True),
+            torch.zeros(64, 8)),
+        "ring_flash_attention": (
+            lambda: flash_sparse.flash_sparse_ring_band_fwd(
+                i, i, i, i, torch.ones(1, 64, 64), x, x, x,
+                torch.zeros_like(x), stats, stats, max_bpr=1)),
+    }
+    calls["ring_flash_attention (backward)"] = (
+        lambda: flash_sparse.flash_sparse_ring_band_bwd(
+            i, i, i, i, torch.ones(1, 64, 64), x, x, x, x, stats, stats,
+            stats, torch.zeros_like(x), torch.zeros_like(x),
+            torch.zeros_like(x), max_bpr=1))
+    with mock.patch.object(torch.Tensor, "is_cuda",
+                           new=property(lambda self: True)):
+        for op, call in calls.items():
+            name = op.split()[0]
+            with pytest.raises(RuntimeError,
+                               match=f"call parallel.{name} to train"):
+                call()
 
 
 def test_operand_checks():
