@@ -223,6 +223,52 @@ def _time_ms(fn, reps: int = 10, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+_GRAPH_STREAM = []   # the one side stream that _graph_ms captures on
+
+
+def _graph_ms(fn, reps: int = 10, inner: int = 8, warmup: int = 3) -> float:
+    """Milliseconds per ``fn()`` call on the device alone: ``inner`` calls
+    captured in one CUDA graph and replayed, the median over ``reps``
+    replays, CUDA events around each. A call's host work (argument checks,
+    the launch through ctypes) is not in it; ``_time_ms`` measures the
+    host's rate of calls instead where a kernel takes less device time
+    than its wrapper takes on the host (tens of microseconds). The capture
+    runs on one side stream, and the cuBLAS workspaces a captured
+    ``torch.matmul`` takes are released after, so that later phases'
+    peak memory does not carry them."""
+    import torch
+
+    if not _GRAPH_STREAM:
+        _GRAPH_STREAM.append(torch.cuda.Stream())
+    side = _GRAPH_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        torch.cuda.synchronize()
+        clear()
+    return statistics.median(times)
+
+
 def _compare(name, got, ref, tol, results=None, floor=1.0):
     """max |got - ref| against ``tol * max(floor, max |ref|)``; raises.
     ``floor=0`` makes the limit relative, for values far below 1 such as
@@ -308,11 +354,20 @@ def _stored_note(name, tiles, width):
           f"at the fp32 peak (not the bound)", flush=True)
 
 
-def _library_ms(name, fn, **kw):
+def _library_ms(name, fn, timer=None, **kw):
     """The time of one PyTorch call computing the kernel's function, a
-    yardstick the port never calls; None (printed) where it fails here."""
+    yardstick the port never calls, by ``timer`` (``_time_ms``; with
+    ``_graph_ms``, eager calls where the call cannot be captured); None
+    (printed) where it fails here."""
     try:
-        ms = _time_ms(fn, **kw)
+        try:
+            ms = (timer or _time_ms)(fn, **kw)
+        except Exception as e:
+            if timer is not _graph_ms:
+                raise
+            print(f"  library call for {name}: no CUDA graph ({e!r}); "
+                  f"timed in eager calls", flush=True)
+            ms = _time_ms(fn, **kw)
     except Exception as e:  # a yardstick, not a check of the port
         print(f"  library call for {name} failed: {e!r}", flush=True)
         return None
@@ -906,7 +961,8 @@ def _decode_library_ms(torch, timed, R, s_max, hd):
                                               scale=hd ** -0.5)
 
     return _library_ms("decode attention (F.scaled_dot_product_attention "
-                       "over the cache, cold)", call)
+                       "over the cache, cold, graph replay)", call,
+                       timer=_graph_ms)
 
 
 def _decode_bound(r, *, tables, q, k, n_keys, group):
@@ -918,6 +974,23 @@ def _decode_bound(r, *, tables, q, k, n_keys, group):
     per_key = 2 * hd * k.element_size() + 2 * 4
     _bound(r, 4.0 * qlen * hd * n_keys * group,
            n_keys * per_key + _nbytes(*tables) + 2 * _nbytes(q))
+
+
+def _split_kv_note(name, R, S, bk, lens):
+    """Prints B19 / B20a's split at the timed shape (bf16, every slot
+    valid): keys a chunk, chunks a replica and those holding keys, and the
+    CTAs of each launch; fails unless there are more CTAs than replicas."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import split_keys
+
+    keys = split_keys(R, S, bk, False)
+    per = S * -(-bk // keys)
+    live = sum(-(-min(n, S * bk) // keys) for n in lens)
+    print(f"  {name} split: {keys} keys a chunk, {per} chunks a replica, "
+          f"{R * per} CTAs in pass 1 ({live} holding keys; unsplit {R}), "
+          f"merge {R} CTAs; 2 device launches a call (int8: a whole "
+          f"{bk}-key slot a chunk, {R * S} CTAs, 3 launches)", flush=True)
+    if not R * per > R:
+        _fail(f"{name}: the split launches no more CTAs than replicas")
 
 
 def phase_serving_kernels(stt, torch, dev, kres):
@@ -966,12 +1039,16 @@ def phase_serving_kernels(stt, torch, dev, kres):
                  decode_attention_plain(*args, **kw), TOL_KERNEL, r)
         if not torch.all(got[R - group:] == 0):
             _fail("decode_attention: the empty replica is not exactly 0")
+        if not torch.equal(got, decode_attention_kernel(*args, **kw)):
+            _fail("decode_attention: two runs differ")
         if dtype == torch.bfloat16 and qlen == 1 and group == 1:
             timed = [(args, kw, int(valid.sum()), int(lens.sum()))]
     # Times at the serving shape (bf16, kv_len 1088): L2-warm, the same
     # cache every call (its 16.5 MiB of attended K/V stay in the 50 MB L2),
     # and cold, four caches in turn (134 MB), as a decode step finds it.
     (args, kw, n_valid, n_keys), = timed
+    _split_kv_note("decode_attention", R, args[0].shape[1], bk,
+                   args[2].tolist())
     for _ in range(3):
         kv = torch.from_numpy(rng.randn(2, R, s_max, hd).astype(
             np.float32)).to(dev)
@@ -984,10 +1061,15 @@ def phase_serving_kernels(stt, torch, dev, kres):
     def cold(fn):
         return lambda: fn(*timed[next(turn) % 4][0], **kw)
 
-    warm_ms = _time_ms(lambda: decode_attention_kernel(*args, **kw))
-    r["ms"] = _time_ms(cold(decode_attention_kernel))
+    # device times by CUDA graph replay (the eager calls measure the
+    # wrapper's host time at these sizes)
+    eager_ms = _time_ms(cold(decode_attention_kernel))
+    warm_ms = _graph_ms(lambda: decode_attention_kernel(*args, **kw))
+    r["ms"] = _graph_ms(cold(decode_attention_kernel))
     r["plain_ms"] = _time_ms(cold(decode_attention_plain))
     warm_plain = _time_ms(lambda: decode_attention_plain(*args, **kw))
+    print(f"  decode_attention cold L2, eager calls: {eager_ms:.4f} ms a "
+          f"call", flush=True)
     r["library_ms"] = _decode_library_ms(torch, timed, R, s_max, hd)
     _decode_bound(r, tables=args[:3], q=args[3], k=args[4], n_keys=n_keys,
                   group=1)
@@ -1107,6 +1189,8 @@ def phase_paged_kernels(stt, torch, dev, kres):
                  paged_attention_plain(*args, **kw), TOL_KERNEL, r)
         if not torch.all(got[R - group:] == 0):
             _fail("paged_attention: the empty replica is not exactly 0")
+        if not torch.equal(got, paged_attention_kernel(*args, **kw)):
+            _fail("paged_attention: two runs differ")
         if dtype == torch.bfloat16 and qlen == 1 and group == 1:
             timed = [args]
             n_keys = sum(lens)
@@ -1116,17 +1200,20 @@ def phase_paged_kernels(stt, torch, dev, kres):
         timed.append(timed[0][:3] + (c.kv_len, timed[0][4], c.k, c.v,
                                      c.k_scale, c.v_scale))
     kw = dict(qlen=1, group=1, scale=hd ** -0.5)
+    _split_kv_note("paged_attention", R, mb, bk, timed[0][3].tolist())
     turn = itertools.count()
 
     def cold(fn):
         return lambda: fn(*timed[next(turn) % 4], **kw)
 
-    r["ms"] = _time_ms(cold(paged_attention_kernel))
+    eager_ms = _time_ms(cold(paged_attention_kernel))
+    r["ms"] = _graph_ms(cold(paged_attention_kernel))
     r["plain_ms"] = _time_ms(cold(paged_attention_plain))
-    warm_ms = _time_ms(lambda: paged_attention_kernel(*timed[0], **kw))
+    warm_ms = _graph_ms(lambda: paged_attention_kernel(*timed[0], **kw))
     print(f"  paged_attention R={R} S={mb} bk={bk} hd={hd} bf16 kv_len "
-          f"1088: kernel {r['ms']:.4f} ms cold L2 ({warm_ms:.4f} warm), "
-          f"plain {r['plain_ms']:.4f} ms", flush=True)
+          f"1088: kernel {r['ms']:.4f} ms cold L2 ({warm_ms:.4f} warm; "
+          f"graph replay; eager calls {eager_ms:.4f} ms a call), plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
     # no PyTorch call reads K/V through a page table
     r["library_ms"] = None
     _decode_bound(r, tables=timed[0][:4], q=timed[0][4], k=timed[0][5],
@@ -2859,12 +2946,77 @@ def _bsr_tensor(torch, spec, panel):
         panel[: bv.num_blocks], (bv.m_pad, bv.n_pad))
 
 
+def _split_note(kc, bv, plans, R, width, label):
+    """Prints B13a's split plan for a call at ``width`` on ``R`` replicas:
+    the chunk size, the chunks and the row-blocks they cut, and the blocks
+    of each launch; returns the number of chunks."""
+    chunk = kc.split_chunk(bv.num_blocks, bv.mb, R, width, bv.bm)
+    plan = plans[chunk]
+    n_chunks, n_split = plan["chunks"].shape[0], plan["split_rows"].numel()
+    tiles = R * -(-width // 64) * -(-bv.bm // 64)
+    print(f"  {label}: split plan at {chunk} tiles a chunk: {n_chunks} "
+          f"chunks over {bv.mb} row-blocks ({n_split} cut, "
+          f"{plan['n_parts']} partial slots); pass 1 {n_chunks * tiles} "
+          f"CTAs (unsplit {bv.mb * tiles}), merge "
+          f"{n_split * R * -(-bv.bm * width // 256)} CTAs; "
+          f"{1 + (n_split > 0)} device launches a call", flush=True)
+    return n_chunks
+
+
+def _split_cases(stt, torch, dev, kc, P, rng):
+    """B13a's split walk on one very heavy row-block (every tile of its
+    row), two empty row-blocks and rows past ``M``, at bm = 64 and 128,
+    widths 1 and 64, every epilogue: against the plain version, the empty
+    row-blocks exactly 0 (+ bias), the same bits twice."""
+    for bm in (64, 128):
+        m, n = 4 * bm - 5, 4096
+        mask = np.zeros((m, n), bool)
+        mask[bm + 3] = True                       # row-block 1: 64 tiles
+        mask[2 * bm + 1, ::1000] = True           # row-block 2: 5 tiles
+        spec = P.PanelSpec(stt.SparseTopology.from_dense_mask(mask), bm, 64,
+                           compressed=True)
+        meta, bv = spec.meta(dev), spec.view
+        panel = torch.from_numpy(rng.randn(1, *bv.values_shape).astype(
+            np.float32)).to(dev) * meta["mask"]
+        bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
+        for width in (1, 64):
+            x = torch.from_numpy(rng.randn(1, n, width).astype(np.float32)
+                                 ).to(dev)
+            r = {}
+            for epi in ("none", "bias", "bias_relu"):
+                args = (meta["block_offsets"], meta["block_cols"], panel, x,
+                        None if epi == "none" else bias)
+                kw = dict(rows=m, epilogue=epi)
+                got = kc.bsr_spmm_panel_c(*args, **kw,
+                                          plans=meta["split_plans"])
+                if not torch.equal(got, kc.bsr_spmm_panel_c(
+                        *args, **kw, plans=meta["split_plans"])):
+                    _fail(f"spmm_c heavy row-block bm={bm} width={width}: "
+                          f"two runs differ")
+                _compare(f"spmm_c heavy row-block bm={bm} width={width} "
+                         f"epilogue={epi}", got,
+                         kc.bsr_spmm_panel_c_plain(*args, **kw), TOL_KERNEL,
+                         r)
+                for i in (0, 3):
+                    lo, hi = i * bm, min((i + 1) * bm, m)
+                    want = (torch.zeros_like(got[:, lo:hi]) if epi == "none"
+                            else bias[lo:hi, None].expand_as(got[:, lo:hi]))
+                    if not torch.equal(got[:, lo:hi], want.clamp(min=0) if
+                                       epi == "bias_relu" else want):
+                        _fail(f"spmm_c: empty row-block {i} is not exactly "
+                              f"0 (+ bias)")
+            _split_note(kc, bv, meta["split_plans"], 1, width,
+                        f"spmm_c heavy row-block bm={bm} width={width}")
+
+
 def phase_compressed_kernels(stt, torch, dev, kres):
     """Phase 2i: the compressed (true-BSR) kernels B13a, B13b, B14, B15a,
     B15b against their plain versions on the skewed 4096 x 4096 pattern at
     64 x 64 tiles (sliding window plus three global tokens): the chain's
     shapes (widths 64, timed into the JSON line) and bench.py's width
-    4096; B1 / B3 on the ELL panel of the same topology beside them."""
+    4096; B1 / B3 on the ELL panel of the same topology beside them. B13a
+    walks its split plan, timed beside the unsplit walk, also as the
+    softmax backward's ones-column row sum; then on a heavy row-block."""
     from sputnik_tpu_torch.ops import panel_api as P
     from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
     from sputnik_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_panel
@@ -2903,9 +3055,10 @@ def phase_compressed_kernels(stt, torch, dev, kres):
         cargs = (meta["block_offsets"], meta["block_cols"], panel, x)
         eargs = (emeta["block_cols"], emeta["nblocks"], epanel, x)
 
-        def c_kern(epi="none"):
+        def c_kern(epi="none", plans=meta["split_plans"]):
             return kc.bsr_spmm_panel_c(*cargs, None if epi == "none" else
-                                       bias, rows=size, epilogue=epi)
+                                       bias, rows=size, epilogue=epi,
+                                       plans=plans)
 
         def c_plain(epi="none"):
             return kc.bsr_spmm_panel_c_plain(
@@ -2916,17 +3069,31 @@ def phase_compressed_kernels(stt, torch, dev, kres):
         for epi in ("none", "bias", "bias_relu"):
             _compare(f"spmm_c width {width} epilogue={epi}", c_kern(epi),
                      c_plain(epi), TOL_KERNEL, r)
+            _compare(f"spmm_c width {width} epilogue={epi}, unsplit walk",
+                     c_kern(epi, plans=None), c_plain(epi), TOL_KERNEL)
+        if not torch.equal(c_kern(), c_kern()):
+            _fail(f"spmm_c width {width}: two runs differ")
         _compare(f"spmm_c width {width} vs dense torch.matmul", c_kern()[0],
                  a_dense @ x[0], TOL_KERNEL)
         _compare(f"B1 (ELL panel) width {width} vs spmm_c",
                  bsr_spmm_panel(*eargs, rows=size), c_kern(), TOL_KERNEL)
-        r["ms"], r["plain_ms"] = _time_ms(c_kern), _time_ms(c_plain)
-        ell_ms = _time_ms(lambda: bsr_spmm_panel(*eargs, rows=size))
-        dense_ms = _time_ms(lambda: a_dense @ x[0])
-        print(f"  spmm_c width {width}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms; B1 on the ELL panel {ell_ms:.4f} ms "
-              f"(B13a {ell_ms / r['ms']:.2f}x faster); dense fp32 "
-              f"torch.matmul {dense_ms:.4f} ms", flush=True)
+        chunks = _split_note(kc, bv, meta["split_plans"], 1, width,
+                             f"spmm_c width {width}")
+        if width == 64 and not chunks > bv.mb:
+            _fail(f"spmm_c width 64: {chunks} chunks, not more than the "
+                  f"{bv.mb} row-blocks")
+        # device times by CUDA graph replay; the eager calls beside them
+        eager_ms = _time_ms(c_kern)
+        r["ms"], r["plain_ms"] = _graph_ms(c_kern), _time_ms(c_plain)
+        whole_ms = _graph_ms(lambda: c_kern(plans=None))
+        ell_ms = _graph_ms(lambda: bsr_spmm_panel(*eargs, rows=size))
+        dense_ms = _graph_ms(lambda: a_dense @ x[0])
+        print(f"  spmm_c width {width}: kernel {r['ms']:.4f} ms (graph "
+              f"replay; eager calls {eager_ms:.4f} ms a call), the unsplit "
+              f"walk {whole_ms:.4f} ms, plain {r['plain_ms']:.4f} ms; B1 on "
+              f"the ELL panel {ell_ms:.4f} ms (B13a {ell_ms / r['ms']:.2f}x "
+              f"faster); dense fp32 torch.matmul {dense_ms:.4f} ms (graph "
+              f"replay)", flush=True)
         r["library_ms"] = _library_ms(
             f"spmm_c width {width} (torch.sparse_bsr_tensor @ dense, the "
             f"same 64x64 tiles)", lambda: bsr @ x[0])
@@ -2963,6 +3130,21 @@ def phase_compressed_kernels(stt, torch, dev, kres):
         if width == 64:
             kres["bsr_spmm_t_panel_c"].update(r)
         del x, g, got
+
+    # -- B13a as the softmax backward's ragged row sum: a ones column
+    ones = torch.ones(1, bv.n_pad, 1, device=dev)
+    rargs = (meta["block_offsets"], meta["block_cols"], panel, ones)
+    got = kc.bsr_spmm_panel_c(*rargs, rows=bv.m_pad,
+                              plans=meta["split_plans"])
+    _compare("spmm_c row sum (ones column, N = 1)", got,
+             kc.bsr_spmm_panel_c_plain(*rargs, rows=bv.m_pad), TOL_KERNEL)
+    _split_note(kc, bv, meta["split_plans"], 1, 1, "spmm_c row sum")
+    split_ms = _graph_ms(lambda: kc.bsr_spmm_panel_c(
+        *rargs, rows=bv.m_pad, plans=meta["split_plans"]))
+    whole_ms = _graph_ms(lambda: kc.bsr_spmm_panel_c(*rargs, rows=bv.m_pad))
+    print(f"  spmm_c row sum (N = 1): split {split_ms:.4f} ms, the unsplit "
+          f"walk {whole_ms:.4f} ms (graph replay)", flush=True)
+    _split_cases(stt, torch, dev, kc, P, rng)
 
     # -- B14 at the chain's d = 64, scaled as attention scores
     d = 64

@@ -47,9 +47,9 @@ _SIGNATURES = {
     "flash_sparse_bwd_fused_f32": [_P] * 15 + [_I] * 9 + [_F, _P],
     "flash_sparse_bwd_dq_f32": [_P] * 13 + [_I] * 9 + [_F, _P],
     "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
-    "decode_attention": [_P] * 9 + [_I] * 9 + [_F, _P],
+    "decode_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
     "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
-    "paged_attention": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "paged_attention": [_P] * 11 + [_I] * 10 + [_F, _P],
     "paged_append": [_P] * 11 + [_I] * 5 + [_P],
     "spmm_bh_f32": [_P] * 5 + [_I] * 9 + [_P],
     "sddmm_bh_f32": [_P] * 6 + [_I] * 9 + [_P],
@@ -61,7 +61,7 @@ _SIGNATURES = {
     "flash_sparse_fwd_int8": [_P] * 11 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dkv_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
-    "spmm_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
+    "spmm_panel_c_f32": [_P] * 10 + [_I] * 12 + [_P],
     "spmm_t_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
     "sddmm_panel_c_f32": [_P] * 6 + [_I] * 7 + [_P],
     "c_softmax_stats_f32": [_P] * 5 + [_I] * 5 + [_P],

@@ -12,6 +12,12 @@ exactly 0. B13a, B13b and B14 are the bodies of B1, B3 and B4
 (``csrc/bsr_spmm.cu``, ``bsr_spmm_t.cu``, ``bsr_sddmm.cu``) on a second
 address policy; B15a and B15b are ``csrc/bsr_compressed.cu``.
 
+B13a splits the serial walk of a row-block that holds many tiles: a host
+plan (``split_plan``, cached per chunk size by ``SplitPlans``, which
+``PanelSpec.meta(device)`` holds as ``split_plans``) cuts every row-block's
+tiles into chunks of at most ``split_chunk(...)`` tiles, one CUDA block
+each, and a second launch sums the partials of the row-blocks it cut.
+
 The plain versions take the same metadata, are vectorised over row-blocks
 (block columns for the transposed product) with one step per tile slot, as
 the ELL plain versions are, and run in any float dtype (float64 for
@@ -20,6 +26,7 @@ the ELL plain versions are, and run in any float dtype (float64 for
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,7 +34,8 @@ from . import check_operands, guard_no_grad
 from ._build import check, library
 from .bsr_spmm import EPILOGUES, _epilogue
 
-__all__ = ["bsr_spmm_panel_c", "bsr_spmm_panel_c_plain",
+__all__ = ["bsr_spmm_panel_c", "bsr_spmm_panel_c_plain", "split_chunk",
+           "split_plan", "SplitPlans",
            "bsr_spmm_t_panel_c", "bsr_spmm_t_panel_c_plain",
            "bsr_sddmm_panel_c", "bsr_sddmm_panel_c_plain",
            "c_softmax_stats", "c_softmax_stats_plain",
@@ -35,6 +43,8 @@ __all__ = ["bsr_spmm_panel_c", "bsr_spmm_panel_c_plain",
 
 _NEG_LARGE = -1e30     # the TPU kernel's masked score
 _MIN_DENOM = 1e-30     # the TPU kernel's floor of a row's denominator
+SMS = 132              # streaming multiprocessors of an H100 SXM
+SPLIT_CTAS = 2 * SMS   # blocks B13a's first pass aims for where it splits
 
 
 def _walk(block_offsets):
@@ -44,6 +54,72 @@ def _walk(block_offsets):
     first, count = offs[:-1], offs[1:] - offs[:-1]
     steps = int(count.max().item()) if count.numel() else 0
     return first, count, steps
+
+
+def split_chunk(n_tiles: int, mb: int, R: int, N: int, bm: int) -> int:
+    """The most tiles one chunk of B13a's walk holds, from host ints alone
+    (``n_tiles`` real tiles, ``mb`` row-blocks, ``R`` replicas, width
+    ``N``, ``bm`` rows a tile). Where one block per (row-block, 64-row
+    slice, 64-column tile, replica) already gives ``SPLIT_CTAS`` blocks,
+    ``n_tiles``: every row-block whole, one chunk each. Else small enough
+    that the chunks of the tiles reach that many blocks."""
+    per_walk = R * -(-N // 64) * -(-bm // 64)
+    if mb * per_walk >= SPLIT_CTAS:
+        return max(n_tiles, 1)
+    return max(1, -(-n_tiles // -(-SPLIT_CTAS // per_walk)))
+
+
+def split_plan(block_offsets, chunk: int) -> dict:
+    """B13a's split plan of ``block_offsets`` (host numpy, ``[mb + 1]``) at
+    ``chunk`` tiles: row-block ``i``'s tiles ``offs[i] .. offs[i + 1] - 1``
+    cut in order into chunks of at most ``chunk`` (an empty row-block keeps
+    one empty chunk, which writes 0 + bias). ``chunks`` i32[n_chunks, 4]:
+    row-block, first tile, tile count, partial slot (-1 for a row-block's
+    only chunk, which writes its output); ``split_rows`` i32[n_split], the
+    row-blocks cut in two or more, whose partial slots are
+    ``split_parts[j] .. split_parts[j + 1] - 1`` (i32[n_split + 1]), in
+    chunk order; ``n_parts`` the number of slots."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
+    offs = np.asarray(block_offsets, np.int64)
+    count = np.diff(offs)
+    n = np.maximum(1, -(-count // chunk))            # chunks a row-block
+    row = np.repeat(np.arange(count.size), n)
+    k = np.arange(row.size) - np.repeat(np.cumsum(n) - n, n)
+    first = offs[:-1][row] + k * chunk
+    cut = n[row] > 1
+    part = np.full(row.size, -1)
+    part[cut] = np.arange(int(cut.sum()))
+    return dict(
+        chunks=np.stack([row, first, np.minimum(chunk, offs[1:][row] - first),
+                         part], 1).astype(np.int32),
+        split_rows=np.flatnonzero(n > 1).astype(np.int32),
+        split_parts=np.concatenate([[0], np.cumsum(n[n > 1])]).astype(
+            np.int32),
+        n_parts=int(cut.sum()))
+
+
+class SplitPlans(dict):
+    """B13a's split plans of one compressed topology on one device, by chunk
+    size: each built on first use from the host's ``block_offsets`` (the
+    device is never read) and kept."""
+
+    def __init__(self, block_offsets, device):
+        super().__init__()
+        self.block_offsets = np.asarray(block_offsets)
+        self.device = torch.device(device)
+
+    def to(self, device) -> "SplitPlans":
+        device = torch.device(device)
+        return self if device == self.device else SplitPlans(
+            self.block_offsets, device)
+
+    def __missing__(self, chunk):
+        plan = {k: v if isinstance(v, int) else torch.as_tensor(
+            v, device=self.device)
+            for k, v in split_plan(self.block_offsets, chunk).items()}
+        self[chunk] = plan
+        return plan
 
 
 def bsr_spmm_panel_c_plain(block_offsets, block_cols, panel, dense, bias=None,
@@ -67,13 +143,18 @@ def bsr_spmm_panel_c_plain(block_offsets, block_cols, panel, dense, bias=None,
 
 
 def bsr_spmm_panel_c(block_offsets, block_cols, panel, dense, bias=None, *,
-                     rows: int, epilogue: str = "none"):
+                     rows: int, epilogue: str = "none", plans=None):
     """``epilogue(A[r] @ dense[r] (+ bias))`` over the compressed panel.
 
     block_offsets i32[mb + 1], block_cols i32[T] (T = num_blocks + 1),
     panel f32[R, T, bm, bk], dense f32[R, K, N] (rows past ``K`` count as
     zero), bias f32[rows] (for ``bias`` / ``bias_relu``) -> f32[R, rows, N].
-    A row-block without tiles gives exactly 0 (+ bias).
+    A row-block without tiles gives exactly 0 (+ bias). ``plans``: the
+    topology's ``SplitPlans`` on the panel's device
+    (``PanelSpec.meta(device)["split_plans"]``); the kernel then walks the
+    plan at ``split_chunk(T - 1, mb, R, N, bm)`` tiles where it cuts a
+    row-block. Without it, or where the plan cuts none, one block walks
+    each row-block whole. The CPU path ignores it.
     """
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -108,15 +189,34 @@ def bsr_spmm_panel_c(block_offsets, block_cols, panel, dense, bias=None, *,
     if bias.shape != (rows,):
         raise ValueError(f"bias {tuple(bias.shape)} != ({rows},)")
     K, N = dense.shape[1:]
-    if R > 65535 or mb * -(-bm // 64) > 65535:
+    plan = {}
+    if plans is not None:
+        if plans.block_offsets.size != mb + 1:
+            raise ValueError(f"split plans of {plans.block_offsets.size - 1}"
+                             f" row-blocks for a panel of {mb}")
+        plan = plans[split_chunk(T - 1, mb, R, N, bm)]
+    if plan.get("n_parts"):      # a row-block is cut: the split walk
+        check_operands("bsr_spmm_panel_c", dev,
+                       chunks=(plan["chunks"], torch.int32),
+                       split_rows=(plan["split_rows"], torch.int32),
+                       split_parts=(plan["split_parts"], torch.int32))
+        ptrs = [plan[k].data_ptr() for k in ("chunks", "split_rows",
+                                             "split_parts")]
+        n_chunks, n_split = plan["chunks"].shape[0], plan["split_rows"].numel()
+    else:                        # every row-block whole
+        ptrs, n_chunks, n_split = [0, 0, 0], mb, 0
+    if R > 65535 or n_chunks * -(-bm // 64) > 65535 or n_split > 65535:
         raise ValueError("grid too large for one launch")
     out = torch.empty((R, rows, N), device=dev, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    partials = torch.empty((R, plan.get("n_parts", 0), bm, N), device=dev,
+                           dtype=torch.float32)
     err = library().spmm_panel_c_f32(
-        block_offsets.data_ptr(), block_cols.data_ptr(), panel.data_ptr(),
-        dense.data_ptr(), bias.data_ptr(), out.data_ptr(), R, mb, T, bm, bk,
-        K, N, rows, EPILOGUES[epilogue],
+        block_offsets.data_ptr(), block_cols.data_ptr(), *ptrs,
+        panel.data_ptr(), dense.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), R, mb, n_chunks, n_split, plan.get("n_parts", 0),
+        T, bm, bk, K, N, rows, EPILOGUES[epilogue],
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bsr_spmm_panel_c")
     bsr_spmm_panel_c.launches += 1

@@ -26,13 +26,45 @@ from . import check_operands
 from ._build import check, library
 
 __all__ = ["decode_attention_kernel", "decode_attention_plain",
-           "attend_slots_plain", "QPAD", "MAX_BK", "MAX_HD", "DTYPES"]
+           "attend_slots_plain", "attend_slots_state", "split_keys",
+           "QPAD", "MAX_BK", "MAX_HD", "DTYPES"]
 
 _NEG_LARGE = -1e30
 QPAD = 8        # most query rows per replica (speculative verification)
 MAX_BK = 1024   # largest KV block
 MAX_HD = 128    # largest head dim
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SPLIT_CTAS = 4 * 132   # blocks the split aims for: 4 waves of an H100's SMs
+
+
+def split_keys(R: int, S: int, bk: int, int8: bool) -> int:
+    """Keys of one chunk of B19 / B20a's split walk, from host ints: a whole
+    ``bk`` block for an int8 cache (its ``p`` scale is per block); else the
+    least power of two >= 64 for which the ``R * S * ceil(bk / keys)``
+    chunks stay within ``SPLIT_CTAS`` blocks, at most ``bk``."""
+    keys = 64
+    while keys < bk and R * S * -(-bk // keys) > SPLIT_CTAS:
+        keys *= 2
+    return bk if int8 else min(keys, bk)
+
+
+def launch_split(entry, name, ptrs, q, out, *, S, bk, group, extent, dt,
+                 vec, scale):
+    """Launches B19 / B20a's two passes through the C entry ``entry`` (the
+    tables' and operands' pointers ``ptrs``; ``extent``: ``s_max``, or the
+    pool's pages) at ``split_keys`` keys a chunk, with the chunks'
+    workspace ``f32[R * chunks * qlen * (hd + 2)]`` and the slots' row
+    maxima ``f32[R * S * qlen]`` (int8)."""
+    R, qlen, hd = q.shape
+    if R > 65535:
+        raise ValueError(f"{name}: R {R} > 65535, too many for one grid")
+    keys = split_keys(R, S, bk, dt == torch.int8)
+    work = torch.empty(R * S * qlen * (-(-bk // keys) * (hd + 2) + 1),
+                       device=q.device, dtype=torch.float32)
+    err = entry(*ptrs, out.data_ptr(), work.data_ptr(), R, S, bk, keys, qlen,
+                group, hd, extent, DTYPES[dt], vec, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    check(err, name)
 
 
 def _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
@@ -64,16 +96,18 @@ def _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
                         f"expected one of {list(DTYPES)}")
 
 
-def attend_slots_plain(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
+def attend_slots_state(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
                        kv_len, *, bk: int, qlen: int, group: int,
-                       scale: float):
-    """The kernel's slot-by-slot online softmax, vectorised over replicas,
-    one step per table slot, over keys addressed as rows: slot ``s`` of
-    query replica ``r`` reads rows ``base[r, s] + j`` of ``k_rows`` /
-    ``v_rows`` (``[N, hd]``) and ``ks_rows`` / ``vs_rows`` (``[N]``), at
-    positions ``key0[r, s] + j`` (``j < bk``), where ``live[r, s]``. The
-    plain version of B19 and of B20a (paged), which differ only in
-    ``base`` / ``key0``."""
+                       scale: float, m0=None):
+    """The TPU kernel's slot-by-slot online softmax, vectorised over
+    replicas, one step per table slot, over keys addressed as rows: slot
+    ``s`` of query replica ``r`` reads rows ``base[r, s] + j`` of
+    ``k_rows`` / ``v_rows`` (``[N, hd]``) and ``ks_rows`` / ``vs_rows``
+    (``[N]``), at positions ``key0[r, s] + j`` (``j < bk``), where
+    ``live[r, s]``. Returns the unnormalised state ``(acc f32[R, qlen, hd],
+    m, l f32[R, qlen])``: ``m = -1e30``, ``l = 0``, ``acc = 0`` where no key
+    was seen. ``m0 f32[R, qlen]``: the running max before the first slot
+    (-1e30), as the kernel's int8 chunks take it from the earlier slots."""
     R, _, hd = q.shape
     S = base.shape[1]
     dev = q.device
@@ -86,7 +120,8 @@ def attend_slots_plain(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
     kin = torch.arange(bk, device=dev)
     qpos = (kv_len.long()[rk][:, None] - qlen
             + torch.arange(qlen, device=dev)[None])             # [R, qlen]
-    m = q.new_full((R, qlen), _NEG_LARGE, dtype=torch.float32)
+    m = (q.new_full((R, qlen), _NEG_LARGE, dtype=torch.float32)
+         if m0 is None else m0)
     l = torch.zeros_like(m)
     acc = torch.zeros((R, qlen, hd), device=dev, dtype=torch.float32)
     for s in range(S):
@@ -112,6 +147,14 @@ def attend_slots_plain(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
         acc = torch.where(on[..., None], acc * corr[..., None] + ctx, acc)
         l = torch.where(on, l_new, l)
         m = torch.where(on, m_new, m)
+    return acc, m, l
+
+
+def attend_slots_plain(*args, **kw):
+    """``attend_slots_state`` normalised, ``acc / max(l, 1e-30)``: the plain
+    version of B19 and of B20a (paged), which differ only in ``base`` /
+    ``key0``."""
+    acc, _, l = attend_slots_state(*args, **kw)
     return acc / l.clamp(min=1e-30)[..., None]
 
 
@@ -159,13 +202,11 @@ def decode_attention_kernel(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
         return out
     vec = int(hd % 4 == 0 and all(t.data_ptr() % 16 == 0
                                   for t in (q, k_cache, v_cache)))
-    err = library().decode_attention(
-        tbl.data_ptr(), valid.data_ptr(), kv_len.data_ptr(), q.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), R, tbl.shape[1], bk, qlen, group,
-        hd, s_max, DTYPES[dt], vec, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "decode_attention")
+    launch_split(library().decode_attention, "decode_attention",
+                 [t.data_ptr() for t in (tbl, valid, kv_len, q, k_cache,
+                                         v_cache, k_scale, v_scale)],
+                 q, out, S=tbl.shape[1], bk=bk, group=group, extent=s_max,
+                 dt=dt, vec=vec, scale=scale)
     decode_attention_kernel.launches += 1
     return out
 

@@ -10,8 +10,8 @@ rows are read, ``logical[r, s]`` the logical block that places its keys at
 positions ``logical * bk + j`` for the causal mask (against
 ``kv_len[r // group] - qlen + row``), and slots with ``valid == 0`` or a
 page id outside ``[0, P_alloc)`` are skipped. The arithmetic, the int8
-algebra and the limits (``qlen <= 8``, ``bk <= 1024``, ``hd <= 128``) are
-B19's.
+algebra, the split into key chunks and the limits (``qlen <= 8``,
+``bk <= 1024``, ``hd <= 128``) are B19's.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ from __future__ import annotations
 import torch
 
 from . import check_operands
-from ._build import check, library
+from ._build import library
 from .decode_attention import (DTYPES, MAX_BK, MAX_HD, QPAD,
-                               attend_slots_plain)
+                               attend_slots_plain, launch_split)
 
 __all__ = ["paged_attention_kernel", "paged_attention_plain"]
 
@@ -98,13 +98,11 @@ def paged_attention_kernel(phys, logical, valid, kv_len, q, k_pool, v_pool,
         return out
     vec = int(hd % 4 == 0 and all(t.data_ptr() % 16 == 0
                                   for t in (q, k_pool, v_pool)))
-    err = library().paged_attention(
-        phys.data_ptr(), logical.data_ptr(), valid.data_ptr(),
-        kv_len.data_ptr(), q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(), R,
-        phys.shape[1], bk, qlen, group, hd, P, DTYPES[dt], vec, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "paged_attention")
+    launch_split(library().paged_attention, "paged_attention",
+                 [t.data_ptr() for t in (phys, logical, valid, kv_len, q,
+                                         k_pool, v_pool, k_scale, v_scale)],
+                 q, out, S=phys.shape[1], bk=bk, group=group, extent=P,
+                 dt=dt, vec=vec, scale=scale)
     paged_attention_kernel.launches += 1
     return out
 

@@ -185,9 +185,11 @@ class PanelSpec:
 
         Compressed: ``block_offsets`` i32[mb+1], ``block_cols`` and
         ``block_rows`` i32[num_blocks+1], the f32 ``mask`` [num_blocks+1,
-        bm, bk], and the transposed walk of ``CompressedView.transpose_meta``
+        bm, bk], the transposed walk of ``CompressedView.transpose_meta``
         by global tile id: ``t_gblk`` / ``t_rows`` i32[kb*max_bpc] and
-        ``t_nblocks`` i32[kb]."""
+        ``t_nblocks`` i32[kb], and ``split_plans``, the compressed SpMM's
+        split plans (``kernels.bsr_compressed.SplitPlans``, one per chunk
+        size, built from the host's ``block_offsets`` on first use)."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
@@ -205,7 +207,8 @@ class PanelSpec:
                     block_rows=torch.as_tensor(bv.block_rows, device=device),
                     mask=mask, t_gblk=torch.as_tensor(t_a, device=device),
                     t_rows=torch.as_tensor(t_b, device=device),
-                    t_nblocks=torch.as_tensor(t_nblocks, device=device))
+                    t_nblocks=torch.as_tensor(t_nblocks, device=device),
+                    split_plans=_c.SplitPlans(bv.block_offsets, device))
             else:
                 got = dict(
                     block_cols=torch.as_tensor(bv.block_cols.reshape(-1),
@@ -298,7 +301,8 @@ def _raw_spmm(spec, panel, dense, bias=None, epilogue="none", rows=None):
     if spec.compressed:
         return _c.bsr_spmm_panel_c(meta["block_offsets"], meta["block_cols"],
                                    panel, dense.contiguous(), bias, rows=rows,
-                                   epilogue=epilogue)
+                                   epilogue=epilogue,
+                                   plans=meta["split_plans"])
     return bsr_spmm_panel(meta["block_cols"], meta["nblocks"], panel,
                           dense.contiguous(), bias, rows=rows,
                           epilogue=epilogue)

@@ -131,8 +131,10 @@ def test_panel_spec_equality_tells_the_layouts_apart():
     assert c.view.values_shape == (c.view.num_blocks + 1, 16, 16)
     meta = c.meta("cpu")
     assert set(meta) == {"block_offsets", "block_cols", "block_rows", "mask",
-                         "t_gblk", "t_rows", "t_nblocks"}
-    assert all(v.dtype == torch.int32 for k, v in meta.items() if k != "mask")
+                         "t_gblk", "t_rows", "t_nblocks", "split_plans"}
+    assert all(v.dtype == torch.int32 for k, v in meta.items()
+               if k not in ("mask", "split_plans"))
+    assert isinstance(meta["split_plans"], kc.SplitPlans)
     assert meta["mask"].dtype == torch.float32
     assert tuple(meta["mask"].shape) == c.view.values_shape
 
@@ -175,6 +177,129 @@ def test_plain_spmm_c_matches_pallas_kernel(kind, tiles, epilogue):
         want = torch.zeros_like(rows) if epilogue == "none" else (
             torch.from_numpy(bias[i * jv.bm:(i + 1) * jv.bm])[:, None]
             .expand_as(rows))
+        if epilogue == "bias_relu":
+            want = want.clamp(min=0)
+        assert torch.equal(rows, want)
+
+
+# -- B13a's split walk: the host plan and its algebra
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3, 7, 10_000])
+@pytest.mark.parametrize("tiles", TILES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_split_plan_covers_every_tile_once(kind, tiles, chunk):
+    """Every real tile in exactly one chunk, in order; never the dump tile;
+    no chunk crosses a row-block or holds more than ``chunk`` tiles; an
+    empty row-block keeps one empty chunk; the cut row-blocks own their
+    partial slots back to back, in chunk order."""
+    _, tm = _pair(_matrix(kind))
+    bv = stt.build_compressed(tm.topology, bm=tiles[0], bk=tiles[1])
+    plan = kc.split_plan(bv.block_offsets, chunk)
+    row, first, count, part = plan["chunks"].T
+    offs = bv.block_offsets
+    assert plan["chunks"].dtype == np.int32
+    tiles_walked = np.concatenate(
+        [np.arange(f, f + c) for f, c in zip(first, count)] + [[]])
+    np.testing.assert_array_equal(tiles_walked, np.arange(bv.num_blocks))
+    assert bv.values_shape[0] - 1 not in tiles_walked     # the dump tile
+    assert np.all((first >= offs[row]) & (first + count <= offs[row + 1]))
+    assert np.all((count <= chunk) & (count >= 0))
+    np.testing.assert_array_equal(np.unique(row), np.arange(bv.mb))
+    assert np.all(np.diff(row) >= 0)
+    n = np.bincount(row, minlength=bv.mb)
+    assert np.all(count[n[row] == 1] == np.diff(offs)[row[n[row] == 1]])
+    np.testing.assert_array_equal(plan["split_rows"], np.flatnonzero(n > 1))
+    assert np.all(part[n[row] == 1] == -1)
+    np.testing.assert_array_equal(part[n[row] > 1],
+                                  np.arange(plan["n_parts"]))
+    np.testing.assert_array_equal(plan["split_parts"],
+                                  np.concatenate([[0], np.cumsum(n[n > 1])]))
+    if chunk >= bv.num_blocks:                  # no cut: today's walk
+        assert plan["n_parts"] == 0 and len(row) == bv.mb
+
+
+def test_split_chunk_cuts_only_a_short_grid():
+    """The chunk rule on the skewed 4096^2 pattern of ``chip_smoke.py``
+    (375 tiles of 64 x 64): at widths 1 and 64 the walk is cut into 2-tile
+    chunks, more blocks than row-blocks; at width 4096 (64 column tiles x
+    64 row-blocks fill the card) every row-block is one chunk."""
+    rows = np.arange(4096)
+    lo = np.maximum(0, rows - 16)
+    mask = (rows[None] >= lo[:, None]) & (rows[None] < lo[:, None] + 32)
+    mask[[7, 140, 4093]] = True
+    spec = P.PanelSpec(stt.SparseTopology.from_dense_mask(mask), 64, 64,
+                       compressed=True)
+    bv, plans = spec.view, spec.meta("cpu")["split_plans"]
+    assert bv.num_blocks == 375
+    for width in (1, 64):
+        chunk = kc.split_chunk(bv.num_blocks, bv.mb, 1, width, 64)
+        assert chunk == 2
+        assert plans[chunk]["chunks"].shape[0] > bv.mb
+    chunk = kc.split_chunk(bv.num_blocks, bv.mb, 1, 4096, 64)
+    assert chunk == bv.num_blocks
+    plan = plans[chunk]
+    assert plan["n_parts"] == 0 and plan["chunks"].shape[0] == bv.mb
+    assert plans[chunk] is plan                    # built once per chunk
+    assert torch.equal(plan["chunks"][:, 2],
+                       torch.from_numpy(np.diff(bv.block_offsets)).int())
+
+
+def _split_spmm_emulated(meta, panel, dense, bias, plan, *, bm, rows,
+                         epilogue):
+    """B13a's two passes through the plain version: the chunks as virtual
+    row-blocks (pass 1, no epilogue), then each row-block the sum of its
+    chunks' partials in chunk order, with the epilogue once."""
+    chunks = plan["chunks"]
+    n_tiles = meta["block_cols"].numel() - 1
+    offs = torch.cat([torch.from_numpy(chunks[:, 1]),
+                      torch.tensor([n_tiles], dtype=torch.int32)])
+    part = kc.bsr_spmm_panel_c_plain(offs, meta["block_cols"], panel, dense,
+                                     rows=len(chunks) * bm)
+    R, N = part.shape[0], part.shape[-1]
+    mb = meta["block_offsets"].numel() - 1
+    out = part.new_zeros((R, mb, bm, N))
+    for c, row in enumerate(chunks[:, 0]):
+        out[:, row] += part[:, c * bm:(c + 1) * bm]
+    out = out.reshape(R, mb * bm, N)[:, :rows]
+    if epilogue != "none":
+        out = out + bias[:rows, None]
+    return out.clamp(min=0) if epilogue == "bias_relu" else out
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5])
+@pytest.mark.parametrize("kind,tiles", OP_CASES)
+@pytest.mark.parametrize("epilogue", ["none", "bias", "bias_relu"])
+def test_split_spmm_c_algebra_matches_plain_and_pallas(kind, tiles, chunk,
+                                                       epilogue):
+    """Split + merge, emulated through the plain version, equals the unsplit
+    plain version and JAX's ``bsr_spmm_panel_c`` in interpret mode; an
+    empty row-block gives exactly 0 (+ bias)."""
+    jm, tm, jv, spec, meta, panel, rng = _kernel_problem(kind, tiles)
+    dense = np.zeros((jv.n_pad, 128), np.float32)
+    dense[: tm.topology.n, :20] = rng.randn(tm.topology.n, 20)
+    bias = rng.randn(jv.m_pad).astype(np.float32)
+    ref = np.asarray(jc.bsr_spmm_panel_c(
+        jv.block_offsets, jv.block_cols, panel, dense, bias[:, None],
+        mb=jv.mb, max_bpr=jv.max_bpr, num_blocks=jv.num_blocks, bm=jv.bm,
+        bk=jv.bk, bn=128, epilogue=epilogue, interpret=True))
+    t_panel, t_dense = (torch.from_numpy(panel)[None],
+                        torch.from_numpy(dense)[None])
+    t_bias = torch.from_numpy(bias)
+    got = _split_spmm_emulated(
+        meta, t_panel, t_dense, t_bias, kc.split_plan(jv.block_offsets,
+                                                      chunk),
+        bm=jv.bm, rows=jv.m_pad, epilogue=epilogue)[0]
+    whole = kc.bsr_spmm_panel_c(
+        meta["block_offsets"], meta["block_cols"], t_panel, t_dense,
+        None if epilogue == "none" else t_bias, rows=jv.m_pad,
+        epilogue=epilogue, plans=meta["split_plans"])[0]
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    for i in np.flatnonzero(np.diff(jv.block_offsets) == 0):
+        rows = got[i * jv.bm:(i + 1) * jv.bm]
+        want = torch.zeros_like(rows) if epilogue == "none" else (
+            t_bias[i * jv.bm:(i + 1) * jv.bm, None].expand_as(rows))
         if epilogue == "bias_relu":
             want = want.clamp(min=0)
         assert torch.equal(rows, want)

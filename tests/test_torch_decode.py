@@ -266,6 +266,134 @@ def test_decode_attention_matches_jax(dtype, qlen, group, bk):
                                    atol=2e-3)
 
 
+def split_merge_emulated(q, k_rows, v_rows, ks_rows, vs_rows, base, key0,
+                         live, kv_len, *, bk, keys, qlen, group, scale):
+    """B19 / B20a's split, emulated through the plain state: every slot's
+    keys cut into chunks of ``keys`` (the last one shorter), each chunk's
+    ``(acc, m, l)`` from ``attend_slots_state`` as a one-slot walk (an int8
+    chunk, a whole slot, starting from the running max of the slots before
+    it), merged per replica and row in chunk order: ``M = max m``,
+    ``sum e^(m - M) acc / max(sum e^(m - M) l, 1e-30)``."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        attend_slots_state)
+
+    rows = (q, k_rows, v_rows, ks_rows, vs_rows)
+    kw = dict(qlen=qlen, group=group, scale=scale)
+    states = []
+    for s in range(base.shape[1]):
+        m0 = None
+        if k_rows.dtype == torch.int8 and s:
+            m0 = attend_slots_state(*rows, base[:, :s], key0[:, :s],
+                                    live[:, :s], kv_len, bk=bk, **kw)[1]
+        states += [attend_slots_state(
+            *rows, base[:, s:s + 1] + lo, key0[:, s:s + 1] + lo,
+            live[:, s:s + 1], kv_len, bk=min(keys, bk - lo), m0=m0, **kw)
+            for lo in range(0, bk, keys)]
+    acc, m, l = (torch.stack(x, 1) for x in zip(*states))
+    w = torch.exp(m - m.amax(1, keepdim=True))
+    return ((w[..., None] * acc).sum(1)
+            / (w * l).sum(1).clamp(min=1e-30)[..., None])
+
+
+def _contiguous_rows(tbl, valid, cache, bk, group, R):
+    """decode_attention_plain's addressing: the rows and positions of each
+    slot's keys in the replica's own cache."""
+    R_kv, s_max, hd = cache.k.shape
+    nb = s_max // bk
+    blk = tbl.long()
+    key0 = blk.clamp(0, nb - 1) * bk
+    rk = (torch.arange(R) // group)[:, None]
+    return (cache.k.reshape(-1, hd), cache.v.reshape(-1, hd),
+            cache.k_scale.reshape(-1), cache.v_scale.reshape(-1),
+            rk * s_max + key0, key0, (valid == 1) & (blk >= 0) & (blk < nb))
+
+
+@pytest.mark.parametrize("qlen,group", [(1, 1), (4, 4)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_kv_merge_matches_plain_and_jax(dtype, qlen, group):
+    """The split-KV algebra of B19 at kv_len 0, 1 and 1088 (bk = 1024, the
+    serving block; one replica's window slot invalid): the emulated merge
+    over chunks of 96 keys (not dividing bk), 1024 and ``split_keys``' own
+    choice (f32 / bf16; a whole block for int8) equals the port's plain
+    version and JAX (its XLA oracle; its Pallas kernel in interpret mode),
+    and the replica with no key gives exactly 0. Out-of-range block ids
+    too, against the plain version alone."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_plain, split_keys)
+
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.RandomState(50 + qlen + group)
+    R_kv, s_max, hd, bk = 3, 2048, 16, 1024
+    R = R_kv * group
+    lens = np.array([1088, 0, 1], np.int32)
+    ks, vs = (rng.randn(R_kv, s_max, hd).astype(np.float32)
+              for _ in range(2))
+    q = rng.randn(R, qlen, hd).astype(np.float32)
+    jc = JD.prefill_kv(JD.init_kv_cache(R_kv, s_max, hd, jdt),
+                       jnp.asarray(ks), jnp.asarray(vs), jnp.asarray(lens))
+    tc = TD.prefill_kv(TD.init_kv_cache(R_kv, s_max, hd, tdt),
+                       torch.from_numpy(ks), torch.from_numpy(vs),
+                       torch.from_numpy(lens))
+    kw = dict(s_max=s_max, bk=bk, window_blocks=2, sink_blocks=0)
+    jt, jv = JD.decode_block_table(jc.kv_len, **kw)
+    tt, tv = TD.decode_block_table(tc.kv_len, **kw)
+    assert tv[2].tolist() == [0, 1]             # kv_len 1: a slot invalid
+    tq = torch.from_numpy(q)
+    tbl, valid = (t.repeat_interleave(group, 0) for t in (tt, tv))
+    plain_kw = dict(bk=bk, qlen=qlen, group=group, scale=hd ** -0.5)
+    plain = decode_attention_plain(tbl, valid, tc.kv_len, tq, tc.k, tc.v,
+                                   tc.k_scale, tc.v_scale, **plain_kw)
+    dkw = dict(bk=bk, qlen=qlen, group=group)
+    oracle = np.asarray(_backend("xla", lambda: JD.decode_attention(
+        jnp.asarray(q), jc, jt, jv, **dkw)))
+    pallas = np.asarray(_backend("pallas", lambda: JD.decode_attention(
+        jnp.asarray(q), jc, jt, jv, **dkw)))
+    choices = ({bk} if dtype == "int8"
+               else {96, bk, split_keys(R, 2, bk, False)})
+    assert split_keys(R, 2, bk, dtype == "int8") in choices
+    bad = tbl.clone()
+    bad[0, 1], bad[-1, 0] = 7, -2                 # ids outside the cache
+    for tables in ((tbl, valid), (bad, valid)):
+        rows = _contiguous_rows(*tables, tc, bk, group, R)
+        ref = decode_attention_plain(tables[0], valid, tc.kv_len, tq, tc.k,
+                                     tc.v, tc.k_scale, tc.v_scale, **plain_kw)
+        for keys in sorted(choices):
+            got = split_merge_emulated(tq, *rows, tc.kv_len, keys=keys,
+                                       **plain_kw)
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-4 * ref.abs().max().item(), (keys, err)
+            assert torch.all(got[group:2 * group] == 0)
+            if tables[0] is bad:
+                continue
+            got = got.numpy()
+            if dtype == "int8":
+                np.testing.assert_allclose(got, pallas, rtol=1e-4,
+                                           atol=1e-4)
+                np.testing.assert_allclose(got, oracle, rtol=5e-2,
+                                           atol=1e-2)
+                continue
+            np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+            if dtype == "bf16":
+                np.testing.assert_allclose(got, pallas, rtol=2e-2,
+                                           atol=2e-3)
+    assert torch.equal(plain, decode_attention_plain(
+        tbl, valid, tc.kv_len, tq, tc.k, tc.v, tc.k_scale, tc.v_scale,
+        **plain_kw))
+
+
+def test_split_keys_spread_the_serving_shape():
+    """At the serving shape (R = 32, S = 2, bk = 1024) an fp cache is cut
+    at 128 keys, 16 chunks a replica (512 blocks, not 32); an int8 cache
+    at its blocks; small problems at 64 keys or the whole (short) block."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import split_keys
+
+    assert split_keys(32, 2, 1024, False) == 128
+    assert split_keys(32, 2, 1024, True) == 1024
+    assert split_keys(4, 2, 1024, False) == 64
+    assert split_keys(4, 3, 8, False) == 8
+    assert split_keys(512, 8, 1024, False) == 1024
+
+
 def test_decode_attention_validates():
     c = TD.init_kv_cache(2, 64, 16, torch.float32)
     tbl = torch.zeros(2, 1, dtype=torch.int32)

@@ -359,12 +359,15 @@ def _decode_problem(dev, dtype, hd, bk, qlen, group, seed):
     return cache, tbl, valid, q
 
 
-@pytest.mark.parametrize("bk", [8, 32, 1024])
+@pytest.mark.parametrize("bk", [8, 32, 200, 1024])
 @pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
 def test_decode_attention_kernel_matches_plain(dev, dtype, hd, bk):
     """B19 against its plain version over qlen 1 / 4 / 8 and GQA group
-    1 / 2 / 4; the empty replica's rows are exactly 0."""
+    1 / 2 / 4; the empty replica's rows are exactly 0. bk = 200: key
+    chunks that do not divide the block; a replica a few keys into its
+    second block leaves the rest of its chunks empty. The same bits twice
+    (the split's merge takes no atomics)."""
     from sputnik_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_kernel, decode_attention_plain)
 
@@ -381,6 +384,7 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hd, bk):
             assert decode_attention_kernel.launches == before + 1
             _close(got, decode_attention_plain(*args, **kw))
             assert torch.all(got[group:2 * group] == 0)
+            assert torch.equal(got, decode_attention_kernel(*args, **kw))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -488,13 +492,15 @@ def _paged_args(cache, tables, q, group):
             cache.k_scale, cache.v_scale)
 
 
-@pytest.mark.parametrize("bk", [128, 256, 1024])
+@pytest.mark.parametrize("bk", [128, 256, 384, 1024])
 @pytest.mark.parametrize("hd", [7, 30, 64, 128])
 @pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
 def test_paged_attention_kernel_matches_plain(dev, dtype, hd, bk):
     """B20a against its plain version over qlen 1 / 4 / 8 and GQA group
     1 / 4 on a shuffled pool; the empty replica's rows are exactly 0, and
-    the paged kernel gives B19's bits on the same tokens (the same body)."""
+    the paged kernel gives B19's bits on the same tokens (the same body
+    and the same key chunks; bk = 384: six chunks a page, a replica three
+    keys into its second page), and its own bits twice."""
     from sputnik_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_kernel)
     from sputnik_tpu_torch.ops.kernels.paged_attention import (
@@ -515,6 +521,7 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, hd, bk):
             assert paged_attention_kernel.launches == before + 1
             _close(got, paged_attention_plain(*args, **kw))
             assert torch.all(got[group:2 * group] == 0)
+            assert torch.equal(got, paged_attention_kernel(*args, **kw))
             same = decode_attention_kernel(
                 args[1], args[2], flat.kv_len, q, flat.k, flat.v,
                 flat.k_scale, flat.v_scale, bk=bk, **kw)
@@ -1176,11 +1183,14 @@ def test_spmm_c_kernel_matches_plain(dev, kind, tiles, epilogue):
     args = (meta["block_offsets"], meta["block_cols"], panel, dense,
             None if epilogue == "none" else bias)
     before = kc.bsr_spmm_panel_c.launches
-    got = kc.bsr_spmm_panel_c(*args, rows=topo.m, epilogue=epilogue)
+    got = kc.bsr_spmm_panel_c(*args, rows=topo.m, epilogue=epilogue,
+                              plans=meta["split_plans"])
     torch.cuda.synchronize()
     assert kc.bsr_spmm_panel_c.launches == before + 1
     ref = kc.bsr_spmm_panel_c_plain(*args, rows=topo.m, epilogue=epilogue)
     _close(got, ref)
+    # the walk without a split plan: one block per row-block
+    _close(kc.bsr_spmm_panel_c(*args, rows=topo.m, epilogue=epilogue), ref)
     bv = spec.view
     for i in np.flatnonzero(np.diff(bv.block_offsets) == 0):
         lo, hi = i * bv.bm, min((i + 1) * bv.bm, topo.m)
@@ -1189,6 +1199,52 @@ def test_spmm_c_kernel_matches_plain(dev, kind, tiles, epilogue):
         if epilogue == "bias_relu":
             want = want.clamp(min=0)
         assert torch.equal(got[:, lo:hi], want)   # no tiles: exact 0 + bias
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("width", [1, 64, 200, 640])
+def test_spmm_c_kernel_split_walk(dev, bm, width):
+    """B13a's split walk on one very heavy row-block (all 64 tiles of its
+    row), two empty row-blocks and rows past ``M``, at widths whose plans
+    cut the heavy row-block into 1-tile up to 10-tile chunks (the last one
+    shorter), every epilogue: against the plain version and the unsplit
+    walk, empty row-blocks exactly 0 (+ bias), the same bits twice."""
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    rng = np.random.RandomState(width + bm)
+    bk, R = 64, 2
+    m, n = 4 * bm - 5, 64 * bk
+    mask = np.zeros((m, n), bool)
+    mask[bm + 3] = True                       # row-block 1: 64 tiles
+    mask[2 * bm + 1, ::1000] = True           # row-block 2: 5 tiles
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    spec = stt.PanelSpec(topo, bm, bk, compressed=True)
+    meta, bv = spec.meta(dev), spec.view
+    chunk = kc.split_chunk(bv.num_blocks, bv.mb, R, width, bm)
+    plan = kc.split_plan(bv.block_offsets, chunk)
+    assert 1 in plan["split_rows"] and chunk < 64    # the heavy one is cut
+    panel = torch.from_numpy(rng.randn(R, *bv.values_shape).astype(
+        np.float32)).to(dev) * meta["mask"]
+    dense = torch.from_numpy(rng.randn(R, n, width).astype(np.float32)
+                             ).to(dev)
+    bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
+    for epilogue in ("none", "bias", "bias_relu"):
+        args = (meta["block_offsets"], meta["block_cols"], panel, dense,
+                None if epilogue == "none" else bias)
+        kw = dict(rows=m, epilogue=epilogue)
+        got = kc.bsr_spmm_panel_c(*args, **kw, plans=meta["split_plans"])
+        again = kc.bsr_spmm_panel_c(*args, **kw, plans=meta["split_plans"])
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)        # no atomics: the same bits
+        _close(got, kc.bsr_spmm_panel_c_plain(*args, **kw))
+        _close(got, kc.bsr_spmm_panel_c(*args, **kw))
+        for i in (0, 3):                      # the empty row-blocks
+            lo, hi = i * bm, min((i + 1) * bm, m)
+            want = (torch.zeros_like(got[:, lo:hi]) if epilogue == "none"
+                    else bias[lo:hi, None].expand_as(got[:, lo:hi]))
+            if epilogue == "bias_relu":
+                want = want.clamp(min=0)
+            assert torch.equal(got[:, lo:hi], want)
 
 
 @pytest.mark.parametrize("tiles", _C_TILES)

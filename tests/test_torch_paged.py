@@ -302,6 +302,60 @@ def test_paged_attention_matches_jax(dtype, qlen, group):
                                        atol=1e-4)
 
 
+@pytest.mark.parametrize("qlen,group", [(1, 1), (4, 2)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_split_kv_merge_matches_plain_and_jax(dtype, qlen, group):
+    """B20a's split-KV algebra: the emulated merge over key chunks of 48
+    (not dividing the 128-key page), 64 and 128 (f32 / bf16; a whole page
+    for int8) equals the port's plain version and JAX (XLA oracle; Pallas
+    kernel in interpret mode) on a shuffled pool, the empty replica
+    exactly 0; page ids outside the pool against the plain version."""
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_plain)
+    from test_torch_decode import split_merge_emulated
+
+    jc, tc, tables, q = _attention_case(dtype, qlen, group, seed=20 + qlen)
+    tq = torch.from_numpy(q)
+    P = tc.k.shape[0]
+    kw = dict(qlen=qlen, group=group, scale=q.shape[-1] ** -0.5)
+    for jt, tt in tables:
+        phys, logical, valid = (t.repeat_interleave(group, 0) for t in tt)
+        bad = phys.clone()
+        bad[0, 0], bad[-1, -1] = P + 3, -1          # outside the pool
+        want = {}
+        if dtype != "int8":
+            want["xla"] = np.asarray(_backend(
+                "xla", lambda: JP.paged_attention(
+                    jnp.asarray(q), jc, *jt, group=group, qlen=qlen)))
+        if dtype != "bf16":
+            want["pallas"] = np.asarray(_backend(
+                "pallas", lambda: JP.paged_attention(
+                    jnp.asarray(q), jc, *jt, group=group, qlen=qlen)))
+        for pages in (phys, bad):
+            ref = paged_attention_plain(pages, logical, valid, tc.kv_len, tq,
+                                        tc.k, tc.v, tc.k_scale, tc.v_scale,
+                                        **kw)
+            page = pages.long()
+            live = (valid == 1) & (page >= 0) & (page < P)
+            for keys in ([BK] if dtype == "int8" else [48, 64, BK]):
+                got = split_merge_emulated(
+                    tq, tc.k.reshape(-1, tc.k.shape[-1]),
+                    tc.v.reshape(-1, tc.k.shape[-1]), tc.k_scale.reshape(-1),
+                    tc.v_scale.reshape(-1), page.clamp(0, P - 1) * BK,
+                    logical.long() * BK, live, tc.kv_len, bk=BK, keys=keys,
+                    **kw)
+                err = (got - ref).abs().max().item()
+                assert err <= 1e-4 * ref.abs().max().item(), (keys, err)
+                assert torch.all(got[group:2 * group] == 0)
+                if pages is bad:
+                    continue
+                tol = {"xla": 1e-5, "pallas": 1e-4}
+                for name, w in want.items():
+                    np.testing.assert_allclose(got.numpy(), w,
+                                               rtol=tol[name],
+                                               atol=tol[name])
+
+
 def test_paged_attention_reads_pages_not_blocks():
     """The same tokens in a shuffled pool and in a contiguous cache give the
     same attention: the kernel reads ``phys`` rows at ``logical``
