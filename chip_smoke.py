@@ -21,9 +21,14 @@ Phases, each printing its lines:
      heads, s=512, hd=64, and GQA) (2e); the sparse softmax B5 at the flat
      attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
      an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
-     the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024), B17
-     at B4's shape, B18a and the int8 flash backward B18b / B18c at the
-     int8 example's attention and at B9's shape, each also shown >= 10x its
+     the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024) and
+     at the int8 serving weight's shape (1024^2 at 128x128, N=2048,
+     bn=512), each the same bits twice, an emptied walk block exactly 0,
+     timed by CUDA graph replay beside torch._int_mm timed the same way,
+     its pre-pass / product split from torch.profiler, and their SASS shown
+     to hold int8 tensor-core instructions and no __dp4a; B17 at B4's
+     shape, B18a and the int8 flash backward B18b / B18c at the int8
+     example's attention and at B9's shape, each also shown >= 10x its
      limit away from the fp32 kernel's result (B1, B3, B4, B9, B10b,
      B10c), so that a kernel computing in fp32 would fail (2h); the
      compressed (true-BSR) kernels B13a / B13b (every epilogue; widths 64
@@ -63,8 +68,9 @@ Phases, each printing its lines:
      h. int8 serving at examples/serve_sparse_int8.py's full width (h=1024,
         s=2048, 8 heads): its int8 forward (B18a + B16a) and fp32 forward
         (B9 + B1), the example itself, one spmm_qat SGD step (B16a; B16b +
-        B17), one attention_qat step (B18a; B9 + B10a) and one
-        attention_qat(backward="int8") step (B18a; B18b + B18c), its
+        B17; the step timed and profiled), one attention_qat step (B18a;
+        B9 + B10a) and one attention_qat(backward="int8") step (B18a; B18b
+        + B18c), its
         gradients within tpu_smoke.py's 4e-1 of the fp32 fused attention's,
         the two steps timed in turns;
      i. the compressed chain: sddmm -> sparse_softmax -> spmm through
@@ -2572,12 +2578,159 @@ def _int8_flash_bwd_case(stt, torch, dev, kres, label, masks, heads, hd,
                PEAK_INT8)
 
 
+def _device_split(torch, fn, n=8):
+    """Device milliseconds per ``fn()`` call of each kernel it launches
+    (torch.profiler), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "device_time_total", 0.0) / 1e3 / n
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")}
+
+
+def _int8_spmm_case(torch, r, label, kern, plain, lib_label, lib, nblocks,
+                    tile_rows, flops, nbytes):
+    """B16a or B16b on one problem: against its plain version, the same bits
+    from two calls, a block of the walk emptied (``kern(nblocks)`` with
+    block 1's count 0: its rows exactly 0, every other row the same bits);
+    timed by CUDA graph replay beside ``lib`` timed the same way (eager
+    times beside them), the pre-pass / product split from torch.profiler,
+    and the bound."""
+    got, ref = kern(), plain()
+    _compare(label, got, ref, TOL_KERNEL, r)
+    if not torch.equal(got.view(torch.int32), kern().view(torch.int32)):
+        _fail(f"{label}: two calls gave different bits")
+    nb = nblocks.clone()
+    nb[1] = 0
+    emptied = kern(nb)
+    rows = slice(tile_rows, 2 * tile_rows)
+    if not torch.all(emptied[rows] == 0):
+        _fail(f"{label}: an empty walk block is not exactly 0")
+    emptied[rows] = got[rows]
+    if not torch.equal(emptied.view(torch.int32), got.view(torch.int32)):
+        _fail(f"{label}: emptying one walk block moved the others")
+    print(f"  {label}: the same bits twice; an emptied block exactly 0",
+          flush=True)
+    del got, ref, emptied
+    r["ms"] = _graph_ms(kern)
+    eager_ms = _time_ms(kern)
+    r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
+    r["library_ms"] = _library_ms(f"{label} ({lib_label})", lib,
+                                  timer=_graph_ms)
+    lib_eager = _library_ms(f"{label} ({lib_label}), eager calls", lib)
+    split = _device_split(torch, kern)
+    pre = sum(t for k, t in split.items()
+              if "absmax" in k or "pack_kmajor" in k or "emset" in k)
+    prod = sum(t for k, t in split.items() if "spmm_int8_wgmma" in k)
+    trans = sum(t for k, t in split.items() if "transpose_tiles" in k)
+    lib = "failed" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    lib_e = "failed" if lib_eager is None else f"{lib_eager:.4f}"
+    print(f"  {label}: kernel {r['ms']:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}), plain {r['plain_ms']:.4f} ms, torch._int_mm "
+          f"{lib} ms (graph; eager {lib_e}); profiler: pre-pass {pre:.4f} "
+          f"ms, transpose {trans:.4f} ms, product {prod:.4f} ms", flush=True)
+    for k, t in sorted(split.items(), key=lambda x: -x[1]):
+        print(f"    {t:.4f} ms/call  {k[:90]}", flush=True)
+    _bound(r, flops, nbytes, PEAK_INT8)
+
+
+def _int8_serving_spmm(torch, dev, k8):
+    """B16a / B16b at the int8 serving weight's shape (1024^2 at 128 x 128,
+    an activation [1024, 2048], bn = bq = 512), each against its plain
+    version, the same bits twice, timed beside ``torch._int_mm``."""
+    from sputnik_tpu_torch.examples import serve_sparse_int8 as ex8
+    from sputnik_tpu_torch.ops.int8_api import _tile_width
+
+    ex = ex8.setup(False, dev)
+    spec, qp = ex["spec"], ex["qp"]
+    h, s = ex["h"], ex["s"]
+    meta, topo = spec.meta(dev), spec.topo
+    bn = _tile_width(spec, s)
+    rng = np.random.RandomState(76)
+    x = torch.from_numpy(rng.randn(h, s).astype(np.float32)).to(dev)
+    a_q = _dense_codes(torch, topo, qp.values_q)
+    a_qt = a_q.T.contiguous()
+    need = 5 * topo.nnz + _nbytes(x) + h * s * 4
+    args = (meta["block_cols"], qp.values_q, qp.scales)
+    _int8_spmm_case(torch, {}, f"spmm int8 serving {h}^2 at 128x128, "
+                    f"N={s} bn={bn}",
+                    lambda nb=meta["nblocks"]: k8.bsr_spmm_panel_int8(
+                        args[0], nb, *args[1:], x, rows=h, bn=bn),
+                    lambda: k8.bsr_spmm_panel_int8_plain(
+                        args[0], meta["nblocks"], *args[1:], x, rows=h,
+                        bn=bn),
+                    "torch._int_mm, densified A_q",
+                    lambda d=k8.quant_tile(x, spec.bk, bn)[0]:
+                    torch._int_mm(a_q, d), meta["nblocks"], spec.bm,
+                    2.0 * topo.nnz * s, need)
+    targs = (meta["t_src_i"], meta["t_src_s"])
+    _int8_spmm_case(torch, {}, f"spmm_t int8 serving {h}^2 at 128x128, "
+                    f"Q={s} bq={bn}",
+                    lambda nb=meta["t_nblocks"]: k8.bsr_spmm_t_panel_int8(
+                        *targs, nb, qp.values_q, qp.scales, x, rows=h,
+                        bq=bn),
+                    lambda: k8.bsr_spmm_t_panel_int8_plain(
+                        *targs, meta["t_nblocks"], qp.values_q, qp.scales, x,
+                        rows=h, bq=bn),
+                    "torch._int_mm, densified A_q^T",
+                    lambda g=k8.quant_tile(x, spec.bm, bn)[0]:
+                    torch._int_mm(a_qt, g), meta["t_nblocks"], spec.bk,
+                    2.0 * topo.nnz * s, need)
+
+
+def _sass_check(k8_build):
+    """The int8 product kernels' SASS (cuobjdump of the built library):
+    int8 tensor-core instructions (IGMMA, wgmma's; IMMA, mma.sync's) in
+    each, IDP.4A (__dp4a) in none; B17's counts beside them. Raises if the
+    product kernels fail it; prints "not checked" where the toolkit has no
+    cuobjdump."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        print("  SASS: cuobjdump not found, not checked", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", str(k8_build._so_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = {"IGMMA": 0, "IMMA": 0, "IDP.4A": 0}
+        elif name is not None:
+            parts = line.split("*/")
+            op = parts[1].split() if len(parts) > 1 else []
+            for key in funcs[name]:
+                funcs[name][key] += any(w.startswith(key) for w in op[:2])
+    prods = {n: c for n, c in funcs.items() if "spmm_int8" in n}
+    for n, c in sorted(prods.items()) + sorted(
+            (n, c) for n, c in funcs.items() if "sddmm_int8" in n):
+        print(f"  SASS {n[:70]}: " + ", ".join(
+            f"{v} {k}" for k, v in c.items()), flush=True)
+    if not prods or any(c["IGMMA"] + c["IMMA"] == 0 or c["IDP.4A"]
+                        for c in prods.values()):
+        _fail("SASS: the int8 product kernels do not run on the int8 "
+              "tensor cores alone")
+
+
 def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     """Phase 2h: B16a, B16b, B17 and B18a against their plain versions on
     the card, each also held >= 10x its limit away from the fp32 kernel."""
     from sputnik_tpu_torch import int8
     from sputnik_tpu_torch.ops import panel_api as P
     from sputnik_tpu_torch.ops.int8_api import _tile_width
+    from sputnik_tpu_torch.ops.kernels import _build
     from sputnik_tpu_torch.ops.kernels import bsr_spmm_int8 as k8
     from sputnik_tpu_torch.ops.kernels.bsr_sddmm import bsr_sddmm_panel
     from sputnik_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_panel
@@ -2586,6 +2739,7 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
 
     print("phase 2h: int8 kernels (B16a, B16b, B17, B18a, B18b, B18c) vs "
           "plain PyTorch on the card", flush=True)
+    _sass_check(_build)
     size, topo = w.shape[0], mat.topology
     spec = P.PanelSpec(topo)
     bn = _tile_width(spec, size)    # JAX's width rule: 1024 at 4096 columns
@@ -2599,67 +2753,51 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     a_q = _dense_codes(torch, topo, qp.values_q)
     a_f = torch.from_numpy(w).to(dev)
 
-    # B16a at bench.py's 4096^3, 64 x 64 panel, bn = 1024
-    r = kres["bsr_spmm_panel_int8"]
-    args = (meta["block_cols"], meta["nblocks"], qp.values_q, qp.scales,
-            dense)
-
-    def kern():
-        return k8.bsr_spmm_panel_int8(*args, rows=size, bn=bn)
-
-    def plain():
-        return k8.bsr_spmm_panel_int8_plain(*args, rows=size, bn=bn)
-
-    got, ref = kern(), plain()
-    _compare(f"spmm int8 {size}^3 bn={bn}", got, ref, TOL_KERNEL, r)
-    _int8_distance("spmm int8", ref, bsr_spmm_panel(
-        meta["block_cols"], meta["nblocks"], panel[None], dense[None],
-        rows=size)[0])
-    del got, ref
-    r["ms"] = _time_ms(kern)
-    r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
-    d_q = k8.quant_tile(dense, spec.bk, bn)[0]
-    r["library_ms"] = _library_ms(
-        "spmm int8 (torch._int_mm: densified int8 A x int8 dense -> int32, "
-        "cuBLASLt, no per-tile rescale)", lambda: torch._int_mm(a_q, d_q))
-    f32_ms = _time_ms(lambda: a_f @ dense)
-    print(f"  spmm int8 {size}^3: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, dense fp32 torch.matmul {f32_ms:.4f} ms",
-          flush=True)
-    _bound(r, 2.0 * nnz * size, 5 * nnz + _nbytes(dense) + size * size * 4,
-           PEAK_INT8)
-
-    # B16b: A_q^T @ G at the same headline, bq = 1024
-    r = kres["bsr_spmm_t_panel_int8"]
+    # B16a / B16b at bench.py's 4096^3, 64 x 64 panel, bn = bq = 1024 (the
+    # JSON entries), then at the int8 serving weight's shape
     targs = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"],
-             qp.values_q, qp.scales, dense)
-
-    def t_kern():
-        return k8.bsr_spmm_t_panel_int8(*targs, rows=size, bq=bn)
-
-    def t_plain():
-        return k8.bsr_spmm_t_panel_int8_plain(*targs, rows=size, bq=bn)
-
-    got, ref = t_kern(), t_plain()
-    _compare(f"spmm_t int8 {size}^3 bq={bn}", got, ref, TOL_KERNEL, r)
-    _int8_distance("spmm_t int8", ref, bsr_spmm_t_panel(
-        meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel[None],
-        dense[None], rows=size)[0])
-    del got, ref
-    r["ms"] = _time_ms(t_kern)
-    r["plain_ms"] = _time_ms(t_plain, reps=3, inner=2)
+             qp.values_q, qp.scales)
+    args = (meta["block_cols"], meta["nblocks"], qp.values_q, qp.scales)
+    d_q = k8.quant_tile(dense, spec.bk, bn)[0]
     g_q = k8.quant_tile(dense, spec.bm, bn)[0]
     a_qt = a_q.T.contiguous()
-    r["library_ms"] = _library_ms(
-        "spmm_t int8 (torch._int_mm: densified A_q^T x int8 G)",
-        lambda: torch._int_mm(a_qt, g_q))
-    f32_ms = _time_ms(lambda: a_f.T @ dense)
-    print(f"  spmm_t int8 {size}^3: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {f32_ms:.4f} ms",
+    need = 5 * nnz + _nbytes(dense) + size * size * 4
+    _int8_spmm_case(torch, kres["bsr_spmm_panel_int8"],
+                    f"spmm int8 {size}^3 bn={bn}",
+                    lambda nb=meta["nblocks"]: k8.bsr_spmm_panel_int8(
+                        meta["block_cols"], nb, *args[2:], dense, rows=size,
+                        bn=bn),
+                    lambda: k8.bsr_spmm_panel_int8_plain(*args, dense,
+                                                         rows=size, bn=bn),
+                    "torch._int_mm: densified int8 A x int8 dense -> int32, "
+                    "cuBLASLt, no per-tile rescale",
+                    lambda: torch._int_mm(a_q, d_q),
+                    meta["nblocks"], spec.bm, 2.0 * nnz * size, need)
+    _int8_distance("spmm int8", k8.bsr_spmm_panel_int8_plain(
+        *args, dense, rows=size, bn=bn), bsr_spmm_panel(
+        meta["block_cols"], meta["nblocks"], panel[None], dense[None],
+        rows=size)[0])
+    f32_ms = _graph_ms(lambda: a_f @ dense)
+    print(f"  dense fp32 torch.matmul {size}^3: {f32_ms:.4f} ms (graph)",
           flush=True)
-    _bound(r, 2.0 * nnz * size, 5 * nnz + _nbytes(dense) + size * size * 4,
-           PEAK_INT8)
+    _int8_spmm_case(torch, kres["bsr_spmm_t_panel_int8"],
+                    f"spmm_t int8 {size}^3 bq={bn}",
+                    lambda nb=meta["t_nblocks"]: k8.bsr_spmm_t_panel_int8(
+                        *targs[:2], nb, *targs[3:], dense, rows=size, bq=bn),
+                    lambda: k8.bsr_spmm_t_panel_int8_plain(
+                        *targs, dense, rows=size, bq=bn),
+                    "torch._int_mm: densified A_q^T x int8 G",
+                    lambda: torch._int_mm(a_qt, g_q),
+                    meta["t_nblocks"], spec.bk, 2.0 * nnz * size, need)
+    _int8_distance("spmm_t int8", k8.bsr_spmm_t_panel_int8_plain(
+        *targs, dense, rows=size, bq=bn), bsr_spmm_t_panel(
+        meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel[None],
+        dense[None], rows=size)[0])
+    f32_ms = _graph_ms(lambda: a_f.T @ dense)
+    print(f"  dense fp32 a.T @ G {size}^3: {f32_ms:.4f} ms (graph)",
+          flush=True)
     del dense, a_q, a_qt, a_f, d_q, g_q
+    _int8_serving_spmm(torch, dev, k8)
 
     # B17 at B4's shape: 4096^2 d=0.1, dim 64 (one 128-deep chunk)
     r = kres["bsr_sddmm_panel_int8"]
@@ -2800,6 +2938,20 @@ def phase_int8_path(stt, torch, dev, wrappers):
           f"{loss1.item():.4f}", flush=True)
     if not loss1.item() < loss0.item():
         _fail("spmm_qat: the SGD step did not lower the loss")
+    p_t = panel.detach().clone().requires_grad_()
+    d_t = dense.detach().clone().requires_grad_()
+    cot_d = cot.to(dev)
+
+    def qat_timed(i=0):
+        qat_loss(p_t, d_t, cot_d).backward()
+
+    print(f"  spmm_qat step (forward + backward, CUDA events): "
+          f"{_time_ms(qat_timed, reps=5, inner=3):.4f} ms", flush=True)
+    try:
+        _profile_steps(torch, "spmm_qat steps", qat_timed)
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    del p_t, d_t
 
     # one attention_qat step: B18a forward, B9 + B10a backward; the
     # gradients are the fp32 fused attention's (B10a adds dk / dv with

@@ -22,6 +22,13 @@ kernels) rescaled by the product of its two scales before the f32 sum over
 tiles, so a kernel and its plain version differ only in the rounding of
 those f32 sums. A bf16 operand is upcast to f32 first, which is exact, as
 the JAX kernels' ``astype(f32)``.
+
+On the card B16a and B16b run the activation's pre-pass (``quant_kmajor``:
+the tile scales and the codes K-major, ``[row tile][column][kp]``, stored
+in wgmma's core-matrix order, ``to_core_tiles``) and then one tensor-core
+product body; ``kmajor_plan`` is their padded layout, and
+``quant_kmajor_plain`` the pre-pass's plain twin, which the plain products
+read too.
 """
 
 from __future__ import annotations
@@ -33,12 +40,15 @@ import torch.nn.functional as F
 from . import check_operands, guard_no_grad
 from ._build import check, library
 
-__all__ = ["quantize_panel_np", "quant_tile", "div127",
+__all__ = ["quantize_panel_np", "quant_tile", "div127", "kmajor_plan",
+           "to_core_tiles", "quant_kmajor", "quant_kmajor_plain",
            "bsr_spmm_panel_int8", "bsr_spmm_panel_int8_plain",
            "bsr_spmm_t_panel_int8", "bsr_spmm_t_panel_int8_plain",
            "bsr_sddmm_panel_int8", "bsr_sddmm_panel_int8_plain"]
 
 SDDMM_DEPTH = 128   # B17's depth chunk (JAX ``sddmm_int8``'s ``bd``)
+KSTEP = 64          # code bytes a stage of the B16a / B16b product holds
+BLOCK_COLS = 128    # output columns a block of the product owns
 _QAT = "int8.spmm_qat"
 
 
@@ -77,16 +87,80 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def kmajor_plan(depth: int, width: int):
+    """The B16a / B16b product's layout for slots ``depth`` codes deep (bk,
+    resp. bm) and ``width`` output columns: ``(kp, ncols)``, the depth
+    padded to whole stages and the width to whole blocks (each row tile of
+    codes is ``[ncols, kp]``)."""
+    return _cdiv(depth, KSTEP) * KSTEP, _cdiv(width, BLOCK_COLS) * BLOCK_COLS
+
+
+def to_core_tiles(codes):
+    """K-major codes ``[T, R, kp]`` (R a multiple of 8, kp of 16) in
+    wgmma's core-matrix order: ``[T, R // 8, kp // 16, 8, 16]``, each core
+    matrix 8 rows x 16 bytes of the contraction."""
+    T, R, kp = codes.shape
+    return (codes.view(T, R // 8, 8, kp // 16, 16).permute(0, 1, 3, 2, 4)
+            .contiguous())
+
+
+def quant_kmajor_plain(x, tr: int, tc: int, n_tiles: int, kp=None,
+                       ncols=None):
+    """``x [rows, cols]`` (rows past ``rows`` and columns past ``cols``
+    zero) quantised per ``[tr, tc]`` tile, the codes K-major: ``(codes int8
+    [n_tiles, ncols, kp], scales f32 [n_tiles, nct])``, where ``codes[t, n,
+    k]`` is the code of ``x[t * tr + k, n]`` for ``k < tr`` and 0 beyond.
+    ``kp`` defaults to ``tr`` and ``ncols`` to the whole column tiles."""
+    rows, cols = x.shape
+    nct = max(_cdiv(cols, tc), 1)
+    kp = tr if kp is None else kp
+    ncols = nct * tc if ncols is None else ncols
+    xp = F.pad(x.float(), (0, nct * tc - cols, 0, n_tiles * tr - rows))
+    q, s = quant_tile(xp, tr, tc)
+    q = q.view(n_tiles, tr, nct * tc).transpose(1, 2)[:, :ncols]
+    codes = torch.zeros((n_tiles, ncols, kp), dtype=torch.int8,
+                        device=x.device)
+    codes[:, :q.shape[1], :tr] = q
+    return codes, s
+
+
+def quant_kmajor(x, tr: int, tc: int, n_tiles: int):
+    """The B16a / B16b pre-pass: ``to_core_tiles(quant_kmajor_plain(x, tr,
+    tc, n_tiles, kp, ncols))`` and the scales, with ``kp, ncols`` from
+    ``kmajor_plan(tr, cols)``; on the card two launches (the tile maxima,
+    then the codes)."""
+    rows, cols = x.shape
+    kp, ncols = kmajor_plan(tr, cols)
+    if not x.is_cuda:
+        codes, scale = quant_kmajor_plain(x, tr, tc, n_tiles, kp, ncols)
+        return to_core_tiles(codes), scale
+    x = x.float().contiguous()
+    nct = _cdiv(cols, tc)
+    if n_tiles > 65535 or nct == 0:
+        raise ValueError(f"quant_kmajor: {n_tiles} row tiles of "
+                         f"{tuple(x.shape)} do not fit one launch")
+    tmax = torch.empty((n_tiles, nct), device=x.device, dtype=torch.int32)
+    scale = torch.empty((n_tiles, nct), device=x.device, dtype=torch.float32)
+    codes = torch.empty((n_tiles, ncols // 8, kp // 16, 8, 16),
+                        device=x.device, dtype=torch.int8)
+    err = library().quant_kmajor(
+        x.data_ptr(), tmax.data_ptr(), scale.data_ptr(), codes.data_ptr(),
+        rows, cols, tr, tc, n_tiles, kp, ncols,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "quant_kmajor")
+    quant_kmajor.launches += 1
+    return codes, scale
+
+
+quant_kmajor.launches = 0
+
+
 def _quant_rows(x, n_tiles, tr, tc):
     """``x [rows, cols]`` zero-padded to ``n_tiles * tr`` rows and whole
     column tiles, quantised: codes as float64 ``[n_tiles, tr, cols_pad]``
     and per-column scales ``[n_tiles, cols_pad]``."""
-    rows, cols = x.shape
-    nct = max(_cdiv(cols, tc), 1)
-    xp = F.pad(x.float(), (0, nct * tc - cols, 0, n_tiles * tr - rows))
-    q, s = quant_tile(xp, tr, tc)
-    return (q.double().view(n_tiles, tr, nct * tc),
-            s.repeat_interleave(tc, dim=1))
+    codes, s = quant_kmajor_plain(x, tr, tc, n_tiles)
+    return codes.transpose(1, 2).double(), s.repeat_interleave(tc, dim=1)
 
 
 # -- B16a ---------------------------------------------------------------------
@@ -148,19 +222,17 @@ def bsr_spmm_panel_int8(block_cols, nblocks, values_q, scales, dense, *,
     if block_cols.numel() != mb * max_bpr or nblocks.numel() != mb:
         raise ValueError("block metadata does not match the panel shape")
     K, N = dense.shape
-    kb, nct = _cdiv(K, bk), _cdiv(N, bn)
+    kb = _cdiv(K, bk)
     out = torch.empty((rows, N), device=dev, dtype=torch.float32)
     if out.numel() == 0 or K == 0:
         return out.zero_()
-    if mb * _cdiv(bm, 64) > 65535 or kb > 65535:
+    if mb * _cdiv(bm, 64) > 65535:
         raise ValueError("grid too large for one launch")
-    dq = torch.empty((kb, _cdiv(bk, 4), nct * bn), device=dev,
-                     dtype=torch.int32)
-    ds = torch.empty((kb, nct), device=dev, dtype=torch.float32)
+    dq, ds = quant_kmajor(dense, bk, bn, kb)
     err = library().spmm_panel_int8(
         block_cols.data_ptr(), nblocks.data_ptr(), values_q.data_ptr(),
-        scales.data_ptr(), dense.data_ptr(), dq.data_ptr(), ds.data_ptr(),
-        out.data_ptr(), mb, max_bpr, bm, bk, K, N, bn, rows,
+        scales.data_ptr(), dq.data_ptr(), ds.data_ptr(), out.data_ptr(), mb,
+        max_bpr, bm, bk, kb, N, bn, rows,
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bsr_spmm_panel_int8")
     bsr_spmm_panel_int8.launches += 1
@@ -233,21 +305,21 @@ def bsr_spmm_t_panel_int8(t_src_i, t_src_s, t_nblocks, values_q, scales, g,
                    t_nblocks=(t_nblocks, torch.int32),
                    values_q=(values_q, torch.int8),
                    scales=(scales, torch.float32), g=(g, torch.float32))
-    nqt = _cdiv(Q, bq)
     out = torch.empty((rows, Q), device=dev, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    if kb * _cdiv(bk, 64) > 65535 or mb > 65535:
+    if kb * _cdiv(bk, 64) > 65535:
         raise ValueError("grid too large for one launch")
-    gq = torch.empty((mb, _cdiv(bm, 4), nqt * bq), device=dev,
-                     dtype=torch.int32)
-    gs = torch.empty((mb, nqt), device=dev, dtype=torch.float32)
+    max_bpc = t_src_i.numel() // kb
+    gq, gs = quant_kmajor(g, bm, bq, mb)
+    kp = kmajor_plan(bm, Q)[0]
+    vqt = torch.empty((kb * max_bpc, _cdiv(bk, 8) * 8, kp), device=dev,
+                      dtype=torch.int8)
     err = library().spmm_t_panel_int8(
         t_src_i.data_ptr(), t_src_s.data_ptr(), t_nblocks.data_ptr(),
-        values_q.data_ptr(), scales.data_ptr(), g.data_ptr(), gq.data_ptr(),
-        gs.data_ptr(), out.data_ptr(), mb, max_bpr, kb,
-        t_src_i.numel() // kb, bm, bk, M, Q, bq, rows,
-        torch.cuda.current_stream(dev).cuda_stream)
+        values_q.data_ptr(), scales.data_ptr(), gq.data_ptr(), gs.data_ptr(),
+        vqt.data_ptr(), out.data_ptr(), max_bpr, kb, max_bpc, bm, bk, Q, bq,
+        rows, torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bsr_spmm_t_panel_int8")
     bsr_spmm_t_panel_int8.launches += 1
     return out

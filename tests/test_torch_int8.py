@@ -129,6 +129,42 @@ def test_spmm_family_matches_jax(bn, q):
     assert 1e-4 < rel < 5e-2, rel
 
 
+@pytest.mark.parametrize("rows,cols,tr,tc,n_tiles", [
+    (80, 48, 16, 16, 5), (150, 700, 64, 512, 3), (200, 100, 48, 48, 5),
+    (90, 33, 256, 16, 1), (17, 5, 16, 3, 2)])
+def test_kmajor_codes_match_quant_tile(rows, cols, tr, tc, n_tiles):
+    """The B16a / B16b pre-pass's plain twin against ``quant_tile`` (whose
+    codes JAX's Pallas kernels share, through the plain products in
+    ``test_spmm_family_matches_jax``): each column's tile-row codes K-major
+    at the product's padding (``kmajor_plan``), zero past the rows, the
+    tile and the columns, the same scales; and ``to_core_tiles``, the
+    order the card's pre-pass writes, holds code [t, n, k] at [t, n // 8,
+    k // 16, n % 8, k % 16]."""
+    from sputnik_tpu_torch.ops.kernels import bsr_spmm_int8 as k8
+
+    rng = np.random.RandomState(rows + cols)
+    x = torch.from_numpy(rng.randn(rows, cols).astype(np.float32) * 3)
+    kp, ncols = k8.kmajor_plan(tr, cols)
+    assert kp % k8.KSTEP == 0 and kp - k8.KSTEP < tr <= kp
+    assert ncols % k8.BLOCK_COLS == 0 and ncols - k8.BLOCK_COLS < cols
+    codes, scales = k8.quant_kmajor_plain(x, tr, tc, n_tiles, kp, ncols)
+    nct = -(-cols // tc)
+    xp = torch.zeros(n_tiles * tr, nct * tc)
+    xp[:rows, :cols] = x[:n_tiles * tr]
+    q, ref_scales = k8.quant_tile(xp, tr, tc)
+    want = torch.zeros((n_tiles, ncols, kp), dtype=torch.int8)
+    want[:, :cols, :tr] = q.view(n_tiles, tr, -1).transpose(1, 2)[:, :cols]
+    assert torch.equal(codes, want)
+    assert torch.equal(scales, ref_scales)
+    core, core_scales = k8.quant_kmajor(x, tr, tc, n_tiles)
+    assert core.shape == (n_tiles, ncols // 8, kp // 16, 8, 16)
+    t, n, k = n_tiles - 1, cols - 1, tr - 1
+    assert core[t, n // 8, k // 16, n % 8, k % 16] == want[t, n, k]
+    assert torch.equal(core.permute(0, 1, 3, 2, 4).reshape(codes.shape),
+                       codes)
+    assert torch.equal(core_scales, scales)
+
+
 @pytest.mark.parametrize("d", [32, 160])
 def test_sddmm_int8_matches_jax(d):
     """One 128-deep chunk, and two with a ragged second chunk."""

@@ -855,13 +855,15 @@ def _int8_problem(dev, tiles, seed=0):
 
 
 @pytest.mark.parametrize("tiles", [(16, 16), (64, 64), (128, 128), (48, 48),
-                                   (32, 96)])
+                                   (32, 96), (256, 256), (272, 272), (24, 20)])
 @pytest.mark.parametrize("bn,q", [(128, 130), (512, 700), (1024, 1100),
-                                  (48, 100)])
+                                  (48, 100), (512, 2048)])
 def test_spmm_int8_kernels_match_plain(dev, tiles, bn, q):
-    """B16a and B16b against their plain versions over tiles, bn and ragged
-    widths; the empty row block is exactly 0; a bf16 dense operand is the
-    f32 one upcast."""
+    """B16a and B16b against their plain versions over tiles (256 and 272:
+    slots of four and five 64-deep stages, whose int32 sums reach 127^2 x
+    depth; bk = 20: weight rows staged byte by byte), bn and ragged widths,
+    and the serving width N = 2048 at bn = 512; the empty row block is
+    exactly 0; a bf16 dense operand is the f32 one upcast."""
     spec, qp, meta, rng = _int8_problem(dev, tiles)
     bm = tiles[0]
     dense = torch.from_numpy(rng.randn(150, q).astype(np.float32)).to(dev)
@@ -881,6 +883,57 @@ def test_spmm_int8_kernels_match_plain(dev, tiles, bn, q):
     got = kbi8.bsr_spmm_t_panel_int8(*targs, g, rows=150, bq=bn)
     torch.cuda.synchronize()
     _close(got, kbi8.bsr_spmm_t_panel_int8_plain(*targs, g, rows=150, bq=bn))
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (48, 48)])
+def test_spmm_int8_kernels_same_bits_and_never_plain(dev, tiles, monkeypatch):
+    """A CUDA call of B16a / B16b launches the pre-pass and the product
+    (the counters move) and reaches no plain version; two calls give the
+    same bits."""
+    spec, qp, meta, rng = _int8_problem(dev, tiles, seed=2)
+    dense = torch.from_numpy(rng.randn(150, 700).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(200, 700).astype(np.float32)).to(dev)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    for name in ("bsr_spmm_panel_int8_plain", "bsr_spmm_t_panel_int8_plain",
+                 "quant_kmajor_plain", "quant_tile"):
+        monkeypatch.setattr(kbi8, name, refuse)
+    wrappers = (kbi8.bsr_spmm_panel_int8, kbi8.bsr_spmm_t_panel_int8,
+                kbi8.quant_kmajor)
+    before = [w.launches for w in wrappers]
+    args = (meta["block_cols"], meta["nblocks"], qp.values_q, qp.scales,
+            dense)
+    targs = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"],
+             qp.values_q, qp.scales, g)
+    a1, a2 = (kbi8.bsr_spmm_panel_int8(*args, rows=200, bn=128)
+              for _ in range(2))
+    t1, t2 = (kbi8.bsr_spmm_t_panel_int8(*targs, rows=150, bq=128)
+              for _ in range(2))
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [2, 2, 4]
+    assert torch.equal(a1.view(torch.int32), a2.view(torch.int32))
+    assert torch.equal(t1.view(torch.int32), t2.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,cols,tr,tc,n_tiles", [
+    (150, 700, 64, 512, 3), (200, 100, 48, 48, 5), (130, 2048, 128, 512, 2),
+    (90, 33, 256, 16, 1), (17, 5, 16, 3, 2)])
+def test_quant_kmajor_kernel_matches_plain(dev, rows, cols, tr, tc, n_tiles):
+    """The B16a / B16b pre-pass against its plain twin: the same scales and
+    the same codes byte for byte, K-major in wgmma's core-matrix order and
+    zero-padded (rows past ``rows`` and past the tiles, columns past
+    ``cols``)."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(rows, cols)
+                         .astype(np.float32) * 3).to(dev)
+    kp, ncols = kbi8.kmajor_plan(tr, cols)
+    codes, scales = kbi8.quant_kmajor(x, tr, tc, n_tiles)
+    ref_codes, ref_scales = kbi8.quant_kmajor_plain(x, tr, tc, n_tiles, kp,
+                                                    ncols)
+    assert codes.shape == (n_tiles, ncols // 8, kp // 16, 8, 16)
+    assert torch.equal(codes, kbi8.to_core_tiles(ref_codes))
+    assert torch.equal(scales, ref_scales)
 
 
 @pytest.mark.parametrize("tiles", [(16, 16), (64, 64), (128, 128), (48, 48),

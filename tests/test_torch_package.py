@@ -106,8 +106,8 @@ def test_build_key_covers_every_source():
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
         "decode_attention", "ragged_append", "paged_attention",
         "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
-        "ell_softmax_f32", "spmm_panel_int8", "spmm_t_panel_int8",
-        "sddmm_panel_int8", "flash_sparse_fwd_int8",
+        "ell_softmax_f32", "quant_kmajor", "spmm_panel_int8",
+        "spmm_t_panel_int8", "sddmm_panel_int8", "flash_sparse_fwd_int8",
         "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8",
         "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
         "c_softmax_stats_f32", "c_softmax_apply_f32", "spmm_panel_sel_f32",
