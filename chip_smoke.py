@@ -7,7 +7,11 @@ Phases, each printing its lines:
   1. the device (name, power limit) and the kernels' nvcc build;
   2. each CUDA kernel against its plain PyTorch version at the headline
      shapes (SpMM and transposed SpMM 4096^3 d=0.1 with dense fp32 anchors,
-     the bias+ReLU epilogue, SDDMM 4096^2 d=0.1 at d=64, sparse-flash
+     the bias+ReLU epilogue, by CUDA graph replay beside eager calls, the
+     same bits twice, an emptied walk exactly 0 (+ bias), their SASS shown
+     to hold TF32 tensor-core instructions and no FFMA, and again on a
+     block-structured 4096^2 pattern (10% of the 64x64 tiles) beside
+     torch.sparse_bsr_tensor @ dense; SDDMM 4096^2 d=0.1 at d=64, sparse-flash
      forward and the three backward kernels at R=32 s=512 hd=64, the
      backward also at hd 32 / 128 and GQA group 2) and at the shapes the
      main paths give them; both backward routes timed at the driver shape
@@ -201,6 +205,11 @@ MOE_STEPS = 10
 PEAK_F32 = 67e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+# fp32-accurate products on the tensor cores in split TF32: three TF32
+# products (hi.hi + hi.lo + lo.hi) an fp32 one at the 495 TFLOP/s TF32
+# peak. The bound of the fp32 SpMMs that run so (B1, B2, B3, B6, B8, B13a,
+# B13b); the FMA peak's figure is printed beside it.
+PEAK_3XTF32 = 495e12 / 3
 
 
 def _fail(msg: str):
@@ -340,24 +349,31 @@ def _bound(r, flops, nbytes, peak=PEAK_F32):
           f"{r['bound_ms'] / r['ms']:.1%} of it", flush=True)
 
 
-def _sparse_bound(r, nnz, heads, width, dense_bytes):
+def _sparse_bound(r, nnz, heads, width, dense_bytes, peak=PEAK_F32):
     """The bound of a sparse product from what its data needs: 2 operations
     per nonzero, replica and dense column (``width``); bytes of the pattern
     (a 4-byte column index per nonzero, shared by a mask's ``heads``
     replicas), of the values (4 bytes per nonzero and replica, read or
     written) and of the dense operands and output (``dense_bytes``). The
     zeros a panel stores in its occupied tiles, and its padding, are the
-    kernel's choice, not the function's work."""
-    _bound(r, 2.0 * nnz * heads * width,
-           4 * nnz + 4 * nnz * heads + dense_bytes)
+    kernel's choice, not the function's work. ``peak``: PEAK_3XTF32 for the
+    products on the tensor cores, with the FMA figure printed beside."""
+    flops = 2.0 * nnz * heads * width
+    _bound(r, flops, 4 * nnz + 4 * nnz * heads + dense_bytes, peak)
+    if peak != PEAK_F32:
+        print(f"    (at the fp32 FMA peak the operations would take "
+              f"{flops / PEAK_F32 * 1e3:.4f} ms)", flush=True)
 
 
 def _stored_note(name, tiles, width):
     """Prints the work of the stored panel (every occupied tile, zeros
-    included) beside the bound, which counts the nonzeros alone."""
-    print(f"    {name}: the stored panel's {2.0 * tiles * width / 1e9:.3f} "
-          f"GFLOP would take {2.0 * tiles * width / PEAK_F32 * 1e3:.4f} ms "
-          f"at the fp32 peak (not the bound)", flush=True)
+    included) beside the bound, which counts the nonzeros alone: at the
+    fp32 FMA peak and in split TF32 on the tensor cores."""
+    flops = 2.0 * tiles * width
+    print(f"    {name}: the stored panel's {flops / 1e9:.3f} GFLOP would take "
+          f"{flops / PEAK_F32 * 1e3:.4f} ms at the fp32 FMA peak, "
+          f"{flops / PEAK_3XTF32 * 1e3:.4f} ms in split TF32 (ops / "
+          f"{PEAK_3XTF32 / 1e12:.0f} TFLOP/s) (not the bound)", flush=True)
 
 
 def _library_ms(name, fn, timer=None, **kw):
@@ -381,9 +397,109 @@ def _library_ms(name, fn, timer=None, **kw):
     return ms
 
 
+def _same_bits_and_empty(name, first, second, call, meta, count, bias):
+    """Two calls give the same bits (no float atomics), and the first walk
+    (row block 0 for ``count`` = "nblocks", block column 0 for
+    "t_nblocks") emptied by setting its count to 0 writes exactly 0, or
+    exactly its ``bias``, while the other rows keep their bits."""
+    import torch
+
+    if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+        _fail(f"{name}: two calls differ in their bits")
+    md = dict(meta)
+    md[count] = meta[count].clone()
+    md[count][..., 0] = 0
+    got = call(md)
+    rows = 64
+    want = (torch.zeros_like(got[:rows]) if bias is None
+            else bias[:rows, None].expand_as(got[:rows]))
+    if not torch.equal(got[:rows], want):
+        _fail(f"{name}: an emptied walk is not exactly "
+              f"{'0' if bias is None else 'its bias'}")
+    if not torch.equal(got[rows:].view(torch.int32),
+                       first[rows:].view(torch.int32)):
+        _fail(f"{name}: emptying one walk changed the others' bits")
+    print(f"  {name}: the same bits twice; an emptied walk exactly "
+          f"{'0' if bias is None else 'its bias'}, the rest unchanged",
+          flush=True)
+
+
+def _block_structured_row(stt, torch, dev, dense):
+    """B1 and B3 on a block-structured pattern at the headline's size:
+    4096^2, 10% of the 64 x 64 tiles kept and dense inside (balanced over
+    the row blocks), dense operand 4096 wide; beside dense fp32
+    torch.matmul and torch.sparse_bsr_tensor @ dense (timed, not checked;
+    None where the call fails here). Printed, not in the JSON line."""
+    from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm import (
+        bsr_spmm_panel, bsr_spmm_panel_plain)
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_t import (
+        bsr_spmm_t_panel, bsr_spmm_t_panel_plain)
+    from sputnik_tpu_torch.patterns import block_random_topology
+
+    size = dense.shape[-1]
+    topo = block_random_topology(size, size, 64, 64, density=0.1)
+    rng = np.random.RandomState(5)
+    w = (topo.to_dense_mask() * rng.randn(size, size)).astype(np.float32)
+    mat = stt.SparseMatrix(w)
+    spec = P.PanelSpec(mat.topology)
+    bv = spec.view
+    panel = torch.from_numpy(P.values_to_panel_np(
+        mat.topology, mat.values, spec.bm, spec.bk)).to(dev)[None]
+    meta = spec.meta(dev)
+    args = (meta["block_cols"], meta["nblocks"], panel, dense[None])
+    targs = (meta["t_src_i"], meta["t_src_s"], meta["t_nblocks"], panel,
+             dense[None])
+    a_dense = torch.from_numpy(w).to(dev)
+    stored = 2.0 * bv.num_blocks * spec.bm * spec.bk * size
+    print(f"  block-structured row: {size}^2, {bv.num_blocks} of "
+          f"{bv.mb * bv.kb} 64x64 tiles kept (max_bpr {bv.max_bpr}), "
+          f"{stored / 1e9:.2f} GFLOP stored; split TF32 bound "
+          f"{stored / PEAK_3XTF32 * 1e3:.4f} ms, fp32 FMA "
+          f"{stored / PEAK_F32 * 1e3:.4f} ms", flush=True)
+    got = bsr_spmm_panel(*args, rows=size)[0]
+    _compare("spmm block-structured", got,
+             bsr_spmm_panel_plain(*args, rows=size)[0], TOL_KERNEL)
+    _compare("spmm block-structured vs dense torch.matmul", got,
+             a_dense @ dense, TOL_KERNEL)
+    tgot = bsr_spmm_t_panel(*targs, rows=size)[0]
+    _compare("spmm_t block-structured", tgot,
+             bsr_spmm_t_panel_plain(*targs, rows=size)[0], TOL_KERNEL)
+    if not (torch.equal(got, bsr_spmm_panel(*args, rows=size)[0]) and
+            torch.equal(tgot, bsr_spmm_t_panel(*targs, rows=size)[0])):
+        _fail("block-structured: two calls differ in their bits")
+    del got, tgot
+    ms = _graph_ms(lambda: bsr_spmm_panel(*args, rows=size))
+    tms = _graph_ms(lambda: bsr_spmm_t_panel(*targs, rows=size))
+    mm = _graph_ms(lambda: a_dense @ dense)
+    a_bsr, at_bsr = _to_bsr(a_dense), _to_bsr(a_dense.T.contiguous())
+    bsr = None if a_bsr is None else _library_ms(
+        "block-structured spmm (torch.sparse_bsr_tensor @ dense)",
+        lambda: a_bsr @ dense, timer=_graph_ms)
+    tbsr = None if at_bsr is None else _library_ms(
+        "block-structured spmm_t (torch.sparse_bsr_tensor of A^T @ G)",
+        lambda: at_bsr @ dense, timer=_graph_ms)
+    print(f"  block-structured: B1 {ms:.4f} ms ({stored / ms / 1e9:.2f} "
+          f"TFLOP/s fp32 on the stored tiles), B3 {tms:.4f} ms; dense fp32 "
+          f"torch.matmul {mm:.4f} ms; torch.sparse_bsr_tensor @ dense "
+          f"{bsr if bsr is None else f'{bsr:.4f} ms'}, of A^T "
+          f"{tbsr if tbsr is None else f'{tbsr:.4f} ms'}", flush=True)
+
+
+def _to_bsr(a):
+    """``a`` as a ``torch.sparse_bsr_tensor`` of 64 x 64 blocks (its zero
+    blocks dropped), or None (printed) where PyTorch cannot build it."""
+    try:
+        return a.to_sparse_bsr((64, 64))
+    except Exception as e:  # a yardstick, not a check of the port
+        print(f"  torch.sparse_bsr_tensor: cannot build ({e!r})", flush=True)
+        return None
+
+
 def phase_kernels(stt, torch, dev, kres):
     """Each kernel against its plain version on the card."""
     from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.ops.kernels import _build
     from sputnik_tpu_torch.ops.kernels.bsr_sddmm import (
         bsr_sddmm_panel, bsr_sddmm_panel_plain)
     from sputnik_tpu_torch.ops.kernels.bsr_spmm import (
@@ -395,6 +511,7 @@ def phase_kernels(stt, torch, dev, kres):
     from sputnik_tpu_torch.patterns import driver_masks, uniform_mask
 
     print("phase 2: kernels vs plain PyTorch on the card", flush=True)
+    _sass_check_tc(_build)
     # -- SpMM at bench.py's config: 4096^3, element-random d=0.1
     size, density = 4096, 0.1
     rng = np.random.RandomState(0)
@@ -432,19 +549,29 @@ def phase_kernels(stt, torch, dev, kres):
     a_dense = torch.from_numpy(w).to(dev)
     _compare("spmm vs dense torch.matmul", kern(), a_dense @ dense,
              TOL_KERNEL)
-    r["ms"] = _time_ms(kern)
-    r["plain_ms"] = _time_ms(plain)
-    dense_ms = _time_ms(lambda: a_dense @ dense)
-    ms_relu = _time_ms(lambda: kern("bias_relu"))
+    _same_bits_and_empty("spmm", kern("bias"), kern("bias"),
+                         lambda md: bsr_spmm_panel(
+                             md["block_cols"], md["nblocks"], panel[None],
+                             dense[None], bias, rows=size,
+                             epilogue="bias")[0],
+                         meta, "nblocks", bias)
     flop = 2.0 * bv.num_blocks * spec.bm * spec.bk * size
-    print("  (times: median of 10 samples of 10 back-to-back calls)")
+    r["ms"], eager_ms = _graph_ms(kern), _time_ms(kern)
+    r["plain_ms"] = _time_ms(plain)
+    dense_ms = _graph_ms(lambda: a_dense @ dense)
+    dense_eager = _time_ms(lambda: a_dense @ dense)
+    ms_relu = _graph_ms(lambda: kern("bias_relu"))
+    print("  (times: CUDA graph replay, the median of 10 replays of 8 calls; "
+          "eager: the median of 10 samples of 10 back-to-back calls)")
     print(f"  spmm {size}^3 d={density}: kernel {r['ms']:.4f} ms "
-          f"({flop / r['ms'] / 1e9:.2f} TFLOP/s), bias_relu {ms_relu:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms, dense fp32 torch.matmul "
-          f"{dense_ms:.4f} ms", flush=True)
+          f"(eager {eager_ms:.4f}; {flop / r['ms'] / 1e9:.2f} TFLOP/s fp32 "
+          f"on the stored tiles), bias_relu {ms_relu:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, dense fp32 torch.matmul {dense_ms:.4f} "
+          f"ms (eager {dense_eager:.4f})", flush=True)
     r["library_ms"] = dense_ms          # torch.matmul on the densified A
     nnz = mat.topology.nnz
-    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4)
+    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4,
+                  PEAK_3XTF32)
     _stored_note("spmm", bv.num_blocks * spec.bm * spec.bk, size)
 
     # -- transposed SpMM (B3) at the same headline: A^T @ G, G = dense
@@ -461,15 +588,25 @@ def phase_kernels(stt, torch, dev, kres):
     got = t_kern()
     _compare(f"spmm_t {size}^3 d={density}", got, t_plain(), TOL_KERNEL, r)
     _compare("spmm_t vs dense a.T @ G", got, a_dense.T @ dense, TOL_KERNEL)
-    r["ms"], r["plain_ms"] = _time_ms(t_kern), _time_ms(t_plain)
-    dense_t_ms = _time_ms(lambda: a_dense.T @ dense)
-    print(f"  spmm_t {size}^3 d={density}: kernel {r['ms']:.4f} ms "
-          f"({flop / r['ms'] / 1e9:.2f} TFLOP/s), plain "
-          f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {dense_t_ms:.4f} ms",
-          flush=True)
+    _same_bits_and_empty("spmm_t", got, t_kern(),
+                         lambda md: bsr_spmm_t_panel(
+                             md["t_src_i"], md["t_src_s"], md["t_nblocks"],
+                             panel[None], dense[None], rows=size)[0],
+                         meta, "t_nblocks", None)
+    r["ms"], eager_ms = _graph_ms(t_kern), _time_ms(t_kern)
+    r["plain_ms"] = _time_ms(t_plain)
+    dense_t_ms = _graph_ms(lambda: a_dense.T @ dense)
+    dense_t_eager = _time_ms(lambda: a_dense.T @ dense)
+    print(f"  spmm_t {size}^3 d={density}: kernel {r['ms']:.4f} ms (eager "
+          f"{eager_ms:.4f}; {flop / r['ms'] / 1e9:.2f} TFLOP/s), plain "
+          f"{r['plain_ms']:.4f} ms, dense fp32 a.T @ G {dense_t_ms:.4f} ms "
+          f"(eager {dense_t_eager:.4f})", flush=True)
     r["library_ms"] = dense_t_ms
-    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4)
-    del panel, dense, a_dense, got
+    _sparse_bound(r, nnz, 1, size, _nbytes(dense) + size * size * 4,
+                  PEAK_3XTF32)
+    del a_dense, got
+    _block_structured_row(stt, torch, dev, dense)
+    del panel, dense
 
     # -- SDDMM at 4096^2 d=0.1, d=64
     d = 64
@@ -1823,7 +1960,8 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
     nnz_in = moe.topo_in.nnz
     print(f"  spmm_bh bank: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms", flush=True)
-    _sparse_bound(r, nnz_in, E, C, _nbytes(xin) + E * f * C * 4)
+    _sparse_bound(r, nnz_in, E, C, _nbytes(xin) + E * f * C * 4,
+                  PEAK_3XTF32)
     _stored_note("spmm_bh bank", tiles_in, C)
 
     # B7: the bank's values gradient d_W_in = sddmm(g_y1, xin), D = C
@@ -1874,7 +2012,7 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
         lambda: torch.bmm(w_in.transpose(1, 2), gy))
     print(f"  spmm_t_bh bank: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms", flush=True)
-    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, got))
+    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, got), PEAK_3XTF32)
     del got, w_in
 
     # the bank's second projection: topo_out [h, f] x [E, f, C]
@@ -2686,42 +2824,82 @@ def _int8_serving_spmm(torch, dev, k8):
                     2.0 * topo.nnz * s, need)
 
 
-def _sass_check(k8_build):
-    """The int8 product kernels' SASS (cuobjdump of the built library):
-    int8 tensor-core instructions (IGMMA, wgmma's; IMMA, mma.sync's) in
-    each, IDP.4A (__dp4a) in none; B17's counts beside them. Raises if the
-    product kernels fail it; prints "not checked" where the toolkit has no
-    cuobjdump."""
+_SASS = {}   # the built library's SASS counts, read once
+
+
+def _sass_counts(build):
+    """Per kernel of the built library (cuobjdump -sass), the count of
+    instructions whose opcode starts with each of _SASS_OPS; None (printed)
+    where the toolkit has no cuobjdump."""
     import os
     import shutil
 
+    if "funcs" in _SASS:
+        return _SASS["funcs"]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         print("  SASS: cuobjdump not found, not checked", flush=True)
-        return
-    sass = subprocess.run([tool, "-sass", str(k8_build._so_path())],
+        _SASS["funcs"] = None
+        return None
+    sass = subprocess.run([tool, "-sass", str(build._so_path())],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     funcs, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            funcs[name] = {"IGMMA": 0, "IMMA": 0, "IDP.4A": 0}
+            funcs[name] = dict.fromkeys(_SASS_OPS, 0)
         elif name is not None:
             parts = line.split("*/")
             op = parts[1].split() if len(parts) > 1 else []
             for key in funcs[name]:
                 funcs[name][key] += any(w.startswith(key) for w in op[:2])
+    _SASS["funcs"] = funcs
+    return funcs
+
+
+_SASS_OPS = ("IGMMA", "IMMA", "IDP.4A", "HGMMA", "HMMA", "FFMA")
+
+
+def _sass_print(funcs, keys):
+    for n, c in funcs:
+        print(f"  SASS {n[:70]}: " + ", ".join(f"{c[k]} {k}" for k in keys),
+              flush=True)
+
+
+def _sass_check(k8_build):
+    """The int8 product kernels' SASS: int8 tensor-core instructions
+    (IGMMA, wgmma's; IMMA, mma.sync's) in each, IDP.4A (__dp4a) in none;
+    B17's counts beside them. Raises if the product kernels fail it."""
+    funcs = _sass_counts(k8_build)
+    if funcs is None:
+        return
     prods = {n: c for n, c in funcs.items() if "spmm_int8" in n}
-    for n, c in sorted(prods.items()) + sorted(
-            (n, c) for n, c in funcs.items() if "sddmm_int8" in n):
-        print(f"  SASS {n[:70]}: " + ", ".join(
-            f"{v} {k}" for k, v in c.items()), flush=True)
+    _sass_print(sorted(prods.items()) + sorted(
+        (n, c) for n, c in funcs.items() if "sddmm_int8" in n),
+        ("IGMMA", "IMMA", "IDP.4A"))
     if not prods or any(c["IGMMA"] + c["IMMA"] == 0 or c["IDP.4A"]
                         for c in prods.values()):
         _fail("SASS: the int8 product kernels do not run on the int8 "
               "tensor cores alone")
+
+
+def _sass_check_tc(build):
+    """The fp32 SpMM bodies' SASS (spmm_tc_kernel: B1, B2, B6, B13a;
+    spmm_t_tc_kernel: B3, B8, B13b, every address policy and width): TF32
+    tensor-core instructions (HMMA, mma.sync's; HGMMA, wgmma's) in each,
+    and no FFMA (the SIMT body's inner loop). Raises if one fails it."""
+    funcs = _sass_counts(build)
+    if funcs is None:
+        return
+    tc = {n: c for n, c in funcs.items()
+          if "spmm_tc_kernel" in n or "spmm_t_tc_kernel" in n}
+    _sass_print(sorted(tc.items()), ("HGMMA", "HMMA", "FFMA"))
+    if not tc or any(c["HGMMA"] + c["HMMA"] == 0 or c["FFMA"]
+                     for c in tc.values()):
+        _fail("SASS: the fp32 SpMM bodies do not run on the tensor cores "
+              "alone")
 
 
 def phase_int8_kernels(stt, torch, dev, kres, w, mat):
@@ -3249,7 +3427,7 @@ def phase_compressed_kernels(stt, torch, dev, kres):
         r["library_ms"] = _library_ms(
             f"spmm_c width {width} (torch.sparse_bsr_tensor @ dense, the "
             f"same 64x64 tiles)", lambda: bsr @ x[0])
-        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(x))
+        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(x), PEAK_3XTF32)
         _stored_note("spmm_c", bv.num_blocks * 64 * 64, width)
         _stored_note("B1 (ELL)", ev.mb * ev.max_bpr * 64 * 64, width)
         if width == 64:
@@ -3278,7 +3456,7 @@ def phase_compressed_kernels(stt, torch, dev, kres):
               f"{r['plain_ms']:.4f} ms; B3 on the ELL panel {ell_ms:.4f} ms; "
               f"library: dense fp32 a.T @ G {r['library_ms']:.4f} ms",
               flush=True)
-        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(g))
+        _sparse_bound(r, nnz, 1, width, 2 * _nbytes(g), PEAK_3XTF32)
         if width == 64:
             kres["bsr_spmm_t_panel_c"].update(r)
         del x, g, got
@@ -3619,7 +3797,8 @@ def phase_parallel_kernels(stt, torch, dev, kres):
           f"{nnz_sel}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
           f"ms; library: torch.matmul on the densified tiles "
           f"{r['library_ms']:.4f} ms", flush=True)
-    _sparse_bound(r, nnz_sel, 1, HALO_Q, _nbytes(own, outs["interior"]))
+    _sparse_bound(r, nnz_sel, 1, HALO_Q, _nbytes(own, outs["interior"]),
+                  PEAK_3XTF32)
     _stored_note("spmm_sel interior", len(tiles) * 64 * 64, HALO_Q)
     del panels, full, halo, a_sel, outs, b1
 

@@ -12,29 +12,54 @@
 // runs the MoE expert bank (B = 1, heads = experts) and the panel
 // attention layout's P @ V (B = batch, one mask per batch element).
 //
-// What bounds it on an H100: at the repo's headline (4096^2, d = 0.1,
-// element-random) every 64 x 64 tile is occupied, so the work is a dense
-// 4096^3 product: 137 GFLOP against 64 MB of panel and a 64 MB dense
-// operand that each output column tile re-reads once per row block. That
-// is compute-bound: FP32 FMA peaks at 67 TFLOP/s, so >= 2 ms.
+// What bounds it on an H100. At the repo's headline (4096^2, d = 0.1,
+// element-random) every 64 x 64 tile is occupied, so the stored work is a
+// dense 4096^3 product: 137.4 GFLOP (13.7 on the nonzeros alone) against
+// 64 MB of panel and a 64 MB dense operand. FP32 FMA (67 TFLOP/s) cannot
+// take it below 2.05 ms, slower than cuBLAS's dense SGEMM; the tensor cores
+// can. Their fp32 input is TF32 (10 mantissa bits), and one TF32 rounding
+// of each operand misses the kernels' 1e-4 * max|out| at this depth (a
+// relative 2^-11 an operand: 2.9x the limit on [64, 4096] @ [4096, 64],
+// tests/test_torch_tf32_split.py). Split TF32 meets it: x = hi + lo, three
+// products hi.hi + hi.lo + lo.hi, an error near fp32's own. So 3 x 137.4 =
+// 412 G TF32 operations, 0.83 ms at the 495 TFLOP/s dense TF32 peak (on
+// the nonzeros alone 0.083 ms); beside that, the dense slices pass L2 once
+// per row block (64 x 67 MB) and the tiles once per 128 columns.
 //
-// The simple design: one block of 256 threads per (64-row slice of a row
-// block, 64-column output tile, replica). It walks the row block's occupied
-// slots s < nblocks[i] (padded slots are never visited), stages a 64 x 32
-// slice of the value tile and the 32 x 64 slice of the dense rows the tile's
-// block column names in shared memory, and accumulates 4 x 4 outputs per
-// thread in registers (common.cuh). The output is written once, with the
-// bias / bias+ReLU epilogue applied in registers; a row block without
-// occupied tiles writes exactly 0 (+ bias). Any bm, bk works: partial
-// slices are zero-filled. wgmma/TMA pipelining is later work.
+// The design (spmm_tc_kernel, common.cuh: tc_walk): one block of 256
+// threads, two warpgroups, per (64-row slice of a row block, 128 output
+// columns (one warpgroup, 64, where N <= 64), replica). It walks the row
+// block's occupied slots s < nblocks[i] (padded slots are never visited)
+// in 32-deep units through a 3-stage cp.async ring (16-byte copies where
+// the rows allow, zero-filled past bm, bk, K and N). Per unit the block
+// splits the tile slice into hi and lo in shared memory (core-matrix
+// order, K-major) and each warpgroup loads its 64 dense columns into
+// registers, splits them there, and issues wgmma m64n64k8 TF32 hi.hi,
+// hi.lo, lo.hi per 8-deep step: dense^T . tile^T, since TF32 wgmma reads
+// shared memory K-major only and the dense rows are not. A slot's
+// tensor-core sums are added into f32 sums after its last unit (the
+// tensor cores' accumulation spans one slot, 24 products deep at bk = 64).
+// The output is written once, transposed back from the accumulators, with
+// the bias / bias+ReLU epilogue; a row block without occupied tiles writes
+// exactly 0 (+ bias). No atomics: the same bits run to run. Any bm, bk
+// works (64-row slices, 32-deep units, zero-filled).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; PERF.md): ~2.0 ms at the
+// headline, 2.4x its 3xTF32 tensor time. Knock-out builds put the
+// products (~0.83 ms) and the rest (staging through L2 ~0.55, the split
+// pass ~0.3) end to end rather than overlapped; mma.sync m16n8k8 in place
+// of wgmma took 2.42 ms; a register-double-buffered walk that overlaps a
+// warpgroup's products with its next unit's staging needed 16-deep units
+// to fit 128 registers and was slower; 256 columns a block and the grid
+// order moved it < 5%.
 //
 // Compressed (B13a): also replaces sputnik_tpu/ops/pallas/bsr_compressed.py:
 // bsr_spmm_panel_c. The panel is the true-BSR layout values[R, T, bm, bk]
 // (blocking.CompressedView, T = num_blocks + 1 with a dump tile last):
 // row block i owns tiles block_offsets[i] .. block_offsets[i + 1] - 1, the
 // s-th in block column block_cols[block_offsets[i] + s]. The body is B1's
-// on another address policy (CompressedChunks below), so B1 and B6 compile
-// to what they were. The compressed softmax backward also runs it for its
+// on another address policy (CompressedChunks below), so B1, B2, B6 and
+// B13a are one template. The compressed softmax backward also runs it for its
 // ragged row sums (dense = a ones column). Its bound is B1's on the tiles
 // it stores: no padded tiles exist to skip.
 //
@@ -137,17 +162,27 @@ struct SelRows {  // B2: row block i walks slot_sel[i * max_bpr + s]
   }
 };
 
-template <typename Rows>
-__global__ void __launch_bounds__(THREADS)
-spmm_panel_kernel(Rows rows, const float* __restrict__ panel,
-                  const float* __restrict__ dense,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  float* __restrict__ partials, int n_parts, int bm, int bk,
-                  int K, int N, int M, int epilogue) {
-  __shared__ __align__(16) float As[TK][TILE_LD];
-  __shared__ __align__(16) float Bs[TK][TILE_LD];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * TILE;
+// out rows of walk blockIdx.y / slices (its 64-row slice blockIdx.y %
+// slices) x BN = 64 * WG columns (blockIdx.x) of replica blockIdx.z, in
+// split TF32 on the tensor cores (common.cuh: tc_walk). The walk's slots
+// pass in TC_BK-deep units (ceil(bk / TC_BK) a slot): the slice's rows of
+// the slot's tile ([m][k]) and the TC_BK dense rows its block column names
+// ([k][n]). a_vec / b_vec: the tile / dense rows can be staged in 16-byte
+// pieces.
+template <typename Rows, int WG>
+__global__ void __launch_bounds__(128 * WG, 2)
+spmm_tc_kernel(Rows rows, const float* __restrict__ panel,
+               const float* __restrict__ dense, const float* __restrict__ bias,
+               float* __restrict__ out, float* __restrict__ partials,
+               int n_parts, int bm, int bk, int K, int N, int M, int epilogue,
+               int a_vec, int b_vec) {
+  constexpr int NTHREADS = 128 * WG, BN = 64 * WG, LDB = tc_ldb(WG);
+  constexpr int BG = BN / 4;
+  extern __shared__ __align__(1024) float smem[];
+  float* const As = smem + 4 * TC_SB;            // [TC_STAGES][TC_A]
+  float* const Bs = As + TC_STAGES * TC_A;       // [TC_STAGES][TC_BK * LDB]
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * BN;
   const int slices = (bm + TILE - 1) / TILE;
   const int r0 = (blockIdx.y % slices) * TILE;
   const int r = blockIdx.z;
@@ -155,58 +190,75 @@ spmm_panel_kernel(Rows rows, const float* __restrict__ panel,
   const size_t tile_elems = (size_t)bm * bk;
   const float* pan = panel + (size_t)r * rows.tiles() * tile_elems;
   const float* den = dense + (size_t)r * K * N;
+  const int chunks = (bk + TC_BK - 1) / TC_BK;
+  const int units = walk.count * chunks;
 
-  float acc[4][4] = {};
-  for (int s = 0; s < walk.count; ++s) {
-    const int c = walk.cols[s];
-    const float* a_tile = pan + (size_t)walk.tile(s) * tile_elems;
-    for (int k0 = 0; k0 < bk; k0 += TK) {
-      for (int e = tid; e < TILE * TK; e += THREADS) {
-        const int row = e / TK, k = e % TK;  // coalesced along k
-        const int gr = r0 + row, gk = k0 + k;
-        As[k][row] = (gr < bm && gk < bk) ? a_tile[(size_t)gr * bk + gk] : 0.f;
+  // stage unit (slot ls, piece ld) into the next raw stage; one commit a
+  // call
+  int ls = 0, ld = 0, lst = 0;
+  auto load_next = [&]() {
+    if (ls < walk.count) {
+      const int c = walk.cols[ls], k0 = ld * TC_BK;
+      const float* a_tile = pan + (size_t)walk.tile(ls) * tile_elems;
+      float* as = As + lst * TC_A;
+      float* bs = Bs + lst * (TC_BK * LDB);
+#pragma unroll
+      for (int q = 0; q < TILE * TC_BK / 4 / NTHREADS; ++q) {
+        const int e = tid + q * NTHREADS, row = e / (TC_BK / 4);
+        const int kg = e % (TC_BK / 4) * 4;
+        const int gr = r0 + row;
+        tc_stage4(as + row * TC_LDA + kg,
+                  a_tile + (size_t)gr * bk + k0 + kg, panel, gr < bm,
+                  k0 + kg, bk, a_vec);
       }
-      for (int e = tid; e < TILE * TK; e += THREADS) {
-        const int k = e / TILE, col = e % TILE;  // coalesced along n
-        const int gk = k0 + k, grow = c * bk + gk, gc = n0 + col;
-        Bs[k][col] = (gk < bk && grow < K && gc < N)
-                         ? den[(size_t)grow * N + gc] : 0.f;
+#pragma unroll
+      for (int q = 0; q < TC_BK * BG / NTHREADS; ++q) {
+        const int e = tid + q * NTHREADS, k = e / BG, ng = (e % BG) * 4;
+        const int gk = k0 + k, grow = c * bk + gk;
+        tc_stage4(bs + k * LDB + ng, den + (size_t)grow * N + n0 + ng, dense,
+                  gk < bk && grow < K, n0 + ng, N, b_vec);
       }
-      __syncthreads();
-      tile_fma<TK>(As, Bs, ty, tx, acc);
-      __syncthreads();
+      lst = lst + 1 == TC_STAGES ? 0 : lst + 1;
+      if (++ld == chunks) {
+        ld = 0;
+        ++ls;
+      }
     }
-  }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-  if (walk.part >= 0) {  // a chunk of a split row block: its partial sum
-    float* p = partials + ((size_t)r * n_parts + walk.part) * bm * N;
+  float facc[32];
+  tc_walk<false, WG>(units, chunks, load_next, smem, facc);
+
+  // acc[4j + e]: output row 8j + 2t + (e & 1) of the slice, column
+  // n0 + 64 wg + 16w + g + 8 (e >> 1). A chunk of a split row block writes
+  // its partial sums, rows counted from the row block's first; the rest
+  // write the output with the epilogue.
+  const int lane = tid & 31, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const bool part = walk.part >= 0;
+  float* const o =
+      part ? partials + ((size_t)r * n_parts + walk.part) * bm * N
+           : out + (size_t)r * M * N;
+  const int row_base = part ? 0 : walk.block * bm;
+  const int row_end = part ? bm : M;
+  const int epi = part ? 0 : epilogue;
+  const int col0 = n0 + wg * 64 + w * 16 + g;
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int row = r0 + ty * 4 + ii;
-      if (row >= bm) continue;
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int gc = n0 + tx * 4 + jj;
-        if (gc < N) p[(size_t)row * N + gc] = acc[ii][jj];
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * j + 2 * t + h, grow = row_base + row;
+      if (row >= bm || grow >= row_end) continue;
+      const float b = epi ? bias[grow] : 0.f;
+      float* orow = o + (size_t)grow * N;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = col0 + 8 * c;
+        float v = facc[4 * j + 2 * c + h] + b;
+        if (epi == 2) v = fmaxf(v, 0.f);
+        if (col < N) orow[col] = v;
       }
     }
-    return;
-  }
-  float* o = out + (size_t)r * M * N;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int row = r0 + ty * 4 + ii, grow = walk.block * bm + row;
-    if (row >= bm || grow >= M) continue;
-    const float b = epilogue ? bias[grow] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int gc = n0 + tx * 4 + jj;
-      if (gc >= N) continue;
-      float v = acc[ii][jj] + b;
-      if (epilogue == 2) v = fmaxf(v, 0.f);
-      o[(size_t)grow * N + gc] = v;
-    }
-  }
 }
 
 // B13a's second pass: row block split_rows[j]'s output rows are the sum of
@@ -234,18 +286,37 @@ spmm_merge_kernel(const int* __restrict__ split_rows,
 }
 
 // `walks` blocks of output rows (row blocks, or B13a's chunks), each cut
-// into 64-row slices.
+// into 64-row slices; 128 columns a block, 64 where N <= 64.
+template <typename Rows, int WG>
+int launch_spmm_wg(Rows rows, const void* panel, const void* dense,
+                   const void* bias, void* out, int R, int walks, int bm,
+                   int bk, int K, int N, int M, int epilogue, void* stream,
+                   void* partials, int n_parts) {
+  const int slices = (bm + TILE - 1) / TILE;
+  dim3 grid((N + 64 * WG - 1) / (64 * WG), walks * slices, R);
+  const size_t smem = tc_smem(WG);
+  const int err = set_smem(spmm_tc_kernel<Rows, WG>, smem);
+  if (err) return err;
+  const int a_vec = bk % 4 == 0 && (uintptr_t)panel % 16 == 0;
+  const int b_vec = N % 4 == 0 && (uintptr_t)dense % 16 == 0;
+  spmm_tc_kernel<Rows, WG><<<grid, 128 * WG, smem, (cudaStream_t)stream>>>(
+      rows, (const float*)panel, (const float*)dense, (const float*)bias,
+      (float*)out, (float*)partials, n_parts, bm, bk, K, N, M, epilogue,
+      a_vec, b_vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename Rows>
 int launch_spmm(Rows rows, const void* panel, const void* dense,
                 const void* bias, void* out, int R, int walks, int bm, int bk,
                 int K, int N, int M, int epilogue, void* stream,
                 void* partials = nullptr, int n_parts = 0) {
-  const int slices = (bm + TILE - 1) / TILE;
-  dim3 grid((N + TILE - 1) / TILE, walks * slices, R);
-  spmm_panel_kernel<Rows><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      rows, (const float*)panel, (const float*)dense, (const float*)bias,
-      (float*)out, (float*)partials, n_parts, bm, bk, K, N, M, epilogue);
-  return (int)cudaGetLastError();
+  return N > 64 ? launch_spmm_wg<Rows, 2>(rows, panel, dense, bias, out, R,
+                                          walks, bm, bk, K, N, M, epilogue,
+                                          stream, partials, n_parts)
+                : launch_spmm_wg<Rows, 1>(rows, panel, dense, bias, out, R,
+                                          walks, bm, bk, K, N, M, epilogue,
+                                          stream, partials, n_parts);
 }
 
 }  // namespace stt

@@ -308,26 +308,6 @@ struct ColWalk {
   }
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, the last 16 - bytes of them zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-// wgmma's shared-memory descriptor of a K-major operand in a stage's core
-// layout, no swizzle: the two core matrices of a 32-byte k step CORE bytes
-// apart (LBO), 8-row groups GROUP bytes apart (SBO).
-__device__ __forceinline__ uint64_t core_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(CORE >> 4) << 16) | ((uint64_t)(GROUP >> 4) << 32);
-}
-
 // d (64 x 64 int32 over the warpgroup, 32 a thread) = a . b (+ d if acc):
 // a 64 x 32 and b 64 x 32 int8 codes, both K-major in shared memory.
 __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
@@ -346,13 +326,6 @@ __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
         "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(acc));
-}
-
-// 4 bytes global -> shared (cp.async, L1-cached).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
 }
 
 // out[blk * rows + r, n] = sum over the walk's slots of (A tile . B codes)
@@ -460,9 +433,10 @@ spmm_int8_wgmma_kernel(Walk walk, const signed char* __restrict__ bq,
       st = st + 1 == STAGES ? 0 : st + 1;
       if (in.live) {
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        wgmma_s8_n64(acc, core_desc(A), core_desc(B), d > 0);
-        wgmma_s8_n64(acc, core_desc(A + 2 * CORE), core_desc(B + 2 * CORE),
-                     1);
+        wgmma_s8_n64(acc, core_desc(A, CORE, GROUP),
+                     core_desc(B, CORE, GROUP), d > 0);
+        wgmma_s8_n64(acc, core_desc(A + 2 * CORE, CORE, GROUP),
+                     core_desc(B + 2 * CORE, CORE, GROUP), 1);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }

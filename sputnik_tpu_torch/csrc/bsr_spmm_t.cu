@@ -19,17 +19,26 @@
 // What bounds it on an H100: the same work as the forward SpMM (B1) with
 // the tile transposed: 2 * bm * bk * Q FLOPs per occupied tile against one
 // tile read and bm rows of G. At the SpMM headline (4096^2, d = 0.1, every
-// 64 x 64 tile occupied, Q = 4096) that is a dense 137 GFLOP product:
-// compute-bound at the FP32 FMA peak (67 TFLOP/s), so >= 2 ms.
+// 64 x 64 tile occupied, Q = 4096) that is a dense 137.4 GFLOP product:
+// >= 2.05 ms at the FP32 FMA peak. On the tensor cores in split TF32
+// (bsr_spmm.cu's note: one TF32 rounding misses 1e-4 * max|out|, three
+// products hi.hi + hi.lo + lo.hi meet it) it is 412 G TF32 operations,
+// 0.83 ms at 495 TFLOP/s (on the nonzeros alone 0.083 ms), beside G's
+// rows passing L2 once per block column.
 //
-// The simple design: one block of 256 threads per (64-row slice of block
-// column j's bk output rows, 64-column tile of Q, replica). It walks
-// u < t_nblocks[j], stages a 32-deep slice of the source tile - its row
-// index is the contraction index, its column index the output row, so the
-// transpose is free: the slice is stored k-major exactly as common.cuh
-// wants it - and the matching 32 rows of G, and accumulates 4 x 4 outputs
-// per thread in registers. A block column without tiles writes exactly 0
-// (the output is torch.empty). Any bm, bk works; edges are bound-checked.
+// The design (spmm_t_tc_kernel): B1's tensor-core walk (common.cuh:
+// tc_walk) with the tile's split pass transposing. One block of 256
+// threads per (64-row slice of block column j's bk output rows, 128
+// columns of Q (64 where Q <= 64), replica). It walks u < t_nblocks[j] in
+// 32-deep units through a 3-stage cp.async ring: 32 rows of the source
+// tile, columns c0 .. c0 + 63 as they lie in memory (the tile row is the
+// contraction index), and the matching 32 rows of G. The split pass writes
+// the slice hi and lo K-major (each tile column's 32 values contiguous),
+// as wgmma's B operand; G's rows are wgmma's A, loaded into registers and
+// split there; the products are G^T . tile. An entry's sums are added into
+// f32 sums after its last unit. A block column without tiles writes
+// exactly 0 (the output is torch.empty). Any bm, bk works; edges are
+// zero-filled. No atomics.
 //
 // Compressed (B13b): also replaces sputnik_tpu/ops/pallas/bsr_compressed.py:
 // bsr_spmm_t_panel_c. The panel is the true-BSR layout values[R, T, bm, bk]
@@ -38,7 +47,7 @@
 // row blocks, t_rows[j * max_bpc + u]. Padded slots (u >= t_nblocks[j])
 // repeat the last pair or name the dump tile, and are never visited. The
 // body is the same; only the address policy (EllCols, CompressedCols
-// below) differs, so B3 and B8 compile to what they were.
+// below) differs, so B3, B8 and B13b are one template.
 #include "common.cuh"
 
 namespace stt {
@@ -78,15 +87,26 @@ struct CompressedCols {  // B13b: global tile ids of the compressed panel
   }
 };
 
-template <typename Cols>
-__global__ void __launch_bounds__(THREADS)
-spmm_t_panel_kernel(Cols cols, const float* __restrict__ panel,
-                    const float* __restrict__ g, float* __restrict__ out,
-                    int bm, int bk, int M, int Q, int rows) {
-  __shared__ __align__(16) float As[TK][TILE_LD];
-  __shared__ __align__(16) float Bs[TK][TILE_LD];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * TILE;
+// out rows c0 .. c0 + 63 (blockIdx.y % slices) of block column j =
+// blockIdx.y / slices x BN = 64 * WG columns of Q (blockIdx.x), replica
+// blockIdx.z, in split TF32 on the tensor cores (common.cuh: tc_walk, its
+// split pass transposing). The column's walk entries pass in TC_BK-deep
+// units (ceil(bm / TC_BK) an entry): TC_BK rows of the source tile, its
+// columns c0 .. c0 + 63 as they lie ([k][m]: the tile row is the
+// contraction index), and the matching TC_BK rows of G ([k][n]). a_vec /
+// b_vec: the tile / G rows can be staged in 16-byte pieces.
+template <typename Cols, int WG>
+__global__ void __launch_bounds__(128 * WG, 2)
+spmm_t_tc_kernel(Cols cols, const float* __restrict__ panel,
+                 const float* __restrict__ g, float* __restrict__ out, int bm,
+                 int bk, int M, int Q, int rows, int a_vec, int b_vec) {
+  constexpr int NTHREADS = 128 * WG, BN = 64 * WG, LDB = tc_ldb(WG);
+  constexpr int BG = BN / 4;
+  extern __shared__ __align__(1024) float smem[];
+  float* const As = smem + 4 * TC_SB;            // [TC_STAGES][TC_A]
+  float* const Bs = As + TC_STAGES * TC_A;       // [TC_STAGES][TC_BK * LDB]
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * BN;
   const int slices = (bk + TILE - 1) / TILE;
   const int j = blockIdx.y / slices;
   const int c0 = (blockIdx.y % slices) * TILE;  // first tile column here
@@ -94,54 +114,93 @@ spmm_t_panel_kernel(Cols cols, const float* __restrict__ panel,
   const size_t tile_elems = (size_t)bm * bk;
   const float* pan = panel + (size_t)r * cols.tiles() * tile_elems;
   const float* G = g + (size_t)r * M * Q;
-
-  float acc[4][4] = {};
+  const int chunks = (bm + TC_BK - 1) / TC_BK;
   const int nb = cols.count(r, j);
-  for (int u = 0; u < nb; ++u) {
-    const ColSrc src = cols.src(r, j, u);
-    const int i = src.row_block;
-    const float* a_tile = pan + (size_t)src.tile * tile_elems;
-    for (int k0 = 0; k0 < bm; k0 += TK) {
-      for (int e = tid; e < TILE * TK; e += THREADS) {
-        const int k = e / TILE, col = e % TILE;  // coalesced along the tile row
-        const int gk = k0 + k, gc = c0 + col;
-        As[k][col] = (gk < bm && gc < bk) ? a_tile[(size_t)gk * bk + gc] : 0.f;
-      }
-      for (int e = tid; e < TILE * TK; e += THREADS) {
-        const int k = e / TILE, col = e % TILE;  // coalesced along Q
-        const int gk = k0 + k, grow = i * bm + gk, gq = n0 + col;
-        Bs[k][col] = (gk < bm && grow < M && gq < Q)
-                         ? G[(size_t)grow * Q + gq] : 0.f;
-      }
-      __syncthreads();
-      tile_fma<TK>(As, Bs, ty, tx, acc);
-      __syncthreads();
-    }
-  }
+  const int units = nb * chunks;
 
-  float* o = out + (size_t)r * rows * Q;
+  // stage unit (entry lu, piece ld) into the next raw stage; one commit a
+  // call
+  int lu = 0, ld = 0, lst = 0;
+  auto load_next = [&]() {
+    if (lu < nb) {
+      const ColSrc src = cols.src(r, j, lu);
+      const int k0 = ld * TC_BK;
+      const float* a_tile = pan + (size_t)src.tile * tile_elems;
+      float* as = As + lst * TC_A;
+      float* bs = Bs + lst * (TC_BK * LDB);
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int col = c0 + ty * 4 + ii, grow = j * bk + col;
-    if (col >= bk || grow >= rows) continue;
+      for (int q = 0; q < TILE * TC_BK / 4 / NTHREADS; ++q) {
+        const int e = tid + q * NTHREADS, k = e >> 4, mg = (e & 15) * 4;
+        const int gk = k0 + k;
+        tc_stage4(as + k * TC_LDAT + mg, a_tile + (size_t)gk * bk + c0 + mg,
+                  panel, gk < bm, c0 + mg, bk, a_vec);
+      }
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int gq = n0 + tx * 4 + jj;
-      if (gq < Q) o[(size_t)grow * Q + gq] = acc[ii][jj];
+      for (int q = 0; q < TC_BK * BG / NTHREADS; ++q) {
+        const int e = tid + q * NTHREADS, k = e / BG, ng = (e % BG) * 4;
+        const int gk = k0 + k, grow = src.row_block * bm + gk;
+        tc_stage4(bs + k * LDB + ng, G + (size_t)grow * Q + n0 + ng, g,
+                  gk < bm && grow < M, n0 + ng, Q, b_vec);
+      }
+      lst = lst + 1 == TC_STAGES ? 0 : lst + 1;
+      if (++ld == chunks) {
+        ld = 0;
+        ++lu;
+      }
     }
-  }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float facc[32];
+  tc_walk<true, WG>(units, chunks, load_next, smem, facc);
+
+  // acc[4i + e]: tile column c0 + 8i + 2t + (e & 1), column
+  // n0 + 64 wg + 16w + gq + 8 (e >> 1) of Q
+  const int lane = tid & 31, w = (tid >> 5) & 3, gq = lane >> 2, t = lane & 3;
+  float* const o = out + (size_t)r * rows * Q;
+  const int q0 = n0 + wg * 64 + w * 16 + gq;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = c0 + 8 * i + 2 * t + h, grow = j * bk + col;
+      if (col >= bk || grow >= rows) continue;
+      float* orow = o + (size_t)grow * Q;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int q = q0 + 8 * c;
+        if (q < Q) orow[q] = facc[4 * i + 2 * c + h];
+      }
+    }
+}
+
+// kb block columns, each cut into 64-row slices of its bk output rows; 128
+// columns of Q a block, 64 where Q <= 64.
+template <typename Cols, int WG>
+int launch_spmm_t_wg(Cols cols, const void* panel, const void* g, void* out,
+                     int R, int kb, int bm, int bk, int M, int Q, int rows,
+                     void* stream) {
+  const int slices = (bk + TILE - 1) / TILE;
+  dim3 grid((Q + 64 * WG - 1) / (64 * WG), kb * slices, R);
+  const size_t smem = tc_smem(WG);
+  const int err = set_smem(spmm_t_tc_kernel<Cols, WG>, smem);
+  if (err) return err;
+  const int a_vec = bk % 4 == 0 && (uintptr_t)panel % 16 == 0;
+  const int b_vec = Q % 4 == 0 && (uintptr_t)g % 16 == 0;
+  spmm_t_tc_kernel<Cols, WG><<<grid, 128 * WG, smem, (cudaStream_t)stream>>>(
+      cols, (const float*)panel, (const float*)g, (float*)out, bm, bk, M, Q,
+      rows, a_vec, b_vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename Cols>
 int launch_spmm_t(Cols cols, const void* panel, const void* g, void* out,
                   int R, int kb, int bm, int bk, int M, int Q, int rows,
                   void* stream) {
-  const int slices = (bk + TILE - 1) / TILE;
-  dim3 grid((Q + TILE - 1) / TILE, kb * slices, R);
-  spmm_t_panel_kernel<Cols><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      cols, (const float*)panel, (const float*)g, (float*)out, bm, bk, M, Q,
-      rows);
-  return (int)cudaGetLastError();
+  return Q > 64 ? launch_spmm_t_wg<Cols, 2>(cols, panel, g, out, R, kb, bm,
+                                            bk, M, Q, rows, stream)
+                : launch_spmm_t_wg<Cols, 1>(cols, panel, g, out, R, kb, bm,
+                                            bk, M, Q, rows, stream);
 }
 
 }  // namespace stt

@@ -1,12 +1,15 @@
-// Shared pieces of the panel kernels: the 64 x 64 output tile that one
-// block of 256 threads computes in FP32 FMA (or int8 __dp4a, below), 4 x 4
-// outputs per thread.
+// Shared pieces of the panel kernels.
 //
-// Operands are staged in shared memory "k-major": A as [k][row], B as
-// [k][col], so that every thread reads its four rows and four columns of
-// one k-slice as two float4 loads and issues 16 FMAs. Rows of the staging
-// buffers are padded by 4 floats (TILE_LD) to spread the transposing stores
-// over more banks while keeping the float4 reads 16-byte aligned.
+// The SIMT tile (tile_fma, tile_dp4a): a 64 x 64 output tile that one block
+// of 256 threads computes in FP32 FMA (or int8 __dp4a), 4 x 4 outputs per
+// thread. Operands are staged in shared memory "k-major": A as [k][row], B
+// as [k][col], so that every thread reads its four rows and four columns
+// of one k-slice as two float4 loads and issues 16 FMAs. Rows of the
+// staging buffers are padded by 4 floats (TILE_LD) to spread the
+// transposing stores over more banks while keeping the float4 reads
+// 16-byte aligned. tile_fma serves the SDDMM (B4, bsr_sddmm.cu) and the
+// flash forward (B9, flash_sparse_fwd.cu) only; the fp32 SpMMs run on the
+// tensor cores (the split-TF32 pieces below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +22,8 @@ constexpr int TILE_LD = TILE + 4; // padded row length of a staging buffer
 constexpr int TK = 32;            // contraction depth staged per step
 constexpr int THREADS = 256;      // 16 x 16 threads
 
-// acc[i][j] += sum_k A[k][ty*4 + i] * B[k][tx*4 + j] over `depth` slices.
+// acc[i][j] += sum_k A[k][ty*4 + i] * B[k][tx*4 + j] over `depth` slices
+// (B4 and B9).
 template <int DEPTH>
 __device__ __forceinline__ void tile_fma(const float (*A)[TILE_LD],
                                          const float (*B)[TILE_LD],
@@ -101,6 +105,266 @@ __device__ __forceinline__ void stage_stats(float* Ms, float* Ls, float* Dr,
     Ms[t] = m[at];
     Ls[t] = fmaxf(l[at], 1e-30f);
     Dr[t] = gr < s_q ? D[(size_t)r * s_q + gr] : 0.f;
+  }
+}
+
+// --- Hopper plumbing: cp.async and wgmma's shared-memory descriptor
+// (the int8 products, bsr_spmm_int8.cu; cp.async also the fp32 SpMMs).
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared (L2 only), the last 16 - bytes of them
+// zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared (L1-cached); zero-filled where bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in core-matrix
+// order, no swizzle: the core matrices of one k step lbo bytes apart,
+// 8-row groups sbo bytes apart.
+__device__ __forceinline__ uint64_t core_desc(const void* p, unsigned lbo,
+                                              unsigned sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// --- split TF32 ("3xTF32"): fp32 products on the tensor cores (B1, B3 and
+// the bodies they share). One TF32 rounding (10 mantissa bits, a relative
+// 2^-11) misses the kernels' 1e-4 * max|out| at a 4096-deep contraction;
+// x = hi + lo and the three products hi.hi + hi.lo + lo.hi leave an error
+// near fp32's own (lo.lo, below 2^-21 relative, is dropped).
+
+// hi = x rounded to TF32, to nearest with ties away (cvt.rna.tf32.f32's
+// result for finite x, by two integer operations at full rate: cvt runs
+// on the conversion pipe at an eighth of it); lo = x - hi, exact in f32,
+// which the tensor core reads as TF32 by dropping its low 13 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The tensor-core SpMM block (spmm_tc_kernel: B1 and the bodies on its
+// address policies; spmm_t_tc_kernel: B3 and its): WG warpgroups of 128
+// threads, each computing 64 output columns (dense columns for B1, columns
+// of G for B3) x the 64 output rows of one slice, so BN = 64 * WG columns a
+// block, with wgmma.mma_async m64n64k8 TF32. wgmma reads a TF32 operand
+// from shared memory K-major only, and neither direction's dense operand
+// ([k][n], n contiguous) is; so the roles swap: wgmma's A (64 x 8, from
+// registers, any layout) is the dense rows, loaded from their staged copy
+// into registers and split there (tc_frags), and its B (8 x 64, shared
+// memory) is the panel tile, split into hi and lo once a unit by the block
+// (tc_split_tile) and written K-major in core-matrix order (8 rows x 16
+// bytes, 8-row groups TC_GROUP bytes apart, no swizzle). The accumulator
+// holds the output transposed: thread (warp w, lane 4g + t) holds, for n8
+// chunk j and e < 4, dense column 16w + g + 8(e >> 1) of output row 8j +
+// 2t + (e & 1). A unit is TC_BK of contraction; units pass through a
+// TC_STAGES-deep cp.async ring as they lie in global memory: the tile's
+// slice ([m][k] for B1, TC_LDA floats a row; [k][m] for B3, TC_LDAT) and
+// the dense rows ([k][n], tc_ldb floats a row). The pads keep the fragment
+// loads and the split pass on distinct banks and the rows 16-byte aligned.
+constexpr int TC_BK = 32;
+constexpr int TC_STAGES = 3;        // the raw ring
+constexpr int TC_LDA = TC_BK + 4;   // B1's tile slice [m][k]
+constexpr int TC_LDAT = TILE + 8;   // B3's tile slice [k][m]
+constexpr int TC_A = TILE * TC_LDA > TC_BK * TC_LDAT ? TILE * TC_LDA
+                                                     : TC_BK * TC_LDAT;
+constexpr int TC_SB = TILE * TC_BK;  // floats of a split tile, hi or lo
+constexpr int TC_KS = TC_BK / 8;     // wgmma k steps a unit
+constexpr unsigned TC_CORE = 128;    // bytes of a core matrix: 8 rows x 16
+constexpr unsigned TC_GROUP = TC_BK / 4 * TC_CORE;  // an 8-row group
+
+__host__ __device__ constexpr int tc_ldb(int wg) { return 64 * wg + 8; }
+__host__ __device__ constexpr int tc_b(int wg) { return TC_BK * tc_ldb(wg); }
+// two split tiles (hi, lo each) and the raw ring
+__host__ __device__ constexpr size_t tc_smem(int wg) {
+  return ((size_t)4 * TC_SB + TC_STAGES * (TC_A + tc_b(wg))) * sizeof(float);
+}
+
+// d (64 x 64 f32 over the warpgroup, 32 a thread) = a . b (+ d if acc):
+// a 64 x 8 TF32 in registers (a0: row g, k t; a1: row g + 8, k t; a2, a3:
+// k t + 4, per warp's 16 rows), b 8 x 64 TF32 K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// One unit's tile slice (raw, as staged) split into hi and lo, each 64 rows
+// (B1: output rows m; B3 (AT): tile columns) x TC_BK in core-matrix order;
+// one 16-byte piece (a row's 4 contraction values) a step, 8 threads on
+// one 128-byte run.
+template <bool AT, int NTHREADS>
+__device__ __forceinline__ void tc_split_tile(const float* __restrict__ raw,
+                                              float* __restrict__ hi,
+                                              float* __restrict__ lo) {
+#pragma unroll
+  for (int e = threadIdx.x; e < TILE * TC_BK / 4; e += NTHREADS) {
+    const int kg = e >> 6, row = e & 63;
+    float v[4];
+    if (AT) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = raw[(kg * 4 + i) * TC_LDAT + row];
+    } else {
+      const float4 x =
+          *reinterpret_cast<const float4*>(raw + row * TC_LDA + kg * 4);
+      v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    }
+    unsigned h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], h[i], l[i]);
+    const int off = ((row >> 3) * (TC_BK / 4) + kg) * 32 + (row & 7) * 4;
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// A warpgroup's A fragments of one unit, split: hi and lo of each k step.
+struct TcFrag {
+  unsigned h[TC_KS][4], l[TC_KS][4];
+};
+
+// The fragments of this warpgroup's 64 dense columns n0w.. from the staged
+// dense rows bs ([k][n], LDB floats a row).
+template <int LDB>
+__device__ __forceinline__ void tc_frags(const float* __restrict__ bs,
+                                         int n0w, TcFrag& f) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < TC_KS; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_tf32(bs[(s * 8 + t + (i >> 1) * 4) * LDB + n0w + w * 16 + g +
+                    (i & 1) * 8],
+                 f.h[s][i], f.l[s][i]);
+}
+
+// acc += dense^T . tile over one unit (the first of a slot overwrites acc)
+// in split TF32: each k step issues hi.hi, then hi.lo, then lo.hi into the
+// same accumulators. Waits for them; the accumulators and the fragments
+// they read stay in their registers until then.
+__device__ __forceinline__ void tc_mma(const float* hi, const float* lo,
+                                       TcFrag& f, float (&acc)[32],
+                                       bool first) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < TC_KS; ++s) {
+    // the step's two core matrices along k, 2 x TC_CORE bytes a step
+    const uint64_t dh = core_desc(hi + s * 64, TC_CORE, TC_GROUP);
+    const uint64_t dl = core_desc(lo + s * 64, TC_CORE, TC_GROUP);
+    wgmma_tf32_n64(acc, f.h[s], dh, !(first && s == 0));
+    wgmma_tf32_n64(acc, f.h[s], dl, 1);
+    wgmma_tf32_n64(acc, f.l[s], dh, 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < 32; ++q) asm volatile("" : "+f"(acc[q])::"memory");
+#pragma unroll
+  for (int s = 0; s < TC_KS; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("" : "+r"(f.h[s][i]), "+r"(f.l[s][i])::"memory");
+}
+
+// One output block's walk of `units` TC_BK-deep units (`chunks` a slot),
+// staged by load_next() (one cp.async group a call, unit by unit into the
+// ring's next stage): facc = the f32 sum of the slots' tensor-core sums.
+// At unit u, after one barrier, the block stages unit u + TC_STAGES - 1
+// and splits unit u + 1's tile into the other split buffer; each
+// warpgroup loads unit u's fragments, issues its products (on the tile
+// split at unit u - 1) and waits for them, while the SM's other block and
+// warpgroups keep the tensor cores busy. A slot's sums are added into facc
+// after its last unit. No branch encloses a product, a wait or a register
+// a product reads (ptxas would serialize the products otherwise): a
+// warpgroup whose columns lie past the output multiplies zeros.
+template <bool AT, int WG, typename Load>
+__device__ __forceinline__ void tc_walk(int units, int chunks,
+                                        Load& load_next, float* smem,
+                                        float (&facc)[32]) {
+  constexpr int NTHREADS = 128 * WG, LDB = tc_ldb(WG);
+  float* const Sb = smem;                        // [2][hi, lo][TC_SB]
+  const float* const As = smem + 4 * TC_SB;      // [TC_STAGES][TC_A]
+  const float* const Bs = As + TC_STAGES * TC_A; // [TC_STAGES][TC_BK * LDB]
+  const int n0w = (threadIdx.x >> 7) * 64;
+  float acc[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc[q] = facc[q] = 0.f;
+#pragma unroll
+  for (int p = 0; p < TC_STAGES - 1; ++p) load_next();
+  if (units == 0) return;
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(TC_STAGES - 2));
+  __syncthreads();
+  tc_split_tile<AT, NTHREADS>(As, Sb, Sb + TC_SB);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  int st = 0;
+  for (int u = 0; u < units; ++u) {
+    // unit u + 1 has landed; every warpgroup's products of unit u - 1 are
+    // done, so its raw stage and split buffer are free
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(TC_STAGES - 3));
+    __syncthreads();
+    load_next();
+    const int nst = st + 1 == TC_STAGES ? 0 : st + 1;
+    if (u + 1 < units) {
+      float* nb = Sb + ((u + 1) & 1) * 2 * TC_SB;
+      tc_split_tile<AT, NTHREADS>(As + nst * TC_A, nb, nb + TC_SB);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    TcFrag f;
+    tc_frags<LDB>(Bs + st * (TC_BK * LDB), n0w, f);
+    const float* sb = Sb + (u & 1) * 2 * TC_SB;
+    tc_mma(sb, sb + TC_SB, f, acc, u % chunks == 0);
+    const bool last = (u + 1) % chunks == 0;
+#pragma unroll
+    for (int q = 0; q < 32; ++q) facc[q] += last ? acc[q] : 0.f;
+    st = nst;
+  }
+}
+
+// A thread's 4-float piece of a staged row: columns col .. col + 3 of the
+// row at src (src points at column col), zero past `limit` columns or where
+// the row is out of range (row_ok false); `safe` is any valid address, read
+// for nothing. `vec`: one 16-byte copy (src 16-byte aligned, limit a
+// multiple of 4), else four 4-byte copies.
+__device__ __forceinline__ void tc_stage4(float* dst, const float* src,
+                                          const float* safe, bool row_ok,
+                                          int col, int limit, bool vec) {
+  if (vec) {
+    const bool ok = row_ok && col < limit;
+    cp_async16(dst, ok ? src : safe, ok ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = row_ok && col + q < limit;
+      cp_async4(dst + q, ok ? src + q : safe, ok ? 4 : 0);
+    }
   }
 }
 

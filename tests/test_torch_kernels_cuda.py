@@ -1693,3 +1693,127 @@ def test_bf16_panel_operands_launch_the_f32_kernels(dev, compressed):
     y.sum().backward()
     assert y.dtype == torch.float32 and layer.values.grad.dtype == \
         torch.bfloat16 and x.grad.dtype == torch.float32
+
+
+# -- the fp32 SpMMs on the tensor cores (B1, B3, B6, B8 in split TF32) -----
+
+_TC_KINDS = ["B1", "B3", "B6", "B8"]
+
+
+def _tc_case(dev, kind, seed=11):
+    """A 4096-deep contraction: row block 0 (B1, B6) or block column 0 (B3,
+    B8) holds 64 full 64 x 64 tiles, the other row block / column 5% of its
+    elements; two replicas, 200 output columns. Returns ``call(meta,
+    panel, x)``, the metadata, the panel, x, the count to empty and its
+    outputs' rows."""
+    rng = np.random.RandomState(seed)
+    K, q, R = 4096, 200, 2
+    mask = np.zeros((128, K), bool)
+    mask[:64] = True
+    mask[64:] = rng.rand(64, K) < 0.05
+    if kind in ("B3", "B8"):
+        mask = mask.T
+    m, n = mask.shape
+    topo = stt.SparseTopology.from_dense_mask(mask)
+    if kind in ("B1", "B3"):
+        spec = stt.PanelSpec(topo, 64, 64)
+        meta, shape = _meta(spec, dev), spec.view.values_shape
+        keep = meta["mask"]
+    else:
+        spec = stt.BatchedPanelSpec([topo], heads=R, bm=64, bk=64)
+        meta = dict(spec.panel_meta(dev))
+        shape, keep = spec.panel_shape, meta["mask"][0]
+    panel = torch.from_numpy(rng.randn(R, *shape).astype(np.float32)).to(
+        dev) * keep
+    x = torch.from_numpy(rng.randn(R, n if kind in ("B1", "B6") else m,
+                                   q).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.randn(m).astype(np.float32)).to(dev)
+    calls = {
+        "B1": lambda md, p, x: bsr_spmm_panel(
+            md["block_cols"], md["nblocks"], p, x, bias, rows=m,
+            epilogue="bias"),
+        "B3": lambda md, p, x: bsr_spmm_t_panel(
+            md["t_src_i"], md["t_src_s"], md["t_nblocks"], p, x, rows=n),
+        "B6": lambda md, p, x: kbp.spmm_bh_kernel(
+            md["block_cols"], md["nblocks"], p, x, heads=R, rows=m),
+        "B8": lambda md, p, x: kbp.spmm_t_bh_kernel(
+            md["t_src_i"], md["t_src_s"], md["t_nblocks"], p, x, heads=R,
+            rows=n),
+    }
+    plains = {"B1": bsr_spmm_panel_plain, "B3": bsr_spmm_t_panel_plain,
+              "B6": kbp.spmm_bh_kernel_plain,
+              "B8": kbp.spmm_t_bh_kernel_plain}
+    count = "nblocks" if kind in ("B1", "B6") else "t_nblocks"
+    return calls[kind], plains[kind], meta, panel, x, count, (
+        bias if kind == "B1" else None)
+
+
+def _f64_reference(kind, plain, meta, panel, x, bias):
+    """The plain version in float64 on the card: the exact product up to
+    f64 rounding."""
+    args = {"B1": ("block_cols", "nblocks"), "B6": ("block_cols", "nblocks"),
+            "B3": ("t_src_i", "t_src_s", "t_nblocks"),
+            "B8": ("t_src_i", "t_src_s", "t_nblocks")}[kind]
+    md = [meta[a] for a in args]
+    p, x = panel.double(), x.double()
+    if kind == "B1":
+        return plain(*md, p, x, bias.double(), rows=128, epilogue="bias")
+    if kind == "B3":
+        return plain(*md, p, x, rows=128)
+    return plain(*md, p, x, heads=2, rows=128)
+
+
+@pytest.mark.parametrize("kind", _TC_KINDS)
+def test_spmm_tc_deep_contraction_against_f64(dev, kind):
+    """Split TF32 over a 4096-deep walk stays within 1e-5 * max|f64| (the
+    tensor cores' sums are promoted into f32 sums once a slot), 10x inside
+    the kernels' limit; one TF32 pass could not (test_torch_tf32_split)."""
+    call, plain, meta, panel, x, _, bias = _tc_case(dev, kind)
+    got = call(meta, panel, x)
+    torch.cuda.synchronize()
+    ref = _f64_reference(kind, plain, meta, panel, x, bias)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("kind", _TC_KINDS)
+def test_spmm_tc_same_bits_and_never_plain(dev, kind, monkeypatch):
+    """A CUDA call launches the tensor-core kernel (the counter moves by
+    one a call) and reaches no plain version; two calls give the same
+    bits (no float atomics)."""
+    call, _, meta, panel, x, _, _ = _tc_case(dev, kind)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    monkeypatch.setattr(kbp, "spmm_bh_kernel_plain", refuse)
+    monkeypatch.setattr(kbp, "spmm_t_bh_kernel_plain", refuse)
+    import sputnik_tpu_torch.ops.kernels.bsr_spmm as kb1
+    import sputnik_tpu_torch.ops.kernels.bsr_spmm_t as kb3
+    monkeypatch.setattr(kb1, "bsr_spmm_panel_plain", refuse)
+    monkeypatch.setattr(kb3, "bsr_spmm_t_panel_plain", refuse)
+    wrapper = {"B1": bsr_spmm_panel, "B3": bsr_spmm_t_panel,
+               "B6": kbp.spmm_bh_kernel, "B8": kbp.spmm_t_bh_kernel}[kind]
+    before = wrapper.launches
+    a, b = call(meta, panel, x), call(meta, panel, x)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", _TC_KINDS)
+def test_spmm_tc_emptied_walk_is_exact_zero(dev, kind):
+    """The deep row block (block column) emptied by setting its count to 0
+    writes exactly 0 (B1: exactly its bias); the others keep their bits."""
+    call, _, meta, panel, x, count, bias = _tc_case(dev, kind)
+    full = call(meta, panel, x)
+    md = dict(meta)
+    md[count] = meta[count].clone()
+    md[count][..., 0] = 0
+    got = call(md, panel, x)
+    torch.cuda.synchronize()
+    want = (torch.zeros_like(got[:, :64]) if bias is None else
+            bias[:64, None].expand_as(got[:, :64]))
+    assert torch.equal(got[:, :64], want)
+    assert torch.equal(got[:, 64:].view(torch.int32),
+                       full[:, 64:].view(torch.int32))
