@@ -12,7 +12,10 @@ Phases, each printing its lines:
      to hold TF32 tensor-core instructions and no FFMA, and again on a
      block-structured 4096^2 pattern (10% of the 64x64 tiles) beside
      torch.sparse_bsr_tensor @ dense; SDDMM 4096^2 d=0.1 at d=64, sparse-flash
-     forward and the three backward kernels at R=32 s=512 hd=64, the
+     forward and the three backward kernels at R=32 s=512 hd=64 (the
+     forward by CUDA graph replay beside eager calls, the same bits twice,
+     its SASS shown to hold TF32 tensor-core instructions and B18a's walk
+     int8 ones and no __dp4a), the
      backward also at hd 32 / 128 and GQA group 2) and at the shapes the
      main paths give them; both backward routes timed at the driver shape
      and at s=4096; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
@@ -31,7 +34,9 @@ Phases, each printing its lines:
      timed by CUDA graph replay beside torch._int_mm timed the same way,
      its pre-pass / product split from torch.profiler, and their SASS shown
      to hold int8 tensor-core instructions and no __dp4a; B17 at B4's
-     shape, B18a and the int8 flash backward B18b / B18c at the int8
+     shape, B18a (graph replay beside eager, the same bits twice, its
+     pre-pass / walk split from torch.profiler) and the int8 flash
+     backward B18b / B18c at the int8
      example's attention and at B9's shape, each also shown >= 10x its
      limit away from the fp32 kernel's result (B1, B3, B4, B9, B10b,
      B10c), so that a kernel computing in fp32 would fail (2h); the
@@ -43,7 +48,10 @@ Phases, each printing its lines:
      interior and halo passes at 8192^2 window 1024, q=512, summing to B1
      over the shard), B11a and B11b (every band of a ring shard at s=8192
      causal, R=4, hd=64, carried and finished against B9 / B10a over the
-     shard's keys) (2j); bf16 and mixed operands of the panel ops and a
+     shard's keys, m bit-equal; a shard's empty bands keep the carry bit
+     for bit; B11a's split plan printed, its fullest band by graph replay
+     beside eager with its pre-pass / walk / merge split) (2j); bf16 and
+     mixed operands of the panel ops and a
      bf16 SparseLinear launching the f32 kernels, JAX's dtypes out (2m);
   3. the main paths, with every launch counter reset just before each:
      a. forward: the reference driver's SparseTransformer (6 layers, b=4,
@@ -512,6 +520,7 @@ def phase_kernels(stt, torch, dev, kres):
 
     print("phase 2: kernels vs plain PyTorch on the card", flush=True)
     _sass_check_tc(_build)
+    _sass_check_flash(_build)
     # -- SpMM at bench.py's config: 4096^3, element-random d=0.1
     size, density = 4096, 0.1
     rng = np.random.RandomState(0)
@@ -663,17 +672,30 @@ def phase_kernels(stt, torch, dev, kres):
     _compare("flash row denominators l", l, l_ref, TOL_KERNEL)
     if not torch.all(out[:, s // 2] == 0):
         _fail("flash: the fully-masked row is not exactly 0")
-    r["ms"] = _time_ms(lambda: flash_sparse_attention_fwd(*fargs, **fkw))
+    _flash_split_note("flash", b * heads * fspec.mb, fm["max_bpr"])
+    if not torch.equal(out.view(torch.int32), flash_sparse_attention_fwd(
+            *fargs, **fkw)[0].view(torch.int32)):
+        _fail("flash: two calls differ in their bits")
+    r["ms"] = _graph_ms(lambda: flash_sparse_attention_fwd(*fargs, **fkw))
+    eager_ms = _time_ms(lambda: flash_sparse_attention_fwd(*fargs, **fkw))
     r["plain_ms"] = _time_ms(
         lambda: flash_sparse_attention_fwd_plain(*fargs, **fkw))
-    print(f"  flash R={b * heads} s={s} hd={hd}: kernel {r['ms']:.4f} ms, "
-          f"plain {r['plain_ms']:.4f} ms", flush=True)
+    split = _device_split(torch, lambda: flash_sparse_attention_fwd(*fargs,
+                                                                    **fkw))
+    print(f"  flash R={b * heads} s={s} hd={hd}: kernel {r['ms']:.4f} ms "
+          f"(graph; eager {eager_ms:.4f}; the FMA body read 0.1034 eager, "
+          f"PERF.md), "
+          f"plain {r['plain_ms']:.4f} ms; device split "
+          f"{_split_text(split)}", flush=True)
     sdpa = _sdpa_inputs(torch, dev, b, heads, q, k, v)
     r["library_ms"] = _library_ms(
         "flash forward (F.scaled_dot_product_attention, boolean mask)",
-        lambda: sdpa["fwd"]())
+        lambda: sdpa["fwd"](), timer=_graph_ms)
     _bound(r, 4.0 * _flash_pairs(b, heads, s) * hd,
-           _nbytes(*fargs[:5], q, k, v) + _nbytes(out, m, l))
+           _nbytes(*fargs[:5], q, k, v) + _nbytes(out, m, l), PEAK_3XTF32)
+    print(f"    (at the fp32 FMA peak the operations would take "
+          f"{4.0 * _flash_pairs(b, heads, s) * hd / PEAK_F32 * 1e3:.4f} ms)",
+          flush=True)
 
     # -- SpMM / SDDMM at the shapes SparseAttention gives them
     e, heads = 512, 8
@@ -724,6 +746,25 @@ def _flash_pairs(b, heads, s) -> float:
     from sputnik_tpu_torch.patterns import driver_masks
 
     return float((driver_masks(b, s) != 0).sum()) * heads
+
+
+def _flash_split_note(name, walks, max_bpr):
+    """Prints the forward kernel's split plan (B9, B11a) for these walks."""
+    from sputnik_tpu_torch.ops.kernels.flash_sparse import flash_split_tiles
+
+    tiles = flash_split_tiles(walks, max_bpr)
+    chunks = -(-max_bpr // tiles)
+    print(f"  {name}: {walks} walks of <= {max_bpr} slots; "
+          + (f"split into {chunks} chunks of {tiles} slots ({walks * chunks} "
+             f"blocks) and merged" if chunks > 1 else "walked whole"),
+          flush=True)
+
+
+def _split_text(split):
+    """A _device_split result as text: each kernel's device ms."""
+    return ", ".join(f"{k.split('(')[0].split('<')[0][-40:]} {v:.4f}"
+                     for k, v in sorted(split.items(), key=lambda x: -x[1])
+                     if v > 0)
 
 
 def _sdpa_inputs(torch, dev, b, heads, q, k, v, g=None):
@@ -2602,28 +2643,37 @@ def _int8_flash_case(stt, torch, dev, r, label, masks, heads, hd, seed,
         _fail(f"flash int8 {label}: a fully-masked row is not exactly 0")
     fp32, _, _ = flash_sparse_attention_fwd(*args, **kw)
     _int8_distance(f"flash int8 {label}", ref, fp32)
+    again = f8.flash_sparse_attention_fwd_int8(*args, **kw)
+    if not all(torch.equal(a.view(torch.int32), b_.view(torch.int32))
+               for a, b_ in zip((out, m, l), again)):
+        _fail(f"flash int8 {label}: two calls differ in their bits")
     if not timed:
         return
-    r["ms"] = _time_ms(lambda: f8.flash_sparse_attention_fwd_int8(*args,
-                                                                  **kw))
+    def kern():
+        return f8.flash_sparse_attention_fwd_int8(*args, **kw)
+
+    r["ms"], eager_ms = _graph_ms(kern), _time_ms(kern)
     r["plain_ms"] = _time_ms(
         lambda: f8.flash_sparse_attention_fwd_int8_plain(*args, **kw),
         reps=3, inner=2)
-    fp32_ms = _time_ms(lambda: flash_sparse_attention_fwd(*args, **kw))
+    fp32_ms = _graph_ms(lambda: flash_sparse_attention_fwd(*args, **kw))
     mask = torch.from_numpy(masks != 0).to(dev)[:, None]
     q4, k4, v4 = (x.reshape(b, heads, s, hd) for x in (q, k, v))
     r["library_ms"] = _library_ms(
         "flash int8 (F.scaled_dot_product_attention, f32, bool mask)",
         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                               scale=hd ** -0.5))
+                                               scale=hd ** -0.5),
+        timer=_graph_ms)
     qb, kb_, vb = (x.bfloat16() for x in (q4, k4, v4))
     bf16_ms = _library_ms(
         "flash int8 (F.scaled_dot_product_attention, bf16, bool mask)",
         lambda: F.scaled_dot_product_attention(qb, kb_, vb, attn_mask=mask,
-                                               scale=hd ** -0.5))
-    print(f"  flash int8 {label}: kernel {r['ms']:.4f} ms, fp32 B9 "
-          f"{fp32_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA bf16 "
-          f"{bf16_ms} ms", flush=True)
+                                               scale=hd ** -0.5),
+        timer=_graph_ms)
+    print(f"  flash int8 {label}: kernel {r['ms']:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}), fp32 B9 {fp32_ms:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, SDPA bf16 {bf16_ms} ms; device split "
+          f"{_split_text(_device_split(torch, kern))}", flush=True)
     pairs = float((masks != 0).sum()) * heads
     _bound(r, 4.0 * pairs * hd, _nbytes(*args[:5], q, k, v, out, m, l),
            PEAK_INT8)
@@ -2885,6 +2935,27 @@ def _sass_check(k8_build):
               "tensor cores alone")
 
 
+def _sass_check_flash(build):
+    """The fp32 flash forward body (flash_tc_kernel: B9, B11a, every width
+    and mode) holds TF32 tensor-core instructions (HGMMA; FFMA stays
+    allowed: the softmax and the split use it), and B18a's walk
+    (flash_int8_wgmma_kernel) int8 ones (IGMMA) and no IDP.4A (__dp4a).
+    Raises if one fails it."""
+    funcs = _sass_counts(build)
+    if funcs is None:
+        return
+    fp = {n: c for n, c in funcs.items() if "flash_tc_kernel" in n}
+    i8 = {n: c for n, c in funcs.items() if "flash_int8_wgmma_kernel" in n}
+    _sass_print(sorted(fp.items()) + sorted(i8.items()),
+                ("HGMMA", "IGMMA", "IDP.4A", "FFMA"))
+    if not fp or any(c["HGMMA"] == 0 for c in fp.values()):
+        _fail("SASS: the fp32 flash forward body does not run on the tensor "
+              "cores")
+    if not i8 or any(c["IGMMA"] == 0 or c["IDP.4A"] for c in i8.values()):
+        _fail("SASS: B18a's walk does not run on the int8 tensor cores "
+              "alone")
+
+
 def _sass_check_tc(build):
     """The fp32 SpMM bodies' SASS (spmm_tc_kernel: B1, B2, B6, B13a;
     spmm_t_tc_kernel: B3, B8, B13b, every address policy and width): TF32
@@ -3020,8 +3091,10 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     _int8_flash_case(stt, torch, dev, b9, "R=32 s=512 hd=64 driver",
                      driver_masks(4, 512), 8, 64, 72, timed=True)
     r["max_abs_err"] = max(r["max_abs_err"], b9["max_abs_err"])
-    print(f"  flash int8 at B9's shape: {b9['ms']:.4f} ms (B9 0.1034 ms, "
-          f"PERF.md)", flush=True)
+    print(f"  flash int8: the __dp4a kernel read 0.7433 ms at R=8 s=2048 "
+          f"hd=128 causal (SDPA f32 0.4828), 0.1033 at B9's shape, eager "
+          f"(PERF.md); now "
+          f"{r['ms']:.4f} and {b9['ms']:.4f} (graph)", flush=True)
 
     # B18b / B18c at the same two problems, timed into the JSON line at the
     # example's attention
@@ -3840,6 +3913,21 @@ def phase_parallel_kernels(stt, torch, dev, kres):
     _compare(f"ring: {NDEV} bands carried through B11a vs B9 over shard "
              f"{d}'s keys", out, ref, TOL_KERNEL)
     _compare("ring: carried m vs B9's (exactly equal)", m, m_ref, 0.0)
+    # shard 0's future bands are empty: the carry keeps its bits
+    carry0 = [x.clone() for x in (acc, m, l)]
+    for band in range(1, NDEV):
+        if int(spec.nblocks[0, band].sum()):
+            _fail(f"ring: shard 0's band {band} is not empty")
+        fs.flash_sparse_ring_band_fwd(
+            *[rmeta[key][0, band] for key in (
+                "block_cols", "nblocks", "mask_slot", "is_partial",
+                "pmask")], q, k[band], v[band], *carry0,
+            max_bpr=spec.max_bpr)
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(carry0, (acc, m, l))):
+        _fail("ring: an empty band changed the carry")
+    print(f"  ring: shard 0's {NDEV - 1} empty bands leave the carry bit for "
+          f"bit", flush=True)
 
     g = torch.from_numpy(np.random.RandomState(102).randn(
         R, rows, RING_HD).astype(np.float32)).to(dev)
@@ -3876,20 +3964,29 @@ def phase_parallel_kernels(stt, torch, dev, kres):
     mask_b = torch.from_numpy(sliced.to_dense_mask() != 0).to(dev)
     fargs = (*band_meta(band), q, k[band], v[band])
     carry = [x.clone() for x in (acc, m, l)]
-    rf["ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_fwd(
-        *fargs, *carry, max_bpr=spec.max_bpr))
+    _flash_split_note("ring_band_fwd", R * spec.mb, spec.max_bpr)
+
+    def band_kern():
+        return fs.flash_sparse_ring_band_fwd(*fargs, *carry,
+                                             max_bpr=spec.max_bpr)
+
+    rf["ms"], eager_ms = _graph_ms(band_kern), _time_ms(band_kern)
     rf["plain_ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_fwd_plain(
         *fargs, *carry, max_bpr=spec.max_bpr), reps=3, inner=2)
     q4, k4, v4 = q[None], k[band][None], v[band][None]
     rf["library_ms"] = _library_ms(
         "ring_band_fwd (F.scaled_dot_product_attention, the band's bool "
         "mask)", lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=mask_b, scale=1.0))
+            q4, k4, v4, attn_mask=mask_b, scale=1.0), timer=_graph_ms)
     print(f"  ring_band_fwd shard {d} band {band} ({int(pairs)} pairs): "
-          f"kernel {rf['ms']:.4f} ms, plain {rf['plain_ms']:.4f} ms",
-          flush=True)
+          f"kernel {rf['ms']:.4f} ms (graph; eager {eager_ms:.4f}; the FMA "
+          f"body read 0.4155 eager, SDPA 0.2772, PERF.md), plain "
+          f"{rf['plain_ms']:.4f} ms; device split "
+          f"{_split_text(_device_split(torch, band_kern))}", flush=True)
     _bound(rf, 4 * pairs * RING_HD,
-           _nbytes(q, k[band], v[band]) + 2 * _nbytes(*carry))
+           _nbytes(q, k[band], v[band]) + 2 * _nbytes(*carry), PEAK_3XTF32)
+    print(f"    (at the fp32 FMA peak the operations would take "
+          f"{4 * pairs * RING_HD / PEAK_F32 * 1e3:.4f} ms)", flush=True)
     bargs = (*band_meta(band), q, k[band], v[band], g, m, l, D)
     gcarry = [x.clone() for x in (dq, dks[band], dvs[band])]
     rb["ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_bwd(

@@ -107,17 +107,9 @@ quant_tiles_kernel(const float* __restrict__ x, int rows, int cols, int tr,
 constexpr int KSTEP = 64;      // code bytes a product stage holds; kp: a multiple
 constexpr int BCOLS = 128;     // output columns a product block owns
 constexpr int BROWS = 64;      // output rows a product block owns (wgmma's M)
-constexpr int CORE = 128;      // a core matrix: 8 rows x 16 code bytes
 constexpr int PRE_COLS = 64;   // columns of a pre-pass block (2 warps wide)
 constexpr int PRE_DEPTH = 64;  // tile rows of a pre-pass block (4 x 16)
 constexpr unsigned FULL = 0xffffffffu;
-
-// Byte offset of (row, 16-byte granule kg) in the core-matrix layout of
-// rows x kp codes: 8-row groups of kp / 16 core matrices, each 8 rows x 16
-// bytes (wgmma's K-major layout without swizzle).
-__device__ __forceinline__ size_t core_off(int row, int kg, int kp) {
-  return ((size_t)(row >> 3) * (kp >> 4) + kg) * CORE + (row & 7) * 16;
-}
 
 // A pre-pass thread's column and first tile row: lanes along 32 columns,
 // warps 2 column halves x 4 groups of 16 rows; blockIdx (column block,
@@ -307,26 +299,6 @@ struct ColWalk {
     return core_off(r, k >> 4, kp) + (k & 15);
   }
 };
-
-// d (64 x 64 int32 over the warpgroup, 32 a thread) = a . b (+ d if acc):
-// a 64 x 32 and b 64 x 32 int8 codes, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
 
 // out[blk * rows + r, n] = sum over the walk's slots of (A tile . B codes)
 // * (ws * bscale[src, n / bn]), in slot order. Block: BROWS rows (r0) of

@@ -7,9 +7,10 @@
 // of one k-slice as two float4 loads and issues 16 FMAs. Rows of the
 // staging buffers are padded by 4 floats (TILE_LD) to spread the
 // transposing stores over more banks while keeping the float4 reads
-// 16-byte aligned. tile_fma serves the SDDMM (B4, bsr_sddmm.cu) and the
-// flash forward (B9, flash_sparse_fwd.cu) only; the fp32 SpMMs run on the
-// tensor cores (the split-TF32 pieces below).
+// 16-byte aligned. tile_fma serves the SDDMM (B4, bsr_sddmm.cu) only; the
+// fp32 SpMMs and the flash forward run on the tensor cores (the split-TF32
+// pieces below), tile_dp4a the int8 SDDMM (B17) and the int8 flash
+// backward (B18b, B18c).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,7 +24,7 @@ constexpr int TK = 32;            // contraction depth staged per step
 constexpr int THREADS = 256;      // 16 x 16 threads
 
 // acc[i][j] += sum_k A[k][ty*4 + i] * B[k][tx*4 + j] over `depth` slices
-// (B4 and B9).
+// (B4).
 template <int DEPTH>
 __device__ __forceinline__ void tile_fma(const float (*A)[TILE_LD],
                                          const float (*B)[TILE_LD],
@@ -141,6 +142,63 @@ __device__ __forceinline__ uint64_t core_desc(const void* p, unsigned lbo,
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
+// --- the int8 tensor-core pieces (B16a, B16b: bsr_spmm_int8.cu; B18a:
+// flash_sparse_int8.cu): codes K-major in wgmma's core-matrix order, no
+// swizzle.
+
+constexpr int CORE = 128;  // a core matrix: 8 rows x 16 code bytes
+
+// Byte offset of (row, 16-byte granule kg) in the core-matrix layout of
+// rows x kp codes: 8-row groups of kp / 16 core matrices, each 8 rows x 16
+// bytes (wgmma's K-major layout without swizzle).
+__device__ __forceinline__ size_t core_off(int row, int kg, int kp) {
+  return ((size_t)(row >> 3) * (kp >> 4) + kg) * CORE + (row & 7) * 16;
+}
+
+// d (64 x 64 int32 over the warpgroup, 32 a thread) = a . b (+ d if acc):
+// a 64 x 32 and b 64 x 32 int8 codes, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// The same, 64 x 32: b 32 x 32 codes (B18a's half tiles).
+__device__ __forceinline__ void wgmma_s8_n32(int (&d)[16], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N int32) = a . b (+ d if acc) at N = 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int acc) {
+  if constexpr (N == 32) wgmma_s8_n32(d, da, db, acc);
+  else wgmma_s8_n64(d, da, db, acc);
+}
+
 // --- split TF32 ("3xTF32"): fp32 products on the tensor cores (B1, B3 and
 // the bodies they share). One TF32 rounding (10 mantissa bits, a relative
 // 2^-11) misses the kernels' 1e-4 * max|out| at a 4096-deep contraction;
@@ -214,6 +272,67 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The same, 64 x 128: b 8 x 128 (the flash forward's PV at a head dim of
+// 128).
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                                const unsigned (&a)[4],
+                                                uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d (64 x N f32) = a . b (+ d if acc), a from registers, at N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const unsigned (&a)[4],
+                                              uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_tf32_n64(d, a, db, acc);
+  else wgmma_tf32_n128(d, a, db, acc);
+}
+
+// d (64 x 64 f32) = a . b (+ d if acc) with both operands TF32 K-major in
+// shared memory (the flash forward's QK^T: a the query rows, b the keys).
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 // One unit's tile slice (raw, as staged) split into hi and lo, each 64 rows

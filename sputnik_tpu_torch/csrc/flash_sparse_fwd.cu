@@ -9,248 +9,540 @@
 // nblocks [B, mb], and pmask [B, n_partial, 64, 64] holds the deduplicated
 // element masks of partial tiles. Tiles are 64 x 64 (bm = bk = 64).
 //
-// What bounds it on an H100: per occupied tile, 4 x 64^2 x hd FLOPs (QK^T
-// and PV) against one 64 x hd K and V tile read from L2/HBM and 64^2 exp()
-// calls; at the reference transformer's shapes (R = 32, s = 512, hd = 64)
-// the whole call is ~0.3 GFLOP over 256 blocks, so it is latency- and
-// occupancy-bound, not bandwidth-bound.
-//
-// The simple design: one block of 256 threads per (query row block i,
-// replica r). It stages q * scale once, then for each occupied slot
-// s < nblocks[b, i] stages the K and V tile, computes the 64 x 64 score
-// tile (4 x 4 per thread, common.cuh), applies the partial-tile mask, and
-// runs the online softmax: running max m and denominator l per row,
-// reduced across the 16 threads sharing a row with warp shuffles; p goes
-// through shared memory into acc += p @ V held in registers. The -1e30
-// sentinel stays finite and p is forced to 0 where the score is <= -5e29,
-// so a fully-masked row yields m = -1e30, l = 0 and an output of exactly 0
-// (a -inf sentinel would give exp(-inf - -inf) = NaN). The output is
-// acc / max(l, 1e-30); m and l are written per row as [R, mb * 64].
-//
 // Ring band (B11a): also replaces
 // sputnik_tpu/ops/pallas/flash_sparse.py:flash_sparse_ring_band_fwd, one
 // step of the sequence-parallel ring (parallel/ring_flash.py): the same
-// body with CARRY = true continues the online softmax across key bands.
-// Each block loads its rows' carried unnormalised accumulator acc
-// [R, mb * 64, hd] and running max / denominator m, l [R, mb * 64] instead
-// of zeroing them, walks the band's occupied tiles, and writes all three
-// back unnormalised, in place; the caller finishes with acc / max(l, 1e-30)
-// after the last band. The cross-band merge is the in-tile one: exp(m_old -
-// m_new) rescales the carry, so a band with no tile for a row leaves it
-// untouched. q comes pre-scaled (scale = 1); the band's metadata is one
-// mask for every replica (heads = R). The TPU kernel's 128-lane stats
-// layout and hd_pad are TPU layouts: m and l are plain vectors here. Its
-// bound is B9's on the band's tiles plus the carry's read and write.
+// body continues the online softmax across key bands from the carried
+// unnormalised accumulator acc [R, mb * 64, hd] and running max /
+// denominator m, l [R, mb * 64], written back unnormalised, in place; the
+// caller finishes with acc / max(l, 1e-30) after the last band. q comes
+// pre-scaled (scale = 1); the band's metadata is one mask for every
+// replica (heads = R). The TPU kernel's 128-lane stats layout and hd_pad
+// are TPU layouts: m and l are plain vectors here.
+//
+// What bounds it on an H100: 4 * hd FLOPs per kept key-query pair (QK^T and
+// PV). In fp32-accurate split TF32 (common.cuh: three TF32 products, hi.hi
+// + hi.lo + lo.hi) the tensor cores do them at 495 / 3 = 165 TFLOP/s; at
+// the ring's fullest band (2048^2 keys, R = 4, hd = 64: 4.295 G) that is
+// 0.026 ms, at B9's driver shape (R = 32, s = 512, hd = 64) 0.006 ms. Per
+// 64 x 64 tile the softmax takes 4096 expf, so a warpgroup's tile is
+// softmax-bound unless another walk's products run beside it on the SM.
+//
+// The design, three launches (two where the walk is not split):
+//   * split_kv_kernel, once a call: K and V split into TF32 hi / lo and
+//     written tile by tile in wgmma's core-matrix order (no swizzle): K as
+//     [key][d] (K-major along the head dim, QK^T's B), V transposed as
+//     [d][key] (K-major along the keys, PV's B; TF32 wgmma reads B K-major
+//     only), its keys permuted inside each group of 8 (see vcore). A tile
+//     is visited by every row block whose walk names it (32 times at the
+//     ring's full band), so it is split once, not per visit, and the walk
+//     needs no raw staging buffer: 96 KB of shared memory a block at
+//     hd <= 64 leave room for two walks an SM.
+//   * flash_tc_kernel: one warpgroup (128 threads) walks the slots of one
+//     (row block, replica), or of one chunk of them. q * scale is split
+//     once into shared memory. Per slot, the K tile and the V tile each
+//     stream into their own buffer by cp.async, K(s + 1) while the softmax
+//     and PV of slot s run, V(s + 1) while QK^T of slot s + 1 runs. QK^T is
+//     wgmma m64n64k8 with both operands in shared memory; the partial-tile
+//     mask, the online softmax and l are computed on the accumulator
+//     fragments, the row max and sum reduced over each quad's 4 lanes. PV
+//     takes p straight from the score registers as wgmma's A fragments, split
+//     there: the accumulator holds (row g, keys 2t, 2t + 1) where the A
+//     fragment of a k8 step wants (row g, keys t, t + 4), so V's keys are
+//     stored permuted to match (vcore) and the sum over keys is unchanged.
+//     acc is rescaled by exp(m_old - m_new) in registers before the PV
+//     products accumulate onto it.
+//   * the split walk: with few walks for the card (the ring's band: 128 of
+//     32 tiles), the host cuts each walk into chunks of `tiles` slots
+//     (ops/kernels/flash_sparse.py: flash_split_tiles); every chunk starts
+//     from m = -1e30, l = 0, acc = 0 and writes its unnormalised state to
+//     a workspace, and flash_merge_kernel folds the chunks (and, for the
+//     ring, the carry) in chunk order: M = max of the parts' m, each part
+//     rescaled by exp(m_part - M); a part that no kept score reached (m
+//     <= -5e29, so l = 0 and acc = 0) is skipped, so a row the band never
+//     touches keeps its carry bit for bit. m is a max, so it comes out
+//     bit-equal to the unsplit walk's. No float atomics: the same bits
+//     from run to run.
+// The -1e30 sentinel stays finite and p is forced to 0 where the score is
+// <= -5e29, so a fully-masked row yields m = -1e30, l = 0 and an output of
+// exactly 0 (a -inf sentinel would give exp(-inf - -inf) = NaN). hd <= 64
+// runs at HD = 64, hd <= 128 at HD = 128, the head dims past hd zero.
 #include "common.cuh"
 
 namespace stt {
 
 constexpr float NEG_LARGE = -1e30f;
+constexpr int FT = 128;  // threads of a walk block: one warpgroup
 
+enum FlashMode { FINAL = 0, CARRY = 1, PART = 2 };
+
+// Float offset of K[key][d] in a split tile: rows key, kp HD (16-byte
+// granules of 4 head dims).
 template <int HD>
-constexpr size_t flash_smem_bytes() {
-  return sizeof(float) *
-         (2 * HD * TILE_LD + TILE * TILE_LD + TILE * (HD + 4));
+__device__ __forceinline__ int kcore(int key, int d) {
+  return ((key >> 3) * (HD / 4) + (d >> 2)) * 32 + (key & 7) * 4 + (d & 3);
 }
 
-template <int HD, bool CARRY>
+// Float offset of V[key][d] in a split tile's transposed half: rows d, kp
+// 64 keys, where the k8 step j holds keys 8j + {0, 2, 4, 6} at positions
+// 0-3 and 8j + {1, 3, 5, 7} at 4-7 (the order of p in the accumulator).
+__device__ __forceinline__ int vcore(int d, int key) {
+  const int kk = key & 7;
+  const int pos = (key & ~7) + ((kk & 1) ? 4 + (kk >> 1) : (kk >> 1));
+  return ((d >> 3) * 16 + (pos >> 2)) * 32 + (d & 7) * 4 + (pos & 3);
+}
+
+// floats of one split tile: K hi, K lo, V^T hi, V^T lo
+template <int HD>
+__host__ __device__ constexpr int kv_tile() { return 4 * TILE * HD; }
+
+// The pre-pass: key block c of KV replica rk of k (blockIdx.z = 0) or v
+// (1), split, into its half of kv[(rk * kb + c) * kv_tile] (zero past s_kv
+// and hd). The tile is read once into shared memory (coalesced along the
+// head dim, every load of a thread in flight together), then written out
+// 16 bytes a thread in the split tile's memory order (neighbouring threads
+// on neighbouring 16-byte pieces).
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_sparse_fwd_kernel(const int* __restrict__ block_cols,
-                        const int* __restrict__ nblocks,
-                        const int* __restrict__ mask_slot,
-                        const int* __restrict__ is_partial,
-                        const float* __restrict__ pmask,
-                        const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v, float* __restrict__ out,
-                        float* __restrict__ m_out, float* __restrict__ l_out,
-                        int heads, int group, int mb, int max_bpr,
-                        int n_partial, int s_q, int s_kv, int hd,
-                        float scale) {
-  constexpr int CPT = HD / 16;  // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  auto QsT = reinterpret_cast<float (*)[TILE_LD]>(smem);  // [HD][TILE_LD]
-  auto KsT = reinterpret_cast<float (*)[TILE_LD]>(smem + HD * TILE_LD);
-  auto PsT = reinterpret_cast<float (*)[TILE_LD]>(smem + 2 * HD * TILE_LD);
-  auto Vs = reinterpret_cast<float (*)[HD + 4]>(
-      smem + 2 * HD * TILE_LD + TILE * TILE_LD);  // [TILE][HD + 4]
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ kv, int s_kv, int hd, int kb) {
+  constexpr int PER = TILE * HD / THREADS;
+  __shared__ float S[TILE][HD + 4];
+  const int c = blockIdx.x, rk = blockIdx.y, half = blockIdx.z;
+  const float* const x = (half ? v : k) + (size_t)rk * s_kv * hd;
+  float* const T = kv + ((size_t)rk * kb + c) * kv_tile<HD>() +
+                   2 * half * TILE * HD;
+  float f[PER];
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int e = threadIdx.x + n * THREADS, key = e / HD, d = e % HD;
+    const int gk = c * TILE + key;
+    f[n] = gk < s_kv && d < hd ? x[(size_t)gk * hd + d] : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int e = threadIdx.x + n * THREADS;
+    S[e / HD][e % HD] = f[n];
+  }
+  __syncthreads();
+  // piece g: row g & 7 of one 16-byte granule of one 8-row group
+#pragma unroll
+  for (int n = 0; n < PER / 4; ++n) {
+    const int g = threadIdx.x + n * THREADS;
+    float y[4];
+    if (half == 0) {  // K: row key, head dims 4 * kg ..
+      const int kg = (g >> 3) % (HD / 4);
+      const int key = (g >> 3) / (HD / 4) * 8 + (g & 7);
+#pragma unroll
+      for (int x4 = 0; x4 < 4; ++x4) y[x4] = S[key][4 * kg + x4];
+    } else {  // V^T: row d, positions 4 * pg .. (vcore's key order)
+      const int pg = (g >> 3) & 15, d = (g >> 7) * 8 + (g & 7);
+#pragma unroll
+      for (int x4 = 0; x4 < 4; ++x4) {
+        const int pos = 4 * pg + x4, q = pos & 7;
+        y[x4] = S[(pos & ~7) + (q < 4 ? 2 * q : 2 * (q - 4) + 1)][d];
+      }
+    }
+    unsigned h[4], l[4];
+#pragma unroll
+    for (int x4 = 0; x4 < 4; ++x4) split_tf32(y[x4], h[x4], l[x4]);
+    *reinterpret_cast<uint4*>(T + 4 * g) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(T + TILE * HD + 4 * g) =
+        make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i = blockIdx.x, r = blockIdx.y;
+// 2 * TILE * HD floats (a split tile's K or V half) global -> shared.
+template <int HD>
+__device__ __forceinline__ void load_half(float* dst, const float* src) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < 2 * TILE * HD / 4; e += FT)
+    cp_async16(dst + 4 * e, src + 4 * e, 16);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait1_sync() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Shared memory of a walk block: q * scale split (hi, lo), the K half and
+// the V half of one split tile.
+template <int HD>
+constexpr size_t flash_tc_smem() {
+  return sizeof(float) * 6 * TILE * HD;
+}
+
+// One walk (MODE FINAL, CARRY) or one chunk of `tiles` slots of it (PART)
+// of row block i = mb - 1 - blockIdx.y (the longest causal walks first),
+// replica blockIdx.x, chunk blockIdx.z. Thread (warp w, lane 4g + t) holds
+// rows 16w + g (h = 0) and 16w + g + 8 (h = 1); score element 4j + e is
+// row h = e >> 1, key 8j + 2t + (e & 1), output element 4j + e head dim
+// 8j + 2t + (e & 1).
+template <int HD, int MODE>
+__global__ void __launch_bounds__(FT)
+flash_tc_kernel(const int* __restrict__ block_cols,
+                const int* __restrict__ nblocks,
+                const int* __restrict__ mask_slot,
+                const int* __restrict__ is_partial,
+                const float* __restrict__ pmask,
+                const float* __restrict__ q, const float* __restrict__ kv,
+                float* __restrict__ out, float* __restrict__ m_out,
+                float* __restrict__ l_out, float* __restrict__ part,
+                int heads, int group, int mb, int max_bpr, int n_partial,
+                int s_q, int kb, int hd, float scale, int tiles) {
+  constexpr int NO = HD / 2;                 // output floats a thread
+  constexpr unsigned QSBO = HD / 4 * 128;    // Q / K: an 8-row group
+  constexpr unsigned VSBO = TILE / 4 * 128;  // V^T: an 8-row group
+  extern __shared__ __align__(128) float smem[];
+  float* const Qh = smem;
+  float* const Ql = smem + TILE * HD;
+  float* const Kb = smem + 2 * TILE * HD;  // hi, lo
+  float* const Vb = smem + 4 * TILE * HD;  // hi, lo
+
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = blockIdx.x, i = mb - 1 - (int)blockIdx.y, ch = blockIdx.z;
   const int b = r / heads, rk = r / group;
-  const float* Q = q + (size_t)r * s_q * hd;
-  const float* Kr = k + (size_t)rk * s_kv * hd;
-  const float* Vr = v + (size_t)rk * s_kv * hd;
+  const size_t meta0 = ((size_t)b * mb + i) * max_bpr;
+  const int nb = nblocks[b * mb + i];
+  const int s0 = MODE == PART ? ch * tiles : 0;
+  const int nt = max(0, min(nb, MODE == PART ? s0 + tiles : nb) - s0);
+  const float* const kvr = kv + (size_t)rk * kb * kv_tile<HD>();
+  // a slot's split tile and partial-tile mask, read a slot ahead of use
+  struct Slot {
+    const float* src;
+    int part, mslot;
+  };
+  auto slot_of = [&](int s) {
+    return Slot{kvr + (size_t)block_cols[meta0 + s] * kv_tile<HD>(),
+                is_partial[meta0 + s], mask_slot[meta0 + s]};
+  };
+  Slot cur{kvr, 0, 0}, nxt{kvr, 0, 0};
+  if (nt > 0) {
+    cur = slot_of(s0);
+    load_half<HD>(Kb, cur.src);
+    load_half<HD>(Vb, cur.src + 2 * TILE * HD);
+    if (nt > 1) nxt = slot_of(s0 + 1);
+  }
 
-  for (int e = tid; e < TILE * HD; e += THREADS) {
-    const int row = e / HD, d = e % HD, gr = i * TILE + row;
-    QsT[d][row] = (gr < s_q && d < hd) ? Q[(size_t)gr * hd + d] * scale : 0.f;
+  // q * scale, split once into Qh / Ql; every load of a thread in flight
+  // together
+  {
+    constexpr int PER = TILE * HD / FT;
+    const float* Q = q + (size_t)r * s_q * hd;
+    float f[PER];
+#pragma unroll
+    for (int n = 0; n < PER; ++n) {
+      const int e = tid + n * FT, row = e / HD, d = e % HD;
+      const int gr = i * TILE + row;
+      f[n] = gr < s_q && d < hd ? Q[(size_t)gr * hd + d] * scale : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < PER; ++n) {
+      const int e = tid + n * FT, row = e / HD, d = e % HD;
+      unsigned h, l;
+      split_tf32(f[n], h, l);
+      Qh[kcore<HD>(row, d)] = __uint_as_float(h);
+      Ql[kcore<HD>(row, d)] = __uint_as_float(l);
+    }
   }
 
   const size_t m_pad = (size_t)mb * TILE;
-  float m_i[4], l_i[4], acc[4][CPT];
+  int rows[2];
+  float m_i[2], l_i[2], acc[NO];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int gr = i * TILE + ty * 4 + ii;
-    m_i[ii] = CARRY ? m_out[(size_t)r * m_pad + gr] : NEG_LARGE;
-    l_i[ii] = CARRY ? l_out[(size_t)r * m_pad + gr] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int d = tx * CPT + jj;
-      acc[ii][jj] = CARRY && gr < s_q && d < hd
-                        ? out[((size_t)r * s_q + gr) * hd + d] : 0.f;
-    }
+  for (int h = 0; h < 2; ++h) {
+    rows[h] = i * TILE + 16 * w + g + 8 * h;
+    m_i[h] = MODE == CARRY ? m_out[r * m_pad + rows[h]] : NEG_LARGE;
+    l_i[h] = MODE == CARRY ? l_out[r * m_pad + rows[h]] : 0.f;
   }
-  // every thread has read its rows' carry before tx == 0 writes m, l back
-  if (CARRY) __syncthreads();
-
-  const size_t meta0 = ((size_t)b * mb + i) * max_bpr;
-  const int nb = nblocks[b * mb + i];
-  for (int s = 0; s < nb; ++s) {
-    const int c = block_cols[meta0 + s];
-    for (int e = tid; e < TILE * HD; e += THREADS) {
-      const int key = e / HD, d = e % HD, gk = c * TILE + key;
-      const bool ok = gk < s_kv && d < hd;
-      KsT[d][key] = ok ? Kr[(size_t)gk * hd + d] : 0.f;
-      Vs[key][d] = ok ? Vr[(size_t)gk * hd + d] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4] = {};
-    tile_fma<HD>(QsT, KsT, ty, tx, sc);
-    if (is_partial[meta0 + s]) {
-      const float* pm = pmask + ((size_t)b * n_partial + mask_slot[meta0 + s])
-                                    * TILE * TILE;
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          if (pm[(ty * 4 + ii) * TILE + tx * 4 + jj] == 0.f)
-            sc[ii][jj] = NEG_LARGE;
+    for (int e = 0; e < 4; ++e) {
+      const int gr = rows[e >> 1], d = 8 * j + 2 * t + (e & 1);
+      acc[4 * j + e] = MODE == CARRY && gr < s_q && d < hd
+                           ? out[((size_t)r * s_q + gr) * hd + d] : 0.f;
     }
 
+  for (int u = 0; u < nt; ++u) {
+    // K(s) has landed (V(s) may still be in flight); after the barrier the
+    // split q is visible too
+    cp_wait1_sync();
+    float sc[32];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float mx = fmaxf(fmaxf(sc[ii][0], sc[ii][1]), fmaxf(sc[ii][2], sc[ii][3]));
+    for (int ks = 0; ks < HD / 8; ++ks) {
+      const uint64_t qh = core_desc(Qh + ks * 64, 128, QSBO);
+      const uint64_t ql = core_desc(Ql + ks * 64, 128, QSBO);
+      const uint64_t kh = core_desc(Kb + ks * 64, 128, QSBO);
+      const uint64_t kl = core_desc(Kb + TILE * HD + ks * 64, 128, QSBO);
+      wgmma_tf32_ss_n64(sc, qh, kh, ks > 0);
+      wgmma_tf32_ss_n64(sc, qh, kl, 1);
+      wgmma_tf32_ss_n64(sc, ql, kh, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[ii], mx);
+    for (int x = 0; x < 32; ++x) asm volatile("" : "+f"(sc[x])::"memory");
+    __syncthreads();  // every warp is done with K(s)
+    if (u + 1 < nt) load_half<HD>(Kb, nxt.src);
+    else asm volatile("cp.async.commit_group;\n" ::);
+
+    if (cur.part) {
+      const float* pm =
+          pmask + ((size_t)b * n_partial + cur.mslot) * TILE * TILE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * w + g + 8 * (e >> 1);
+          if (pm[row * TILE + 8 * j + 2 * t + (e & 1)] == 0.f)
+            sc[4 * j + e] = NEG_LARGE;
+        }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_LARGE;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[h], mx);
       float rs = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = sc[ii][jj] <= NEG_LARGE / 2 ? 0.f
-                                                    : expf(sc[ii][jj] - m_new);
-        sc[ii][jj] = p;
-        rs += p;
-      }
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m_i[ii] - m_new);
-      l_i[ii] = l_i[ii] * corr + rs;
-      m_i[ii] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] *= corr;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) PsT[tx * 4 + jj][ty * 4 + ii] = sc[ii][jj];
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float x = sc[4 * j + e];
+          const float p = x <= NEG_LARGE / 2 ? 0.f : expf(x - m_new);
+          sc[4 * j + e] = p;
+          rs += p;
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      corr[h] = expf(m_i[h] - m_new);
+      l_i[h] = l_i[h] * corr[h] + rs;
+      m_i[h] = m_new;
     }
-    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < NO; ++x) acc[x] *= corr[(x >> 1) & 1];
+    // p as the A fragments of the 8 k8 steps, split: a0 / a1 rows g / g + 8
+    // at position t (key 2t), a2 / a3 at position t + 4 (key 2t + 1)
+    unsigned ph[8][4], pl[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      split_tf32(sc[4 * j + 0], ph[j][0], pl[j][0]);
+      split_tf32(sc[4 * j + 2], ph[j][1], pl[j][1]);
+      split_tf32(sc[4 * j + 1], ph[j][2], pl[j][2]);
+      split_tf32(sc[4 * j + 3], ph[j][3], pl[j][3]);
+    }
 
-#pragma unroll 4
-    for (int key = 0; key < TILE; ++key) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&PsT[key][ty * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      float vv[CPT];
+    cp_wait1_sync();  // V(s) has landed (K(s + 1) may still be in flight)
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int jj = 0; jj < CPT; jj += 2) {
-        const float2 t = *reinterpret_cast<const float2*>(&Vs[key][tx * CPT + jj]);
-        vv[jj] = t.x;
-        vv[jj + 1] = t.y;
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj)
-          acc[ii][jj] = fmaf(pv[ii], vv[jj], acc[ii][jj]);
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t vh = core_desc(Vb + j * 64, 128, VSBO);
+      const uint64_t vl = core_desc(Vb + TILE * HD + j * 64, 128, VSBO);
+      wgmma_tf32_rs<HD>(acc, ph[j], vh, 1);
+      wgmma_tf32_rs<HD>(acc, ph[j], vl, 1);
+      wgmma_tf32_rs<HD>(acc, pl[j], vh, 1);
     }
-    __syncthreads();
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int x = 0; x < NO; ++x) asm volatile("" : "+f"(acc[x])::"memory");
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        asm volatile("" : "+r"(ph[j][x]), "+r"(pl[j][x])::"memory");
+    __syncthreads();  // every warp is done with V(s)
+    if (u + 1 < nt) load_half<HD>(Vb, nxt.src + 2 * TILE * HD);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    cur = nxt;
+    if (u + 2 < nt) nxt = slot_of(s0 + u + 2);
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();  // the quad's lanes have read the carried m, l
 
+  float* const pacc = part + (size_t)ch * gridDim.x * m_pad * HD;
+  float* const pml = part + (size_t)gridDim.z * gridDim.x * m_pad * HD +
+                     (size_t)ch * gridDim.x * m_pad * 2;
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int gr = i * TILE + ty * 4 + ii;
-    if (tx == 0) {
-      m_out[(size_t)r * m_pad + gr] = m_i[ii];
-      l_out[(size_t)r * m_pad + gr] = l_i[ii];
+  for (int h = 0; h < 2; ++h) {
+    const size_t at = r * m_pad + rows[h];
+    if (t == 0) {
+      if (MODE == PART) {
+        pml[2 * at] = m_i[h];
+        pml[2 * at + 1] = l_i[h];
+      } else {
+        m_out[at] = m_i[h];
+        l_out[at] = l_i[h];
+      }
     }
-    if (gr >= s_q) continue;
-    const float den = CARRY ? 1.f : fmaxf(l_i[ii], 1e-30f);
+    const float den = MODE == FINAL ? fmaxf(l_i[h], 1e-30f) : 1.f;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int d = tx * CPT + jj;
-      if (d < hd) out[((size_t)r * s_q + gr) * hd + d] = acc[ii][jj] / den;
-    }
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const int d = 8 * j + 2 * t + (e & 1);
+        if (MODE == PART)
+          pacc[at * HD + d] = acc[4 * j + e];
+        else if (rows[h] < s_q && d < hd)
+          out[((size_t)r * s_q + rows[h]) * hd + d] =
+              MODE == FINAL ? acc[4 * j + e] / den : acc[4 * j + e];
+      }
   }
 }
 
-template <int HD, bool CARRY = false>
+// The chunks' states folded into each row (one warp a row, R * mb * 64
+// rows): M = max(carry's m, the chunks' m), each part rescaled by exp(m -
+// M) and summed in chunk order after the carry; parts with m <= -5e29
+// (no kept score: l = 0, acc = 0) are skipped. CARRY: acc, m, l advanced in
+// place, unnormalised; else out = acc / max(l, 1e-30) for rows < s_q.
+// Lane c reads chunk c's m and l (chunks <= 32, the host checks) and the
+// weights go round by shuffles, so a row costs two rounds of loads.
+template <int HD, bool CARRY_IN>
+__global__ void __launch_bounds__(THREADS)
+flash_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   int R, int mb, int s_q, int hd, int chunks) {
+  const int lane = threadIdx.x & 31;
+  const size_t m_pad = (size_t)mb * TILE, nrows = (size_t)R * m_pad;
+  const size_t at = (size_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (at >= nrows) return;
+  const int r = (int)(at / m_pad), row = (int)(at % m_pad);
+  const float* pacc = part;
+  const float* pml = part + (size_t)chunks * nrows * HD;
+  const float mc = CARRY_IN ? m_out[at] : NEG_LARGE;
+  const float lc = CARRY_IN ? l_out[at] : 0.f;
+  float mp = NEG_LARGE, lp = 0.f;
+  if (lane < chunks) {
+    mp = pml[2 * (lane * nrows + at)];
+    lp = pml[2 * (lane * nrows + at) + 1];
+  }
+  float M = fmaxf(mc, mp);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  const float cc = CARRY_IN ? expf(mc - M) : 0.f;
+  const bool live = mp > NEG_LARGE / 2;
+  const float wl = live ? expf(mp - M) : 0.f;
+  float L = lc * cc;
+  for (int c = 0; c < chunks; ++c) {
+    const float w = __shfl_sync(0xffffffffu, wl, c);
+    const float lpc = __shfl_sync(0xffffffffu, lp, c);
+    if (__shfl_sync(0xffffffffu, (int)live, c)) L += lpc * w;
+  }
+  const unsigned lives = __ballot_sync(0xffffffffu, live);
+  for (int d0 = 0; (CARRY_IN || row < s_q) && d0 < hd; d0 += 32) {
+    const int d = d0 + lane;
+    const size_t o = ((size_t)r * s_q + row) * hd + d;
+    float a = CARRY_IN && d < hd ? out[o] * cc : 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const float w = __shfl_sync(0xffffffffu, wl, c);
+      if ((lives >> c & 1u) && d < hd)
+        a += pacc[(c * nrows + at) * HD + d] * w;
+    }
+    if (d < hd) out[o] = CARRY_IN ? a : a / fmaxf(L, 1e-30f);
+  }
+  if (lane == 0) {
+    m_out[at] = M;
+    l_out[at] = L;
+  }
+}
+
+template <int HD, bool RING>
 int launch_flash(const int* cols, const int* nblk, const int* slot,
-                 const int* part, const float* pmask, const float* q,
+                 const int* ispart, const float* pmask, const float* q,
                  const float* k, const float* v, float* out, float* m_out,
-                 float* l_out, int R, int heads, int group, int mb,
-                 int max_bpr, int n_partial, int s_q, int s_kv, int hd,
-                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_sparse_fwd_kernel<HD, CARRY>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(mb, R);
-  flash_sparse_fwd_kernel<HD, CARRY><<<grid, THREADS, smem, stream>>>(
-      cols, nblk, slot, part, pmask, q, k, v, out, m_out, l_out, heads,
-      group, mb, max_bpr, n_partial, s_q, s_kv, hd, scale);
+                 float* l_out, float* work, int R, int heads, int group,
+                 int mb, int max_bpr, int n_partial, int s_q, int s_kv,
+                 int hd, float scale, int tiles, cudaStream_t st) {
+  const int kb = (s_kv + TILE - 1) / TILE, Rk = R / group;
+  const int chunks = max_bpr > tiles ? (max_bpr + tiles - 1) / tiles : 1;
+  if (tiles < 1 || mb > 65535 || chunks > 32)
+    return (int)cudaErrorInvalidValue;
+  float* const kv = work;
+  float* const scratch = kv + (size_t)Rk * kb * kv_tile<HD>();
+  if (kb > 0 && Rk > 0) {
+    split_kv_kernel<HD><<<dim3(kb, Rk, 2), THREADS, 0, st>>>(k, v, kv, s_kv,
+                                                             hd, kb);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  constexpr size_t smem = flash_tc_smem<HD>();
+  constexpr int ONE = RING ? CARRY : FINAL;
+  const dim3 grid(R, mb, chunks);
+#define STT_FLASH_TC_ARGS                                                    \
+  cols, nblk, slot, ispart, pmask, q, kv, out, m_out, l_out, scratch,      \
+      heads, group, mb, max_bpr, n_partial, s_q, kb, hd, scale, tiles
+  if (chunks == 1) {
+    const int e = set_smem(flash_tc_kernel<HD, ONE>, smem);
+    if (e) return e;
+    flash_tc_kernel<HD, ONE><<<grid, FT, smem, st>>>(STT_FLASH_TC_ARGS);
+    return (int)cudaGetLastError();
+  }
+  int e = set_smem(flash_tc_kernel<HD, PART>, smem);
+  if (e) return e;
+  flash_tc_kernel<HD, PART><<<grid, FT, smem, st>>>(STT_FLASH_TC_ARGS);
+#undef STT_FLASH_TC_ARGS
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t rows = (size_t)R * mb * TILE;
+  const unsigned blocks =
+      (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
+  flash_merge_kernel<HD, RING><<<blocks, THREADS, 0, st>>>(
+      scratch, out, m_out, l_out, R, mb, s_q, hd, chunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace stt
 
 // q [R, s_q, hd], k/v [R / group, s_kv, hd], out [R, s_q, hd],
-// m_out/l_out [R, mb * 64]; hd <= 128.
+// m_out/l_out [R, mb * 64]; hd <= 128. work f32: the split K / V, (R /
+// group) * ceil(s_kv / 64) * 4 * 64 * HD floats (HD = 64 for hd <= 64,
+// else 128), then, where max_bpr > tiles, the chunks' states: chunks * R *
+// mb * 64 * (HD + 2) floats, chunks = ceil(max_bpr / tiles).
 extern "C" int flash_sparse_fwd_f32(
     const void* block_cols, const void* nblocks, const void* mask_slot,
     const void* is_partial, const void* pmask, const void* q, const void* k,
-    const void* v, void* out, void* m_out, void* l_out, int R, int heads,
-    int group, int mb, int max_bpr, int n_partial, int s_q, int s_kv, int hd,
-    float scale, void* stream) {
+    const void* v, void* out, void* m_out, void* l_out, void* work, int R,
+    int heads, int group, int mb, int max_bpr, int n_partial, int s_q,
+    int s_kv, int hd, int tiles, float scale, void* stream) {
 #define STT_FLASH_ARGS                                                      \
   (const int*)block_cols, (const int*)nblocks, (const int*)mask_slot,       \
       (const int*)is_partial, (const float*)pmask, (const float*)q,         \
       (const float*)k, (const float*)v, (float*)out, (float*)m_out,         \
-      (float*)l_out, R, heads, group, mb, max_bpr, n_partial, s_q, s_kv, hd, \
-      scale, (cudaStream_t)stream
-  if (hd <= 32) return stt::launch_flash<32>(STT_FLASH_ARGS);
-  if (hd <= 64) return stt::launch_flash<64>(STT_FLASH_ARGS);
-  if (hd <= 128) return stt::launch_flash<128>(STT_FLASH_ARGS);
+      (float*)l_out, (float*)work, R, heads, group, mb, max_bpr, n_partial,  \
+      s_q, s_kv, hd, scale, tiles, (cudaStream_t)stream
+  if (hd <= 64) return stt::launch_flash<64, false>(STT_FLASH_ARGS);
+  if (hd <= 128) return stt::launch_flash<128, false>(STT_FLASH_ARGS);
 #undef STT_FLASH_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // One ring step (B11a): q [R, mb * 64, hd] pre-scaled, k/v [R / group,
 // s_kv, hd] (the band), the band's metadata (one mask for all replicas),
-// and the carry acc [R, mb * 64, hd], m / l [R, mb * 64], advanced in place.
+// and the carry acc [R, mb * 64, hd], m / l [R, mb * 64], advanced in place;
+// work as flash_sparse_fwd_f32's.
 extern "C" int flash_sparse_ring_fwd_f32(
     const void* block_cols, const void* nblocks, const void* mask_slot,
     const void* is_partial, const void* pmask, const void* q, const void* k,
-    const void* v, void* acc, void* m, void* l, int R, int group, int mb,
-    int max_bpr, int n_partial, int s_kv, int hd, void* stream) {
+    const void* v, void* acc, void* m, void* l, void* work, int R, int group,
+    int mb, int max_bpr, int n_partial, int s_kv, int hd, int tiles,
+    void* stream) {
 #define STT_RING_ARGS                                                        \
   (const int*)block_cols, (const int*)nblocks, (const int*)mask_slot,        \
       (const int*)is_partial, (const float*)pmask, (const float*)q,          \
       (const float*)k, (const float*)v, (float*)acc, (float*)m, (float*)l,   \
-      R, R, group, mb, max_bpr, n_partial, mb * stt::TILE, s_kv, hd, 1.f,    \
-      (cudaStream_t)stream
-  if (hd <= 32) return stt::launch_flash<32, true>(STT_RING_ARGS);
+      (float*)work, R, R, group, mb, max_bpr, n_partial, mb * stt::TILE,     \
+      s_kv, hd, 1.f, tiles, (cudaStream_t)stream
   if (hd <= 64) return stt::launch_flash<64, true>(STT_RING_ARGS);
   if (hd <= 128) return stt::launch_flash<128, true>(STT_RING_ARGS);
 #undef STT_RING_ARGS

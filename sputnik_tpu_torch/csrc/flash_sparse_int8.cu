@@ -2,9 +2,8 @@
 // with both contractions on int8 codes, the online softmax in f32.
 //
 // Replaces the TPU kernel sputnik_tpu/ops/pallas/flash_sparse_int8.py:
-// flash_sparse_attention_fwd_int8 (B18a). It is B9's kernel
-// (flash_sparse_fwd.cu) with the TPU kernel's quantisation, whose grid is
-// part of the result:
+// flash_sparse_attention_fwd_int8 (B18a). The quantisation grid is part of
+// the result, so it is the TPU kernel's:
 //   * q * scale is quantised once per 64-row block ([64, hd] tile), k and v
 //     per 64-key block, each at max(absmax / 127, 1e-30) (quant_i8);
 //   * the score tile is the exact int32 q_q . k_q^T times q_s * k_s, masked
@@ -20,252 +19,375 @@
 // (out, m, l) outputs are B9's; there is no GQA group (the TPU kernel has
 // none).
 //
+// The walk stays serial: p's codes are rint(exp(sc - m) * 127) with m the
+// running max over the tiles walked so far, so a walk cut into chunks and
+// merged would form other codes, a different function from the TPU
+// kernel's. Parallelism comes from the walks, the tensor cores and the
+// streamed tiles.
+//
 // What bounds it on an H100: 4 * hd int8 operations per kept key-query pair
 // (QK^T and PV) at 1979 TOP/s against one read of q, k, v and one write of
 // out; at the int8 serving example (R = 8, s = 2048, hd = 128, causal) the
-// ~34 MB take ~0.010 ms and the 8.6 G operations ~0.004 ms. The kernel
-// re-quantises each K/V tile for every row block that visits it, as the TPU
-// kernel does.
+// ~34 MB take ~0.010 ms and the 8.6 G operations ~0.004 ms.
 //
-// The simple design: one block of 256 threads per (query row block,
-// replica), B9's thread layout (4 rows x 4 keys of the score tile, 4 rows x
-// hd / 16 output columns per thread). q's codes are staged once as words of
-// four head dims ([word][row]); per occupied slot the block reduces the K
-// and V tiles' absmax, stages K's codes the same way and V's as words of
-// four keys ([key word][dim]), forms the scores with __dp4a (tile_dp4a),
-// runs the online softmax with warp shuffles over the 16 threads of a row,
-// writes p's codes row-major to shared memory and forms PV with __dp4a over
-// words of four keys.
+// The design, two launches:
+//   * quant_kv_kernel, once a call: a block a (64-key block, replica, K or
+//     V) reads its tile once (registers), reduces its absmax and writes its
+//     scale and codes in wgmma's core-matrix order (no swizzle): K as
+//     [key][d] (K-major along the head dim, QK^T's B), V transposed as
+//     [d][key] (K-major along the keys: int8 wgmma reads B K-major only, and
+//     PV contracts over keys), through shared memory. The grid of the scales
+//     does not depend on the visitor, so the TPU kernel's per-visit
+//     quantisation of each tile (a TPU grid step has no earlier pass) is
+//     the same function done once.
+//   * flash_int8_wgmma_kernel: one block of two warpgroups walks the slots
+//     of one (row block, replica) in slot order, the longest causal walks
+//     first in the grid. q * scale is quantised in the prologue into
+//     shared memory (A of QK^T). Each slot's K and V^T code tiles stream
+//     into a two-stage shared-memory ring by cp.async one slot ahead, its
+//     metadata and scales read a slot ahead too. Each warpgroup scores
+//     half the tile's keys, wgmma m64n32k32 s8 into exact int32 sums, and
+//     computes the scores, the partial-tile mask, the online softmax, l and
+//     p's codes on its accumulator fragments (the row max and sum reduced
+//     over each quad's 4 lanes, then across the two halves through shared
+//     memory; splitting the tile's keys, not the walk, keeps every running
+//     max the serial walk's). The codes go through shared memory in
+//     core-matrix order to be PV's A (the accumulator's layout is not an
+//     8-bit A fragment's), and each warpgroup forms its half of the output
+//     columns by wgmma m64n{hd / 2}k32 s8 against V^T, then acc = acc * corr
+//     + pv * (v_s / 127), once per slot. hd <= 64 runs at 64, hd <= 128 at
+//     128, the head dims past hd zero codes.
 #include "common.cuh"
 
 namespace stt {
 
 constexpr float NEG_LARGE_I8 = -1e30f;
+constexpr int IT = 256;  // threads of a walk block: two warpgroups
 
+// The pre-pass: key block c of replica r of k (blockIdx.z = 0) or v (1)
+// -> its scale, scales[(r * kb + c) * 2 + blockIdx.z], and its codes in
+// codes[(r * kb + c) * 2 * 64 * HD]: K's (rows key, kp HD), then V's
+// transposed (rows d, kp 64 keys), core-matrix order. The tile is read
+// once (every load of a thread in flight together) into registers.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_sparse_fwd_int8_kernel(const int* __restrict__ block_cols,
-                             const int* __restrict__ nblocks,
-                             const int* __restrict__ mask_slot,
-                             const int* __restrict__ is_partial,
-                             const float* __restrict__ pmask,
-                             const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             float* __restrict__ out,
-                             float* __restrict__ m_out,
-                             float* __restrict__ l_out, int heads, int mb,
-                             int max_bpr, int n_partial, int s_q, int s_kv,
-                             int hd, float scale) {
-  constexpr int W = HD / 4;     // words of four head dims
-  constexpr int CPT = HD / 16;  // output columns per thread
-  constexpr int KW = TILE / 4;  // words of four keys
-  __shared__ __align__(16) int Qw[W][TILE_LD];
-  __shared__ __align__(16) int Kw[W][TILE_LD];
-  __shared__ __align__(16) int Vw[KW][HD + 4];
-  __shared__ __align__(16) signed char Pb[TILE][TILE + 16];
+quant_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ scales, signed char* __restrict__ codes,
+                int s_kv, int hd, int kb) {
+  constexpr int PER = TILE * HD / THREADS;
+  __shared__ __align__(16) unsigned char S[TILE][HD + 16];
   __shared__ float red[THREADS / 32];
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i = blockIdx.x, r = blockIdx.y;
-  const int b = r / heads;
-  const float* Q = q + (size_t)r * s_q * hd;
-  const float* Kr = k + (size_t)r * s_kv * hd;
-  const float* Vr = v + (size_t)r * s_kv * hd;
-
-  // q * scale, quantised once for the row block
+  const int c = blockIdx.x, r = blockIdx.y, half = blockIdx.z;
+  const int tid = threadIdx.x;
+  const float* const x = (half ? v : k) + (size_t)r * s_kv * hd;
+  float f[PER];
   float mx = 0.f;
-  for (int e = tid; e < TILE * HD; e += THREADS) {
-    const int row = e / HD, d = e % HD, gr = i * TILE + row;
-    if (gr < s_q && d < hd) mx = fmaxf(mx, fabsf(Q[(size_t)gr * hd + d] * scale));
-  }
-  const float q_s = tile_scale(block_max(mx, red));
-  for (int e = tid; e < TILE * W; e += THREADS) {
-    const int row = e / W, w = e % W, gr = i * TILE + row;
-    unsigned word = 0;
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int d = 4 * w + t;
-      const float x = (gr < s_q && d < hd) ? Q[(size_t)gr * hd + d] * scale
-                                           : 0.f;
-      word |= quant_i8(x, q_s) << (8 * t);
+  for (int n = 0; n < PER; ++n) {
+    const int e = tid + n * THREADS, key = e / HD, d = e % HD;
+    const int gk = c * TILE + key;
+    f[n] = gk < s_kv && d < hd ? x[(size_t)gk * hd + d] : 0.f;
+    mx = fmaxf(mx, fabsf(f[n]));
+  }
+  const float sc = tile_scale(block_max(mx, red));
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int e = tid + n * THREADS;
+    S[e / HD][e % HD] = (unsigned char)quant_i8(f[n], sc);
+  }
+  __syncthreads();
+  signed char* const out = codes + ((size_t)r * kb + c) * 2 * TILE * HD;
+  if (half == 0) {
+    for (int e = tid; e < TILE * HD / 16; e += THREADS) {
+      const int key = e / (HD / 16), kg = e % (HD / 16);
+      *reinterpret_cast<uint4*>(out + core_off(key, kg, HD)) =
+          *reinterpret_cast<const uint4*>(&S[key][kg * 16]);
     }
-    Qw[w][row] = (int)word;
-  }
-
-  float m_i[4], l_i[4], acc[4][CPT];
+  } else {
+    for (int e = tid; e < HD * TILE / 16; e += THREADS) {
+      const int d = e % HD, kg = e / HD;
+      unsigned wd[4];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    m_i[ii] = NEG_LARGE_I8;
-    l_i[ii] = 0.f;
+      for (int q = 0; q < 4; ++q) {
+        wd[q] = 0u;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] = 0.f;
+        for (int y = 0; y < 4; ++y)
+          wd[q] |= (unsigned)S[kg * 16 + q * 4 + y][d] << (8 * y);
+      }
+      *reinterpret_cast<uint4*>(out + TILE * HD + core_off(d, kg, TILE)) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
   }
+  if (tid == 0) scales[((size_t)r * kb + c) * 2 + half] = sc;
+}
 
+// One walk: row block i = mb - 1 - blockIdx.y of replica blockIdx.x, by
+// two warpgroups: warpgroup wg scores keys 32 wg .. 32 wg + 31 of each
+// tile and owns output columns wg * HD / 2 .. of the row block; the row
+// maxima and sums of the two halves meet in shared memory. Thread (warp w
+// of its warpgroup, lane 4g + t) holds rows 16w + g (h = 0) and 16w + g + 8
+// (h = 1); score element 4j + e is row h = e >> 1, key 32 wg + 8j + 2t + (e
+// & 1), output element 4j + e head dim wg * HD / 2 + 8j + 2t + (e & 1).
+template <int HD>
+__global__ void __launch_bounds__(IT)
+flash_int8_wgmma_kernel(const int* __restrict__ block_cols,
+                        const int* __restrict__ nblocks,
+                        const int* __restrict__ mask_slot,
+                        const int* __restrict__ is_partial,
+                        const float* __restrict__ pmask,
+                        const float* __restrict__ q,
+                        const signed char* __restrict__ codes,
+                        const float* __restrict__ scales,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int heads, int mb,
+                        int max_bpr, int n_partial, int s_q, int kb, int hd,
+                        float scale) {
+  constexpr int NV = HD / 2;                // output columns a warpgroup
+  constexpr int NO = NV / 2;                // output sums a thread
+  constexpr int STAGE = 2 * TILE * HD;      // K's codes, then V^T's
+  constexpr unsigned QSBO = HD / 16 * CORE;  // Q / K: an 8-row group
+  constexpr unsigned PSBO = TILE / 16 * CORE;  // P / V^T: an 8-row group
+  __shared__ __align__(128) signed char Qc[TILE * HD];
+  __shared__ __align__(128) signed char KV[2][STAGE];
+  __shared__ __align__(128) signed char Pc[TILE * TILE];
+  __shared__ float xch[2][2][TILE];  // [max, sum][warpgroup][row]
+  __shared__ float red[IT / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int r = blockIdx.x, i = mb - 1 - (int)blockIdx.y;
+  const int b = r / heads;
   const size_t meta0 = ((size_t)b * mb + i) * max_bpr;
   const int nb = nblocks[b * mb + i];
-  for (int s = 0; s < nb; ++s) {
+  const signed char* const cr = codes + (size_t)r * kb * STAGE;
+  // a slot's block column, scales and partial-tile mask, read a slot ahead
+  // of use
+  struct Slot {
+    int c, part, mslot;
+    float k_s, v_s;
+  };
+  auto slot_of = [&](int s) {
     const int c = block_cols[meta0 + s];
-    float mk = 0.f, mv = 0.f;
-    for (int e = tid; e < TILE * HD; e += THREADS) {
-      const int key = e / HD, d = e % HD, gk = c * TILE + key;
-      if (gk < s_kv && d < hd) {
-        mk = fmaxf(mk, fabsf(Kr[(size_t)gk * hd + d]));
-        mv = fmaxf(mv, fabsf(Vr[(size_t)gk * hd + d]));
-      }
-    }
-    const float k_s = tile_scale(block_max(mk, red));
-    const float v_s = tile_scale(block_max(mv, red));
-    for (int e = tid; e < TILE * W; e += THREADS) {
-      const int key = e / W, w = e % W, gk = c * TILE + key;
-      unsigned word = 0;
+    return Slot{c, is_partial[meta0 + s], mask_slot[meta0 + s],
+                scales[((size_t)r * kb + c) * 2],
+                scales[((size_t)r * kb + c) * 2 + 1]};
+  };
+  auto load = [&](int s, int c) {
+    const signed char* src = cr + (size_t)c * STAGE;
+    signed char* dst = KV[s & 1];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int d = 4 * w + t;
-        const float x = (gk < s_kv && d < hd) ? Kr[(size_t)gk * hd + d] : 0.f;
-        word |= quant_i8(x, k_s) << (8 * t);
-      }
-      Kw[w][key] = (int)word;
-    }
-    for (int e = tid; e < KW * HD; e += THREADS) {
-      const int kw = e / HD, d = e % HD;  // coalesced along d
-      unsigned word = 0;
+    for (int e = tid; e < STAGE / 16; e += IT)
+      cp_async16(dst + 16 * e, src + 16 * e, 16);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  Slot cur{0, 0, 0, 0.f, 0.f}, nxt{0, 0, 0, 0.f, 0.f};
+  if (nb > 0) {
+    cur = slot_of(0);
+    load(0, cur.c);
+    if (nb > 1) nxt = slot_of(1);
+  }
+
+  // q * scale, quantised once for the row block into Qc (rows 64, kp HD);
+  // every load of a thread in flight together
+  float q_s;
+  {
+    constexpr int PER = TILE * HD / IT;
+    const float* Q = q + (size_t)r * s_q * hd;
+    float f[PER];
+    float mx = 0.f;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gk = c * TILE + 4 * kw + t;
-        const float x = (gk < s_kv && d < hd) ? Vr[(size_t)gk * hd + d] : 0.f;
-        word |= quant_i8(x, v_s) << (8 * t);
-      }
-      Vw[kw][d] = (int)word;
+    for (int n = 0; n < PER; ++n) {
+      const int e = tid + n * IT, row = e / HD, d = e % HD;
+      const int gr = i * TILE + row;
+      f[n] = gr < s_q && d < hd ? Q[(size_t)gr * hd + d] * scale : 0.f;
+      mx = fmaxf(mx, fabsf(f[n]));
+    }
+    q_s = tile_scale(block_max(mx, red));
+#pragma unroll
+    for (int n = 0; n < PER; ++n) {
+      const int e = tid + n * IT, row = e / HD, d = e % HD;
+      Qc[core_off(row, d >> 4, HD) + (d & 15)] =
+          (signed char)quant_i8(f[n], q_s);
+    }
+  }
+
+  float m_i[2], l_i[2], acc[NO];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_i[h] = NEG_LARGE_I8;
+    l_i[h] = 0.f;
+  }
+#pragma unroll
+  for (int x = 0; x < NO; ++x) acc[x] = 0.f;
+
+  for (int s = 0; s < nb; ++s) {
+    // slot s has landed; every warp is done with slot s - 1 (its stage,
+    // Pc and xch are free), and the codes of q are visible
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (s + 1 < nb) load(s + 1, nxt.c);
+    const signed char* Ks = KV[s & 1];
+    const signed char* Vt = Ks + TILE * HD;
+
+    int si[16];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < HD / 32; ++ks)
+      wgmma_s8_n32(si, core_desc(Qc + ks * 2 * CORE, CORE, QSBO),
+                   core_desc(Ks + core_off(32 * wg, 0, HD) + ks * 2 * CORE,
+                             CORE, QSBO), ks > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int x = 0; x < 16; ++x) asm volatile("" : "+r"(si[x])::"memory");
+
+    const float qk = q_s * cur.k_s;
+    float sc[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) sc[x] = (float)si[x] * qk;
+    if (cur.part) {
+      const float* pm =
+          pmask + ((size_t)b * n_partial + cur.mslot) * TILE * TILE;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * w + g + 8 * (e >> 1);
+          if (pm[row * TILE + 32 * wg + 8 * j + 2 * t + (e & 1)] == 0.f)
+            sc[4 * j + e] = NEG_LARGE_I8;
+        }
+    }
+    // the row maxima of both halves
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float rmx = NEG_LARGE_I8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        rmx = fmaxf(rmx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      rmx = fmaxf(rmx, __shfl_xor_sync(0xffffffffu, rmx, 1));
+      rmx = fmaxf(rmx, __shfl_xor_sync(0xffffffffu, rmx, 2));
+      if (t == 0) xch[0][wg][16 * w + g + 8 * h] = rmx;
     }
     __syncthreads();
-
-    int si[4][4] = {};
-    tile_dp4a<W>(Qw, Kw, ty, tx, si);
-    const float qk = q_s * k_s;
-    float sc[4][4];
+    float corr[2], m_new[2];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sc[ii][jj] = (float)si[ii][jj] * qk;
-    if (is_partial[meta0 + s]) {
-      const float* pm = pmask + ((size_t)b * n_partial + mask_slot[meta0 + s])
-                                    * TILE * TILE;
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          if (pm[(ty * 4 + ii) * TILE + tx * 4 + jj] == 0.f)
-            sc[ii][jj] = NEG_LARGE_I8;
-    }
-
-    float corr[4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float rmx = fmaxf(fmaxf(sc[ii][0], sc[ii][1]),
-                        fmaxf(sc[ii][2], sc[ii][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmx = fmaxf(rmx, __shfl_xor_sync(0xffffffffu, rmx, off));
-      const float m_new = fmaxf(m_i[ii], rmx);
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * w + g + 8 * h;
+      m_new[h] = fmaxf(m_i[h], fmaxf(xch[0][0][row], xch[0][1][row]));
       float rs = 0.f;
-      unsigned pw = 0;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = sc[ii][jj] <= NEG_LARGE_I8 / 2
-                            ? 0.f : expf(sc[ii][jj] - m_new);
-        rs += p;
-        const float pq = fminf(fmaxf(rintf(p * 127.f), 0.f), 127.f);
-        pw |= (unsigned)(int)pq << (8 * jj);
+      for (int j = 0; j < 4; ++j) {
+        unsigned pw = 0u;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float y = sc[4 * j + 2 * h + x];
+          const float p = y <= NEG_LARGE_I8 / 2 ? 0.f : expf(y - m_new[h]);
+          rs += p;
+          const float pq = fminf(fmaxf(rintf(p * 127.f), 0.f), 127.f);
+          pw |= (unsigned)(int)pq << (8 * x);
+        }
+        const int col = 32 * wg + 8 * j + 2 * t;
+        *reinterpret_cast<unsigned short*>(
+            Pc + core_off(row, col >> 4, TILE) + (col & 15)) =
+            (unsigned short)pw;
       }
-      *reinterpret_cast<int*>(&Pb[ty * 4 + ii][tx * 4]) = (int)pw;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      corr[ii] = expf(m_i[ii] - m_new);
-      l_i[ii] = l_i[ii] * corr[ii] + rs;
-      m_i[ii] = m_new;
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      if (t == 0) xch[1][wg][row] = rs;
     }
-    __syncthreads();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // p's codes are visible to wgmma, the sums to all
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * w + g + 8 * h;
+      corr[h] = expf(m_i[h] - m_new[h]);
+      l_i[h] = l_i[h] * corr[h] + (xch[1][0][row] + xch[1][1][row]);
+      m_i[h] = m_new[h];
+    }
 
-    int pv[4][CPT] = {};
-#pragma unroll 4
-    for (int kw = 0; kw < KW; ++kw) {
-      int a[4];
+    int pv[NO];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-        a[ii] = *reinterpret_cast<const int*>(&Pb[ty * 4 + ii][4 * kw]);
-      int bw[CPT];
+    for (int kk = 0; kk < TILE / 32; ++kk)
+      wgmma_s8<NV>(pv, core_desc(Pc + kk * 2 * CORE, CORE, PSBO),
+                   core_desc(Vt + core_off(NV * wg, 0, TILE) + kk * 2 * CORE,
+                             CORE, PSBO), kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int jj = 0; jj < CPT; jj += 2) {
-        const int2 t = *reinterpret_cast<const int2*>(&Vw[kw][tx * CPT + jj]);
-        bw[jj] = t.x;
-        bw[jj + 1] = t.y;
-      }
+    for (int x = 0; x < NO; ++x) asm volatile("" : "+r"(pv[x])::"memory");
+    const float vs = cur.v_s / 127.f;
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < CPT; ++jj)
-          pv[ii][jj] = __dp4a(a[ii], bw[jj], pv[ii][jj]);
-    }
-    const float vs = v_s / 127.f;
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj)
-        acc[ii][jj] = acc[ii][jj] * corr[ii] + (float)pv[ii][jj] * vs;
-    __syncthreads();
+    for (int x = 0; x < NO; ++x)
+      acc[x] = acc[x] * corr[(x >> 1) & 1] + (float)pv[x] * vs;
+    cur = nxt;
+    if (s + 2 < nb) nxt = slot_of(s + 2);
   }
 
   const size_t m_pad = (size_t)mb * TILE;
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int gr = i * TILE + ty * 4 + ii;
-    if (tx == 0) {
-      m_out[(size_t)r * m_pad + gr] = m_i[ii];
-      l_out[(size_t)r * m_pad + gr] = l_i[ii];
+  for (int h = 0; h < 2; ++h) {
+    const int gr = i * TILE + 16 * w + g + 8 * h;
+    if (t == 0 && wg == 0) {
+      m_out[(size_t)r * m_pad + gr] = m_i[h];
+      l_out[(size_t)r * m_pad + gr] = l_i[h];
     }
     if (gr >= s_q) continue;
-    const float den = fmaxf(l_i[ii], 1e-30f);
+    const float den = fmaxf(l_i[h], 1e-30f);
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int d = tx * CPT + jj;
-      if (d < hd) out[((size_t)r * s_q + gr) * hd + d] = acc[ii][jj] / den;
-    }
+    for (int j = 0; j < NV / 8; ++j)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const int d = NV * wg + 8 * j + 2 * t + (e & 1);
+        if (d < hd) out[((size_t)r * s_q + gr) * hd + d] = acc[4 * j + e] / den;
+      }
   }
 }
 
 template <int HD>
 int launch_flash_int8(const int* cols, const int* nblk, const int* slot,
-                      const int* part, const float* pmask, const float* q,
+                      const int* ispart, const float* pmask, const float* q,
                       const float* k, const float* v, float* out,
-                      float* m_out, float* l_out, int R, int heads, int mb,
-                      int max_bpr, int n_partial, int s_q, int s_kv, int hd,
-                      float scale, cudaStream_t stream) {
-  dim3 grid(mb, R);
-  flash_sparse_fwd_int8_kernel<HD><<<grid, THREADS, 0, stream>>>(
-      cols, nblk, slot, part, pmask, q, k, v, out, m_out, l_out, heads, mb,
-      max_bpr, n_partial, s_q, s_kv, hd, scale);
+                      float* m_out, float* l_out, void* work, int R,
+                      int heads, int mb, int max_bpr, int n_partial,
+                      int s_q, int s_kv, int hd, float scale,
+                      cudaStream_t stream) {
+  const int kb = (s_kv + TILE - 1) / TILE;
+  if (mb > 65535) return (int)cudaErrorInvalidValue;
+  float* const scales = (float*)work;
+  const size_t head = ((size_t)R * kb * 2 * sizeof(float) + 127) / 128 * 128;
+  signed char* const codes = (signed char*)work + head;
+  if (kb > 0) {
+    quant_kv_kernel<HD><<<dim3(kb, R, 2), THREADS, 0, stream>>>(
+        k, v, scales, codes, s_kv, hd, kb);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_int8_wgmma_kernel<HD><<<dim3(R, mb), IT, 0, stream>>>(
+      cols, nblk, slot, ispart, pmask, q, codes, scales, out, m_out, l_out,
+      heads, mb, max_bpr, n_partial, s_q, kb, hd, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace stt
 
 // q, k, v [R, s, hd] f32 (q unscaled), out [R, s_q, hd], m_out / l_out
-// [R, mb * 64]; hd <= 128.
+// [R, mb * 64]; hd <= 128. work: the pre-pass's k_s / v_s, f32 [R, kb, 2]
+// (kb = ceil(s_kv / 64)), then, from the next multiple of 128 bytes, the
+// codes int8 [R, kb, 2, 64 * HD] (HD = 64 for hd <= 64, else 128).
 extern "C" int flash_sparse_fwd_int8(
     const void* block_cols, const void* nblocks, const void* mask_slot,
     const void* is_partial, const void* pmask, const void* q, const void* k,
-    const void* v, void* out, void* m_out, void* l_out, int R, int heads,
-    int mb, int max_bpr, int n_partial, int s_q, int s_kv, int hd,
+    const void* v, void* out, void* m_out, void* l_out, void* work, int R,
+    int heads, int mb, int max_bpr, int n_partial, int s_q, int s_kv, int hd,
     float scale, void* stream) {
 #define STT_FLASH_I8_ARGS                                                    \
   (const int*)block_cols, (const int*)nblocks, (const int*)mask_slot,       \
       (const int*)is_partial, (const float*)pmask, (const float*)q,         \
       (const float*)k, (const float*)v, (float*)out, (float*)m_out,         \
-      (float*)l_out, R, heads, mb, max_bpr, n_partial, s_q, s_kv, hd, scale, \
-      (cudaStream_t)stream
-  if (hd <= 32) return stt::launch_flash_int8<32>(STT_FLASH_I8_ARGS);
+      (float*)l_out, work, R, heads, mb, max_bpr, n_partial, s_q, s_kv, hd,  \
+      scale, (cudaStream_t)stream
   if (hd <= 64) return stt::launch_flash_int8<64>(STT_FLASH_I8_ARGS);
   if (hd <= 128) return stt::launch_flash_int8<128>(STT_FLASH_I8_ARGS);
 #undef STT_FLASH_I8_ARGS

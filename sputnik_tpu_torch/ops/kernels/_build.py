@@ -40,8 +40,7 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sddmm_panel_f32": [_P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "flash_sparse_fwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "flash_sparse_fwd_f32": [_P] * 12 + [_I] * 10 + [_F, _P],
     "spmm_t_panel_f32": [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_sparse_bwd_fused_f32": [_P] * 15 + [_I] * 9 + [_F, _P],
@@ -59,7 +58,7 @@ _SIGNATURES = {
     "spmm_panel_int8": [_P] * 7 + [_I] * 8 + [_P],
     "spmm_t_panel_int8": [_P] * 9 + [_I] * 8 + [_P],
     "sddmm_panel_int8": [_P] * 10 + [_I] * 7 + [_P],
-    "flash_sparse_fwd_int8": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "flash_sparse_fwd_int8": [_P] * 12 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dkv_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
     "spmm_panel_c_f32": [_P] * 10 + [_I] * 12 + [_P],
@@ -68,7 +67,7 @@ _SIGNATURES = {
     "c_softmax_stats_f32": [_P] * 5 + [_I] * 5 + [_P],
     "c_softmax_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
     "spmm_panel_sel_f32": [_P] * 6 + [_I] * 8 + [_P],
-    "flash_sparse_ring_fwd_f32": [_P] * 11 + [_I] * 7 + [_P],
+    "flash_sparse_ring_fwd_f32": [_P] * 12 + [_I] * 8 + [_P],
     "flash_sparse_ring_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
 }
 

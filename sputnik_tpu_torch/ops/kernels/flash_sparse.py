@@ -12,6 +12,12 @@ carrying dq, dk and dv). The kernels run 64 x 64 tiles; the plain versions
 run the same blockwise algebra at any tile size. The forward returns the
 row statistics (running max ``m`` and denominator ``l``) the backward
 recomputes the probabilities from.
+
+The forward kernel (B9, and B11a on the same body) runs on the tensor
+cores in split TF32 after a pre-pass that splits K and V once a call; where
+the card would see too few walks, the host cuts each walk into chunks
+(:func:`flash_split_tiles`) and a merge launch folds them
+(:func:`flash_merge_plain` is its plain twin).
 """
 
 from __future__ import annotations
@@ -30,10 +36,42 @@ __all__ = ["build_flash_meta", "build_flash_bwd_meta",
            "flash_sparse_bwd_dkv", "flash_sparse_bwd_dkv_plain",
            "flash_sparse_ring_band_fwd", "flash_sparse_ring_band_fwd_plain",
            "flash_sparse_ring_band_bwd", "flash_sparse_ring_band_bwd_plain",
-           "KERNEL_TILE"]
+           "flash_sparse_ring_band_fwd_split_plain", "flash_merge_plain",
+           "flash_split_tiles", "KERNEL_TILE", "SPLIT_CTAS"]
 
 _NEG_LARGE = -1e30
 KERNEL_TILE = 64   # the CUDA kernels' (bm, bk)
+SPLIT_CTAS = 2 * 132   # blocks the split forward aims for: two resident
+                       # walks (hd <= 64) on each of an H100's 132 SMs
+MIN_SPLIT_TILES = 2    # the shortest chunk of a split walk, in slots
+MAX_SPLIT_CHUNKS = 32  # the most chunks the merge launch folds (a warp's)
+
+
+def flash_split_tiles(walks: int, max_bpr: int) -> int:
+    """Slots a chunk of the forward kernel's split walk (B9, B11a), from
+    host ints: ``max_bpr`` (the longest walk: one launch, no merge), halved
+    while ``walks`` times the chunks a walk still fit ``SPLIT_CTAS`` blocks,
+    down to ``MIN_SPLIT_TILES`` and up to ``MAX_SPLIT_CHUNKS`` chunks."""
+    tiles = max(int(max_bpr), 1)
+    while tiles > MIN_SPLIT_TILES:
+        half = -(-tiles // 2)
+        chunks = -(-max_bpr // half)
+        if walks * chunks > SPLIT_CTAS or chunks > MAX_SPLIT_CHUNKS:
+            break
+        tiles = half
+    return tiles
+
+
+def _fwd_workspace(R, group, mb, s_kv, hd, max_bpr, tiles, device):
+    """The forward kernel's workspace (``csrc/flash_sparse_fwd.cu``): K and
+    V split, ``4 * 64 * HD`` floats a key block of each KV replica (HD = 64
+    for hd <= 64, else 128), then, where the walk is split, each chunk's
+    unnormalised state, ``R * mb * 64 * (HD + 2)`` floats a chunk."""
+    hdp = 64 if hd <= 64 else 128
+    n = (R // group) * -(-s_kv // KERNEL_TILE) * 4 * KERNEL_TILE * hdp
+    if max_bpr > tiles:
+        n += -(-max_bpr // tiles) * R * mb * KERNEL_TILE * (hdp + 2)
+    return torch.empty(max(n, 1), device=device, dtype=torch.float32)
 
 
 def _check_kernel_shape(bm, bk, hd):
@@ -161,11 +199,13 @@ def build_flash_bwd_meta(views):
 
 
 def _online_softmax_plain(block_cols, nblocks, mask_slot, is_partial, pmask,
-                          q, k, v, carry, *, heads, max_bpr, scale, group):
+                          q, k, v, carry, *, heads, max_bpr, scale, group,
+                          chunk=None):
     """The forward kernel's blockwise online softmax from the carry
     ``(acc [R, mb, bm, hd], m, l [R, mb, bm])`` (``None``: zeros and
     -1e30), vectorised over replicas and row blocks, one step per block
-    slot. Returns the advanced carry, ``acc`` unnormalised."""
+    slot (``chunk = (lo, hi)``: those slots alone, one chunk of a split
+    walk). Returns the advanced carry, ``acc`` unnormalised."""
     B, _, bm, bk = pmask.shape
     mb = nblocks.shape[1]
     R, s_q, hd = q.shape
@@ -188,7 +228,8 @@ def _online_softmax_plain(block_cols, nblocks, mask_slot, is_partial, pmask,
         l = q.new_zeros((R, mb, bm))
     else:
         acc, m, l = carry
-    for s in range(max_bpr):
+    lo, hi = (0, max_bpr) if chunk is None else chunk
+    for s in range(lo, min(hi, max_bpr)):
         sc = q_t @ k_t[kidx, cols[:, :, s]].transpose(-1, -2)  # [R,mb,bm,bk]
         pm = pmask[bidx[:, None], slots[:, :, s]]
         sc = torch.where(part[:, :, s, None, None] & (pm == 0), _NEG_LARGE, sc)
@@ -269,11 +310,14 @@ def flash_sparse_attention_fwd(block_cols, nblocks, mask_slot, is_partial,
     l = torch.empty((R, mb * bm), device=dev, dtype=f32)
     if R == 0 or mb == 0:
         return out, m, l
+    tiles = flash_split_tiles(R * mb, max_bpr)
+    work = _fwd_workspace(R, group, mb, k.shape[1], hd, max_bpr, tiles, dev)
     err = library().flash_sparse_fwd_f32(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), R, heads,
-        group, mb, max_bpr, n_partial, s_q, k.shape[1], hd, float(scale),
+        v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        work.data_ptr(), R, heads, group, mb, max_bpr, n_partial, s_q,
+        k.shape[1], hd, tiles, float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "flash_sparse_attention_fwd")
     flash_sparse_attention_fwd.launches += 1
@@ -648,6 +692,47 @@ def flash_sparse_ring_band_fwd_plain(block_cols, nblocks, mask_slot,
     return a.reshape(R, rows, hd), mm.reshape(R, rows), ll.reshape(R, rows)
 
 
+def flash_merge_plain(carry, parts):
+    """The split walk's merge launch, in its order: the carry ``(acc, m,
+    l)`` and the chunks' unnormalised states ``parts`` at M = the largest
+    of their m, each rescaled by exp(m - M) and summed after the carry in
+    chunk order; a part with m <= -5e29 (no kept score: l = 0, acc = 0) is
+    skipped, so a row no chunk touched keeps the carry bit for bit.
+    Returns ``(acc, m, l)``, unnormalised."""
+    acc, m, l = carry
+    big = m
+    for _, mp, _ in parts:
+        big = torch.maximum(big, mp)
+    cc = torch.exp(m - big)
+    acc, l = acc * cc[..., None], l * cc
+    for a, mp, lp in parts:
+        live = mp > _NEG_LARGE / 2
+        wgt = torch.exp(mp - big)
+        l = torch.where(live, l + lp * wgt, l)
+        acc = torch.where(live[..., None], acc + a * wgt[..., None], acc)
+    return acc, big, l
+
+
+def flash_sparse_ring_band_fwd_split_plain(block_cols, nblocks, mask_slot,
+                                           is_partial, pmask, q, k, v, acc,
+                                           m, l, *, max_bpr: int, tiles: int,
+                                           group: int = 1):
+    """Plain twin of B11a's split walk: each chunk of ``tiles`` slots from
+    the identity, then :func:`flash_merge_plain` with the carry. Returns
+    the advanced carry as new tensors."""
+    R, rows, hd = q.shape
+    bm = pmask.shape[-2]
+    meta = _band(block_cols, nblocks, mask_slot, is_partial, pmask)
+    parts = [_online_softmax_plain(*meta, q, k, v, None, heads=R,
+                                   max_bpr=max_bpr, scale=1.0, group=group,
+                                   chunk=(lo, lo + tiles))
+             for lo in range(0, max(max_bpr, 1), tiles)]
+    a, mm, ll = flash_merge_plain(
+        (acc.reshape(R, -1, bm, hd), m.reshape(R, -1, bm),
+         l.reshape(R, -1, bm)), parts)
+    return a.reshape(R, rows, hd), mm.reshape(R, rows), ll.reshape(R, rows)
+
+
 def flash_sparse_ring_band_fwd(block_cols, nblocks, mask_slot, is_partial,
                                pmask, q, k, v, acc, m, l, *, max_bpr: int,
                                group: int = 1):
@@ -681,14 +766,18 @@ def flash_sparse_ring_band_fwd(block_cols, nblocks, mask_slot, is_partial,
                    mask_slot=(mask_slot, i32), is_partial=(is_partial, i32),
                    pmask=(pmask, f32), q=(q, f32), k=(k, f32), v=(v, f32),
                    acc=(acc, f32), m=(m, f32), l=(l, f32))
-    if R == 0:
+    mb = nblocks.shape[0]
+    if R == 0 or mb == 0:
         return acc, m, l
+    tiles = flash_split_tiles(R * mb, max_bpr)
+    work = _fwd_workspace(R, group, mb, k.shape[1], hd, max_bpr, tiles,
+                          q.device)
     err = library().flash_sparse_ring_fwd_f32(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), R, group,
-        nblocks.shape[0], max_bpr, pmask.shape[0], k.shape[1], hd,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        v.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        work.data_ptr(), R, group, mb, max_bpr, pmask.shape[0], k.shape[1],
+        hd, tiles, torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_ring_band_fwd")
     flash_sparse_ring_band_fwd.launches += 1
     return acc, m, l

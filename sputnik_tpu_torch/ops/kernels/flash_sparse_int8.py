@@ -37,7 +37,7 @@ from .flash_sparse import (_bwd_col_operands, _bwd_row_operands, _check_bwd,
                            _check_kernel_shape)
 
 __all__ = ["flash_sparse_attention_fwd_int8",
-           "flash_sparse_attention_fwd_int8_plain",
+           "flash_sparse_attention_fwd_int8_plain", "quant_kv_plain",
            "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dq_int8_plain",
            "flash_sparse_bwd_dkv_int8", "flash_sparse_bwd_dkv_int8_plain"]
 
@@ -53,6 +53,24 @@ def _quant_blocks(x, n_blocks, rows):
     xp = F.pad(x.float(), (0, 0, 0, n_blocks * rows - s))
     q, sc = quant_tile(xp.reshape(R * n_blocks * rows, hd), rows, hd)
     return q.double().view(R, n_blocks, rows, hd), sc.view(R, n_blocks)
+
+
+def quant_kv_plain(k, v, hdp: int):
+    """Plain twin of B18a's pre-pass (``quant_kv_kernel``): ``k, v [R, s_kv,
+    hd]`` quantised per 64-key block, the head dims zero-padded to ``hdp``
+    (64 or 128). Returns ``(k_codes int8 [R, kb, 64, hdp], v_codes_t int8
+    [R, kb, hdp, 64], scales f32 [R, kb, 2])``: K's codes K-major along the
+    head dim, V's transposed (K-major along the keys), and ``(k_s, v_s)``
+    per block. ``bsr_spmm_int8.to_core_tiles`` of ``k_codes.view(-1, 64,
+    hdp)`` (of ``v_codes_t.view(-1, hdp, 64)``) is the byte order the card
+    writes."""
+    R, s_kv, hd = k.shape
+    kb = max(-(-s_kv // 64), 1)
+    kq, ks = _quant_blocks(k, kb, 64)
+    vq, vs = _quant_blocks(v, kb, 64)
+    kq = F.pad(kq, (0, hdp - hd)).to(torch.int8)
+    vq = F.pad(vq, (0, hdp - hd)).to(torch.int8)
+    return kq, vq.transpose(-1, -2).contiguous(), torch.stack([ks, vs], -1)
 
 
 def flash_sparse_attention_fwd_int8_plain(block_cols, nblocks, mask_slot,
@@ -151,12 +169,18 @@ def flash_sparse_attention_fwd_int8(block_cols, nblocks, mask_slot,
     l = torch.empty((R, mb * bm), device=dev, dtype=f32)
     if R == 0 or mb == 0:
         return out, m, l
+    # the pre-pass's scales f32 [R, kb, 2], then (128-byte aligned) the
+    # codes int8 [R, kb, 2, 64 * HD] (csrc/flash_sparse_int8.cu)
+    kb = -(-k.shape[1] // bk)
+    head = -(-R * kb * 8 // 128) * 128
+    work = torch.empty(head + R * kb * 2 * bk * (64 if hd <= 64 else 128),
+                       device=dev, dtype=torch.int8)
     err = library().flash_sparse_fwd_int8(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), R, heads,
-        mb, max_bpr, n_partial, s_q, k.shape[1], hd, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        v.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+        work.data_ptr(), R, heads, mb, max_bpr, n_partial, s_q, k.shape[1],
+        hd, float(scale), torch.cuda.current_stream(dev).cuda_stream)
     check(err, "flash_sparse_attention_fwd_int8")
     flash_sparse_attention_fwd_int8.launches += 1
     return out, m, l

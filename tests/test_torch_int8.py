@@ -464,3 +464,117 @@ def test_serve_sparse_int8_example_small_cpu():
     res = serve_sparse_int8.main(["--small", "--device", "cpu"])
     assert 0 < res["rel_err"] < 0.1
     assert stt.get_backend() == "auto"
+
+
+@pytest.mark.parametrize("s_kv,hd", [(200, 16), (128, 100)])
+def test_flash_int8_prepass_codes_match_jax_quant_tile(s_kv, hd):
+    """B18a's pre-pass (its plain twin ``quant_kv_plain``) quantises each
+    64-key block of k and v once a call: codes and scales equal to JAX's
+    ``_quant_tile`` of that block (the TPU kernel's per-visit
+    quantisation), zero past the keys and the head dims; V's transposed
+    codes round-trip, and ``to_core_tiles`` holds code [t, d, key] at [t,
+    d // 8, key // 16, d % 8, key % 16], the order the card writes."""
+    from sputnik_tpu.ops.pallas.bsr_spmm_int8 import _quant_tile
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as tfs8
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_int8 import to_core_tiles
+
+    rng = np.random.RandomState(s_kv + hd)
+    k, v = (rng.randn(2, s_kv, hd).astype(np.float32) * 3 for _ in range(2))
+    hdp = 64 if hd <= 64 else 128
+    kq, vt, scales = tfs8.quant_kv_plain(torch.from_numpy(k),
+                                         torch.from_numpy(v), hdp)
+    kb = -(-s_kv // 64)
+    assert kq.shape == (2, kb, 64, hdp) and vt.shape == (2, kb, hdp, 64)
+    assert kq.dtype == vt.dtype == torch.int8
+    vq = vt.transpose(-1, -2)
+    for r in range(2):
+        for c in range(kb):
+            for j, (x, codes) in enumerate(((k, kq), (v, vq))):
+                blk = np.zeros((64, hd), np.float32)
+                rows = x[r, c * 64:(c + 1) * 64]
+                blk[:rows.shape[0]] = rows
+                jq, js = _quant_tile(jnp.asarray(blk))
+                np.testing.assert_array_equal(codes[r, c, :, :hd].numpy(),
+                                              np.asarray(jq))
+                assert not codes[r, c, :, hd:].any()
+                assert scales[r, c, j].item() == np.float32(js)
+    flat = vt.reshape(2 * kb, hdp, 64)
+    core = to_core_tiles(flat)
+    t, d, key = 2 * kb - 1, hd - 1, 37
+    assert core[t, d // 8, key // 16, d % 8, key % 16] == flat[t, d, key]
+    assert torch.equal(core.permute(0, 1, 3, 2, 4).reshape(flat.shape),
+                       flat)
+    assert torch.equal(vt.transpose(-1, -2).transpose(-1, -2), vt)
+
+
+def test_flash_int8_split_walk_is_another_function():
+    """Why B18a walks each row block serially: p's codes are rint(exp(sc -
+    m) * 127) with m the running max over the tiles walked so far. On a
+    seeded causal problem, the plain walk cut into two chunks (each from m
+    = -1e30) and merged by the flash merge forms other p codes than the
+    serial walk on the second chunk's first tile, and its output lies at
+    least 10x farther from JAX's kernel (interpret mode) than the serial
+    walk's does."""
+    from sputnik_tpu.ops.pallas import flash_sparse_int8 as jfs8
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as tfs8
+
+    s, hd, heads, bm = 256, 16, 2, 32
+    masks = np.tril(np.ones((1, s, s), np.float32))
+    jspec, tspec = _attention_specs(bm, bm, masks, heads)
+    fm = tspec.flash_meta("cpu")
+    mb, max_bpr, R = tspec.mb, fm["max_bpr"], heads
+    rng = np.random.RandomState(17)
+    q, k, v = (rng.randn(R, s, hd).astype(np.float32) for _ in range(3))
+    scale = hd ** -0.5
+    meta = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"])
+    jout, _ = jfs8.flash_sparse_attention_fwd_int8(
+        *(np.asarray(x) for x in meta),
+        np.pad(q, ((0, 0), (0, 0), (0, 128 - hd))) * np.float32(scale),
+        *(np.pad(x, ((0, 0), (0, 0), (0, 128 - hd))) for x in (k, v)),
+        R=R, heads=heads, mb=mb, max_bpr=max_bpr, bm=bm, bk=bm,
+        interpret=True)
+    jout = np.asarray(jout)[..., :hd]
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    kw = dict(heads=heads, scale=scale)
+    serial, _, _ = tfs8.flash_sparse_attention_fwd_int8_plain(
+        *meta, tq, tk, tv, max_bpr=max_bpr, **kw)
+
+    # the walk cut at slot n1: chunk A = slots [0, n1), chunk B = the rest
+    n1 = max_bpr // 2
+    nb = fm["nblocks"]
+
+    def shifted(x):
+        x = x.view(1, mb, max_bpr)
+        return torch.cat([x[..., n1:], torch.zeros_like(x[..., :n1])],
+                         -1).reshape(1, -1).contiguous()
+
+    out_a, m_a, l_a = tfs8.flash_sparse_attention_fwd_int8_plain(
+        *meta[:1], nb.clamp(max=n1), *meta[2:], tq, tk, tv,
+        max_bpr=max_bpr, **kw)
+    out_b, m_b, l_b = tfs8.flash_sparse_attention_fwd_int8_plain(
+        shifted(fm["block_cols"]), (nb - n1).clamp(min=0),
+        shifted(fm["mask_slot"]), shifted(fm["is_partial"]), fm["pmask"],
+        tq, tk, tv, max_bpr=max_bpr, **kw)
+    big = torch.maximum(m_a, m_b)
+    w_a, w_b = l_a * torch.exp(m_a - big), l_b * torch.exp(m_b - big)
+    merged = ((out_a * w_a[:, :s, None] + out_b * w_b[:, :s, None])
+              / (w_a + w_b).clamp(min=1e-30)[:, :s, None])
+
+    # p's codes on chunk B's first tile of the last row block: the serial
+    # walk's running max there is chunk A's m
+    i, c = mb - 1, int(fm["block_cols"].view(mb, max_bpr)[mb - 1, n1])
+    q_q, q_s = tfs8._quant_blocks(tq * scale, mb, bm)
+    k_q, k_s = tfs8._quant_blocks(tk, mb, bm)
+    sc = (q_q[:, i] @ k_q[:, c].transpose(-1, -2)).float() * (
+        q_s[:, i] * k_s[:, c])[:, None, None]
+    m_serial = torch.maximum(m_a.view(R, mb, bm)[:, i], sc.amax(-1))
+    codes = [torch.round(torch.exp(sc - mm[..., None]) * 127.0)
+             for mm in (m_serial, sc.amax(-1))]
+    assert not torch.equal(codes[0], codes[1])
+
+    d_serial = np.abs(serial.numpy() - jout).max()
+    d_merged = np.abs(merged.numpy() - jout).max()
+    assert d_serial <= 1e-4 * np.abs(jout).max(), d_serial
+    assert d_merged >= 10 * max(d_serial, 1e-6 * np.abs(jout).max()), (
+        d_merged, d_serial)

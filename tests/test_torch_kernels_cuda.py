@@ -102,12 +102,38 @@ def test_sddmm_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
     assert torch.all(got[:, ~keep] == 0)   # padded + masked: exact zeros
 
 
-@pytest.mark.parametrize("hd", [32, 64, 100, 128])
+def _flash_masks(shape):
+    """(masks, heads): the driver's masks (row s // 2 fully masked) with a
+    random second mask, or one causal mask at s = 2048 (the longest walk:
+    32 slots)."""
+    if shape == "causal2048":
+        masks = np.tril(np.ones((1, 2048, 2048), np.float32))
+        masks[0, 1000] = 0.0                   # a fully-masked row
+        return masks, 2
+    masks = driver_masks(2, 200)
+    masks[1] *= (np.random.RandomState(2).rand(200, 200) < 0.5)
+    return masks, 4
+
+
+def _split_walk(monkeypatch, split):
+    """Force the forward kernel's split plan: every walk cut into chunks of
+    ``MIN_SPLIT_TILES`` slots, or none cut."""
+    monkeypatch.setattr(fs, "SPLIT_CTAS", 10 ** 9 if split else 0)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["walk", "split"])
+@pytest.mark.parametrize("shape", ["driver", "causal2048"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 100, 128])
 @pytest.mark.parametrize("group", [1, 2])
-def test_flash_kernel_matches_plain(dev, hd, group):
-    b, heads, s = 2, 4, 200
-    masks = driver_masks(b, s)
-    masks[1] *= (np.random.RandomState(2).rand(s, s) < 0.5)
+def test_flash_kernel_matches_plain(dev, hd, group, shape, split,
+                                    monkeypatch):
+    """B9 (split TF32 on the tensor cores) against its plain version at the
+    zero-padded head dims (16, 100) and both widths of its body (64, 128),
+    GQA, the longest causal walk, walked whole or split and merged: the
+    same bits twice, m bit-equal between the two plans, a fully-masked row
+    exactly 0."""
+    masks, heads = _flash_masks(shape)
+    b, s = masks.shape[:2]
     spec = stt.BatchedPanelSpec.from_many_mask(
         stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
     meta = spec.flash_meta(dev)
@@ -120,15 +146,25 @@ def test_flash_kernel_matches_plain(dev, hd, group):
             meta["is_partial"], meta["pmask"], q, k, v)
     kw = dict(heads=heads, max_bpr=meta["max_bpr"], scale=hd ** -0.5,
               group=group)
+    _split_walk(monkeypatch, split)
+    assert (fs.flash_split_tiles(R * spec.mb, meta["max_bpr"])
+            < meta["max_bpr"]) == split
     out, m, l = flash_sparse_attention_fwd(*args, **kw)
+    again = flash_sparse_attention_fwd(*args, **kw)
     torch.cuda.synchronize()
+    for a, b_ in zip((out, m, l), again):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
     ref, m_ref, l_ref = flash_sparse_attention_fwd_plain(*args, **kw)
     _close(out, ref)
     _close(l, l_ref)
     live = l_ref > 0
     _close(m[live], m_ref[live])
-    assert torch.all(out[:, s // 2] == 0)      # fully-masked row: exact 0
-    assert torch.all(m[:, s // 2] == -1e30) and torch.all(l[:, s // 2] == 0)
+    _split_walk(monkeypatch, not split)
+    _, m_other, _ = flash_sparse_attention_fwd(*args, **kw)
+    assert torch.equal(m, m_other)
+    dead = 1000 if shape == "causal2048" else s // 2
+    assert torch.all(out[:, dead] == 0)        # fully-masked row: exact 0
+    assert torch.all(m[:, dead] == -1e30) and torch.all(l[:, dead] == 0)
 
 
 @pytest.mark.parametrize("seed", range(8))
@@ -952,12 +988,22 @@ def test_sddmm_int8_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
 
 
 @pytest.mark.parametrize("hd", [16, 64, 100, 128])
-@pytest.mark.parametrize("random_mask", [False, True])
-def test_flash_int8_kernel_matches_plain(dev, hd, random_mask):
-    b, heads, s = 2, 4, 200
-    masks = driver_masks(b, s)                   # row s // 2 fully masked
-    if random_mask:
-        masks[1] *= (np.random.RandomState(2).rand(s, s) < 0.5)
+@pytest.mark.parametrize("case", ["driver", "random", "causal2048"])
+def test_flash_int8_kernel_matches_plain(dev, hd, case):
+    """B18a (the pre-pass, then int8 wgmma) against its plain version at
+    the zero-padded head dims (16, 100) and both widths of its body, on
+    the driver's masks, a random mask and the longest causal walk: the same
+    bits twice, l within the limit, a fully-masked row exactly 0."""
+    if case == "causal2048":
+        masks, heads = _flash_masks(case)
+        dead = 1000
+    else:
+        b, heads, s = 2, 4, 200
+        masks = driver_masks(b, s)               # row s // 2 fully masked
+        if case == "random":
+            masks[1] *= (np.random.RandomState(2).rand(s, s) < 0.5)
+        dead = s // 2
+    b, s = masks.shape[:2]
     spec = stt.BatchedPanelSpec.from_many_mask(
         stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
     meta = spec.flash_meta(dev)
@@ -968,15 +1014,18 @@ def test_flash_int8_kernel_matches_plain(dev, hd, random_mask):
             meta["is_partial"], meta["pmask"], q, k, v)
     kw = dict(heads=heads, max_bpr=meta["max_bpr"], scale=hd ** -0.5)
     out, m, l = kfi8.flash_sparse_attention_fwd_int8(*args, **kw)
+    again = kfi8.flash_sparse_attention_fwd_int8(*args, **kw)
     torch.cuda.synchronize()
+    for a, b_ in zip((out, m, l), again):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
     ref, m_ref, l_ref = kfi8.flash_sparse_attention_fwd_int8_plain(*args,
                                                                    **kw)
     _close(out, ref)
     _close(l, l_ref)
     live = l_ref > 0
     _close(m[live], m_ref[live])
-    assert torch.all(out[:, s // 2] == 0)      # fully-masked row: exact 0
-    assert torch.all(m[:, s // 2] == -1e30) and torch.all(l[:, s // 2] == 0)
+    assert torch.all(out[:, dead] == 0)        # fully-masked row: exact 0
+    assert torch.all(m[:, dead] == -1e30) and torch.all(l[:, dead] == 0)
 
 
 def test_flash_int8_kernel_refuses_other_tiles(dev):
@@ -1493,31 +1542,57 @@ def _ring_meta(spec, dev, d, band):
                                        "is_partial", "pmask")]
 
 
+@pytest.mark.parametrize("split", [False, True], ids=["walk", "split"])
 @pytest.mark.parametrize("zigzag", [False, True])
-@pytest.mark.parametrize("hd,group", [(32, 1), (64, 1), (64, 2), (128, 1)])
-def test_ring_band_fwd_kernel_matches_plain(dev, hd, group, zigzag):
+@pytest.mark.parametrize("hd,group", [(16, 1), (32, 1), (64, 1), (64, 2),
+                                      (100, 1), (128, 1)])
+def test_ring_band_fwd_kernel_matches_plain(dev, hd, group, zigzag, split,
+                                            monkeypatch):
     """B11a carried over every band of a shard, band by band against its
-    plain version, then finished against B9 over the whole key range."""
+    plain version (and, split, against the plain twin of the split walk),
+    the same bits twice, an empty band's carry kept bit for bit, then
+    finished against B9 over the whole key range with m bit-equal."""
     spec, q, k, v = _ring_problem(dev, 1024, hd, group, zigzag)
     d, R, rows = 2, q.shape[0], q.shape[1]
+    _split_walk(monkeypatch, split)
+    tiles = fs.flash_split_tiles(R * spec.mb, spec.max_bpr)
+    assert (tiles < spec.max_bpr) == split
     acc = torch.zeros(R, rows, hd, device=dev)
     m = torch.full((R, rows), -1e30, device=dev)
     l = torch.zeros(R, rows, device=dev)
     before = fs.flash_sparse_ring_band_fwd.launches
+    empty = 0
     for t in range(4):
         band = (d - t) % 4
         args = (*_ring_meta(spec, dev, d, band), q, k[band], v[band])
+        carry = [x.clone() for x in (acc, m, l)]
         want = fs.flash_sparse_ring_band_fwd_plain(
-            *args, acc.clone(), m.clone(), l.clone(), max_bpr=spec.max_bpr,
+            *args, *[x.clone() for x in carry], max_bpr=spec.max_bpr,
             group=group)
         got = fs.flash_sparse_ring_band_fwd(*args, acc, m, l,
                                             max_bpr=spec.max_bpr,
                                             group=group)
+        again = fs.flash_sparse_ring_band_fwd(
+            *args, *[x.clone() for x in carry], max_bpr=spec.max_bpr,
+            group=group)
         torch.cuda.synchronize()
         assert got[0] is acc and got[1] is m and got[2] is l   # in place
         for a, b in zip(got, want):
             _close(a, b)
-    assert fs.flash_sparse_ring_band_fwd.launches == before + 4
+        for a, b in zip(got, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if split:
+            twin = fs.flash_sparse_ring_band_fwd_split_plain(
+                *args, *carry, max_bpr=spec.max_bpr, tiles=tiles,
+                group=group)
+            for a, b in zip(got, twin):
+                _close(a, b)
+        if int(spec.nblocks[d, band].sum()) == 0:
+            empty += 1
+            for a, b in zip(got, carry):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert empty == (0 if zigzag else 1)
+    assert fs.flash_sparse_ring_band_fwd.launches == before + 8
     k_full = spec.unshard_kv(k.cpu()).to(dev).contiguous()
     v_full = spec.unshard_kv(v.cpu()).to(dev).contiguous()
     view = spec.part.shards[d].block(64, 64)

@@ -149,6 +149,46 @@ def test_band_fwd_plain_matches_pallas_over_two_bands(group):
                                atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("group", [1, 2])
+def test_band_fwd_split_plain_matches_pallas_and_keeps_untouched_rows(group):
+    """The plain twin of B11a's split walk (chunks of one slot from the
+    identity, then the merge with the carry) fed the carry of the bands
+    before, band by band against JAX's ``flash_sparse_ring_band_fwd`` in
+    interpret mode at 1e-4; the empty band (a natural causal shard's
+    future) leaves every row's carry bit for bit."""
+    jspec, spec = _specs(1024, False)
+    d = 2                                     # bands 2 (diagonal), 1, 3
+    q, k, v = _shard_problem(spec, d, group, seed=8)
+    R, rows = q.shape[:2]
+    assert spec.max_bpr > 1                   # one-slot chunks cut it
+    acc = torch.zeros(R, rows, HD)
+    m = torch.full((R, rows), -1e30)
+    l = torch.zeros(R, rows)
+    st_ = np.zeros((R, rows, 128), np.float32)
+    st_[..., 0] = -1e30
+    jacc, jst = jnp.zeros((R, rows, 128), jnp.float32), jnp.asarray(st_)
+    for band in (2, 1, 3):
+        before = [x.clone() for x in (acc, m, l)]
+        acc, m, l = fs.flash_sparse_ring_band_fwd_split_plain(
+            *_meta(spec, d, band), torch.from_numpy(q),
+            torch.from_numpy(k[band]), torch.from_numpy(v[band]), acc, m, l,
+            max_bpr=spec.max_bpr, tiles=1, group=group)
+        jacc, jst = jfs.flash_sparse_ring_band_fwd(
+            jnp.asarray([band], jnp.int32), *_jmeta(jspec, d),
+            jnp.asarray(_pad(q)), jnp.asarray(_pad(k[band])),
+            jnp.asarray(_pad(v[band])), jacc, jst, R=R, mb=spec.mb,
+            max_bpr=spec.max_bpr, bm=BM, bk=BK, group=group, interpret=True)
+        np.testing.assert_allclose(acc.numpy(), np.asarray(jacc)[..., :HD],
+                                   atol=1e-4, rtol=1e-4)
+        np.testing.assert_array_equal(m.numpy(), np.asarray(jst)[..., 0])
+        np.testing.assert_allclose(l.numpy(), np.asarray(jst)[..., 1],
+                                   atol=1e-4, rtol=1e-5)
+        if not spec.nblocks[d, band].sum():
+            for a, b in zip(before, (acc, m, l)):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not spec.nblocks[d, 3].sum()
+
+
 def _full_forward(spec, d, q, k, v, group=1):
     """Shard ``d``'s carry over all its bands, in ring order."""
     R, rows = q.shape[:2]

@@ -123,3 +123,33 @@ def test_three_split_products_meet_it_with_a_10x_margin():
     three = ah @ bh + ah @ bl + al @ bh
     err = (three.double() - ref).abs().max().item()
     assert err * 10 <= limit, (err, limit)
+
+
+def _split_product(a, b):
+    """a @ b in split TF32 as the tensor cores take it (lo read with its low
+    bits dropped), the three products summed in f32."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    al, bl = _tc_read(al), _tc_read(bl)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def test_flash_products_in_split_tf32_meet_1e5():
+    """The flash forward's two products as its body splits them (B9 /
+    B11a, ``csrc/flash_sparse_fwd.cu``): QK^T at hd = 128 (q, k split once
+    a call) and PV over one 64-key tile (p split in registers, V's keys
+    permuted inside each group of 8, which leaves the sum unchanged), each
+    within 1e-5 * max of an f64 product."""
+    rng = np.random.RandomState(2)
+    q = torch.from_numpy(rng.randn(64, 128).astype(np.float32) * 128 ** -0.5)
+    k = torch.from_numpy(rng.randn(64, 128).astype(np.float32))
+    sc = _split_product(q, k.T.contiguous())
+    ref = q.double() @ k.double().T
+    assert (sc.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))          # in [0, 1]
+    v = torch.from_numpy(rng.randn(64, 128).astype(np.float32))
+    perm = torch.tensor([8 * j + x for j in range(8)
+                         for x in (0, 2, 4, 6, 1, 3, 5, 7)])
+    pv = _split_product(p[:, perm], v[perm])
+    ref = p.double() @ v.double()
+    assert (pv.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
