@@ -15,12 +15,17 @@ Phases, each printing its lines:
      forward and the three backward kernels at R=32 s=512 hd=64 (the
      forward by CUDA graph replay beside eager calls, the same bits twice,
      its SASS shown to hold TF32 tensor-core instructions and B18a's walk
-     int8 ones and no __dp4a), the
-     backward also at hd 32 / 128 and GQA group 2) and at the shapes the
-     main paths give them; both backward routes timed at the driver shape
-     and at s=4096; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
+     int8 ones and no __dp4a; the backward likewise: the row walk B10a /
+     B10b / B11b holds TF32 tensor-core instructions, B18c int8 ones and
+     no __dp4a), the
+     backward also at hd 32 / 128 and GQA group 2, timed by CUDA graph
+     replay beside eager calls, the row walk's dq the same bits twice) and
+     at the shapes the main paths give them; both backward routes timed at
+     the driver shape and at s=4096, the single pass there also against a
+     float64 plain run; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
      f32 and int8 caches; qlen 1 and 4; GQA group 1 and 4, the latter
-     with R_kv=8 as run (f) gives it) and the ragged append (R=32,
+     with R_kv=8 as run (f) gives it; and B19 / B20a at hd 192 and 256)
+     and the ragged append (R=32,
      bit-exact) at the serving shapes; the paged kernels at the paged
      serving shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
      MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
@@ -50,7 +55,9 @@ Phases, each printing its lines:
      causal, R=4, hd=64, carried and finished against B9 / B10a over the
      shard's keys, m bit-equal; a shard's empty bands keep the carry bit
      for bit; B11a's split plan printed, its fullest band by graph replay
-     beside eager with its pre-pass / walk / merge split) (2j); bf16 and
+     beside eager with its pre-pass / walk / merge split; B11b's fullest
+     band by graph replay beside eager, against a float64 plain run, its
+     dq the same bits twice) (2j); bf16 and
      mixed operands of the panel ops and a
      bf16 SparseLinear launching the f32 kernels, JAX's dtypes out (2m);
   3. the main paths, with every launch counter reset just before each:
@@ -827,9 +834,22 @@ def _flash_problem(stt, torch, dev, b, heads, s, hd, group, seed):
         kw, max_bpc=bm["max_bpc"])
 
 
+def _f64_rows_compare(name, fs, rows, rkw, got):
+    """The single-pass backward's (dq, dk, dv) from the kernel against its
+    plain version run in float64 on the same (upcast) operands: split TF32
+    is held to fp32's accuracy, the cancellation in ds = p (dP - D)
+    included, at the deep walks."""
+    rows64 = tuple(x.double() if x.is_floating_point() and i >= 5 else x
+                   for i, x in enumerate(rows))
+    ref = fs.flash_sparse_bwd_fused_plain(*rows64, **rkw)
+    for part, a, b in zip(("dq", "dk", "dv"), got, ref):
+        _compare(f"{name} {part} vs float64 plain", a, b.float(), TOL_KERNEL)
+
+
 def phase_flash_backward(stt, torch, dev, kres):
-    """B10a / B10b / B10c against their plain versions on the card, and the
-    two backward routes against each other."""
+    """B10a / B10b / B10c against their plain versions on the card, the
+    row walk's dq the same bits twice, the deep walk against float64, and
+    the two backward routes against each other."""
     from sputnik_tpu_torch.ops.kernels import flash_sparse as fs
 
     b, heads, s = 4, 8, 512
@@ -867,6 +887,12 @@ def phase_flash_backward(stt, torch, dev, kres):
                 and torch.all(dq[:, s // 2] == 0)):
             _fail(f"flash backward {tag}: the fully-masked row's dq is not "
                   f"exactly 0")
+        # dq takes no float atomics (dk / dv do): the same bits twice
+        if not (torch.equal(fused[0], calls["flash_sparse_bwd_fused"][0]()[0])
+                and torch.equal(dq, calls["flash_sparse_bwd_dq"][0]())):
+            _fail(f"flash backward {tag}: dq differs between two calls")
+        print(f"  flash backward {tag}: dq the same bits twice (B10a, "
+              f"B10b), the fully-masked row's dq exactly 0", flush=True)
         if (hd, group) == (64, 1):
             q, k, v, g = rows[5:9]
             sdpa = _sdpa_inputs(torch, dev, b, heads, q, k, v, g)
@@ -875,26 +901,42 @@ def phase_flash_backward(stt, torch, dev, kres):
                               sdpa["bwd"])
             pairs = _flash_pairs(b, heads, s)
             # per key-query pair and head dim: the recomputed QK^T and
-            # dO V^T, then dV, dQ, dK (fused), dQ (dq), dV and dK (dkv)
-            work = {"flash_sparse_bwd_fused": (10, rows, (q, k, v)),
-                    "flash_sparse_bwd_dq": (6, rows, (q,)),
-                    "flash_sparse_bwd_dkv": (8, cols, (k, v))}
+            # dO V^T, then dV, dQ, dK (fused), dQ (dq), dV and dK (dkv);
+            # the row walk on the tensor cores in split TF32, the column
+            # walk (B10c) in fp32 FMA
+            work = {"flash_sparse_bwd_fused": (10, rows, (q, k, v),
+                                               PEAK_3XTF32),
+                    "flash_sparse_bwd_dq": (6, rows, (q,), PEAK_3XTF32),
+                    "flash_sparse_bwd_dkv": (8, cols, (k, v), PEAK_F32)}
             for name, (kern, plain) in calls.items():
-                kres[name]["ms"] = _time_ms(kern)
+                eager = _time_ms(kern)
+                kres[name]["ms"] = _graph_ms(kern)
                 kres[name]["plain_ms"] = _time_ms(plain)
                 kres[name]["library_ms"] = lib
-                print(f"  {name} {tag}: kernel {kres[name]['ms']:.4f} ms, "
-                      f"plain {kres[name]['plain_ms']:.4f} ms", flush=True)
-                per, ins, outs = work[name]
+                print(f"  {name} {tag}: kernel {kres[name]['ms']:.4f} ms "
+                      f"(graph; eager {eager:.4f}), plain "
+                      f"{kres[name]['plain_ms']:.4f} ms; device split "
+                      f"{_split_text(_device_split(torch, kern))}",
+                      flush=True)
+                per, ins, outs, peak = work[name]
                 _bound(kres[name], per * pairs * hd,
-                       _nbytes(*ins) + _nbytes(*outs))
-            two = _time_ms(lambda: (calls["flash_sparse_bwd_dq"][0](),
-                                    calls["flash_sparse_bwd_dkv"][0]()))
+                       _nbytes(*ins) + _nbytes(*outs), peak)
+                if peak != PEAK_F32:
+                    print(f"    (at the fp32 FMA peak the operations would "
+                          f"take {per * pairs * hd / PEAK_F32 * 1e3:.4f} ms)",
+                          flush=True)
+
+            def two_kernel():
+                return (calls["flash_sparse_bwd_dq"][0](),
+                        calls["flash_sparse_bwd_dkv"][0]())
+
             print(f"  backward routes at the driver shape ({tag}): "
                   f"single-pass {kres['flash_sparse_bwd_fused']['ms']:.4f} "
-                  f"ms, two-kernel {two:.4f} ms", flush=True)
+                  f"ms, two-kernel {_graph_ms(two_kernel):.4f} ms (graph)",
+                  flush=True)
 
-    # the routes at a longer sequence (the crossover question)
+    # the routes at a longer sequence (the crossover question), and the deep
+    # walk (64 slots) against float64
     b, heads, s, hd = 1, 8, 4096, 64
     rows, cols, rkw, ckw = _flash_problem(stt, torch, dev, b, heads, s, hd,
                                           1, seed=7)
@@ -905,11 +947,22 @@ def phase_flash_backward(stt, torch, dev, kres):
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), fused):
         _compare(f"two-kernel vs single-pass route {name} {tag}", got, want,
                  TOL_KERNEL)
-    one = _time_ms(lambda: fs.flash_sparse_bwd_fused(*rows, **rkw), reps=5)
-    two = _time_ms(lambda: (fs.flash_sparse_bwd_dq(*rows, **rkw),
-                            fs.flash_sparse_bwd_dkv(*cols, **ckw)), reps=5)
+    _f64_rows_compare(f"bwd_fused {tag}", fs, rows, rkw, fused)
+    if not torch.equal(dq, fs.flash_sparse_bwd_dq(*rows, **rkw)):
+        _fail(f"flash backward {tag}: dq differs between two calls")
+
+    def one_pass():
+        return fs.flash_sparse_bwd_fused(*rows, **rkw)
+
+    def two_pass():
+        return (fs.flash_sparse_bwd_dq(*rows, **rkw),
+                fs.flash_sparse_bwd_dkv(*cols, **ckw))
+
+    one, two = _graph_ms(one_pass, reps=5), _graph_ms(two_pass, reps=5)
     print(f"  backward routes at {tag} (causal): single-pass {one:.4f} ms, "
-          f"two-kernel {two:.4f} ms", flush=True)
+          f"two-kernel {two:.4f} ms (graph; eager "
+          f"{_time_ms(one_pass, reps=5):.4f} / "
+          f"{_time_ms(two_pass, reps=5):.4f})", flush=True)
 
 
 def phase_main_path(stt, torch, dev, wrappers):
@@ -1177,6 +1230,70 @@ def _split_kv_note(name, R, S, bk, lens):
         _fail(f"{name}: the split launches no more CTAs than replicas")
 
 
+def _wide_head_decode(torch, dev, kres):
+    """B19 and B20a at head dims 192 and 256 (two 128-wide groups a lane)
+    against their plain versions: f32, bf16 and int8 caches, qlen 1 and 4,
+    GQA group 1 and 2, a skipped slot, an empty KV replica (exactly 0), the
+    same bits twice; the paged pool holds the same blocks page by page."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+
+    rng = np.random.RandomState(31)
+    R, S, bk = 8, 3, 256
+    s_max = S * bk
+    for hd, dtype, (qlen, group) in itertools.product(
+            (192, 256), (torch.float32, torch.bfloat16, torch.int8),
+            ((1, 1), (4, 2))):
+        R_kv = R // group
+        if dtype == torch.int8:
+            k, v = (torch.from_numpy(rng.randint(-127, 128, (
+                R_kv, s_max, hd)).astype(np.int8)).to(dev) for _ in range(2))
+            ks, vs = (torch.from_numpy((0.01 + 0.05 * rng.rand(
+                R_kv, s_max)).astype(np.float32)).to(dev) for _ in range(2))
+        else:
+            k, v = (torch.from_numpy(rng.randn(R_kv, s_max, hd).astype(
+                np.float32)).to(dev).to(dtype) for _ in range(2))
+            ks = vs = torch.ones(R_kv, s_max, device=dev)
+        lens = torch.from_numpy(rng.randint(1, s_max + 1, R_kv).astype(
+            np.int32)).to(dev)
+        lens[-1] = 0                                  # an empty KV replica
+        tbl = torch.from_numpy(np.stack([rng.permutation(S) for _ in range(
+            R)]).astype(np.int32)).to(dev)
+        valid = torch.ones_like(tbl)
+        valid[0, 1] = 0                               # a skipped slot
+        q = torch.from_numpy(rng.randn(R, qlen, hd).astype(
+            np.float32)).to(dev)
+        kw = dict(qlen=qlen, group=group, scale=hd ** -0.5)
+        tag = f"hd={hd} {str(dtype)[6:]} qlen={qlen} group={group}"
+        args = (tbl, valid, lens, q, k, v, ks, vs)
+        got = decode_attention_kernel(*args, bk=bk, **kw)
+        _compare(f"decode_attention {tag}", got,
+                 decode_attention_plain(*args, bk=bk, **kw), TOL_KERNEL,
+                 kres["decode_attention"])
+        # the pool: KV replica rk's block b is page rk * S + b
+        phys = ((torch.arange(R, device=dev) // group)[:, None] * S
+                + tbl).int().contiguous()
+        pargs = (phys, tbl, valid, lens, q, k.reshape(-1, bk, hd),
+                 v.reshape(-1, bk, hd), ks.reshape(-1, bk),
+                 vs.reshape(-1, bk))
+        pgot = paged_attention_kernel(*pargs, **kw)
+        _compare(f"paged_attention {tag}", pgot,
+                 paged_attention_plain(*pargs, **kw), TOL_KERNEL,
+                 kres["paged_attention"])
+        for name, a, call in (("decode_attention", got, lambda: (
+                decode_attention_kernel(*args, bk=bk, **kw))),
+                ("paged_attention", pgot,
+                 lambda: paged_attention_kernel(*pargs, **kw))):
+            if not torch.all(a[R - group:] == 0):
+                _fail(f"{name} {tag}: the empty replica is not exactly 0")
+            if not torch.equal(a, call()):
+                _fail(f"{name} {tag}: two runs differ")
+    print("  decode / paged attention at hd 192 and 256: every case within "
+          "1e-4 x max|plain|, the same bits twice", flush=True)
+
+
 def phase_serving_kernels(stt, torch, dev, kres):
     """B19 and B21 against their plain versions at the serving shapes, and
     their times."""
@@ -1268,6 +1385,7 @@ def phase_serving_kernels(stt, torch, dev, kres):
               f"{attended / 2**20:.1f} MiB -> {attended / ms / 1e6:.1f} GB/s "
               f"(of 3350 GB/s)", flush=True)
     del kv, cache, timed
+    _wide_head_decode(torch, dev, kres)
 
     r = kres["ragged_append"]
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
@@ -2753,14 +2871,20 @@ def _int8_flash_bwd_case(stt, torch, dev, kres, label, masks, heads, hd,
             "flash_sparse_bwd_dkv_int8": (8, cols)}
     for name, (parts, kern, plain, fp32) in calls.items():
         r = kres[name]
-        r["ms"] = _time_ms(kern)
+        eager = _time_ms(kern)
+        # B18c (pre-pass + wgmma walk) by CUDA graph replay, eager beside;
+        # B18b (__dp4a) in eager calls
+        r["ms"] = _graph_ms(kern) if len(parts) == 2 else eager
         r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
         r["library_ms"] = lib
         f32_ms = _time_ms(fp32)
-        print(f"  {name} {label}: kernel {r['ms']:.4f} ms, fp32 "
-              f"{'B10b' if len(parts) == 1 else 'B10c'} {f32_ms:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, SDPA backward f32 {lib} ms, "
-              f"bf16 {bf16_ms} ms", flush=True)
+        print(f"  {name} {label}: kernel {r['ms']:.4f} ms ("
+              + (f"graph; eager {eager:.4f}; device split "
+                 f"{_split_text(_device_split(torch, kern))}"
+                 if len(parts) == 2 else "eager")
+              + f"), fp32 {'B10b' if len(parts) == 1 else 'B10c'} "
+              f"{f32_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"backward f32 {lib} ms, bf16 {bf16_ms} ms", flush=True)
         per, args = work[name]
         _bound(r, per * pairs * hd, _nbytes(*args[:5], *ops, *kern()),
                PEAK_INT8)
@@ -2936,11 +3060,12 @@ def _sass_check(k8_build):
 
 
 def _sass_check_flash(build):
-    """The fp32 flash forward body (flash_tc_kernel: B9, B11a, every width
-    and mode) holds TF32 tensor-core instructions (HGMMA; FFMA stays
-    allowed: the softmax and the split use it), and B18a's walk
-    (flash_int8_wgmma_kernel) int8 ones (IGMMA) and no IDP.4A (__dp4a).
-    Raises if one fails it."""
+    """The fp32 flash bodies (flash_tc_kernel: B9, B11a; flash_bwd_tc_kernel:
+    B10a, B10b, B11b; every width and mode) hold TF32 tensor-core
+    instructions (HGMMA; FFMA stays allowed: the softmax and the split use
+    it), and B18a's and B18c's walks (flash_int8_wgmma_kernel,
+    flash_bwd_dkv_int8_wgmma_kernel) int8 ones (IGMMA) and no IDP.4A
+    (__dp4a). Raises if one fails it."""
     funcs = _sass_counts(build)
     if funcs is None:
         return
@@ -2954,6 +3079,19 @@ def _sass_check_flash(build):
     if not i8 or any(c["IGMMA"] == 0 or c["IDP.4A"] for c in i8.values()):
         _fail("SASS: B18a's walk does not run on the int8 tensor cores "
               "alone")
+    # the backward: the row walk (B10a, B10b, B11b: flash_bwd_tc_kernel,
+    # every width and mode) on the TF32 tensor cores; B18c's column walk
+    # on the int8 ones and no __dp4a
+    bw = {n: c for n, c in funcs.items() if "flash_bwd_tc_kernel" in n}
+    b8 = {n: c for n, c in funcs.items()
+          if "flash_bwd_dkv_int8_wgmma_kernel" in n}
+    _sass_print(sorted(bw.items()) + sorted(b8.items()),
+                ("HGMMA", "IGMMA", "IDP.4A", "FFMA"))
+    if not bw or any(c["HGMMA"] == 0 for c in bw.values()):
+        _fail("SASS: the flash backward's row walk does not run on the "
+              "tensor cores")
+    if not b8 or any(c["IGMMA"] == 0 or c["IDP.4A"] for c in b8.values()):
+        _fail("SASS: B18c does not run on the int8 tensor cores alone")
 
 
 def _sass_check_tc(build):
@@ -3989,8 +4127,30 @@ def phase_parallel_kernels(stt, torch, dev, kres):
           f"{4 * pairs * RING_HD / PEAK_F32 * 1e3:.4f} ms)", flush=True)
     bargs = (*band_meta(band), q, k[band], v[band], g, m, l, D)
     gcarry = [x.clone() for x in (dq, dks[band], dvs[band])]
-    rb["ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_bwd(
-        *bargs, *gcarry, max_bpr=spec.max_bpr))
+    # the fullest band (32-slot walks, split in chunks and merged) against
+    # its plain version in float64 from the same carries
+    got = fs.flash_sparse_ring_band_bwd(*bargs, *[x.clone() for x in gcarry],
+                                        max_bpr=spec.max_bpr)
+    want = fs.flash_sparse_ring_band_bwd_plain(
+        *bargs[:5], *(x.double() for x in bargs[5:]),
+        *(x.double() for x in gcarry), max_bpr=spec.max_bpr)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        _compare(f"ring_band_bwd fullest band {name} vs float64 plain", a,
+                 w.float(), TOL_KERNEL)
+    again = fs.flash_sparse_ring_band_bwd(
+        *bargs, *[x.clone() for x in gcarry], max_bpr=spec.max_bpr)
+    if not torch.equal(got[0], again[0]):
+        _fail("ring_band_bwd: dq differs between two calls")
+    tiles = fs.flash_split_tiles(R * spec.mb, spec.max_bpr)
+    print(f"  ring_band_bwd: {R * spec.mb} walks of <= {spec.max_bpr} slots,"
+          f" chunks of {tiles} slots ({-(-spec.max_bpr // tiles)} a walk); "
+          f"dq the same bits twice", flush=True)
+
+    def band_bwd():
+        return fs.flash_sparse_ring_band_bwd(*bargs, *gcarry,
+                                             max_bpr=spec.max_bpr)
+
+    rb["ms"], eager_ms = _graph_ms(band_bwd), _time_ms(band_bwd)
     rb["plain_ms"] = _time_ms(lambda: fs.flash_sparse_ring_band_bwd_plain(
         *bargs, *gcarry, max_bpr=spec.max_bpr), reps=3, inner=2)
     qg, kg, vg = (x.clone().requires_grad_() for x in (q4, k4, v4))
@@ -4001,9 +4161,14 @@ def phase_parallel_kernels(stt, torch, dev, kres):
         "band's bool mask)", lambda: torch.autograd.grad(
             o, (qg, kg, vg), g[None], retain_graph=True))
     print(f"  ring_band_bwd shard {d} band {band}: kernel {rb['ms']:.4f} "
-          f"ms, plain {rb['plain_ms']:.4f} ms", flush=True)
+          f"ms (graph; eager {eager_ms:.4f}; the FMA body read 0.5728 eager, "
+          f"PERF.md), plain {rb['plain_ms']:.4f} ms; device split "
+          f"{_split_text(_device_split(torch, band_bwd))}", flush=True)
     _bound(rb, 10 * pairs * RING_HD,
-           _nbytes(q, k[band], v[band], g, m, l, D) + 2 * _nbytes(*gcarry))
+           _nbytes(q, k[band], v[band], g, m, l, D) + 2 * _nbytes(*gcarry),
+           PEAK_3XTF32)
+    print(f"    (at the fp32 FMA peak the operations would take "
+          f"{10 * pairs * RING_HD / PEAK_F32 * 1e3:.4f} ms)", flush=True)
 
 
 def _ring_dense(torch, q, k, v, group, scale):
@@ -4322,9 +4487,12 @@ def main() -> int:
     _build.library()
     print(f"  kernels built (nvcc, sm_90a) in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    func = ""
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}", flush=True)
+        if "Function properties for" in line:
+            func = line.split("Function properties for")[1].strip()[:60]
+        elif "registers" in line or "spill" in line:
+            print(f"  {func}: {line.strip()}", flush=True)
 
     wrappers = kernel_wrappers()
     kres = {n: {} for n in wrappers}

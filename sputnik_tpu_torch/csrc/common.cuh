@@ -8,9 +8,9 @@
 // staging buffers are padded by 4 floats (TILE_LD) to spread the
 // transposing stores over more banks while keeping the float4 reads
 // 16-byte aligned. tile_fma serves the SDDMM (B4, bsr_sddmm.cu) only; the
-// fp32 SpMMs and the flash forward run on the tensor cores (the split-TF32
-// pieces below), tile_dp4a the int8 SDDMM (B17) and the int8 flash
-// backward (B18b, B18c).
+// fp32 SpMMs and the flash forward and row walk run on the tensor cores
+// (the split-TF32 pieces below), tile_dp4a the int8 SDDMM (B17) and the
+// int8 flash backward's dq (B18b).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -197,6 +197,62 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
                                          uint64_t db, int acc) {
   if constexpr (N == 32) wgmma_s8_n32(d, da, db, acc);
   else wgmma_s8_n64(d, da, db, acc);
+}
+
+// Quantise the 64-row tile x[row0 + row][d] * mul (0 for rows >= nrows or
+// d >= hd) at max(absmax / 127, 1e-30), which it returns to every thread,
+// and write its codes in wgmma's core-matrix order: K-major [row][d] into
+// kmaj (rows 64, kp HD) and transposed [d][row] into trans (rows HD, kp
+// 64), each where not null. THREADS threads; the tile is read once
+// (every load of a thread in flight together), staged in S, and written
+// 16 bytes a thread. B18a's K / V^T codes (quant_kv_kernel) and B18c's
+// row-block codes (quant_rows_kernel).
+template <int HD>
+__device__ __forceinline__ float quant_codes_tile(
+    const float* __restrict__ x, int row0, int nrows, int hd, float mul,
+    signed char* kmaj, signed char* trans, unsigned char (*S)[HD + 16],
+    float* red) {
+  constexpr int PER = TILE * HD / THREADS;
+  const int tid = threadIdx.x;
+  float f[PER];
+  float mx = 0.f;
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int e = tid + n * THREADS, row = e / HD, d = e % HD;
+    const int gr = row0 + row;
+    f[n] = gr < nrows && d < hd ? x[(size_t)gr * hd + d] * mul : 0.f;
+    mx = fmaxf(mx, fabsf(f[n]));
+  }
+  const float sc = tile_scale(block_max(mx, red));
+#pragma unroll
+  for (int n = 0; n < PER; ++n) {
+    const int e = tid + n * THREADS;
+    S[e / HD][e % HD] = (unsigned char)quant_i8(f[n], sc);
+  }
+  __syncthreads();
+  if (kmaj != nullptr) {
+    for (int e = tid; e < TILE * HD / 16; e += THREADS) {
+      const int row = e / (HD / 16), kg = e % (HD / 16);
+      *reinterpret_cast<uint4*>(kmaj + core_off(row, kg, HD)) =
+          *reinterpret_cast<const uint4*>(&S[row][kg * 16]);
+    }
+  }
+  if (trans != nullptr) {
+    for (int e = tid; e < HD * TILE / 16; e += THREADS) {
+      const int d = e % HD, kg = e / HD;
+      unsigned wd[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wd[q] = 0u;
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+          wd[q] |= (unsigned)S[kg * 16 + q * 4 + y][d] << (8 * y);
+      }
+      *reinterpret_cast<uint4*>(trans + core_off(d, kg, TILE)) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+  }
+  return sc;
 }
 
 // --- split TF32 ("3xTF32"): fp32 products on the tensor cores (B1, B3 and

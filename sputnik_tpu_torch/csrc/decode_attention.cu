@@ -60,9 +60,11 @@
 // 1e-30). A replica with no valid slot gives exactly 0, never NaN; no
 // atomics, so the same bits run to run.
 //
-// Inside a chunk a lane owns four consecutive head-dim elements, so a warp
-// reads a whole key (or value) row in one coalesced access, and scores are
-// reduced across the warp with shuffles.
+// Inside a chunk a lane owns four consecutive head-dim elements of each
+// 128-wide group of head dims (G groups: 1 for hd <= 128, 2 for hd <= 256),
+// so a warp reads a whole key (or value) row in G coalesced accesses, and
+// scores are reduced across the warp with shuffles. At G = 1 the second
+// group's loops vanish: hd <= 128 runs the one-group body, bit for bit.
 //  * fp (decode_chunk_fp): each warp walks its own keys, two at a time,
 //    loading their K and V rows and both scales together (one dependent
 //    read a step), and keeps an online softmax of its own in registers; the
@@ -75,7 +77,7 @@
 //    row forms the statistics and quantises p; the warps split the keys
 //    again for the int32 products, summed through shared memory.
 // Both are compiled for one query row (a decode step: fewer registers,
-// more blocks an SM) and for up to eight. bk <= 1024, hd <= 128. One read
+// more blocks an SM) and for up to eight. bk <= 1024, hd <= 256. One read
 // of K/V per GQA group and TMA are later work.
 //
 // Paged (B20a): k / v are a page pool [P_alloc, bk, hd] with scales
@@ -97,7 +99,8 @@ namespace stt_decode {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int QMAX = 8;        // query rows (speculative verification)
-constexpr int HD_MAX = 128;    // four head-dim elements per lane
+constexpr int HD_GROUP = 128;  // a group of head dims: four per lane
+constexpr int HD_MAX = 2 * HD_GROUP;
 constexpr int UNROLL = 8;      // keys in flight per warp (int8)
 constexpr int FP_UNROLL = 2;   // keys a warp's step (fp: K and V rows)
 constexpr float NEG_LARGE = -1e30f;
@@ -245,29 +248,33 @@ __device__ __forceinline__ void write_empty(float* acc_out, float* ml_out,
   }
 }
 
-// Elements d0 .. d0 + 3 of q's rows of replica r, times scale (0 past
-// qlen).
-template <int QN>
+// Elements d0 + 128 gi .. + 3 (gi < G) of q's rows of replica r, times
+// scale (0 past qlen).
+template <int QN, int G>
 __device__ __forceinline__ void load_q(const float* q, int r, int qlen,
                                        int hd, int d0, bool vec, float scale,
-                                       float qf[QN][4]) {
+                                       float qf[QN][G][4]) {
 #pragma unroll
-  for (int row = 0; row < QN; ++row) {
-    if (row < qlen) {
-      load4(q + ((size_t)r * qlen + row) * hd, d0, hd, vec, qf[row]);
+  for (int row = 0; row < QN; ++row)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qf[row][i] *= scale;
-    } else {
+    for (int gi = 0; gi < G; ++gi) {
+      if (row < qlen) {
+        load4(q + ((size_t)r * qlen + row) * hd, d0 + HD_GROUP * gi, hd,
+              vec, qf[row][gi]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qf[row][i] = 0.f;
+        for (int i = 0; i < 4; ++i) qf[row][gi][i] *= scale;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[row][gi][i] = 0.f;
+      }
     }
-  }
 }
 
 // f32 / bf16 caches: each warp runs an online softmax of its own over its
 // keys, FP_UNROLL at a time, and the warps' states are merged at the end. QN:
-// the query rows the registers hold, 1 (a decode step) or QMAX.
-template <typename T, int QN, typename Addr>
+// the query rows the registers hold, 1 (a decode step) or QMAX; G: the
+// 128-wide head-dim groups a lane covers.
+template <typename T, int QN, int G, typename Addr>
 __global__ void __launch_bounds__(THREADS)
 decode_chunk_fp(Addr addr, const int* __restrict__ valid,
                 const int* __restrict__ kv_len, const float* __restrict__ q,
@@ -277,7 +284,7 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
                 float* __restrict__ part_acc, float* __restrict__ part_ml,
                 int S, int bk, int keys, int qlen, int group, int hd,
                 float scale, int vec_i) {
-  __shared__ __align__(16) float wacc[WARPS][QN][HD_MAX];
+  __shared__ __align__(16) float wacc[WARPS][QN][HD_GROUP];
   __shared__ float wm[WARPS][QN], wl[WARPS][QN];
   const bool vec = vec_i != 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -290,31 +297,38 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
     return;
   }
 
-  float qf[QN][4], m[QN], l[QN], acc[QN][4];
-  load_q<QN>(q, ch.r, qlen, hd, d0, vec, scale, qf);
+  float qf[QN][G][4], m[QN], l[QN], acc[QN][G][4];
+  load_q<QN, G>(q, ch.r, qlen, hd, d0, vec, scale, qf);
 #pragma unroll
   for (int row = 0; row < QN; ++row) {
     m[row] = NEG_LARGE;
     l[row] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[row][i] = 0.f;
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[row][gi][i] = 0.f;
   }
 
   for (int j0 = warp * FP_UNROLL; j0 < ch.n; j0 += WARPS * FP_UNROLL) {
     // K and V rows and both scales of FP_UNROLL keys, all in flight at once
-    float kf[FP_UNROLL][4], vf[FP_UNROLL][4], ks[FP_UNROLL],
+    float kf[FP_UNROLL][G][4], vf[FP_UNROLL][G][4], ks[FP_UNROLL],
         vs[FP_UNROLL];
 #pragma unroll
     for (int u = 0; u < FP_UNROLL; ++u) {
       const size_t row = ch.base + j0 + u;
       if (j0 + u < ch.n) {
-        load4(kc + row * hd, d0, hd, vec, kf[u]);
-        load4(vc + row * hd, d0, hd, vec, vf[u]);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          load4(kc + row * hd, d0 + HD_GROUP * gi, hd, vec, kf[u][gi]);
+          load4(vc + row * hd, d0 + HD_GROUP * gi, hd, vec, vf[u][gi]);
+        }
         ks[u] = k_scale[row];
         vs[u] = v_scale[row];
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) kf[u][i] = vf[u][i] = 0.f;
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) kf[u][gi][i] = vf[u][gi][i] = 0.f;
         ks[u] = vs[u] = 0.f;
       }
     }
@@ -328,7 +342,10 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
         const int j = j0 + u;
         float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) part = fmaf(qf[row][i], kf[u][i], part);
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            part = fmaf(qf[row][gi][i], kf[u][gi][i], part);
         part = warp_sum(part) * ks[u];
         sc[u] = j < ch.n && ch.key0 + j <= ch.qpos0 + row ? part : NEG_LARGE;
         mx = fmaxf(mx, sc[u]);
@@ -336,20 +353,25 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
       const float corr = expf(m[row] - mx);
       l[row] *= corr;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[row][i] *= corr;
+      for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[row][gi][i] *= corr;
 #pragma unroll
       for (int u = 0; u < FP_UNROLL; ++u) {
         const float p = sc[u] <= NEG_LARGE / 2 ? 0.f : expf(sc[u] - mx);
         l[row] += p;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[row][i] = fmaf(p * vs[u], vf[u][i], acc[row][i]);
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc[row][gi][i] = fmaf(p * vs[u], vf[u][gi][i], acc[row][gi][i]);
       }
       m[row] = mx;
     }
   }
 
-  // -- merge the warps' states into the chunk's
+  // -- merge the warps' states into the chunk's, one head-dim group at a
+  // time through shared memory
 #pragma unroll
   for (int row = 0; row < QN; ++row) {
     if (row >= qlen) break;
@@ -357,19 +379,28 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
       wm[warp][row] = m[row];
       wl[warp][row] = l[row];
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wacc[warp][row][d0 + i] = acc[row][i];
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < qlen * hd; e += THREADS) {
-    const int row = e / hd, d = e % hd;
-    float mx = NEG_LARGE, sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][row]);
+  for (int gi = 0; gi < G; ++gi) {
+    const int dg = HD_GROUP * gi, nd = min(HD_GROUP, hd - dg);
+    if (gi > 0) __syncthreads();  // every thread has read the last group
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w)
-      sum += expf(wm[w][row] - mx) * wacc[w][row][d];
-    acc_out[e] = sum;
+    for (int row = 0; row < QN; ++row) {
+      if (row >= qlen) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wacc[warp][row][d0 + i] = acc[row][gi][i];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < qlen * nd; e += THREADS) {
+      const int row = e / nd, d = e % nd;
+      float mx = NEG_LARGE, sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w][row]);
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += expf(wm[w][row] - mx) * wacc[w][row][d];
+      acc_out[row * hd + dg + d] = sum;
+    }
   }
   if (threadIdx.x < qlen) {
     const int row = threadIdx.x;
@@ -388,8 +419,9 @@ decode_chunk_fp(Addr addr, const int* __restrict__ valid,
 // row forms the statistics against the slot walk's running max and
 // quantises p * v_scale over the whole block; the warps split the keys
 // again for the int32 products, summed through shared memory. MAXPASS:
-// the scores alone, their row maxima written to slot_max [R, S, qlen].
-template <bool MAXPASS, int QN, typename Addr>
+// the scores alone, their row maxima written to slot_max [R, S, qlen]. G:
+// the 128-wide head-dim groups a lane covers.
+template <bool MAXPASS, int QN, int G, typename Addr>
 __global__ void __launch_bounds__(THREADS)
 decode_chunk_int8(Addr addr, const int* __restrict__ valid,
                   const int* __restrict__ kv_len, const float* __restrict__ q,
@@ -400,7 +432,7 @@ decode_chunk_int8(Addr addr, const int* __restrict__ valid,
                   float* __restrict__ slot_max, int S, int bk, int keys,
                   int qlen, int group, int hd, float scale, int vec_i) {
   // scores / probabilities [qlen][keys], reused at the end for the warps'
-  // partial outputs [WARPS][qlen][HD_MAX]
+  // partial outputs [WARPS][qlen][HD_GROUP], one head-dim group at a time
   extern __shared__ __align__(16) float smem[];
   __shared__ float m_s[QMAX], l_s[QMAX], ps_s[QMAX];
   const bool vec = vec_i != 0;
@@ -421,32 +453,40 @@ decode_chunk_int8(Addr addr, const int* __restrict__ valid,
   }
 
   // per-row symmetric int8 q, as the TPU kernel's q tile
-  float qf[QN][4];
-  int qw[QN];
+  float qf[QN][G][4];
+  int qw[QN][G];
   float qsc[QN];
-  load_q<QN>(q, ch.r, qlen, hd, d0, vec, scale, qf);
+  load_q<QN, G>(q, ch.r, qlen, hd, d0, vec, scale, qf);
 #pragma unroll
   for (int row = 0; row < QN; ++row) {
     float a = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a = fmaxf(a, fabsf(qf[row][i]));
-    qsc[row] = fmaxf(warp_max(a), 1e-30f) / 127.f;
-    qw[row] = 0;
+    for (int gi = 0; gi < G; ++gi)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float t =
-          fminf(fmaxf(rintf(qf[row][i] / qsc[row]), -127.f), 127.f);
-      qw[row] |= ((int)t & 0xff) << (8 * i);
+      for (int i = 0; i < 4; ++i) a = fmaxf(a, fabsf(qf[row][gi][i]));
+    qsc[row] = fmaxf(warp_max(a), 1e-30f) / 127.f;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      qw[row][gi] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float t =
+            fminf(fmaxf(rintf(qf[row][gi][i] / qsc[row]), -127.f), 127.f);
+        qw[row][gi] |= ((int)t & 0xff) << (8 * i);
+      }
     }
   }
 
   // -- scores of the chunk, every row
   for (int j0 = warp * UNROLL; j0 < n; j0 += WARPS * UNROLL) {
-    int kw[UNROLL];
+    int kw[UNROLL][G];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
-      kw[u] = j0 + u < n ? load4i(kc + (ch.base + j0 + u) * hd, d0, hd, vec)
-                         : 0;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        kw[u][gi] = j0 + u < n ? load4i(kc + (ch.base + j0 + u) * hd,
+                                        d0 + HD_GROUP * gi, hd, vec)
+                               : 0;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = j0 + u;
@@ -455,8 +495,11 @@ decode_chunk_int8(Addr addr, const int* __restrict__ valid,
 #pragma unroll
       for (int row = 0; row < QN; ++row) {
         if (row >= qlen) break;
-        const float sc =
-            (float)warp_sum(__dp4a(qw[row], kw[u], 0)) * qsc[row] * ks;
+        int dot = 0;
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi)
+          dot = __dp4a(qw[row][gi], kw[u][gi], dot);
+        const float sc = (float)warp_sum(dot) * qsc[row] * ks;
         if (lane == 0)
           smem[row * keys + j] =
               ch.key0 + j <= ch.qpos0 + row ? sc : NEG_LARGE;
@@ -502,17 +545,22 @@ decode_chunk_int8(Addr addr, const int* __restrict__ valid,
   __syncthreads();
 
   // -- acc = (codes @ v) * ps over this warp's keys, exact int32 sums
-  int ipart[QN][4];
+  int ipart[QN][G][4];
 #pragma unroll
   for (int row = 0; row < QN; ++row)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ipart[row][i] = 0;
+    for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ipart[row][gi][i] = 0;
   for (int j0 = warp * UNROLL; j0 < n; j0 += WARPS * UNROLL) {
-    int vw[UNROLL];
+    int vw[UNROLL][G];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
-      vw[u] = j0 + u < n ? load4i(vc + (ch.base + j0 + u) * hd, d0, hd, vec)
-                         : 0;
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi)
+        vw[u][gi] = j0 + u < n ? load4i(vc + (ch.base + j0 + u) * hd,
+                                        d0 + HD_GROUP * gi, hd, vec)
+                               : 0;
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int j = j0 + u;
@@ -522,28 +570,38 @@ decode_chunk_int8(Addr addr, const int* __restrict__ valid,
         if (row >= qlen) break;
         const int pi = (int)smem[row * keys + j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) ipart[row][i] += pi * byte_at(vw[u], i);
+        for (int gi = 0; gi < G; ++gi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ipart[row][gi][i] += pi * byte_at(vw[u][gi], i);
       }
     }
   }
-  __syncthreads();  // every warp is done with the probabilities
 
-  // -- sum the warps' partial outputs into the chunk's unnormalised acc
+  // -- sum the warps' partial outputs into the chunk's unnormalised acc,
+  // one head-dim group at a time
 #pragma unroll
-  for (int row = 0; row < QN; ++row) {
-    if (row >= qlen) break;
+  for (int gi = 0; gi < G; ++gi) {
+    const int dg = HD_GROUP * gi, nd = min(HD_GROUP, hd - dg);
+    __syncthreads();  // every warp is done with the probabilities (gi = 0)
+                      // or with the last group's sums
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      smem[(warp * qlen + row) * HD_MAX + d0 + i] =
-          (float)ipart[row][i] * ps_s[row];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < qlen * hd; e += THREADS) {
-    const int row = e / hd, d = e % hd;
-    float sum = 0.f;
+    for (int row = 0; row < QN; ++row) {
+      if (row >= qlen) break;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += smem[(w * qlen + row) * HD_MAX + d];
-    acc_out[e] = sum;
+      for (int i = 0; i < 4; ++i)
+        smem[(warp * qlen + row) * HD_GROUP + d0 + i] =
+            (float)ipart[row][gi][i] * ps_s[row];
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < qlen * nd; e += THREADS) {
+      const int row = e / nd, d = e % nd;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+        sum += smem[(w * qlen + row) * HD_GROUP + d];
+      acc_out[row * hd + dg + d] = sum;
+    }
   }
   if (threadIdx.x < qlen) {
     ml_out[2 * threadIdx.x] = m_s[threadIdx.x];
@@ -591,7 +649,7 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, typename Addr>
+template <typename T, int G, typename Addr>
 int launch(Addr addr, const void* valid, const void* kv_len, const void* q,
            const void* k, const void* v, const void* ks, const void* vs,
            void* out, void* work, int R, int S, int bk, int keys, int qlen,
@@ -608,24 +666,24 @@ int launch(Addr addr, const void* valid, const void* kv_len, const void* q,
     // the body for one query row (a decode step) or for up to QMAX
     if constexpr (std::is_same<T, int8_t>::value) {
       const size_t smem =
-          std::max(qlen * keys, WARPS * qlen * HD_MAX) * sizeof(float);
+          std::max(qlen * keys, WARPS * qlen * HD_GROUP) * sizeof(float);
       const int8_t *k8 = (const int8_t*)k, *v8 = (const int8_t*)v;
 #define STT_INT8_ARGS                                                     \
   addr, va, kl, qf, k8, v8, ksf, vsf, part_acc, part_ml, slot_max, S, bk, \
       keys, qlen, group, hd, scale, vec
       if (qlen == 1)
-        decode_chunk_int8<true, 1, Addr>
+        decode_chunk_int8<true, 1, G, Addr>
             <<<grid, THREADS, smem, stream>>>(STT_INT8_ARGS);
       else
-        decode_chunk_int8<true, QMAX, Addr>
+        decode_chunk_int8<true, QMAX, G, Addr>
             <<<grid, THREADS, smem, stream>>>(STT_INT8_ARGS);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
       if (qlen == 1)
-        decode_chunk_int8<false, 1, Addr>
+        decode_chunk_int8<false, 1, G, Addr>
             <<<grid, THREADS, smem, stream>>>(STT_INT8_ARGS);
       else
-        decode_chunk_int8<false, QMAX, Addr>
+        decode_chunk_int8<false, QMAX, G, Addr>
             <<<grid, THREADS, smem, stream>>>(STT_INT8_ARGS);
 #undef STT_INT8_ARGS
     } else {
@@ -633,9 +691,10 @@ int launch(Addr addr, const void* valid, const void* kv_len, const void* q,
   addr, va, kl, qf, (const T*)k, (const T*)v, ksf, vsf, part_acc, part_ml, \
       S, bk, keys, qlen, group, hd, scale, vec
       if (qlen == 1)
-        decode_chunk_fp<T, 1, Addr><<<grid, THREADS, 0, stream>>>(STT_FP_ARGS);
+        decode_chunk_fp<T, 1, G, Addr>
+            <<<grid, THREADS, 0, stream>>>(STT_FP_ARGS);
       else
-        decode_chunk_fp<T, QMAX, Addr>
+        decode_chunk_fp<T, QMAX, G, Addr>
             <<<grid, THREADS, 0, stream>>>(STT_FP_ARGS);
 #undef STT_FP_ARGS
     }
@@ -661,9 +720,16 @@ int dispatch(Addr addr, const void* valid, const void* kv_len, const void* q,
 #define STT_DEC_ARGS                                                       \
   addr, valid, kv_len, q, k, v, ks, vs, out, work, R, S, bk, keys, qlen,   \
       group, hd, scale, vec, st
-  if (dtype == 0) return launch<float>(STT_DEC_ARGS);
-  if (dtype == 1) return launch<__nv_bfloat16>(STT_DEC_ARGS);
-  if (dtype == 2) return launch<int8_t>(STT_DEC_ARGS);
+  // one 128-wide group of head dims a lane up to 128, two up to 256
+  if (hd <= HD_GROUP) {
+    if (dtype == 0) return launch<float, 1>(STT_DEC_ARGS);
+    if (dtype == 1) return launch<__nv_bfloat16, 1>(STT_DEC_ARGS);
+    if (dtype == 2) return launch<int8_t, 1>(STT_DEC_ARGS);
+  } else {
+    if (dtype == 0) return launch<float, 2>(STT_DEC_ARGS);
+    if (dtype == 1) return launch<__nv_bfloat16, 2>(STT_DEC_ARGS);
+    if (dtype == 2) return launch<int8_t, 2>(STT_DEC_ARGS);
+  }
 #undef STT_DEC_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -674,7 +740,7 @@ int dispatch(Addr addr, const void* valid, const void* kv_len, const void* q,
 // k / v [R_kv, s_max, hd], scales f32 [R_kv, s_max], tbl / valid i32 [R, S],
 // kv_len i32 [R_kv], out f32 [R, qlen, hd]; keys: the keys of a chunk
 // (<= bk; = bk for int8); work f32 [R * chunks * qlen * (hd + 2) +
-// R * S * qlen] with chunks = S * ceil(bk / keys). qlen <= 8, hd <= 128,
+// R * S * qlen] with chunks = S * ceil(bk / keys). qlen <= 8, hd <= 256,
 // bk <= 1024 (the wrapper checks). vec: hd % 4 == 0 and q / k / v 16-byte
 // aligned. Two launches, the chunks then the merge; int8 three, the slot
 // maxima first.

@@ -67,7 +67,7 @@
 // <= -5e29, so a fully-masked row yields m = -1e30, l = 0 and an output of
 // exactly 0 (a -inf sentinel would give exp(-inf - -inf) = NaN). hd <= 64
 // runs at HD = 64, hd <= 128 at HD = 128, the head dims past hd zero.
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace stt {
 
@@ -76,90 +76,9 @@ constexpr int FT = 128;  // threads of a walk block: one warpgroup
 
 enum FlashMode { FINAL = 0, CARRY = 1, PART = 2 };
 
-// Float offset of K[key][d] in a split tile: rows key, kp HD (16-byte
-// granules of 4 head dims).
-template <int HD>
-__device__ __forceinline__ int kcore(int key, int d) {
-  return ((key >> 3) * (HD / 4) + (d >> 2)) * 32 + (key & 7) * 4 + (d & 3);
-}
-
-// Float offset of V[key][d] in a split tile's transposed half: rows d, kp
-// 64 keys, where the k8 step j holds keys 8j + {0, 2, 4, 6} at positions
-// 0-3 and 8j + {1, 3, 5, 7} at 4-7 (the order of p in the accumulator).
-__device__ __forceinline__ int vcore(int d, int key) {
-  const int kk = key & 7;
-  const int pos = (key & ~7) + ((kk & 1) ? 4 + (kk >> 1) : (kk >> 1));
-  return ((d >> 3) * 16 + (pos >> 2)) * 32 + (d & 7) * 4 + (pos & 3);
-}
-
 // floats of one split tile: K hi, K lo, V^T hi, V^T lo
 template <int HD>
-__host__ __device__ constexpr int kv_tile() { return 4 * TILE * HD; }
-
-// The pre-pass: key block c of KV replica rk of k (blockIdx.z = 0) or v
-// (1), split, into its half of kv[(rk * kb + c) * kv_tile] (zero past s_kv
-// and hd). The tile is read once into shared memory (coalesced along the
-// head dim, every load of a thread in flight together), then written out
-// 16 bytes a thread in the split tile's memory order (neighbouring threads
-// on neighbouring 16-byte pieces).
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                float* __restrict__ kv, int s_kv, int hd, int kb) {
-  constexpr int PER = TILE * HD / THREADS;
-  __shared__ float S[TILE][HD + 4];
-  const int c = blockIdx.x, rk = blockIdx.y, half = blockIdx.z;
-  const float* const x = (half ? v : k) + (size_t)rk * s_kv * hd;
-  float* const T = kv + ((size_t)rk * kb + c) * kv_tile<HD>() +
-                   2 * half * TILE * HD;
-  float f[PER];
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = threadIdx.x + n * THREADS, key = e / HD, d = e % HD;
-    const int gk = c * TILE + key;
-    f[n] = gk < s_kv && d < hd ? x[(size_t)gk * hd + d] : 0.f;
-  }
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = threadIdx.x + n * THREADS;
-    S[e / HD][e % HD] = f[n];
-  }
-  __syncthreads();
-  // piece g: row g & 7 of one 16-byte granule of one 8-row group
-#pragma unroll
-  for (int n = 0; n < PER / 4; ++n) {
-    const int g = threadIdx.x + n * THREADS;
-    float y[4];
-    if (half == 0) {  // K: row key, head dims 4 * kg ..
-      const int kg = (g >> 3) % (HD / 4);
-      const int key = (g >> 3) / (HD / 4) * 8 + (g & 7);
-#pragma unroll
-      for (int x4 = 0; x4 < 4; ++x4) y[x4] = S[key][4 * kg + x4];
-    } else {  // V^T: row d, positions 4 * pg .. (vcore's key order)
-      const int pg = (g >> 3) & 15, d = (g >> 7) * 8 + (g & 7);
-#pragma unroll
-      for (int x4 = 0; x4 < 4; ++x4) {
-        const int pos = 4 * pg + x4, q = pos & 7;
-        y[x4] = S[(pos & ~7) + (q < 4 ? 2 * q : 2 * (q - 4) + 1)][d];
-      }
-    }
-    unsigned h[4], l[4];
-#pragma unroll
-    for (int x4 = 0; x4 < 4; ++x4) split_tf32(y[x4], h[x4], l[x4]);
-    *reinterpret_cast<uint4*>(T + 4 * g) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(T + TILE * HD + 4 * g) =
-        make_uint4(l[0], l[1], l[2], l[3]);
-  }
-}
-
-// 2 * TILE * HD floats (a split tile's K or V half) global -> shared.
-template <int HD>
-__device__ __forceinline__ void load_half(float* dst, const float* src) {
-#pragma unroll 4
-  for (int e = threadIdx.x; e < 2 * TILE * HD / 4; e += FT)
-    cp_async16(dst + 4 * e, src + 4 * e, 16);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+__host__ __device__ constexpr int kv_tile() { return 2 * split_half<HD>(); }
 
 __device__ __forceinline__ void cp_wait1_sync() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -222,8 +141,8 @@ flash_tc_kernel(const int* __restrict__ block_cols,
   Slot cur{kvr, 0, 0}, nxt{kvr, 0, 0};
   if (nt > 0) {
     cur = slot_of(s0);
-    load_half<HD>(Kb, cur.src);
-    load_half<HD>(Vb, cur.src + 2 * TILE * HD);
+    load_half<HD, FT>(Kb, cur.src);
+    load_half<HD, FT>(Vb, cur.src + 2 * TILE * HD);
     if (nt > 1) nxt = slot_of(s0 + 1);
   }
 
@@ -288,7 +207,7 @@ flash_tc_kernel(const int* __restrict__ block_cols,
 #pragma unroll
     for (int x = 0; x < 32; ++x) asm volatile("" : "+f"(sc[x])::"memory");
     __syncthreads();  // every warp is done with K(s)
-    if (u + 1 < nt) load_half<HD>(Kb, nxt.src);
+    if (u + 1 < nt) load_half<HD, FT>(Kb, nxt.src);
     else asm volatile("cp.async.commit_group;\n" ::);
 
     if (cur.part) {
@@ -362,7 +281,7 @@ flash_tc_kernel(const int* __restrict__ block_cols,
       for (int x = 0; x < 4; ++x)
         asm volatile("" : "+r"(ph[j][x]), "+r"(pl[j][x])::"memory");
     __syncthreads();  // every warp is done with V(s)
-    if (u + 1 < nt) load_half<HD>(Vb, nxt.src + 2 * TILE * HD);
+    if (u + 1 < nt) load_half<HD, FT>(Vb, nxt.src + 2 * TILE * HD);
     else asm volatile("cp.async.commit_group;\n" ::);
     cur = nxt;
     if (u + 2 < nt) nxt = slot_of(s0 + u + 2);
@@ -471,8 +390,8 @@ int launch_flash(const int* cols, const int* nblk, const int* slot,
   float* const kv = work;
   float* const scratch = kv + (size_t)Rk * kb * kv_tile<HD>();
   if (kb > 0 && Rk > 0) {
-    split_kv_kernel<HD><<<dim3(kb, Rk, 2), THREADS, 0, st>>>(k, v, kv, s_kv,
-                                                             hd, kb);
+    split_kv_kernel<HD><<<dim3(kb, Rk, 2), THREADS, 0, st>>>(
+        k, v, kv, s_kv, hd, kb, 0b10, 0b10);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -67,58 +67,20 @@ constexpr int IT = 256;  // threads of a walk block: two warpgroups
 // The pre-pass: key block c of replica r of k (blockIdx.z = 0) or v (1)
 // -> its scale, scales[(r * kb + c) * 2 + blockIdx.z], and its codes in
 // codes[(r * kb + c) * 2 * 64 * HD]: K's (rows key, kp HD), then V's
-// transposed (rows d, kp 64 keys), core-matrix order. The tile is read
-// once (every load of a thread in flight together) into registers.
+// transposed (rows d, kp 64 keys), core-matrix order.
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 quant_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
                 float* __restrict__ scales, signed char* __restrict__ codes,
                 int s_kv, int hd, int kb) {
-  constexpr int PER = TILE * HD / THREADS;
   __shared__ __align__(16) unsigned char S[TILE][HD + 16];
   __shared__ float red[THREADS / 32];
   const int c = blockIdx.x, r = blockIdx.y, half = blockIdx.z;
-  const int tid = threadIdx.x;
-  const float* const x = (half ? v : k) + (size_t)r * s_kv * hd;
-  float f[PER];
-  float mx = 0.f;
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = tid + n * THREADS, key = e / HD, d = e % HD;
-    const int gk = c * TILE + key;
-    f[n] = gk < s_kv && d < hd ? x[(size_t)gk * hd + d] : 0.f;
-    mx = fmaxf(mx, fabsf(f[n]));
-  }
-  const float sc = tile_scale(block_max(mx, red));
-#pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = tid + n * THREADS;
-    S[e / HD][e % HD] = (unsigned char)quant_i8(f[n], sc);
-  }
-  __syncthreads();
   signed char* const out = codes + ((size_t)r * kb + c) * 2 * TILE * HD;
-  if (half == 0) {
-    for (int e = tid; e < TILE * HD / 16; e += THREADS) {
-      const int key = e / (HD / 16), kg = e % (HD / 16);
-      *reinterpret_cast<uint4*>(out + core_off(key, kg, HD)) =
-          *reinterpret_cast<const uint4*>(&S[key][kg * 16]);
-    }
-  } else {
-    for (int e = tid; e < HD * TILE / 16; e += THREADS) {
-      const int d = e % HD, kg = e / HD;
-      unsigned wd[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        wd[q] = 0u;
-#pragma unroll
-        for (int y = 0; y < 4; ++y)
-          wd[q] |= (unsigned)S[kg * 16 + q * 4 + y][d] << (8 * y);
-      }
-      *reinterpret_cast<uint4*>(out + TILE * HD + core_off(d, kg, TILE)) =
-          make_uint4(wd[0], wd[1], wd[2], wd[3]);
-    }
-  }
-  if (tid == 0) scales[((size_t)r * kb + c) * 2 + half] = sc;
+  const float sc = quant_codes_tile<HD>(
+      (half ? v : k) + (size_t)r * s_kv * hd, c * TILE, s_kv, hd, 1.f,
+      half ? nullptr : out, half ? out + TILE * HD : nullptr, S, red);
+  if (threadIdx.x == 0) scales[((size_t)r * kb + c) * 2 + half] = sc;
 }
 
 // One walk: row block i = mb - 1 - blockIdx.y of replica blockIdx.x, by

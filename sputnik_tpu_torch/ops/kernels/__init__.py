@@ -17,7 +17,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["check_operands", "guard_no_grad", "kernel_wrappers"]
+__all__ = ["check_operands", "guard_no_grad", "kernel_wrappers", "SMS"]
+
+# Streaming multiprocessors of the card the split plans are sized for (an
+# H100 SXM). The split walks of B9 / B10a / B10b / B11a / B11b
+# (flash_sparse.SPLIT_CTAS), B13a (bsr_compressed.SPLIT_CTAS) and B19 / B20a
+# (decode_attention.SPLIT_CTAS) cut their walks into chunks from this count,
+# and the chunks are merged in a fixed order: a plan read from the device
+# would change the merge order, and with it the bits, from card to card. So
+# the plans stay fixed, named here once.
+SMS = 132
 
 
 def check_operands(name: str, device: torch.device, **operands) -> None:

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "flash_sparse_fwd_f32": [_P] * 12 + [_I] * 10 + [_F, _P],
     "spmm_t_panel_f32": [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "flash_sparse_bwd_fused_f32": [_P] * 15 + [_I] * 9 + [_F, _P],
-    "flash_sparse_bwd_dq_f32": [_P] * 13 + [_I] * 9 + [_F, _P],
+    "flash_sparse_bwd_fused_f32": [_P] * 16 + [_I] * 10 + [_F, _P],
+    "flash_sparse_bwd_dq_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
     "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
     "decode_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
     "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "sddmm_panel_int8": [_P] * 10 + [_I] * 7 + [_P],
     "flash_sparse_fwd_int8": [_P] * 12 + [_I] * 8 + [_F, _P],
     "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
-    "flash_sparse_bwd_dkv_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "flash_sparse_bwd_dkv_int8": [_P] * 15 + [_I] * 9 + [_F, _P],
     "spmm_panel_c_f32": [_P] * 10 + [_I] * 12 + [_P],
     "spmm_t_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
     "sddmm_panel_c_f32": [_P] * 6 + [_I] * 7 + [_P],
@@ -68,7 +68,7 @@ _SIGNATURES = {
     "c_softmax_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
     "spmm_panel_sel_f32": [_P] * 6 + [_I] * 8 + [_P],
     "flash_sparse_ring_fwd_f32": [_P] * 12 + [_I] * 8 + [_P],
-    "flash_sparse_ring_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
+    "flash_sparse_ring_bwd_f32": [_P] * 16 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

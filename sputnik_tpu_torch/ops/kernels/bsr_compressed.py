@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import check_operands, guard_no_grad
+from . import SMS, check_operands, guard_no_grad
 from ._build import check, library
 from .bsr_spmm import EPILOGUES, _epilogue
 
@@ -43,7 +43,6 @@ __all__ = ["bsr_spmm_panel_c", "bsr_spmm_panel_c_plain", "split_chunk",
 
 _NEG_LARGE = -1e30     # the TPU kernel's masked score
 _MIN_DENOM = 1e-30     # the TPU kernel's floor of a row's denominator
-SMS = 132              # streaming multiprocessors of an H100 SXM
 SPLIT_CTAS = 2 * SMS   # blocks B13a's first pass aims for where it splits
 
 

@@ -16,13 +16,17 @@ products summed exactly, ``p * v_scale`` quantised per row over each whole
 ``bk`` block to 0..127. Hence ``bk <= MAX_BK``: the kernel holds a block's
 scores whole, and the plain version's int products stay exact in fp32
 (``127 * 127 * 1024 < 2**24``).
+
+The plain version runs any head dim, as JAX's decode does; the kernel
+takes ``hd <= MAX_HD`` (256: a lane of a warp covers four head dims of
+each 128-wide group, one group or two), checked only on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import check_operands
+from . import SMS, check_operands
 from ._build import check, library
 
 __all__ = ["decode_attention_kernel", "decode_attention_plain",
@@ -32,9 +36,9 @@ __all__ = ["decode_attention_kernel", "decode_attention_plain",
 _NEG_LARGE = -1e30
 QPAD = 8        # most query rows per replica (speculative verification)
 MAX_BK = 1024   # largest KV block
-MAX_HD = 128    # largest head dim
+MAX_HD = 256    # largest head dim of the kernel (the plain path: any)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-SPLIT_CTAS = 4 * 132   # blocks the split aims for: 4 waves of an H100's SMs
+SPLIT_CTAS = 4 * SMS   # blocks the split aims for: 4 waves of the SMs
 
 
 def split_keys(R: int, S: int, bk: int, int8: bool) -> int:
@@ -48,6 +52,13 @@ def split_keys(R: int, S: int, bk: int, int8: bool) -> int:
     return bk if int8 else min(keys, bk)
 
 
+def check_kernel_hd(name: str, hd: int) -> None:
+    """The kernel's head-dim limit (the plain path has none)."""
+    if hd > MAX_HD:
+        raise ValueError(f"{name}: head dim {hd} > {MAX_HD}, the CUDA "
+                         f"kernel's limit (the CPU plain path runs any)")
+
+
 def launch_split(entry, name, ptrs, q, out, *, S, bk, group, extent, dt,
                  vec, scale):
     """Launches B19 / B20a's two passes through the C entry ``entry`` (the
@@ -56,6 +67,7 @@ def launch_split(entry, name, ptrs, q, out, *, S, bk, group, extent, dt,
     workspace ``f32[R * chunks * qlen * (hd + 2)]`` and the slots' row
     maxima ``f32[R * S * qlen]`` (int8)."""
     R, qlen, hd = q.shape
+    check_kernel_hd(name, hd)
     if R > 65535:
         raise ValueError(f"{name}: R {R} > 65535, too many for one grid")
     keys = split_keys(R, S, bk, dt == torch.int8)
@@ -77,8 +89,8 @@ def _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
         raise ValueError(f"q {tuple(q.shape)} and caches "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)} "
                          f"do not match")
-    if not 1 <= hd <= MAX_HD:
-        raise ValueError(f"head dim {hd} outside [1, {MAX_HD}]")
+    if hd < 1:
+        raise ValueError(f"head dim {hd} < 1")
     if not 1 <= bk <= MAX_BK or s_max % bk:
         raise ValueError(f"bk {bk} must be in [1, {MAX_BK}] and divide "
                          f"s_max {s_max}")
@@ -181,7 +193,8 @@ def decode_attention_kernel(tbl, valid, kv_len, q, k_cache, v_cache, k_scale,
     """``q f32[R, qlen, hd]`` (unscaled) against caches ``[R_kv, s_max, hd]``
     (f32 / bf16 / int8) with scales ``f32[R_kv, s_max]``, tables
     ``tbl / valid i32[R, S]`` per query replica and ``kv_len i32[R_kv]``
-    -> ``f32[R, qlen, hd]``."""
+    -> ``f32[R, qlen, hd]``. Any hd on the CPU; ``hd <= MAX_HD`` (256) on
+    the card."""
     _check(tbl, valid, kv_len, q, k_cache, v_cache, k_scale, v_scale, bk,
            qlen, group)
     if not q.is_cuda:

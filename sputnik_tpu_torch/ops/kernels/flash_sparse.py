@@ -17,7 +17,13 @@ The forward kernel (B9, and B11a on the same body) runs on the tensor
 cores in split TF32 after a pre-pass that splits K and V once a call; where
 the card would see too few walks, the host cuts each walk into chunks
 (:func:`flash_split_tiles`) and a merge launch folds them
-(:func:`flash_merge_plain` is its plain twin).
+(:func:`flash_merge_plain` is its plain twin). The backward's row walk
+(B10a, B10b, and B11b on the same body) does the same: a pre-pass splits K,
+V and Kᵀ once a call, the five products of a tile run in split TF32, and a
+split walk's partial dq are summed in chunk order by a merge launch
+(:func:`flash_sparse_bwd_split_plain` is its plain twin). The column walk
+(B10c) is fp32 FMA. The kernels take ``hd <= 128``; the plain versions run
+any head dim.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import check_operands, guard_no_grad
+from . import SMS, check_operands, guard_no_grad
 from ._build import check, library
 
 __all__ = ["build_flash_meta", "build_flash_bwd_meta",
@@ -37,18 +43,19 @@ __all__ = ["build_flash_meta", "build_flash_bwd_meta",
            "flash_sparse_ring_band_fwd", "flash_sparse_ring_band_fwd_plain",
            "flash_sparse_ring_band_bwd", "flash_sparse_ring_band_bwd_plain",
            "flash_sparse_ring_band_fwd_split_plain", "flash_merge_plain",
+           "flash_sparse_bwd_split_plain",
            "flash_split_tiles", "KERNEL_TILE", "SPLIT_CTAS"]
 
 _NEG_LARGE = -1e30
 KERNEL_TILE = 64   # the CUDA kernels' (bm, bk)
-SPLIT_CTAS = 2 * 132   # blocks the split forward aims for: two resident
-                       # walks (hd <= 64) on each of an H100's 132 SMs
+SPLIT_CTAS = 2 * SMS   # blocks a split walk aims for: two resident walks
+                       # (hd <= 64) on each SM, forward and backward
 MIN_SPLIT_TILES = 2    # the shortest chunk of a split walk, in slots
 MAX_SPLIT_CHUNKS = 32  # the most chunks the merge launch folds (a warp's)
 
 
 def flash_split_tiles(walks: int, max_bpr: int) -> int:
-    """Slots a chunk of the forward kernel's split walk (B9, B11a), from
+    """Slots a chunk of the split walks (B9, B11a; B10a, B10b, B11b), from
     host ints: ``max_bpr`` (the longest walk: one launch, no merge), halved
     while ``walks`` times the chunks a walk still fit ``SPLIT_CTAS`` blocks,
     down to ``MIN_SPLIT_TILES`` and up to ``MAX_SPLIT_CHUNKS`` chunks."""
@@ -71,6 +78,18 @@ def _fwd_workspace(R, group, mb, s_kv, hd, max_bpr, tiles, device):
     n = (R // group) * -(-s_kv // KERNEL_TILE) * 4 * KERNEL_TILE * hdp
     if max_bpr > tiles:
         n += -(-max_bpr // tiles) * R * mb * KERNEL_TILE * (hdp + 2)
+    return torch.empty(max(n, 1), device=device, dtype=torch.float32)
+
+
+def _bwd_workspace(R, group, mb, s_kv, hd, max_bpr, tiles, device):
+    """The row walk's workspace (``csrc/flash_sparse_bwd.cu``): K, V and Kᵀ
+    split, ``3 * 2 * 64 * HD`` floats a key block of each KV replica, then,
+    where the walk is split, each chunk's partial dq, ``R * mb * 64 * HD``
+    floats a chunk."""
+    hdp = 64 if hd <= 64 else 128
+    n = (R // group) * -(-s_kv // KERNEL_TILE) * 6 * KERNEL_TILE * hdp
+    if max_bpr > tiles:
+        n += -(-max_bpr // tiles) * R * mb * KERNEL_TILE * hdp
     return torch.empty(max(n, 1), device=device, dtype=torch.float32)
 
 
@@ -363,7 +382,11 @@ def _group_sum(x, group, rows):
 
 
 def _bwd_rows_plain(block_cols, nblocks, mask_slot, is_partial, pmask, q, k,
-                    v, g, m, l, D, *, heads, max_bpr, scale, group, want_kv):
+                    v, g, m, l, D, *, heads, max_bpr, scale, group, want_kv,
+                    chunk=None):
+    """The row walk, vectorised over replicas and row blocks, one step per
+    block slot (``chunk = (lo, hi)``: those slots alone, one chunk of a
+    split walk)."""
     B, _, bm, bk = pmask.shape
     mb = nblocks.shape[1]
     R, s_q, hd = q.shape
@@ -384,7 +407,8 @@ def _bwd_rows_plain(block_cols, nblocks, mask_slot, is_partial, pmask, q, k,
     dq = torch.zeros_like(q_t)
     dk = q.new_zeros((R, kb, bk, hd))
     dv = q.new_zeros((R, kb, bk, hd))
-    for s in range(max_bpr):
+    lo, hi = (0, max_bpr) if chunk is None else chunk
+    for s in range(lo, min(hi, max_bpr)):
         c = cols[:, :, s]
         kk, vv = k_t[kidx, c], v_t[kidx, c]                   # [R,mb,bk,hd]
         pm = pmask[bidx[:, None], slots[:, :, s]]
@@ -412,6 +436,27 @@ def flash_sparse_bwd_fused_plain(block_cols, nblocks, mask_slot, is_partial,
     return _bwd_rows_plain(block_cols, nblocks, mask_slot, is_partial, pmask,
                            q, k, v, g, m, l, D, heads=heads, max_bpr=max_bpr,
                            scale=scale, group=group, want_kv=True)
+
+
+def flash_sparse_bwd_split_plain(block_cols, nblocks, mask_slot, is_partial,
+                                 pmask, q, k, v, g, m, l, D, *, heads: int,
+                                 max_bpr: int, scale: float, tiles: int,
+                                 group: int = 1):
+    """Plain twin of the row walk's split plan (B10a, B10b, B11b): each chunk
+    of ``tiles`` slots walked on its own, its partial dq summed into dq in
+    chunk order (the merge launch's order; p uses the forward's final m and
+    l, so no chunk needs a rescale), dk / dv summed over the chunks.
+    Returns ``(dq, dk, dv)``."""
+    dq = dk = dv = None
+    for lo in range(0, max(max_bpr, 1), tiles):
+        part = _bwd_rows_plain(
+            block_cols, nblocks, mask_slot, is_partial, pmask, q, k, v, g, m,
+            l, D, heads=heads, max_bpr=max_bpr, scale=scale, group=group,
+            want_kv=True, chunk=(lo, lo + tiles))
+        if dq is None:
+            dq, dk, dv = (torch.zeros_like(x) for x in part)
+        dq, dk, dv = dq + part[0], dk + part[1], dv + part[2]
+    return dq, dk, dv
 
 
 def flash_sparse_bwd_dq_plain(block_cols, nblocks, mask_slot, is_partial,
@@ -548,13 +593,16 @@ def flash_sparse_bwd_fused(block_cols, nblocks, mask_slot, is_partial, pmask,
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     if R == 0 or mb == 0:
         return dq, dk, dv
+    tiles = flash_split_tiles(R * mb, max_bpr)
+    work = _bwd_workspace(R, group, mb, k.shape[1], hd, max_bpr, tiles,
+                          q.device)
     err = library().flash_sparse_bwd_fused_f32(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, heads, group, mb,
-        max_bpr, pmask.shape[1], s_q, k.shape[1], hd, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), R,
+        heads, group, mb, max_bpr, pmask.shape[1], s_q, k.shape[1], hd,
+        tiles, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_bwd_fused")
     flash_sparse_bwd_fused.launches += 1
     return dq, dk, dv
@@ -582,12 +630,15 @@ def flash_sparse_bwd_dq(block_cols, nblocks, mask_slot, is_partial, pmask,
     dq = torch.empty_like(q)
     if R == 0 or mb == 0:
         return dq
+    tiles = flash_split_tiles(R * mb, max_bpr)
+    work = _bwd_workspace(R, group, mb, k.shape[1], hd, max_bpr, tiles,
+                          q.device)
     err = library().flash_sparse_bwd_dq_f32(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
-        dq.data_ptr(), R, heads, group, mb, max_bpr, pmask.shape[1], s_q,
-        k.shape[1], hd, float(scale),
+        dq.data_ptr(), work.data_ptr(), R, heads, group, mb, max_bpr,
+        pmask.shape[1], s_q, k.shape[1], hd, tiles, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_bwd_dq")
     flash_sparse_bwd_dq.launches += 1
@@ -838,14 +889,18 @@ def flash_sparse_ring_band_bwd(block_cols, nblocks, mask_slot, is_partial,
                    pmask=(pmask, f32), q=(q, f32), k=(k, f32), v=(v, f32),
                    g=(g, f32), m=(m, f32), l=(l, f32), D=(D, f32),
                    dq=(dq, f32), dk=(dk, f32), dv=(dv, f32))
-    if R == 0:
+    mb = nblocks.shape[0]
+    if R == 0 or mb == 0:
         return dq, dk, dv
+    tiles = flash_split_tiles(R * mb, max_bpr)
+    work = _bwd_workspace(R, 1, mb, k.shape[1], hd, max_bpr, tiles,
+                          q.device)
     err = library().flash_sparse_ring_bwd_f32(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, nblocks.shape[0],
-        max_bpr, pmask.shape[0], k.shape[1], hd,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), R, mb,
+        max_bpr, pmask.shape[0], k.shape[1], hd, tiles,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, name)
     flash_sparse_ring_band_bwd.launches += 1

@@ -38,6 +38,7 @@ from .flash_sparse import (_bwd_col_operands, _bwd_row_operands, _check_bwd,
 
 __all__ = ["flash_sparse_attention_fwd_int8",
            "flash_sparse_attention_fwd_int8_plain", "quant_kv_plain",
+           "quant_rows_plain", "row_record_bytes",
            "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dq_int8_plain",
            "flash_sparse_bwd_dkv_int8", "flash_sparse_bwd_dkv_int8_plain"]
 
@@ -71,6 +72,35 @@ def quant_kv_plain(k, v, hdp: int):
     kq = F.pad(kq, (0, hdp - hd)).to(torch.int8)
     vq = F.pad(vq, (0, hdp - hd)).to(torch.int8)
     return kq, vq.transpose(-1, -2).contiguous(), torch.stack([ks, vs], -1)
+
+
+def row_record_bytes(hd: int) -> int:
+    """Bytes of one row block's record in B18c's pre-pass
+    (``quant_rows_kernel``): the codes of ``q * scale`` and ``g``, K-major
+    and transposed, ``4 * 64 * HD``, then ``m``, ``max(l, 1e-30)``, ``D``
+    and the two scales in f32, rounded up to 128 (HD = 64 for hd <= 64,
+    else 128)."""
+    hdp = 64 if hd <= 64 else 128
+    return -(-(4 * 64 * hdp + (3 * 64 + 2) * 4) // 128) * 128
+
+
+def quant_rows_plain(q, g, scale: float, mb: int, hdp: int):
+    """Plain twin of B18c's pre-pass (``quant_rows_kernel``): ``q * scale``
+    and ``g`` ``[R, s_q, hd]`` quantised per 64-row block, the rows
+    zero-padded to ``mb * 64`` and the head dims to ``hdp`` (64 or 128).
+    Returns ``(q_codes, g_codes int8 [R, mb, 64, hdp], q_codes_t, g_codes_t
+    int8 [R, mb, hdp, 64], scales f32 [R, mb, 2])``: the codes K-major
+    along the head dim (the score products' B) and transposed, K-major
+    along the rows (the gradient products' B), and ``(q_s, g_s)`` per
+    block. ``bsr_spmm_int8.to_core_tiles`` of a ``[64, hdp]`` (``[hdp,
+    64]``) block is the byte order the card writes."""
+    qq, qs = _quant_blocks(q.float() * scale, mb, 64)
+    gq, gs = _quant_blocks(g, mb, 64)
+    pad = hdp - q.shape[2]
+    qq = F.pad(qq, (0, pad)).to(torch.int8)
+    gq = F.pad(gq, (0, pad)).to(torch.int8)
+    return (qq, gq, qq.transpose(-1, -2).contiguous(),
+            gq.transpose(-1, -2).contiguous(), torch.stack([qs, gs], -1))
 
 
 def flash_sparse_attention_fwd_int8_plain(block_cols, nblocks, mask_slot,
@@ -375,13 +405,16 @@ def flash_sparse_bwd_dkv_int8(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
+    mb = m.shape[1] // bm
+    work = torch.empty(max(R * mb * row_record_bytes(hd), 1),
+                       device=q.device, dtype=torch.int8)
     err = library().flash_sparse_bwd_dkv_int8(
         t_src_i.data_ptr(), t_nblocks.data_ptr(), t_mask_slot.data_ptr(),
         t_is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
-        D.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, heads,
-        m.shape[1] // bm, kb, max_bpc, n_partial, s_q, k.shape[1], hd,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        D.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), R,
+        heads, mb, kb, max_bpc, n_partial, s_q, k.shape[1], hd, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_bwd_dkv_int8")
     flash_sparse_bwd_dkv_int8.launches += 1
     return dk, dv

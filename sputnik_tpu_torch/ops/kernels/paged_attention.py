@@ -11,7 +11,7 @@ positions ``logical * bk + j`` for the causal mask (against
 ``kv_len[r // group] - qlen + row``), and slots with ``valid == 0`` or a
 page id outside ``[0, P_alloc)`` are skipped. The arithmetic, the int8
 algebra, the split into key chunks and the limits (``qlen <= 8``,
-``bk <= 1024``, ``hd <= 128``) are B19's.
+``bk <= 1024``; on the card ``hd <= 256``, any hd on the CPU) are B19's.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ import torch
 
 from . import check_operands
 from ._build import library
-from .decode_attention import (DTYPES, MAX_BK, MAX_HD, QPAD,
-                               attend_slots_plain, launch_split)
+from .decode_attention import (DTYPES, MAX_BK, QPAD, attend_slots_plain,
+                               launch_split)
 
 __all__ = ["paged_attention_kernel", "paged_attention_plain"]
 
@@ -36,8 +36,8 @@ def _check(phys, logical, valid, kv_len, q, k_pool, v_pool, k_scale, v_scale,
         raise ValueError(f"q {tuple(q.shape)} and pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
                          f"do not match")
-    if not 1 <= hd <= MAX_HD:
-        raise ValueError(f"head dim {hd} outside [1, {MAX_HD}]")
+    if hd < 1:
+        raise ValueError(f"head dim {hd} < 1")
     if not 1 <= bk <= MAX_BK:
         raise ValueError(f"page size bk {bk} outside [1, {MAX_BK}]")
     R_kv = kv_len.shape[0]
@@ -76,7 +76,8 @@ def paged_attention_kernel(phys, logical, valid, kv_len, q, k_pool, v_pool,
     """``q f32[R, qlen, hd]`` (unscaled) against the pools ``[P_alloc, bk,
     hd]`` (f32 / bf16 / int8) with scales ``f32[P_alloc, bk]``, tables
     ``phys / logical / valid i32[R, S]`` per query replica and ``kv_len
-    i32[R_kv]`` -> ``f32[R, qlen, hd]``."""
+    i32[R_kv]`` -> ``f32[R, qlen, hd]``. Any hd on the CPU; ``hd <= 256``
+    on the card."""
     _check(phys, logical, valid, kv_len, q, k_pool, v_pool, k_scale, v_scale,
            qlen, group)
     if not q.is_cuda:

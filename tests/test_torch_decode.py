@@ -216,13 +216,13 @@ def test_insert_kv_slot_matches_jax_and_validates():
             TD.insert_kv_slot(tc, src, slot, kv_heads=kvh)
 
 
-def _attention_case(dtype, qlen, group, bk):
+def _attention_case(dtype, qlen, group, bk, hd=32):
     """Caches filled by prefill_kv on both sides (same numpy tokens), one
     replica empty; tables from decode_block_table with sinks + window, per
     KV replica (the op expands them for group > 1)."""
     jdt, tdt = DTYPES[dtype]
     rng = np.random.RandomState(10 * qlen + group + bk)
-    R_kv, s_max, hd = 3, 96, 32
+    R_kv, s_max = 3, 96
     lens = np.array([77, 0, 40], np.int32)
     ks = rng.randn(R_kv, s_max, hd).astype(np.float32)
     vs = rng.randn(R_kv, s_max, hd).astype(np.float32)
@@ -264,6 +264,65 @@ def test_decode_attention_matches_jax(dtype, qlen, group, bk):
     if dtype == "bf16":
         np.testing.assert_allclose(got, jax_out("pallas"), rtol=2e-2,
                                    atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_decode_attention_at_head_dim_256_matches_jax(dtype):
+    """C2: ``decode_attention_kernel`` runs hd = 256 on the CPU (its plain
+    path has no head-dim limit; the card's is 256), as JAX's decode does,
+    at test_decode_attention_matches_jax's tolerances."""
+    got, jax_out = _attention_case(dtype, 2, 2, 32, hd=256)
+    oracle = jax_out("xla")
+    if dtype == "int8":
+        np.testing.assert_allclose(got, jax_out("pallas"), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got, oracle, rtol=5e-2, atol=1e-2)
+        return
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+    if dtype == "bf16":
+        np.testing.assert_allclose(got, jax_out("pallas"), rtol=2e-2,
+                                   atol=2e-3)
+
+
+def test_decoder_at_head_dim_256_matches_jax():
+    """C2 through the serving layer: a one-layer SparseDecoder with two
+    heads of 256 prefills and takes two decode steps as JAX's does
+    (activations 1e-4, the cached K equal to 1e-4, lengths equal)."""
+    from sputnik_tpu.models import SparseLM as JLM
+    from sputnik_tpu.models.serving import SparseDecoder as JDecoder
+    from sputnik_tpu_torch import bridge
+    from sputnik_tpu_torch.models import SparseDecoder, SparseTransformer
+
+    b, p, h = 1, 8, 512
+    cfg = dict(num_layers=1, hidden_size=h, num_heads=2, ffn_hidden_size=64,
+               use_residual=True, use_layernorm=True, activation="gelu")
+    masks = np.broadcast_to(np.tril(np.ones((p, p), np.float32)),
+                            (b, p, p)).copy()
+    rng = np.random.RandomState(6)
+    x = rng.randn(b, p, h).astype(np.float32)
+    jm = JLM.from_masks(masks, vocab_size=11, **cfg).core
+    params = jax.jit(jm.init)(jax.random.PRNGKey(2), jnp.asarray(x))
+    tm = SparseTransformer.from_masks(masks, **cfg)
+    tm.load_state_dict(bridge.transformer_state_dict(params))
+    kw = dict(s_max=p + 8, bk=8)
+    jd = JDecoder(jm, cache_dtype=jnp.float32, **kw)
+    td = SparseDecoder(tm, cache_dtype=torch.float32, **kw)
+    assert td.hd == 256
+    tol = dict(atol=1e-4, rtol=1e-4)
+    jy, jc = jax.jit(jd.prefill)(params, jnp.asarray(x), jd.init_caches(b))
+    ty, tc = td.prefill(torch.from_numpy(x), td.init_caches(b))
+    step = jax.jit(jd.decode_step)
+    for _ in range(2):
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **tol)
+        np.testing.assert_array_equal(tc[0].kv_len.numpy(),
+                                      np.asarray(jc[0].kv_len))
+        n = int(tc[0].kv_len.min())
+        np.testing.assert_allclose(tc[0].k[:, :n].numpy(),
+                                   np.asarray(jc[0].k)[:, :n, :256], **tol)
+        xt = rng.randn(b, 1, h).astype(np.float32)
+        jy, jc = step(params, jnp.asarray(xt), jc)
+        ty, tc = td.decode_step(torch.from_numpy(xt), tc)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **tol)
 
 
 def split_merge_emulated(q, k_rows, v_rows, ks_rows, vs_rows, base, key0,

@@ -145,6 +145,48 @@ def test_plain_backward_matches_pallas_kernels(group):
     assert np.all(dv2[H // group:, 20:36].numpy() == 0.0)
 
 
+@pytest.mark.parametrize("tiles", [1, 2, 3])
+def test_split_row_walk_sums_to_the_unsplit_one(tiles):
+    """The row walk's split plan through its plain twin: each chunk's
+    partial dq summed in chunk order (no rescale: p uses the forward's
+    final m and l) equals the unsplit walk's dq to f32 rounding and JAX's
+    fused kernel (interpret mode) at this file's tolerance; dk / dv equal
+    the unsplit walk's; the fully-masked row's dq stays exactly 0."""
+    jspec, tspec = _specs()
+    q, k, v, g = _inputs(1, seed=3)
+    scale = 1.0 / np.sqrt(HD)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, m, l = tfa._fused_fwd(tspec, tq, tk, tv, scale, 1)
+    D = (tg * out).sum(-1)
+    tm = tspec.flash_meta("cpu")
+    args = (tm["block_cols"], tm["nblocks"], tm["mask_slot"],
+            tm["is_partial"], tm["pmask"], tq, tk, tv, tg, m, l, D)
+    kw = dict(heads=H, scale=scale, max_bpr=tm["max_bpr"])
+    assert tm["max_bpr"] > tiles
+    whole = tfs.flash_sparse_bwd_fused_plain(*args, **kw)
+    split = tfs.flash_sparse_bwd_split_plain(*args, tiles=tiles, **kw)
+    np.testing.assert_allclose(split[0].numpy(), whole[0].numpy(),
+                               rtol=1e-6, atol=1e-6)
+    for a, b in zip(split[1:], whole[1:]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    assert np.all(split[0][:H, MASKED_ROW].numpy() == 0.0)
+    jm = jfs.build_flash_bwd_meta(jspec.views)
+    R, m_pad = B * H, tspec.m_pad
+    stats = np.zeros((R, m_pad, 128), np.float32)
+    stats[:, :, 0], stats[:, :, 1] = m.numpy(), l.numpy()
+    dcoef = np.zeros((R, m_pad, 128), np.float32)
+    dcoef[:, :S] = D.numpy()[:, :, None]
+    j_dq, _, _ = jfs.flash_sparse_bwd_fused(
+        *[jnp.asarray(jm[x]) for x in ("block_cols", "nblocks", "mask_slot",
+                                       "is_partial", "pmask")],
+        q * np.float32(scale), k, v, g, stats, dcoef, mb=jspec.mb,
+        kb=jspec.kb, max_bpr=jm["max_bpr"], R=R, heads=H, bm=TILE, bk=TILE,
+        group=1, interpret=True)
+    np.testing.assert_allclose(split[0].numpy(), np.asarray(j_dq)[:, :S],
+                               **TOL)
+
+
 def _jax_grads(jspec, q, k, v, g, group):
     out, vjp = jax.vjp(lambda a, b_, c: jfa.fused_sparse_attention(
         jspec, a, b_, c, group=group), q, k, v)

@@ -507,6 +507,52 @@ def test_flash_int8_prepass_codes_match_jax_quant_tile(s_kv, hd):
     assert torch.equal(vt.transpose(-1, -2).transpose(-1, -2), vt)
 
 
+@pytest.mark.parametrize("s_q,hd", [(200, 16), (128, 100)])
+def test_flash_int8_row_prepass_codes_match_jax_quant_tile(s_q, hd):
+    """B18c's pre-pass (its plain twin ``quant_rows_plain``) quantises each
+    64-row block of ``q * scale`` and of ``g`` once a call: codes and scales
+    equal to JAX's ``_quant_tile`` of that block (the TPU kernel's per-visit
+    quantisation), zero past the rows and the head dims; the transposed
+    copy (the gradient products' operand, K-major along the rows) holds
+    the same codes, and ``to_core_tiles`` gives it the order the card
+    writes."""
+    from sputnik_tpu.ops.pallas.bsr_spmm_int8 import _quant_tile
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as tfs8
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_int8 import to_core_tiles
+
+    rng = np.random.RandomState(s_q + hd)
+    q, g = (rng.randn(2, s_q, hd).astype(np.float32) * 3 for _ in range(2))
+    scale = hd ** -0.5
+    hdp = 64 if hd <= 64 else 128
+    mb = -(-s_q // 64)
+    qq, gq, qt, gt, scales = tfs8.quant_rows_plain(
+        torch.from_numpy(q), torch.from_numpy(g), scale, mb, hdp)
+    assert qq.shape == gq.shape == (2, mb, 64, hdp)
+    assert qt.shape == gt.shape == (2, mb, hdp, 64)
+    assert qq.dtype == qt.dtype == torch.int8
+    assert torch.equal(qt, qq.transpose(-1, -2))
+    assert torch.equal(gt, gq.transpose(-1, -2))
+    for r in range(2):
+        for i in range(mb):
+            for j, (x, mul, codes) in enumerate(((q, scale, qq),
+                                                 (g, 1.0, gq))):
+                blk = np.zeros((64, hd), np.float32)
+                rows = (torch.from_numpy(x[r, i * 64:(i + 1) * 64])
+                        * mul).numpy()
+                blk[:rows.shape[0]] = rows
+                jq, js = _quant_tile(jnp.asarray(blk))
+                np.testing.assert_array_equal(codes[r, i, :, :hd].numpy(),
+                                              np.asarray(jq))
+                assert not codes[r, i, :, hd:].any()
+                assert scales[r, i, j].item() == np.float32(js)
+    flat = qt.reshape(2 * mb, hdp, 64)
+    core = to_core_tiles(flat)
+    t, d, row = 2 * mb - 1, hd - 1, 37
+    assert core[t, d // 8, row // 16, d % 8, row % 16] == flat[t, d, row]
+    assert tfs8.row_record_bytes(hd) % 128 == 0
+    assert tfs8.row_record_bytes(hd) >= 4 * 64 * hdp + (3 * 64 + 2) * 4
+
+
 def test_flash_int8_split_walk_is_another_function():
     """Why B18a walks each row block serially: p's codes are rint(exp(sc -
     m) * 127) with m the running max over the tiles walked so far. On a

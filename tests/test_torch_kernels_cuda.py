@@ -255,12 +255,16 @@ def _bwd_problem(dev, b, heads, s, hd, group, seed):
     return spec, (q, k, v, g, m, l, D), kw
 
 
+@pytest.mark.parametrize("split", [False, True], ids=["walk", "split"])
 @pytest.mark.parametrize("hd", [32, 64, 100, 128])
 @pytest.mark.parametrize("group", [1, 2])
-def test_flash_backward_kernels_match_plain(dev, hd, group):
+def test_flash_backward_kernels_match_plain(dev, hd, group, split,
+                                            monkeypatch):
     """B10a / B10b / B10c against their plain versions: s = 200 (not a
     multiple of 64), a fully-masked row (dq exactly 0) and key columns no
-    query attends (dk = dv = 0)."""
+    query attends (dk = dv = 0); the row walk whole and split into chunks
+    (merged in chunk order), its dq the same bits twice."""
+    _split_walk(monkeypatch, split)
     b, heads, s = 2, 4, 200
     spec, ops, kw = _bwd_problem(dev, b, heads, s, hd, group, seed=hd + group)
     fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
@@ -283,6 +287,91 @@ def test_flash_backward_kernels_match_plain(dev, hd, group):
     dead = slice(s // 3 + 6, s // 3 + 64)         # no query of mask 1 reads
     rk = heads // group                           # first KV replica of b=1
     assert torch.all(dk[rk:, dead] == 0) and torch.all(dv[rk:, dead] == 0)
+    # dq takes no float atomics: the same bits twice
+    assert torch.equal(
+        dq, fs.flash_sparse_bwd_dq(*rargs, max_bpr=fm["max_bpr"], **kw))
+    assert torch.equal(got[0], fs.flash_sparse_bwd_fused(
+        *rargs, max_bpr=fm["max_bpr"], **kw)[0])
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["walk", "split"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_backward_row_walk_emptied_and_deep(dev, hd, split,
+                                                  monkeypatch):
+    """The tensor-core row walk (B10a, B10b) at s = 1000 causal (walks of up
+    to 16 slots, partial diagonal tiles) with row block 3 emptied (no tile:
+    its dq exactly 0) and a ragged last block, whole and split, against
+    the plain version and against float64."""
+    _split_walk(monkeypatch, split)
+    s, heads = 1000, 2
+    masks = np.tril(np.ones((1, s, s), np.float32))
+    masks[0, 192:256] = 0.0
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    rng = np.random.RandomState(hd)
+    q, k, v, g = (torch.from_numpy(rng.randn(heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(4))
+    fm = spec.flash_meta(dev)
+    kw = dict(heads=heads, scale=hd ** -0.5, max_bpr=fm["max_bpr"])
+    meta = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"])
+    out, m, l = flash_sparse_attention_fwd(*meta, q, k, v, **kw)
+    D = (g * out).sum(-1)
+    ops = (q, k, v, g, m, l, D)
+    got = fs.flash_sparse_bwd_fused(*meta, *ops, **kw)
+    dq = fs.flash_sparse_bwd_dq(*meta, *ops, **kw)
+    torch.cuda.synchronize()
+    ref = fs.flash_sparse_bwd_fused_plain(*meta, *ops, **kw)
+    ref64 = fs.flash_sparse_bwd_fused_plain(
+        *meta, *(x.double() for x in ops), **kw)
+    for a, r, r64 in zip(got, ref, ref64):
+        _close(a, r)
+        _close(a, r64.float())
+    _close(dq, ref[0])
+    assert torch.all(got[0][:, 192:256] == 0) and torch.all(
+        dq[:, 192:256] == 0)
+
+
+def test_flash_kernels_refuse_head_dims_above_128(dev):
+    """The flash family's card limit (B9-B11b, B18a-c): hd <= 128; the CPU
+    plain path runs any hd."""
+    masks = driver_masks(1, 128)
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=1)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    meta = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"])
+    tmeta = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+             bm["t_is_partial"], bm["pmask"])
+    x = torch.zeros(1, 128, 192, device=dev)
+    st = torch.zeros(1, 128, device=dev)
+    ops = (x, x, x, x, st, st, st)
+    kw = dict(heads=1, scale=1.0)
+    calls = [
+        lambda: flash_sparse_attention_fwd(*meta, x, x, x,
+                                           max_bpr=fm["max_bpr"], **kw),
+        lambda: fs.flash_sparse_bwd_fused(*meta, *ops,
+                                          max_bpr=fm["max_bpr"], **kw),
+        lambda: fs.flash_sparse_bwd_dq(*meta, *ops, max_bpr=fm["max_bpr"],
+                                       **kw),
+        lambda: fs.flash_sparse_bwd_dkv(*tmeta, *ops,
+                                        max_bpc=bm["max_bpc"], **kw),
+        lambda: kfi8.flash_sparse_attention_fwd_int8(
+            *meta, x, x, x, max_bpr=fm["max_bpr"], **kw),
+        lambda: kfi8.flash_sparse_bwd_dq_int8(*meta, *ops,
+                                              max_bpr=fm["max_bpr"], **kw),
+        lambda: kfi8.flash_sparse_bwd_dkv_int8(*tmeta, *ops,
+                                               max_bpc=bm["max_bpc"], **kw),
+        lambda: fs.flash_sparse_ring_band_fwd(
+            *(t[0] for t in meta), x, x, x, x.clone(), st.clone(),
+            st.clone(), max_bpr=fm["max_bpr"]),
+        lambda: fs.flash_sparse_ring_band_bwd(
+            *(t[0] for t in meta), x, x, x, x, st, st, st, x.clone(),
+            x.clone(), x.clone(), max_bpr=fm["max_bpr"]),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="head dim 192 > 128"):
+            call()
 
 
 @pytest.mark.parametrize("tiles", [(64, 64), (32, 96), (128, 48)])
@@ -421,6 +510,61 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, hd, bk):
             _close(got, decode_attention_plain(*args, **kw))
             assert torch.all(got[group:2 * group] == 0)
             assert torch.equal(got, decode_attention_kernel(*args, **kw))
+
+
+@pytest.mark.parametrize("bk", [32, 1024])
+@pytest.mark.parametrize("hd", [192, 200, 256])
+@pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
+def test_decode_kernels_at_wide_head_dims(dev, dtype, hd, bk):
+    """B19 and B20a at head dims above 128 (two 128-wide groups a lane;
+    hd 200 ragged in the second) against their plain versions over qlen
+    1 / 4 / 8 and GQA group 1 / 2 / 4, the paged kernel on the same blocks
+    as pages, the empty replica exactly 0, the same bits twice. f32 / bf16
+    caches at 1e-4 * max(1, max|plain|). int8 caches: the card's expf and
+    torch's exp differ in the last place now and then, which moves a
+    p * v_scale code across a rounding tie, and one code step moves an
+    output by max(p * vs) * |v| / (127 * l) (~1e-4 at bk = 1024); so every
+    output within 1e-3 * max(1, max|plain|) and at most 0.1% of them
+    beyond 1e-4 of it."""
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel, decode_attention_plain)
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_plain)
+
+    def close(got, ref):
+        if dtype != "int8":
+            _close(got, ref)
+            return
+        lim = max(1.0, ref.abs().max().item())
+        err = (got - ref).abs()
+        assert err.max().item() <= 1e-3 * lim, (err.max().item(), lim)
+        assert (err > 1e-4 * lim).float().mean().item() <= 1e-3
+
+    for qlen in (1, 4, 8):
+        for group in (1, 2, 4):
+            cache, tbl, valid, q = _decode_problem(
+                dev, dtype, hd, bk, qlen, group, seed=hd + bk + qlen + group)
+            args = (tbl, valid, cache.kv_len, q, cache.k, cache.v,
+                    cache.k_scale, cache.v_scale)
+            kw = dict(qlen=qlen, group=group, scale=hd ** -0.5)
+            got = decode_attention_kernel(*args, bk=bk, **kw)
+            torch.cuda.synchronize()
+            close(got, decode_attention_plain(*args, bk=bk, **kw))
+            assert torch.all(got[group:2 * group] == 0)
+            assert torch.equal(got, decode_attention_kernel(*args, bk=bk,
+                                                            **kw))
+            # the pool: KV replica rk's block b is page rk * nb + b
+            R_kv, s_max = cache.k.shape[:2]
+            nb = s_max // bk
+            rk = torch.arange(q.shape[0], device=dev) // group
+            phys = (rk[:, None] * nb + tbl).int().contiguous()
+            pargs = (phys, tbl, valid, cache.kv_len, q,
+                     cache.k.reshape(-1, bk, hd), cache.v.reshape(-1, bk, hd),
+                     cache.k_scale.reshape(-1, bk),
+                     cache.v_scale.reshape(-1, bk))
+            pgot = paged_attention_kernel(*pargs, **kw)
+            close(pgot, paged_attention_plain(*pargs, **kw))
+            assert torch.equal(pgot, got)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -112,7 +112,7 @@ def test_build_key_covers_every_source():
         "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
         "c_softmax_stats_f32", "c_softmax_apply_f32", "spmm_panel_sel_f32",
         "flash_sparse_ring_fwd_f32", "flash_sparse_ring_bwd_f32"}
-    assert [p.name for p in cuh] == ["common.cuh"]
+    assert [p.name for p in cuh] == ["common.cuh", "flash_tc.cuh"]
     so = _build._so_path()
     assert so.parent.name == "_build" and so.parent.parent.name == \
         "sputnik_tpu_torch"

@@ -260,8 +260,8 @@ def test_append_paged_matches_jax(dtype, backend):
     assert tc.kv_len.tolist() == [6, 132, 132, 41, 256, 256]
 
 
-def _attention_case(dtype, qlen, group, seed):
-    n_pages, hd, R_kv = 12, 32, 3
+def _attention_case(dtype, qlen, group, seed, hd=32):
+    n_pages, R_kv = 12, 3
     jc, _, tc, _ = _pair(R_kv, n_pages, hd, 4, dtype, lens=[130, 0, 451],
                          seed=seed, fill=True)
     # the tables: full causal, then a 2-block window with a sink
@@ -289,6 +289,31 @@ def test_paged_attention_matches_jax(dtype, qlen, group):
     for jt, tt in tables:
         got = TP.paged_attention(torch.from_numpy(q), tc, *tt, **kw).numpy()
         assert got.shape == q.shape
+        assert np.all(got[group:2 * group] == 0)   # the empty replica
+        if dtype != "int8":
+            want = _backend("xla", lambda: JP.paged_attention(
+                jnp.asarray(q), jc, *jt, **kw))
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-5)
+        if dtype != "bf16":
+            want = _backend("pallas", lambda: JP.paged_attention(
+                jnp.asarray(q), jc, *jt, **kw))
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4,
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_paged_attention_at_head_dim_256_matches_jax(dtype):
+    """C2: ``paged_attention_kernel`` runs hd = 256 on the CPU (its plain
+    path has no head-dim limit; the card's is 256), against JAX's oracle
+    and its Pallas kernel in interpret mode at test_paged_attention_matches_
+    jax's tolerances."""
+    qlen, group = 2, 2
+    jc, tc, tables, q = _attention_case(dtype, qlen, group, seed=11, hd=256)
+    kw = dict(group=group, qlen=qlen)
+    for jt, tt in tables:
+        got = TP.paged_attention(torch.from_numpy(q), tc, *tt, **kw).numpy()
+        assert got.shape == (3 * group, qlen, 256)
         assert np.all(got[group:2 * group] == 0)   # the empty replica
         if dtype != "int8":
             want = _backend("xla", lambda: JP.paged_attention(

@@ -153,3 +153,56 @@ def test_flash_products_in_split_tf32_meet_1e5():
     pv = _split_product(p[:, perm], v[perm])
     ref = p.double() @ v.double()
     assert (pv.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _walk(prod, tiles=32, hd=64, seed=3):
+    """One row walk of the flash backward's five products (B10a / B11b,
+    ``csrc/flash_sparse_bwd.cu``) through ``prod``: per 64-key tile S = q
+    K^T and dP = dO V^T, p = exp(S - m) / l from the f64 forward's m and l,
+    ds = p (dP - D), then dQ += ds K (ds's keys permuted inside each group
+    of 8, as the A fragments hold them), dK^T = q^T ds and dV^T = dO^T p.
+    Returns (error, max|ref|) of dq, dk and dv against float64."""
+    rng = np.random.RandomState(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    q, g = f(64, hd) * hd ** -0.5, f(64, hd)
+    ks, vs = [f(64, hd) for _ in range(tiles)], [f(64, hd) for _ in range(
+        tiles)]
+    k64, v64 = torch.cat(ks).double(), torch.cat(vs).double()
+    s64 = q.double() @ k64.T
+    m64 = s64.amax(1)
+    p64 = torch.exp(s64 - m64[:, None])
+    l64 = p64.sum(1)
+    p64 = p64 / l64[:, None]
+    d64 = (g.double() * (p64 @ v64)).sum(1)
+    ds64 = p64 * (g.double() @ v64.T - d64[:, None])
+    ref = (ds64 @ k64, ds64.T @ q.double(), p64.T @ g.double())
+    m, l, d = m64.float(), l64.float(), d64.float()
+    perm = torch.tensor([8 * j + x for j in range(8)
+                         for x in (0, 2, 4, 6, 1, 3, 5, 7)])
+    dq, dks, dvs = torch.zeros(64, hd), [], []
+    for k, v in zip(ks, vs):
+        p = torch.exp(prod(q, k.T.contiguous()) - m[:, None]) / l[:, None]
+        ds = p * (prod(g, v.T.contiguous()) - d[:, None])
+        dq = dq + prod(ds[:, perm].contiguous(), k[perm])
+        dks.append(prod(q.T.contiguous(), ds).T)
+        dvs.append(prod(g.T.contiguous(), p).T)
+    return [((a.double() - r).abs().max().item(), r.abs().max().item())
+            for a, r in zip((dq, torch.cat(dks), torch.cat(dvs)), ref)]
+
+
+def test_flash_backward_products_in_split_tf32_meet_1e4():
+    """The row walk's five products in split TF32 over a 32-tile walk (the
+    ring band's), the cancellation in ds = p (dP - D) included: dq, dk and
+    dv within 1e-4 * max(1, max|ref|) of float64 with a 10x margin; one
+    plain TF32 pass of the same products misses that limit on dq."""
+    for err, mx in _walk(_split_product):
+        assert err * 10 <= TOL_KERNEL * max(1.0, mx), (err, mx)
+
+    def one_pass(a, b):
+        return _rna_tf32(a) @ _rna_tf32(b)
+
+    err, mx = _walk(one_pass)[0]
+    assert err > TOL_KERNEL * max(1.0, mx), (err, mx)
