@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``sputnik_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
+    python3 chip_smoke.py --only moe_train,ring_path   # chosen phases only
 
 Phases, each printing its lines:
   1. the device (name, power limit) and the kernels' nvcc build;
@@ -11,7 +12,10 @@ Phases, each printing its lines:
      same bits twice, an emptied walk exactly 0 (+ bias), their SASS shown
      to hold TF32 tensor-core instructions and no FFMA, and again on a
      block-structured 4096^2 pattern (10% of the 64x64 tiles) beside
-     torch.sparse_bsr_tensor @ dense; SDDMM 4096^2 d=0.1 at d=64, sparse-flash
+     torch.sparse_bsr_tensor @ dense; SDDMM 4096^2 d=0.1 at d=64 (graph
+     replay beside eager, the same bits twice; its SASS, and the column
+     walk B10c's, shown to hold TF32 tensor-core instructions and no
+     FFMA), sparse-flash
      forward and the three backward kernels at R=32 s=512 hd=64 (the
      forward by CUDA graph replay beside eager calls, the same bits twice,
      its SASS shown to hold TF32 tensor-core instructions and B18a's walk
@@ -19,7 +23,8 @@ Phases, each printing its lines:
      B10b / B11b holds TF32 tensor-core instructions, B18c int8 ones and
      no __dp4a), the
      backward also at hd 32 / 128 and GQA group 2, timed by CUDA graph
-     replay beside eager calls, the row walk's dq the same bits twice) and
+     replay beside eager calls, the row walk's dq and the column walk's
+     dk / dv the same bits twice) and
      at the shapes the main paths give them; both backward routes timed at
      the driver shape and at s=4096, the single pass there also against a
      float64 plain run; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
@@ -29,8 +34,9 @@ Phases, each printing its lines:
      bit-exact) at the serving shapes; the paged kernels at the paged
      serving shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
      MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
-     C=640; timed) and at the panel attention's (b=4 DISTINCT masks, 8
-     heads, s=512, hd=64, and GQA) (2e); the sparse softmax B5 at the flat
+     C=640; timed, B7 by graph replay beside eager, the same bits twice)
+     and at the panel attention's (b=4 DISTINCT masks, 8 heads, s=512,
+     hd=64, and GQA) (2e); the sparse softmax B5 at the flat
      attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
      an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
      the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024) and
@@ -57,7 +63,9 @@ Phases, each printing its lines:
      for bit; B11a's split plan printed, its fullest band by graph replay
      beside eager with its pre-pass / walk / merge split; B11b's fullest
      band by graph replay beside eager, against a float64 plain run, its
-     dq the same bits twice) (2j); bf16 and
+     dq the same bits twice; B10c at the GQA ring's fullest band, against
+     a float64 plain run, the same bits twice, by graph replay beside eager
+     with its pre-pass / walk / merge split) (2j); bf16 and
      mixed operands of the panel ops and a
      bf16 SparseLinear launching the f32 kernels, JAX's dtypes out (2m);
   3. the main paths, with every launch counter reset just before each:
@@ -102,8 +110,8 @@ Phases, each printing its lines:
         config on 4 shards of the one card (s=8192 causal, R=4, hd=64):
         natural and zigzag order (group 1: B11a and B11b, 16 launches
         each) and GQA group 2 (B11a; B10b + B10c), forward and backward,
-        both orders timed in turns, the example's toy regression for 4
-        SGD steps (the loss falls);
+        both orders timed in turns, the GQA step timed and profiled, the
+        example's toy regression for 4 SGD steps (the loss falls);
      k. the halo SpMM at benchmarks/scaling.py's banded problem (8192^2,
         causal window 1024, q=512, 4 shards): the interior / halo split
         (B2 x 2 a shard; B4 + B3 a shard backward), then the ragged
@@ -528,6 +536,7 @@ def phase_kernels(stt, torch, dev, kres):
     print("phase 2: kernels vs plain PyTorch on the card", flush=True)
     _sass_check_tc(_build)
     _sass_check_flash(_build)
+    _sass_check_sddmm_col(_build)
     # -- SpMM at bench.py's config: 4096^3, element-random d=0.1
     size, density = 4096, 0.1
     rng = np.random.RandomState(0)
@@ -643,9 +652,13 @@ def phase_kernels(stt, torch, dev, kres):
              TOL_KERNEL, r)
     if not torch.all(got[0][meta["mask"] == 0] == 0):
         _fail("sddmm: padded or masked panel slots are not exactly zero")
-    r["ms"], r["plain_ms"] = _time_ms(sd_kern), _time_ms(sd_plain)
-    print(f"  sddmm {size}^2 dim {d}: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms", flush=True)
+    if not torch.equal(got.view(torch.int32), sd_kern().view(torch.int32)):
+        _fail("sddmm: two calls differ in their bits")
+    r["ms"], eager_ms = _graph_ms(sd_kern), _time_ms(sd_kern)
+    r["plain_ms"] = _time_ms(sd_plain)
+    print(f"  sddmm {size}^2 dim {d}: kernel {r['ms']:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}; the FMA body read 0.1387 eager, PERF.md), the "
+          f"same bits twice; plain {r['plain_ms']:.4f} ms", flush=True)
     # library: cuSPARSE's SDDMM on the CSR pattern, (lhs @ rhs^T) at nnz
     topo = mat.topology
     csr = torch.sparse_csr_tensor(      # column_indices is padded past nnz
@@ -656,8 +669,10 @@ def phase_kernels(stt, torch, dev, kres):
     rhs_t = rhs[0].T.contiguous()
     r["library_ms"] = _library_ms(
         "sddmm (torch.sparse.sampled_addmm, CSR)",
-        lambda: torch.sparse.sampled_addmm(csr, lhs[0], rhs_t, beta=0.0))
-    _sparse_bound(r, nnz, 1, d, _nbytes(lhs, rhs))
+        lambda: torch.sparse.sampled_addmm(csr, lhs[0], rhs_t, beta=0.0),
+        timer=_graph_ms)
+    _sparse_bound(r, nnz, 1, d, _nbytes(lhs, rhs), PEAK_3XTF32)
+    _stored_note("sddmm", int(meta["nblocks"].sum()) * 64 * 64, d)
     del lhs, rhs, got, csr, rhs_t
 
     # -- sparse-flash forward at the reference transformer's attention:
@@ -887,12 +902,18 @@ def phase_flash_backward(stt, torch, dev, kres):
                 and torch.all(dq[:, s // 2] == 0)):
             _fail(f"flash backward {tag}: the fully-masked row's dq is not "
                   f"exactly 0")
-        # dq takes no float atomics (dk / dv do): the same bits twice
+        # dq takes no float atomics (the fused dk / dv do), nor does the
+        # column walk: the same bits twice
         if not (torch.equal(fused[0], calls["flash_sparse_bwd_fused"][0]()[0])
                 and torch.equal(dq, calls["flash_sparse_bwd_dq"][0]())):
             _fail(f"flash backward {tag}: dq differs between two calls")
+        if not all(torch.equal(a, b_) for a, b_ in zip(
+                (dk, dv), calls["flash_sparse_bwd_dkv"][0]())):
+            _fail(f"flash backward {tag}: dk / dv of the column walk differ "
+                  f"between two calls")
         print(f"  flash backward {tag}: dq the same bits twice (B10a, "
-              f"B10b), the fully-masked row's dq exactly 0", flush=True)
+              f"B10b), dk / dv too (B10c), the fully-masked row's dq "
+              f"exactly 0", flush=True)
         if (hd, group) == (64, 1):
             q, k, v, g = rows[5:9]
             sdpa = _sdpa_inputs(torch, dev, b, heads, q, k, v, g)
@@ -902,12 +923,11 @@ def phase_flash_backward(stt, torch, dev, kres):
             pairs = _flash_pairs(b, heads, s)
             # per key-query pair and head dim: the recomputed QK^T and
             # dO V^T, then dV, dQ, dK (fused), dQ (dq), dV and dK (dkv);
-            # the row walk on the tensor cores in split TF32, the column
-            # walk (B10c) in fp32 FMA
+            # the row and column walks on the tensor cores in split TF32
             work = {"flash_sparse_bwd_fused": (10, rows, (q, k, v),
                                                PEAK_3XTF32),
                     "flash_sparse_bwd_dq": (6, rows, (q,), PEAK_3XTF32),
-                    "flash_sparse_bwd_dkv": (8, cols, (k, v), PEAK_F32)}
+                    "flash_sparse_bwd_dkv": (8, cols, (k, v), PEAK_3XTF32)}
             for name, (kern, plain) in calls.items():
                 eager = _time_ms(kern)
                 kres[name]["ms"] = _graph_ms(kern)
@@ -2134,7 +2154,11 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
         1, E, *sp_in.panel_shape).reshape(got.shape)
     if not torch.all(got[off] == 0):
         _fail("sddmm_bh: masked or padded panel slots are not exactly 0")
-    r["ms"] = _time_ms(lambda: K.sddmm_bh_kernel(*a7, heads=E))
+    if not torch.equal(got.view(torch.int32),
+                       K.sddmm_bh_kernel(*a7, heads=E).view(torch.int32)):
+        _fail("sddmm_bh: two calls differ in their bits")
+    r["ms"] = _graph_ms(lambda: K.sddmm_bh_kernel(*a7, heads=E))
+    eager_ms = _time_ms(lambda: K.sddmm_bh_kernel(*a7, heads=E))
     r["plain_ms"] = _time_ms(lambda: K.sddmm_bh_kernel_plain(*a7, heads=E),
                              reps=3, inner=2)
     topo = moe.topo_in
@@ -2147,10 +2171,13 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
     xin_t = xin.transpose(1, 2).contiguous()
     r["library_ms"] = _library_ms(
         "sddmm_bh (torch.sparse.sampled_addmm, batched CSR)",
-        lambda: torch.sparse.sampled_addmm(csr, gy, xin_t, beta=0.0))
-    print(f"  sddmm_bh bank: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms", flush=True)
-    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, xin))
+        lambda: torch.sparse.sampled_addmm(csr, gy, xin_t, beta=0.0),
+        timer=_graph_ms)
+    print(f"  sddmm_bh bank: kernel {r['ms']:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}; the FMA body read 0.5145, PERF.md), the same "
+          f"bits twice; plain {r['plain_ms']:.4f} ms", flush=True)
+    _sparse_bound(r, nnz_in, E, C, _nbytes(gy, xin), PEAK_3XTF32)
+    _stored_note("sddmm_bh bank", tiles_in, C)
     del got, csr
 
     # B8: the bank's input gradient d_xin = W_in^T @ g_y1
@@ -2235,7 +2262,7 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
              K.spmm_t_bh_kernel(*at8, heads=heads, rows=s),
              K.spmm_t_bh_kernel_plain(*at8, heads=heads, rows=s), TOL_KERNEL,
              kres["spmm_t_bh"])
-    ms = {n: _time_ms(fn) for n, fn in (
+    ms = {n: _graph_ms(fn) for n, fn in (
         ("sddmm_bh", lambda: K.sddmm_bh_kernel(*at7, heads=heads)),
         ("spmm_bh", lambda: K.spmm_bh_kernel(*at6, heads=heads, rows=s)),
         ("spmm_t_bh", lambda: K.spmm_t_bh_kernel(*at8, heads=heads,
@@ -2246,7 +2273,7 @@ def phase_batched_kernels(stt, torch, dev, kres, small=False):
     dense = _nbytes(q, k)
     bound = max(2.0 * nnz * heads * hd / PEAK_F32,
                 (4 * nnz + 4 * nnz * heads + dense) / PEAK_BYTES) * 1e3
-    print(f"  attention shape (not the JSON's timed call): sddmm_bh "
+    print(f"  attention shape (not the JSON's timed call; graph): sddmm_bh "
           f"{ms['sddmm_bh']:.4f} ms, spmm_bh {ms['spmm_bh']:.4f} ms, "
           f"spmm_t_bh {ms['spmm_t_bh']:.4f} ms; bound of each {bound:.4f} "
           f"ms ({nnz:.0f} mask nonzeros; the stored scores panel is "
@@ -3111,6 +3138,23 @@ def _sass_check_tc(build):
               "alone")
 
 
+def _sass_check_sddmm_col(build):
+    """The SDDMM body (sddmm_tc_kernel: B4, B7, B14, both slot policies) and
+    the column walk (flash_bwd_col_tc_kernel: B10c, every width and mode)
+    hold TF32 tensor-core instructions (HGMMA) and no FFMA: their products
+    run on the tensor cores alone (the FMA bodies they replace were FFMA
+    loops). Raises if one fails it."""
+    funcs = _sass_counts(build)
+    if funcs is None:
+        return
+    tc = {n: c for n, c in funcs.items()
+          if "sddmm_tc_kernel" in n or "flash_bwd_col_tc_kernel" in n}
+    _sass_print(sorted(tc.items()), ("HGMMA", "HMMA", "FFMA"))
+    if len(tc) < 6 or any(c["HGMMA"] == 0 or c["FFMA"] for c in tc.values()):
+        _fail("SASS: the SDDMM body or the column walk does not run on the "
+              "tensor cores alone")
+
+
 def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     """Phase 2h: B16a, B16b, B17 and B18a against their plain versions on
     the card, each also held >= 10x its limit away from the fp32 kernel."""
@@ -3699,10 +3743,15 @@ def phase_compressed_kernels(stt, torch, dev, kres):
     if not (torch.all(scores[0, -1] == 0)
             and torch.all(scores[0][meta["mask"] == 0] == 0)):
         _fail("sddmm_c: the dump tile or a masked slot is not exactly 0")
-    r["ms"] = _time_ms(lambda: kc.bsr_sddmm_panel_c(*sargs))
+    if not torch.equal(scores.view(torch.int32),
+                       kc.bsr_sddmm_panel_c(*sargs).view(torch.int32)):
+        _fail("sddmm_c: two calls differ in their bits")
+    r["ms"] = _graph_ms(lambda: kc.bsr_sddmm_panel_c(*sargs))
+    eager_ms = _time_ms(lambda: kc.bsr_sddmm_panel_c(*sargs))
     r["plain_ms"] = _time_ms(lambda: kc.bsr_sddmm_panel_c_plain(*sargs))
-    print(f"  sddmm_c d={d}: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms", flush=True)
+    print(f"  sddmm_c d={d}: kernel {r['ms']:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}; the FMA body read 0.0344 eager, PERF.md), the "
+          f"same bits twice; plain {r['plain_ms']:.4f} ms", flush=True)
     csr = torch.sparse_csr_tensor(
         torch.from_numpy(np.asarray(topo.row_offsets, np.int64)),
         torch.from_numpy(np.asarray(topo.column_indices[:nnz], np.int64)),
@@ -3710,8 +3759,9 @@ def phase_compressed_kernels(stt, torch, dev, kres):
     k_t = k[0].T.contiguous()
     r["library_ms"] = _library_ms(
         "sddmm_c (torch.sparse.sampled_addmm, CSR)",
-        lambda: torch.sparse.sampled_addmm(csr, q[0], k_t, beta=0.0))
-    _sparse_bound(r, nnz, 1, d, _nbytes(q, k))
+        lambda: torch.sparse.sampled_addmm(csr, q[0], k_t, beta=0.0),
+        timer=_graph_ms)
+    _sparse_bound(r, nnz, 1, d, _nbytes(q, k), PEAK_3XTF32)
     _stored_note("sddmm_c", bv.num_blocks * 64 * 64, d)
     del csr, k_t
 
@@ -4170,6 +4220,44 @@ def phase_parallel_kernels(stt, torch, dev, kres):
     print(f"    (at the fp32 FMA peak the operations would take "
           f"{10 * pairs * RING_HD / PEAK_F32 * 1e3:.4f} ms)", flush=True)
 
+    # B10c at the GQA ring's fullest band, as its backward calls it (group
+    # 2: each KV replica's walk runs its two query replicas' slots, 64 a
+    # walk), against its plain version in float64, the same bits twice,
+    # timed (printed; the JSON's entry is the driver shape's)
+    cols = [rmeta[key][d, band][None] for key in (
+        "t_src_i", "t_nblocks", "t_mask_slot", "t_is_partial", "pmask")]
+    kg, vg = k[band][:R // 2].contiguous(), v[band][:R // 2].contiguous()
+    cargs = (*cols, q, kg, vg, g, m, l, D)
+    ckw = dict(heads=R, scale=1.0, group=2, max_bpc=spec.max_bpc)
+    got = fs.flash_sparse_bwd_dkv(*cargs, **ckw)
+    want = fs.flash_sparse_bwd_dkv_plain(
+        *cols, *(x.double() for x in cargs[5:]), **ckw)
+    for name, a, w in zip(("dk", "dv"), got, want):
+        _compare(f"bwd_dkv GQA ring fullest band {name} vs float64 plain", a,
+                 w.float(), TOL_KERNEL, kres["flash_sparse_bwd_dkv"])
+    if not all(torch.equal(a, b_) for a, b_ in zip(
+            got, fs.flash_sparse_bwd_dkv(*cargs, **ckw))):
+        _fail("bwd_dkv GQA ring band: two calls differ in their bits")
+    walks, longest = (R // 2) * cols[1].shape[1], 2 * spec.max_bpc
+    tiles = fs.flash_split_tiles(walks, longest)
+    print(f"  bwd_dkv GQA ring band: {walks} walks of <= {longest} slots, "
+          f"chunks of {tiles} ({-(-longest // tiles)} a walk, merged in "
+          f"chunk order); the same bits twice", flush=True)
+
+    def dkv_band():
+        return fs.flash_sparse_bwd_dkv(*cargs, **ckw)
+
+    ms, eager_ms = _graph_ms(dkv_band), _time_ms(dkv_band)
+    plain_ms = _time_ms(lambda: fs.flash_sparse_bwd_dkv_plain(*cargs, **ckw),
+                        reps=3, inner=2)
+    ops = 8 * pairs * RING_HD
+    print(f"  bwd_dkv GQA ring fullest band: kernel {ms:.4f} ms (graph; eager "
+          f"{eager_ms:.4f}), plain {plain_ms:.4f} ms; device split "
+          f"{_split_text(_device_split(torch, dkv_band))}; bound "
+          f"{ops / PEAK_3XTF32 * 1e3:.4f} ms ({ops / 1e9:.3f} G op at 165 "
+          f"T/s; at the fp32 FMA peak {ops / PEAK_F32 * 1e3:.4f})",
+          flush=True)
+
 
 def _ring_dense(torch, q, k, v, group, scale):
     """Dense causal attention in plain torch, natural order: the ring's
@@ -4283,6 +4371,23 @@ def phase_ring_path(stt, torch, dev, wrappers):
         spec, _, _, gpu, _ = results[("zigzag", 1)]
         _profile_steps(torch, "zigzag ring steps", lambda i: (
             stt.parallel.ring_flash_attention(spec, *gpu).sum().backward()))
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    # the GQA ring (natural, group 2): 16 B11a a forward, 16 B10b + 16
+    # B10c a backward
+    spec, _, _, gpu, _ = results[("natural", 2)]
+
+    def gqa_step(spec=spec, gpu=gpu):
+        for x in gpu:
+            x.grad = None
+        stt.parallel.ring_flash_attention(spec, *gpu, group=2).sum(
+            ).backward()
+
+    print(f"  GQA ring step (natural, group 2, CUDA events): "
+          f"{_time_ms(gqa_step, reps=5, inner=3):.4f} ms", flush=True)
+    try:
+        _profile_steps(torch, "GQA ring steps (natural, group 2)",
+                       lambda i: gqa_step())
     except Exception as e:  # a measurement, not a check of the path
         print(f"  torch.profiler gave no device times: {e!r}", flush=True)
 
@@ -4462,9 +4567,23 @@ def phase_dtype_repair(stt, torch, dev, wrappers):
           f"{layer.values.grad.dtype}", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """No arguments: every phase, then the kernels' JSON line and the
+    device line. ``--only NAME[,NAME]`` runs just the named phase functions
+    (``phase_moe_train``, ``phase_ring_path``, ...: the part after
+    ``phase_``) on the package beside this script and prints no JSON line:
+    a copy of the script placed in another checkout measures that checkout
+    the same way, for comparisons in one call."""
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only":
+            print("usage: chip_smoke.py [--only phase[,phase]]",
+                  file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
@@ -4496,6 +4615,13 @@ def main() -> int:
 
     wrappers = kernel_wrappers()
     kres = {n: {} for n in wrappers}
+    if only is not None:
+        for name in only:
+            fn = globals()[f"phase_{name}"]
+            fn(stt, torch, dev, wrappers if name.endswith(
+                ("_path", "_train", "_serving", "_repair")) else kres)
+        print(f"chip_smoke: --only {','.join(only)} done", flush=True)
+        return 0
     phase_kernels(stt, torch, dev, kres)
     phase_flash_backward(stt, torch, dev, kres)
     phase_serving_kernels(stt, torch, dev, kres)

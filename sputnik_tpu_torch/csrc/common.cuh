@@ -1,16 +1,14 @@
 // Shared pieces of the panel kernels.
 //
-// The SIMT tile (tile_fma, tile_dp4a): a 64 x 64 output tile that one block
-// of 256 threads computes in FP32 FMA (or int8 __dp4a), 4 x 4 outputs per
-// thread. Operands are staged in shared memory "k-major": A as [k][row], B
-// as [k][col], so that every thread reads its four rows and four columns
-// of one k-slice as two float4 loads and issues 16 FMAs. Rows of the
-// staging buffers are padded by 4 floats (TILE_LD) to spread the
-// transposing stores over more banks while keeping the float4 reads
-// 16-byte aligned. tile_fma serves the SDDMM (B4, bsr_sddmm.cu) only; the
-// fp32 SpMMs and the flash forward and row walk run on the tensor cores
-// (the split-TF32 pieces below), tile_dp4a the int8 SDDMM (B17) and the
-// int8 flash backward's dq (B18b).
+// The SIMT tile (tile_dp4a): a 64 x 64 output tile that one block of 256
+// threads computes in int8 __dp4a, 4 x 4 outputs per thread. Operands are
+// staged in shared memory "k-major": A as [k][row], B as [k][col], so that
+// every thread reads its four rows and four columns of one k-slice as two
+// 16-byte loads. Rows of the staging buffers are padded by 4 words
+// (TILE_LD) to spread the transposing stores over more banks while keeping
+// the 16-byte reads aligned. tile_dp4a serves the int8 SDDMM (B17) and the
+// int8 flash backward's dq (B18b); every fp32 kernel runs on the tensor
+// cores (the split-TF32 pieces below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,25 +20,6 @@ constexpr int TILE = 64;          // output tile edge (rows and columns)
 constexpr int TILE_LD = TILE + 4; // padded row length of a staging buffer
 constexpr int TK = 32;            // contraction depth staged per step
 constexpr int THREADS = 256;      // 16 x 16 threads
-
-// acc[i][j] += sum_k A[k][ty*4 + i] * B[k][tx*4 + j] over `depth` slices
-// (B4).
-template <int DEPTH>
-__device__ __forceinline__ void tile_fma(const float (*A)[TILE_LD],
-                                         const float (*B)[TILE_LD],
-                                         int ty, int tx, float acc[4][4]) {
-#pragma unroll 8
-  for (int k = 0; k < DEPTH; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&A[k][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&B[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
 
 // --- int8 (W8A8) pieces: the same 64 x 64 tile, 4 x 4 outputs per thread,
 // with operands staged as 32-bit words of four int8 values along the
@@ -303,9 +282,15 @@ constexpr unsigned TC_GROUP = TC_BK / 4 * TC_CORE;  // an 8-row group
 
 __host__ __device__ constexpr int tc_ldb(int wg) { return 64 * wg + 8; }
 __host__ __device__ constexpr int tc_b(int wg) { return TC_BK * tc_ldb(wg); }
+// floats of one stage of the A operand's raw ring: [k][n] (B1, B3) or, with
+// rows, [n][k] (the SDDMM: 64 rows a warpgroup)
+__host__ __device__ constexpr int tc_bstage(int wg, bool rows) {
+  return rows ? 64 * wg * TC_LDA : tc_b(wg);
+}
 // two split tiles (hi, lo each) and the raw ring
-__host__ __device__ constexpr size_t tc_smem(int wg) {
-  return ((size_t)4 * TC_SB + TC_STAGES * (TC_A + tc_b(wg))) * sizeof(float);
+__host__ __device__ constexpr size_t tc_smem(int wg, bool rows = false) {
+  return ((size_t)4 * TC_SB + TC_STAGES * (TC_A + tc_bstage(wg, rows))) *
+         sizeof(float);
 }
 
 // d (64 x 64 f32 over the warpgroup, 32 a thread) = a . b (+ d if acc):
@@ -425,9 +410,11 @@ struct TcFrag {
   unsigned h[TC_KS][4], l[TC_KS][4];
 };
 
-// The fragments of this warpgroup's 64 dense columns n0w.. from the staged
-// dense rows bs ([k][n], LDB floats a row).
-template <int LDB>
+// The fragments of this warpgroup's 64 A rows n0w.. (B1, B3: dense
+// columns) from their staged unit bs: [k][n], LDB floats a row, or with
+// AROWS [n][k], TC_LDA floats a row (the SDDMM's rhs rows, K-major as they
+// lie in memory; TC_LDA = 36 keeps the lanes' reads on distinct banks).
+template <int LDB, bool AROWS = false>
 __device__ __forceinline__ void tc_frags(const float* __restrict__ bs,
                                          int n0w, TcFrag& f) {
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
@@ -435,10 +422,12 @@ __device__ __forceinline__ void tc_frags(const float* __restrict__ bs,
 #pragma unroll
   for (int s = 0; s < TC_KS; ++s)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      split_tf32(bs[(s * 8 + t + (i >> 1) * 4) * LDB + n0w + w * 16 + g +
-                    (i & 1) * 8],
-                 f.h[s][i], f.l[s][i]);
+    for (int i = 0; i < 4; ++i) {
+      const int k = s * 8 + t + (i >> 1) * 4;
+      const int n = n0w + w * 16 + g + (i & 1) * 8;
+      split_tf32(AROWS ? bs[n * TC_LDA + k] : bs[k * LDB + n], f.h[s][i],
+                 f.l[s][i]);
+    }
 }
 
 // acc += dense^T . tile over one unit (the first of a slot overwrites acc)
@@ -479,15 +468,17 @@ __device__ __forceinline__ void tc_mma(const float* hi, const float* lo,
 // warpgroups keep the tensor cores busy. A slot's sums are added into facc
 // after its last unit. No branch encloses a product, a wait or a register
 // a product reads (ptxas would serialize the products otherwise): a
-// warpgroup whose columns lie past the output multiplies zeros.
-template <bool AT, int WG, typename Load>
+// warpgroup whose columns lie past the output multiplies zeros. AROWS: the
+// A operand is staged as rows ([n][k], tc_bstage's layout; the SDDMM).
+template <bool AT, int WG, typename Load, bool AROWS = false>
 __device__ __forceinline__ void tc_walk(int units, int chunks,
                                         Load& load_next, float* smem,
                                         float (&facc)[32]) {
   constexpr int NTHREADS = 128 * WG, LDB = tc_ldb(WG);
+  constexpr int BST = tc_bstage(WG, AROWS);
   float* const Sb = smem;                        // [2][hi, lo][TC_SB]
   const float* const As = smem + 4 * TC_SB;      // [TC_STAGES][TC_A]
-  const float* const Bs = As + TC_STAGES * TC_A; // [TC_STAGES][TC_BK * LDB]
+  const float* const Bs = As + TC_STAGES * TC_A; // [TC_STAGES][BST]
   const int n0w = (threadIdx.x >> 7) * 64;
   float acc[32];
 #pragma unroll
@@ -513,7 +504,7 @@ __device__ __forceinline__ void tc_walk(int units, int chunks,
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     }
     TcFrag f;
-    tc_frags<LDB>(Bs + st * (TC_BK * LDB), n0w, f);
+    tc_frags<LDB, AROWS>(Bs + st * BST, n0w, f);
     const float* sb = Sb + (u & 1) * 2 * TC_SB;
     tc_mma(sb, sb + TC_SB, f, acc, u % chunks == 0);
     const bool last = (u + 1) % chunks == 0;
@@ -540,6 +531,40 @@ __device__ __forceinline__ void tc_stage4(float* dst, const float* src,
       const bool ok = row_ok && col + q < limit;
       cp_async4(dst + q, ok ? src + q : safe, ok ? 4 : 0);
     }
+  }
+}
+
+__device__ __forceinline__ void swap2(float& a, float& b) {
+  const float c = a;
+  a = b;
+  b = c;
+}
+
+// Inside each quad of lanes g = 4a .. 4a + 3 (same t; b = g & 3, lanes 4
+// apart): lane b's x[c] becomes lane c's x[b]. Applied to x = acc[4j ..
+// 4j + 3] of a wgmma accumulator (A rows 16w + g (+ 8) x B rows 8j + 2t
+// (+ 1)), lane b then holds A rows 16w + 4 (g >> 2) + 8 (b >> 1) .. + 3 of
+// B row 8j + 2t + (b & 1): four neighbours for one 16-byte access.
+__device__ __forceinline__ void quad_transpose(float (&x)[4], int b) {
+  if (b & 1) {
+    swap2(x[0], x[1]);
+    swap2(x[2], x[3]);
+  }
+  x[1] = __shfl_xor_sync(0xffffffffu, x[1], 4);
+  x[3] = __shfl_xor_sync(0xffffffffu, x[3], 4);
+  if (b & 1) {
+    swap2(x[0], x[1]);
+    swap2(x[2], x[3]);
+  }
+  if (b & 2) {
+    swap2(x[0], x[2]);
+    swap2(x[1], x[3]);
+  }
+  x[2] = __shfl_xor_sync(0xffffffffu, x[2], 8);
+  x[3] = __shfl_xor_sync(0xffffffffu, x[3], 8);
+  if (b & 2) {
+    swap2(x[0], x[2]);
+    swap2(x[1], x[3]);
   }
 }
 

@@ -6,7 +6,7 @@
 // Replaces three TPU kernels of sputnik_tpu/ops/pallas/flash_sparse.py:
 //   flash_sparse_bwd_fused -> flash_bwd_tc_kernel<HD, true, .>   (dq, dk, dv)
 //   flash_sparse_bwd_dq    -> flash_bwd_tc_kernel<HD, false, .>  (dq)
-//   flash_sparse_bwd_dkv   -> flash_bwd_dkv_kernel<HD>           (dk, dv)
+//   flash_sparse_bwd_dkv   -> flash_bwd_col_tc_kernel<HD, .>     (dk, dv)
 // q and g are [R, s_q, hd], k and v [R / group, s_kv, hd] (GQA: query
 // replica r reads KV replica r / group), m and l [R, mb * 64] as the forward
 // writes them, D = rowsum(g * out) [R, s_q]. dq is the gradient with
@@ -92,221 +92,54 @@
 // hd <= 64 runs at HD = 64, hd <= 128 at HD = 128, the head dims past hd
 // zero.
 //
-// The column walk (B10c), the simple design, fp32 FMA:
-//   * flash_bwd_dkv_kernel: one block of 256 threads per (key column block
-//     j, KV replica), walking the transposed metadata (build_flash_bwd_meta)
-//     of each query replica of its group over slots u < t_nblocks[b, j]; it
-//     gathers the q / g / m / l / D rows of each source row block and keeps
-//     dk / dv in registers: no atomics, and a column no query attends
-//     writes 0. All operand tiles sit row-major in shared memory
-//     ([64][hd + 4]); each product picks the thread mapping that reads them
-//     without bank conflicts: the score tiles give thread (ty, tx) rows
-//     ty * 4 + i and keys tx + 16 * j; the gradient products give it four
-//     keys and hd / 16 consecutive head dims. hd <= 128 (templates 32 / 64
-//     / 128).
+// The column walk (B10c) on the tensor cores, the row walk's mirror (two
+// launches, three where the host splits the walks). Its bound: 8 * hd
+// FLOPs per kept pair (two score products, two gradient products) at
+// 165 TFLOP/s, 2.15 G and 0.013 ms at the driver shape.
+//   * split_rows_kernel, once a call: each row block of each query replica
+//     as one record: q * scale and dO split into TF32 hi / lo as [row][d]
+//     (kcore: the score products' B) and as [d][row] in vcore's row order
+//     (the gradient products' B), then m, 1 / max(l, 1e-30) and D (0
+//     past s_q). A row block is visited by up to kb column walks: split
+//     once.
+//   * flash_bwd_col_tc_kernel: HD / 64 warpgroups walk the slots of one
+//     (key block j, KV replica) over the transposed metadata
+//     (build_flash_bwd_meta), the query replicas of its group one after
+//     another, or a chunk of that walk. Keys are M in all four products:
+//       S^T = K (q * scale)^T and dP^T = V dO^T: A is K or V from
+//         registers, loaded from their raw rows (staged once a walk) and
+//         split there; B the streamed q or dO half. Every warpgroup
+//         computes both whole.
+//       dK += dS^T (q * scale) and dV += P^T dO: A is dS^T / P^T straight
+//         from the score accumulators (rows 2t, 2t + 1 where the k8
+//         fragment wants t, t + 4: the transposed halves store the rows
+//         permuted to match); B the streamed transposed half, warpgroup wg
+//         taking head dims 64 wg .. + 63. m, l and D are indexed by the
+//         accumulator's column (the query row); p = exp(sc - m) * (1 / l)
+//         by the fast exp (the plain version divides: the two differ in
+//         the last places, far inside the kernels' 1e-4).
+//     dK and dV stay in registers for the whole walk and are written once:
+//     no atomics, and a key column no query attends writes exactly 0. The
+//     four halves of a slot stream by cp.async through two buffers, each
+//     landing while the product before it runs, and dP^T runs while p is
+//     formed. Shared memory: the two halves 4 * 64 * HD floats, K and V
+//     raw 2 * 64 * (HD + 4), the rows' m / l / D 3 * 64: 101,120 B at
+//     HD = 64 (two walks an SM), 199,424 B at HD = 128 (two warpgroups,
+//     one walk an SM). Registers: dK and dV (32 each a thread), the two
+//     score tiles 64, the fragments of one product 64.
+//   * the split walk: with few walks for the card (the GQA ring's band: 64
+//     walks of 64 slots), the host cuts each walk into chunks of `tiles`
+//     slots (ops/kernels/flash_sparse.py: flash_split_tiles over the walks
+//     and their longest length, group * max_bpc; one wave, as the row
+//     walk's: two waves, or a split of the driver's 256 causal walks, took
+//     longer than their merge saved); each chunk writes its partial dk /
+//     dv to the workspace and dkv_merge_kernel sums them in chunk order:
+//     no float atomics, the same bits from run to run.
 #include "flash_tc.cuh"
 
 namespace stt {
 
 constexpr float NEG_LARGE = -1e30f;
-constexpr int PLD = TILE + 4;  // row length of the p / ds tiles
-
-template <int HD>
-constexpr int BWD_LD = HD + 4;  // row length of the operand tiles
-
-template <int HD>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * (4 * TILE * BWD_LD<HD> + 2 * TILE * PLD + 3 * TILE);
-}
-
-// dst[row][d] = src[row0 + row][d] * mul for rows < nrows, d < hd; else 0.
-template <int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int row0, int nrows, int hd,
-                                           float mul) {
-  for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
-    const int row = e / HD, d = e % HD, gr = row0 + row;
-    dst[row * BWD_LD<HD> + d] =
-        (gr < nrows && d < hd) ? src[(size_t)gr * hd + d] * mul : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[i][j] = sum_d A[ty*4 + i][d] * B[tx + 16*j][d] over row-major tiles.
-template <int HD>
-__device__ __forceinline__ void rows_dot(const float* A, const float* B,
-                                         int ty, int tx, float acc[4][4]) {
-  constexpr int LD = BWD_LD<HD>;
-#pragma unroll 4
-  for (int d = 0; d < HD; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-      a[ii] = *reinterpret_cast<const float4*>(&A[(ty * 4 + ii) * LD + d]);
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-      b[jj] = *reinterpret_cast<const float4*>(&B[(tx + 16 * jj) * LD + d]);
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = dot4(a[ii], b[jj], acc[ii][jj]);
-  }
-}
-
-// Recompute p and ds of one tile into Ps / Ds ([row][key]). pm is the
-// tile's element mask (row-major 64 x 64), or null for a full tile.
-template <int HD>
-__device__ __forceinline__ void score_tile(const float* Qs, const float* Gs,
-                                           const float* Ks, const float* Vs,
-                                           const float* Ms, const float* Ls,
-                                           const float* Dr, const float* pm,
-                                           float* Ps, float* Ds) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float sc[4][4] = {}, dp[4][4] = {};
-  rows_dot<HD>(Qs, Ks, ty, tx, sc);
-  rows_dot<HD>(Gs, Vs, ty, tx, dp);
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int row = ty * 4 + ii;
-    const float mr = Ms[row], lr = Ls[row], dr = Dr[row];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int key = tx + 16 * jj;
-      float s = sc[ii][jj];
-      if (pm != nullptr && pm[row * TILE + key] == 0.f) s = NEG_LARGE;
-      const float p = s <= NEG_LARGE / 2 ? 0.f : expf(s - mr) / lr;
-      Ps[row * PLD + key] = p;
-      Ds[row * PLD + key] = p * (dp[ii][jj] - dr);
-    }
-  }
-}
-
-// acc[i][j] += sum_row W[row][ty*4 + i] * X[row][tx*CPT + j]
-// (dk = ds^T (q * scale), dv = p^T g)
-template <int HD>
-__device__ __forceinline__ void acc_keys(const float* W, const float* X,
-                                         float acc[4][HD / 16]) {
-  constexpr int CPT = HD / 16, LD = BWD_LD<HD>;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int row = 0; row < TILE; ++row) {
-    const float4 w4 = *reinterpret_cast<const float4*>(&W[row * PLD + ty * 4]);
-    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
-    float x[CPT];
-#pragma unroll
-    for (int jj = 0; jj < CPT; jj += 2) {
-      const float2 t = *reinterpret_cast<const float2*>(&X[row * LD + tx * CPT + jj]);
-      x[jj] = t.x;
-      x[jj + 1] = t.y;
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] = fmaf(w[ii], x[jj], acc[ii][jj]);
-  }
-}
-
-// Write a [4 keys][CPT dims] register tile (rows < nrows, d < hd).
-template <int HD>
-__device__ __forceinline__ void store_tile(float* dst, int row0, int nrows,
-                                           int hd, float acc[4][HD / 16]) {
-  constexpr int CPT = HD / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int gr = row0 + ty * 4 + ii;
-    if (gr >= nrows) continue;
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int d = tx * CPT + jj;
-      if (d < hd) dst[(size_t)gr * hd + d] = acc[ii][jj];
-    }
-  }
-}
-
-struct BwdSmem {
-  float *Qs, *Gs, *Ks, *Vs, *Ps, *Ds, *Ms, *Ls, *Dr;
-};
-
-template <int HD>
-__device__ __forceinline__ BwdSmem carve(float* smem) {
-  constexpr int T = TILE * BWD_LD<HD>;
-  BwdSmem s;
-  s.Qs = smem;
-  s.Gs = s.Qs + T;
-  s.Ks = s.Gs + T;
-  s.Vs = s.Ks + T;
-  s.Ps = s.Vs + T;
-  s.Ds = s.Ps + TILE * PLD;
-  s.Ms = s.Ds + TILE * PLD;
-  s.Ls = s.Ms + TILE;
-  s.Dr = s.Ls + TILE;
-  return s;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const int* __restrict__ t_src_i,
-                     const int* __restrict__ t_nblocks,
-                     const int* __restrict__ t_mask_slot,
-                     const int* __restrict__ t_is_partial,
-                     const float* __restrict__ pmask,
-                     const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ D, float* __restrict__ dk,
-                     float* __restrict__ dv, int heads, int group, int mb,
-                     int kb, int max_bpc, int n_partial, int s_q, int s_kv,
-                     int hd, float scale) {
-  constexpr int CPT = HD / 16;
-  extern __shared__ __align__(128) float smem[];
-  const BwdSmem sm = carve<HD>(smem);
-  const int j = blockIdx.x, rk = blockIdx.y;
-  const size_t koff = (size_t)rk * s_kv * hd;
-
-  stage_rows<HD>(sm.Ks, k + koff, j * TILE, s_kv, hd, 1.f);
-  stage_rows<HD>(sm.Vs, v + koff, j * TILE, s_kv, hd, 1.f);
-
-  float ak[4][CPT], av[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) ak[ii][jj] = av[ii][jj] = 0.f;
-
-  for (int gi = 0; gi < group; ++gi) {
-    const int r = rk * group + gi, b = r / heads;
-    const size_t qoff = (size_t)r * s_q * hd;
-    const size_t meta0 = ((size_t)b * kb + j) * max_bpc;
-    const int nb = t_nblocks[b * kb + j];
-    for (int u = 0; u < nb; ++u) {
-      const int i = t_src_i[meta0 + u];
-      __syncthreads();  // the previous tile's readers are done
-      stage_rows<HD>(sm.Qs, q + qoff, i * TILE, s_q, hd, scale);
-      stage_rows<HD>(sm.Gs, g + qoff, i * TILE, s_q, hd, 1.f);
-      stage_stats(sm.Ms, sm.Ls, sm.Dr, m, l, D, r, i, mb, s_q);
-      __syncthreads();
-      const float* pm =
-          t_is_partial[meta0 + u]
-              ? pmask + ((size_t)b * n_partial + t_mask_slot[meta0 + u]) *
-                            TILE * TILE
-              : nullptr;
-      score_tile<HD>(sm.Qs, sm.Gs, sm.Ks, sm.Vs, sm.Ms, sm.Ls, sm.Dr, pm,
-                     sm.Ps, sm.Ds);
-      __syncthreads();
-      acc_keys<HD>(sm.Ds, sm.Qs, ak);
-      acc_keys<HD>(sm.Ps, sm.Gs, av);
-    }
-  }
-  store_tile<HD>(dk + koff, j * TILE, s_kv, hd, ak);
-  store_tile<HD>(dv + koff, j * TILE, s_kv, hd, av);
-}
-
 
 // --- the row walk on the tensor cores (B10a, B10b, B11b)
 
@@ -353,13 +186,12 @@ __device__ __forceinline__ void col_frag(const float* X, int hb, int s,
   split_tf32(p[4 * LD + 8], h[3], l[3]);
 }
 
-// Commit the issued products, wait for them, and keep the accumulators and
-// the fragments they read in their registers until then.
+// Wait for the committed products, and keep the accumulators and the
+// fragments they read in their registers until then.
 template <int N, int S>
-__device__ __forceinline__ void mma_done(float (&acc)[N],
+__device__ __forceinline__ void mma_wait(float (&acc)[N],
                                          unsigned (&h)[S][4],
                                          unsigned (&l)[S][4]) {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
   for (int x = 0; x < N; ++x) asm volatile("" : "+f"(acc[x])::"memory");
@@ -370,16 +202,28 @@ __device__ __forceinline__ void mma_done(float (&acc)[N],
       asm volatile("" : "+r"(h[s][x]), "+r"(l[s][x])::"memory");
 }
 
-// acc = X . B^T over the HD head dims (S = q K^T, dP = dO V^T): X raw
-// [row][d] split in registers, B a split [key][d] half (kcore<HD>). Eight
-// k8 steps a batch (64 fragment registers), each batch waited for.
+// Commit the issued products and wait for them (mma_wait).
+template <int N, int S>
+__device__ __forceinline__ void mma_done(float (&acc)[N],
+                                         unsigned (&h)[S][4],
+                                         unsigned (&l)[S][4]) {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  mma_wait(acc, h, l);
+}
+
+// acc = X . B^T over the HD head dims (S = q K^T, dP = dO V^T; the column
+// walk's S^T = K q^T, dP^T = V dO^T): X raw [row][d] split in registers,
+// B a split [key][d] half (kcore<HD>). Eight k8 steps a batch (64
+// fragment registers h / l), each batch but the last waited for; the last
+// is committed and left running: mma_wait(acc, h, l) ends it.
 template <int HD>
-__device__ __forceinline__ void score_mma(const float* X, const float* B,
-                                          float (&acc)[32]) {
+__device__ __forceinline__ void score_issue(const float* X, const float* B,
+                                            float (&acc)[32],
+                                            unsigned (&h)[8][4],
+                                            unsigned (&l)[8][4]) {
   constexpr unsigned SBO = HD / 4 * 128;
 #pragma unroll
   for (int bt = 0; bt < HD / 64; ++bt) {
-    unsigned h[8][4], l[8][4];
 #pragma unroll
     for (int s = 0; s < 8; ++s) row_frag<HD>(X, 8 * bt + s, h[s], l[s]);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -392,8 +236,18 @@ __device__ __forceinline__ void score_mma(const float* X, const float* B,
       wgmma_tf32_n64(acc, h[s], bl, 1);
       wgmma_tf32_n64(acc, l[s], bh, 1);
     }
-    mma_done(acc, h, l);
+    if (bt + 1 < HD / 64) mma_done(acc, h, l);
+    else asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
+}
+
+// score_issue, waited for.
+template <int HD>
+__device__ __forceinline__ void score_mma(const float* X, const float* B,
+                                          float (&acc)[32]) {
+  unsigned h[8][4], l[8][4];
+  score_issue<HD>(X, B, acc, h, l);
+  mma_wait(acc, h, l);
 }
 
 // acc (head dims 64 hb .. + 63 x the tile's 64 keys) = X^T . P over the
@@ -433,37 +287,6 @@ __device__ __forceinline__ void store_keys(float* P, const float (&x)[32]) {
       P[at] = __uint_as_float(h);
       P[TILE * TILE + at] = __uint_as_float(l);
     }
-}
-
-__device__ __forceinline__ void swap2(float& a, float& b) {
-  const float c = a;
-  a = b;
-  b = c;
-}
-
-// Inside each quad of lanes g = 4a .. 4a + 3 (same t; b = g & 3, lanes 4
-// apart): lane b's x[c] becomes lane c's x[b].
-__device__ __forceinline__ void quad_transpose(float (&x)[4], int b) {
-  if (b & 1) {
-    swap2(x[0], x[1]);
-    swap2(x[2], x[3]);
-  }
-  x[1] = __shfl_xor_sync(0xffffffffu, x[1], 4);
-  x[3] = __shfl_xor_sync(0xffffffffu, x[3], 4);
-  if (b & 1) {
-    swap2(x[0], x[1]);
-    swap2(x[2], x[3]);
-  }
-  if (b & 2) {
-    swap2(x[0], x[2]);
-    swap2(x[1], x[3]);
-  }
-  x[2] = __shfl_xor_sync(0xffffffffu, x[2], 8);
-  x[3] = __shfl_xor_sync(0xffffffffu, x[3], 8);
-  if (b & 2) {
-    swap2(x[0], x[2]);
-    swap2(x[1], x[3]);
-  }
 }
 
 // Adds acc (head dims 64 hb + 16w + g (+ 8) x keys 8j + 2t (+ 1) of key
@@ -713,23 +536,363 @@ dq_merge_kernel(const float* __restrict__ part, float* __restrict__ dq,
   dq[e] = a;
 }
 
+// --- the column walk on the tensor cores (B10c)
+
+constexpr int ROW_STATS = 3 * TILE;  // m, 1 / max(l, 1e-30), D: a row block
+
+enum ColMode { COL_WRITE = 0, COL_PART = 1 };
+
+// floats of a row block's record: q * scale and dO split as [row][d]
+// (kcore<HD>), then both as [d][row] in vcore's row order, then m, 1 /
+// max(l, 1e-30) and D
 template <int HD>
-int launch_dkv(const int* ti, const int* tn, const int* tslot,
-               const int* tpart, const float* pmask, const float* q,
-               const float* k, const float* v, const float* g, const float* m,
-               const float* l, const float* D, float* dk, float* dv, int R,
-               int heads, int group, int mb, int kb, int max_bpc,
-               int n_partial, int s_q, int s_kv, int hd, float scale,
-               cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<HD>();
-  const int err = set_smem(flash_bwd_dkv_kernel<HD>, smem);
-  if (err) return err;
-  flash_bwd_dkv_kernel<HD><<<dim3(kb, R / group), THREADS, smem, stream>>>(
-      ti, tn, tslot, tpart, pmask, q, k, v, g, m, l, D, dk, dv, heads, group,
-      mb, kb, max_bpc, n_partial, s_q, s_kv, hd, scale);
-  return (int)cudaGetLastError();
+__host__ __device__ constexpr int col_record() {
+  return 4 * split_half<HD>() + ROW_STATS;
 }
 
+// The column walk's pre-pass: the record of row block blockIdx.x of query
+// replica blockIdx.y, its q * scale (blockIdx.z = 0: halves 0 and 2) or dO
+// (1: halves 1 and 3) read once and written split as [row][d] and [d][row]
+// (zero past s_q and hd); the first also writes the row statistics, the
+// denominator as its reciprocal (one IEEE divide a row, not one a score).
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+split_rows_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                  const float* __restrict__ m, const float* __restrict__ l,
+                  const float* __restrict__ D, float* __restrict__ rec,
+                  int mb, int s_q, int hd, float scale) {
+  __shared__ float S[TILE][HD + 4];
+  const int i = blockIdx.x, r = blockIdx.y, z = blockIdx.z;
+  float* const R0 = rec + ((size_t)r * mb + i) * col_record<HD>();
+  stage_tile<HD>((z ? g : q) + (size_t)r * s_q * hd, i * TILE, s_q, hd,
+                 z ? 1.f : scale, S);
+  write_split<HD>(S, false, R0 + z * split_half<HD>());
+  write_split<HD>(S, true, R0 + (2 + z) * split_half<HD>());
+  if (z == 0) {
+    float* const st = R0 + 4 * split_half<HD>();
+    stage_stats(st, st + TILE, st + 2 * TILE, m, l, D, r, i, mb, s_q);
+    if (threadIdx.x < TILE)
+      st[TILE + threadIdx.x] = 1.f / st[TILE + threadIdx.x];
+  }
+}
+
+// Shared memory of a column-walk block: two split halves, K and V raw
+// ([key][d], HD + 4 a row), the slot's m, 1 / max(l, 1e-30) and D.
+template <int HD>
+constexpr size_t col_walk_smem() {
+  return sizeof(float) *
+         (2 * split_half<HD>() + 2 * TILE * (HD + 4) + ROW_STATS);
+}
+
+// A record's first half (q * scale [row][d]) and its row statistics
+// global -> shared by cp.async, one commit group; NT threads.
+template <int HD, int NT>
+__device__ __forceinline__ void load_q_stats(float* dst, float* st,
+                                             const float* src) {
+#pragma unroll 4
+  for (int e = threadIdx.x; e < split_half<HD>() / 4; e += NT)
+    cp_async16(dst + 4 * e, src + 4 * e, 16);
+  if (threadIdx.x < ROW_STATS / 4)
+    cp_async16(st + 4 * threadIdx.x,
+               src + 4 * split_half<HD>() + 4 * threadIdx.x, 16);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Every cp.async group but the newest has landed: visible to every warp
+// and to the tensor cores.
+__device__ __forceinline__ void cp_wait1_sync() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// A score tile x (accumulator layout: keys 16w + g (+ 8), rows 8j + 2t
+// (+ 1)) as the A fragments of the 8 k8 steps over rows, split: a0 / a1
+// keys g / g + 8 at position t (row 2t), a2 / a3 at t + 4 (row 2t + 1).
+__device__ __forceinline__ void acc_frags(const float (&x)[32],
+                                          unsigned (&h)[8][4],
+                                          unsigned (&l)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    split_tf32(x[4 * j + 0], h[j][0], l[j][0]);
+    split_tf32(x[4 * j + 2], h[j][1], l[j][1]);
+    split_tf32(x[4 * j + 1], h[j][2], l[j][2]);
+    split_tf32(x[4 * j + 3], h[j][3], l[j][3]);
+  }
+}
+
+// acc (64 keys x the warpgroup's 64 head dims) += X^T . B over the tile's
+// 64 rows (dK += dS^T (q * scale), dV += P^T dO): X^T from the fragments
+// h / l, B the hi / lo pieces Th / Tl of a transposed half ([d][row]).
+__device__ __forceinline__ void key_grad_mma(float (&acc)[32],
+                                             unsigned (&h)[8][4],
+                                             unsigned (&l)[8][4],
+                                             const float* Th,
+                                             const float* Tl) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint64_t bh = core_desc(Th + j * 64, 128, KEY_SBO);
+    const uint64_t bl = core_desc(Tl + j * 64, 128, KEY_SBO);
+    wgmma_tf32_n64(acc, h[j], bh, 1);
+    wgmma_tf32_n64(acc, h[j], bl, 1);
+    wgmma_tf32_n64(acc, l[j], bh, 1);
+  }
+  mma_done(acc, h, l);
+}
+
+// One column walk (COL_WRITE) or one chunk of `tiles` slots of it
+// (COL_PART: its dk / dv to part) of key block j, KV replica rk (the
+// grid's (x, y) in the order below: j ascending is the longest causal
+// walk first), chunk blockIdx.z. The walk
+// is the group's query replicas one after another, nb = t_nblocks slots
+// each: position p is slot p % nb of replica rk * group + p / nb. rec: the
+// pre-pass's records. Thread (warp w, lane 4g + t) of warpgroup wg holds
+// keys 16w + g (e < 2) and 16w + g + 8: score element 4j + e is key
+// 16w + g + 8 (e >> 1), row 8j + 2t + (e & 1); dk / dv element 4j + e head
+// dim 64 wg + 8j + 2t + (e & 1).
+template <int HD, int MODE>
+__global__ void __launch_bounds__(128 * (HD / 64))
+flash_bwd_col_tc_kernel(const int* __restrict__ t_src_i,
+                        const int* __restrict__ t_nblocks,
+                        const int* __restrict__ t_mask_slot,
+                        const int* __restrict__ t_is_partial,
+                        const float* __restrict__ pmask,
+                        const float* __restrict__ rec,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ dk,
+                        float* __restrict__ dv, float* __restrict__ part,
+                        int heads, int group, int mb, int kb, int max_bpc,
+                        int n_partial, int s_kv, int hd, int tiles,
+                        int sms) {
+  constexpr int NT = 128 * (HD / 64), LD = HD + 4, UNIT = split_half<HD>();
+  constexpr int REC = col_record<HD>();
+  extern __shared__ __align__(128) float smem[];
+  float* const U0 = smem;            // q * scale, then its transpose
+  float* const U1 = U0 + UNIT;       // dO, then its transpose
+  float* const Kr = U1 + UNIT;       // K raw [key][d]
+  float* const Vr = Kr + TILE * LD;  // V raw
+  float* const St = Vr + TILE * LD;  // m, 1 / l, D of the slot's rows
+
+  const int tid = threadIdx.x, lane = tid & 31, w = (tid >> 5) & 3;
+  const int wg = tid >> 7, g = lane >> 2, t = lane & 3;
+  // block -> walk: the first `sms` blocks (one an SM) take the longest
+  // causal walks, the rest come in reverse order, so that a long walk
+  // shares its SM with a short one and then runs alone
+  const int nw = gridDim.x * gridDim.y;
+  const int lb = blockIdx.x + gridDim.x * blockIdx.y;
+  const int wk = lb < sms ? lb : sms + (nw - 1 - lb);
+  const int rk = wk % gridDim.x, j = wk / gridDim.x, ch = blockIdx.z;
+  const int b = rk * group / heads;  // the mask of the group's replicas
+  const size_t meta0 = ((size_t)b * kb + j) * max_bpc;
+  const int nb = t_nblocks[b * kb + j];
+  const int len = group * nb;
+  const int p0 = MODE == COL_PART ? ch * tiles : 0;
+  const int np = max(0, min(len, MODE == COL_PART ? p0 + tiles : len) - p0);
+  // a slot's record and partial-tile mask, read a slot ahead
+  struct Slot {
+    const float* src;
+    int part, mslot;
+  };
+  auto slot_of = [&](int p) {
+    const size_t at = meta0 + p % nb;
+    const int r = rk * group + p / nb;
+    return Slot{rec + ((size_t)r * mb + t_src_i[at]) * REC, t_is_partial[at],
+                t_mask_slot[at]};
+  };
+  Slot cur{rec, 0, 0}, nxt{rec, 0, 0};
+  if (np > 0) {
+    cur = slot_of(p0);
+    load_q_stats<HD, NT>(U0, St, cur.src);
+    load_half<HD, NT>(U1, cur.src + UNIT);
+    if (np > 1) nxt = slot_of(p0 + 1);
+  }
+
+  // K and V of the key block, raw (0 past s_kv and hd)
+  {
+    const size_t koff = (size_t)rk * s_kv * hd;
+    for (int e = tid; e < TILE * HD; e += NT) {
+      const int key = e / HD, d = e % HD, gk = j * TILE + key;
+      const bool ok = gk < s_kv && d < hd;
+      const size_t at = koff + (size_t)gk * hd + d;
+      Kr[key * LD + d] = ok ? k[at] : 0.f;
+      Vr[key * LD + d] = ok ? v[at] : 0.f;
+    }
+  }
+  const int keys[2] = {16 * w + g, 16 * w + g + 8};
+  const int dof = wg * TILE * TILE;  // the warpgroup's head dims in a
+                                     // transposed half
+  float dka[32], dva[32];
+#pragma unroll
+  for (int x = 0; x < 32; ++x) dka[x] = dva[x] = 0.f;
+
+  for (int u = 0; u < np; ++u) {
+    cp_wait1_sync();  // q * scale and the stats have landed; at u = 0 K
+                      // and V are visible
+    float sc[32];
+    score_mma<HD>(Kr, U0, sc);  // S^T = K (q * scale)^T
+    cp_wait0_sync();  // dO has landed; every warp is done with q * scale
+    load_half<HD, NT>(U0, cur.src + 2 * UNIT);  // its transpose
+    float ds[32];
+    unsigned fh[8][4], fl[8][4];
+    score_issue<HD>(Vr, U1, ds, fh, fl);  // dP^T = V dO^T, running while
+                                          // p is formed
+    if (cur.part) {
+      const float* pm =
+          pmask + ((size_t)b * n_partial + cur.mslot) * TILE * TILE;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (pm[(8 * jj + 2 * t + (e & 1)) * TILE + keys[e >> 1]] == 0.f)
+            sc[4 * jj + e] = NEG_LARGE;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * jj + 2 * t + (e & 1);
+        const float x = sc[4 * jj + e];
+        sc[4 * jj + e] =
+            x <= NEG_LARGE / 2 ? 0.f : __expf(x - St[row]) * St[TILE + row];
+      }
+    mma_wait(ds, fh, fl);
+    __syncthreads();  // every warp is done with dO
+    load_half<HD, NT>(U1, cur.src + 3 * UNIT);  // its transpose, while ds
+                                                // is formed
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[4 * jj + e] = sc[4 * jj + e] *
+                         (ds[4 * jj + e] - St[2 * TILE + 8 * jj + 2 * t +
+                                              (e & 1)]);
+    acc_frags(ds, fh, fl);
+
+    cp_wait1_sync();  // (q * scale)^T has landed
+    key_grad_mma(dka, fh, fl, U0 + dof, U0 + TILE * HD + dof);
+    __syncthreads();  // every warp is done with (q * scale)^T and the stats
+    if (u + 1 < np) load_q_stats<HD, NT>(U0, St, nxt.src);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    acc_frags(sc, fh, fl);
+
+    cp_wait1_sync();  // dO^T has landed
+    key_grad_mma(dva, fh, fl, U1 + dof, U1 + TILE * HD + dof);
+    __syncthreads();  // every warp is done with dO^T
+    if (u + 1 < np) load_half<HD, NT>(U1, nxt.src + UNIT);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    cur = nxt;
+    if (u + 2 < np) nxt = slot_of(p0 + u + 2);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  const size_t stride = (size_t)gridDim.x * kb * TILE * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gk = j * TILE + keys[h];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int d = 64 * wg + 8 * jj + 2 * t;
+      const float2 a = make_float2(dka[4 * jj + 2 * h], dka[4 * jj + 2 * h + 1]);
+      const float2 c = make_float2(dva[4 * jj + 2 * h], dva[4 * jj + 2 * h + 1]);
+      if (MODE == COL_PART) {
+        float* const at =
+            part + (size_t)ch * stride + ((size_t)rk * kb * TILE + gk) * HD + d;
+        *reinterpret_cast<float2*>(at) = a;
+        *reinterpret_cast<float2*>(at + (size_t)gridDim.z * stride) = c;
+      } else if (gk < s_kv) {
+        const size_t at = ((size_t)rk * s_kv + gk) * hd + d;
+        if (d < hd) dk[at] = a.x, dv[at] = c.x;
+        if (d + 1 < hd) dk[at + 1] = a.y, dv[at + 1] = c.y;
+      }
+    }
+  }
+}
+
+// dk (blockIdx.y = 0) or dv (1) from the chunks' partial sums, in chunk
+// order: one thread four head dims of one row of [Rk, s_kv, hd]; the
+// partials are [chunks, Rk, kb * 64, hdp], dk's then dv's. vec: hd % 4 ==
+// 0 and dk / dv 16-byte aligned.
+__global__ void __launch_bounds__(THREADS)
+dkv_merge_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                 float* __restrict__ dv, int Rk, int kb, int s_kv, int hd,
+                 int hdp, int chunks, int vec) {
+  const int nq = (hd + 3) / 4;
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= Rk * s_kv * nq) return;
+  const int row = e / nq, d = (e - row * nq) * 4;
+  const int rk = row / s_kv, key = row - rk * s_kv;
+  const size_t stride = (size_t)Rk * kb * TILE * hdp;
+  const float* p = part + blockIdx.y * (size_t)chunks * stride +
+                   ((size_t)rk * kb * TILE + key) * hdp + d;
+  float4 a = *reinterpret_cast<const float4*>(p);
+  for (int c = 1; c < chunks; ++c) {
+    const float4 b = *reinterpret_cast<const float4*>(p + c * stride);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  float* const o = (blockIdx.y ? dv : dk) + (size_t)row * hd + d;
+  if (vec) {
+    *reinterpret_cast<float4*>(o) = a;
+  } else {
+    const float x[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (d + q < hd) o[q] = x[q];
+  }
+}
+
+template <int HD>
+int launch_cols(const int* ti, const int* tn, const int* tslot,
+                const int* tpart, const float* pmask, const float* q,
+                const float* k, const float* v, const float* g,
+                const float* m, const float* l, const float* D, float* dk,
+                float* dv, float* work, int R, int heads, int group, int mb,
+                int kb, int max_bpc, int n_partial, int s_q, int s_kv,
+                int hd, float scale, int tiles, int sms, cudaStream_t st) {
+  const int Rk = R / group, longest = group * max_bpc;
+  const int chunks = longest > tiles ? (longest + tiles - 1) / tiles : 1;
+  if (tiles < 1 || kb > 65535 || chunks > 65535)
+    return (int)cudaErrorInvalidValue;
+  float* const rec = work;
+  float* const part = rec + (size_t)R * mb * col_record<HD>();
+  if (mb > 0 && R > 0) {
+    split_rows_kernel<HD><<<dim3(mb, R, 2), THREADS, 0, st>>>(
+        q, g, m, l, D, rec, mb, s_q, hd, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  constexpr size_t smem = col_walk_smem<HD>();
+  constexpr int NT = 128 * (HD / 64);
+  const dim3 grid(Rk, kb, chunks);
+#define STT_COL_TC_ARGS                                                      \
+  ti, tn, tslot, tpart, pmask, rec, k, v, dk, dv, part, heads, group, mb,   \
+      kb, max_bpc, n_partial, s_kv, hd, tiles, sms
+  if (chunks == 1) {
+    const int e = set_smem(flash_bwd_col_tc_kernel<HD, COL_WRITE>, smem);
+    if (e) return e;
+    flash_bwd_col_tc_kernel<HD, COL_WRITE><<<grid, NT, smem, st>>>(
+        STT_COL_TC_ARGS);
+    return (int)cudaGetLastError();
+  }
+  int e = set_smem(flash_bwd_col_tc_kernel<HD, COL_PART>, smem);
+  if (e) return e;
+  flash_bwd_col_tc_kernel<HD, COL_PART><<<grid, NT, smem, st>>>(
+      STT_COL_TC_ARGS);
+#undef STT_COL_TC_ARGS
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const size_t n = (size_t)Rk * s_kv * ((hd + 3) / 4);
+  const int ovec = hd % 4 == 0 &&
+                   (((uintptr_t)dk | (uintptr_t)dv) & 15) == 0;
+  if (n > 0)
+    dkv_merge_kernel<<<dim3((unsigned)((n + THREADS - 1) / THREADS), 2),
+                       THREADS, 0, st>>>(part, dk, dv, Rk, kb, s_kv, hd, HD,
+                                         chunks, ovec);
+  return (int)cudaGetLastError();
+}
 
 template <int HD, bool WITH_KV, bool RING>
 int launch_rows(const int* cols, const int* nblk, const int* slot,
@@ -838,24 +1001,30 @@ extern "C" int flash_sparse_bwd_dq_f32(
                                 stream);
 }
 
-// Column walk over the transposed metadata, dk / dv [R / group, s_kv, hd].
+// The column walk's workspace `work` (f32): the row blocks' records,
+// R * mb * (4 * 2 * 64 * HD + 3 * 64) floats (HD = 64 for hd <= 64, else
+// 128), then, where group * max_bpc > tiles, the chunks' partial dk and
+// dv, 2 * chunks * (R / group) * kb * 64 * HD floats, chunks =
+// ceil(group * max_bpc / tiles).
+
+// Column walk over the transposed metadata, dk / dv [R / group, s_kv, hd];
+// sms: the SMs the block order pairs long and short walks over.
 extern "C" int flash_sparse_bwd_dkv_f32(
     const void* t_src_i, const void* t_nblocks, const void* t_mask_slot,
     const void* t_is_partial, const void* pmask, const void* q, const void* k,
     const void* v, const void* g, const void* m, const void* l, const void* D,
-    void* dk, void* dv, int R, int heads, int group, int mb, int kb,
-    int max_bpc, int n_partial, int s_q, int s_kv, int hd, float scale,
-    void* stream) {
+    void* dk, void* dv, void* work, int R, int heads, int group, int mb,
+    int kb, int max_bpc, int n_partial, int s_q, int s_kv, int hd, int tiles,
+    int sms, float scale, void* stream) {
 #define STT_DKV_ARGS                                                         \
   (const int*)t_src_i, (const int*)t_nblocks, (const int*)t_mask_slot,       \
       (const int*)t_is_partial, (const float*)pmask, (const float*)q,        \
       (const float*)k, (const float*)v, (const float*)g, (const float*)m,    \
-      (const float*)l, (const float*)D, (float*)dk, (float*)dv, R, heads,    \
-      group, mb, kb, max_bpc, n_partial, s_q, s_kv, hd, scale,               \
-      (cudaStream_t)stream
-  if (hd <= 32) return stt::launch_dkv<32>(STT_DKV_ARGS);
-  if (hd <= 64) return stt::launch_dkv<64>(STT_DKV_ARGS);
-  if (hd <= 128) return stt::launch_dkv<128>(STT_DKV_ARGS);
+      (const float*)l, (const float*)D, (float*)dk, (float*)dv,              \
+      (float*)work, R, heads, group, mb, kb, max_bpc, n_partial, s_q, s_kv,  \
+      hd, scale, tiles, sms, (cudaStream_t)stream
+  if (hd <= 64) return stt::launch_cols<64>(STT_DKV_ARGS);
+  if (hd <= 128) return stt::launch_cols<128>(STT_DKV_ARGS);
 #undef STT_DKV_ARGS
   return (int)cudaErrorInvalidValue;
 }

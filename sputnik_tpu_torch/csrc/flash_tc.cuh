@@ -1,9 +1,10 @@
 // Shared pieces of the split-TF32 flash kernels: the forward (B9, B11a:
-// flash_sparse_fwd.cu) and the backward's row walk (B10a, B10b, B11b:
-// flash_sparse_bwd.cu). Both read K and V as split tiles that a pre-pass
-// writes once a call in wgmma's core-matrix order (no swizzle), since a
-// tile is visited by every row block whose walk names it (32 times at the
-// ring's full band): split once, not per visit.
+// flash_sparse_fwd.cu) and the backward's row and column walks (B10a,
+// B10b, B11b; B10c: flash_sparse_bwd.cu). The row walks read K and V, the
+// column walk q * scale and dO, as split tiles that a pre-pass writes once
+// a call in wgmma's core-matrix order (no swizzle), since a tile is
+// visited by every walk that names it (32 times at the ring's full band):
+// split once, not per visit.
 #pragma once
 
 #include "common.cuh"
@@ -33,41 +34,61 @@ __device__ __forceinline__ int vcore(int d, int key) {
 template <int HD>
 __host__ __device__ constexpr int split_half() { return 2 * TILE * HD; }
 
-// The pre-pass: key block c of KV replica rk, split into the halves
-// h = blockIdx.z < gridDim.z of its tile kv[((rk * kb + c) * gridDim.z + h)
-// * split_half] (zero past s_kv and hd). Bit h of v_mask: half h reads v
-// (else k); bit h of t_mask: half h is written transposed ([d][key],
-// vcore's key order), else [key][d] (kcore). The forward's tile is K, V^T
-// (v_mask 0b10, t_mask 0b10); the backward's K, V, K^T (0b010, 0b100).
-// The tile is read once into shared memory (coalesced along the head dim,
-// every load of a thread in flight together), then written out 16 bytes a
-// thread in the half's memory order (neighbouring threads on neighbouring
-// 16-byte pieces).
+// One 64-row tile of x ([nrows][hd] row-major, rows row0 ..; zero past
+// nrows and hd), times mul, into S: read once, coalesced along the head
+// dim (16 bytes a load where hd = HD and x is 16-byte aligned), every load
+// of a thread in flight together. THREADS threads; S is visible to all of
+// them on return.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                float* __restrict__ kv, int s_kv, int hd, int kb, int v_mask,
-                int t_mask) {
+__device__ __forceinline__ void stage_tile(const float* __restrict__ x,
+                                           int row0, int nrows, int hd,
+                                           float mul, float (*S)[HD + 4]) {
   constexpr int PER = TILE * HD / THREADS;
-  __shared__ float S[TILE][HD + 4];
-  const int c = blockIdx.x, rk = blockIdx.y, half = blockIdx.z;
-  const bool from_v = (v_mask >> half) & 1, trans = (t_mask >> half) & 1;
-  const float* const x = (from_v ? v : k) + (size_t)rk * s_kv * hd;
-  float* const T =
-      kv + (((size_t)rk * kb + c) * gridDim.z + half) * split_half<HD>();
-  float f[PER];
+  if (hd == HD && ((uintptr_t)x & 15) == 0) {  // whole rows: 16-byte loads
+    float4 f[PER / 4];
 #pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = threadIdx.x + n * THREADS, key = e / HD, d = e % HD;
-    const int gk = c * TILE + key;
-    f[n] = gk < s_kv && d < hd ? x[(size_t)gk * hd + d] : 0.f;
-  }
+    for (int n = 0; n < PER / 4; ++n) {
+      const int e = threadIdx.x + n * THREADS, key = e / (HD / 4);
+      const int gk = row0 + key;
+      f[n] = gk < nrows ? *reinterpret_cast<const float4*>(
+                              x + (size_t)gk * HD + (e % (HD / 4)) * 4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 #pragma unroll
-  for (int n = 0; n < PER; ++n) {
-    const int e = threadIdx.x + n * THREADS;
-    S[e / HD][e % HD] = f[n];
+    for (int n = 0; n < PER / 4; ++n) {
+      const int e = threadIdx.x + n * THREADS, d = (e % (HD / 4)) * 4;
+      float* const at = &S[e / (HD / 4)][d];
+      at[0] = f[n].x * mul;
+      at[1] = f[n].y * mul;
+      at[2] = f[n].z * mul;
+      at[3] = f[n].w * mul;
+    }
+  } else {
+    float f[PER];
+#pragma unroll
+    for (int n = 0; n < PER; ++n) {
+      const int e = threadIdx.x + n * THREADS, key = e / HD, d = e % HD;
+      const int gk = row0 + key;
+      f[n] = gk < nrows && d < hd ? x[(size_t)gk * hd + d] * mul : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < PER; ++n) {
+      const int e = threadIdx.x + n * THREADS;
+      S[e / HD][e % HD] = f[n];
+    }
   }
   __syncthreads();
+}
+
+// The staged tile S split into the half T: hi, then lo, each 64 x HD
+// floats, [row][d] (kcore<HD>) or, with trans, [d][row] (vcore's row
+// order); 16 bytes a thread, neighbouring threads on neighbouring 16-byte
+// pieces. THREADS threads.
+template <int HD>
+__device__ __forceinline__ void write_split(const float (*S)[HD + 4],
+                                            bool trans,
+                                            float* __restrict__ T) {
+  constexpr int PER = TILE * HD / THREADS;
   // piece g: row g & 7 of one 16-byte granule of one 8-row group
 #pragma unroll
   for (int n = 0; n < PER / 4; ++n) {
@@ -93,6 +114,27 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
     *reinterpret_cast<uint4*>(T + TILE * HD + 4 * g) =
         make_uint4(l[0], l[1], l[2], l[3]);
   }
+}
+
+// The pre-pass: key block c of KV replica rk, split into the halves
+// h = blockIdx.z < gridDim.z of its tile kv[((rk * kb + c) * gridDim.z + h)
+// * split_half] (zero past s_kv and hd). Bit h of v_mask: half h reads v
+// (else k); bit h of t_mask: half h is written transposed ([d][key],
+// vcore's key order), else [key][d] (kcore). The forward's tile is K, V^T
+// (v_mask 0b10, t_mask 0b10); the backward's K, V, K^T (0b010, 0b100).
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                float* __restrict__ kv, int s_kv, int hd, int kb, int v_mask,
+                int t_mask) {
+  __shared__ float S[TILE][HD + 4];
+  const int c = blockIdx.x, rk = blockIdx.y, half = blockIdx.z;
+  const bool from_v = (v_mask >> half) & 1, trans = (t_mask >> half) & 1;
+  const float* const x = (from_v ? v : k) + (size_t)rk * s_kv * hd;
+  stage_tile<HD>(x, c * TILE, s_kv, hd, 1.f, S);
+  write_split<HD>(S, trans,
+                  kv + (((size_t)rk * kb + c) * gridDim.z + half) *
+                           split_half<HD>());
 }
 
 // One split half (split_half<HD> floats) global -> shared by cp.async, one

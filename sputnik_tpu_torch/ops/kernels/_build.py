@@ -45,7 +45,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_sparse_bwd_fused_f32": [_P] * 16 + [_I] * 10 + [_F, _P],
     "flash_sparse_bwd_dq_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
-    "flash_sparse_bwd_dkv_f32": [_P] * 14 + [_I] * 10 + [_F, _P],
+    "flash_sparse_bwd_dkv_f32": [_P] * 15 + [_I] * 12 + [_F, _P],
     "decode_attention": [_P] * 10 + [_I] * 10 + [_F, _P],
     "ragged_append": [_P] * 10 + [_I] * 4 + [_P],
     "paged_attention": [_P] * 11 + [_I] * 10 + [_F, _P],

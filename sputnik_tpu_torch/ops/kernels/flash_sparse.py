@@ -22,8 +22,12 @@ the card would see too few walks, the host cuts each walk into chunks
 V and Kᵀ once a call, the five products of a tile run in split TF32, and a
 split walk's partial dq are summed in chunk order by a merge launch
 (:func:`flash_sparse_bwd_split_plain` is its plain twin). The column walk
-(B10c) is fp32 FMA. The kernels take ``hd <= 128``; the plain versions run
-any head dim.
+(B10c) mirrors it: a pre-pass splits q·scale and dO and their transposes
+once a call, the four products of a tile run in split TF32 with the keys
+as M, dk / dv stay in registers, and a split
+walk's partial dk / dv are summed in chunk order (:func:`flash_dkv_chunks`
+is its plan, :func:`flash_sparse_bwd_dkv_split_plain` its plain twin). The
+kernels take ``hd <= 128``; the plain versions run any head dim.
 """
 
 from __future__ import annotations
@@ -43,8 +47,9 @@ __all__ = ["build_flash_meta", "build_flash_bwd_meta",
            "flash_sparse_ring_band_fwd", "flash_sparse_ring_band_fwd_plain",
            "flash_sparse_ring_band_bwd", "flash_sparse_ring_band_bwd_plain",
            "flash_sparse_ring_band_fwd_split_plain", "flash_merge_plain",
-           "flash_sparse_bwd_split_plain",
-           "flash_split_tiles", "KERNEL_TILE", "SPLIT_CTAS"]
+           "flash_sparse_bwd_split_plain", "flash_sparse_bwd_dkv_split_plain",
+           "flash_split_tiles", "flash_dkv_chunks", "KERNEL_TILE",
+           "SPLIT_CTAS"]
 
 _NEG_LARGE = -1e30
 KERNEL_TILE = 64   # the CUDA kernels' (bm, bk)
@@ -55,8 +60,9 @@ MAX_SPLIT_CHUNKS = 32  # the most chunks the merge launch folds (a warp's)
 
 
 def flash_split_tiles(walks: int, max_bpr: int) -> int:
-    """Slots a chunk of the split walks (B9, B11a; B10a, B10b, B11b), from
-    host ints: ``max_bpr`` (the longest walk: one launch, no merge), halved
+    """Slots a chunk of the split walks (B9, B11a; B10a, B10b, B11b; B10c
+    with ``max_bpr`` its longest walk, ``group * max_bpc``), from host
+    ints: ``max_bpr`` (the longest walk: one launch, no merge), halved
     while ``walks`` times the chunks a walk still fit ``SPLIT_CTAS`` blocks,
     down to ``MIN_SPLIT_TILES`` and up to ``MAX_SPLIT_CHUNKS`` chunks."""
     tiles = max(int(max_bpr), 1)
@@ -90,6 +96,30 @@ def _bwd_workspace(R, group, mb, s_kv, hd, max_bpr, tiles, device):
     n = (R // group) * -(-s_kv // KERNEL_TILE) * 6 * KERNEL_TILE * hdp
     if max_bpr > tiles:
         n += -(-max_bpr // tiles) * R * mb * KERNEL_TILE * hdp
+    return torch.empty(max(n, 1), device=device, dtype=torch.float32)
+
+
+def flash_dkv_chunks(nb: int, group: int, tiles: int):
+    """The column walk's split plan for one key block (B10c): its walk is
+    the group's query replicas one after another, ``nb`` slots each, and
+    chunk ``c`` takes walk positions ``c * tiles ..`` up to the next
+    chunk's. Returns each chunk's ``(replica in the group, slot)`` pairs, in
+    walk order; the kernel launches ``ceil(group * max_bpc / tiles)``
+    chunks a walk, those past this walk's length empty."""
+    walk = [(gi, u) for gi in range(group) for u in range(nb)]
+    return [walk[lo:lo + tiles] for lo in range(0, len(walk), tiles)]
+
+
+def _dkv_workspace(R, group, mb, kb, hd, longest, tiles, device):
+    """The column walk's workspace (``csrc/flash_sparse_bwd.cu``): each
+    row block's record (q·scale and dO split, both transposed, m / l / D),
+    ``R * mb * (8 * 64 * HD + 3 * 64)`` floats, then, where the walk is
+    split, each chunk's partial dk and dv, ``2 * (R // group) * kb * 64 *
+    HD`` floats a chunk."""
+    hdp = 64 if hd <= 64 else 128
+    n = R * mb * (8 * KERNEL_TILE * hdp + 3 * KERNEL_TILE)
+    if longest > tiles:
+        n += -(-longest // tiles) * 2 * (R // group) * kb * KERNEL_TILE * hdp
     return torch.empty(max(n, 1), device=device, dtype=torch.float32)
 
 
@@ -470,9 +500,13 @@ def flash_sparse_bwd_dq_plain(block_cols, nblocks, mask_slot, is_partial,
 
 def flash_sparse_bwd_dkv_plain(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
                                pmask, q, k, v, g, m, l, D, *, heads: int,
-                               max_bpc: int, scale: float, group: int = 1):
+                               max_bpc: int, scale: float, group: int = 1,
+                               chunk=None):
     """Plain version of the dk/dv kernel: the transposed (column) walk,
-    vectorised over replicas and column blocks, one step per slot."""
+    vectorised over replicas and column blocks, one step per slot
+    (``chunk = (lo, hi)``: those positions of each walk alone, one chunk of
+    a split walk; position ``gi * nb + u`` is slot ``u`` of the group's
+    ``gi``-th query replica)."""
     B, _, bm, bk = pmask.shape
     kb = t_nblocks.shape[1]
     R, s_q, hd = q.shape
@@ -490,6 +524,7 @@ def flash_sparse_bwd_dkv_plain(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
     slots = t_mask_slot.long().view(B, kb, max_bpc)[bidx]
     part = t_is_partial.view(B, kb, max_bpc)[bidx] != 0
     tn = t_nblocks.long()[bidx]                               # [R, kb]
+    first = (ridx % group)[:, None] * tn                      # [R, kb]
     r2 = ridx[:, None]
     dk = q.new_zeros((R, kb, bk, hd))
     dv = q.new_zeros((R, kb, bk, hd))
@@ -497,7 +532,10 @@ def flash_sparse_bwd_dkv_plain(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
         i = src[:, :, u]
         qq, gg = q_t[r2, i], g_t[r2, i]                       # [R,kb,bm,hd]
         pm = pmask[bidx[:, None], slots[:, :, u]]
-        dead = ((u >= tn)[..., None, None]
+        skip = u >= tn
+        if chunk is not None:
+            skip = skip | (first + u < chunk[0]) | (first + u >= chunk[1])
+        dead = (skip[..., None, None]
                 | (part[:, :, u, None, None] & (pm == 0)))
         p, ds = _recompute(qq @ k_r.transpose(-1, -2),
                            gg @ v_r.transpose(-1, -2), dead, m_t[r2, i],
@@ -505,6 +543,26 @@ def flash_sparse_bwd_dkv_plain(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
         dk = dk + ds.transpose(-1, -2) @ qq
         dv = dv + p.transpose(-1, -2) @ gg
     return _group_sum(dk, group, s_kv), _group_sum(dv, group, s_kv)
+
+
+def flash_sparse_bwd_dkv_split_plain(t_src_i, t_nblocks, t_mask_slot,
+                                     t_is_partial, pmask, q, k, v, g, m, l, D,
+                                     *, heads: int, max_bpc: int,
+                                     scale: float, tiles: int,
+                                     group: int = 1):
+    """Plain twin of the column walk's split plan (B10c): each chunk of
+    ``tiles`` walk positions (:func:`flash_dkv_chunks`) walked on its own,
+    its partial dk / dv summed in chunk order (the merge launch's order).
+    Returns ``(dk, dv)``."""
+    dk = dv = None
+    for lo in range(0, max(group * max_bpc, 1), tiles):
+        pk, pv = flash_sparse_bwd_dkv_plain(
+            t_src_i, t_nblocks, t_mask_slot, t_is_partial, pmask, q, k, v, g,
+            m, l, D, heads=heads, max_bpc=max_bpc, scale=scale, group=group,
+            chunk=(lo, lo + tiles))
+        dk = pk if dk is None else dk + pk
+        dv = pv if dv is None else dv + pv
+    return dk, dv
 
 
 def _check_bwd(q, k, v, g, m, l, D, *, R_meta, heads, group, m_rows):
@@ -649,9 +707,9 @@ def flash_sparse_bwd_dkv(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
                          pmask, q, k, v, g, m, l, D, *, heads: int,
                          max_bpc: int, scale: float, group: int = 1):
     """dk, dv of the two-kernel backward over the transposed (column) walk
-    of :func:`build_flash_bwd_meta`, no atomics: operands as
-    :func:`flash_sparse_bwd_fused`, returns ``(dk, dv)`` f32[R // group,
-    s_kv, hd]."""
+    of :func:`build_flash_bwd_meta`, no atomics (the same bits from run to
+    run, split walk or not): operands as :func:`flash_sparse_bwd_fused`,
+    returns ``(dk, dv)`` f32[R // group, s_kv, hd]."""
     B, kb = t_nblocks.shape
     _, n_partial, bm, bk = pmask.shape
     _check_bwd(q, k, v, g, m, l, D, R_meta=B * heads, heads=heads,
@@ -673,13 +731,16 @@ def flash_sparse_bwd_dkv(t_src_i, t_nblocks, t_mask_slot, t_is_partial,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
+    mb, longest = m.shape[1] // bm, group * max_bpc
+    tiles = flash_split_tiles((R // group) * kb, longest)
+    work = _dkv_workspace(R, group, mb, kb, hd, longest, tiles, q.device)
     err = library().flash_sparse_bwd_dkv_f32(
         t_src_i.data_ptr(), t_nblocks.data_ptr(), t_mask_slot.data_ptr(),
         t_is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(),
-        D.data_ptr(), dk.data_ptr(), dv.data_ptr(), R, heads, group,
-        m.shape[1] // bm, kb, max_bpc, n_partial, s_q, k.shape[1], hd,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        D.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(), R,
+        heads, group, mb, kb, max_bpc, n_partial, s_q, k.shape[1], hd, tiles,
+        SMS, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_bwd_dkv")
     flash_sparse_bwd_dkv.launches += 1
     return dk, dv

@@ -187,6 +187,66 @@ def test_split_row_walk_sums_to_the_unsplit_one(tiles):
                                **TOL)
 
 
+@pytest.mark.parametrize("nb,group,tiles", [(1, 1, 1), (7, 1, 2), (7, 2, 3),
+                                             (32, 2, 16), (5, 4, 6),
+                                             (3, 2, 100), (0, 2, 2)])
+def test_column_walk_split_plan_covers_every_slot_once(nb, group, tiles):
+    """B10c's split plan (``flash_dkv_chunks``): the chunks of one key
+    block's walk (its group's query replicas one after another, nb slots
+    each) hold every (replica, slot) exactly once, in walk order, at most
+    ``tiles`` a chunk and no more chunks than the kernel launches."""
+    chunks = tfs.flash_dkv_chunks(nb, group, tiles)
+    walk = [(gi, u) for gi in range(group) for u in range(nb)]
+    assert [x for c in chunks for x in c] == walk
+    assert all(0 < len(c) <= tiles for c in chunks)
+    assert len(chunks) == -(-group * nb // tiles)
+    # the kernel sizes its grid from the longest walk: every walk fits
+    longest = group * (nb + 1)
+    assert len(chunks) <= -(-longest // tiles)
+
+
+@pytest.mark.parametrize("group,tiles", [(1, 1), (1, 3), (2, 2), (2, 5)])
+def test_split_column_walk_sums_to_the_unsplit_one(group, tiles):
+    """The column walk's split plan through its plain twin: each chunk's
+    partial dk / dv summed in chunk order equals the unsplit walk's to f32
+    rounding and JAX's dk/dv kernel (interpret mode) at this file's
+    tolerance; the key columns no query attends stay exactly 0."""
+    jspec, tspec = _specs()
+    q, k, v, g = _inputs(group, seed=4)
+    scale = 1.0 / np.sqrt(HD)
+    R = B * H
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    out, m, l = tfa._fused_fwd(tspec, tq, tk, tv, scale, group)
+    D = (tg * out).sum(-1)
+    bm = tspec.flash_bwd_meta("cpu")
+    args = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], tq, tk, tv, tg, m, l, D)
+    kw = dict(heads=H, scale=scale, group=group, max_bpc=bm["max_bpc"])
+    assert group * bm["max_bpc"] > tiles
+    whole = tfs.flash_sparse_bwd_dkv_plain(*args, **kw)
+    split = tfs.flash_sparse_bwd_dkv_split_plain(*args, tiles=tiles, **kw)
+    for a, b in zip(split, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        assert np.all(a[H // group:, 20:36].numpy() == 0.0)
+    m_pad = tspec.m_pad
+    stats = np.zeros((R, m_pad, 128), np.float32)
+    stats[:, :, 0], stats[:, :, 1] = m.numpy(), l.numpy()
+    dcoef = np.zeros((R, m_pad, 128), np.float32)
+    dcoef[:, :S] = D.numpy()[:, :, None]
+    jm = jfs.build_flash_bwd_meta(jspec.views)
+    j_dk, j_dv = jfs.flash_sparse_bwd_dkv(
+        *[jnp.asarray(jm[x]) for x in ("t_src_i", "t_nblocks",
+                                       "t_mask_slot", "t_is_partial",
+                                       "pmask")],
+        q * np.float32(scale), k, v, g, stats, dcoef, kb=jspec.kb,
+        max_bpc=jm["max_bpc"], R=R, heads=H, bm=TILE, bk=TILE, group=group,
+        interpret=True)
+    for a, j in zip(split, (j_dk, j_dv)):
+        j = np.asarray(j).reshape(R // group, group, -1, HD).sum(1)[:, :S]
+        np.testing.assert_allclose(a.numpy(), j, **TOL)
+
+
 def _jax_grads(jspec, q, k, v, g, group):
     out, vjp = jax.vjp(lambda a, b_, c: jfa.fused_sparse_attention(
         jspec, a, b_, c, group=group), q, k, v)

@@ -82,7 +82,7 @@ def test_spmm_kernel_matches_plain(dev, tiles, epilogue):
 
 
 @pytest.mark.parametrize("tiles", [(64, 64), (32, 96)])
-@pytest.mark.parametrize("d", [20, 64, 100])
+@pytest.mark.parametrize("d", [7, 20, 64, 100, 640])
 def test_sddmm_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
     rng = np.random.RandomState(1)
     m, n, R = 150, 170, 2
@@ -1519,13 +1519,14 @@ def test_spmm_t_c_kernel_matches_plain(dev, kind, tiles):
         assert torch.all(got[:, j * bv.bk:(j + 1) * bv.bk] == 0)
 
 
+@pytest.mark.parametrize("d", [7, 100, 640])
 @pytest.mark.parametrize("tiles", _C_TILES)
 @pytest.mark.parametrize("kind", _C_KINDS)
-def test_sddmm_c_kernel_matches_plain_with_exact_zeros(dev, kind, tiles):
+def test_sddmm_c_kernel_matches_plain_with_exact_zeros(dev, kind, tiles, d):
     from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
 
     topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
-    R, d = panel.shape[0], 100
+    R = panel.shape[0]
     lhs = torch.from_numpy(rng.randn(R, topo.m, d).astype(np.float32)
                            ).to(dev)
     rhs = torch.from_numpy(rng.randn(R, topo.n, d).astype(np.float32)
@@ -2036,3 +2037,107 @@ def test_spmm_tc_emptied_walk_is_exact_zero(dev, kind):
     assert torch.equal(got[:, :64], want)
     assert torch.equal(got[:, 64:].view(torch.int32),
                        full[:, 64:].view(torch.int32))
+
+
+# -- the SDDMM body (B4, B7, B14) and the column walk (B10c) on the tensor
+#    cores, in split TF32
+
+def _sddmm_case(dev, kind, d=640):
+    """``(call, wrapper, plain, args)`` of one SDDMM body at depth ``d``:
+    B4 on one topology with a padded slot, B7 on three distinct masks, B14
+    on a compressed panel whose row blocks hold odd and even tile counts."""
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+    from sputnik_tpu_torch.ops.kernels import bsr_sddmm as k4
+
+    rng = np.random.RandomState(17)
+    if kind == "B7":
+        spec, meta, _, rng = _bh_problem(dev, (64, 64), 2, seed=17)
+        m, n, R = spec.m, spec.n, spec.R
+        args = [meta["block_cols"], meta["nblocks"], None, None,
+                meta["mask"]]
+        mod, name = kbp, "sddmm_bh_kernel"
+        kw = dict(heads=2)
+    else:
+        m, n, R = 300, 260, 2
+        mask = rng.rand(m, n) < 0.1
+        mask[70:130] = False                  # an empty row block
+        topo = stt.SparseTopology.from_dense_mask(mask)
+        spec = stt.PanelSpec(topo, 64, 64, compressed=kind == "B14")
+        meta = _meta(spec, dev)
+        if kind == "B4":
+            args = [meta["block_cols"], meta["nblocks"], None, None,
+                    meta["mask"]]
+            mod, name = k4, "bsr_sddmm_panel"
+        else:
+            args = [meta["block_rows"], meta["block_cols"], None, None,
+                    meta["mask"]]
+            mod, name = kc, "bsr_sddmm_panel_c"
+        kw = {}
+    args[2] = torch.from_numpy(rng.randn(R, m, d).astype(np.float32)).to(dev)
+    args[3] = torch.from_numpy(rng.randn(R, n, d).astype(np.float32)).to(dev)
+    wrapper = getattr(mod, name)
+    plain = getattr(mod, name + "_plain")
+    return (lambda: wrapper(*args, **kw)), wrapper, (mod, name + "_plain"), \
+        lambda: plain(*(x.double() if x.is_floating_point() else x
+                        for x in args), **kw)
+
+
+@pytest.mark.parametrize("kind", ["B4", "B7", "B14"])
+def test_sddmm_tc_deep_same_bits_and_never_plain(dev, kind, monkeypatch):
+    """B4 / B7 / B14 on the tensor cores at depth 640 (the MoE bank's
+    capacity) within 1e-5 * max|f64| of a float64 plain run, 10x inside
+    the kernels' limit; two calls give the same bits; a CUDA call moves the
+    launch counter by one and reaches no plain version."""
+    call, wrapper, (mod, plain_name), ref64 = _sddmm_case(dev, kind)
+    ref = ref64()
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    monkeypatch.setattr(mod, plain_name, refuse)
+    before = wrapper.launches
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    err = (a.double() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, ref.abs().max().item())
+    assert torch.all(a[ref == 0] == 0)   # masked, padded, dump: exact zeros
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["walk", "split"])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2])
+def test_flash_dkv_tc_same_bits_and_never_plain(dev, hd, group, split,
+                                                monkeypatch):
+    """B10c on the tensor cores, whole and split into chunks (merged in
+    chunk order): within the kernels' limit of its plain version, the same
+    bits twice, key columns no query attends exactly 0, one launch a call
+    and no plain version reached."""
+    _split_walk(monkeypatch, split)
+    b, heads, s = 2, 4, 200
+    spec, ops, kw = _bwd_problem(dev, b, heads, s, hd, group, seed=hd * group)
+    bm = spec.flash_bwd_meta(dev)
+    targs = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+             bm["t_is_partial"], bm["pmask"], *ops)
+    ref = fs.flash_sparse_bwd_dkv_plain(*targs, max_bpc=bm["max_bpc"], **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    monkeypatch.setattr(fs, "flash_sparse_bwd_dkv_plain", refuse)
+    before = fs.flash_sparse_bwd_dkv.launches
+    got = fs.flash_sparse_bwd_dkv(*targs, max_bpc=bm["max_bpc"], **kw)
+    again = fs.flash_sparse_bwd_dkv(*targs, max_bpc=bm["max_bpc"], **kw)
+    torch.cuda.synchronize()
+    assert fs.flash_sparse_bwd_dkv.launches == before + 2
+    tiles = fs.flash_split_tiles((spec.R // group) * spec.kb,
+                                 group * bm["max_bpc"])
+    assert (tiles < group * bm["max_bpc"]) == split
+    for a, r, a2 in zip(got, ref, again):
+        _close(a, r)
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+    dead = slice(s // 3 + 6, s // 3 + 64)         # no query of mask 1 reads
+    rk = heads // group                           # first KV replica of b=1
+    assert torch.all(got[0][rk:, dead] == 0) and torch.all(
+        got[1][rk:, dead] == 0)

@@ -206,3 +206,64 @@ def test_flash_backward_products_in_split_tf32_meet_1e4():
 
     err, mx = _walk(one_pass)[0]
     assert err > TOL_KERNEL * max(1.0, mx), (err, mx)
+
+
+def _column_walk(prod, tiles=32, hd=64, seed=4):
+    """One column walk of the flash backward's four products (B10c,
+    ``csrc/flash_sparse_bwd.cu``) through ``prod``, keys as M: per 64-row
+    block S^T = K q^T and dP^T = V dO^T, p^T = exp(S^T - m) / l with m and
+    l indexed by the column (the query row, from the f64 forward), ds^T =
+    p^T (dP^T - D), then dK += ds^T q and dV += p^T dO with the score
+    tiles' rows permuted inside each group of 8, as the A fragments hold
+    them (the pre-pass stores q's and dO's transposes in that order).
+    Returns (error, max|ref|) of dk and dv against float64."""
+    rng = np.random.RandomState(seed)
+
+    def f(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    k, v = f(64, hd), f(64, hd)
+    qs = [f(64, hd) * hd ** -0.5 for _ in range(tiles)]
+    gs = [f(64, hd) for _ in range(tiles)]
+    # each row block's own softmax over these keys and 64 * 3 others
+    others = [f(192, hd) for _ in range(tiles)]
+    perm = torch.tensor([8 * j + x for j in range(8)
+                         for x in (0, 2, 4, 6, 1, 3, 5, 7)])
+    dk64 = torch.zeros(64, hd, dtype=torch.float64)
+    dv64 = torch.zeros(64, hd, dtype=torch.float64)
+    dk, dv = torch.zeros(64, hd), torch.zeros(64, hd)
+    for q, g, ko in zip(qs, gs, others):
+        keys = torch.cat([k, ko]).double()
+        vals = torch.cat([v, f(192, hd)]).double()
+        s64 = q.double() @ keys.T
+        m64 = s64.amax(1)
+        l64 = torch.exp(s64 - m64[:, None]).sum(1)
+        p64 = torch.exp(s64 - m64[:, None])[:, :64] / l64[:, None]
+        pall = torch.exp(s64 - m64[:, None]) / l64[:, None]
+        d64 = (g.double() * (pall @ vals)).sum(1)
+        ds64 = p64 * (g.double() @ v.double().T - d64[:, None])
+        dk64 += ds64.T @ q.double()
+        dv64 += p64.T @ g.double()
+        m, l, d = m64.float(), l64.float(), d64.float()
+        pt = torch.exp(prod(k, q.T.contiguous()) - m[None]) / l[None]
+        dst = pt * (prod(v, g.T.contiguous()) - d[None])
+        dk = dk + prod(dst[:, perm].contiguous(), q[perm])
+        dv = dv + prod(pt[:, perm].contiguous(), g[perm])
+    return [((a.double() - r).abs().max().item(), r.abs().max().item())
+            for a, r in ((dk, dk64), (dv, dv64))]
+
+
+def test_flash_column_walk_products_in_split_tf32_meet_1e4():
+    """The column walk's four products in split TF32 over a 32-row-block
+    walk (the ring band's column), the cancellation in ds = p (dP - D)
+    included: dk and dv within 1e-4 * max(1, max|ref|) of float64 with a
+    10x margin; one plain TF32 pass of the same products misses that limit
+    on both."""
+    for err, mx in _column_walk(_split_product):
+        assert err * 10 <= TOL_KERNEL * max(1.0, mx), (err, mx)
+
+    def one_pass(a, b):
+        return _rna_tf32(a) @ _rna_tf32(b)
+
+    for err, mx in _column_walk(one_pass):
+        assert err > TOL_KERNEL * max(1.0, mx), (err, mx)
