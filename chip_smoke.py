@@ -20,8 +20,8 @@ Phases, each printing its lines:
      forward by CUDA graph replay beside eager calls, the same bits twice,
      its SASS shown to hold TF32 tensor-core instructions and B18a's walk
      int8 ones and no __dp4a; the backward likewise: the row walk B10a /
-     B10b / B11b holds TF32 tensor-core instructions, B18c int8 ones and
-     no __dp4a), the
+     B10b / B11b holds TF32 tensor-core instructions, B18b and B18c int8
+     ones and no __dp4a), the
      backward also at hd 32 / 128 and GQA group 2, timed by CUDA graph
      replay beside eager calls, the row walk's dq and the column walk's
      dk / dv the same bits twice) and
@@ -45,9 +45,11 @@ Phases, each printing its lines:
      timed by CUDA graph replay beside torch._int_mm timed the same way,
      its pre-pass / product split from torch.profiler, and their SASS shown
      to hold int8 tensor-core instructions and no __dp4a; B17 at B4's
-     shape, B18a (graph replay beside eager, the same bits twice, its
-     pre-pass / walk split from torch.profiler) and the int8 flash
-     backward B18b / B18c at the int8
+     shape (its product's SASS likewise; graph replay beside eager, the
+     same bits twice, its pre-pass / product split), B18a (graph replay
+     beside eager, the same bits twice, its pre-pass / walk split from
+     torch.profiler) and the int8 flash backward B18b / B18c (likewise) at
+     the int8
      example's attention and at B9's shape, each also shown >= 10x its
      limit away from the fp32 kernel's result (B1, B3, B4, B9, B10b,
      B10c), so that a kernel computing in fp32 would fail (2h); the
@@ -2898,20 +2900,23 @@ def _int8_flash_bwd_case(stt, torch, dev, kres, label, masks, heads, hd,
             "flash_sparse_bwd_dkv_int8": (8, cols)}
     for name, (parts, kern, plain, fp32) in calls.items():
         r = kres[name]
+        # each a pre-pass + a wgmma walk: by CUDA graph replay, eager beside
+        first = kern()
+        if not all(torch.equal(a.view(torch.int32), b_.view(torch.int32))
+                   for a, b_ in zip(first, kern())):
+            _fail(f"{name} {label}: two calls differ in their bits")
+        del first
         eager = _time_ms(kern)
-        # B18c (pre-pass + wgmma walk) by CUDA graph replay, eager beside;
-        # B18b (__dp4a) in eager calls
-        r["ms"] = _graph_ms(kern) if len(parts) == 2 else eager
+        r["ms"] = _graph_ms(kern)
         r["plain_ms"] = _time_ms(plain, reps=3, inner=2)
         r["library_ms"] = lib
         f32_ms = _time_ms(fp32)
-        print(f"  {name} {label}: kernel {r['ms']:.4f} ms ("
-              + (f"graph; eager {eager:.4f}; device split "
-                 f"{_split_text(_device_split(torch, kern))}"
-                 if len(parts) == 2 else "eager")
-              + f"), fp32 {'B10b' if len(parts) == 1 else 'B10c'} "
-              f"{f32_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
-              f"backward f32 {lib} ms, bf16 {bf16_ms} ms", flush=True)
+        print(f"  {name} {label}: kernel {r['ms']:.4f} ms (graph; eager "
+              f"{eager:.4f}; the same bits twice; device split "
+              f"{_split_text(_device_split(torch, kern))}), fp32 "
+              f"{'B10b' if len(parts) == 1 else 'B10c'} {f32_ms:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, SDPA backward f32 {lib} ms, "
+              f"bf16 {bf16_ms} ms", flush=True)
         per, args = work[name]
         _bound(r, per * pairs * hd, _nbytes(*args[:5], *ops, *kern()),
                PEAK_INT8)
@@ -3070,20 +3075,23 @@ def _sass_print(funcs, keys):
 
 
 def _sass_check(k8_build):
-    """The int8 product kernels' SASS: int8 tensor-core instructions
-    (IGMMA, wgmma's; IMMA, mma.sync's) in each, IDP.4A (__dp4a) in none;
-    B17's counts beside them. Raises if the product kernels fail it."""
+    """The int8 panel product kernels' SASS (B16a / B16b:
+    spmm_int8_wgmma_kernel; B17: sddmm_int8_wgmma_kernel, every depth
+    instantiation): int8 tensor-core instructions (IGMMA, wgmma's; IMMA,
+    mma.sync's) in each, IDP.4A (__dp4a) in none. Raises if one fails
+    it."""
     funcs = _sass_counts(k8_build)
     if funcs is None:
         return
-    prods = {n: c for n, c in funcs.items() if "spmm_int8" in n}
-    _sass_print(sorted(prods.items()) + sorted(
-        (n, c) for n, c in funcs.items() if "sddmm_int8" in n),
-        ("IGMMA", "IMMA", "IDP.4A"))
-    if not prods or any(c["IGMMA"] + c["IMMA"] == 0 or c["IDP.4A"]
-                        for c in prods.values()):
-        _fail("SASS: the int8 product kernels do not run on the int8 "
-              "tensor cores alone")
+    prods = {n: c for n, c in funcs.items() if "spmm_int8_wgmma" in n}
+    sdd = {n: c for n, c in funcs.items() if "sddmm_int8_wgmma" in n}
+    _sass_print(sorted(prods.items()) + sorted(sdd.items()),
+                ("IGMMA", "IMMA", "IDP.4A"))
+    for label, fs in (("B16a / B16b", prods), ("B17", sdd)):
+        if not fs or any(c["IGMMA"] + c["IMMA"] == 0 or c["IDP.4A"]
+                         for c in fs.values()):
+            _fail(f"SASS: the int8 product kernels ({label}) do not run on "
+                  f"the int8 tensor cores alone")
 
 
 def _sass_check_flash(build):
@@ -3107,18 +3115,22 @@ def _sass_check_flash(build):
         _fail("SASS: B18a's walk does not run on the int8 tensor cores "
               "alone")
     # the backward: the row walk (B10a, B10b, B11b: flash_bwd_tc_kernel,
-    # every width and mode) on the TF32 tensor cores; B18c's column walk
-    # on the int8 ones and no __dp4a
+    # every width and mode) on the TF32 tensor cores; B18b's row walk and
+    # B18c's column walk on the int8 ones and no __dp4a
     bw = {n: c for n, c in funcs.items() if "flash_bwd_tc_kernel" in n}
     b8 = {n: c for n, c in funcs.items()
           if "flash_bwd_dkv_int8_wgmma_kernel" in n}
-    _sass_print(sorted(bw.items()) + sorted(b8.items()),
+    q8 = {n: c for n, c in funcs.items()
+          if "flash_bwd_dq_int8_wgmma_kernel" in n}
+    _sass_print(sorted(bw.items()) + sorted(q8.items()) + sorted(b8.items()),
                 ("HGMMA", "IGMMA", "IDP.4A", "FFMA"))
     if not bw or any(c["HGMMA"] == 0 for c in bw.values()):
         _fail("SASS: the flash backward's row walk does not run on the "
               "tensor cores")
-    if not b8 or any(c["IGMMA"] == 0 or c["IDP.4A"] for c in b8.values()):
-        _fail("SASS: B18c does not run on the int8 tensor cores alone")
+    for label, fs in (("B18b", q8), ("B18c", b8)):
+        if not fs or any(c["IGMMA"] == 0 or c["IDP.4A"] for c in fs.values()):
+            _fail(f"SASS: {label} does not run on the int8 tensor cores "
+                  f"alone")
 
 
 def _sass_check_tc(build):
@@ -3244,8 +3256,15 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     _int8_distance("sddmm int8", ref, bsr_sddmm_panel(
         meta["block_cols"], meta["nblocks"], lhs[None], rhs[None],
         meta["mask"])[0])
+    if not torch.equal(got.view(torch.int32),
+                       k8.bsr_sddmm_panel_int8(*sargs).view(torch.int32)):
+        _fail("sddmm int8: two calls gave different bits")
     del got, ref
-    r["ms"] = _time_ms(lambda: k8.bsr_sddmm_panel_int8(*sargs))
+
+    def sdd8():
+        return k8.bsr_sddmm_panel_int8(*sargs)
+
+    r["ms"], eager_ms = _graph_ms(sdd8), _time_ms(sdd8)
     r["plain_ms"] = _time_ms(lambda: k8.bsr_sddmm_panel_int8_plain(*sargs),
                              reps=3, inner=2)
     csr = torch.sparse_csr_tensor(
@@ -3256,9 +3275,20 @@ def phase_int8_kernels(stt, torch, dev, kres, w, mat):
     r["library_ms"] = _library_ms(
         "sddmm int8 (torch.sparse.sampled_addmm, f32 CSR)",
         lambda: torch.sparse.sampled_addmm(csr, lhs, rhs_t, beta=0.0))
-    print(f"  sddmm int8 {size}^2 dim {d}: kernel {r['ms']:.4f} ms, plain "
+    print(f"  sddmm int8 {size}^2 dim {d}: kernel {r['ms']:.4f} ms (graph; "
+          f"eager {eager_ms:.4f}; the same bits twice; device split "
+          f"{_split_text(_device_split(torch, sdd8))}), plain "
           f"{r['plain_ms']:.4f} ms", flush=True)
     _bound(r, 2.0 * nnz * d, 8 * nnz + _nbytes(lhs, rhs), PEAK_INT8)
+    stored = 2 * _nbytes(meta["mask"])
+    tiles = int(meta["nblocks"].sum()) * spec.bm * spec.bk
+    print(f"    sddmm int8: the stored mask read and panel written, "
+          f"{stored / 1e6:.2f} MB, take {stored / PEAK_BYTES * 1e3:.4f} ms "
+          f"at {PEAK_BYTES / 1e12:.2f} TB/s (kernel at "
+          f"{stored / PEAK_BYTES * 1e3 / r['ms']:.1%} of it); the stored "
+          f"tiles' {2.0 * tiles * d / 1e9:.3f} G int8 op "
+          f"{2.0 * tiles * d / PEAK_INT8 * 1e3:.4f} ms (not the bound)",
+          flush=True)
     del lhs, rhs, csr, rhs_t
 
     # B18a at the int8 example's attention (R=8, s=2048, hd=128, causal),
@@ -4616,10 +4646,17 @@ def main(argv=None) -> int:
     wrappers = kernel_wrappers()
     kres = {n: {} for n in wrappers}
     if only is not None:
+        # the phases that also take bench.py's matrix (w, mat)
+        mat_args = {"int8_kernels": lambda w, m: (w, m),
+                    "softmax_kernel": lambda w, m: (m,),
+                    "flat_path": lambda w, m: (m, w)}
         for name in only:
             fn = globals()[f"phase_{name}"]
+            extra = (mat_args[name](*_bench_matrix(stt)) if name in mat_args
+                     else ())
             fn(stt, torch, dev, wrappers if name.endswith(
-                ("_path", "_train", "_serving", "_repair")) else kres)
+                ("_path", "_train", "_serving", "_repair")) else kres,
+               *extra)
         print(f"chip_smoke: --only {','.join(only)} done", flush=True)
         return 0
     phase_kernels(stt, torch, dev, kres)

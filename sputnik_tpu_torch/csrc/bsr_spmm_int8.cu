@@ -68,39 +68,31 @@
 // with one barrier per 64-deep piece, is what holds it back.
 // No float atomics: the bits are the same from run to run.
 //
-// B17 keeps its own design: a row-major int8 copy of each operand
-// (quant_tiles_kernel, one block per tile) and B4's 64 x 64 output tile
-// with __dp4a over 32-deep word slices (tile_dp4a).
+// B17 (sddmm_int8_wgmma_kernel) is B4's SDDMM structure (bsr_sddmm.cu) on
+// the int8 tensor cores. What bounds it: at B4's shape (4096^2, d = 0.1,
+// dim 64) the function needs 15.5 MB (0.0046 ms), but the panel it writes
+// and the mask it reads are stored whole: 134 MB, 0.040 ms at 3.35 TB/s;
+// the 2.1 G int8 operations of the stored tiles take ~1 us. The design:
+//   * a pre-pass, one launch for both operands (sddmm_quant_kernel): one
+//     block a (tile, 128-deep chunk) of lhs ([bm, 128] tiles) or rhs
+//     ([bk, 128]) takes the tile's absmax over all its rows, however many
+//     64-row slices it spans, and writes its scale and its codes K-major
+//     along the depth in wgmma's core-matrix order, one 8 KB piece per
+//     64-row slice (rows past the tile or the operand and depth past D
+//     zero-coded);
+//   * the product: one block of two warpgroups per (64 x 64 slice, pair of
+//     slots of one row block), as B4's: the row block's lhs slice is
+//     wgmma's A, staged once for both tiles, each tile's rhs slice its
+//     warpgroup's B, both K-major as they lie (no transpose), wgmma
+//     m64n64k32 s8 into exact int32 sums, the k steps stopping at the
+//     chunk's real depth rounded up to 32 (2 steps at D = 64); after each
+//     chunk the sums are rescaled into f32 sums; chunks stream through a
+//     two-stage cp.async ring, and each thread's mask is read into
+//     registers while the codes land. The epilogue pairs lanes so that each
+//     writes four neighbouring columns, 16 bytes a lane.
 #include "common.cuh"
 
 namespace stt {
-
-constexpr int TKW = TK / 4;  // int8 words per 32-deep staged slice
-
-// Per-tile int8 quantisation of x[rows, cols] (f32; entries past rows or
-// cols are zero) on tiles [tr, tc]: scale[rt * nct + ct], and the codes
-// into out, int8 [nrt * tr][nct * tc], row-major. One block per tile (B17).
-__global__ void __launch_bounds__(THREADS)
-quant_tiles_kernel(const float* __restrict__ x, int rows, int cols, int tr,
-                   int tc, int nct, float* __restrict__ scale,
-                   signed char* __restrict__ out) {
-  __shared__ float red[THREADS / 32];
-  const int ct = blockIdx.x, rt = blockIdx.y;
-  const int r0 = rt * tr, c0 = ct * tc;
-  const int width = nct * tc;
-  float mx = 0.f;
-  for (int e = threadIdx.x; e < tr * tc; e += THREADS) {
-    const int r = r0 + e / tc, c = c0 + e % tc;
-    if (r < rows && c < cols) mx = fmaxf(mx, fabsf(x[(size_t)r * cols + c]));
-  }
-  const float s = tile_scale(block_max(mx, red));
-  if (threadIdx.x == 0) scale[rt * nct + ct] = s;
-  for (int e = threadIdx.x; e < tr * tc; e += THREADS) {
-    const int r = r0 + e / tc, c = c0 + e % tc;
-    const float v = (r < rows && c < cols) ? x[(size_t)r * cols + c] : 0.f;
-    out[(size_t)r * width + c] = (signed char)quant_i8(v, s);
-  }
-}
 
 // --- B16a / B16b: the activation pre-pass -----------------------------------
 
@@ -467,88 +459,253 @@ int launch_product(const Walk& w, dim3 grid, const void* bq,
   return (int)cudaGetLastError();
 }
 
-// B17: out[i, s] = sum over 128-deep chunks t of (L_q . R_q^T) *
-// (l_scale[i, t] * r_scale[c, t]), masked; lq [mb * bm][Dp] and rq
-// [kb * bk][Dp] are the row-major int8 copies (Dp = dt * 128), lscale
-// [mb][dt], rscale [kb][dt]. Padded slots, masked elements and block columns
-// past the rhs rows (c >= kb: zero tiles) are written as exact zeros.
+// --- B17: the int8 SDDMM -----------------------------------------------------
+
+constexpr int SD = 128;           // B17's depth chunk (the TPU kernel's bd)
+constexpr int SLICE = TILE * SD;  // bytes of a 64-row slice of a chunk's codes
+constexpr unsigned SSBO = SD / 16 * CORE;  // a slice's 8-row group
+
+// Row (0 past the tile or the operand) piece kg (16 depth values from
+// k0 + 16 kg, 0 past D) of a tile's chunk; vec: four float4 loads (D % 4 ==
+// 0, x 16-byte aligned).
+__device__ __forceinline__ void sddmm_piece(const float* __restrict__ x,
+                                            bool row_ok, int k, int D,
+                                            bool vec, float (&f)[16]) {
+  if (row_ok && vec && k + 16 <= D) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(x + k + 4 * q);
+      f[4 * q] = v.x, f[4 * q + 1] = v.y, f[4 * q + 2] = v.z,
+      f[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 16; ++q) f[q] = row_ok && k + q < D ? x[k + q] : 0.f;
+  }
+}
+
+// The pre-pass: block b < mb * dt quantises chunk t = b % dt of lhs tile
+// b / dt, the others rhs's: the scale to scale[tile * dt + t] and the codes
+// to codes[((tile * dt + t) * nsl + slice) * SLICE + core_off(row % 64, kg,
+// SD)], nsl = ceil(tile rows / 64). A thread takes 16-deep pieces of rows;
+// the tile is read twice (its maximum, then its codes; the second read
+// hits L2).
 __global__ void __launch_bounds__(THREADS)
-sddmm_int8_kernel(const int* __restrict__ block_cols,
-                  const int* __restrict__ nblocks,
-                  const signed char* __restrict__ lq,
-                  const float* __restrict__ lscale,
-                  const signed char* __restrict__ rq,
-                  const float* __restrict__ rscale,
-                  const float* __restrict__ mask, float* __restrict__ out,
-                  int max_bpr, int bm, int bk, int kb, int dt) {
-  __shared__ __align__(16) int As[TKW][TILE_LD];
-  __shared__ __align__(16) int Bs[TKW][TILE_LD];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+sddmm_quant_kernel(const float* __restrict__ lhs,
+                   const float* __restrict__ rhs, int M, int Nr, int D,
+                   int bm, int bk, int mb, int dt, float* __restrict__ lscale,
+                   float* __restrict__ rscale, signed char* __restrict__ lq,
+                   signed char* __restrict__ rq, int vec) {
+  __shared__ float red[THREADS / 32];
+  int blk = blockIdx.x;
+  const bool left = blk < mb * dt;
+  if (!left) blk -= mb * dt;
+  const int tile = blk / dt, t = blk % dt;
+  const float* const x = left ? lhs : rhs;
+  const int rows = left ? M : Nr, tr = left ? bm : bk;
+  const int nsl = (tr + TILE - 1) / TILE, pieces = nsl * TILE * (SD / 16);
+  signed char* const out =
+      (left ? lq : rq) + ((size_t)tile * dt + t) * nsl * SLICE;
+  float mx = 0.f;
+  for (int e = threadIdx.x; e < pieces; e += THREADS) {
+    const int row = e >> 3, gr = tile * tr + row;
+    float f[16];
+    sddmm_piece(x + (size_t)gr * D, row < tr && gr < rows,
+                t * SD + (e & 7) * 16, D, vec, f);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) mx = fmaxf(mx, fabsf(f[q]));
+  }
+  const float sc = tile_scale(block_max(mx, red));
+  if (threadIdx.x == 0) (left ? lscale : rscale)[tile * dt + t] = sc;
+  for (int e = threadIdx.x; e < pieces; e += THREADS) {
+    const int row = e >> 3, kg = e & 7, gr = tile * tr + row;
+    float f[16];
+    sddmm_piece(x + (size_t)gr * D, row < tr && gr < rows, t * SD + kg * 16,
+                D, vec, f);
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < 16; ++q) w[q >> 2] |= quant_i8(f[q], sc) << (8 * (q & 3));
+    *reinterpret_cast<uint4*>(out + (row >> 6) * SLICE +
+                              core_off(row & 63, kg, SD)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// acc = a . b over the first N 32-deep steps of a staged chunk (a: 64 lhs
+// rows, b: 64 rhs rows, both K-major in core-matrix order); waits for it.
+template <int N>
+__device__ __forceinline__ void sddmm_chunk_mma(int (&acc)[32],
+                                                const signed char* a,
+                                                const signed char* b) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < N; ++kk)
+    wgmma_s8_n64(acc, core_desc(a + kk * 2 * CORE, CORE, SSBO),
+                 core_desc(b + kk * 2 * CORE, CORE, SSBO), kk > 0);
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < 32; ++q) asm volatile("" : "+r"(acc[q])::"memory");
+}
+
+// B17: out[i, s] = sum over 128-deep chunks t of (L_q . R_q^T) *
+// (lscale[i, t] * rscale[c, t]), times the mask where it is non-zero. One
+// block per (64 x 64 slice blockIdx.x of the tiles, pair of slots 2p, 2p +
+// 1 of row block i, blockIdx.y = i * pairs + p); warpgroup wg computes slot
+// 2p + wg. KL: the k steps of the last chunk (the real depth rounded up to
+// 32). Padded slots, masked elements and block columns past the rhs rows
+// (c >= kb: zero tiles) are exact zeros. Thread (warp w of its warpgroup,
+// lane 4g + t): accumulator element 4j + e is slice row 16w + g + 8 (e >>
+// 1), column 8j + 2t + (e & 1).
+template <int KL>
+__global__ void __launch_bounds__(THREADS, 2)
+sddmm_int8_wgmma_kernel(const int* __restrict__ block_cols,
+                        const int* __restrict__ nblocks,
+                        const signed char* __restrict__ lq,
+                        const float* __restrict__ lscale,
+                        const signed char* __restrict__ rq,
+                        const float* __restrict__ rscale,
+                        const float* __restrict__ mask,
+                        float* __restrict__ out, int max_bpr, int bm, int bk,
+                        int kb, int dt, int o_vec) {
+  // a stage: the lhs slice, then the two tiles' rhs slices
+  extern __shared__ __align__(128) signed char ssm[];
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int w = (tid >> 5) & 3, gq = lane >> 2, t = lane & 3;
   const int col_slices = (bk + TILE - 1) / TILE;
   const int r0 = (blockIdx.x / col_slices) * TILE;
   const int c0 = (blockIdx.x % col_slices) * TILE;
-  const int slot = blockIdx.y;  // i * max_bpr + s
-  const int i = slot / max_bpr, s = slot % max_bpr;
-  const size_t tile_elems = (size_t)bm * bk;
-  float* o = out + (size_t)slot * tile_elems;
-  const int c = block_cols[slot];
-
-  if (s >= nblocks[i] || c >= kb) {  // padded slot or zero tile: exact zeros
-    for (int e = tid; e < TILE * TILE; e += THREADS) {
-      const int row = r0 + e / TILE, col = c0 + e % TILE;
-      if (row < bm && col < bk) o[(size_t)row * bk + col] = 0.f;
-    }
-    return;
+  const int pairs = (max_bpr + 1) / 2;
+  const int i = blockIdx.y / pairs, s0 = 2 * (blockIdx.y % pairs);
+  const int nb = nblocks[i];
+  bool live[2];
+  int cs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int s = s0 + h;
+    cs[h] = s < max_bpr ? block_cols[i * max_bpr + s] : 0;
+    live[h] = s < nb && s < max_bpr && cs[h] < kb;
+    if (!live[h]) cs[h] = 0;
   }
-  const int Dw = dt * 32;  // words per row
-  const int* L = reinterpret_cast<const int*>(lq);
-  const int* Rh = reinterpret_cast<const int*>(rq);
+  const int nsl_m = (bm + TILE - 1) / TILE, nsl_k = col_slices;
+  const int nch = live[0] || live[1] ? dt : 0;  // both dead: zeros only
 
-  float acc[4][4] = {};
-  for (int t = 0; t < dt; ++t) {
-    int iacc[4][4] = {};
-    for (int w0 = t * 32; w0 < (t + 1) * 32; w0 += TKW) {
-      for (int e = tid; e < TILE * TKW; e += THREADS) {
-        const int row = e / TKW, w = e % TKW;  // along the row's words
-        const int tr = r0 + row, tc = c0 + row;
-        As[w][row] = tr < bm ? L[((size_t)i * bm + tr) * Dw + w0 + w] : 0;
-        Bs[w][row] = tc < bk ? Rh[((size_t)c * bk + tc) * Dw + w0 + w] : 0;
+  // stage chunk u: the lhs slice and each live tile's rhs slice, the
+  // pieces within its k steps; one commit a call
+  auto load = [&](int u) {
+    const int kgl = 2 * (u + 1 < dt ? SD / 32 : KL);
+    signed char* const a = ssm + (u & 1) * 3 * SLICE;
+    const signed char* const ga =
+        lq + ((size_t)(i * dt + u) * nsl_m + r0 / TILE) * SLICE;
+#pragma unroll
+    for (int e = tid; e < SLICE / 16; e += THREADS) {
+      const int off = core_off(e >> 3, e & 7, SD);
+      if ((e & 7) < kgl) cp_async16(a + off, ga + off, 16);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live[h]) continue;
+      signed char* const bb = a + (1 + h) * SLICE;
+      const signed char* const gb =
+          rq + ((size_t)(cs[h] * dt + u) * nsl_k + c0 / TILE) * SLICE;
+#pragma unroll
+      for (int e = tid; e < SLICE / 16; e += THREADS) {
+        const int off = core_off(e >> 3, e & 7, SD);
+        if ((e & 7) < kgl) cp_async16(bb + off, gb + off, 16);
       }
-      __syncthreads();
-      tile_dp4a<TKW>(As, Bs, ty, tx, iacc);
-      __syncthreads();
     }
-    const float sc = lscale[i * dt + t] * rscale[c * dt + t];
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (nch > 0) load(0);
+
+  // this thread's four neighbouring columns of each j (after the lane
+  // exchange below): row m, columns n + 8j .. n + 8j + 3
+  const int slot = i * max_bpr + s0 + wg;
+  const bool mine = s0 + wg < max_bpr, me_live = live[wg];
+  const int m = r0 + 16 * w + gq + 8 * (t & 1);
+  const int n = c0 + 4 * (t >> 1);
+  const size_t tile_elems = (size_t)bm * bk;
+  float* const o = out + (size_t)slot * tile_elems;
+  const float* const mk = mask + (size_t)slot * tile_elems;
+  float4 mv[8];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[ii][jj] += (float)iacc[ii][jj] * sc;
+  for (int j = 0; j < 8; ++j) {
+    mv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (o_vec && mine && me_live && m < bm && n + 8 * j < bk)
+      mv[j] = *reinterpret_cast<const float4*>(mk + (size_t)m * bk + n + 8 * j);
   }
 
-  const float* mk = mask + (size_t)slot * tile_elems;
+  float facc[32];
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int row = r0 + ty * 4 + ii;
-    if (row >= bm) continue;
+  for (int q = 0; q < 32; ++q) facc[q] = 0.f;
+  for (int u = 0; u < nch; ++u) {
+    // chunk u has landed; every warpgroup is done with chunk u - 1
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (u + 1 < nch) load(u + 1);
+    const signed char* const a = ssm + (u & 1) * 3 * SLICE;
+    const signed char* const bb = a + (1 + wg) * SLICE;
+    int acc[32];
+    if (u + 1 < dt) sddmm_chunk_mma<SD / 32>(acc, a, bb);
+    else sddmm_chunk_mma<KL>(acc, a, bb);
+    const float sc = lscale[i * dt + u] * rscale[cs[wg] * dt + u];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = c0 + tx * 4 + jj;
-      if (col >= bk) continue;
-      const size_t e = (size_t)row * bk + col;
-      const float m = mk[e];
-      o[e] = m != 0.f ? acc[ii][jj] * m : 0.f;
+    for (int q = 0; q < 32; ++q) facc[q] += __fmul_rn((float)acc[q], sc);
+  }
+  if (!mine) return;
+
+  // lanes t and t ^ 1 trade halves: t even takes row 16w + g, t odd row
+  // 16w + g + 8, each four columns from 8j + 4 (t >> 1)
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool odd = t & 1;
+    const float s0v = odd ? facc[4 * j] : facc[4 * j + 2];
+    const float s1v = odd ? facc[4 * j + 1] : facc[4 * j + 3];
+    const float r0v = __shfl_xor_sync(0xffffffffu, s0v, 1);
+    const float r1v = __shfl_xor_sync(0xffffffffu, s1v, 1);
+    float x[4];
+    if (odd) {
+      x[0] = r0v, x[1] = r1v, x[2] = facc[4 * j + 2], x[3] = facc[4 * j + 3];
+    } else {
+      x[0] = facc[4 * j], x[1] = facc[4 * j + 1], x[2] = r0v, x[3] = r1v;
+    }
+    const int col = n + 8 * j;
+    if (m >= bm || col >= bk) continue;
+    const size_t e = (size_t)m * bk + col;
+    if (o_vec) {
+      const float4 v = mv[j];
+      float4 y;
+      y.x = v.x != 0.f ? x[0] * v.x : 0.f;
+      y.y = v.y != 0.f ? x[1] * v.y : 0.f;
+      y.z = v.z != 0.f ? x[2] * v.z : 0.f;
+      y.w = v.w != 0.f ? x[3] * v.w : 0.f;
+      *reinterpret_cast<float4*>(o + e) = y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (col + q >= bk) break;
+        const float mq = me_live ? mk[e + q] : 0.f;
+        o[e + q] = mq != 0.f ? x[q] * mq : 0.f;
+      }
     }
   }
 }
 
-// Quantises nrt row tiles of x row-major (B17; those past `rows` are zero:
-// scale 1e-30, codes 0).
-int launch_quant(const float* x, int rows, int cols, int tr, int tc, int nrt,
-                 float* scale, signed char* out, cudaStream_t stream) {
-  const int nct = (cols + tc - 1) / tc;
-  if (nrt > 65535) return (int)cudaErrorInvalidValue;
-  quant_tiles_kernel<<<dim3(nct, nrt), THREADS, 0, stream>>>(
-      x, rows, cols, tr, tc, nct, scale, out);
+template <int KL>
+int launch_sddmm_int8(const int* cols, const int* nblk,
+                      const signed char* lq, const float* ls,
+                      const signed char* rq, const float* rs,
+                      const float* mask, float* out, int mb, int max_bpr,
+                      int bm, int bk, int kb, int dt, int o_vec,
+                      cudaStream_t st) {
+  const int slices = ((bm + TILE - 1) / TILE) * ((bk + TILE - 1) / TILE);
+  const dim3 grid(slices, mb * ((max_bpr + 1) / 2));
+  const size_t smem = (size_t)(dt > 1 ? 2 : 1) * 3 * SLICE;
+  const int err = set_smem(sddmm_int8_wgmma_kernel<KL>, smem);
+  if (err) return err;
+  sddmm_int8_wgmma_kernel<KL><<<grid, THREADS, smem, st>>>(
+      cols, nblk, lq, ls, rq, rs, mask, out, max_bpr, bm, bk, kb, dt, o_vec);
   return (int)cudaGetLastError();
 }
 
@@ -620,31 +777,44 @@ extern "C" int spmm_t_panel_int8(const void* t_src_i, const void* t_src_s,
                              (Q + bq - 1) / bq, st);
 }
 
-// B17. lhs [M, D], rhs [Nr, D] f32 (M <= mb * bm), scratch lq int8
-// [mb * bm, dt * 128], rq int8 [ceil(Nr / bk) * bk, dt * 128], lscale
-// [mb, dt], rscale [ceil(Nr / bk), dt] (dt = ceil(D / 128)), mask and out
-// [mb, max_bpr, bm, bk].
+// B17. lhs [M, D], rhs [Nr, D] f32 (M <= mb * bm), mask and out [mb,
+// max_bpr, bm, bk]; scratch: codes int8, the lhs's [mb, dt, nsl_m, 64 *
+// 128] then the rhs's [kb, dt, nsl_k, 64 * 128] (dt = ceil(D / 128), kb =
+// ceil(Nr / bk), nsl = ceil(bm or bk / 64)), scales f32, lscale [mb, dt]
+// then rscale [kb, dt].
 extern "C" int sddmm_panel_int8(const void* block_cols, const void* nblocks,
                                 const void* lhs, const void* rhs,
-                                const void* mask, void* lq, void* rq,
-                                void* lscale, void* rscale, void* out, int mb,
-                                int max_bpr, int bm, int bk, int M, int Nr,
-                                int D, void* stream) {
+                                const void* mask, void* codes, void* scales,
+                                void* out, int mb, int max_bpr, int bm,
+                                int bk, int M, int Nr, int D, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int dt = (D + 127) / 128;
-  int err = stt::launch_quant((const float*)lhs, M, D, bm, 128, mb,
-                              (float*)lscale, (signed char*)lq, st);
-  if (err) return err;
+  const int dt = (D + stt::SD - 1) / stt::SD;
   const int kb = (Nr + bk - 1) / bk;
-  err = stt::launch_quant((const float*)rhs, Nr, D, bk, 128, kb,
-                          (float*)rscale, (signed char*)rq, st);
-  if (err) return err;
-  const int slices = ((bm + stt::TILE - 1) / stt::TILE) *
-                     ((bk + stt::TILE - 1) / stt::TILE);
-  dim3 grid(slices, mb * max_bpr);
-  stt::sddmm_int8_kernel<<<grid, stt::THREADS, 0, st>>>(
-      (const int*)block_cols, (const int*)nblocks, (const signed char*)lq,
-      (const float*)lscale, (const signed char*)rq, (const float*)rscale,
-      (const float*)mask, (float*)out, max_bpr, bm, bk, kb, dt);
-  return (int)cudaGetLastError();
+  signed char* const lq = (signed char*)codes;
+  signed char* const rq =
+      lq + (size_t)mb * dt * ((bm + stt::TILE - 1) / stt::TILE) * stt::SLICE;
+  float* const ls = (float*)scales;
+  float* const rs = ls + (size_t)mb * dt;
+  const int vec = D % 4 == 0 && (uintptr_t)lhs % 16 == 0 &&
+                  (uintptr_t)rhs % 16 == 0;
+  if ((mb + kb) * dt > 0) {
+    stt::sddmm_quant_kernel<<<(mb + kb) * dt, stt::THREADS, 0, st>>>(
+        (const float*)lhs, (const float*)rhs, M, Nr, D, bm, bk, mb, dt, ls,
+        rs, lq, rq, vec);
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  const int o_vec = bk % 4 == 0 && (uintptr_t)mask % 16 == 0 &&
+                    (uintptr_t)out % 16 == 0;
+  const int kl = (D - (dt - 1) * stt::SD + 31) / 32;
+#define STT_SDDMM_I8_ARGS                                                    \
+  (const int*)block_cols, (const int*)nblocks, lq, ls, rq, rs,               \
+      (const float*)mask, (float*)out, mb, max_bpr, bm, bk, kb, dt, o_vec, st
+  switch (kl) {
+    case 1: return stt::launch_sddmm_int8<1>(STT_SDDMM_I8_ARGS);
+    case 2: return stt::launch_sddmm_int8<2>(STT_SDDMM_I8_ARGS);
+    case 3: return stt::launch_sddmm_int8<3>(STT_SDDMM_I8_ARGS);
+    default: return stt::launch_sddmm_int8<4>(STT_SDDMM_I8_ARGS);
+  }
+#undef STT_SDDMM_I8_ARGS
 }

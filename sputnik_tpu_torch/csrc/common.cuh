@@ -1,14 +1,6 @@
-// Shared pieces of the panel kernels.
-//
-// The SIMT tile (tile_dp4a): a 64 x 64 output tile that one block of 256
-// threads computes in int8 __dp4a, 4 x 4 outputs per thread. Operands are
-// staged in shared memory "k-major": A as [k][row], B as [k][col], so that
-// every thread reads its four rows and four columns of one k-slice as two
-// 16-byte loads. Rows of the staging buffers are padded by 4 words
-// (TILE_LD) to spread the transposing stores over more banks while keeping
-// the 16-byte reads aligned. tile_dp4a serves the int8 SDDMM (B17) and the
-// int8 flash backward's dq (B18b); every fp32 kernel runs on the tensor
-// cores (the split-TF32 pieces below).
+// Shared pieces of the panel kernels. Every product runs on the tensor
+// cores: the fp32 ones in split TF32 (the pieces below), the int8 ones on
+// wgmma s8 with exact int32 sums (the int8 pieces).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,31 +9,9 @@
 namespace stt {
 
 constexpr int TILE = 64;          // output tile edge (rows and columns)
-constexpr int TILE_LD = TILE + 4; // padded row length of a staging buffer
-constexpr int TK = 32;            // contraction depth staged per step
-constexpr int THREADS = 256;      // 16 x 16 threads
+constexpr int THREADS = 256;      // threads of a pre-pass or two-warpgroup block
 
-// --- int8 (W8A8) pieces: the same 64 x 64 tile, 4 x 4 outputs per thread,
-// with operands staged as 32-bit words of four int8 values along the
-// contraction and multiplied with __dp4a (exact int32 sums).
-
-// acc[i][j] += sum_w dp4a(A[w][ty*4 + i], B[w][tx*4 + j]) over `WORDS` words.
-template <int WORDS>
-__device__ __forceinline__ void tile_dp4a(const int (*A)[TILE_LD],
-                                          const int (*B)[TILE_LD], int ty,
-                                          int tx, int acc[4][4]) {
-#pragma unroll 8
-  for (int w = 0; w < WORDS; ++w) {
-    const int4 a = *reinterpret_cast<const int4*>(&A[w][ty * 4]);
-    const int4 b = *reinterpret_cast<const int4*>(&B[w][tx * 4]);
-    const int av[4] = {a.x, a.y, a.z, a.w};
-    const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-  }
-}
+// --- int8 (W8A8) quantisation.
 
 // The symmetric int8 code of x at a tile's scale: clip(rint(x / scale),
 // -127, 127), a true IEEE divide and round-half-to-even, as the TPU

@@ -4,7 +4,8 @@
 // statistics (running max m, denominator l).
 //
 // Replaces two TPU kernels of sputnik_tpu/ops/pallas/flash_sparse_int8.py:
-//   flash_sparse_bwd_dq_int8  (B18b) -> flash_bwd_dq_int8_kernel<HD>
+//   flash_sparse_bwd_dq_int8  (B18b) -> quant_keys_kernel<HD>, then
+//                                       flash_bwd_dq_int8_wgmma_kernel<HD>
 //   flash_sparse_bwd_dkv_int8 (B18c) -> quant_rows_kernel<HD>, then
 //                                       flash_bwd_dkv_int8_wgmma_kernel<HD>
 // They are B10b's and B10c's walks (flash_sparse_bwd.cu) with the TPU
@@ -35,236 +36,291 @@
 // of the gradients; at the int8 example's attention (R = 8, s = 2048,
 // hd = 128, causal) ~0.013 ms (B18b, bytes) and ~0.015 ms (B18c, bytes).
 //
-// B18b, the simple design: one block of 256 threads per (row block,
-// replica), multiplying with __dp4a on the CUDA cores and re-quantising
-// every visited K / V tile, as the TPU kernel does: instruction-bound, far
-// from that bound. Codes are staged in shared memory as 32-bit words of four
-// int8 values along each product's contraction: words of four head dims
-// ([word][row or key]) for the two score products (tile_dp4a, thread
-// (ty, tx) owning rows ty * 4 + i and keys tx * 4 + j), words of four keys
-// ([key word][dim]) of k for dS K; ds's codes go to shared memory
-// row-major. dq stays in registers, 4 rows x hd / 16 dims per thread. 49 KB
-// of shared memory at hd = 128, dynamic.
-//
-// B18c on the int8 tensor cores, two launches:
-//   * quant_rows_kernel, once a call: every row block of q * scale and of g
-//     quantised once (the TPU kernel re-quantises a row block on each of up
-//     to 32 visits) into a record: the codes K-major [row][d] (B of the
-//     score products) and transposed [d][row] (B of the gradient products,
-//     which contract over rows), in core-matrix order, with the scales and
-//     the rows' m, max(l, 1e-30) and D beside them, so that one cp.async
-//     stream brings a slot's whole row side.
-//   * flash_bwd_dkv_int8_wgmma_kernel: one block of two warpgroups per (key
-//     column block, replica): K and V codes quantised once and resident;
-//     the score products S^T = k_q q_q^T and dP^T = v_q g_q^T on wgmma
-//     m64n32k32 s8 with keys as M, so p and ds come out key-major, the
-//     layout dK and dV need; one block-wide absmax of ds a tile; p's and
-//     ds's codes through shared memory (2 x 4 KB) as the A operands of
-//     dK = ds_q^T q_q and dV = p_q^T g_q (wgmma m64n{hd / 2}k32 s8, a
-//     warpgroup a half of the head dims). No atomics: a block owns its key
-//     block's dk / dv, and a key column that no query attends writes 0.
-//     Shared memory: 56,096 B at HD = 64, 101,152 B at HD = 128 (two walks
-//     an SM: R x kb = 256 walks at the example's shape).
-// 64 x 64 tiles, hd <= 128 (B18b: templates 32 / 64 / 128; B18c: hd <= 64
-// at HD = 64, else 128, the head dims past hd zero codes).
+// Both run on the int8 tensor cores in two launches each, one the mirror
+// of the other (rows and keys swapped):
+//   * a pre-pass, once a call, quantises each block the walks visit once
+//     (the TPU kernels re-quantise it on each of up to 32 visits; the grid
+//     of the scales does not depend on the visitor, so that is the same
+//     function) into a record in wgmma's core-matrix order (no swizzle),
+//     so that one cp.async stream brings a slot's whole side:
+//     - B18b, quant_keys_kernel: each 64-key block of k and v: K's codes
+//       K-major [key][d] (B of S = q k^T), V's K-major [key][d] (B of
+//       dP = g v^T), K's transposed [d][key] (B of dQ = ds k, which
+//       contracts over keys), then k_s and v_s;
+//     - B18c, quant_rows_kernel: each row block of q * scale and of g: the
+//       codes K-major [row][d] (B of the score products) and transposed
+//       [d][row] (B of the gradient products), with the scales and the
+//       rows' m, max(l, 1e-30) and D.
+//   * the walk: one block of two warpgroups per (row block, replica) for
+//     B18b, per (key column block, replica) for B18c. The walk's own side is
+//     quantised once into shared memory (B18b: q * scale and g, A of the
+//     score products; B18c: K and V, their A); each slot's record streams
+//     into a two-stage ring by cp.async a slot ahead, its metadata read a
+//     slot ahead too. The score products run on wgmma m64n32k32 s8 into
+//     exact int32 sums, each warpgroup taking 32 of the tile's keys (B18b,
+//     rows as M) or rows (B18c, keys as M, so p and ds come out key-major,
+//     the layout dK / dV contract); sc, p, dp and ds are formed on the
+//     fragments with the plain version's operations, and the tile's ds
+//     absmax is one block-wide reduction. ds's codes (and B18c's p codes)
+//     go to shared memory in core-matrix order (4 KB each) as the A of the
+//     gradient products, wgmma m64n{HD / 2}k32 s8 against the record's
+//     transposed codes, each warpgroup owning half the head dims; then
+//     dq (dk, dv) += (float)int * scale in f32 registers, in slot order.
+//     No atomics: a block owns its row block's dq (key block's dk / dv); a
+//     row that attends no key (a key column that no query attends) writes 0.
+// B18b: 79,904 B of shared memory at HD = 128, two walks an SM (256 walks
+// at the example's shape, 1 to 32 tiles each): the first 132 blocks take
+// the longest causal walks (the last row blocks), the rest come reversed,
+// so that each SM pairs a long walk with a short one (B10c's order).
+// B18c: 56,096 B at HD = 64, 101,152 B at HD = 128.
+// 64 x 64 tiles, hd <= 128: HD = 64 for hd <= 64, else 128, the head dims
+// past hd zero codes.
 #include "common.cuh"
 
 namespace stt {
 
 constexpr float NEG_LARGE = -1e30f;
-constexpr int RWORDS = TILE / 4;  // words of four rows (or keys) of a tile
+constexpr int IT = 256;  // threads of a walk block: two warpgroups
 
-template <int HD>
-struct __align__(16) DqInt8Smem {
-  int Qw[HD / 4][TILE_LD];     // q * scale codes, [head-dim word][row]
-  int Gw[HD / 4][TILE_LD];     // g codes
-  int Kw[HD / 4][TILE_LD];     // k codes, [head-dim word][key]
-  int Vw[HD / 4][TILE_LD];     // v codes
-  int Kt[RWORDS][HD + 4];      // k codes, [key word][dim]
-  signed char Db[TILE][TILE + 16];  // ds codes, [row][key]
-  float Ms[TILE], Ls[TILE], Dr[TILE];
-  float red[THREADS / 32];
-};
+// --- B18b on the int8 tensor cores
 
-// Quantise the 64-row tile x[row0 + row][d] * mul (0 for rows >= nrows or
-// d >= hd) at its absmax scale, which it returns; stage its codes as words
-// of four head dims in hw ([word][row]) and, if rw is not null, as words of
-// four rows in rw ([row word][dim]).
+// bytes of one key block's record: the codes of k K-major [key][d], of v
+// K-major, of k transposed [d][key], then k_s and v_s; padded to 128 bytes
 template <int HD>
-__device__ float stage_codes(const float* __restrict__ x, int row0, int nrows,
-                             int hd, float mul, int (*hw)[TILE_LD],
-                             int (*rw)[HD + 4], float* red) {
-  constexpr int W = HD / 4;
-  float mx = 0.f;
-  for (int e = threadIdx.x; e < TILE * HD; e += THREADS) {
-    const int row = e / HD, d = e % HD, gr = row0 + row;
-    if (gr < nrows && d < hd) mx = fmaxf(mx, fabsf(x[(size_t)gr * hd + d] * mul));
-  }
-  const float sc = tile_scale(block_max(mx, red));
-  for (int e = threadIdx.x; e < TILE * W; e += THREADS) {
-    const int row = e / W, w = e % W, gr = row0 + row;
-    unsigned word = 0;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int d = 4 * w + t;
-      const float v = (gr < nrows && d < hd) ? x[(size_t)gr * hd + d] * mul : 0.f;
-      word |= quant_i8(v, sc) << (8 * t);
-    }
-    hw[w][row] = (int)word;
-  }
-  if (rw != nullptr) {
-    for (int e = threadIdx.x; e < RWORDS * HD; e += THREADS) {
-      const int rw4 = e / HD, d = e % HD;  // coalesced along d
-      unsigned word = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gr = row0 + 4 * rw4 + t;
-        const float v = (gr < nrows && d < hd) ? x[(size_t)gr * hd + d] * mul : 0.f;
-        word |= quant_i8(v, sc) << (8 * t);
-      }
-      rw[rw4][d] = (int)word;
-    }
-  }
-  return sc;
+__host__ __device__ constexpr int key_rec() {
+  return (3 * TILE * HD + 2 * 4 + 127) / 128 * 128;
 }
 
-// p and ds of the thread's 4 x 4 elements (rows ty * 4 + i, keys tx * 4 + j)
-// of one tile from the integer score products si = q_q . k_q^T and
-// di = g_q . v_q^T; pm is the tile's element mask or null. Returns the
-// largest |ds| among them.
-__device__ __forceinline__ float tile_p_ds(const int si[4][4],
-                                           const int di[4][4], float qk,
-                                           float gv, const float* pm,
-                                           const float* Ms, const float* Ls,
-                                           const float* Dr, int ty, int tx,
-                                           float p[4][4], float ds[4][4]) {
-  float mx = 0.f;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int row = ty * 4 + ii;
-    const float mr = Ms[row], lr = Ls[row], dr = Dr[row];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      float sc = __fmul_rn((float)si[ii][jj], qk);
-      if (pm != nullptr && pm[row * TILE + tx * 4 + jj] == 0.f)
-        sc = NEG_LARGE;
-      const float pr = sc <= NEG_LARGE / 2 ? 0.f : expf(sc - mr) / lr;
-      const float dp = __fmul_rn((float)di[ii][jj], gv);
-      p[ii][jj] = pr;
-      ds[ii][jj] = pr * (dp - dr);
-      mx = fmaxf(mx, fabsf(ds[ii][jj]));
-    }
-  }
-  return mx;
-}
-
+// The pre-pass, once a call: key block c of replica r of k (blockIdx.z = 0:
+// K-major and transposed codes) or v (1: K-major) quantised at its tile's
+// scale into its record rec[(r * kb + c) * key_rec].
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_int8_kernel(const int* __restrict__ block_cols,
-                         const int* __restrict__ nblocks,
-                         const int* __restrict__ mask_slot,
-                         const int* __restrict__ is_partial,
-                         const float* __restrict__ pmask,
-                         const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ g,
-                         const float* __restrict__ m,
-                         const float* __restrict__ l,
-                         const float* __restrict__ D, float* __restrict__ dq,
-                         int heads, int mb, int max_bpr, int n_partial,
-                         int s_q, int s_kv, int hd, float scale) {
-  constexpr int W = HD / 4, CPT = HD / 16;
+quant_keys_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                  signed char* __restrict__ rec, int kb, int s_kv, int hd) {
+  __shared__ __align__(16) unsigned char S[TILE][HD + 16];
+  __shared__ float red[THREADS / 32];
+  const int c = blockIdx.x, r = blockIdx.y, half = blockIdx.z;
+  signed char* const out = rec + ((size_t)r * kb + c) * key_rec<HD>();
+  const float sc = quant_codes_tile<HD>(
+      (half ? v : k) + (size_t)r * s_kv * hd, c * TILE, s_kv, hd, 1.f,
+      out + half * TILE * HD, half ? nullptr : out + 2 * TILE * HD, S, red);
+  if (threadIdx.x == 0)
+    reinterpret_cast<float*>(out + 3 * TILE * HD)[half] = sc;
+}
+
+// Shared memory of a row-walk block.
+template <int HD>
+struct __align__(128) DqInt8Smem {
+  signed char Qc[TILE * HD];          // q * scale codes, [row][d]
+  signed char Gc[TILE * HD];          // g codes
+  signed char rec[2][key_rec<HD>()];  // the streamed key-block records
+  signed char DSc[TILE * TILE];       // ds codes, [row][key]
+  unsigned char S[TILE][HD + 16];     // staging of the q / g quantisation
+  float Ms[TILE], Ls[TILE], Dr[TILE];
+  float red[IT / 32];
+};
+
+// One row walk: row block i of replica r over its slots s < nblocks, by two
+// warpgroups (block -> walk: the first `sms` blocks take the longest causal
+// walks, i = mb - 1 down, the rest come reversed). Warpgroup wg scores the
+// tile's keys 32 wg .. 32 wg + 31 against all 64 rows, S = q_q k_q^T and
+// dP = g_q v_q^T by wgmma m64n32k32 s8 (rows as M), forms sc, p, dp and ds
+// on the fragments, and the tile's ds absmax is one reduction over the
+// block; ds's codes go to shared memory as the A operand ([row][key]) of
+// dQ = ds_q k_q, wgmma m64n{HD / 2}k32 s8 against the record's transposed K
+// codes, each warpgroup owning half the head dims; then dq += int *
+// (ds_s * k_s) in registers. Thread (warp w of its warpgroup, lane 4g + t):
+// score element 4j + e is row 16w + g + 8 (e >> 1), key 32 wg + 8j + 2t +
+// (e & 1); dq element 4j + e row 16w + g + 8 (e >> 1), head dim
+// wg * HD / 2 + 8j + 2t + (e & 1).
+template <int HD>
+__global__ void __launch_bounds__(IT, 2)
+flash_bwd_dq_int8_wgmma_kernel(const int* __restrict__ block_cols,
+                               const int* __restrict__ nblocks,
+                               const int* __restrict__ mask_slot,
+                               const int* __restrict__ is_partial,
+                               const float* __restrict__ pmask,
+                               const float* __restrict__ q,
+                               const float* __restrict__ g,
+                               const float* __restrict__ m,
+                               const float* __restrict__ l,
+                               const float* __restrict__ D,
+                               const signed char* __restrict__ rec,
+                               float* __restrict__ dq, int heads, int mb,
+                               int kb, int max_bpr, int n_partial, int s_q,
+                               int hd, float scale, int sms) {
+  constexpr int NV = HD / 2;                  // head dims a warpgroup
+  constexpr int NO = NV / 2;                  // dq sums a thread
+  constexpr int REC = key_rec<HD>();
+  constexpr unsigned KSBO = HD / 16 * CORE;   // [.][d] codes: an 8-row group
+  constexpr unsigned PSBO = TILE / 16 * CORE; // [.][key] codes
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqInt8Smem<HD>& sm = *reinterpret_cast<DqInt8Smem<HD>*>(smem_raw);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i = blockIdx.x, r = blockIdx.y, b = r / heads;
-  const size_t qoff = (size_t)r * s_q * hd, koff = (size_t)r * s_kv * hd;
-
-  const float q_s = stage_codes<HD>(q + qoff, i * TILE, s_q, hd, scale, sm.Qw,
-                                    nullptr, sm.red);
-  const float g_s = stage_codes<HD>(g + qoff, i * TILE, s_q, hd, 1.f, sm.Gw,
-                                    nullptr, sm.red);
-  stage_stats(sm.Ms, sm.Ls, sm.Dr, m, l, D, r, i, mb, s_q);
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] = 0.f;
-
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int w = (tid >> 5) & 3, gq = lane >> 2, t = lane & 3;
+  const int nw = gridDim.x, R = nw / mb, lb = blockIdx.x;
+  const int wk = lb < sms ? lb : sms + (nw - 1 - lb);
+  const int r = wk % R, i = mb - 1 - wk / R, b = r / heads;
   const size_t meta0 = ((size_t)b * mb + i) * max_bpr;
   const int nb = nblocks[b * mb + i];
-  for (int s = 0; s < nb; ++s) {
-    const int c = block_cols[meta0 + s];
-    __syncthreads();  // the previous slot's readers are done
-    const float k_s = stage_codes<HD>(k + koff, c * TILE, s_kv, hd, 1.f,
-                                      sm.Kw, sm.Kt, sm.red);
-    const float v_s = stage_codes<HD>(v + koff, c * TILE, s_kv, hd, 1.f,
-                                      sm.Vw, nullptr, sm.red);
-    __syncthreads();
-
-    int si[4][4] = {}, di[4][4] = {};
-    tile_dp4a<W>(sm.Qw, sm.Kw, ty, tx, si);
-    tile_dp4a<W>(sm.Gw, sm.Vw, ty, tx, di);
-    const float* pm =
-        is_partial[meta0 + s]
-            ? pmask + ((size_t)b * n_partial + mask_slot[meta0 + s]) * TILE * TILE
-            : nullptr;
-    float p[4][4], ds[4][4];
-    const float mx = tile_p_ds(si, di, q_s * k_s, g_s * v_s, pm, sm.Ms, sm.Ls,
-                               sm.Dr, ty, tx, p, ds);
-    const float ds_s = tile_scale(block_max(mx, sm.red));
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      unsigned w = 0;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) w |= quant_i8(ds[ii][jj], ds_s) << (8 * jj);
-      *reinterpret_cast<int*>(&sm.Db[ty * 4 + ii][tx * 4]) = (int)w;
-    }
-    __syncthreads();
-
-    // dq[row][d] += sum_key ds_q[row][key] k_q[key][d], in words of 4 keys
-    int dqi[4][CPT] = {};
+  const signed char* const recr = rec + (size_t)r * kb * REC;
+  // a slot's record, partial-tile flag and mask, read a slot ahead of use
+  struct Slot {
+    const signed char* src;
+    int part, mslot;
+  };
+  auto slot_of = [&](int s) {
+    return Slot{recr + (size_t)block_cols[meta0 + s] * REC,
+                is_partial[meta0 + s], mask_slot[meta0 + s]};
+  };
+  auto load = [&](int s, const signed char* src) {
+    signed char* dst = sm.rec[s & 1];
 #pragma unroll 4
-    for (int kw = 0; kw < RWORDS; ++kw) {
-      int a[4], bw[CPT];
+    for (int e = tid; e < REC / 16; e += IT)
+      cp_async16(dst + 16 * e, src + 16 * e, 16);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  Slot cur{recr, 0, 0}, nxt{recr, 0, 0};
+  if (nb > 0) {
+    cur = slot_of(0);
+    load(0, cur.src);
+    if (nb > 1) nxt = slot_of(1);
+  }
+  // the walk's own row block of q * scale and g, quantised once
+  const size_t qoff = (size_t)r * s_q * hd;
+  const float q_s = quant_codes_tile<HD>(q + qoff, i * TILE, s_q, hd, scale,
+                                         sm.Qc, nullptr, sm.S, sm.red);
+  const float g_s = quant_codes_tile<HD>(g + qoff, i * TILE, s_q, hd, 1.f,
+                                         sm.Gc, nullptr, sm.S, sm.red);
+  stage_stats(sm.Ms, sm.Ls, sm.Dr, m, l, D, r, i, mb, s_q);
+
+  float acc[NO];
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-        a[ii] = *reinterpret_cast<const int*>(&sm.Db[ty * 4 + ii][4 * kw]);
+  for (int x = 0; x < NO; ++x) acc[x] = 0.f;
+
+  for (int s = 0; s < nb; ++s) {
+    // slot s has landed; every warp is done with slot s - 1 (its stage and
+    // DSc are free); at s = 0 the q / g codes and the stats are visible
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (s + 1 < nb) load(s + 1, nxt.src);
+    const signed char* const Kc = sm.rec[s & 1];
+    const signed char* const Vc = Kc + TILE * HD;
+    const signed char* const KT = Kc + 2 * TILE * HD;
+    const float* const ks = reinterpret_cast<const float*>(Kc + 3 * TILE * HD);
+    const float k_s = ks[0], v_s = ks[1];
+
+    // S, waited for; then dP, left running while p is formed
+    int si[16], di[16];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int jj = 0; jj < CPT; jj += 2) {
-        const int2 t = *reinterpret_cast<const int2*>(&sm.Kt[kw][tx * CPT + jj]);
-        bw[jj] = t.x;
-        bw[jj + 1] = t.y;
+    for (int kk = 0; kk < HD / 32; ++kk)
+      wgmma_s8_n32(si, core_desc(sm.Qc + kk * 2 * CORE, CORE, KSBO),
+                   core_desc(Kc + core_off(32 * wg, 0, HD) + kk * 2 * CORE,
+                             CORE, KSBO), kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int x = 0; x < 16; ++x) asm volatile("" : "+r"(si[x])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < HD / 32; ++kk)
+      wgmma_s8_n32(di, core_desc(sm.Gc + kk * 2 * CORE, CORE, KSBO),
+                   core_desc(Vc + core_off(32 * wg, 0, HD) + kk * 2 * CORE,
+                             CORE, KSBO), kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+
+    // sc, p, dp and ds as the plain version forms them
+    const float qk = q_s * k_s, gv = g_s * v_s;
+    const float* pm =
+        cur.part ? pmask + ((size_t)b * n_partial + cur.mslot) * TILE * TILE
+                 : nullptr;
+    float pr[16];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * w + gq + 8 * (e >> 1);
+        const int key = 32 * wg + 8 * jj + 2 * t + (e & 1);
+        float sc = __fmul_rn((float)si[4 * jj + e], qk);
+        if (pm != nullptr && pm[row * TILE + key] == 0.f) sc = NEG_LARGE;
+        pr[4 * jj + e] =
+            sc <= NEG_LARGE / 2 ? 0.f : expf(sc - sm.Ms[row]) / sm.Ls[row];
       }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+    for (int x = 0; x < 16; ++x) asm volatile("" : "+r"(di[x])::"memory");
+    float ds[16];
+    float mx = 0.f;
 #pragma unroll
-        for (int jj = 0; jj < CPT; ++jj) dqi[ii][jj] = __dp4a(a[ii], bw[jj], dqi[ii][jj]);
+    for (int x = 0; x < 16; ++x) {
+      const float dp = __fmul_rn((float)di[x], gv);
+      ds[x] = pr[x] * (dp - sm.Dr[16 * w + gq + 8 * ((x & 3) >> 1)]);
+      mx = fmaxf(mx, fabsf(ds[x]));
     }
+    // the tile's ds absmax over the block: red's last readers (the slot
+    // before, or the prologue) have passed a barrier since, so one barrier
+    // suffices here
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) sm.red[tid >> 5] = mx;
+    __syncthreads();
+    float amax = 0.f;
+#pragma unroll
+    for (int x = 0; x < IT / 32; ++x) amax = fmaxf(amax, sm.red[x]);
+    const float ds_s = tile_scale(amax);
+    // the codes, two keys a 16-bit store, [row][key] in core-matrix order
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * w + gq + 8 * h;
+        const int key = 32 * wg + 8 * jj + 2 * t;
+        const unsigned dw = quant_i8(ds[4 * jj + 2 * h], ds_s) |
+                            quant_i8(ds[4 * jj + 2 * h + 1], ds_s) << 8;
+        *reinterpret_cast<unsigned short*>(
+            sm.DSc + core_off(row, key >> 4, TILE) + (key & 15)) =
+            (unsigned short)dw;
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the codes are visible to wgmma
+
+    int gi[NO];
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TILE / 32; ++kk)
+      wgmma_s8<NV>(gi, core_desc(sm.DSc + kk * 2 * CORE, CORE, PSBO),
+                   core_desc(KT + core_off(NV * wg, 0, TILE) + kk * 2 * CORE,
+                             CORE, PSBO), kk > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int x = 0; x < NO; ++x) asm volatile("" : "+r"(gi[x])::"memory");
     const float dk_s = ds_s * k_s;
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < CPT; ++jj) acc[ii][jj] += (float)dqi[ii][jj] * dk_s;
+    for (int x = 0; x < NO; ++x) acc[x] += __fmul_rn((float)gi[x], dk_s);
+    cur = nxt;
+    if (s + 2 < nb) nxt = slot_of(s + 2);
   }
 
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int gr = i * TILE + ty * 4 + ii;
+  for (int h = 0; h < 2; ++h) {
+    const int gr = i * TILE + 16 * w + gq + 8 * h;
     if (gr >= s_q) continue;
 #pragma unroll
-    for (int jj = 0; jj < CPT; ++jj) {
-      const int d = tx * CPT + jj;
-      if (d < hd) dq[qoff + (size_t)gr * hd + d] = acc[ii][jj];
-    }
+    for (int jj = 0; jj < NV / 8; ++jj)
+#pragma unroll
+      for (int e = 2 * h; e < 2 * h + 2; ++e) {
+        const int d = NV * wg + 8 * jj + 2 * t + (e & 1);
+        if (d < hd) dq[qoff + (size_t)gr * hd + d] = acc[4 * jj + e];
+      }
   }
 }
 
 // --- B18c on the int8 tensor cores
-
-constexpr int IT = 256;  // threads of a column-walk block: two warpgroups
 
 // bytes of one row block's record: the codes of q * scale and of g, each
 // K-major [row][d] (rows 64, kp HD) and transposed [d][row] (rows HD, kp
@@ -525,15 +581,23 @@ int launch_dq_int8(const int* cols, const int* nblk, const int* slot,
                    const int* part, const float* pmask, const float* q,
                    const float* k, const float* v, const float* g,
                    const float* m, const float* l, const float* D, float* dq,
-                   int R, int heads, int mb, int max_bpr, int n_partial,
-                   int s_q, int s_kv, int hd, float scale,
-                   cudaStream_t stream) {
+                   void* work, int R, int heads, int mb, int max_bpr,
+                   int n_partial, int s_q, int s_kv, int hd, int sms,
+                   float scale, cudaStream_t stream) {
+  const int kb = (s_kv + TILE - 1) / TILE;
+  signed char* const rec = (signed char*)work;
+  if (kb > 0) {
+    quant_keys_kernel<HD><<<dim3(kb, R, 2), THREADS, 0, stream>>>(
+        k, v, rec, kb, s_kv, hd);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   constexpr size_t smem = sizeof(DqInt8Smem<HD>);
-  const int err = set_smem(flash_bwd_dq_int8_kernel<HD>, smem);
+  const int err = set_smem(flash_bwd_dq_int8_wgmma_kernel<HD>, smem);
   if (err) return err;
-  flash_bwd_dq_int8_kernel<HD><<<dim3(mb, R), THREADS, smem, stream>>>(
-      cols, nblk, slot, part, pmask, q, k, v, g, m, l, D, dq, heads, mb,
-      max_bpr, n_partial, s_q, s_kv, hd, scale);
+  flash_bwd_dq_int8_wgmma_kernel<HD><<<R * mb, IT, smem, stream>>>(
+      cols, nblk, slot, part, pmask, q, g, m, l, D, rec, dq, heads, mb, kb,
+      max_bpr, n_partial, s_q, hd, scale, sms);
   return (int)cudaGetLastError();
 }
 
@@ -565,19 +629,23 @@ int launch_dkv_int8(const int* ti, const int* tn, const int* tslot,
 
 // Row walk, dq [R, s_q, hd] with respect to q * scale. q (unscaled), g
 // [R, s_q, hd]; k, v [R, s_kv, hd]; m, l [R, mb * 64]; D [R, s_q]; hd <= 128.
+// work: the pre-pass's key-block records, R * kb * key_rec<HD> bytes (kb =
+// ceil(s_kv / 64); key_rec: 3 * 64 * HD + 8 rounded up to 128; HD = 64 for
+// hd <= 64, else 128). sms: the SMs the block order pairs long and short
+// walks over.
 extern "C" int flash_sparse_bwd_dq_int8(
     const void* block_cols, const void* nblocks, const void* mask_slot,
     const void* is_partial, const void* pmask, const void* q, const void* k,
     const void* v, const void* g, const void* m, const void* l, const void* D,
-    void* dq, int R, int heads, int mb, int max_bpr, int n_partial, int s_q,
-    int s_kv, int hd, float scale, void* stream) {
+    void* dq, void* work, int R, int heads, int mb, int max_bpr,
+    int n_partial, int s_q, int s_kv, int hd, int sms, float scale,
+    void* stream) {
 #define STT_DQ_I8_ARGS                                                       \
   (const int*)block_cols, (const int*)nblocks, (const int*)mask_slot,        \
       (const int*)is_partial, (const float*)pmask, (const float*)q,          \
       (const float*)k, (const float*)v, (const float*)g, (const float*)m,    \
-      (const float*)l, (const float*)D, (float*)dq, R, heads, mb, max_bpr,   \
-      n_partial, s_q, s_kv, hd, scale, (cudaStream_t)stream
-  if (hd <= 32) return stt::launch_dq_int8<32>(STT_DQ_I8_ARGS);
+      (const float*)l, (const float*)D, (float*)dq, work, R, heads, mb,      \
+      max_bpr, n_partial, s_q, s_kv, hd, sms, scale, (cudaStream_t)stream
   if (hd <= 64) return stt::launch_dq_int8<64>(STT_DQ_I8_ARGS);
   if (hd <= 128) return stt::launch_dq_int8<128>(STT_DQ_I8_ARGS);
 #undef STT_DQ_I8_ARGS

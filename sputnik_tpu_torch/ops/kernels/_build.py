@@ -57,9 +57,9 @@ _SIGNATURES = {
     "quant_kmajor": [_P] * 4 + [_I] * 7 + [_P],
     "spmm_panel_int8": [_P] * 7 + [_I] * 8 + [_P],
     "spmm_t_panel_int8": [_P] * 9 + [_I] * 8 + [_P],
-    "sddmm_panel_int8": [_P] * 10 + [_I] * 7 + [_P],
+    "sddmm_panel_int8": [_P] * 8 + [_I] * 7 + [_P],
     "flash_sparse_fwd_int8": [_P] * 12 + [_I] * 8 + [_F, _P],
-    "flash_sparse_bwd_dq_int8": [_P] * 13 + [_I] * 8 + [_F, _P],
+    "flash_sparse_bwd_dq_int8": [_P] * 14 + [_I] * 9 + [_F, _P],
     "flash_sparse_bwd_dkv_int8": [_P] * 15 + [_I] * 9 + [_F, _P],
     "spmm_panel_c_f32": [_P] * 10 + [_I] * 12 + [_P],
     "spmm_t_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],

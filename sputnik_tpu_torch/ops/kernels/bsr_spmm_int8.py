@@ -28,7 +28,10 @@ the tile scales and the codes K-major, ``[row tile][column][kp]``, stored
 in wgmma's core-matrix order, ``to_core_tiles``) and then one tensor-core
 product body; ``kmajor_plan`` is their padded layout, and
 ``quant_kmajor_plain`` the pre-pass's plain twin, which the plain products
-read too.
+read too. B17 runs its own pre-pass (``sddmm_quant_plain`` is its plain
+twin: per-``[tile rows, 128]``-chunk scales and codes K-major along the
+depth, one ``[64, 128]`` piece per 64-row slice of a tile) and then one
+tensor-core product body.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ._build import check, library
 
 __all__ = ["quantize_panel_np", "quant_tile", "div127", "kmajor_plan",
            "to_core_tiles", "quant_kmajor", "quant_kmajor_plain",
+           "sddmm_quant_plain",
            "bsr_spmm_panel_int8", "bsr_spmm_panel_int8_plain",
            "bsr_spmm_t_panel_int8", "bsr_spmm_t_panel_int8_plain",
            "bsr_sddmm_panel_int8", "bsr_sddmm_panel_int8_plain"]
@@ -331,26 +335,45 @@ bsr_spmm_t_panel_int8.launches = 0
 # -- B17 ----------------------------------------------------------------------
 
 
+def sddmm_quant_plain(x, tr: int, n_tiles: int):
+    """Plain twin of B17's pre-pass (``sddmm_quant_kernel``): ``x [rows,
+    D]`` (rows past ``rows`` zero) quantised per ``[tr, 128]`` tile, every
+    row of a tile on one scale per 128-deep chunk. Returns ``(codes int8
+    [n_tiles, dt, nsl * 64, 128], scales f32 [n_tiles, dt])`` with ``dt =
+    ceil(D / 128)`` and ``nsl = ceil(tr / 64)``: ``codes[i, t, r, k]`` is
+    the code of ``x[i * tr + r, t * 128 + k]``, 0 past the tile's rows and
+    past D. ``to_core_tiles(codes.view(-1, 64, 128))`` is the byte order the
+    card writes, one ``[64, 128]`` piece per 64-row slice of a chunk."""
+    rows, D = x.shape
+    dt = max(_cdiv(D, SDDMM_DEPTH), 1)
+    nsl = _cdiv(tr, 64)
+    xp = F.pad(x.float(), (0, dt * SDDMM_DEPTH - D, 0, n_tiles * tr - rows))
+    q, s = quant_tile(xp, tr, SDDMM_DEPTH)
+    q = q.view(n_tiles, tr, dt, SDDMM_DEPTH).transpose(1, 2)
+    codes = torch.zeros((n_tiles, dt, nsl * 64, SDDMM_DEPTH),
+                        dtype=torch.int8, device=x.device)
+    codes[:, :, :tr] = q
+    return codes, s
+
+
 def bsr_sddmm_panel_int8_plain(block_cols, nblocks, lhs, rhs, mask):
     """Plain version: ``lhs`` / ``rhs`` quantised per ``[bm, 128]`` /
-    ``[bk, 128]`` tile, one exact integer product per 128-deep chunk,
-    rescaled and summed in f32; masked and padded slots are exact 0."""
+    ``[bk, 128]`` tile (``sddmm_quant_plain``), one exact integer product
+    per 128-deep chunk, rescaled and summed in f32; masked and padded slots
+    are exact 0."""
     mb, max_bpr, bm, bk = mask.shape
-    M, D = lhs.shape
     kb = max(_cdiv(rhs.shape[0], bk), 1)
-    dt = max(_cdiv(D, SDDMM_DEPTH), 1)
-    lq, ls = _quant_rows(lhs, mb, bm, SDDMM_DEPTH)  # [mb, bm, dt*128]
-    rq, rs = _quant_rows(rhs, kb, bk, SDDMM_DEPTH)  # [kb, bk, dt*128]
-    ls, rs = ls[:, ::SDDMM_DEPTH], rs[:, ::SDDMM_DEPTH]   # [mb | kb, dt]
+    lq, ls = sddmm_quant_plain(lhs, bm, mb)       # [mb, dt, *, 128], [mb, dt]
+    rq, rs = sddmm_quant_plain(rhs, bk, kb)
+    lq, rq = lq[:, :, :bm].double(), rq[:, :, :bk].double()
     cols = block_cols.view(mb, max_bpr).long()
     live = ((torch.arange(max_bpr, device=lhs.device)[None, :]
              < nblocks.long()[:, None]) & (cols < kb))
     cols = cols.clamp(max=kb - 1)
     acc = torch.zeros(mask.shape, device=lhs.device)
-    for t in range(dt):
-        d = slice(t * SDDMM_DEPTH, (t + 1) * SDDMM_DEPTH)
-        prod = torch.einsum("imd,iskd->ismk", lq[:, :, d],
-                            rq[:, :, d][cols]).float()
+    for t in range(ls.shape[1]):
+        prod = torch.einsum("imd,iskd->ismk", lq[:, t],
+                            rq[:, t][cols]).float()
         acc = acc + prod * (ls[:, t, None] * rs[cols, t])[..., None, None]
     keep = (mask != 0) & live[:, :, None, None]
     return torch.where(keep, acc * mask, 0.0)
@@ -392,17 +415,19 @@ def bsr_sddmm_panel_int8(block_cols, nblocks, lhs, rhs, mask):
     if Nr == 0:
         return out.zero_()
     kb, dt = _cdiv(Nr, bk), _cdiv(D, SDDMM_DEPTH)
-    if mb * max_bpr > 65535 or max(mb, kb) > 65535:
+    if mb * max_bpr > 65535:
         raise ValueError("grid too large for one launch")
-    lq = torch.empty((mb * bm, dt * SDDMM_DEPTH), device=dev, dtype=torch.int8)
-    rq = torch.empty((kb * bk, dt * SDDMM_DEPTH), device=dev, dtype=torch.int8)
-    ls = torch.empty((mb, dt), device=dev, dtype=torch.float32)
-    rs = torch.empty((kb, dt), device=dev, dtype=torch.float32)
+    # the pre-pass's codes (lhs's, then rhs's; 64 x 128 bytes a 64-row
+    # slice of a chunk) and scales (lhs's [mb, dt], then rhs's [kb, dt])
+    n_slices = mb * _cdiv(bm, 64) + kb * _cdiv(bk, 64)
+    codes = torch.empty(n_slices * dt * 64 * SDDMM_DEPTH, device=dev,
+                        dtype=torch.int8)
+    scales = torch.empty((mb + kb) * dt, device=dev, dtype=torch.float32)
     err = library().sddmm_panel_int8(
         block_cols.data_ptr(), nblocks.data_ptr(), lhs.data_ptr(),
-        rhs.data_ptr(), mask.data_ptr(), lq.data_ptr(), rq.data_ptr(),
-        ls.data_ptr(), rs.data_ptr(), out.data_ptr(), mb, max_bpr, bm, bk, M,
-        Nr, D, torch.cuda.current_stream(dev).cuda_stream)
+        rhs.data_ptr(), mask.data_ptr(), codes.data_ptr(),
+        scales.data_ptr(), out.data_ptr(), mb, max_bpr, bm, bk, M, Nr, D,
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "bsr_sddmm_panel_int8")
     bsr_sddmm_panel_int8.launches += 1
     return out

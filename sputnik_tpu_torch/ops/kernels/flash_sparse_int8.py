@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import check_operands, guard_no_grad
+from . import SMS, check_operands, guard_no_grad
 from ._build import check, library
 from .bsr_spmm_int8 import div127, quant_tile
 from .flash_sparse import (_bwd_col_operands, _bwd_row_operands, _check_bwd,
@@ -38,7 +38,8 @@ from .flash_sparse import (_bwd_col_operands, _bwd_row_operands, _check_bwd,
 
 __all__ = ["flash_sparse_attention_fwd_int8",
            "flash_sparse_attention_fwd_int8_plain", "quant_kv_plain",
-           "quant_rows_plain", "row_record_bytes",
+           "quant_rows_plain", "row_record_bytes", "quant_keys_plain",
+           "key_record_bytes",
            "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dq_int8_plain",
            "flash_sparse_bwd_dkv_int8", "flash_sparse_bwd_dkv_int8_plain"]
 
@@ -101,6 +102,30 @@ def quant_rows_plain(q, g, scale: float, mb: int, hdp: int):
     gq = F.pad(gq, (0, pad)).to(torch.int8)
     return (qq, gq, qq.transpose(-1, -2).contiguous(),
             gq.transpose(-1, -2).contiguous(), torch.stack([qs, gs], -1))
+
+
+def key_record_bytes(hd: int) -> int:
+    """Bytes of one key block's record in B18b's pre-pass
+    (``quant_keys_kernel``): the codes of ``k`` K-major, of ``v`` K-major
+    and of ``k`` transposed, ``3 * 64 * HD``, then ``k_s`` and ``v_s`` in
+    f32, rounded up to 128 (HD = 64 for hd <= 64, else 128)."""
+    hdp = 64 if hd <= 64 else 128
+    return -(-(3 * 64 * hdp + 2 * 4) // 128) * 128
+
+
+def quant_keys_plain(k, v, hdp: int):
+    """Plain twin of B18b's pre-pass (``quant_keys_kernel``): ``k, v [R,
+    s_kv, hd]`` quantised per 64-key block, the keys zero-padded to whole
+    blocks and the head dims to ``hdp`` (64 or 128). Returns ``(k_codes,
+    v_codes int8 [R, kb, 64, hdp], k_codes_t int8 [R, kb, hdp, 64], scales
+    f32 [R, kb, 2])``: the codes K-major along the head dim (B of the score
+    products S = q k^T and dP = g v^T), K's transposed, K-major along the
+    keys (B of dQ = ds k), and ``(k_s, v_s)`` per block.
+    ``bsr_spmm_int8.to_core_tiles`` of a ``[64, hdp]`` (``[hdp, 64]``)
+    block is the byte order the card writes."""
+    kq, vt, scales = quant_kv_plain(k, v, hdp)
+    return (kq, vt.transpose(-1, -2).contiguous(),
+            kq.transpose(-1, -2).contiguous(), scales)
 
 
 def flash_sparse_attention_fwd_int8_plain(block_cols, nblocks, mask_slot,
@@ -348,7 +373,9 @@ def flash_sparse_bwd_dq_int8(block_cols, nblocks, mask_slot, is_partial,
     (unscaled; ``q * scale`` is what is quantised), g f32[R, s_q, hd]; k, v
     f32[R, s_kv, hd]; m, l f32[R, mb*bm] as the int8 forward returns them;
     D = rowsum(g * out) f32[R, s_q]. Returns dq f32[R, s_q, hd] with
-    respect to ``q * scale``.
+    respect to ``q * scale``. On the card two launches: the key pre-pass
+    (``quant_keys_plain`` is its twin), then the row walk on int8 tensor
+    cores.
     """
     B, mb = nblocks.shape
     _check_bwd(q, k, v, g, m, l, D, R_meta=B * heads, heads=heads, group=1,
@@ -366,12 +393,17 @@ def flash_sparse_bwd_dq_int8(block_cols, nblocks, mask_slot, is_partial,
     dq = torch.empty_like(q)
     if R == 0 or mb == 0:
         return dq
+    if R > 65535:
+        raise ValueError("grid too large for one launch")
+    s_kv = k.shape[1]
+    work = torch.empty(max(R * -(-s_kv // 64) * key_record_bytes(hd), 1),
+                       device=q.device, dtype=torch.int8)
     err = library().flash_sparse_bwd_dq_int8(
         block_cols.data_ptr(), nblocks.data_ptr(), mask_slot.data_ptr(),
         is_partial.data_ptr(), pmask.data_ptr(), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), g.data_ptr(), m.data_ptr(), l.data_ptr(), D.data_ptr(),
-        dq.data_ptr(), R, heads, mb, max_bpr, pmask.shape[1], s_q,
-        k.shape[1], hd, float(scale),
+        dq.data_ptr(), work.data_ptr(), R, heads, mb, max_bpr,
+        pmask.shape[1], s_q, s_kv, hd, SMS, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_sparse_bwd_dq_int8")
     flash_sparse_bwd_dq_int8.launches += 1

@@ -553,6 +553,83 @@ def test_flash_int8_row_prepass_codes_match_jax_quant_tile(s_q, hd):
     assert tfs8.row_record_bytes(hd) >= 4 * 64 * hdp + (3 * 64 + 2) * 4
 
 
+@pytest.mark.parametrize("s_kv,hd", [(130, 32), (130, 100), (130, 128),
+                                     (2048, 32), (2048, 100), (2048, 128)])
+def test_flash_int8_key_prepass_codes_match_jax_quant_tile(s_kv, hd):
+    """B18b's pre-pass (its plain twin ``quant_keys_plain``) quantises each
+    64-key block of k and v once a call: K's and V's codes K-major along
+    the head dim and K's transposed (K-major along the keys), and the
+    scales, equal to JAX's ``_quant_tile`` of that block (the TPU kernel's
+    per-visit quantisation), zero past the keys and the head dims;
+    ``to_core_tiles`` gives the transposed codes the order the card
+    writes, and the record holds them all."""
+    from sputnik_tpu.ops.pallas.bsr_spmm_int8 import _quant_tile
+    from sputnik_tpu_torch.ops.kernels import flash_sparse_int8 as tfs8
+    from sputnik_tpu_torch.ops.kernels.bsr_spmm_int8 import to_core_tiles
+
+    rng = np.random.RandomState(s_kv + hd)
+    k, v = (rng.randn(2, s_kv, hd).astype(np.float32) * 3 for _ in range(2))
+    hdp = 64 if hd <= 64 else 128
+    kb = -(-s_kv // 64)
+    kq, vq, kt, scales = tfs8.quant_keys_plain(torch.from_numpy(k),
+                                               torch.from_numpy(v), hdp)
+    assert kq.shape == vq.shape == (2, kb, 64, hdp)
+    assert kt.shape == (2, kb, hdp, 64) and scales.shape == (2, kb, 2)
+    assert kq.dtype == vq.dtype == kt.dtype == torch.int8
+    assert torch.equal(kt, kq.transpose(-1, -2))
+    quant = jax.vmap(_quant_tile)
+    for j, (x, codes) in enumerate(((k, kq), (v, vq))):
+        blocks = np.zeros((2, kb * 64, hd), np.float32)
+        blocks[:, :s_kv] = x
+        jq, js = quant(jnp.asarray(blocks.reshape(2 * kb, 64, hd)))
+        np.testing.assert_array_equal(
+            codes[..., :hd].reshape(2 * kb, 64, hd).numpy(), np.asarray(jq))
+        assert not codes[..., hd:].any()
+        np.testing.assert_array_equal(scales[..., j].reshape(-1).numpy(),
+                                      np.asarray(js))
+    flat = kt.reshape(2 * kb, hdp, 64)
+    core = to_core_tiles(flat)
+    t, d, key = 2 * kb - 1, hd - 1, 37
+    assert core[t, d // 8, key // 16, d % 8, key % 16] == flat[t, d, key]
+    assert tfs8.key_record_bytes(hd) % 128 == 0
+    assert tfs8.key_record_bytes(hd) >= 3 * 64 * hdp + 2 * 4
+
+
+@pytest.mark.parametrize("d,bm", [(20, 48), (64, 48), (300, 48), (20, 128),
+                                  (64, 128), (300, 128)])
+def test_sddmm_int8_prepass_codes_match_jax_quant_tile(d, bm):
+    """B17's pre-pass (its plain twin ``sddmm_quant_plain``) quantises each
+    [bm, 128] tile of an operand once: every row of the tile on one scale a
+    128-deep chunk, also where the tile spans two 64-row slices (bm = 128)
+    or ends inside one (bm = 48); codes and scales equal to JAX's
+    ``_quant_tile`` of the zero-padded tile (the TPU kernel's), zero past
+    the tile's rows and past the depth; ``to_core_tiles`` of the [64, 128]
+    slices is the order the card writes."""
+    from sputnik_tpu.ops.pallas.bsr_spmm_int8 import _quant_tile
+    from sputnik_tpu_torch.ops.kernels import bsr_spmm_int8 as k8
+
+    rows = 3 * bm - 7
+    rng = np.random.RandomState(d + bm)
+    x = rng.randn(rows, d).astype(np.float32) * 3
+    n_tiles, dt, nsl = 3, -(-d // 128), -(-bm // 64)
+    codes, scales = k8.sddmm_quant_plain(torch.from_numpy(x), bm, n_tiles)
+    assert codes.shape == (n_tiles, dt, nsl * 64, 128)
+    assert scales.shape == (n_tiles, dt) and codes.dtype == torch.int8
+    xp = np.zeros((n_tiles * bm, dt * 128), np.float32)
+    xp[:rows, :d] = x
+    tiles = xp.reshape(n_tiles, bm, dt, 128).transpose(0, 2, 1, 3)
+    jq, js = jax.vmap(_quant_tile)(jnp.asarray(tiles.reshape(-1, bm, 128)))
+    np.testing.assert_array_equal(
+        codes[:, :, :bm].reshape(-1, bm, 128).numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(scales.reshape(-1).numpy(), np.asarray(js))
+    assert not codes[:, :, bm:].any()
+    assert not codes[:, -1, :, d - (dt - 1) * 128:].any()
+    flat = codes.view(-1, 64, 128)
+    core = k8.to_core_tiles(flat)
+    t, row, k = flat.shape[0] - 1, 40, d % 128 - 1
+    assert core[t, row // 8, k // 16, row % 8, k % 16] == flat[t, row, k]
+
+
 def test_flash_int8_split_walk_is_another_function():
     """Why B18a walks each row block serially: p's codes are rint(exp(sc -
     m) * 127) with m the running max over the tiles walked so far. On a

@@ -1118,7 +1118,7 @@ def test_quant_kmajor_kernel_matches_plain(dev, rows, cols, tr, tc, n_tiles):
 
 @pytest.mark.parametrize("tiles", [(16, 16), (64, 64), (128, 128), (48, 48),
                                    (32, 96)])
-@pytest.mark.parametrize("d", [20, 128, 300])
+@pytest.mark.parametrize("d", [20, 64, 128, 300])
 def test_sddmm_int8_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
     spec, _, meta, rng = _int8_problem(dev, tiles, seed=1)
     lhs = torch.from_numpy(rng.randn(200, d).astype(np.float32)).to(dev)
@@ -1129,6 +1129,31 @@ def test_sddmm_int8_kernel_matches_plain_with_exact_zeros(dev, tiles, d):
     _close(got, kbi8.bsr_sddmm_panel_int8_plain(*args))
     keep = torch.from_numpy(spec.view.mask).to(dev)
     assert torch.all(got[~keep] == 0)      # padded + masked: exact zeros
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (48, 48)])
+def test_sddmm_int8_kernel_same_bits_and_never_plain(dev, tiles,
+                                                     monkeypatch):
+    """A CUDA call of B17 (the pre-pass, then wgmma s8) adds one to its
+    counter, reaches no plain version and gives the same bits twice, at
+    the main path's depth 64 (two k steps of one chunk) and at 300."""
+    spec, _, meta, rng = _int8_problem(dev, tiles, seed=3)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    for name in ("bsr_sddmm_panel_int8_plain", "sddmm_quant_plain",
+                 "quant_tile"):
+        monkeypatch.setattr(kbi8, name, refuse)
+    for d in (64, 300):
+        lhs = torch.from_numpy(rng.randn(200, d).astype(np.float32)).to(dev)
+        rhs = torch.from_numpy(rng.randn(150, d).astype(np.float32)).to(dev)
+        args = (meta["block_cols"], meta["nblocks"], lhs, rhs, meta["mask"])
+        before = kbi8.bsr_sddmm_panel_int8.launches
+        a1, a2 = (kbi8.bsr_sddmm_panel_int8(*args) for _ in range(2))
+        torch.cuda.synchronize()
+        assert kbi8.bsr_sddmm_panel_int8.launches == before + 2
+        assert torch.equal(a1.view(torch.int32), a2.view(torch.int32))
 
 
 @pytest.mark.parametrize("hd", [16, 64, 100, 128])
@@ -1240,6 +1265,55 @@ def test_flash_int8_backward_kernels_match_plain(dev, hd, random_mask):
     f32_dk, _ = fs.flash_sparse_bwd_dkv(*cols, **ckw)
     for got, f32 in ((ref_dq, f32_dq), (ref_dk, f32_dk)):
         assert (got - f32).abs().max() > 10e-4 * max(1.0, got.abs().max())
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_int8_backward_causal_2048_matches_plain(dev, hd, monkeypatch):
+    """B18b and B18c at the int8 example's attention (R = 8 walks of each
+    of 32 row blocks, s = 2048, causal, a fully-masked row): 256 walks of 1
+    to 32 tiles, past the 132 blocks that take the longest first, so the
+    reversed order runs too. Against their plain versions, one counted
+    launch a call, the same bits twice, the fully-masked row's dq exactly
+    0; no plain version reached on the card."""
+    masks, _ = _flash_masks("causal2048")
+    heads, s = 8, 2048
+    spec = stt.BatchedPanelSpec.from_many_mask(
+        stt.ManyMaskTopology.from_dense_masks(masks), heads=heads)
+    fm, bm = spec.flash_meta(dev), spec.flash_bwd_meta(dev)
+    rng = np.random.RandomState(9)
+    q, k, v, g = (torch.from_numpy(rng.randn(heads, s, hd).astype(
+        np.float32)).to(dev) for _ in range(4))
+    kw = dict(heads=heads, scale=hd ** -0.5)
+    out, m, l = kfi8.flash_sparse_attention_fwd_int8(
+        fm["block_cols"], fm["nblocks"], fm["mask_slot"], fm["is_partial"],
+        fm["pmask"], q, k, v, max_bpr=fm["max_bpr"], **kw)
+    ops = (q, k, v, g, m, l, (g * out).sum(-1))
+    rows = (fm["block_cols"], fm["nblocks"], fm["mask_slot"],
+            fm["is_partial"], fm["pmask"], *ops)
+    cols = (bm["t_src_i"], bm["t_nblocks"], bm["t_mask_slot"],
+            bm["t_is_partial"], bm["pmask"], *ops)
+    rkw, ckw = dict(kw, max_bpr=fm["max_bpr"]), dict(kw, max_bpc=bm["max_bpc"])
+    ref_dq = kfi8.flash_sparse_bwd_dq_int8_plain(*rows, **rkw)
+    ref_dk, ref_dv = kfi8.flash_sparse_bwd_dkv_int8_plain(*cols, **ckw)
+
+    def refuse(*a, **k_):
+        raise AssertionError("a CUDA call reached a plain version")
+
+    for name in ("flash_sparse_bwd_dq_int8_plain",
+                 "flash_sparse_bwd_dkv_int8_plain", "quant_tile"):
+        monkeypatch.setattr(kfi8, name, refuse)
+    dq_k, dkv_k = kfi8.flash_sparse_bwd_dq_int8, kfi8.flash_sparse_bwd_dkv_int8
+    before = (dq_k.launches, dkv_k.launches)
+    dq1, dq2 = (dq_k(*rows, **rkw) for _ in range(2))
+    (dk1, dv1), (dk2, dv2) = (dkv_k(*cols, **ckw) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (dq_k.launches, dkv_k.launches) == (before[0] + 2, before[1] + 2)
+    for a, b_ in ((dq1, dq2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a.view(torch.int32), b_.view(torch.int32))
+    _close(dq1, ref_dq)
+    _close(dk1, ref_dk)
+    _close(dv1, ref_dv)
+    assert torch.all(dq1[:, 1000] == 0)        # the fully-masked row
 
 
 def test_flash_int8_backward_kernels_refuse_other_tiles(dev):
