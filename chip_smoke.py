@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --only moe_train,ring_path   # chosen phases only
+    python3 chip_smoke.py --only decode_steps   # decode ms/token, launches
 
 Phases, each printing its lines:
   1. the device (name, power limit) and the kernels' nvcc build;
@@ -30,9 +31,13 @@ Phases, each printing its lines:
      float64 plain run; decode attention (R=32, S=2, bk=1024, hd=128; bf16,
      f32 and int8 caches; qlen 1 and 4; GQA group 1 and 4, the latter
      with R_kv=8 as run (f) gives it; and B19 / B20a at hd 192 and 256)
-     and the ragged append (R=32,
-     bit-exact) at the serving shapes; the paged kernels at the paged
-     serving shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
+     and the KV append B21 (R=32, hd=128, fp32 token views of a
+     projection; bf16, f32 and int8 caches; bit-identical to its plain
+     version, new lengths included, on the uniform, ragged and speculative
+     routes; its device time by graph replay, its host-inclusive time a
+     call and the plain composite's) at the serving shapes; the paged
+     kernels, B20b likewise on the paged routes, at the paged serving
+     shapes (2d); the batched many-mask kernels B6 / B7 / B8 at the
      MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
      C=640; timed, B7 by graph replay beside eager, the same bits twice)
      and at the panel attention's (b=4 DISTINCT masks, 8 heads, s=512,
@@ -84,10 +89,17 @@ Phases, each printing its lines:
         b=4, P=1024, h=1024, 8 heads, ffn 4096, V=32000, causal masks;
         LMServer(s_max=P+64, bk=1024), bf16 cache): (a) greedy generate of
         64 tokens, (b) sampled (T=0.8, top_k=40, seeded generator), (c)
-        prompt_lengths [1024, 900, 700, 512] through the ragged append,
-        (d) decode_multi q=4 + rollback, (e) int8 cache, (f) GQA
-        kv_heads=2 on 2 layers; one decode_step under the sync debug mode;
-     d. paged serving from a KV page pool (LMServer(n_pages=));
+        prompt_lengths [1024, 900, 700, 512] (the ragged step), (d)
+        decode_multi q=4 + rollback, (e) int8 cache, (f) GQA kv_heads=2 on
+        2 layers, one KV append a layer a step on each; one decode_step
+        under the sync debug mode;
+     d. paged serving from a KV page pool (LMServer(n_pages=)), one
+        paged append a layer a step, (e) a paged decode_multi q=4 too;
+        then four decode routes of the same model (contiguous bf16 and
+        int8, ragged bf16, paged bf16) timed in turns and profiled (device
+        launches a step), one step's ops sorted by site: the KV write may
+        issue none but its kernel (``--only decode_steps`` runs this part
+        alone, unchecked, for comparisons across checkouts);
      e. MoE training at examples/train_moe_transformer.py's full config
         (6 layers, every 2nd a top-2 SparseMoE of 8 experts): the example's
         10 Adam steps with its self-checks, 6 launches each of B6, B7, B8 a
@@ -1323,7 +1335,7 @@ def phase_serving_kernels(stt, torch, dev, kres):
     from sputnik_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_kernel, decode_attention_plain)
     from sputnik_tpu_torch.ops.kernels.ragged_append import (
-        ragged_append_kernel, ragged_append_plain)
+        ragged_append_fused_plain, ragged_append_kernel)
 
     print("phase 2c: serving kernels vs plain PyTorch at the serving shapes",
           flush=True)
@@ -1409,49 +1421,125 @@ def phase_serving_kernels(stt, torch, dev, kres):
     del kv, cache, timed
     _wide_head_decode(torch, dev, kres)
 
-    r = kres["ragged_append"]
-    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+    # B21 on every contiguous route at the serving shape: replicas at 1088
+    # (the uniform step's shared position), one a row short of s_max and
+    # one full (the ragged step's capacity guard)
+    lens = [1088] * (R - 2) + [s_max - 1, s_max]
+
+    def make(dtype):
         k, v = (torch.from_numpy(rng.randn(R, s_max, hd).astype(
             np.float32) * 40).to(dtype).to(dev) for _ in range(2))
-        ks, vs = (torch.rand(R, s_max, device=dev) for _ in range(2))
-        toks = (torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
-                                 ).to(dtype).to(dev),
-                torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
-                                 ).to(dtype).to(dev),
-                torch.rand(R, device=dev), torch.rand(R, device=dev))
-        pos = torch.from_numpy(rng.randint(0, s_max + 1, R).astype(
-            np.int32)).to(dev)
-        ok = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
-        bufs = [k, v, ks, vs]
-        want = [t.clone() for t in bufs]
-        ragged_append_plain(pos, ok, *toks, *want)
-        ragged_append_kernel(pos, ok, *toks, *bufs)
-        for got, ref in zip(bufs, want):
-            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
-                _fail(f"ragged_append {dtype}: not bit-identical to plain")
-        r["max_abs_err"] = 0.0
-        print(f"  ragged_append R={R} s_max={s_max} hd={hd} "
-              f"{str(dtype)[6:]}: bit-identical to plain", flush=True)
-        if dtype == torch.bfloat16:
-            r["ms"] = _time_ms(lambda: ragged_append_kernel(pos, ok, *toks,
-                                                            *bufs))
-            r["plain_ms"] = _time_ms(lambda: ragged_append_plain(
-                pos, ok, *toks, *bufs))
-            print(f"  ragged_append R={R} hd={hd} bf16: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
-                  flush=True)
-            # no single PyTorch call writes four buffers under a guard
-            r["library_ms"] = None
-            _append_bound(r, toks, (pos, ok), int(ok.sum()))
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return ([k, v] + [torch.rand(R, s_max, device=dev)
+                          for _ in range(2)], (kv_len,), kv_len)
+
+    def at(p):
+        return torch.tensor(p, dtype=torch.int32, device=dev)
+
+    kv_len = at(lens)            # the uniform routes' shared position: [0]
+    active = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
+    _kv_append_routes(
+        torch, dev, kres["ragged_append"], "ragged_append",
+        ragged_append_kernel, ragged_append_fused_plain, make,
+        {"uniform step": (1, dict(pos=kv_len[0])),
+         "uniform at s_max": (1, dict(pos=at(s_max))),
+         "ragged step": (1, dict(active=active)),
+         "ragged step, no active": (1, {}),
+         "draft q=4": (4, dict(pos=kv_len[0], seq=True)),
+         "draft q=8 past s_max": (8, dict(pos=at(s_max - 7), seq=True))},
+        b=4, heads=8, hd=hd, rows_written=R)
 
 
-def _append_bound(r, toks, index, n_writes):
-    """B21 / B20b: the tokens and the index arrays read once, the written
-    rows (K and V) and scales; no arithmetic, so bytes bound it (and in
-    practice the launch)."""
-    tok_k = toks[0]
-    row = 2 * tok_k.shape[1] * tok_k.element_size() + 2 * 4
-    _bound(r, 0.0, _nbytes(*toks, *index) + n_writes * row)
+def _host_ms(fn, n: int = 200, warmup: int = 20) -> float:
+    """Milliseconds per eager ``fn()`` call on the host's clock: ``n``
+    back-to-back calls ended by one synchronize, so a call that takes less
+    device time than its host work counts its host time (the
+    host-inclusive time per call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _append_tokens(torch, dev, rng, b, heads, q, hd):
+    """fp32 K / V tokens as the decoders hand them to the append: the split
+    views of a ``[b, q, heads, 3 * hd]`` projection, folded (``[R, hd]``
+    strided views for one token)."""
+    x = torch.from_numpy(rng.randn(b, q, heads, 3 * hd).astype(
+        np.float32)).to(dev)
+    out = [p.transpose(1, 2).reshape(b * heads, q, hd)
+           for p in (x[..., hd:2 * hd], x[..., 2 * hd:])]
+    return [t[:, 0] for t in out] if q == 1 else out
+
+
+def _kv_append_routes(torch, dev, r, name, kernel, plain, make, routes, b,
+                      heads, hd, rows_written=None):
+    """The fused KV append (B21 or B20b) against its plain version, bit for
+    bit (cache bytes, scales and the new lengths), on every route and cache
+    dtype; then, at the serving shape with a bf16 cache, its device time by
+    CUDA graph replay (``ms``), its host-inclusive time per eager call, and
+    the plain version's (the composite of PyTorch ops the decode step ran
+    before: cast or quantise, guarded indexed writes, length arithmetic).
+    ``make(dtype)`` -> ``(buffers, args after them, kv_len)``; ``routes``:
+    label -> ``(q, kwargs)``, the first one timed and bounded;
+    ``rows_written`` by it (default: what its lengths advanced by)."""
+    rng = np.random.RandomState(32)
+    R = b * heads
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        bufs, extra, _ = make(dtype)
+        for label, (q, kw) in routes.items():
+            toks = _append_tokens(torch, dev, rng, b, heads, q, hd)
+            want = [t.clone() for t in bufs]
+            got = [t.clone() for t in bufs]
+            ref_len = plain(*toks, *want, *extra, **kw)
+            new_len = kernel(*toks, *got, *extra, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got + [new_len], want + [ref_len]):
+                if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+                    _fail(f"{name} {label} {dtype}: not bit-identical to "
+                          f"plain")
+        print(f"  {name} R={R} hd={hd} {str(dtype)[6:]} cache, fp32 token "
+              f"views: bit-identical to plain (bytes, scales, new lengths) "
+              f"on {len(routes)} routes: {', '.join(routes)}", flush=True)
+    r["max_abs_err"] = 0.0
+    for dtype in (torch.bfloat16, torch.int8):
+        bufs, extra, kv_len = make(dtype)
+        for i, (label, (q, kw)) in enumerate(routes.items()):
+            toks = _append_tokens(torch, dev, rng, b, heads, q, hd)
+            call = (lambda t=toks, kw=kw:
+                    kernel(*t, *bufs, *extra, **kw))
+            host = _host_ms(call)
+            plain_host = _host_ms(lambda t=toks, kw=kw:
+                                  plain(*t, *bufs, *extra, **kw), n=20)
+            line = (f"  {name} {label} R={R} hd={hd} {str(dtype)[6:]}: "
+                    f"{host:.4f} ms host-inclusive a call (eager, 200 "
+                    f"calls, one sync), plain composite {plain_host:.4f}")
+            if i == 0 and dtype == torch.bfloat16:
+                r["ms"] = _graph_ms(call)
+                r["plain_ms"] = _time_ms(lambda: plain(*toks, *bufs, *extra,
+                                                       **kw))
+                # no one PyTorch call casts, writes under a guard and
+                # returns the lengths
+                r["library_ms"] = None
+                n_rows = (int((call() - kv_len).sum()) if rows_written is None
+                          else rows_written)
+                nbytes = (_nbytes(*toks, kv_len) + R * 4
+                          + n_rows * 2 * (hd * bufs[0].element_size() + 4)
+                          + _nbytes(*[t for t in extra if t is not kv_len]))
+                line += (f"; device {r['ms']:.5f} ms by graph replay, plain "
+                         f"{r['plain_ms']:.4f} ms eager (CUDA events); "
+                         f"bound {nbytes / PEAK_BYTES * 1e3:.2e} ms "
+                         f"({nbytes} B: fp32 tokens read, {n_rows} rows and "
+                         f"scales written, lengths, indices)")
+                r["bound_ms"] = nbytes / PEAK_BYTES * 1e3
+                r["bound_by"] = "bytes"
+            print(line, flush=True)
 
 
 def phase_paged_kernels(stt, torch, dev, kres):
@@ -1462,7 +1550,7 @@ def phase_paged_kernels(stt, torch, dev, kres):
 
     from sputnik_tpu_torch.ops import paged as PG
     from sputnik_tpu_torch.ops.kernels.paged_append import (
-        paged_append_kernel, paged_append_plain)
+        paged_append_fused_plain, paged_append_kernel)
     from sputnik_tpu_torch.ops.kernels.paged_attention import (
         paged_attention_kernel, paged_attention_plain)
 
@@ -1544,45 +1632,29 @@ def phase_paged_kernels(stt, torch, dev, kres):
                   n_keys=n_keys, group=1)
     del timed, cache
 
-    r = kres["paged_append"]
+    # B20b on every paged route: each replica's two blocks on shuffled
+    # pages, except the last (no page for block 1); one replica at the
+    # table's capacity, one a token short of block 1 (drafts cross into it)
     P = n_pages + 1
-    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+    plens = [1088] * (R - 3) + [mb * bk, bk - 1, bk]
+    table = np.random.RandomState(33).permutation(n_pages)[:R * mb].reshape(
+        R, mb).astype(np.int32)
+    table[R - 1, 1] = -1
+
+    def make(dtype):
         k, v = (torch.from_numpy(rng.randn(P, bk, hd).astype(
             np.float32) * 40).to(dtype).to(dev) for _ in range(2))
-        ks, vs = (torch.rand(P, bk, device=dev) for _ in range(2))
-        toks = (torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
-                                 ).to(dtype).to(dev),
-                torch.from_numpy(rng.randn(R, hd).astype(np.float32) * 40
-                                 ).to(dtype).to(dev),
-                torch.rand(R, device=dev), torch.rand(R, device=dev))
-        # distinct pages for the writers; some ids and offsets out of range
-        page = torch.from_numpy(rng.permutation(P + 4)[:R].astype(
-            np.int32) - 2).to(dev)
-        off = torch.from_numpy(rng.randint(0, bk + 8, R).astype(
-            np.int32)).to(dev)
-        ok = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
-        bufs = [k, v, ks, vs]
-        want = [t.clone() for t in bufs]
-        paged_append_plain(page, off, ok, *toks, *want)
-        paged_append_kernel(page, off, ok, *toks, *bufs)
-        for got, ref in zip(bufs, want):
-            if not torch.equal(got.view(torch.uint8), ref.view(torch.uint8)):
-                _fail(f"paged_append {dtype}: not bit-identical to plain")
-        r["max_abs_err"] = 0.0
-        print(f"  paged_append R={R} P={P} bk={bk} hd={hd} "
-              f"{str(dtype)[6:]}: bit-identical to plain", flush=True)
-        if dtype == torch.bfloat16:
-            r["ms"] = _time_ms(lambda: paged_append_kernel(
-                page, off, ok, *toks, *bufs))
-            r["plain_ms"] = _time_ms(lambda: paged_append_plain(
-                page, off, ok, *toks, *bufs))
-            print(f"  paged_append R={R} hd={hd} bf16: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms",
-                  flush=True)
-            r["library_ms"] = None      # as for B21
-            writes = ((ok == 1) & (page >= 0) & (page < P) & (off >= 0)
-                      & (off < bk))
-            _append_bound(r, toks, (page, off, ok), int(writes.sum()))
+        kv_len = torch.tensor(plens, dtype=torch.int32, device=dev)
+        return ([k, v] + [torch.rand(P, bk, device=dev) for _ in range(2)],
+                (torch.from_numpy(table).to(dev), kv_len), kv_len)
+
+    active = torch.from_numpy((rng.rand(R) < 0.8).astype(np.int32)).to(dev)
+    _kv_append_routes(
+        torch, dev, kres["paged_append"], "paged_append",
+        paged_append_kernel, paged_append_fused_plain, make,
+        {"step": (1, {}), "ragged step": (1, dict(active=active)),
+         "draft q=4": (4, {}), "draft q=8": (8, dict(active=active))},
+        b=4, heads=8, hd=hd)
 
 
 def _counted(wrappers, total, label, fn, expect):
@@ -1680,7 +1752,7 @@ def phase_serving(stt, torch, dev, wrappers):
                            lambda: srv.generate(pd, n_new),
                            {"flash_sparse_attention_fwd": layers,
                             "decode_attention": layers * steps,
-                            "ragged_append": 0})
+                            "ragged_append": layers * steps})
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     check_tokens("(a)", toks_a, n_new)
@@ -1692,7 +1764,8 @@ def phase_serving(stt, torch, dev, wrappers):
                  lambda: srv.generate(pd, n_new, gen.manual_seed(5),
                                       temperature=0.8, top_k=40)[0],
                  {"flash_sparse_attention_fwd": layers,
-                  "decode_attention": layers * steps, "ragged_append": 0})
+                  "decode_attention": layers * steps,
+                  "ragged_append": layers * steps})
     check_tokens("(b)", toks_b, n_new)
     again = srv.generate(pd, n_new, gen.manual_seed(5), temperature=0.8,
                          top_k=40)[0]
@@ -1732,7 +1805,8 @@ def phase_serving(stt, torch, dev, wrappers):
     y_multi, y_seq, y_next, caches_d = run(
         "(d) decode_multi q=4, rollback 3, decode_step (+ 4 sequential steps)",
         speculative, {"flash_sparse_attention_fwd": layers,
-                      "decode_attention": layers * 6, "ragged_append": 0})
+                      "decode_attention": layers * 6,
+                      "ragged_append": layers * 6})
     _compare("(d) decode_multi vs 4 sequential decode_steps", y_multi, y_seq,
              TOL_MODEL)
     _compare("(d) decode_step after rollback vs sequential step 2",
@@ -1744,13 +1818,14 @@ def phase_serving(stt, torch, dev, wrappers):
     toks_e = run("(e) greedy generate, int8 cache",
                  lambda: srv8.generate(pd, n_new)[0],
                  {"flash_sparse_attention_fwd": layers,
-                  "decode_attention": layers * steps, "ragged_append": 0})
+                  "decode_attention": layers * steps,
+                  "ragged_append": layers * steps})
     check_tokens("(e)", toks_e, n_new)
     gqa = server(gqa_lm)
     toks_f = run("(f) greedy generate, GQA kv_heads=2, 2 layers",
                  lambda: gqa.generate(pd, 16)[0],
                  {"flash_sparse_attention_fwd": 2,
-                  "decode_attention": 2 * 15, "ragged_append": 0})
+                  "decode_attention": 2 * 15, "ragged_append": 2 * 15})
     if toks_f.shape != (b, 16):
         _fail("serving (f): token shape")
     agree = {k: float((t == toks_a).float().mean()) for k, t in
@@ -1833,10 +1908,6 @@ def phase_serving(stt, torch, dev, wrappers):
           f"max {step_ms[-1]:.4f}) -> {b / med * 1e3:.1f} tokens/s; "
           f"generate({n_new}) {gen_s:.3f} s wall incl. prefill; peak "
           f"device memory of (a) {peak / 2**20:.1f} MiB", flush=True)
-    try:
-        _profile_decode(torch, srv, caches, toks_a)
-    except Exception as e:  # a measurement, not a check of the path
-        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
     shared = dict(lm=lm, cpu_lm=cpu_lm, pd=pd, prompt=prompt, toks_a=toks_a,
                   mha32=mha32, decode_ms=med)
     return total, shared
@@ -1951,6 +2022,34 @@ def phase_paged_serving(stt, torch, dev, wrappers, ctx):
              paged_append=6 * 32))
     print(f"  serve_paged: {out}", flush=True)
 
+    def speculative():
+        """decode_multi q=4 from the pool (one append a layer, all four
+        tokens), against four sequential decode steps on a copy."""
+        dec = psrv.decoder
+        caches = dec.reserve(psrv.init_caches(b), P + 4)
+        _, caches = dec.prefill(psrv.lm.embed(pd), caches)
+        seq = tuple(c.clone() for c in caches)
+        draft = toks_a[:, :4]
+        y_multi, caches = dec.decode_multi(psrv.lm.embed(draft), caches)
+        if caches[0].kv_len.tolist() != [P + 4] * (b * heads):
+            _fail("paged (e): decode_multi did not advance kv_len by 4")
+        ys = []
+        for i in range(4):
+            y1, seq = dec.decode_step(psrv.lm.embed(draft[:, i])[:, None],
+                                      seq)
+            ys.append(y1)
+        for s_ in range(b):
+            caches = dec.release(caches, s_)
+        return y_multi, torch.cat(ys, 1)
+
+    y_multi, y_seq = _counted(
+        wrappers, total, "paged (e) decode_multi q=4 (+ 4 sequential steps)",
+        speculative, dict(none, flash_sparse_attention_fwd=layers,
+                          paged_attention=layers * 5,
+                          paged_append=layers * 5))
+    _compare("paged (e) decode_multi vs 4 sequential decode_steps", y_multi,
+             y_seq, TOL_MODEL)
+
     print("  one paged decode_step under torch.cuda.set_sync_debug_mode("
           "'error')", flush=True)
     caches = psrv.decoder.reserve(psrv.init_caches(b), P + 48)
@@ -1962,47 +2061,10 @@ def phase_paged_serving(stt, torch, dev, wrappers, ctx):
         _, caches = psrv.decode_step(toks_a[:, 0], caches)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    # decode ms/token of the two servers in turns (ABBA, 4 rounds of 8
-    # steps each): host time varies between calls and within one
-    flat = LMServer(lm, s_max=P + 64, bk=bk, cache_dtype=torch.bfloat16)
-    fcaches = flat.init_caches(b)
-    with torch.no_grad():
-        _, fcaches = flat.decoder.prefill(flat.lm.embed(pd), fcaches)
-        _, fcaches = flat.decode_step(toks_a[:, 0], fcaches)
-    step_ms = {"contiguous": [], "paged": []}
-    state = {"contiguous": (flat, fcaches), "paged": (psrv, caches)}
-    i = 1
-    for rnd in range(4):
-        order = ("contiguous", "paged") if rnd % 2 == 0 else ("paged",
-                                                             "contiguous")
-        for name in order:
-            srv_, cs_ = state[name]
-            times = []
-            for j in range(8):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                _, cs_ = srv_.decode_step(toks_a[:, i + j], cs_)
-                end.record()
-                times.append((start, end))
-            torch.cuda.synchronize()
-            step_ms[name] += [s_.elapsed_time(e) for s_, e in times]
-            state[name] = (srv_, cs_)
-        i += 8
-    caches = state["paged"][1]
-    med = {n: statistics.median(t) for n, t in step_ms.items()}
-    print(f"  decode_step bf16, in turns (4 rounds x 8 steps each, ABBA): "
-          f"paged {med['paged']:.4f} ms/token (min "
-          f"{min(step_ms['paged']):.4f}, max {max(step_ms['paged']):.4f}), "
-          f"contiguous {med['contiguous']:.4f} (min "
-          f"{min(step_ms['contiguous']):.4f}, max "
-          f"{max(step_ms['contiguous']):.4f}); phase 4c read the contiguous "
-          f"step at {ctx['decode_ms']:.4f}", flush=True)
-    del flat, fcaches, state
-    try:
-        _profile_decode(torch, psrv, caches, toks_a)
-    except Exception as e:  # a measurement, not a check of the path
-        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    del caches
+    _decode_routes(torch, dev, lm, pd, toks_a, check=True)
+    print(f"  phase 4c read the contiguous bf16 step at "
+          f"{ctx['decode_ms']:.4f} ms/token", flush=True)
 
     n = 16
     print(f"phase 4d: paged fp32 pool vs the CPU and vs the contiguous "
@@ -2025,6 +2087,97 @@ def phase_paged_serving(stt, torch, dev, wrappers, ctx):
     return total
 
 
+def phase_decode_steps(stt, torch, dev, _kres):
+    """Phase 3d's decode routes alone, on phase 3c's model and prompt
+    (``--only decode_steps``): public entry points only and no check of
+    launch counts, so a copy of the script placed in another checkout
+    times that checkout's decode the same way, for comparisons in one
+    call."""
+    from sputnik_tpu_torch.models import SparseLM
+    from sputnik_tpu_torch.patterns import causal_mask
+
+    b, P, h, heads, layers, ffn, V = 4, 1024, 1024, 8, 6, 4096, 32000
+    print(f"phase decode_steps: SparseLM {layers}L b={b} P={P} h={h} "
+          f"heads={heads} ffn={ffn} V={V}", flush=True)
+    masks = np.broadcast_to(causal_mask(P), (b, P, P)).copy()
+    lm = SparseLM.from_masks(
+        masks, vocab_size=V, num_layers=layers, hidden_size=h,
+        num_heads=heads, ffn_hidden_size=ffn, use_residual=True,
+        use_layernorm=True, activation="gelu",
+        generator=torch.Generator().manual_seed(20)).eval().to(dev)
+    rng = np.random.RandomState(21)
+    pd = torch.from_numpy(rng.randint(0, V, (b, P))).to(dev)
+    toks = torch.from_numpy(rng.randint(0, V, (b, 64))).to(dev)
+    _decode_routes(torch, dev, lm, pd, toks, check=False)
+
+
+def _decode_routes(torch, dev, lm, pd, toks, *, check):
+    """Decode ms/token and device launches a step of ``lm`` (phase 3c's
+    model, b=4, P=1024) on four routes: the contiguous uniform step (bf16
+    and int8 caches), the contiguous ragged step (prompt lengths 1024 /
+    900 / 700 / 512) and the paged step (bf16 pool of 96 pages of 1024).
+    The routes take turns (4 rounds of 8 steps, the order reversed every
+    other round: host time varies between calls and within one), CUDA
+    events around each step; then each is profiled over 8 steps and its
+    ops of one step are sorted into the KV write's and the rest's
+    (``check``: fail if the write issues any op that launches a kernel
+    besides the append itself). Needs ``toks`` ``[b, >= 48]``."""
+    from sputnik_tpu_torch.models import LMServer
+
+    b, P = pd.shape
+    bk = 1024
+    routes = {}
+    for name, dtype, pages, lens in (
+            ("contiguous bf16", torch.bfloat16, None, None),
+            ("contiguous int8", torch.int8, None, None),
+            ("contiguous ragged bf16", torch.bfloat16, None,
+             [1024, 900, 700, 512]),
+            ("paged bf16", torch.bfloat16, 96, None)):
+        srv = LMServer(lm, s_max=P + 64, bk=bk, cache_dtype=dtype,
+                       n_pages=pages)
+        caches = srv.init_caches(b)
+        if pages:
+            caches = srv.decoder.reserve(caches, P + 64)
+        with torch.no_grad():
+            _, caches = srv.decoder.prefill(
+                srv.lm.embed(pd), caches,
+                lengths=None if lens is None else torch.tensor(lens,
+                                                               device=dev))
+        step = srv.decode_step if lens is None else srv.decode_step_ragged
+        for i in range(3):
+            _, caches = step(toks[:, i], caches)
+        routes[name] = [step, caches, []]
+    torch.cuda.synchronize()
+    i = 3
+    names = list(routes)
+    for rnd in range(4):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            step, caches, times = routes[name]
+            for j in range(8):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                _, caches = step(toks[:, i + j], caches)
+                end.record()
+                times.append((start, end))
+            torch.cuda.synchronize()
+            routes[name][1] = caches
+        i += 8
+    for name, (step, caches, times) in routes.items():
+        ms = sorted(s_.elapsed_time(e) for s_, e in times)
+        print(f"  decode step {name}: {statistics.median(ms):.4f} ms/token "
+              f"(median of {len(ms)} steps in turns, min {ms[0]:.4f}, max "
+              f"{ms[-1]:.4f})", flush=True)
+    # the profiler's first window pays its own start-up: one step unprinted
+    from torch.profiler import ProfilerActivity, profile
+    step, caches, _ = routes[names[0]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        routes[names[0]][1] = step(toks[:, 35], caches)[1]
+        torch.cuda.synchronize()
+    for name, (step, caches, _) in routes.items():
+        _profile_decode(torch, step, caches, toks[:, 36:], name, check)
+
+
 def _profile_steps(torch, label, step, n=8):
     """Device time by kernel over ``n`` calls ``step(i)`` (torch.profiler),
     and the device's busy share of the window's wall time."""
@@ -2043,23 +2196,95 @@ def _profile_steps(torch, label, step, n=8):
             if getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA")]
     busy = sum(t for _, t, _ in rows)
+    launches = sum(c for _, _, c in rows)
     print(f"  profile of {n} {label}: {wall_ms:.3f} ms wall (profiled), "
-          f"device kernels {busy:.3f} ms -> busy {busy / wall_ms:.1%}; by "
-          f"device time:", flush=True)
+          f"device kernels {busy:.3f} ms -> busy {busy / wall_ms:.1%}; "
+          f"{launches / n:.1f} device launches a step; by device time:",
+          flush=True)
     for key, t, c in sorted(rows, key=lambda x: -x[1])[:12]:
         print(f"    {t / n:.4f} ms/step  {c / n:.0f} launches/step  "
               f"{key[:90]}", flush=True)
+    return rows
 
 
-def _profile_decode(torch, srv, caches, toks):
-    """Device time by kernel over 8 decode steps."""
+# kernels of the kinds the KV write launched before it was one kernel a
+# layer: indexed reads and writes, selects, fills and casts
+_WRITE_KINDS = ("index_copy", "indexSelect", "where", "Fill", "copy_kernel")
+
+# aten ops that launch no kernel (besides views)
+_NO_KERNEL = ("empty", "empty_strided", "detach", "alias", "lift_fresh")
+
+
+def _step_ops(torch, step):
+    """The aten ops of one ``step()``, counted by (op, innermost frame of
+    the port): those issued inside the KV write (an append function of
+    ``ops/decode.py`` or ``ops/paged.py`` on the Python stack) and the
+    rest, views left out."""
+    import collections
+    import os
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from sputnik_tpu_torch.ops import decode as decode_ops
+    from sputnik_tpu_torch.ops import paged as paged_ops
+
+    write = {f.__code__ for f in (
+        decode_ops.append_kv, decode_ops.append_kv_seq,
+        paged_ops.append_paged, paged_ops.append_paged_seq)}
+    inside, outside = collections.Counter(), collections.Counter()
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if func.is_view or name in _NO_KERNEL:
+                return out
+            f, site, in_write = sys._getframe(1), None, False
+            while f is not None and not in_write:
+                code = f.f_code
+                in_write = code in write
+                if site is None and "sputnik_tpu_torch" in code.co_filename:
+                    site = (f"{os.path.basename(code.co_filename)}:"
+                            f"{code.co_name}")
+                f = f.f_back
+            (inside if in_write else outside)[(name, site)] += 1
+            return out
+
+    with torch.no_grad(), Ops():
+        step()
+    return inside, outside
+
+
+def _profile_decode(torch, step, caches, toks, label, check):
+    """Device time by kernel over 8 decode steps, the device launches a
+    step and how many a step are of the kinds the KV write used to launch;
+    then one step's ops by site: those of the write (``check``: fail
+    unless there are none, i.e. the append is its one kernel and the new
+    length's ``empty``) and those of the kinds above elsewhere in the
+    step (the embedding's gather, the tables, the casts around the
+    projections and attention)."""
     caches = tuple(c.clone() for c in caches)
 
-    def step(i):
+    def one(i):
         nonlocal caches
-        _, caches = srv.decode_step(toks[:, i], caches)
+        _, caches = step(toks[:, i], caches)
 
-    _profile_steps(torch, "decode steps", step)
+    try:
+        rows = _profile_steps(torch, f"decode steps, {label}", one)
+        kinds = {k: sum(c for key, _, c in rows if k in key) / 8
+                 for k in _WRITE_KINDS}
+        print(f"    launches a step by kind: {kinds}", flush=True)
+    except Exception as e:  # a measurement, not a check of the path
+        print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+    inside, outside = _step_ops(torch, lambda: one(8))
+    kin = ("index", "where", "fill", "copy", "clone", "ones", "zeros",
+           "full", "scalar_tensor", "embedding")
+    rest = {f"{op}@{site}": n for (op, site), n in sorted(outside.items())
+            if any(k in op for k in kin)}
+    print(f"    ops of one step in the KV write: {dict(inside) or 'none'}; "
+          f"of those kinds elsewhere: {rest}", flush=True)
+    if check and inside:
+        _fail(f"decode {label}: the KV write issued ops besides its one "
+              f"kernel: {dict(inside)}")
 
 
 # -- the MoE bank and the panel attention layout (B6, B7, B8) --------------

@@ -1,137 +1,294 @@
-// KV appends: one token per replica written in place, into a per-replica
-// block cache at that replica's own position (B21) or into a shared page
-// pool at a (page, offset) slot (B20b).
+// The KV append: one launch writes a decode step's tokens into a layer's
+// cache, whatever the route. It casts or quantises each token by the cache
+// write rule, writes the rows and their scales under the route's guard, and
+// writes every replica's new length to a fresh int32[R] tensor.
 //
 // Replaces the TPU kernels
-// sputnik_tpu/ops/pallas/ragged_append.py:ragged_append_kernel and
-// sputnik_tpu/ops/pallas/paged_attention.py:paged_append_kernel.
+// sputnik_tpu/ops/pallas/ragged_append.py:ragged_append_kernel (B21) and
+// sputnik_tpu/ops/pallas/paged_attention.py:paged_append_kernel (B20b),
+// together with the composites around them: JAX's pad_quantize_tokens
+// (sputnik_tpu/ops/decode.py), the guarded dynamic_update_slice of the
+// uniform and speculative appends (append_kv with pos=, append_kv_seq), the
+// paged write slot (_resolve_write) and the length updates.
 //
-// Ragged (B21): for each replica r, if pos[r] < s_max and ok[r] == 1, row
-// pos[r] of k / v [R, s_max, hd] takes tok_k[r] / tok_v[r] ([R, hd], already
-// in the cache's dtype) and entry pos[r] of the scales [R, s_max] takes
-// tok_ks[r] / tok_vs[r]; otherwise the replica's cache is left bit-identical
-// (a frozen continuous-batching slot, or a full one: a clamped write would
-// overwrite its last real token). kv_len advances outside the kernel.
+// The cache write rule: fp32 and bf16 caches store the fp32 token cast
+// round-to-nearest-even, with unit scales; int8 caches store
+// clip(rint(x / s), -127, 127) with s = max(max|x|, 1e-30) / 127 over the
+// token's row, an IEEE divide (this file is built without fast math).
 //
-// Paged (B20b): for each replica r with ok[r] == 1, 0 <= page[r] < P_alloc
-// and 0 <= off[r] < bk, row page[r] * bk + off[r] of the pool k / v
-// [P_alloc, bk, hd] and of its scales [P_alloc, bk] takes the token; any
-// other replica writes nothing at all. (The TPU kernel writes the old bytes
-// back to a dump page, a rule of its pipelined grid; a one-row store here
-// needs none.) Two writing replicas never share a row: the host scheduler
-// gives each replica its own pages.
+// The address policies (a template argument of the one kernel), for replica
+// r at length L = kv_len[r] and a draft of q >= 1 tokens:
+//   UniformPos: one shared position p (a device scalar, or a host value),
+//     rows clamp(p, 0, s_max - q) + t; written iff p <= s_max - q, or the
+//     cache stays bit-identical. New length min(L + 1, s_max) for the
+//     one-token append (append_kv), L + q if written else L for a draft
+//     (append_kv_seq).
+//   RaggedPos: one token at row L, written iff active[r] == 1 (no active:
+//     every replica) and 0 <= L < s_max; new length L + active * (L < s_max).
+//   PagedPos: token t at pool row page * bk + (L + t) % bk with page =
+//     page_table[r, min((L + t) / bk, max_blocks - 1)]; the replica writes
+//     its q tokens iff every one has a page (>= 0), L + t < max_blocks * bk
+//     and active[r] == 1, else nothing anywhere (all or nothing: a partial
+//     draft would desync rollback). New length L + q if written, else L.
+//     A table id past the pool (>= P_alloc, which the allocator never hands
+//     out) counts as a page, as in JAX's _resolve_write, but its token is
+//     not stored: JAX's write clamps into its dump page, this one skips.
 //
-// What bounds both on an H100: nothing but the launch. They move
-// R * 2 * hd * itemsize bytes (64 KiB at R = 32, hd = 128, bf16). A row is
-// copied as bytes, so one kernel serves the f32, bf16 and int8 caches.
+// What bounds it on an H100: the launch. At the serving shape (R = 32,
+// hd = 128, fp32 tokens, bf16 cache) it moves about 48 KB, 1.5e-5 ms at
+// 3.35 TB/s. So the design is one launch for the whole append of a layer:
+// no pre-pass, no host sync (positions, pages and guards are read on the
+// device), tokens read where they lie (strided fp32 or bf16 views of the
+// QKV projection, converted in registers), and one block per replica that
+// decides its own guard and writes its own length.
 //
-// The simple design: one block of 128 threads per replica; the threads
-// stride over the row's bytes, four at a time where the row and both
-// pointers allow it; thread 0 writes the two scales.
+// The simple design: a block of 256 threads per replica. Thread 0 plans
+// the replica (its guard into shared memory, its new length); then warp w
+// takes the (token, K|V) rows w, w + 8, ...: for int8 the warp reduces
+// max|x| by shuffles first. A lane stores 16 bytes at a time where
+// hd, the cache base and the token views allow it, else one element.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace stt_append {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 
-// Replica r's token into row `dst` of k / v and entry `dst` of the scales.
-__device__ __forceinline__ void copy_token(
-    int r, size_t dst, const uint8_t* __restrict__ tok_k,
-    const uint8_t* __restrict__ tok_v, const float* __restrict__ tok_ks,
-    const float* __restrict__ tok_vs, uint8_t* __restrict__ k,
-    uint8_t* __restrict__ v, float* __restrict__ ks, float* __restrict__ vs,
-    int row_bytes, int words) {
-  const size_t src = (size_t)r * row_bytes;
-  const size_t at = dst * row_bytes;
-  if (words) {  // row_bytes % 4 == 0 and every base 4-byte aligned
-    const int n = row_bytes / 4;
-    const uint32_t* sk = reinterpret_cast<const uint32_t*>(tok_k + src);
-    const uint32_t* sv = reinterpret_cast<const uint32_t*>(tok_v + src);
-    uint32_t* dk = reinterpret_cast<uint32_t*>(k + at);
-    uint32_t* dv = reinterpret_cast<uint32_t*>(v + at);
-    for (int i = threadIdx.x; i < n; i += THREADS) {
-      dk[i] = sk[i];
-      dv[i] = sv[i];
+// plan(): whether replica r writes, and its new length (thread 0 of the
+// block); row(): the destination row of its token t (any thread), or -1
+// for a token that is not stored.
+struct UniformPos {
+  const int* pos;  // the shared position on the device, or null: pos_val
+  int pos_val, s_max, seq;
+  __device__ int p_raw() const { return pos ? *pos : pos_val; }
+  __device__ bool plan(int, int L, int q, int* new_len) const {
+    const bool fits = p_raw() <= s_max - q;
+    *new_len = seq ? (fits ? L + q : L) : min(L + 1, s_max);
+    return fits;
+  }
+  __device__ long long row(int r, int, int q, int t) const {
+    return (long long)r * s_max + max(min(p_raw(), s_max - q), 0) + t;
+  }
+};
+
+struct RaggedPos {
+  const int* active;  // i32[R] or null (every replica writes)
+  int s_max;
+  __device__ bool plan(int r, int L, int, int* new_len) const {
+    const int ok = active ? active[r] : 1;
+    *new_len = L + ok * (L < s_max ? 1 : 0);
+    return ok == 1 && L >= 0 && L < s_max;
+  }
+  __device__ long long row(int r, int L, int, int) const {
+    return (long long)r * s_max + L;
+  }
+};
+
+struct PagedPos {
+  const int* table;   // i32[R, max_blocks]
+  const int* active;  // i32[R] or null
+  int bk, max_blocks, n_pages;
+  __device__ int page(int r, int pos) const {
+    return table[(long long)r * max_blocks + min(pos / bk, max_blocks - 1)];
+  }
+  __device__ bool plan(int r, int L, int q, int* new_len) const {
+    bool fits = (active ? active[r] == 1 : true) && L >= 0;
+    for (int t = 0; fits && t < q; ++t)
+      fits = page(r, L + t) >= 0 && L + t < max_blocks * bk;
+    *new_len = fits ? L + q : L;
+    return fits;
+  }
+  __device__ long long row(int r, int L, int, int t) const {
+    const int p = page(r, L + t);
+    return p < n_pages ? (long long)p * bk + (L + t) % bk : -1;
+  }
+};
+
+// The tokens [R, q, hd]: element strides of a replica and of a token (the
+// last dim is unit-stride).
+struct Tokens {
+  const void* k;
+  const void* v;
+  int k_rs, k_ts, v_rs, v_ts;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename CacheT>
+__device__ __forceinline__ CacheT encode(float x, float s);
+template <>
+__device__ __forceinline__ float encode<float>(float x, float) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 encode<__nv_bfloat16>(float x,
+                                                               float) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ int8_t encode<int8_t>(float x, float s) {
+  return (int8_t)fminf(fmaxf(rintf(x / s), -127.f), 127.f);
+}
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N >= 16 ? 16 : sizeof(T) * N) Pack {
+  T x[N];
+};
+
+// One token row: its scale (int8: the warp's max|x| by shuffles) and its
+// hd codes, 16 bytes a lane where `vec` allows.
+template <typename TokT, typename CacheT>
+__device__ __forceinline__ void write_row(const TokT* __restrict__ src,
+                                          CacheT* __restrict__ dst,
+                                          float* __restrict__ scale, int hd,
+                                          int vec, int lane) {
+  constexpr int VEC = 16 / sizeof(CacheT);
+  float s = 1.f;
+  if constexpr (sizeof(CacheT) == 1) {
+    float m = 0.f;
+    for (int i = lane; i < hd; i += 32) m = fmaxf(m, fabsf(to_f32(src[i])));
+#pragma unroll
+    for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(~0u, m, o));
+    s = fmaxf(m, 1e-30f) / 127.f;
+  }
+  if (lane == 0) *scale = s;
+  if (vec) {
+    for (int c = lane; c < hd / VEC; c += 32) {
+      const Pack<TokT, VEC> in =
+          reinterpret_cast<const Pack<TokT, VEC>*>(src)[c];
+      Pack<CacheT, VEC> out;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        out.x[j] = encode<CacheT>(to_f32(in.x[j]), s);
+      reinterpret_cast<Pack<CacheT, VEC>*>(dst)[c] = out;
     }
   } else {
-    for (int i = threadIdx.x; i < row_bytes; i += THREADS) {
-      k[at + i] = tok_k[src + i];
-      v[at + i] = tok_v[src + i];
-    }
+    for (int i = lane; i < hd; i += 32)
+      dst[i] = encode<CacheT>(to_f32(src[i]), s);
   }
+}
+
+template <class Pos, typename TokT, typename CacheT>
+__global__ void __launch_bounds__(THREADS)
+kv_append_kernel(Pos pol, const int* __restrict__ kv_len,
+                 int* __restrict__ new_len, Tokens tok, CacheT* __restrict__ k,
+                 CacheT* __restrict__ v, float* __restrict__ ks,
+                 float* __restrict__ vs, int q, int hd, int vec) {
+  __shared__ int fits;
+  const int r = blockIdx.x;
+  const int L = kv_len[r];
   if (threadIdx.x == 0) {
-    ks[dst] = tok_ks[r];
-    vs[dst] = tok_vs[r];
+    int len;
+    fits = pol.plan(r, L, q, &len);
+    new_len[r] = len;
+  }
+  __syncthreads();
+  if (!fits) return;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < 2 * q; i += WARPS) {
+    const int t = i >> 1;
+    const bool is_v = i & 1;
+    const TokT* src =
+        static_cast<const TokT*>(is_v ? tok.v : tok.k) +
+        (long long)r * (is_v ? tok.v_rs : tok.k_rs) +
+        (long long)t * (is_v ? tok.v_ts : tok.k_ts);
+    const long long at = pol.row(r, L, q, t);
+    if (at < 0) continue;
+    write_row(src, (is_v ? v : k) + at * hd, (is_v ? vs : ks) + at, hd, vec,
+              lane);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-ragged_append_kernel(const int* __restrict__ pos, const int* __restrict__ ok,
-                     const uint8_t* __restrict__ tok_k,
-                     const uint8_t* __restrict__ tok_v,
-                     const float* __restrict__ tok_ks,
-                     const float* __restrict__ tok_vs,
-                     uint8_t* __restrict__ k, uint8_t* __restrict__ v,
-                     float* __restrict__ ks, float* __restrict__ vs,
-                     int s_max, int row_bytes, int words) {
-  const int r = blockIdx.x;
-  const int p = pos[r];
-  if (p < 0 || p >= s_max || ok[r] != 1) return;
-  copy_token(r, (size_t)r * s_max + p, tok_k, tok_v, tok_ks, tok_vs, k, v, ks,
-             vs, row_bytes, words);
+struct Launch {
+  const int* kv_len;
+  int* new_len;
+  Tokens tok;
+  void *k, *v;
+  float *ks, *vs;
+  int R, q, hd, vec;
+  cudaStream_t stream;
+};
+
+template <class Pos, typename TokT, typename CacheT>
+int launch_typed(const Pos& pol, const Launch& a) {
+  kv_append_kernel<Pos, TokT, CacheT><<<a.R, THREADS, 0, a.stream>>>(
+      pol, a.kv_len, a.new_len, a.tok, static_cast<CacheT*>(a.k),
+      static_cast<CacheT*>(a.v), a.ks, a.vs, a.q, a.hd, a.vec);
+  return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(THREADS)
-paged_append_kernel(const int* __restrict__ page, const int* __restrict__ off,
-                    const int* __restrict__ ok,
-                    const uint8_t* __restrict__ tok_k,
-                    const uint8_t* __restrict__ tok_v,
-                    const float* __restrict__ tok_ks,
-                    const float* __restrict__ tok_vs,
-                    uint8_t* __restrict__ k, uint8_t* __restrict__ v,
-                    float* __restrict__ ks, float* __restrict__ vs,
-                    int n_pages, int bk, int row_bytes, int words) {
-  const int r = blockIdx.x;
-  const int p = page[r], o = off[r];
-  if (ok[r] != 1 || p < 0 || p >= n_pages || o < 0 || o >= bk) return;
-  copy_token(r, (size_t)p * bk + o, tok_k, tok_v, tok_ks, tok_vs, k, v, ks,
-             vs, row_bytes, words);
+// tok_dtype: 0 f32, 1 bf16; cache_dtype: 0 f32, 1 bf16, 2 int8.
+template <class Pos>
+int launch(const Pos& pol, const Launch& a, int tok_dtype, int cache_dtype) {
+  if (a.R == 0) return 0;
+  if (a.q < 1 || tok_dtype < 0 || tok_dtype > 1 ||
+      cache_dtype < 0 || cache_dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  switch (tok_dtype * 3 + cache_dtype) {
+    case 0: return launch_typed<Pos, float, float>(pol, a);
+    case 1: return launch_typed<Pos, float, __nv_bfloat16>(pol, a);
+    case 2: return launch_typed<Pos, float, int8_t>(pol, a);
+    case 3: return launch_typed<Pos, __nv_bfloat16, float>(pol, a);
+    case 4: return launch_typed<Pos, __nv_bfloat16, __nv_bfloat16>(pol, a);
+    default: return launch_typed<Pos, __nv_bfloat16, int8_t>(pol, a);
+  }
 }
 
 }  // namespace stt_append
 
-// pos / ok i32 [R], tok_k / tok_v [R, hd] and k / v [R, s_max, hd] in one
-// dtype of row_bytes = hd * itemsize bytes a row, tok_ks / tok_vs f32 [R],
-// ks / vs f32 [R, s_max]. words: row_bytes % 4 == 0 and the four row
-// buffers 4-byte aligned.
-extern "C" int ragged_append(const void* pos, const void* ok,
-                             const void* tok_k, const void* tok_v,
-                             const void* tok_ks, const void* tok_vs, void* k,
-                             void* v, void* ks, void* vs, int R, int s_max,
-                             int row_bytes, int words, void* stream) {
-  stt_append::ragged_append_kernel<<<R, stt_append::THREADS, 0,
-                                     (cudaStream_t)stream>>>(
-      (const int*)pos, (const int*)ok, (const uint8_t*)tok_k,
-      (const uint8_t*)tok_v, (const float*)tok_ks, (const float*)tok_vs,
-      (uint8_t*)k, (uint8_t*)v, (float*)ks, (float*)vs, s_max, row_bytes,
-      words);
-  return (int)cudaGetLastError();
+// The contiguous routes (B21). k_tok / v_tok [R, q, hd] (f32 or bf16, unit
+// last stride, element strides *_rs / *_ts); kv_len, new_len i32[R]; caches
+// k / v [R, s_max, hd] (f32, bf16 or int8) and scales ks / vs f32[R, s_max].
+// mode 0: ragged (q = 1; active i32[R] or null); 1: uniform one-token
+// (append_kv with pos=); 2: uniform draft (append_kv_seq). pos: the shared
+// position on the device, or null for pos_val. vec: hd a multiple of
+// 16 / cache itemsize, the cache and the token views 16-byte aligned (the
+// token views to their pack's size).
+extern "C" int ragged_append(const void* k_tok, const void* v_tok,
+                             const void* kv_len, const void* pos,
+                             const void* active, void* new_len, void* k,
+                             void* v, void* ks, void* vs, int k_rs, int k_ts,
+                             int v_rs, int v_ts, int tok_dtype,
+                             int cache_dtype, int R, int q, int hd, int s_max,
+                             int mode, int pos_val, int vec, void* stream) {
+  using namespace stt_append;
+  const Launch a{(const int*)kv_len, (int*)new_len,
+                 Tokens{k_tok, v_tok, k_rs, k_ts, v_rs, v_ts}, k, v,
+                 (float*)ks, (float*)vs, R, q, hd, vec,
+                 (cudaStream_t)stream};
+  if (mode == 0) {
+    if (q != 1) return (int)cudaErrorInvalidValue;
+    return launch(RaggedPos{(const int*)active, s_max}, a, tok_dtype,
+                  cache_dtype);
+  }
+  if (mode == 1 && q != 1) return (int)cudaErrorInvalidValue;
+  return launch(UniformPos{(const int*)pos, pos_val, s_max, mode == 2}, a,
+                tok_dtype, cache_dtype);
 }
 
-// page / off / ok i32 [R], tok_k / tok_v [R, hd] and the pool k / v
-// [n_pages, bk, hd] in one dtype of row_bytes bytes a row, tok_ks / tok_vs
-// f32 [R], ks / vs f32 [n_pages, bk]; words as for ragged_append.
-extern "C" int paged_append(const void* page, const void* off, const void* ok,
-                            const void* tok_k, const void* tok_v,
-                            const void* tok_ks, const void* tok_vs, void* k,
-                            void* v, void* ks, void* vs, int R, int n_pages,
-                            int bk, int row_bytes, int words, void* stream) {
-  stt_append::paged_append_kernel<<<R, stt_append::THREADS, 0,
-                                    (cudaStream_t)stream>>>(
-      (const int*)page, (const int*)off, (const int*)ok,
-      (const uint8_t*)tok_k, (const uint8_t*)tok_v, (const float*)tok_ks,
-      (const float*)tok_vs, (uint8_t*)k, (uint8_t*)v, (float*)ks, (float*)vs,
-      n_pages, bk, row_bytes, words);
-  return (int)cudaGetLastError();
+// The paged routes (B20b): tokens as for ragged_append; page_table
+// i32[R, max_blocks]; active i32[R] or null; the pool k / v [n_pages, bk,
+// hd] (n_pages = P_alloc, the dump page included) and its scales ks / vs
+// f32[n_pages, bk].
+extern "C" int paged_append(const void* k_tok, const void* v_tok,
+                            const void* kv_len, const void* page_table,
+                            const void* active, void* new_len, void* k,
+                            void* v, void* ks, void* vs, int k_rs, int k_ts,
+                            int v_rs, int v_ts, int tok_dtype,
+                            int cache_dtype, int R, int q, int hd, int bk,
+                            int max_blocks, int n_pages, int vec,
+                            void* stream) {
+  using namespace stt_append;
+  const Launch a{(const int*)kv_len, (int*)new_len,
+                 Tokens{k_tok, v_tok, k_rs, k_ts, v_rs, v_ts}, k, v,
+                 (float*)ks, (float*)vs, R, q, hd, vec,
+                 (cudaStream_t)stream};
+  return launch(PagedPos{(const int*)page_table, (const int*)active, bk,
+                         max_blocks, n_pages},
+                a, tok_dtype, cache_dtype);
 }

@@ -154,12 +154,9 @@ class PagedDecoder(SparseDecoder):
         if active is not None:
             act_r = torch.as_tensor(active, device=x_tok.device).to(
                 torch.int32).repeat_interleave(self.kv_heads)
-        # the write slots are the same on every layer (lengths and tables
-        # are): resolved once a step, as the tables are
-        slot = pg.resolve_write(caches[0], act_r)
 
         def append(cache, k3, v3):
-            return pg.append_paged(cache, k3[:, 0], v3[:, 0], slot=slot)
+            return pg.append_paged(cache, k3[:, 0], v3[:, 0], act_r)
 
         return self._paged_decode_layers(
             x_tok, caches, append, 1, act_r if act_r is not None else 1)

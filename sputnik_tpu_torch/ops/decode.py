@@ -5,8 +5,10 @@
     (f32, bf16, or int8 with per-token dequant scales), ``kv_len``
     ``i32[R_kv]``, scales ``f32[R_kv, s_max]`` (ones for fp caches).
   * ``append_kv``: one token per replica, at a shared position (``pos=``)
-    or at each replica's own ``kv_len`` through the ragged-append kernel;
-    ``append_kv_seq``, ``prefill_kv``, ``insert_kv_slot``.
+    or at each replica's own ``kv_len``; ``append_kv_seq`` (a draft at a
+    shared position): each ONE launch of the KV-append kernel, which also
+    casts or quantises the tokens (``pad_quantize_tokens``, the cache write
+    rule) and writes the new lengths. ``prefill_kv``, ``insert_kv_slot``.
   * ``decode_block_table``: the sinks + block-granular window table, from
     ``kv_len``, on the device; ``table_from_topology_row``.
   * ``decode_attention``: the decode-attention kernel.
@@ -34,7 +36,8 @@ import numpy as np
 import torch
 
 from .kernels.decode_attention import QPAD, decode_attention_kernel
-from .kernels.ragged_append import ragged_append_kernel
+from .kernels.ragged_append import (as_i32, pad_quantize_tokens,
+                                   ragged_append_kernel)
 
 __all__ = [
     "KVCache", "init_kv_cache", "pad_quantize_tokens", "append_kv",
@@ -69,7 +72,7 @@ class KVCache:
         return KVCache(*(t.clone() for t in dataclasses.astuple(self)))
 
     def with_len(self, kv_len) -> "KVCache":
-        return dataclasses.replace(self, kv_len=kv_len)
+        return KVCache(self.k, self.v, kv_len, self.k_scale, self.v_scale)
 
 
 def init_kv_cache(R_kv: int, s_max: int, hd: int, dtype=torch.bfloat16,
@@ -84,95 +87,39 @@ def init_kv_cache(R_kv: int, s_max: int, hd: int, dtype=torch.bfloat16,
         v_scale=torch.ones((R_kv, s_max), device=device))
 
 
-def _quantize(x):
-    """``f32[..., hd]`` -> ``(int8[..., hd], scale f32[...])``: symmetric
-    per-token scale ``max(max|x|, 1e-30) / 127``, round half to even, clip
-    to +-127."""
-    scale = x.abs().amax(-1).clamp(min=1e-30) / 127.0
-    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
-    return q.to(torch.int8), scale
-
-
-def pad_quantize_tokens(k_new, v_new, dtype):
-    """``(..., hd)`` K/V tokens -> the cache ``dtype`` plus per-token scales
-    ``(...,)`` (ones for fp caches): the ONE definition of the cache-write
-    rule, shared by every append and prefill path."""
-    kf, vf = k_new.float(), v_new.float()
-    if dtype == torch.int8:
-        kq, ks = _quantize(kf)
-        vq, vs = _quantize(vf)
-        return kq, vq, ks, vs
-    ones = torch.ones(kf.shape[:-1], device=kf.device)
-    return kf.to(dtype), vf.to(dtype), ones, ones
-
-
-def _write_rows(buf, idx, rows, fits):
-    """``buf[:, idx] = rows`` where ``fits`` (a bool tensor), else the old
-    rows written back; ``idx`` is an index tensor along dim 1."""
-    old = buf.index_select(1, idx)
-    buf.index_copy_(1, idx, torch.where(fits, rows, old))
-
-
 def append_kv(cache: KVCache, k_new, v_new, pos=None,
               active=None) -> KVCache:
-    """Append one token per replica, in place. ``k_new`` / ``v_new``:
-    ``[R_kv, hd]``. Returns the cache with its new ``kv_len``.
+    """Append one token per replica, in place, in ONE kernel launch (the
+    write rule, the guarded writes and the new lengths). ``k_new`` /
+    ``v_new``: ``[R_kv, hd]``, f32 or bf16, any strides (the folded views
+    of the QKV projection are read where they lie). Returns the cache with
+    a new ``kv_len`` tensor (the one passed in is not written).
 
     ``pos``: a scalar write position shared by ALL replicas (an int or a
-    0-d integer tensor on the cache's device; the uniform serving step):
-    one indexed write per buffer. Without it each replica writes at its own
-    ``kv_len`` through the ragged-append kernel. ``active`` (ragged path
-    only): per-replica write-enable ``[R_kv]``; frozen slots neither write
-    nor advance.
+    0-d integer tensor on the cache's device; the uniform serving step).
+    Without it each replica writes at its own ``kv_len`` (the ragged step).
+    ``active`` (ragged path only): per-replica write-enable ``[R_kv]``;
+    frozen slots neither write nor advance.
 
     Capacity is enforced on both paths: a replica at ``kv_len == s_max``
-    (or a shared ``pos >= s_max``) keeps its cache bit-identical (the
-    uniform path writes the old row back) and its length pinned at
-    ``s_max``."""
-    R, s_max, _ = cache.k.shape
-    kq, vq, ks, vs = pad_quantize_tokens(k_new, v_new, cache.k.dtype)
-    dev = cache.k.device
-
-    if pos is not None:
-        if active is not None:
-            raise ValueError("active mask requires the ragged path "
-                             "(pos=None); a uniform batch freezes no slots")
-        p_raw = torch.as_tensor(pos, device=dev).long().reshape(1)
-        idx = p_raw.clamp(max=s_max - 1)
-        fits = p_raw < s_max
-        _write_rows(cache.k, idx, kq[:, None], fits)
-        _write_rows(cache.v, idx, vq[:, None], fits)
-        _write_rows(cache.k_scale, idx, ks[:, None], fits)
-        _write_rows(cache.v_scale, idx, vs[:, None], fits)
-        return cache.with_len(torch.clamp(cache.kv_len + 1, max=s_max))
-
-    ok = (torch.ones((R,), dtype=torch.int32, device=dev) if active is None
-          else torch.as_tensor(active, device=dev).to(torch.int32))
-    ragged_append_kernel(cache.kv_len, ok.contiguous(), kq.contiguous(),
-                         vq.contiguous(), ks.contiguous(), vs.contiguous(),
-                         cache.k, cache.v, cache.k_scale, cache.v_scale)
-    adv = ok * (cache.kv_len < s_max).to(torch.int32)
-    return cache.with_len(cache.kv_len + adv)
+    (or a shared ``pos >= s_max``) keeps its cache bit-identical and its
+    length pinned at ``s_max``."""
+    if active is not None:
+        active = as_i32(active, cache.k.device)
+    return cache.with_len(ragged_append_kernel(
+        k_new, v_new, cache.k, cache.v, cache.k_scale, cache.v_scale,
+        cache.kv_len, pos=pos, active=active))
 
 
 def append_kv_seq(cache: KVCache, k_new, v_new, pos) -> KVCache:
     """Append ``q`` tokens per replica at the shared position ``pos``
-    (speculative decode), in place. ``k_new`` / ``v_new``: ``[R_kv, q,
-    hd]``. All or nothing: if the ``q`` tokens do not all fit below
-    ``s_max`` the cache stays bit-identical and ``kv_len`` does not
-    advance (a partial draft write would desync rollback)."""
-    R, s_max, _ = cache.k.shape
-    q = k_new.shape[1]
-    kq, vq, ks, vs = pad_quantize_tokens(k_new, v_new, cache.k.dtype)
-    dev = cache.k.device
-    p_raw = torch.as_tensor(pos, device=dev).long().reshape(1)
-    idx = p_raw.clamp(max=s_max - q) + torch.arange(q, device=dev)
-    fits = p_raw <= s_max - q
-    _write_rows(cache.k, idx, kq, fits)
-    _write_rows(cache.v, idx, vq, fits)
-    _write_rows(cache.k_scale, idx, ks, fits)
-    _write_rows(cache.v_scale, idx, vs, fits)
-    return cache.with_len(torch.where(fits, cache.kv_len + q, cache.kv_len))
+    (speculative decode), in place, in one kernel launch. ``k_new`` /
+    ``v_new``: ``[R_kv, q, hd]``. All or nothing: if the ``q`` tokens do not
+    all fit below ``s_max`` the cache stays bit-identical and ``kv_len``
+    does not advance (a partial draft write would desync rollback)."""
+    return cache.with_len(ragged_append_kernel(
+        k_new, v_new, cache.k, cache.v, cache.k_scale, cache.v_scale,
+        cache.kv_len, pos=pos, seq=True))
 
 
 def prefill_kv(cache: KVCache, k_seq, v_seq, lengths=None) -> KVCache:

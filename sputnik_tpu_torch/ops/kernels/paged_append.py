@@ -1,50 +1,48 @@
-"""Paged KV append: the CUDA kernel's wrapper and its plain PyTorch version.
+"""The KV append on the paged pool (B20b): the CUDA kernel's wrapper and its
+plain PyTorch versions.
 
-Replaces ``sputnik_tpu/ops/pallas/paged_attention.py:paged_append_kernel``;
-the kernel is ``csrc/ragged_append.cu`` (entry ``paged_append``), B21's
-byte copy with another row index. Replica ``r`` writes its token, in place,
-into row ``page[r] * bk + off[r]`` of the pool and its two scales where
-``ok[r] == 1``, ``0 <= page[r] < P_alloc`` and ``0 <= off[r] < bk``; any
-other replica writes nothing anywhere (JAX's kernel writes the old bytes
-back to its dump page, a rule of the TPU's pipelined grid). ``kv_len``
-advances outside.
+Replaces ``sputnik_tpu/ops/pallas/paged_attention.py:paged_append_kernel``
+and the composite around it (JAX's ``pad_quantize_tokens``,
+``_resolve_write`` and the length update); the kernel is
+``csrc/ragged_append.cu`` (entry ``paged_append``), B21's body under the
+paged address policy. One launch per call does the whole append of a layer:
+replica ``r`` writes its ``q`` tokens (1 for a decode step, a draft for
+speculative verification) into pool rows ``page * bk + (kv_len[r] + t) %
+bk``, ``page = page_table[r, (kv_len[r] + t) // bk]``, all of them or, if
+one has no page, is past the table's capacity or ``active[r] != 1``, none
+(JAX's kernel writes the old bytes back to its dump page, a rule of the
+TPU's pipelined grid; the port writes nothing). The new lengths, ``kv_len +
+q`` where written, go to a fresh ``int32[R]`` tensor. A table id past the
+pool (``>= P_alloc``; the allocator never hands one out) counts as a page
+for the length, as in JAX's ``_resolve_write``, but its token is not
+stored: JAX's write clamps into its dump page, the port's skips it.
+
+``paged_append_plain`` is B20b's byte write alone (tested against JAX's
+Pallas kernel); ``paged_append_fused_plain`` is the whole append built on
+it, which CPU tensors run.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import check_operands
 from ._build import check, library
+from .ragged_append import (CACHE_DTYPES, TOK_DTYPES, _as_draft,
+                            check_cache, device_args, pad_quantize_tokens,
+                            token_args)
 
-__all__ = ["paged_append_kernel", "paged_append_plain"]
-
-_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
-
-
-def _check(page, off, ok, tok_k, tok_v, tok_ks, tok_vs, k_pool, v_pool,
-           ks_pool, vs_pool):
-    P, bk, hd = k_pool.shape
-    R = page.shape[0]
-    if k_pool.dtype not in _DTYPES:
-        raise TypeError(f"pool dtype {k_pool.dtype}: expected one of "
-                        f"{list(_DTYPES)}")
-    for name, t, shape in (("v_pool", v_pool, (P, bk, hd)),
-                           ("tok_k", tok_k, (R, hd)), ("tok_v", tok_v, (R, hd)),
-                           ("ks_pool", ks_pool, (P, bk)),
-                           ("vs_pool", vs_pool, (P, bk)),
-                           ("tok_ks", tok_ks, (R,)), ("tok_vs", tok_vs, (R,)),
-                           ("page", page, (R,)), ("off", off, (R,)),
-                           ("ok", ok, (R,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"paged_append: {name} {tuple(t.shape)} != "
-                             f"{shape}")
+__all__ = ["paged_append_kernel", "paged_append_fused_plain",
+           "paged_append_plain"]
 
 
 def paged_append_plain(page, off, ok, tok_k, tok_v, tok_ks, tok_vs, k_pool,
                        v_pool, ks_pool, vs_pool) -> None:
-    """Plain version: one indexed write per buffer, of the writing replicas'
-    rows only (a boolean selection, so it reads the mask on the host)."""
+    """B20b's byte write: in place, ``k_pool[page[r], off[r]] = tok_k[r]``
+    (and ``v``, and the two scales) where ``ok[r] == 1``, ``0 <= page[r] <
+    P_alloc`` and ``0 <= off[r] < bk``; one indexed write per buffer, of
+    the writing replicas' rows only (a boolean selection, so it reads the
+    mask on the host). ``page / off / ok i32[R]``, tokens ``[R, hd]`` in
+    the pool dtype, token scales ``f32[R]``."""
     P, bk, hd = k_pool.shape
     write = (ok == 1) & (page >= 0) & (page < P) & (off >= 0) & (off < bk)
     rows = (page.long() * bk + off.long())[write]
@@ -54,41 +52,69 @@ def paged_append_plain(page, off, ok, tok_k, tok_v, tok_ks, tok_vs, k_pool,
     vs_pool.view(P * bk)[rows] = tok_vs[write]
 
 
-def paged_append_kernel(page, off, ok, tok_k, tok_v, tok_ks, tok_vs, k_pool,
-                        v_pool, ks_pool, vs_pool) -> None:
-    """In place: ``k_pool[page[r], off[r]] = tok_k[r]`` (and ``v``, and the
-    two scales) for every writing replica. ``page / off / ok i32[R]``,
-    tokens ``[R, hd]`` in the pool dtype, pools ``[P_alloc, bk, hd]``,
-    token scales ``f32[R]``, pool scales ``f32[P_alloc, bk]``."""
-    _check(page, off, ok, tok_k, tok_v, tok_ks, tok_vs, k_pool, v_pool,
-           ks_pool, vs_pool)
-    if not k_pool.is_cuda:
-        paged_append_plain(page, off, ok, tok_k, tok_v, tok_ks, tok_vs,
-                           k_pool, v_pool, ks_pool, vs_pool)
-        return
-    dev, dt = k_pool.device, k_pool.dtype
-    check_operands("paged_append", dev, page=(page, torch.int32),
-                   off=(off, torch.int32), ok=(ok, torch.int32),
-                   tok_k=(tok_k, dt), tok_v=(tok_v, dt),
-                   tok_ks=(tok_ks, torch.float32),
-                   tok_vs=(tok_vs, torch.float32), k_pool=(k_pool, dt),
-                   v_pool=(v_pool, dt), ks_pool=(ks_pool, torch.float32),
-                   vs_pool=(vs_pool, torch.float32))
+def paged_append_fused_plain(k_new, v_new, k_pool, v_pool, ks_pool, vs_pool,
+                             page_table, kv_len, active=None):
+    """Plain version of the whole append (see ``paged_append_kernel``): the
+    write rule, the all-or-nothing slot of each replica, then
+    ``paged_append_plain`` once per draft token, then the new lengths."""
+    bk = k_pool.shape[1]
+    mb = page_table.shape[1]
+    k3, v3 = _as_draft(k_new, v_new)
+    q = k3.shape[1]
+    kq, vq, ks, vs = pad_quantize_tokens(k3, v3, k_pool.dtype)
+    pos = kv_len.long()[:, None] + torch.arange(q, device=kv_len.device)
+    pages = torch.gather(page_table.long(), 1, (pos // bk).clamp(0, mb - 1))
+    fits = ((pages >= 0) & (pos >= 0) & (pos < mb * bk)).all(1)
+    if active is not None:
+        fits = fits & (active == 1)
+    ok = fits.to(torch.int32)
+    for t in range(q):
+        paged_append_plain(pages[:, t].to(torch.int32),
+                           (pos[:, t] % bk).to(torch.int32), ok, kq[:, t],
+                           vq[:, t], ks[:, t], vs[:, t], k_pool, v_pool,
+                           ks_pool, vs_pool)
+    return kv_len + ok * q
+
+
+def paged_append_kernel(k_new, v_new, k_pool, v_pool, ks_pool, vs_pool,
+                        page_table, kv_len, active=None):
+    """``[R, hd]`` tokens or ``[R, q, hd]`` drafts, f32 or bf16, any
+    strides with a unit last one, written into the pool ``[P_alloc, bk,
+    hd]`` and its scales ``f32[P_alloc, bk]`` in place through
+    ``page_table`` ``i32[R, max_blocks]`` at each replica's ``kv_len``;
+    ``active``: ``i32[R]`` or None. Returns the new ``kv_len`` (a fresh
+    ``i32[R]``). One launch on CUDA; CPU tensors run
+    ``paged_append_fused_plain``."""
     P, bk, hd = k_pool.shape
-    R = page.shape[0]
+    R, mb = page_table.shape
+    k, v, q, strides = token_args("paged_append", k_new, v_new, R, hd)
+    check_cache("paged_append", k_pool, v_pool, ks_pool, vs_pool, kv_len,
+                (P, bk), R)
+    if not k_pool.is_cuda:
+        return paged_append_fused_plain(k, v, k_pool, v_pool, ks_pool,
+                                        vs_pool, page_table, kv_len, active)
+    dev = k_pool.device
+    idx = (kv_len, page_table) + (() if active is None else (active,))
+    if page_table.dtype != torch.int32 or (
+            active is not None and (active.dtype != torch.int32
+                                    or active.shape != (R,))):
+        raise ValueError(f"paged_append: page_table and active must be "
+                         f"int32 ([{R}] for active)")
+    ptrs, vec = device_args("paged_append", k, v, strides,
+                            (k_pool, v_pool, ks_pool, vs_pool), idx, dev)
+    new_len = torch.empty((R,), dtype=torch.int32, device=dev)
     if R == 0:
-        return
-    row_bytes = hd * k_pool.element_size()
-    words = int(row_bytes % 4 == 0 and all(
-        t.data_ptr() % 4 == 0 for t in (tok_k, tok_v, k_pool, v_pool)))
+        return new_len
     err = library().paged_append(
-        page.data_ptr(), off.data_ptr(), ok.data_ptr(), tok_k.data_ptr(),
-        tok_v.data_ptr(), tok_ks.data_ptr(), tok_vs.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), ks_pool.data_ptr(),
-        vs_pool.data_ptr(), R, P, bk, row_bytes, words,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptrs[0], ptrs[1], kv_len.data_ptr(), page_table.data_ptr(),
+        None if active is None else active.data_ptr(), new_len.data_ptr(),
+        *ptrs[2:], *strides, TOK_DTYPES.index(k.dtype),
+        CACHE_DTYPES.index(k_pool.dtype),
+        R, q, hd, bk, mb, P, vec,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     check(err, "paged_append")
     paged_append_kernel.launches += 1
+    return new_len
 
 
 paged_append_kernel.launches = 0

@@ -9,10 +9,10 @@ evicted without moving data.
 
 Division of labour, as in the JAX package:
 
-  * DEVICE (no host sync): ``append_paged`` / ``append_paged_seq`` through
-    the paged-append kernel, ``paged_block_table`` (logical sinks + window
-    table -> physical pages) and ``paged_attention`` through the
-    paged-attention kernel.
+  * DEVICE (no host sync): ``append_paged`` / ``append_paged_seq``, each
+    one launch of the paged KV-append kernel, ``paged_block_table``
+    (logical sinks + window table -> physical pages) and
+    ``paged_attention`` through the paged-attention kernel.
   * HOST (the scheduler, between decode steps): ``PagePool``, a free list
     with refcounts; ``ensure_pages``, ``free_pages_of``, ``share_prefix``
     and ``write_prompt_pages``. They read ``kv_len`` / ``page_table`` to
@@ -41,11 +41,12 @@ import torch
 from .decode import QPAD, decode_block_table, pad_quantize_tokens
 from .kernels.paged_append import paged_append_kernel
 from .kernels.paged_attention import paged_attention_kernel
+from .kernels.ragged_append import as_i32
 
 __all__ = ["PagePool", "PagedKVCache", "init_paged_cache", "ensure_pages",
            "append_paged", "append_paged_seq", "paged_block_table",
            "paged_attention", "write_prompt_pages", "share_prefix",
-           "free_pages_of", "physical_table", "resolve_write"]
+           "free_pages_of", "physical_table"]
 
 
 class PagePool:
@@ -247,67 +248,38 @@ def share_prefix(cache: PagedKVCache, pool: PagePool, src: int, dst: int,
                                kv_len=torch.from_numpy(kv_len).to(dev))
 
 
-def resolve_write(cache: PagedKVCache, active=None):
-    """``(page, off, ok)`` i32 per replica, on the device: the physical
-    slot of each replica's next token, with the capacity / unallocated /
-    frozen guard folded into ``ok``. Skipped replicas aim at the dump page
-    (the kernel writes nothing for them)."""
-    bk = cache.bk
-    kv_len = cache.kv_len.long()
-    blk = torch.clamp(kv_len // bk, max=cache.max_blocks - 1)
-    page = torch.gather(cache.page_table, 1, blk[:, None])[:, 0]
-    ok = (page >= 0) & (kv_len < cache.max_blocks * bk)
+def append_paged(cache: PagedKVCache, k_new, v_new,
+                 active=None) -> PagedKVCache:
+    """Append one token per replica into its current page, in place, in ONE
+    kernel launch (the write rule, the write slot from ``kv_len`` and the
+    page table, the guarded write and the new lengths). ``k_new`` /
+    ``v_new``: ``[R_kv, hd]`` (``[R_kv, q, hd]``: a draft, all or nothing,
+    as ``append_paged_seq``), f32 or bf16, any strides. A replica with no
+    page for its next position (run ``ensure_pages`` first), at its
+    table's capacity, or with ``active == 0`` writes nothing and does not
+    advance. Returns the cache with a new ``kv_len`` tensor."""
     if active is not None:
-        ok = ok & (torch.as_tensor(active, device=page.device).to(
-            torch.int32) == 1)
-    page = torch.where(ok, page, cache.dump_page)
-    off = torch.where(ok, kv_len % bk, 0)
-    return (page.to(torch.int32), off.to(torch.int32), ok.to(torch.int32))
-
-
-def append_paged(cache: PagedKVCache, k_new, v_new, active=None, *,
-                 slot=None) -> PagedKVCache:
-    """Append one token per replica into its current page, in place.
-    ``k_new`` / ``v_new``: ``[R_kv, hd]``. A replica with no page for its
-    next position (run ``ensure_pages`` first), at its table's capacity,
-    or with ``active == 0`` writes nothing and does not advance.
-
-    ``slot``: ``resolve_write(cache, active)`` computed by the caller (a
-    decoder whose layers share their lengths and tables resolves it once a
-    step); ``active`` is then not read."""
-    kq, vq, ks, vs = pad_quantize_tokens(k_new, v_new, cache.k.dtype)
-    page, off, ok = resolve_write(cache, active) if slot is None else slot
-    paged_append_kernel(page, off, ok, kq.contiguous(), vq.contiguous(),
-                        ks.contiguous(), vs.contiguous(), cache.k, cache.v,
-                        cache.k_scale, cache.v_scale)
-    return dataclasses.replace(cache, kv_len=cache.kv_len + ok)
+        active = as_i32(active, cache.k.device)
+    return PagedKVCache(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                        cache.page_table, paged_append_kernel(
+                            k_new, v_new, cache.k, cache.v, cache.k_scale,
+                            cache.v_scale, cache.page_table, cache.kv_len,
+                            active))
 
 
 def append_paged_seq(cache: PagedKVCache, k_new, v_new,
                      active=None) -> PagedKVCache:
-    """Append ``q <= 8`` tokens per replica (speculative drafts), in place.
-    ``k_new`` / ``v_new``: ``[R_kv, q, hd]``.
+    """Append ``q <= 8`` tokens per replica (speculative drafts), in place,
+    in one kernel launch. ``k_new`` / ``v_new``: ``[R_kv, q, hd]``.
 
     ALL OR NOTHING per replica: a replica whose ``q`` positions are not
     all page-backed and below the table's capacity writes nothing and does
     not advance (a partial draft write would desync rollback). Tokens may
-    cross a page boundary; the write is ``q`` single-token appends, as in
-    JAX."""
-    R, q, _ = k_new.shape
+    cross a page boundary."""
+    q = k_new.shape[1]
     if q > QPAD:
         raise ValueError(f"draft length {q} > {QPAD}")
-    bk = cache.bk
-    dev = cache.kv_len.device
-    pos = cache.kv_len.long()[:, None] + torch.arange(q, device=dev)[None]
-    blk = torch.clamp(pos // bk, 0, cache.max_blocks - 1)
-    pages = torch.gather(cache.page_table, 1, blk)
-    ok = ((pages >= 0) & (pos < cache.max_blocks * bk)).all(1).to(
-        torch.int32)
-    if active is not None:
-        ok = ok * torch.as_tensor(active, device=dev).to(torch.int32)
-    for t in range(q):
-        cache = append_paged(cache, k_new[:, t], v_new[:, t], active=ok)
-    return cache
+    return append_paged(cache, k_new, v_new, active)
 
 
 def write_prompt_pages(cache: PagedKVCache, k_seq, v_seq, *,

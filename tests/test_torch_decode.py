@@ -156,7 +156,7 @@ def test_ragged_append_plain_matches_jax_interpret_kernel():
     writing replicas change."""
     from sputnik_tpu.ops.pallas.ragged_append import ragged_append_kernel
     from sputnik_tpu_torch.ops.kernels.ragged_append import (
-        ragged_append_kernel as t_kernel)
+        ragged_append_plain as t_kernel)
 
     rng = np.random.RandomState(1)
     R, s_max, hd = 6, 256, 128

@@ -594,43 +594,104 @@ def test_decode_attention_kernel_invalid_and_empty_tables(dev, seed):
     assert torch.all(got[0] == 0)
 
 
-@pytest.mark.parametrize("hd", [7, 64, 128])
+def _append_tokens(dev, rng, R, q, hd, dt, layout):
+    """K and V tokens for the KV append: ``view``, the split views of a
+    ``[2, q, R // 2, 3 * hd]`` projection folded as the decoders fold them
+    (``[R, hd]`` for one token; the 16-byte path where hd allows);
+    ``misaligned``, rows starting one element past a 16-byte boundary (the
+    element path)."""
+    if layout == "view":
+        x = torch.from_numpy(rng.randn(2, q, R // 2, 3 * hd).astype(
+            np.float32) * 20).to(dt).to(dev)
+        out = [p.transpose(1, 2).reshape(R, q, hd)
+               for p in (x[..., hd:2 * hd], x[..., 2 * hd:])]
+    else:
+        out = [torch.from_numpy(rng.randn(R * q * hd + 1).astype(
+            np.float32) * 20).to(dt).to(dev)[1:].view(R, q, hd)
+               for _ in range(2)]
+    return [t[:, 0] for t in out] if q == 1 else out
+
+
+def _append_against_plain(kernel, plain, bufs, args, kw):
+    """One kernel call (one launch, no host sync) against the plain version
+    on copies of ``bufs``, bit for bit, lengths included, on the card and
+    on the CPU (whose true divide JAX's int8 scale matches: a divide by a
+    Python 127.0 on the card is a multiply by its reciprocal); then the
+    same call again on fresh copies gives the same bits."""
+    def cpu(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+
+    want = [b.clone() for b in bufs]
+    orig = [b.clone() for b in bufs]
+    ref_len = plain(*args[:2], *want, *args[2:], **kw)
+    on_cpu = [b.cpu() for b in bufs]
+    cpu_len = plain(*map(cpu, args[:2]), *on_cpu, *map(cpu, args[2:]),
+                    **{k: cpu(v) for k, v in kw.items()})
+    for c, w in zip(on_cpu + [cpu_len], want + [ref_len]):
+        assert torch.equal(c.view(torch.uint8), w.cpu().view(torch.uint8))
+    runs = []
+    for _ in range(2):
+        got = [b.clone() for b in orig]
+        before = kernel.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            new_len = kernel(*args[:2], *got, *args[2:], **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        runs.append(got + [new_len])
+    for got, again, ref in zip(runs[0], runs[1], want + [ref_len]):
+        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+        assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    return runs[0]
+
+
+@pytest.mark.parametrize("hd", [7, 24, 64, 128, 256])
 @pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
 def test_ragged_append_kernel_bit_exact(dev, dtype, hd):
-    """B21 against its plain version, bit for bit: a frozen slot, a full
-    slot and a write at the last row keep every other byte as it was."""
+    """B21, the whole append (write rule, guarded rows, new lengths), against
+    its plain version bit for bit on every contiguous route: ragged (a
+    frozen slot, a full one, the last row), uniform (in range, the last row,
+    at and past ``s_max``; a device scalar and a host int) and drafts of 1,
+    4 and 8 (fitting, ending at ``s_max``, one past it); fp32 and bf16
+    tokens, strided views and misaligned rows. Each call is one launch with
+    no host sync, and gives the same bits twice."""
     from sputnik_tpu_torch.ops.kernels.ragged_append import (
-        ragged_append_kernel, ragged_append_plain)
+        ragged_append_fused_plain, ragged_append_kernel)
 
     rng = np.random.RandomState(hd)
     R, s_max = 6, 96
     dt = _CACHE_DTYPES[dtype]
+    kv_len = torch.tensor([0, 31, 95, 96, 40, 7], dtype=torch.int32,
+                          device=dev)
+    bufs = [torch.from_numpy(rng.randn(R, s_max, hd).astype(np.float32)
+                             * 50).to(dt).to(dev) for _ in range(2)]
+    bufs += [torch.rand(R, s_max, device=dev) for _ in range(2)]
 
-    def rand(*shape):
-        x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 50)
-        return x.to(dt).to(dev)
+    def at(p):
+        return torch.tensor(p, dtype=torch.int32, device=dev)
 
-    pos = torch.tensor([0, 31, 32, 95, 96, 40], dtype=torch.int32,
-                       device=dev)
-    ok = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
-    bufs = [rand(R, s_max, hd), rand(R, s_max, hd),
-            torch.rand(R, s_max, device=dev), torch.rand(R, s_max, device=dev)]
-    toks = (rand(R, hd), rand(R, hd), torch.rand(R, device=dev),
-            torch.rand(R, device=dev))
-    orig = [b.clone() for b in bufs]
-    want = [b.clone() for b in bufs]
-    ragged_append_plain(pos, ok, *toks, *want)
-    before = ragged_append_kernel.launches
-    ragged_append_kernel(pos, ok, *toks, *bufs)
-    torch.cuda.synchronize()
-    assert ragged_append_kernel.launches == before + 1
-    for got, ref, old in zip(bufs, want, orig):
-        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
-        # the frozen slot (2) and the full one (4) keep every byte
-        for r in (2, 4):
-            assert torch.equal(got[r].view(torch.uint8),
-                               old[r].view(torch.uint8))
-    assert torch.equal(bufs[0][3, 95], toks[0][3])
+    active = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
+    cases = [(1, {}), (1, dict(active=active))]
+    cases += [(1, dict(pos=at(p))) for p in (0, 40, 95, 96, 200)]
+    cases += [(1, dict(pos=95))]
+    cases += [(q, dict(pos=at(p), seq=True)) for q in (1, 4, 8)
+              for p in (10, s_max - q, s_max - q + 1)]
+    for tok_dt in (torch.float32, torch.bfloat16):
+        for layout in ("view", "misaligned"):
+            for q, kw in cases:
+                toks = _append_tokens(dev, rng, R, q, hd, tok_dt, layout)
+                got = _append_against_plain(
+                    ragged_append_kernel, ragged_append_fused_plain, bufs,
+                    (*toks, kv_len), kw)
+                if kw == dict(active=active):     # the frozen and full slots
+                    for r in (2, 3):
+                        for g, b in zip(got[:4], bufs):
+                            assert torch.equal(g[r].view(torch.uint8),
+                                               b[r].view(torch.uint8))
+                    assert got[4].tolist() == [1, 32, 95, 96, 41, 8]
 
 
 def _paged_problem(dev, dtype, hd, bk, seed):
@@ -737,46 +798,68 @@ def test_paged_attention_kernel_invalid_slots_and_pages(dev, seed):
     assert torch.all(got[0] == 0)
 
 
-@pytest.mark.parametrize("hd", [7, 64, 128])
+@pytest.mark.parametrize("hd", [7, 24, 64, 128, 256])
 @pytest.mark.parametrize("dtype", sorted(_CACHE_DTYPES))
 def test_paged_append_kernel_bit_exact(dev, dtype, hd):
-    """B20b against its plain version, bit for bit: a frozen replica, a
-    page id outside the pool, a negative one and an offset past the page
-    write nothing anywhere; the last row of a page is written."""
+    """B20b, the whole append, against its plain version bit for bit: one
+    token and drafts of 4 and 8 through a shuffled page table (a draft
+    crossing pages, one reaching a block with no page, one past the table's
+    capacity, a frozen replica, and table ids past the pool: ``P``, the
+    dump page's neighbour, and ``P + 5``), fp32 and bf16 tokens, strided
+    views and misaligned rows; nothing is written for a replica that does
+    not fit, nor for a token whose id lies past the pool (it still counts
+    as a page for the length, as in JAX's ``_resolve_write``), the dump
+    page least of all. One launch, no host sync, the same bits twice."""
     from sputnik_tpu_torch.ops.kernels.paged_append import (
-        paged_append_kernel, paged_append_plain)
+        paged_append_fused_plain, paged_append_kernel)
 
     rng = np.random.RandomState(hd + 1)
-    P, bk = 9, 128
+    R, P, bk, mb = 8, 10, 16, 4               # page P - 1: the dump page
     dt = _CACHE_DTYPES[dtype]
-
-    def rand(*shape):
-        x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 50)
-        return x.to(dt).to(dev)
-
-    page = torch.tensor([3, 0, 8, 9, -1, 5, 6], dtype=torch.int32,
-                        device=dev)
-    off = torch.tensor([0, 127, 5, 0, 0, 128, 40], dtype=torch.int32,
-                       device=dev)
-    ok = torch.tensor([1, 1, 0, 1, 1, 1, 1], dtype=torch.int32, device=dev)
-    R = page.shape[0]
-    bufs = [rand(P, bk, hd), rand(P, bk, hd), torch.rand(P, bk, device=dev),
-            torch.rand(P, bk, device=dev)]
-    toks = (rand(R, hd), rand(R, hd), torch.rand(R, device=dev),
-            torch.rand(R, device=dev))
-    orig = [b.clone() for b in bufs]
-    want = [b.clone() for b in bufs]
-    paged_append_plain(page, off, ok, *toks, *want)
-    before = paged_append_kernel.launches
-    paged_append_kernel(page, off, ok, *toks, *bufs)
-    torch.cuda.synchronize()
-    assert paged_append_kernel.launches == before + 1
-    for got, ref, old in zip(bufs, want, orig):
-        assert torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
-        changed = (got != old).reshape(P * bk, -1).any(-1).nonzero()
-        assert set(changed[:, 0].tolist()) <= {3 * bk, 127, 6 * bk + 40}
-    assert torch.equal(bufs[0][0, 127], toks[0][1])
-    assert torch.equal(bufs[3][6, 40], toks[3][6])
+    table = np.full((R, mb), -1, np.int32)
+    ids = rng.permutation(P - 1)
+    for (r, blk), p in zip([(0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (3, 0),
+                            (4, 3), (5, 0), (7, 0)], ids):
+        table[r, blk] = p
+    table[6, 0] = P                           # past the pool
+    table[7, 1] = P + 5
+    page_table = torch.from_numpy(table).to(dev)
+    lens = [3, 14, 30, 9, 64, 0, 5, 14]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bufs = [torch.from_numpy(rng.randn(P, bk, hd).astype(np.float32)
+                             * 50).to(dt).to(dev) for _ in range(2)]
+    bufs += [torch.rand(P, bk, device=dev) for _ in range(2)]
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 1], dtype=torch.int32,
+                          device=dev)
+    for tok_dt in (torch.float32, torch.bfloat16):
+        for layout in ("view", "misaligned"):
+            for q in (1, 4, 8):
+                for act in (None, active):
+                    toks = _append_tokens(dev, rng, R, q, hd, tok_dt, layout)
+                    got = _append_against_plain(
+                        paged_append_kernel, paged_append_fused_plain, bufs,
+                        (*toks, page_table, kv_len), dict(active=act))
+                    for g, b in zip(got[:4], bufs):
+                        assert torch.equal(g[P - 1].view(torch.uint8),
+                                           b[P - 1].view(torch.uint8))
+                    if q == 4 and act is not None:
+                        # 0 and 5 stay in their page, 1 crosses into block
+                        # 1; 2 reaches block 2, which has no page; 3 is
+                        # frozen; 4 is at the capacity (block 3 has a page);
+                        # 6 and 7 advance, storing only 7's first two tokens
+                        assert got[4].tolist() == [7, 18, 30, 9, 64, 4, 9,
+                                                   18]
+                        want = {int(table[r, p // bk]) * bk + p % bk
+                                for r, lo, n in ((0, 3, 4), (1, 14, 4),
+                                                 (5, 0, 4), (7, 14, 2))
+                                for p in range(lo, lo + n)}
+                        changed = set()
+                        for g, b in zip(got[:4], bufs):
+                            diff = (g.view(torch.uint8) != b.view(
+                                torch.uint8)).reshape(P * bk, -1)
+                            changed |= set(
+                                diff.any(-1).nonzero()[:, 0].tolist())
+                        assert changed == want
 
 
 # -- the many-mask batch (B6 spmm_bh, B7 sddmm_bh, B8 spmm_t_bh) -----------
