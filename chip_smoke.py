@@ -60,9 +60,12 @@ Phases, each printing its lines:
      B10c), so that a kernel computing in fp32 would fail (2h); the
      compressed (true-BSR) kernels B13a / B13b (every epilogue; widths 64
      and 4096, B1 / B3 on the ELL panel of the same topology beside them),
-     B14 and B15a / B15b (B15b also slot by slot, with a planted fault) on
-     the skewed 4096^2 pattern (a 32-wide band plus three dense rows) at
-     64x64 tiles (2i); the sequence-parallel kernels B2 (the halo SpMM's
+     B14 and B15a / B15b (B15a on its split plan, its chunk size swept at
+     R = 1 and 8, its merge counters back at 0; B15b also slot by slot,
+     with a planted fault; both also in the softmax backward's modes, the
+     same bits twice and after graph replays, by graph replay beside
+     eager) on the skewed 4096^2 pattern (a 32-wide band plus three dense
+     rows) at 64x64 tiles (2i); the sequence-parallel kernels B2 (the halo SpMM's
      interior and halo passes at 8192^2 window 1024, q=512, summing to B1
      over the shard), B11a and B11b (every band of a ring shard at s=8192
      causal, R=4, hd=64, carried and finished against B9 / B10a over the
@@ -116,10 +119,10 @@ Phases, each printing its lines:
         the two steps timed in turns;
      i. the compressed chain: sddmm -> sparse_softmax -> spmm through
         stt.panel on PanelSpec(compressed=True) at the skewed 4096^2
-        pattern, hd=64, forward and backward (B14 x 2, B15a, B15b, B13a x
-        3, B13b x 2 a step; no ELL kernel), the step timed against the ELL
-        layout's in turns; 5 SGD steps on a compressed-panel regression
-        (the loss falls);
+        pattern, hd=64, forward and backward (B14 x 2, B15a and B15b each
+        in both modes, B13a x 2, B13b x 2 a step; no ELL kernel), the step
+        timed against the ELL layout's in turns and profiled; 5 SGD steps
+        on a compressed-panel regression (the loss falls);
      j. ring flash attention at examples/train_seq_parallel.py's full
         config on 4 shards of the one card (s=8192 causal, R=4, hd=64):
         natural and zigzag order (group 1: B11a and B11b, 16 launches
@@ -219,6 +222,12 @@ REPLACES = {
                         "sputnik_tpu/ops/pallas/bsr_compressed.py:253"),
     "c_softmax_apply": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
                         "sputnik_tpu/ops/pallas/bsr_compressed.py:331"),
+    # the softmax backward's modes of B15a / B15b: JAX takes the row sum by
+    # B13a against a ones column, the product in XLA (_softmax_bwd)
+    "c_softmax_rowsum": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
+                         "sputnik_tpu/ops/pallas/bsr_compressed.py:32"),
+    "c_softmax_grad": ("sputnik_tpu_torch/csrc/bsr_compressed.cu",
+                       "sputnik_tpu/ops/panel_api.py:489"),
     "bsr_spmm_panel_sel": ("sputnik_tpu_torch/csrc/bsr_spmm.cu",
                            "sputnik_tpu/ops/pallas/bsr_spmm.py:153"),
     "flash_sparse_ring_band_fwd": (
@@ -3849,14 +3858,129 @@ def _split_cases(stt, torch, dev, kc, P, rng):
                         f"spmm_c heavy row-block bm={bm} width={width}")
 
 
+def _softmax_split_note(kc, bv, plans, R):
+    """Prints B15a's split plan for ``R`` replicas: the chunk size, the
+    chunks and the row-blocks they cut, the longest row-block, the CTAs
+    of its one launch."""
+    chunk = kc.softmax_chunk(bv.num_blocks, R)
+    plan = plans[chunk]
+    n_chunks, n_split = plan["chunks"].shape[0], plan["split_rows"].numel()
+    print(f"  c_softmax_stats / c_softmax_rowsum: split plan at {chunk} tiles "
+          f"a chunk: {n_chunks} chunks over {bv.mb} row-blocks ({n_split} "
+          f"cut, {plan['n_parts']} partial slots; the longest row-block "
+          f"{int(np.diff(bv.block_offsets).max())} tiles); one launch of "
+          f"{n_chunks * R} CTAs, the last CTA of a cut row-block merging "
+          f"its chunks", flush=True)
+
+
+def _counters_idle(name, plans):
+    """Fails unless B15a's merge counters exist and every set (one a
+    replica count and stream) is back at 0."""
+    sets = plans.merge_counters
+    if not sets or any(bool(c.any()) for c in sets.values()):
+        _fail(f"{name}: B15a's merge counters are not all back at 0 "
+              f"({len(sets)} sets)")
+
+
+def _softmax_chunk_sweep(kc, meta, scores, p, cot):
+    """B15a in both modes by graph replay at chunk sizes 1-4, 6, 8 and 12,
+    on the chain's scores at R = 1 and stacked to R = 8, where the rule
+    (``softmax_chunk``) reaches its cap ``SOFTMAX_MAX_CHUNK``: the readings
+    behind the rule. Each graph captures its own zeroed merge counters, so
+    every reading holds one small fill beside the kernel."""
+    rule, plans = kc.softmax_chunk, meta["split_plans"]
+    try:
+        for R in (1, 8):
+            x, pr, gr = (t.expand(R, -1, -1, -1).contiguous()
+                         for t in (scores, p, cot))
+            row = []
+            for chunk in (1, 2, 3, 4, 6, 8, 12):
+                kc.softmax_chunk = lambda n, r, c=chunk: c
+                ms = [_graph_ms(lambda: kc.c_softmax_stats(
+                          meta["block_offsets"], x, meta["mask"],
+                          plans=plans)),
+                      _graph_ms(lambda: kc.c_softmax_rowsum(
+                          meta["block_offsets"], pr, gr, meta["mask"],
+                          plans=plans))]
+                row.append(f"{chunk}: {ms[0]:.4f} / {ms[1]:.4f}")
+            print(f"  B15a chunk sweep, R = {R} (stats / row sum ms, graph "
+                  f"replay; the rule picks {rule(x.shape[1] - 1, R)}): "
+                  + ", ".join(row), flush=True)
+            del x, pr, gr
+    finally:
+        kc.softmax_chunk = rule
+
+
+def _same_bits_and_replays(name, fn, want):
+    """A second call of ``fn`` gives ``want``'s bits, and so do two replays
+    of a CUDA graph that captured it (outputs filled with NaN before each
+    replay)."""
+    import torch
+
+    want = want if isinstance(want, tuple) else (want,)
+    again = fn()
+    again = again if isinstance(again, tuple) else (again,)
+
+    def same(got):
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+
+    if not same(again):
+        _fail(f"{name}: two calls differ in their bits")
+    if not _GRAPH_STREAM:
+        _GRAPH_STREAM.append(torch.cuda.Stream())
+    side = _GRAPH_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = fn()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    for i in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        if not same(outs):
+            _fail(f"{name}: graph replay {i + 1} differs from an eager call")
+    del graph
+    print(f"  {name}: the same bits twice and after two graph replays",
+          flush=True)
+
+
+def _softmax_bwd_library_ms(torch, topo, p_vals, g_vals):
+    """``torch._sparse_softmax_backward_data`` over the coalesced COO of the
+    same pattern: one PyTorch call computing the softmax backward, the
+    yardstick of its row sum and product together."""
+    R, nnz = p_vals.shape[0], topo.nnz
+    rows = torch.from_numpy(topo.row_ids[:nnz].astype(np.int64))
+    cols = torch.from_numpy(topo.column_indices[:nnz].astype(np.int64))
+    idx = torch.stack([torch.arange(R).repeat_interleave(nnz),
+                       rows.repeat(R), cols.repeat(R)]).to(p_vals.device)
+
+    def coo(v):
+        return torch.sparse_coo_tensor(idx, v[:, :nnz].reshape(-1),
+                                       (R, topo.m, topo.n)).coalesce()
+
+    out, grad = coo(p_vals), coo(g_vals)
+    return _library_ms(
+        "sparse softmax backward (torch._sparse_softmax_backward_data, "
+        "COO)", lambda: torch._sparse_softmax_backward_data(
+            grad, out, 2, out))
+
+
 def phase_compressed_kernels(stt, torch, dev, kres):
     """Phase 2i: the compressed (true-BSR) kernels B13a, B13b, B14, B15a,
     B15b against their plain versions on the skewed 4096 x 4096 pattern at
     64 x 64 tiles (sliding window plus three global tokens): the chain's
     shapes (widths 64, timed into the JSON line) and bench.py's width
     4096; B1 / B3 on the ELL panel of the same topology beside them. B13a
-    walks its split plan, timed beside the unsplit walk, also as the
-    softmax backward's ones-column row sum; then on a heavy row-block."""
+    walks its split plan, timed beside the unsplit walk, also as JAX's
+    ones-column row sum of the softmax backward; then on a heavy
+    row-block. B15a walks its own split plan (one launch, the chunks
+    merged by the last block of a row-block), B15a / B15b are held in
+    both modes (the softmax backward's row sum and product), each the same
+    bits twice and after graph replays, timed by graph replay beside
+    eager calls; B15a's chunk size swept."""
     from sputnik_tpu_torch.ops import panel_api as P
     from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
     from sputnik_tpu_torch.ops.kernels.bsr_spmm import bsr_spmm_panel
@@ -3971,7 +4095,8 @@ def phase_compressed_kernels(stt, torch, dev, kres):
             kres["bsr_spmm_t_panel_c"].update(r)
         del x, g, got
 
-    # -- B13a as the softmax backward's ragged row sum: a ones column
+    # -- B13a as JAX's ragged row sum of the softmax backward (a ones
+    # column; the port's backward takes it by B15a's walk)
     ones = torch.ones(1, bv.n_pad, 1, device=dev)
     rargs = (meta["block_offsets"], meta["block_cols"], panel, ones)
     got = kc.bsr_spmm_panel_c(*rargs, rows=bv.m_pad,
@@ -4020,16 +4145,28 @@ def phase_compressed_kernels(stt, torch, dev, kres):
     _stored_note("sddmm_c", bv.num_blocks * 64 * 64, d)
     del csr, k_t
 
-    # -- B15a / B15b on the chain's scores
+    # -- B15a / B15b on the chain's scores: B15a walks its split plan
+    plans = meta["split_plans"]
+    _softmax_split_note(kc, bv, plans, 1)
     stats_args = (meta["block_offsets"], scores, meta["mask"])
-    m, l = kc.c_softmax_stats(*stats_args)
+
+    def stats():
+        return kc.c_softmax_stats(*stats_args, plans=plans)
+
+    m, l = stats()
     m_ref, l_ref = kc.c_softmax_stats_plain(*stats_args)
     r = kres["c_softmax_stats"]
     _compare("c_softmax_stats row_max (exactly equal)", m, m_ref, 0.0, r)
     _compare("c_softmax_stats row_denom", l, l_ref, TOL_KERNEL, r, floor=0)
     _compare_each("c_softmax_stats row_denom", l, l_ref, TOL_KERNEL)
+    _same_bits_and_replays("c_softmax_stats", stats, (m, l))
+    _counters_idle("c_softmax_stats", plans)
     aargs = (meta["block_rows"], scores, meta["mask"], m, l)
-    p = kc.c_softmax_apply(*aargs)
+
+    def apply():
+        return kc.c_softmax_apply(*aargs)
+
+    p = apply()
     p_ref = kc.c_softmax_apply_plain(*aargs)
     ra = kres["c_softmax_apply"]
     _compare("c_softmax_apply", p, p_ref, TOL_KERNEL, ra)
@@ -4050,26 +4187,79 @@ def phase_compressed_kernels(stt, torch, dev, kres):
             + torch.arange(64, device=dev)).reshape(-1),
         p[0].sum(dim=-1).reshape(-1))[:size]
     _compare("c_softmax rows sum to 1", rows, torch.ones_like(rows), 1e-5)
-    r["ms"] = _time_ms(lambda: kc.c_softmax_stats(*stats_args))
-    r["plain_ms"] = _time_ms(lambda: kc.c_softmax_stats_plain(*stats_args))
-    ra["ms"] = _time_ms(lambda: kc.c_softmax_apply(*aargs))
-    ra["plain_ms"] = _time_ms(lambda: kc.c_softmax_apply_plain(*aargs))
-    print(f"  c_softmax_stats: kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms; c_softmax_apply: kernel {ra['ms']:.4f} "
-          f"ms, plain {ra['plain_ms']:.4f} ms", flush=True)
+    _same_bits_and_replays("c_softmax_apply", apply, p)
+
+    # -- the softmax backward's two modes, on a cotangent that is NaN at
+    # the masked slots and in the dump tile
+    cot = torch.from_numpy(rng.randn(*scores.shape).astype(np.float32)
+                           ).to(dev)
+    cot = torch.where(meta["mask"] != 0, cot, float("nan"))
+
+    def rowsum():
+        return kc.c_softmax_rowsum(meta["block_offsets"], p, cot,
+                                   meta["mask"], plans=plans)
+
+    rs = rowsum()
+    rr = kres["c_softmax_rowsum"]
+    _compare("c_softmax_rowsum", rs, kc.c_softmax_rowsum_plain(
+        meta["block_offsets"], p, cot, meta["mask"]), TOL_KERNEL, rr)
+    _same_bits_and_replays("c_softmax_rowsum", rowsum, rs)
+    gargs = (meta["block_rows"], p, cot, meta["mask"], rs)
+
+    def grad():
+        return kc.c_softmax_grad(*gargs)
+
+    dx = grad()
+    rg = kres["c_softmax_grad"]
+    _compare("c_softmax_grad", dx, kc.c_softmax_grad_plain(*gargs),
+             TOL_KERNEL, rg)
+    if not (torch.all(dx[0, -1] == 0)
+            and torch.all(dx[0][meta["mask"] == 0] == 0)):
+        _fail("c_softmax_grad: the dump tile or a masked slot is not 0")
+    _same_bits_and_replays("c_softmax_grad", grad, dx)
+
+    # device times by CUDA graph replay; the eager calls beside them
+    timed = (("c_softmax_stats", r, stats,
+              lambda: kc.c_softmax_stats_plain(*stats_args)),
+             ("c_softmax_apply", ra, apply,
+              lambda: kc.c_softmax_apply_plain(*aargs)),
+             ("c_softmax_rowsum", rr, rowsum,
+              lambda: kc.c_softmax_rowsum_plain(meta["block_offsets"], p,
+                                                cot, meta["mask"])),
+             ("c_softmax_grad", rg, grad,
+              lambda: kc.c_softmax_grad_plain(*gargs)))
+    for name, res, kern, plain in timed:
+        res["ms"], eager_ms = _graph_ms(kern), _time_ms(kern)
+        res["plain_ms"] = _time_ms(plain)
+        print(f"  {name}: kernel {res['ms']:.4f} ms (graph replay; eager "
+              f"calls {eager_ms:.4f} ms a call), plain {res['plain_ms']:.4f}"
+              f" ms", flush=True)
+    _softmax_chunk_sweep(kc, meta, scores, p, cot)
+    _counters_idle("c_softmax_stats / c_softmax_rowsum", plans)
     vals = P.panel_to_values(topo, scores[0], 64, 64, compressed=True)[None]
     lib = _softmax_library_ms(torch, topo, vals)
     r["library_ms"] = ra["library_ms"] = lib   # one call does both passes
+    rr["library_ms"] = rg["library_ms"] = _softmax_bwd_library_ms(
+        torch, topo, *(P.panel_to_values(topo, x[0], 64, 64,
+                                         compressed=True)[None]
+                       for x in (p, cot)))
     # bytes of the nonzeros: B15a reads the scores and a 4-byte index per
-    # nonzero and writes m, l; B15b reads them again and writes p
+    # nonzero and writes m, l; B15b reads them again and writes p; the
+    # backward's row sum reads p and g, its product p, g and rs and
+    # writes the gradient
     _bound(r, 3.0 * nnz, 8 * nnz + 8 * size)
     _bound(ra, 2.0 * nnz, 12 * nnz + 8 * size)
+    _bound(rr, 2.0 * nnz, 12 * nnz + 4 * size)
+    _bound(rg, 2.0 * nnz, 16 * nnz + 4 * size)
     tiles = (bv.num_blocks + 1) * 64 * 64
-    print(f"    c_softmax: the stored panel is {8 * tiles / 1e6:.2f} MB of "
-          f"scores and mask read by B15a, {12 * tiles / 1e6:.2f} MB moved by "
-          f"B15b: {8 * tiles / PEAK_BYTES * 1e3:.4f} / "
-          f"{12 * tiles / PEAK_BYTES * 1e3:.4f} ms (not the bound)",
-          flush=True)
+    print(f"    c_softmax: the stored panel's bytes (f32 values and mask of "
+          f"every occupied tile; not the bound): B15a reads "
+          f"{8 * tiles / 1e6:.2f} MB ({8 * tiles / PEAK_BYTES * 1e3:.4f} "
+          f"ms), B15b moves {12 * tiles / 1e6:.2f} MB "
+          f"({12 * tiles / PEAK_BYTES * 1e3:.4f} ms); the row sum reads "
+          f"{12 * tiles / 1e6:.2f} MB ({12 * tiles / PEAK_BYTES * 1e3:.4f} "
+          f"ms), the gradient moves {16 * tiles / 1e6:.2f} MB "
+          f"({16 * tiles / PEAK_BYTES * 1e3:.4f} ms)", flush=True)
 
 
 def phase_compressed_path(stt, torch, dev, wrappers):
@@ -4109,7 +4299,8 @@ def phase_compressed_path(stt, torch, dev, wrappers):
     out, w = _counted(
         wrappers, total, "compressed chain forward + backward", step,
         {"bsr_sddmm_panel_c": 2, "c_softmax_stats": 1, "c_softmax_apply": 1,
-         "bsr_spmm_panel_c": 3, "bsr_spmm_t_panel_c": 2,
+         "c_softmax_rowsum": 1, "c_softmax_grad": 1,
+         "bsr_spmm_panel_c": 2, "bsr_spmm_t_panel_c": 2,
          "bsr_spmm_panel": 0, "bsr_spmm_t_panel": 0, "bsr_sddmm_panel": 0,
          "ell_softmax": 0})
     if not (torch.all(w[-1] == 0) and torch.all(
@@ -4118,6 +4309,7 @@ def phase_compressed_path(stt, torch, dev, wrappers):
               "softmax is not exactly 0")
     if not all(torch.isfinite(x.grad).all() for x in gpu):
         _fail("compressed chain: non-finite gradients")
+    _counters_idle("compressed chain", spec.meta(dev)["split_plans"])
 
     def timed_step(sp):
         for x in gpu:

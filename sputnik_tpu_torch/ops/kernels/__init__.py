@@ -21,11 +21,11 @@ __all__ = ["check_operands", "guard_no_grad", "kernel_wrappers", "SMS"]
 
 # Streaming multiprocessors of the card the split plans are sized for (an
 # H100 SXM). The split walks of B9 / B10a / B10b / B11a / B11b
-# (flash_sparse.SPLIT_CTAS), B13a (bsr_compressed.SPLIT_CTAS) and B19 / B20a
-# (decode_attention.SPLIT_CTAS) cut their walks into chunks from this count,
-# and the chunks are merged in a fixed order: a plan read from the device
-# would change the merge order, and with it the bits, from card to card. So
-# the plans stay fixed, named here once.
+# (flash_sparse.SPLIT_CTAS), B13a and B15a (bsr_compressed.SPLIT_CTAS) and
+# B19 / B20a (decode_attention.SPLIT_CTAS) cut their walks into chunks from
+# this count, and the chunks are merged in a fixed order: a plan read from
+# the device would change the merge order, and with it the bits, from card
+# to card. So the plans stay fixed, named here once.
 SMS = 132
 
 
@@ -57,6 +57,7 @@ def kernel_wrappers():
                                 spmm_t_bh_kernel)
     from .bsr_compressed import (bsr_sddmm_panel_c, bsr_spmm_panel_c,
                                  bsr_spmm_t_panel_c, c_softmax_apply,
+                                 c_softmax_grad, c_softmax_rowsum,
                                  c_softmax_stats)
     from .bsr_sddmm import bsr_sddmm_panel
     from .bsr_spmm import bsr_spmm_panel, bsr_spmm_panel_sel
@@ -103,6 +104,8 @@ def kernel_wrappers():
             "bsr_sddmm_panel_c": bsr_sddmm_panel_c,
             "c_softmax_stats": c_softmax_stats,
             "c_softmax_apply": c_softmax_apply,
+            "c_softmax_rowsum": c_softmax_rowsum,
+            "c_softmax_grad": c_softmax_grad,
             "bsr_spmm_panel_sel": bsr_spmm_panel_sel,
             "flash_sparse_ring_band_fwd": flash_sparse_ring_band_fwd,
             "flash_sparse_ring_band_bwd": flash_sparse_ring_band_bwd}

@@ -64,8 +64,10 @@ _SIGNATURES = {
     "spmm_panel_c_f32": [_P] * 10 + [_I] * 12 + [_P],
     "spmm_t_panel_c_f32": [_P] * 6 + [_I] * 9 + [_P],
     "sddmm_panel_c_f32": [_P] * 6 + [_I] * 7 + [_P],
-    "c_softmax_stats_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "c_softmax_apply_f32": [_P] * 6 + [_I] * 5 + [_P],
+    "c_softmax_stats_f32": [_P] * 9 + [_I] * 9 + [_P],
+    "c_softmax_rowsum_f32": [_P] * 8 + [_I] * 9 + [_P],
+    "c_softmax_apply_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "c_softmax_grad_f32": [_P] * 6 + [_I] * 6 + [_P],
     "spmm_panel_sel_f32": [_P] * 6 + [_I] * 8 + [_P],
     "flash_sparse_ring_fwd_f32": [_P] * 12 + [_I] * 8 + [_P],
     "flash_sparse_ring_bwd_f32": [_P] * 16 + [_I] * 7 + [_P],

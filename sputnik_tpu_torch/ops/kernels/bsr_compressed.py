@@ -10,13 +10,18 @@ tiles back to back, row-block ``i`` owning tiles ``block_offsets[i] ..
 block_offsets[i + 1]``, the last tile a dump that every output keeps at
 exactly 0. B13a, B13b and B14 are the bodies of B1, B3 and B4
 (``csrc/bsr_spmm.cu``, ``bsr_spmm_t.cu``, ``bsr_sddmm.cu``) on a second
-address policy; B15a and B15b are ``csrc/bsr_compressed.cu``.
+address policy; B15a and B15b are ``csrc/bsr_compressed.cu``, each with a
+second mode that the softmax backward runs: ``c_softmax_rowsum`` (B15a's
+walk summing ``p * g`` a row) and ``c_softmax_grad`` (B15b's pass writing
+``p * (g - rs[row])``).
 
-B13a splits the serial walk of a row-block that holds many tiles: a host
-plan (``split_plan``, cached per chunk size by ``SplitPlans``, which
+B13a and B15a split the serial walk of a row-block that holds many tiles:
+a host plan (``split_plan``, cached per chunk size by ``SplitPlans``, which
 ``PanelSpec.meta(device)`` holds as ``split_plans``) cuts every row-block's
-tiles into chunks of at most ``split_chunk(...)`` tiles, one CUDA block
-each, and a second launch sums the partials of the row-blocks it cut.
+tiles into chunks, one CUDA block each (B13a at ``split_chunk(...)`` tiles,
+a second launch summing the partials of the row-blocks it cut; B15a at
+``softmax_chunk(...)`` tiles, the last block of a cut row-block merging
+its partials in the same launch).
 
 The plain versions take the same metadata, are vectorised over row-blocks
 (block columns for the transposed product) with one step per tile slot, as
@@ -38,12 +43,16 @@ __all__ = ["bsr_spmm_panel_c", "bsr_spmm_panel_c_plain", "split_chunk",
            "split_plan", "SplitPlans",
            "bsr_spmm_t_panel_c", "bsr_spmm_t_panel_c_plain",
            "bsr_sddmm_panel_c", "bsr_sddmm_panel_c_plain",
-           "c_softmax_stats", "c_softmax_stats_plain",
-           "c_softmax_apply", "c_softmax_apply_plain"]
+           "softmax_chunk", "c_softmax_stats", "c_softmax_stats_plain",
+           "c_softmax_stats_split_plain", "c_softmax_rowsum",
+           "c_softmax_rowsum_plain", "c_softmax_apply",
+           "c_softmax_apply_plain", "c_softmax_grad", "c_softmax_grad_plain"]
 
 _NEG_LARGE = -1e30     # the TPU kernel's masked score
 _MIN_DENOM = 1e-30     # the TPU kernel's floor of a row's denominator
-SPLIT_CTAS = 2 * SMS   # blocks B13a's first pass aims for where it splits
+SPLIT_CTAS = 2 * SMS   # blocks B13a's first pass and B15a aim for
+SOFTMAX_MAX_CHUNK = 3  # the most tiles a block of B15a walks (the
+                       # sweep of chip_smoke.py's phase 2i)
 
 
 def _walk(block_offsets):
@@ -99,14 +108,36 @@ def split_plan(block_offsets, chunk: int) -> dict:
 
 
 class SplitPlans(dict):
-    """B13a's split plans of one compressed topology on one device, by chunk
-    size: each built on first use from the host's ``block_offsets`` (the
-    device is never read) and kept."""
+    """The split plans (B13a, B15a) of one compressed topology on one
+    device, by chunk size: each built on first use from the host's
+    ``block_offsets`` (the device is never read) and kept; and B15a's merge
+    counters (``merge_counters``, by replica count and stream)."""
 
     def __init__(self, block_offsets, device):
         super().__init__()
         self.block_offsets = np.asarray(block_offsets)
         self.device = torch.device(device)
+        self.merge_counters = {}
+
+    def counters(self, R: int) -> torch.Tensor:
+        """B15a's merge counters for ``R`` replicas on the current stream,
+        i32[R, mb], zero. One set a (R, stream), made on first use and left
+        at zero by every launch, so launches that may overlap (two streams)
+        never share a set. Under a CUDA graph's capture, a new zeroed set
+        each call that only the graph holds: each replay zeroes it first,
+        so a graph shares its counters with no eager call and no other
+        graph."""
+        shape = (R, self.block_offsets.size - 1)
+        cuda = self.device.type == "cuda"
+        if cuda and torch.cuda.is_current_stream_capturing():
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        key = (R, torch.cuda.current_stream(self.device).cuda_stream
+               if cuda else 0)
+        got = self.merge_counters.get(key)
+        if got is None:
+            got = self.merge_counters[key] = torch.zeros(
+                shape, dtype=torch.int32, device=self.device)
+        return got
 
     def to(self, device) -> "SplitPlans":
         device = torch.device(device)
@@ -361,6 +392,54 @@ def bsr_sddmm_panel_c(block_rows, block_cols, lhs, rhs, mask):
 bsr_sddmm_panel_c.launches = 0
 
 
+def softmax_chunk(n_tiles: int, R: int) -> int:
+    """The most tiles one chunk of B15a's walk holds (``n_tiles`` real
+    tiles, ``R`` replicas): few enough that the (chunk, replica) blocks
+    reach ``SPLIT_CTAS`` where the tiles allow it, and never more than
+    ``SOFTMAX_MAX_CHUNK``, so that no block walks a long row in series."""
+    return min(SOFTMAX_MAX_CHUNK, max(1, -(-n_tiles * R // SPLIT_CTAS)))
+
+
+def _vec(bk, *tensors) -> int:
+    """The kernels' vector width: 16-byte loads and stores where a row of a
+    tile is whole float4s and every panel is 16-byte aligned, else 4-byte
+    ones."""
+    return 4 if bk % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in tensors) else 1
+
+
+def _row_walk(name, plans, dev, mb, T, R):
+    """B15a's walk of ``plans`` for ``R`` replicas: (chunks, chunk size,
+    partial slots, counters; the counters None where no row-block is cut,
+    else held by the caller until the launch, since a set made under a
+    capture has no other owner)."""
+    if plans is None:
+        raise ValueError(f"{name}: a CUDA panel needs plans= (PanelSpec."
+                         f"meta(device)['split_plans'])")
+    if plans.block_offsets.size != mb + 1:
+        raise ValueError(f"split plans of {plans.block_offsets.size - 1} "
+                         f"row-blocks for a panel of {mb}")
+    chunk = softmax_chunk(T - 1, R)
+    plan = plans[chunk]
+    check_operands(name, dev, chunks=(plan["chunks"], torch.int32))
+    n_parts = plan["n_parts"]
+    return (plan["chunks"], chunk, n_parts,
+            plans.counters(R) if n_parts else None)
+
+
+def _check_softmax_panels(name, panel, mask, *more):
+    if panel.dim() != 4 or mask.dim() != 3:
+        raise ValueError(f"{name}: panel must be rank 4 and mask rank 3, got "
+                         f"{tuple(panel.shape)} and {tuple(mask.shape)}")
+    if tuple(mask.shape) != tuple(panel.shape[1:]):
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} does not match "
+                         f"the panel {tuple(panel.shape)}")
+    for t in more:
+        if t.shape != panel.shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} != the panel's "
+                             f"{tuple(panel.shape)}")
+
+
 def c_softmax_stats_plain(block_offsets, panel, mask):
     """Plain version of B15a: per slot ``s``, every row of row-block ``i``
     folds tile ``block_offsets[i] + s`` into its running max and
@@ -386,17 +465,51 @@ def c_softmax_stats_plain(block_offsets, panel, mask):
     return row_max.reshape(R, mb * bm), row_denom.reshape(R, mb * bm)
 
 
-def c_softmax_stats(block_offsets, panel, mask):
+def c_softmax_stats_split_plain(block_offsets, panel, mask, chunk: int):
+    """B15a's split walk through plain PyTorch, the kernel's algebra: each
+    chunk of ``split_plan(block_offsets, chunk)`` takes the max ``m_c`` of
+    its tiles' scores (masked ones -1e30) and ``l_c = sum exp(v - m_c)``
+    over its nonzeros; a row-block's chunks merge as ``m = max_c m_c`` and
+    ``l = sum_c l_c exp(m_c - m)`` in chunk order. Equals the online fold
+    (``c_softmax_stats_plain``) up to the order of the sums (the kernel's
+    lanes fold their elements online, and it merges in another fixed
+    order)."""
+    R, T, bm, bk = panel.shape
+    plan = split_plan(block_offsets.cpu().numpy(), chunk)
+    ch = torch.as_tensor(plan["chunks"], device=panel.device).long()
+    row, first, count = ch[:, 0], ch[:, 1], ch[:, 2]
+    steps = max(int(count.max().item()), 1)
+    live = torch.arange(steps, device=panel.device)[None] < count[:, None]
+    g = torch.where(live, first[:, None] + torch.arange(
+        steps, device=panel.device), T - 1)                 # [n, steps]
+    keep = (mask[g] != 0) & live[..., None, None]           # [n, s, bm, bk]
+    v = torch.where(keep, panel[:, g], _NEG_LARGE)          # [R, n, s, ...]
+    m_c = v.amax(dim=(2, 4)).clamp(min=_NEG_LARGE)          # [R, n, bm]
+    l_c = torch.where(keep, torch.exp(v - m_c[:, :, None, :, None]),
+                      0.0).sum(dim=(2, 4))
+    mb = block_offsets.numel() - 1
+    m = panel.new_full((R, mb, bm), _NEG_LARGE).scatter_reduce_(
+        1, row[None, :, None].expand_as(m_c), m_c, "amax")
+    l = panel.new_zeros((R, mb, bm)).index_add_(
+        1, row, l_c * torch.exp(m_c - m[:, row]))
+    return m.reshape(R, mb * bm), l.reshape(R, mb * bm)
+
+
+def c_softmax_stats(block_offsets, panel, mask, *, plans=None):
     """Per-row max and softmax denominator over the ragged tiles of each
     row-block: block_offsets i32[mb + 1], panel f32[R, T, bm, bk], mask
     f32[T, bm, bk] -> (row_max, row_denom) f32[R, mb * bm] each. A row
-    without nonzeros gives (-1e30, 0)."""
-    if panel.dim() != 4 or mask.dim() != 3:
-        raise ValueError(f"panel must be rank 4 and mask rank 3, got "
-                         f"{tuple(panel.shape)} and {tuple(mask.shape)}")
+    without nonzeros gives (-1e30, 0). ``plans``: the topology's
+    ``SplitPlans`` on the panel's device (``PanelSpec.meta(device)
+    ["split_plans"]``); the kernel then walks the plan at
+    ``softmax_chunk(T - 1, R)`` tiles a chunk and merges a cut row-block's
+    chunks in the same launch, with the counters the plans hold for ``R``
+    replicas and the current stream. Needed on the card; the CPU path
+    ignores it."""
+    _check_softmax_panels("c_softmax_stats", panel, mask)
     R, T, bm, bk = panel.shape
     mb = block_offsets.numel() - 1
-    if mb < 1 or tuple(mask.shape) != (T, bm, bk):
+    if mb < 1:
         raise ValueError("block metadata does not match the panel shape")
     if not panel.is_cuda:
         return c_softmax_stats_plain(block_offsets, panel, mask)
@@ -411,9 +524,16 @@ def c_softmax_stats(block_offsets, panel, mask):
     row_denom = torch.empty_like(row_max)
     if row_max.numel() == 0:
         return row_max, row_denom
+    chunks, chunk, n_parts, counters = _row_walk(
+        "c_softmax_stats", plans, dev, mb, T, R)
+    parts = torch.empty((2, R, n_parts, bm), device=dev, dtype=torch.float32)
     err = library().c_softmax_stats_f32(
-        block_offsets.data_ptr(), panel.data_ptr(), mask.data_ptr(),
-        row_max.data_ptr(), row_denom.data_ptr(), R, mb, T, bm, bk,
+        block_offsets.data_ptr(), chunks.data_ptr(), panel.data_ptr(),
+        mask.data_ptr(), row_max.data_ptr(), row_denom.data_ptr(),
+        parts[0].data_ptr(), parts[1].data_ptr(),
+        None if counters is None else counters.data_ptr(), R, mb,
+        chunks.shape[0], chunk, n_parts, T,
+        bm, bk, _vec(bk, panel, mask),
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "c_softmax_stats")
     c_softmax_stats.launches += 1
@@ -421,6 +541,75 @@ def c_softmax_stats(block_offsets, panel, mask):
 
 
 c_softmax_stats.launches = 0
+
+
+def c_softmax_rowsum_plain(block_offsets, p, g, mask):
+    """Plain version of B15a's backward mode: each row's sum of ``p * g``
+    over its nonzeros, ``g`` taken as 0 at masked slots and in the dump
+    tile (a NaN there does not reach the sum)."""
+    R, T, bm, bk = p.shape
+    _, count, _ = _walk(block_offsets)
+    mb = count.numel()
+    tile_rows = torch.repeat_interleave(
+        torch.arange(mb, device=p.device), count)           # [T - 1]
+    pg = torch.where(mask[:T - 1] != 0, p[:, :T - 1] * g[:, :T - 1],
+                     0.0).sum(dim=-1)                       # [R, T - 1, bm]
+    return p.new_zeros((R, mb, bm)).index_add_(1, tile_rows, pg).reshape(
+        R, mb * bm)
+
+
+def c_softmax_rowsum(block_offsets, p, g, mask, *, plans=None):
+    """The softmax backward's ragged row sum: block_offsets i32[mb + 1], p
+    (the softmax output) and g (its cotangent) f32[R, T, bm, bk], mask
+    f32[T, bm, bk] -> f32[R, mb * bm], the sum of ``p * g`` over each
+    row's nonzeros (masked slots and the dump tile count as 0, whatever
+    ``g`` holds there). B15a's body and walk, ``plans`` as in
+    ``c_softmax_stats``."""
+    _check_softmax_panels("c_softmax_rowsum", p, mask, g)
+    R, T, bm, bk = p.shape
+    mb = block_offsets.numel() - 1
+    if mb < 1:
+        raise ValueError("block metadata does not match the panel shape")
+    if not p.is_cuda:
+        return c_softmax_rowsum_plain(block_offsets, p, g, mask)
+
+    guard_no_grad("c_softmax_rowsum",
+                  "panel_api.sparse_softmax on a compressed PanelSpec", p, g)
+    dev = p.device
+    check_operands("c_softmax_rowsum", dev,
+                   block_offsets=(block_offsets, torch.int32),
+                   p=(p, torch.float32), g=(g, torch.float32),
+                   mask=(mask, torch.float32))
+    rs = torch.empty((R, mb * bm), device=dev, dtype=torch.float32)
+    if rs.numel() == 0:
+        return rs
+    chunks, chunk, n_parts, counters = _row_walk(
+        "c_softmax_rowsum", plans, dev, mb, T, R)
+    part = torch.empty((R, n_parts, bm), device=dev, dtype=torch.float32)
+    err = library().c_softmax_rowsum_f32(
+        block_offsets.data_ptr(), chunks.data_ptr(), p.data_ptr(),
+        g.data_ptr(), mask.data_ptr(), rs.data_ptr(), part.data_ptr(),
+        None if counters is None else counters.data_ptr(), R, mb,
+        chunks.shape[0], chunk, n_parts, T, bm, bk, _vec(bk, p, g, mask),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "c_softmax_rowsum")
+    c_softmax_rowsum.launches += 1
+    return rs
+
+
+c_softmax_rowsum.launches = 0
+
+
+def _check_tile_stats(name, panel, mask, block_rows, *stats):
+    R, T = panel.shape[:2]
+    if block_rows.numel() != T:
+        raise ValueError(f"{name}: block metadata does not match the panel "
+                         f"shape")
+    for s in stats:
+        if s.dim() != 2 or s.shape[0] != R or s.shape != stats[0].shape:
+            raise ValueError(f"{name}: row statistics "
+                             f"{[tuple(x.shape) for x in stats]} do not "
+                             f"match R = {R}")
 
 
 def c_softmax_apply_plain(block_rows, panel, mask, row_max, row_denom):
@@ -441,15 +630,10 @@ def c_softmax_apply(block_rows, panel, mask, row_max, row_denom):
     i32[T], panel f32[R, T, bm, bk], mask f32[T, bm, bk], row_max /
     row_denom f32[R, M] (``M >= (max block_rows + 1) * bm``) ->
     f32[R, T, bm, bk], exactly 0 at masked elements and in the dump tile."""
-    if panel.dim() != 4 or mask.dim() != 3 or row_max.dim() != 2:
-        raise ValueError("panel must be rank 4, mask rank 3 and the row "
-                         "statistics rank 2")
+    _check_softmax_panels("c_softmax_apply", panel, mask)
+    _check_tile_stats("c_softmax_apply", panel, mask, block_rows, row_max,
+                      row_denom)
     R, T, bm, bk = panel.shape
-    if tuple(mask.shape) != (T, bm, bk) or block_rows.numel() != T:
-        raise ValueError("block metadata does not match the panel shape")
-    if row_max.shape != row_denom.shape or row_max.shape[0] != R:
-        raise ValueError(f"row statistics {tuple(row_max.shape)} / "
-                         f"{tuple(row_denom.shape)} do not match R = {R}")
     if not panel.is_cuda:
         return c_softmax_apply_plain(block_rows, panel, mask, row_max,
                                      row_denom)
@@ -463,18 +647,72 @@ def c_softmax_apply(block_rows, panel, mask, row_max, row_denom):
                    panel=(panel, torch.float32), mask=(mask, torch.float32),
                    row_max=(row_max, torch.float32),
                    row_denom=(row_denom, torch.float32))
-    if R > 65535:
-        raise ValueError("grid too large for one launch")
+    if R > 65535 or bm > 1024:
+        raise ValueError("grid or tile too large for one launch")
     out = torch.empty_like(panel)
     if out.numel() == 0:
         return out
     err = library().c_softmax_apply_f32(
         block_rows.data_ptr(), panel.data_ptr(), mask.data_ptr(),
         row_max.data_ptr(), row_denom.data_ptr(), out.data_ptr(), R, T, bm,
-        bk, row_max.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+        bk, row_max.shape[1], _vec(bk, panel, mask, out),
+        torch.cuda.current_stream(dev).cuda_stream)
     check(err, "c_softmax_apply")
     c_softmax_apply.launches += 1
     return out
 
 
 c_softmax_apply.launches = 0
+
+
+def c_softmax_grad_plain(block_rows, p, g, mask, rs):
+    """Plain version of B15b's backward mode: ``p * (g - rs[row])`` where
+    the mask is set, exactly 0 elsewhere, in the dump tile and on rows past
+    ``rs``'s."""
+    R, T, bm, bk = p.shape
+    M = rs.shape[1]
+    rows = (block_rows.long()[:, None] * bm
+            + torch.arange(bm, device=p.device)[None, :])      # [T, bm]
+    x = rs[:, rows.clamp(max=M - 1)][..., None]
+    keep = ((mask != 0) & (torch.arange(T, device=p.device)
+                           < T - 1)[:, None, None] & (rows < M)[..., None])
+    return torch.where(keep, p * (g - x), 0.0)
+
+
+def c_softmax_grad(block_rows, p, g, mask, rs):
+    """The compressed softmax's input gradient: block_rows i32[T], p (the
+    softmax output) and g (its cotangent) f32[R, T, bm, bk], mask
+    f32[T, bm, bk], rs f32[R, M] (``c_softmax_rowsum``) -> f32[R, T, bm,
+    bk] = ``p * (g - rs[row])`` at the nonzeros, exactly 0 at masked
+    elements and in the dump tile whatever ``g`` holds there. B15b's
+    body."""
+    _check_softmax_panels("c_softmax_grad", p, mask, g)
+    _check_tile_stats("c_softmax_grad", p, mask, block_rows, rs)
+    R, T, bm, bk = p.shape
+    if not p.is_cuda:
+        return c_softmax_grad_plain(block_rows, p, g, mask, rs)
+
+    guard_no_grad("c_softmax_grad",
+                  "panel_api.sparse_softmax on a compressed PanelSpec",
+                  p, g, rs)
+    dev = p.device
+    check_operands("c_softmax_grad", dev,
+                   block_rows=(block_rows, torch.int32),
+                   p=(p, torch.float32), g=(g, torch.float32),
+                   mask=(mask, torch.float32), rs=(rs, torch.float32))
+    if R > 65535 or bm > 1024:
+        raise ValueError("grid or tile too large for one launch")
+    out = torch.empty_like(p)
+    if out.numel() == 0:
+        return out
+    err = library().c_softmax_grad_f32(
+        block_rows.data_ptr(), p.data_ptr(), g.data_ptr(), mask.data_ptr(),
+        rs.data_ptr(), out.data_ptr(), R, T, bm, bk, rs.shape[1],
+        _vec(bk, p, g, mask, out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "c_softmax_grad")
+    c_softmax_grad.launches += 1
+    return out
+
+
+c_softmax_grad.launches = 0

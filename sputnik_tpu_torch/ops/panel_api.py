@@ -17,8 +17,8 @@ over it:
 the occupied tiles, back to back. The same ops and Functions run on it
 through the compressed kernels (SpMM B13a, SpMM^T B13b, SDDMM B14), and
 ``sparse_softmax`` through the two compressed softmax kernels (row
-statistics B15a, normalise B15b); the dump tile ``num_blocks`` is exactly
-0 in every output and gradient.
+statistics B15a, normalise B15b; its backward on their second modes); the
+dump tile ``num_blocks`` is exactly 0 in every output and gradient.
 
 Each op is a ``torch.autograd.Function`` whose backward is the JAX
 package's ``custom_vjp`` algebra on the same kernels: SpMM <- SDDMM +
@@ -187,9 +187,10 @@ class PanelSpec:
         ``block_rows`` i32[num_blocks+1], the f32 ``mask`` [num_blocks+1,
         bm, bk], the transposed walk of ``CompressedView.transpose_meta``
         by global tile id: ``t_gblk`` / ``t_rows`` i32[kb*max_bpc] and
-        ``t_nblocks`` i32[kb], and ``split_plans``, the compressed SpMM's
-        split plans (``kernels.bsr_compressed.SplitPlans``, one per chunk
-        size, built from the host's ``block_offsets`` on first use)."""
+        ``t_nblocks`` i32[kb], and ``split_plans``, the split plans of the
+        compressed SpMM and softmax (``kernels.bsr_compressed.SplitPlans``,
+        one per chunk size, built from the host's ``block_offsets`` on
+        first use, and B15a's merge counters)."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
@@ -443,20 +444,22 @@ def masked_softmax(panel, mask):
 class _CompressedSoftmax(torch.autograd.Function):
     """Row softmax over the compressed panel ``[R, num_blocks + 1, bm, bk]``,
     whose rows are ragged across back-to-back tiles: the row statistics
-    (B15a, online over each row-block's tiles), then each tile normalised
-    against its row-block's statistics (B15b). Backward (JAX
-    ``_softmax_bwd``, compressed branch): ``p * (g - rowsum(p * g))``, the
-    ragged row sum by the compressed SpMM (B13a) against a ones column and
-    taken back to each tile through ``block_rows``. The cotangent is
-    zeroed at masked slots and at the dump tile first (the output is 0
-    there whatever the input), so a NaN there cannot leak: the gradient
-    is exactly 0 at every masked slot and at the dump tile."""
+    (B15a, a row-block's tiles walked in chunks and merged), then each tile
+    normalised against its row-block's statistics (B15b). Backward (JAX
+    ``_softmax_bwd``, compressed branch): ``p * (g - rowsum(p * g))`` in two
+    launches, the ragged row sum by B15a's walk (``c_softmax_rowsum``; JAX
+    takes it with the compressed SpMM against a ones column) and the
+    product by B15b's pass (``c_softmax_grad``). The cotangent counts as 0
+    at masked slots and at the dump tile (the output is 0 there whatever
+    the input), so a NaN there cannot leak: the gradient is exactly 0 at
+    every masked slot and at the dump tile."""
 
     @staticmethod
     def forward(ctx, spec, panel):
         meta = spec.meta(panel.device)
-        row_max, row_denom = _c.c_softmax_stats(meta["block_offsets"], panel,
-                                                meta["mask"])
+        row_max, row_denom = _c.c_softmax_stats(
+            meta["block_offsets"], panel, meta["mask"],
+            plans=meta["split_plans"])
         p = _c.c_softmax_apply(meta["block_rows"], panel, meta["mask"],
                                row_max, row_denom)
         ctx.spec = spec
@@ -467,14 +470,12 @@ class _CompressedSoftmax(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
-        spec, bv = ctx.spec, ctx.spec.view
-        meta = spec.meta(g.device)
-        g = torch.where(meta["mask"] != 0, g, 0.0)
-        pg = (p * g).contiguous()
-        ones = pg.new_ones((pg.shape[0], bv.n_pad, 1))
-        rs = _raw_spmm(spec, pg, ones, rows=bv.m_pad)       # [R, m_pad, 1]
-        rs_b = rs.view(-1, bv.mb, bv.bm, 1)[:, meta["block_rows"].long()]
-        return None, p * (g - rs_b)
+        meta = ctx.spec.meta(g.device)
+        g = g.contiguous()
+        rs = _c.c_softmax_rowsum(meta["block_offsets"], p, g, meta["mask"],
+                                 plans=meta["split_plans"])
+        return None, _c.c_softmax_grad(meta["block_rows"], p, g,
+                                       meta["mask"], rs)
 
 
 def _rep(x, rep):

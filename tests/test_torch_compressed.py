@@ -364,6 +364,139 @@ def test_plain_softmax_c_matches_pallas_kernels(kind, tiles):
     assert np.all(got.numpy()[~jv.mask] == 0)       # the dump included
 
 
+# -- B15a's split walk and the softmax backward's two modes
+
+
+def _skewed_4096():
+    """``chip_smoke.py``'s skewed 4096^2 pattern: a 32-wide band plus the
+    dense rows 7, 140 and 4093 (375 tiles of 64 x 64, three row-blocks of
+    ~64 tiles)."""
+    rows = np.arange(4096)
+    lo = np.maximum(0, rows - 16)
+    mask = (rows[None] >= lo[:, None]) & (rows[None] < lo[:, None] + 32)
+    mask[[7, 140, 4093]] = True
+    return mask
+
+
+def test_softmax_chunk_cuts_every_long_walk():
+    """B15a's chunk rule: at most ``SOFTMAX_MAX_CHUNK`` tiles a chunk at
+    any replica count; on the skewed 4096^2 pattern (one replica) 2-tile
+    chunks, whose blocks outnumber the row-blocks and come near
+    ``SPLIT_CTAS``; a small panel walks tile by tile."""
+    spec = P.PanelSpec(stt.SparseTopology.from_dense_mask(_skewed_4096()),
+                       64, 64, compressed=True)
+    bv, plans = spec.view, spec.meta("cpu")["split_plans"]
+    assert bv.num_blocks == 375
+    assert kc.softmax_chunk(bv.num_blocks, 1) == 2
+    n = plans[2]["chunks"].shape[0]
+    assert bv.mb < n <= kc.SPLIT_CTAS and n > kc.SPLIT_CTAS // 2
+    for R in (1, 2, 8, 32, 1024):
+        for tiles in (0, 1, 7, 375, 10_000):
+            c = kc.softmax_chunk(tiles, R)
+            assert 1 <= c <= kc.SOFTMAX_MAX_CHUNK
+            if tiles * R >= kc.SPLIT_CTAS * kc.SOFTMAX_MAX_CHUNK:
+                assert c == kc.SOFTMAX_MAX_CHUNK
+    assert kc.softmax_chunk(12, 1) == 1
+    counters = plans.counters(3)
+    assert counters.dtype == torch.int32 and tuple(counters.shape) == (
+        3, bv.mb) and not counters.any()
+    assert plans.counters(3) is counters           # made once per R
+    assert plans.merge_counters == {(3, 0): counters}   # and stream
+
+
+def _split_stats_case(case):
+    if case == "skewed_4096":
+        mask = _skewed_4096()
+        rng = np.random.RandomState(90)
+        topo = stt.SparseTopology.from_dense_mask(mask)
+        spec = P.PanelSpec(topo, 64, 64, compressed=True)
+        R = 1
+    else:
+        kind, tiles = case
+        topo = stt.SparseTopology.from_dense_mask(_matrix(kind) != 0)
+        spec = P.PanelSpec(topo, *tiles, compressed=True)
+        rng = np.random.RandomState(7)
+        R = 2
+    meta = spec.meta("cpu")
+    panel = torch.from_numpy((rng.randn(R, *spec.view.values_shape) * 3)
+                             .astype(np.float32)) * meta["mask"]
+    if spec.view.num_blocks:                    # a row of -inf scores
+        g0, g1 = (int(x) for x in spec.view.block_offsets[:2])
+        panel[:, g0:g1, 0] = torch.where(meta["mask"][g0:g1, 0] != 0,
+                                         float("-inf"), 0.0)
+    return spec, meta, panel
+
+
+@pytest.mark.parametrize("chunk", range(1, kc.SOFTMAX_MAX_CHUNK + 2))
+@pytest.mark.parametrize("case", OP_CASES + ["skewed_4096"], ids=str)
+def test_split_softmax_stats_algebra_matches_online_fold(case, chunk):
+    """B15a's chunked partials and their merge, through the plain twin
+    ``c_softmax_stats_split_plain`` at every chunk size the rule can take
+    and one past its cap:
+    m equal to the online fold's (and JAX's kernel's, in interpret mode)
+    exactly, l within 1e-6 relative; a row without nonzeros (-1e30, 0), a
+    row of -inf scores (-1e30, 0)."""
+    spec, meta, panel = _split_stats_case(case)
+    m, l = kc.c_softmax_stats_split_plain(meta["block_offsets"], panel,
+                                          meta["mask"], chunk)
+    m_ref, l_ref = kc.c_softmax_stats_plain(meta["block_offsets"], panel,
+                                            meta["mask"])
+    assert torch.equal(m, m_ref)
+    np.testing.assert_allclose(l.numpy(), l_ref.numpy(), rtol=1e-6, atol=0)
+    bv = spec.view
+    nz = np.zeros(bv.mb * bv.bm)                # nonzeros a row
+    np.add.at(nz, (bv.block_rows[:-1, None] * bv.bm
+                   + np.arange(bv.bm)).ravel(), bv.mask[:-1].sum(-1).ravel())
+    empty = torch.from_numpy(nz == 0)
+    assert torch.all(m[:, empty] == -1e30) and torch.all(l[:, empty] == 0)
+    if bv.num_blocks:                           # the row of -inf scores
+        assert torch.all(m[:, 0] == -1e30) and torch.all(l[:, 0] == 0)
+    if case != "skewed_4096":
+        jv = j_build_compressed(st.SparseTopology.from_dense_mask(
+            _matrix(case[0]) != 0), bm=bv.bm, bk=bv.bk)
+        j_m, _ = jc.c_softmax_stats(
+            jv.block_offsets, panel[0].numpy(), jv.mask.astype(np.float32),
+            mb=jv.mb, max_bpr=jv.max_bpr, num_blocks=jv.num_blocks, bm=jv.bm,
+            bk=jv.bk, interpret=True)
+        np.testing.assert_array_equal(m[0].numpy(), np.asarray(j_m)[:, 0])
+
+
+@pytest.mark.parametrize("kind,tiles", OP_CASES)
+def test_softmax_backward_modes_match_jax(backend, kind, tiles):
+    """The backward's two modes through their plain versions
+    (``c_softmax_rowsum_plain`` then ``c_softmax_grad_plain``) on JAX's
+    softmax output equal ``jax.vjp`` of JAX's compressed
+    ``sparse_softmax`` (its ones-column SpMM under "pallas", in interpret
+    mode); with a cotangent that is NaN at the masked slots and the dump
+    tile, the gradient there is exactly 0 and elsewhere unchanged."""
+    jm, tm, jv, spec, meta, panel, rng = _kernel_problem(kind, tiles)
+    js = JP.PanelSpec(jm.topology, bm=jv.bm, bk=jv.bk, compressed=True)
+    vals = (rng.randn(*jv.values_shape) * 3).astype(np.float32) * jv.mask
+    g = rng.randn(*jv.values_shape).astype(np.float32)
+    j_p, vjp = jax.vjp(lambda x: JP.sparse_softmax(js, x), vals)
+    (ref,) = vjp(g)
+    p = torch.from_numpy(np.array(j_p))[None]
+    tg = torch.from_numpy(g)[None]
+    rs = kc.c_softmax_rowsum_plain(meta["block_offsets"], p, tg,
+                                   meta["mask"])
+    got = kc.c_softmax_grad_plain(meta["block_rows"], p, tg, meta["mask"],
+                                  rs)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref), **TOL)
+    # the wrappers on CPU tensors are the plain versions
+    assert torch.equal(kc.c_softmax_grad(
+        meta["block_rows"], p, tg, meta["mask"], kc.c_softmax_rowsum(
+            meta["block_offsets"], p, tg, meta["mask"],
+            plans=meta["split_plans"])), got)
+    dead = torch.from_numpy(~jv.mask)             # the dump included
+    bad = torch.where(dead, float("nan"), tg)
+    rs_bad = kc.c_softmax_rowsum_plain(meta["block_offsets"], p, bad,
+                                       meta["mask"])
+    assert torch.equal(rs_bad, rs)
+    got_bad = kc.c_softmax_grad_plain(meta["block_rows"], p, bad,
+                                      meta["mask"], rs_bad)
+    assert torch.all(got_bad[0][dead] == 0) and torch.equal(got_bad, got)
+
+
 # -- the ops on PanelSpec(compressed=True) against JAX's
 
 

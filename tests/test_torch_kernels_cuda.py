@@ -1518,9 +1518,15 @@ _C_TILES = [(32, 32), (64, 64), (64, 128)]
 def _c_topology(kind, tiles):
     """A skewed band with dense rows (``test_sharded_compressed``'s shape),
     exactly one tile per row-block (the dump is never walked), a band with
-    an empty row and an empty row-block, or no nonzeros at all."""
-    rng = np.random.RandomState(_C_KINDS.index(kind))
+    an empty row and an empty row-block, no nonzeros at all, or ("heavy")
+    a row-block of 64 tiles beside a 1-tile and two empty ones."""
     bm, bk = tiles
+    if kind == "heavy":      # row-block 1: 64 tiles; 2: one; 0 and 3 empty
+        mask = np.zeros((4 * bm - 5, 64 * bk), bool)
+        mask[bm + 3] = True
+        mask[2 * bm + 1, 5] = True
+        return stt.SparseTopology.from_dense_mask(mask)
+    rng = np.random.RandomState(_C_KINDS.index(kind))
     if kind == "skewed":
         m, n = 320, 384
         mask = np.zeros((m, n), bool)
@@ -1700,33 +1706,83 @@ def test_sddmm_c_kernel_matches_plain_with_exact_zeros(dev, kind, tiles, d):
     assert torch.all(got[:, meta["mask"] == 0] == 0)  # masked slots
 
 
-@pytest.mark.parametrize("tiles", _C_TILES)
-@pytest.mark.parametrize("kind", _C_KINDS)
-def test_softmax_c_kernels_match_plain(dev, kind, tiles):
-    """B15a (m exactly, l relatively: the online sums run in another
-    order) and B15b, each slot at 1e-4 x |plain|; a row of -inf scores and
-    the dump tile give exact zeros."""
+def _graph_replays_equal(call, want):
+    """``call()`` captured in a CUDA graph and replayed twice: each replay's
+    outputs equal ``want`` bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = call()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    want = want if isinstance(want, tuple) else (want,)
+    for _ in range(2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o.view(torch.int32), w.view(torch.int32))
+
+
+# (40, 18): rows of whole float4s neither a tile nor a row (4-byte path)
+_SOFTMAX_TILES = _C_TILES + [(40, 18)]
+
+
+@pytest.mark.parametrize("tiles", _SOFTMAX_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS + ["heavy"])
+def test_softmax_c_kernels_match_plain(dev, kind, tiles, monkeypatch):
+    """B15a at every chunk size of its rule (m exactly, l relatively: the
+    chunk sums and their merge run in another order; a call without the
+    plans raises) and B15b, each slot at 1e-4 x |plain|; a row-block of
+    64 tiles beside 1-tile and empty ones; a row of -inf scores, the empty
+    rows and the dump tile give exact zeros; two calls give the same bits,
+    and so do two replays of a captured call (the merge counters are back
+    at 0 after each)."""
     from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
 
     topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
     panel = panel * 4
     bv = spec.view
     if bv.num_blocks:                       # a row of -inf scores
-        g0 = int(bv.block_offsets[0])
-        panel[:, g0:int(bv.block_offsets[1]), 0] = float("-inf")
+        i0 = int(np.flatnonzero(np.diff(bv.block_offsets))[0])
+        g0, g1 = int(bv.block_offsets[i0]), int(bv.block_offsets[i0 + 1])
+        ri = int(np.flatnonzero(bv.mask[g0:g1].any(axis=(0, 2)))[0])
+        panel[:, g0:g1, ri] = float("-inf")
         panel = torch.where(meta["mask"] != 0, panel, 0.0)
-    before = (kc.c_softmax_stats.launches, kc.c_softmax_apply.launches)
-    m, l = kc.c_softmax_stats(meta["block_offsets"], panel, meta["mask"])
-    m_ref, l_ref = kc.c_softmax_stats_plain(meta["block_offsets"], panel,
-                                            meta["mask"])
-    assert torch.equal(m, m_ref)
-    _close_each(l, l_ref, 1e-5)
+    args = (meta["block_offsets"], panel, meta["mask"])
+    plans, R = meta["split_plans"], panel.shape[0]
+    m_ref, l_ref = kc.c_softmax_stats_plain(*args)
+    for chunk in range(1, kc.SOFTMAX_MAX_CHUNK + 1):
+        monkeypatch.setattr(kc, "softmax_chunk", lambda n, r, c=chunk: c)
+        before = kc.c_softmax_stats.launches
+        m, l = kc.c_softmax_stats(*args, plans=plans)
+        torch.cuda.synchronize()
+        assert kc.c_softmax_stats.launches == before + 1
+        assert torch.equal(m, m_ref), chunk
+        _close_each(l, l_ref, 1e-5)
+        m2, l2 = kc.c_softmax_stats(*args, plans=plans)
+        assert torch.equal(m2, m) and torch.equal(l2.view(torch.int32),
+                                                  l.view(torch.int32))
+        if plans[chunk]["n_parts"]:
+            assert not plans.counters(R).any()
+        _graph_replays_equal(lambda: kc.c_softmax_stats(*args, plans=plans),
+                             (m, l))
+    if kind == "heavy":
+        assert plans[1]["n_parts"] == 64 and plans[3]["n_parts"] == 22
+    with pytest.raises(ValueError, match="needs plans"):
+        kc.c_softmax_stats(*args)
+    monkeypatch.undo()
+    m, l = kc.c_softmax_stats(*args, plans=plans)
     ptr = _nan_filled_pool(dev, tuple(panel.shape))
+    before = kc.c_softmax_apply.launches
     got = kc.c_softmax_apply(meta["block_rows"], panel, meta["mask"], m, l)
     torch.cuda.synchronize()
     print("output in the NaN-filled block:", got.data_ptr() == ptr)
-    assert (kc.c_softmax_stats.launches, kc.c_softmax_apply.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert kc.c_softmax_apply.launches == before + 1
     ref = kc.c_softmax_apply_plain(meta["block_rows"], panel, meta["mask"],
                                    m_ref, l_ref)
     assert torch.isfinite(got).all()
@@ -1735,13 +1791,120 @@ def test_softmax_c_kernels_match_plain(dev, kind, tiles):
     assert torch.all(got[:, -1] == 0) and torch.all(got[:, meta["mask"] == 0]
                                                     == 0)
     if bv.num_blocks:
-        assert torch.all(got[:, g0:int(bv.block_offsets[1]), 0] == 0)
+        assert torch.all(got[:, g0:g1, ri] == 0)
+        assert torch.all(m[:, i0 * bv.bm + ri] == -1e30)
+        assert torch.all(l[:, i0 * bv.bm + ri] == 0)
+    assert torch.equal(got, kc.c_softmax_apply(meta["block_rows"], panel,
+                                               meta["mask"], m, l))
+    _graph_replays_equal(lambda: kc.c_softmax_apply(
+        meta["block_rows"], panel, meta["mask"], m, l), got)
+
+
+@pytest.mark.parametrize("tiles", _SOFTMAX_TILES)
+@pytest.mark.parametrize("kind", _C_KINDS + ["heavy"])
+def test_softmax_c_backward_modes_match_plain(dev, kind, tiles,
+                                              monkeypatch):
+    """The softmax backward's two modes on the card: the row sum of p * g
+    (B15a's walk, every chunk size of its rule; without the plans it
+    raises) and
+    p * (g - rs[row]) (B15b's pass) against their plain versions at 1e-4;
+    a cotangent that is NaN at the masked slots and the dump tile leaves
+    both exact (the gradient exactly 0 there); one launch each, the same
+    bits twice and after graph replays."""
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, kind, tiles)
+    m, l = kc.c_softmax_stats_plain(meta["block_offsets"], panel,
+                                    meta["mask"])
+    p = kc.c_softmax_apply_plain(meta["block_rows"], panel, meta["mask"], m,
+                                 l)
+    g = torch.from_numpy(rng.randn(*panel.shape).astype(np.float32)).to(dev)
+    dead = meta["mask"] == 0                # the dump tile included
+    g_nan = torch.where(dead, float("nan"), g)
+    plans = meta["split_plans"]
+    rs_ref = kc.c_softmax_rowsum_plain(meta["block_offsets"], p, g,
+                                       meta["mask"])
+    for chunk in range(1, kc.SOFTMAX_MAX_CHUNK + 1):
+        monkeypatch.setattr(kc, "softmax_chunk", lambda n, r, c=chunk: c)
+        before = kc.c_softmax_rowsum.launches
+        rs = kc.c_softmax_rowsum(meta["block_offsets"], p, g_nan,
+                                 meta["mask"], plans=plans)
+        torch.cuda.synchronize()
+        assert kc.c_softmax_rowsum.launches == before + 1
+        _close(rs, rs_ref)
+        assert torch.equal(rs.view(torch.int32), kc.c_softmax_rowsum(
+            meta["block_offsets"], p, g_nan, meta["mask"],
+            plans=plans).view(torch.int32))
+        _graph_replays_equal(lambda: kc.c_softmax_rowsum(
+            meta["block_offsets"], p, g_nan, meta["mask"], plans=plans), rs)
+    with pytest.raises(ValueError, match="needs plans"):
+        kc.c_softmax_rowsum(meta["block_offsets"], p, g_nan, meta["mask"])
+    monkeypatch.undo()
+    before = kc.c_softmax_grad.launches
+    got = kc.c_softmax_grad(meta["block_rows"], p, g_nan, meta["mask"], rs)
+    torch.cuda.synchronize()
+    assert kc.c_softmax_grad.launches == before + 1
+    ref = kc.c_softmax_grad_plain(meta["block_rows"], p, g, meta["mask"],
+                                  rs)
+    assert torch.isfinite(got).all()
+    _close(got, ref)
+    assert torch.all(got[:, dead] == 0)
+    assert torch.equal(got, kc.c_softmax_grad(meta["block_rows"], p, g_nan,
+                                              meta["mask"], rs))
+    _graph_replays_equal(lambda: kc.c_softmax_grad(
+        meta["block_rows"], p, g_nan, meta["mask"], rs), got)
+
+
+def test_softmax_c_merge_counters_per_stream(dev):
+    """B15a's merge counters are one set a (replica count, stream): calls
+    on two streams at once take separate sets and all equal the plain
+    version; a call under a CUDA graph's capture takes a set only the
+    graph holds (none added to the plans) and its replays give the same
+    statistics; every set is back at 0 after its launches."""
+    from sputnik_tpu_torch.ops.kernels import bsr_compressed as kc
+
+    topo, spec, meta, panel, rng = _c_problem(dev, "heavy", (64, 64))
+    args = (meta["block_offsets"], panel, meta["mask"])
+    plans, R = meta["split_plans"], panel.shape[0]
+    m_ref, l_ref = kc.c_softmax_stats_plain(*args)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(kc.c_softmax_stats(*args, plans=plans))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    sets = [plans.merge_counters[(R, s.cuda_stream)] for s in streams]
+    assert sets[0].data_ptr() != sets[1].data_ptr()
+    for m, l in outs:
+        assert torch.equal(m, m_ref)
+        _close_each(l, l_ref, 1e-5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = dict(plans.merge_counters)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        m, l = kc.c_softmax_stats(*args, plans=plans)
+    assert plans.merge_counters == before
+    for _ in range(2):
+        m.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(m, m_ref)
+        _close_each(l, l_ref, 1e-5)
+    assert not any(c.any() for c in plans.merge_counters.values())
 
 
 def test_compressed_chain_trains_through_the_kernels(dev):
     """The compressed attention chain (sddmm -> sparse_softmax -> spmm)
     forward and backward on the card against the CPU: B14, B15a, B15b and
-    B13a forward, B13a x 2, B13b x 2 and B14 backward, no ELL kernel; the
+    B13a forward; B13a, B13b x 2 and B14 for the SpMM and SDDMM backward,
+    and the softmax backward on B15a's and B15b's second modes (one launch
+    each, no B13a; B15a's merge counters back at 0); no ELL kernel; the
     dump tile of every panel gradient exactly 0."""
     rng = np.random.RandomState(12)
     topo = _c_topology("skewed", (64, 64))
@@ -1765,8 +1928,11 @@ def test_compressed_chain_trains_through_the_kernels(dev):
     got = {n: w.launches - before[n] for n, w in wr.items() if
            w.launches != before[n]}
     assert got == {"bsr_sddmm_panel_c": 2, "c_softmax_stats": 1,
-                   "c_softmax_apply": 1, "bsr_spmm_panel_c": 3,
+                   "c_softmax_apply": 1, "c_softmax_rowsum": 1,
+                   "c_softmax_grad": 1, "bsr_spmm_panel_c": 2,
                    "bsr_spmm_t_panel_c": 2}, got
+    counters = spec.meta(gpu[0].device)["split_plans"].merge_counters
+    assert counters and not any(c.any() for c in counters.values())
     ref = chain(*cpu)
     (ref * cot).sum().backward()
     _close(out.detach().cpu(), ref.detach())

@@ -110,7 +110,8 @@ def test_build_key_covers_every_source():
         "spmm_t_panel_int8", "sddmm_panel_int8", "flash_sparse_fwd_int8",
         "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8",
         "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
-        "c_softmax_stats_f32", "c_softmax_apply_f32", "spmm_panel_sel_f32",
+        "c_softmax_stats_f32", "c_softmax_apply_f32", "c_softmax_rowsum_f32",
+        "c_softmax_grad_f32", "spmm_panel_sel_f32",
         "flash_sparse_ring_fwd_f32", "flash_sparse_ring_bwd_f32"}
     assert [p.name for p in cuh] == ["common.cuh", "flash_tc.cuh"]
     so = _build._so_path()
@@ -206,11 +207,12 @@ def test_cpu_tensors_launch_no_kernel():
     stt.parallel.sharded_spmm_halo(hspec, panels, dense_sh).sum().backward()
     assert torch.isfinite(dense_sh.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 29 and "ell_softmax" in wrappers
+    assert len(wrappers) == 31 and "ell_softmax" in wrappers
     assert {"bsr_spmm_panel_sel", "flash_sparse_ring_band_fwd",
             "flash_sparse_ring_band_bwd"} <= set(wrappers)
     assert {"bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
-            "c_softmax_stats", "c_softmax_apply"} <= set(wrappers)
+            "c_softmax_stats", "c_softmax_apply", "c_softmax_rowsum",
+            "c_softmax_grad"} <= set(wrappers)
     assert {"flash_sparse_attention_fwd_int8", "flash_sparse_bwd_dq_int8",
             "flash_sparse_bwd_dkv_int8"} <= set(wrappers)
     assert all(v == 0 for v in before.values())
