@@ -41,9 +41,14 @@ Phases, each printing its lines:
      MoE bank's shape (8 experts, d=0.3 [2048, 512] / [512, 2048] panels,
      C=640; timed, B7 by graph replay beside eager, the same bits twice)
      and at the panel attention's (b=4 DISTINCT masks, 8 heads, s=512,
-     hd=64, and GQA) (2e); the sparse softmax B5 at the flat
-     attention layout (32 replicas of one [512, 512] mask at sparsity 0.9,
-     an emptied row, a row of -inf scores) and at bench.py's pattern (2f);
+     hd=64, and GQA) (2e); the sparse softmax B5's four (policy, mode)
+     pairs, CSR rows forward / backward at the flat attention layout (32
+     replicas of one [512, 512] mask at sparsity 0.9, an emptied row, a
+     row of -inf scores) and at bench.py's pattern, panel rows forward /
+     backward at the panel-layout step's [32, 8, 8, 64, 64] causal panel
+     and SparseAttention's (by graph replay beside the plain version and a
+     torch.sparse call, a team sweep, the same bits twice and after graph
+     replays) (2f);
      the int8 kernels B16a / B16b at bench.py's 4096^3 d=0.1 (bn=1024) and
      at the int8 serving weight's shape (1024^2 at 128x128, N=2048,
      bn=512), each the same bits twice, an emptied walk block exactly 0,
@@ -153,6 +158,7 @@ TF32 is switched off, so every product here runs in full fp32.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -197,6 +203,15 @@ REPLACES = {
                   "sputnik_tpu/ops/batched_panel.py:238"),
     "ell_softmax": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
                     "sputnik_tpu/ops/pallas/ell_softmax.py:31"),
+    # B5's other modes: its CSR backward (JAX takes the VJP in XLA,
+    # _sparse_softmax_bwd), its panel forward (the TPU kernel's own ELL
+    # panel) and panel backward (XLA, _softmax_bwd / _sm_bh_bwd)
+    "ell_softmax_bwd": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
+                        "sputnik_tpu/ops/api.py:194"),
+    "panel_softmax": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
+                      "sputnik_tpu/ops/pallas/ell_softmax.py:31"),
+    "panel_softmax_bwd": ("sputnik_tpu_torch/csrc/ell_softmax.cu",
+                          "sputnik_tpu/ops/panel_api.py:489"),
     "bsr_spmm_panel_int8": ("sputnik_tpu_torch/csrc/bsr_spmm_int8.cu",
                             "sputnik_tpu/ops/pallas/bsr_spmm_int8.py:44"),
     "bsr_spmm_t_panel_int8": ("sputnik_tpu_torch/csrc/bsr_spmm_int8.cu",
@@ -358,11 +373,12 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _compare_each(name, got, ref, rtol):
+def _compare_each(name, got, ref, rtol, scale=None):
     """Each slot's |got - ref| against ``rtol * |ref|`` (floored at f32
     ``tiny``, so an exact 0 must stay 0); raises. For outputs spread over
     many magnitudes far below 1, such as a softmax's, where a limit from
-    max|ref| would pass a kernel that zeroed its small outputs."""
+    max|ref| would pass a kernel that zeroed its small outputs. ``scale``
+    (each slot's) replaces |ref| where the output cancels."""
     import torch
 
     if got.shape != ref.shape:
@@ -370,7 +386,8 @@ def _compare_each(name, got, ref, rtol):
     if not torch.isfinite(got).all():
         _fail(f"{name}: non-finite values")
     ref = ref.float()
-    scale = ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    scale = (ref.abs() if scale is None else scale.float()).clamp(
+        min=torch.finfo(torch.float32).tiny)
     rel = ((got.float() - ref).abs() / scale).max().item()
     live = ref[ref != 0].abs()
     med = live.median().item() if live.numel() else 0.0
@@ -1051,7 +1068,7 @@ def phase_main_path(stt, torch, dev, wrappers):
         launches = {n: w.launches for n, w in wrappers.items()}
     print(f"  launches in the forward path: {launches}", flush=True)
     for n in ("bsr_spmm_panel", "bsr_sddmm_panel",
-              "flash_sparse_attention_fwd"):
+              "flash_sparse_attention_fwd", "panel_softmax"):
         if launches[n] == 0:
             _fail(f"kernel {n} was not launched by the forward path")
 
@@ -1157,7 +1174,9 @@ def phase_train(stt, torch, dev, wrappers):
     attn_losses, attn_grads0, attn_opt = _train(
         attn, xad, yad, 3, lambda i: {"bsr_spmm_panel": None,
                                       "bsr_spmm_t_panel": None,
-                                      "bsr_sddmm_panel": None},
+                                      "bsr_sddmm_panel": None,
+                                      "panel_softmax": 1,
+                                      "panel_softmax_bwd": 1},
         wrappers, "SparseAttention")
     torch.cuda.synchronize()
     launches = {n: w.launches for n, w in wrappers.items()}
@@ -2296,6 +2315,73 @@ def _profile_decode(torch, step, caches, toks, label, check):
               f"kernel: {dict(inside)}")
 
 
+def _softmax_profile(torch, step, n):
+    """torch.profiler over ``n`` calls of ``step()``: (wall ms, device ms,
+    the softmax's device ms, device launches, the softmax ranges' span),
+    each a step. The softmax is B5's kernel (``softmax_rows_kernel``) or, on
+    the parent's route, the kernels under its "B5 softmax" ranges (their
+    device time; the span of the ranges on the device timeline, which also
+    holds the gaps between their kernels, is returned beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = launches = sm = span = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0) / 1e3
+        on_dev = str(getattr(e, "device_type", "")).endswith("CUDA")
+        if e.key == "B5 softmax":
+            if on_dev:
+                span += t             # the ranges on the device timeline
+            else:
+                sm += t               # the kernels launched in the ranges
+        elif on_dev:
+            dev_ms += t
+            launches += e.count
+            if "softmax_rows_kernel" in e.key:
+                sm += t
+    return wall / n, dev_ms / n, sm / n, launches / n, span / n
+
+
+def _softmax_turns(torch, label, step, routes, pairs=5):
+    """B5's routes in turns on one step: ``routes`` maps a name to a
+    context manager that installs the route; pair i runs them in the order
+    given, odd pairs reversed, each a warm-up step, 3 steps timed on the
+    host clock (synchronized; their median) and 2 profiled. Prints each
+    turn, then each route's median, min and max."""
+    names = list(routes)
+    got = {n: [] for n in names}
+    for i in range(pairs):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            with routes[name]():
+                step()
+                wall = statistics.median(_step_times(torch, step, 3))
+                _, dev_ms, sm, launches, span = _softmax_profile(torch, step,
+                                                                 2)
+            got[name].append((wall, dev_ms, sm, launches))
+            share = sm / dev_ms if dev_ms > 0 else float("nan")
+            print(f"  {label}, pair {i} {name}: wall {wall:.4f} ms, device "
+                  f"{dev_ms:.4f} ms, softmax {sm:.4f} ms ({share:.1%} of the "
+                  f"device time), {launches:.1f} device launches"
+                  + (f"; the softmax ranges span {span:.4f} ms of the "
+                     f"device timeline" if span else ""), flush=True)
+    for name in names:
+        cols = list(zip(*got[name]))
+        text = ", ".join(
+            f"{what} {statistics.median(v):.4f} [{min(v):.4f}, "
+            f"{max(v):.4f}]" for what, v in zip(
+                ("wall ms", "device ms", "softmax ms", "launches"), cols))
+        print(f"  {label}, {name} route over {pairs} turns (median [min, "
+              f"max]): {text}", flush=True)
+    return got
+
+
 # -- the MoE bank and the panel attention layout (B6, B7, B8) --------------
 
 
@@ -2544,9 +2630,11 @@ def phase_moe_train(stt, torch, dev, wrappers, small=False):
     s=512, h=512, ffn 2048, 6 layers, 8 heads, 8 experts top-2, MoE every
     2nd layer) takes the example's 10 Adam steps through its ``train_step``
     with its self-checks, and the driver config under ``attention_layout=
-    "panel"`` takes one; launches checked against the VJP algebra. Phase
-    4e: the first MoE step (routing, losses, router and expert gradients)
-    and the panel model's forward against the same modules on the CPU."""
+    "panel"`` takes one; launches checked against the VJP algebra; then
+    the panel-layout step on the parent's softmax (plain PyTorch) and on
+    B5's panel modes in turns (``_softmax_turns``). Phase 4e: the first
+    MoE step (routing, losses, router and expert gradients) and the panel
+    model's forward against the same modules on the CPU."""
     from sputnik_tpu_torch.examples import train_moe_transformer as ex
     from sputnik_tpu_torch.examples.train_sparse_transformer import (
         train_step)
@@ -2624,14 +2712,36 @@ def phase_moe_train(stt, torch, dev, wrappers, small=False):
         lambda: train_step(panel, popt, xpd, ypd),
         # per layer: B7 + B6 forward; B7 + B8 (spmm_bh's VJP) and B6 + B8
         # (sddmm_bh's VJP) backward
+        # and B5's panel modes, one forward and one backward
         {"spmm_bh": 2 * p_layers, "sddmm_bh": 2 * p_layers,
          "spmm_t_bh": 2 * p_layers, "flash_sparse_attention_fwd": 0,
-         "bsr_spmm_panel": 0, "bsr_sddmm_panel": 0, "bsr_spmm_t_panel": 0})
+         "bsr_spmm_panel": 0, "bsr_sddmm_panel": 0, "bsr_spmm_t_panel": 0,
+         "panel_softmax": p_layers, "panel_softmax_bwd": p_layers,
+         "ell_softmax": 0, "ell_softmax_bwd": 0})
     panel_ms = _step_times(torch, lambda: train_step(panel, popt, xpd, ypd),
                            5)
     _profile_steps(torch, "panel-layout training steps",
                    lambda i: train_step(panel, popt, xpd, ypd), 3)
     print(f"  panel-layout loss {float(loss_p):.6f}", flush=True)
+    from sputnik_tpu_torch.ops import batched_panel
+
+    parent_apply = _parent_softmax(torch)[2]
+
+    @contextlib.contextmanager
+    def parent():
+        # the parent's softmax: eager PyTorch, a bool mask every call
+        keep = batched_panel.masked_softmax
+        batched_panel.masked_softmax = parent_apply
+        try:
+            yield
+        finally:
+            batched_panel.masked_softmax = keep
+
+    print("  panel-layout step: B5's routes in turns (parent: the plain "
+          "panel softmax; B5: its panel modes)", flush=True)
+    _softmax_turns(torch, "panel-layout step",
+                   lambda: train_step(panel, popt, xpd, ypd),
+                   {"parent": parent, "B5": contextlib.nullcontext})
     for tag, t in (("MoE training step", moe_ms),
                    ("panel-layout training step", panel_ms)):
         print(f"  {tag}: median {statistics.median(t):.4f} ms, min "
@@ -2719,66 +2829,396 @@ def _attention_mask():
     return mask
 
 
-def phase_softmax_kernel(stt, torch, dev, kres, mat):
-    """Phase 2f: B5 against its plain version at (a) the reference
-    SparseAttention's flat layout (32 replicas of one [512, 512] mask, an
-    emptied row, a row of -inf scores, padding slots) and (b) ``bench.py``'s
-    pattern (4096^2 d=0.1, r = 1; timed into the JSON line)."""
-    from sputnik_tpu_torch.ops.kernels.ell_softmax import ell_softmax_kernel
-    from sputnik_tpu_torch.ops.plain_ops import sparse_softmax
+def _parent_softmax(torch):
+    """The panel softmax as the parent of B5's panel policy computed it
+    (``panel_api._MaskedSoftmax`` before it launched B5): eager PyTorch on
+    a bool mask built from the spec's f32 mask on every call. ``fwd(panel
+    [R, ...], mask [n, ...], heads)`` and ``bwd(p, g)``; ``apply`` the
+    autograd op that phases 3e / 3f switch the model's softmax to."""
 
-    print("phase 2f: sparse softmax (B5 ell_softmax) vs plain PyTorch at the "
-          "flat attention layout and bench.py's pattern; each slot at a "
-          "relative limit, besides the max|plain| one", flush=True)
-    r = kres["ell_softmax"]
+    def fwd(panel, mask, heads):
+        n = mask.shape[0]
+        live = mask[:, None] != 0
+        x = panel.reshape(n, heads, *panel.shape[1:])
+        v = torch.where(live, x, -1e30)
+        row_max = v.amax(dim=(-3, -1), keepdim=True).clamp(min=-1e30)
+        e = torch.where(live, torch.exp(v - row_max), 0.0)
+        denom = e.sum(dim=(-3, -1), keepdim=True)
+        p = e / denom.clamp(min=torch.finfo(panel.dtype).tiny)
+        return p.reshape(panel.shape)
+
+    def bwd(p, g):
+        return p * (g - (p * g).sum(dim=(-3, -1), keepdim=True))
+
+    class Parent(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, panel, mask, nblocks, heads):
+            with torch.profiler.record_function("B5 softmax"):
+                p = fwd(panel, mask, heads)
+            ctx.save_for_backward(p)
+            return p
+
+        @staticmethod
+        def backward(ctx, g):
+            (p,) = ctx.saved_tensors
+            with torch.profiler.record_function("B5 softmax"):
+                return bwd(p, g), None, None, None
+
+    return fwd, bwd, Parent.apply
+
+
+def _softmax_cases(stt, torch, dev, mat):
+    """Phase 2f's four shapes, inputs made from a seed: the two CSR ones,
+    (a) the flat attention layout (32 replicas of one [512, 512] mask at
+    d = 0.1, row 37 emptied, a row of -inf scores) and (b) bench.py's 4096^2
+    d = 0.1 at r = 1 (a row of -inf scores); the two panel ones, (c) the
+    panel-layout training step's [32, 8, 8, 64, 64] (4 causal masks of 512
+    with the driver's emptied row 256, 8 heads) and (d) SparseAttention's
+    (R = 32, the [512, 512] d = 0.1 mask of phase 2), each with a row of
+    -inf scores. Every cotangent is finite."""
+    from sputnik_tpu_torch.many_mask import ManyMaskTopology
+    from sputnik_tpu_torch.ops import panel_api as P
+    from sputnik_tpu_torch.ops.batched_panel import BatchedPanelSpec
+    from sputnik_tpu_torch.patterns import driver_masks, uniform_mask
+
     rng = np.random.RandomState(60)
+    csr = []
     ta = stt.SparseTopology.from_dense_mask(_attention_mask(), pad_to=64)
-    cases = (("(a) attention R=32 s=512 d=0.1", ta, 32),
-             ("(b) bench 4096^2 d=0.1 r=1", mat.topology, 1))
-    for tag, topo, R in cases:
+    for tag, topo, R in (("(a) attention R=32 s=512 d=0.1", ta, 32),
+                         ("(b) bench 4096^2 d=0.1 r=1", mat.topology, 1)):
         vals = (rng.randn(R, topo.nnz_pad) * 4).astype(np.float32)
         ro = topo.row_offsets
         vals[:, ro[5]:ro[6]] = -np.inf            # a row of -inf scores
-        row_offsets = torch.from_numpy(ro).to(dev)
-        row_ids = torch.from_numpy(topo.row_ids.astype(np.int64)).to(dev)
-        valid = torch.from_numpy(topo.valid).to(dev)
-        v = torch.from_numpy(vals).to(dev)
+        csr.append(dict(
+            tag=tag, topo=topo, R=R, v=torch.from_numpy(vals).to(dev),
+            g=torch.from_numpy(rng.randn(R, topo.nnz_pad).astype(
+                np.float32)).to(dev),
+            row_offsets=torch.from_numpy(ro).to(dev),
+            row_ids=torch.from_numpy(topo.row_ids.astype(np.int64)).to(dev),
+            valid=torch.from_numpy(topo.valid).to(dev)))
+    panel = []
+    bspec = BatchedPanelSpec.from_many_mask(
+        ManyMaskTopology.from_dense_masks(driver_masks(4, 512)), heads=8)
+    bm = bspec.panel_meta(dev)
+    aspec = P.PanelSpec(stt.SparseTopology.from_dense_mask(
+        uniform_mask(512, 512, sparsity=0.9, seed=0)))
+    am = aspec.meta(dev)
+    for tag, mask, nblocks, heads in (
+            ("(c) panel-layout step [32, 8, 8, 64, 64] causal", bm["mask"],
+             bm["nblocks"], 8),
+            ("(d) SparseAttention R=32 s=512 d=0.1", am["mask"][None],
+             am["nblocks"][None], 32)):
+        R = mask.shape[0] * heads
+        shape = (R,) + tuple(mask.shape[1:])
+        x = torch.from_numpy((rng.randn(*shape) * 4).astype(np.float32)
+                             ).to(dev)
+        x[:, 1, :, 5] = -float("inf")              # row 5 of row block 1
+        panel.append(dict(
+            tag=tag, mask=mask, nblocks=nblocks, heads=heads, R=R, v=x,
+            g=torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                               ).to(dev)))
+    return csr, panel
 
-        def kern():
-            return ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz)
 
-        def plain():
-            return sparse_softmax(v, row_ids, valid, topo.m)
+def _row_scale(p, g, rowsum):
+    """Each slot's scale for the backward's slot-by-slot check: |p| times
+    the row's sum of |p * g|. The backward's g - rowsum(p * g) cancels
+    where g is near the row sum; there the f32 rounding of the sum (a few
+    ulp of that sum of magnitudes, in any order) sets the error, not
+    |dx|."""
+    return p.abs() * rowsum((p * g).abs())
 
-        got, ref = kern(), plain()
-        _compare(f"softmax {tag}", got, ref, TOL_KERNEL, r)
-        _compare_each(f"softmax {tag}", got, ref, TOL_KERNEL)
-        # the check is shown to fail on a kernel that zeroes its outputs
-        # below the median, which the max|plain| limit lets pass
-        small = (ref != 0) & (ref < ref[ref != 0].median())
-        try:
-            _compare_each(f"  planted fault, softmax {tag} small outputs "
-                          f"zeroed", torch.where(small, 0.0, got), ref,
-                          TOL_KERNEL)
-        except RuntimeError:
-            pass
-        else:
-            _fail(f"softmax {tag}: zeroed small outputs passed the check")
+
+def phase_softmax_routes(stt, torch, dev, kres, mat):
+    """B5's four shapes (``_softmax_cases``) on the routes a checkout has:
+    ``ell_softmax_kernel`` forward and the plain CSR backward
+    (``plain_ops.softmax_vjp``), and the panel softmax as the parent
+    computed it (``_parent_softmax``), by CUDA graph replay and in eager
+    calls. Measures a parent checkout (a copy of this script run there with
+    ``--only softmax_routes``) against this one; checks nothing."""
+    from sputnik_tpu_torch.ops import plain_ops
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import ell_softmax_kernel
+
+    csr, panel = _softmax_cases(stt, torch, dev, mat)
+    print("phase softmax_routes: B5 on this checkout's routes (ms: CUDA "
+          "graph replay / eager calls)", flush=True)
+    for c in csr:
+        p = ell_softmax_kernel(c["row_offsets"], c["row_ids"], c["v"],
+                               nnz=c["topo"].nnz)
+
+        def kern(c=c):
+            return ell_softmax_kernel(c["row_offsets"], c["row_ids"],
+                                      c["v"], nnz=c["topo"].nnz)
+
+        def vjp(c=c, p=p):
+            return plain_ops.softmax_vjp(p, c["g"], c["row_ids"],
+                                         c["topo"].m)
+
+        for name, fn in (("ell_softmax_kernel forward", kern),
+                         ("plain softmax_vjp backward", vjp)):
+            print(f"  {c['tag']}: {name} {_graph_ms(fn):.4f} / "
+                  f"{_time_ms(fn):.4f} ms", flush=True)
+    fwd, bwd, _ = _parent_softmax(torch)
+    for c in panel:
+        p = fwd(c["v"], c["mask"], c["heads"])
+        for name, fn in (
+                ("parent plain forward",
+                 lambda c=c: fwd(c["v"], c["mask"], c["heads"])),
+                ("parent plain backward", lambda c=c, p=p: bwd(p, c["g"]))):
+            print(f"  {c['tag']}: {name} {_graph_ms(fn):.4f} / "
+                  f"{_time_ms(fn):.4f} ms", flush=True)
+
+
+def _panel_library_ms(torch, c, vals, bwd_of=None):
+    """``torch.sparse.softmax`` (or, with ``bwd_of = (p, g)``,
+    ``torch._sparse_softmax_backward_data``) over the COO of the panel's
+    live slots, a row a panel row: B5's panel yardstick."""
+    R, mb, max_bpr, bm, bk = vals.shape
+    live = (c["mask"] != 0).permute(0, 1, 3, 2, 4).reshape(
+        -1, mb * bm, max_bpr * bk)
+    idx = live.repeat_interleave(c["heads"], 0).reshape(
+        R * mb * bm, max_bpr * bk).nonzero().T
+
+    def coo(x):
+        x = x.permute(0, 1, 3, 2, 4).reshape(R * mb * bm, max_bpr * bk)
+        return torch.sparse_coo_tensor(idx, x[idx[0], idx[1]],
+                                       x.shape).coalesce()
+
+    if bwd_of is None:
+        s = coo(vals)
+        return _library_ms("panel softmax (torch.sparse.softmax, COO)",
+                           lambda: torch.sparse.softmax(s, dim=1))
+    out, grad = coo(bwd_of[0]), coo(bwd_of[1])
+    return _library_ms(
+        "panel softmax backward (torch._sparse_softmax_backward_data, COO)",
+        lambda: torch._sparse_softmax_backward_data(grad, out, 1, out))
+
+
+def _b5_checks(name, kern, got, ref, scale, zeros):
+    """B5's checks of one (policy, mode) pair: max|plain|, each slot at
+    TOL_KERNEL x ``scale`` (shown to fail on outputs below the median
+    zeroed), exactly 0 where ``zeros``, the same bits on a second call and
+    after two graph replays."""
+    import torch
+
+    _compare(name, got, ref, TOL_KERNEL)
+    _compare_each(name, got, ref, TOL_KERNEL, scale)
+    small = (ref != 0) & (ref.abs() < ref[ref != 0].abs().median())
+    try:
+        _compare_each(f"  planted fault, {name} small outputs zeroed",
+                      torch.where(small, 0.0, got), ref, TOL_KERNEL, scale)
+    except RuntimeError:
+        pass
+    else:
+        _fail(f"{name}: zeroed small outputs passed the check")
+    if not torch.all(got[zeros] == 0):
+        _fail(f"{name}: a slot that must be exactly 0 is not")
+    print(f"  {name}: {int(zeros.sum())} slots exactly 0 as they must be",
+          flush=True)
+    _same_bits_and_replays(name, kern, got)
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def _team_sweep(name, fwd, bwd):
+    """B5's forward and backward by graph replay at each team shape: 8, 16
+    or 32 lanes a row, 4 or 8 chunks a lane in registers, set through the
+    wrappers' measurement hook ``_TEAM``; then the kernel's own rule. The
+    readings behind the rule (``lanes_for`` and the C entries' nv)."""
+    from sputnik_tpu_torch.ops.kernels import ell_softmax as K
+
+    text = []
+    try:
+        for mode, fn in (("fwd", fwd), ("bwd", bwd)):
+            cells = []
+            for team in [(n, v) for n in (8, 16, 32) for v in (4, 8)] + [
+                    (0, 0)]:
+                K._TEAM = team
+                cells.append(f"{team[0]}/{team[1]}: {_graph_ms(fn):.4f}")
+            text.append(f"{mode} " + ", ".join(cells))
+    finally:
+        K._TEAM = (0, 0)
+    print(f"  B5 team sweep {name} (lanes/nv: ms, graph replay; 0/0 the "
+          f"rule): {'; '.join(text)}", flush=True)
+
+
+def phase_softmax_kernel(stt, torch, dev, kres, mat):
+    """Phase 2f: B5's four (policy, mode) pairs against their plain versions
+    at ``_softmax_cases``' shapes: CSR forward / backward at the flat
+    attention layout and bench.py's pattern, panel forward / backward at the
+    panel-layout step's and SparseAttention's. Each: max|plain|, each slot,
+    exact zeros (padding, masked, -inf and emptied rows forward; slots with
+    p = 0 backward), the same bits twice and after graph replays, a NaN
+    cotangent at a masked slot reaching its row as in the plain version;
+    then graph-replay ms, the byte bound, the plain version's ms (graph
+    replay, eager beside) and one PyTorch call's ms. The JSON line holds
+    (b) for the CSR modes and (c) for the panel modes."""
+    from sputnik_tpu_torch.ops import plain_ops
+    from sputnik_tpu_torch.ops.kernels import ell_softmax as K
+
+    print("phase 2f: sparse softmax B5 (CSR rows and panel rows, forward "
+          "and backward) vs plain PyTorch; each slot at a relative limit, "
+          "besides the max|plain| one", flush=True)
+    csr, panel = _softmax_cases(stt, torch, dev, mat)
+
+    for c in csr:
+        topo, R, tag = c["topo"], c["R"], c["tag"]
+        ro, ri = c["row_offsets"], c["row_ids"]
+
+        def fwd(c=c):
+            return K.ell_softmax_kernel(ro, ri, c["v"], nnz=topo.nnz)
+
+        def fwd_plain(c=c):
+            return plain_ops.sparse_softmax(c["v"], ri, c["valid"], topo.m)
+
+        p = fwd()
+        ref = fwd_plain()
+        pad = torch.zeros_like(p, dtype=torch.bool)
+        pad[:, topo.nnz:] = True
+        pad[:, topo.row_offsets[5]:topo.row_offsets[6]] = True
+        rf = kres["ell_softmax"]
+        err_f = _b5_checks(f"ell_softmax {tag}", fwd, p, ref, ref.abs(), pad)
         del ref
-        zero = got[:, topo.nnz:].abs().max().item() if \
-            topo.nnz_pad > topo.nnz else 0.0
-        if zero != 0 or not torch.all(got[:, ro[5]:ro[6]] == 0):
-            _fail(f"softmax {tag}: padding or -inf row not exactly 0")
+
+        def bwd(c=c, p=p):
+            return K.ell_softmax_bwd_kernel(ro, ri, p, c["g"], nnz=topo.nnz)
+
+        def bwd_plain(c=c, p=p):
+            return plain_ops.softmax_vjp(p, c["g"], ri, topo.m)
+
+        def rowsum(x):
+            s = x.new_zeros(R, topo.m + 1).index_add_(1, ri, x)
+            return s.index_select(1, ri)
+
+        dx = bwd()
+        ref = bwd_plain()
+        rb = kres["ell_softmax_bwd"]
+        err_b = _b5_checks(f"ell_softmax_bwd {tag}", bwd, dx, ref,
+                           ref.abs() + _row_scale(p, c["g"], rowsum),
+                           p == 0)
+        del ref
         empty = int((topo.row_lengths == 0).sum())
         print(f"  {tag}: nnz {topo.nnz} nnz_pad {topo.nnz_pad}, {empty} "
-              f"empty rows; padding and the -inf row exactly 0", flush=True)
-        t = {"ms": _time_ms(kern), "plain_ms": _time_ms(plain)}
-        print(f"  softmax {tag}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms", flush=True)
-        t["library_ms"] = _softmax_library_ms(
-            torch, topo, torch.where(torch.isinf(v), -30.0, v))
-        _bound(t, 4.0 * R * topo.nnz, 8 * R * topo.nnz + 4 * (topo.m + 1))
-    r.update(t)                                   # the JSON line holds (b)
+              f"empty rows", flush=True)
+        t = {}
+        for key, kern, plain in (("f", fwd, fwd_plain), ("b", bwd, bwd_plain)):
+            t[key] = {"ms": _graph_ms(kern), "eager": _time_ms(kern),
+                      "plain_ms": _graph_ms(plain),
+                      "plain_eager": _time_ms(plain)}
+            print(f"  ell_softmax{'_bwd' if key == 'b' else ''} {tag}: "
+                  f"kernel {t[key]['ms']:.4f} ms (graph replay; eager "
+                  f"{t[key]['eager']:.4f}), plain {t[key]['plain_ms']:.4f} "
+                  f"ms (graph replay; eager {t[key]['plain_eager']:.4f})",
+                  flush=True)
+        _team_sweep(f"ell_softmax {tag}", fwd, bwd)
+        vlib = torch.where(torch.isinf(c["v"]), -30.0, c["v"])
+        t["f"]["library_ms"] = _softmax_library_ms(torch, topo, vlib)
+        t["b"]["library_ms"] = _softmax_bwd_library_ms(torch, topo, p,
+                                                       c["g"])
+        nz = R * topo.nnz
+        pad_b = 4 * R * (topo.nnz_pad - topo.nnz)
+        # forward: each score read once, each slot written once; backward:
+        # p and g read once, dx written once; row_offsets read once
+        _bound(t["f"], 4.0 * nz, 8 * nz + pad_b + 4 * (topo.m + 1))
+        _bound(t["b"], 4.0 * nz, 12 * nz + 3 * pad_b + 4 * (topo.m + 1))
+        for r, tt, err in ((rf, t["f"], err_f), (rb, t["b"], err_b)):
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+            r.update({k: tt[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")})
+        del p, dx
+
+    for c in panel:
+        mask, nblocks, heads, tag = c["mask"], c["nblocks"], c["heads"], \
+            c["tag"]
+
+        def fwd(c=c):
+            return K.panel_softmax_kernel(mask, nblocks, c["v"], heads=heads)
+
+        def fwd_plain(c=c):
+            return K.masked_softmax_plain(c["v"], mask, heads)
+
+        p = fwd()
+        ref = fwd_plain()
+        live = (mask != 0).repeat_interleave(heads, 0)
+        dead = ~live
+        dead[:, 1, :, 5] = True                   # the -inf row
+        rf = kres["panel_softmax"]
+        err_f = _b5_checks(f"panel_softmax {tag}", fwd, p, ref, ref.abs(),
+                           dead)
+        rows = p.sum(dim=(-3, -1))
+        want = (live.sum(dim=(-3, -1)) > 0).float()
+        want[:, 1, 5] = 0.0
+        _compare(f"panel_softmax {tag} rows sum to 1 (0 where no slot is "
+                 f"live)", rows, want, 1e-5)
+        del ref
+
+        def bwd(c=c, p=p):
+            return K.panel_softmax_bwd_kernel(p, c["g"])
+
+        def bwd_plain(c=c, p=p):
+            return K.masked_softmax_vjp_plain(p, c["g"])
+
+        def rowsum(x):
+            return x.sum(dim=(-3, -1), keepdim=True).expand_as(x)
+
+        dx = bwd()
+        ref = bwd_plain()
+        rb = kres["panel_softmax_bwd"]
+        err_b = _b5_checks(f"panel_softmax_bwd {tag}", bwd, dx, ref,
+                           ref.abs() + _row_scale(p, c["g"], rowsum),
+                           p == 0)
+        del ref
+        # a NaN cotangent at one masked slot of a row: that row is NaN, as
+        # the plain version (and JAX's VJP) has it, every other row holds
+        gn = c["g"].clone()
+        r0, b0, i0 = 0, 0, 3                      # causal: slot (3, 63) masked
+        j0 = int((~live[r0, b0, :, i0]).reshape(-1).nonzero()[-1])
+        gn[r0, b0, j0 // gn.shape[-1], i0, j0 % gn.shape[-1]] = float("nan")
+        got_n = K.panel_softmax_bwd_kernel(p, gn)
+        ref_n = K.masked_softmax_vjp_plain(p, gn)
+        if not (torch.isnan(got_n[r0, b0, :, i0]).all()
+                and torch.isnan(ref_n[r0, b0, :, i0]).all()):
+            _fail(f"panel_softmax_bwd {tag}: a NaN cotangent at a masked "
+                  f"slot did not reach its row")
+        got_n[r0, b0, :, i0] = 0.0
+        ref_n[r0, b0, :, i0] = 0.0
+        _compare(f"panel_softmax_bwd {tag}, NaN at a masked slot: the other "
+                 f"rows", got_n, ref_n, TOL_KERNEL)
+        del got_n, ref_n, gn
+        t = {}
+        for key, kern, plain in (("f", fwd, fwd_plain), ("b", bwd, bwd_plain)):
+            t[key] = {"ms": _graph_ms(kern), "eager": _time_ms(kern),
+                      "plain_ms": _graph_ms(plain),
+                      "plain_eager": _time_ms(plain)}
+            print(f"  panel_softmax{'_bwd' if key == 'b' else ''} {tag}: "
+                  f"kernel {t[key]['ms']:.4f} ms (graph replay; eager "
+                  f"{t[key]['eager']:.4f}), plain {t[key]['plain_ms']:.4f} "
+                  f"ms (graph replay; eager {t[key]['plain_eager']:.4f})",
+                  flush=True)
+        _team_sweep(f"panel_softmax {tag}", fwd, bwd)
+        t["f"]["library_ms"] = _panel_library_ms(
+            torch, c, torch.where(torch.isinf(c["v"]), -30.0, c["v"]))
+        t["b"]["library_ms"] = _panel_library_ms(torch, c, c["v"],
+                                                 (p, c["g"]))
+        slots = p.numel()
+        tile = mask.shape[-1] * mask.shape[-2]
+        present = int(nblocks.sum()) * tile
+        # forward: the scores and the mask of the present tiles read once
+        # (the mask once per mask, not per head), every slot written once;
+        # backward: p and g read once, dx written once
+        _bound(t["f"], 4.0 * heads * present,
+               4 * heads * present + 4 * present + 4 * slots)
+        _bound(t["b"], 4.0 * slots, 12 * slots)
+        print(f"    panel_softmax {tag}: {present * heads} slots in present "
+              f"tiles of {slots}", flush=True)
+        if tag.startswith("(c)"):
+            for r, tt, err in ((rf, t["f"], err_f), (rb, t["b"], err_b)):
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+                r.update({k: tt[k] for k in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")})
+        else:
+            for r, err in ((rf, err_f), (rb, err_b)):
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        del p, dx
 
 
 def phase_flat_path(stt, torch, dev, wrappers, mat, w):
@@ -2787,14 +3227,16 @@ def phase_flat_path(stt, torch, dev, wrappers, mat, w):
     dense)`` at 4096^3 d=0.1, first call and steady state, against the
     panel route, the scatter alone and dense ``torch.matmul``; (ii) the
     reference's attention chain on the flat [32, nnz] layout, hd = 64,
-    forward and backward, against a CPU copy under ``set_backend("xla")``;
+    forward and backward, against a CPU copy under ``set_backend("xla")``,
+    and its step on the parent's CSR backward (plain PyTorch) and on B5's
+    backward mode in turns (``_softmax_turns``);
     (iii) a csr ``SparseLinear`` (b=4, seq 512, 768 -> 3072, bias, d=0.1)
     against the panel layer with the same weights and its CPU copy. Phase
     3g: the dynamic sparse training examples at their default sizes."""
     from sputnik_tpu_torch.examples import (dynamic_sparse_training,
                                             train_block_sparse)
     from sputnik_tpu_torch.models import SparseLinear
-    from sputnik_tpu_torch.ops import dispatch
+    from sputnik_tpu_torch.ops import dispatch, plain_ops
     from sputnik_tpu_torch.ops import panel_api as P
     from sputnik_tpu_torch.patterns import uniform_mask
 
@@ -2861,9 +3303,13 @@ def phase_flat_path(stt, torch, dev, wrappers, mat, w):
         out.sum().backward()
         return out
 
-    # forward B4 + B5 + B1; backward: spmm's B4 + B3, sddmm's B1 + B3
+    # forward B4 + B5 + B1; backward: spmm's B4 + B3, B5's backward mode,
+    # sddmm's B1 + B3
     out = _counted(wrappers, total, "flat attention chain, forward + "
                    "backward", step, {"bsr_sddmm_panel": 2, "ell_softmax": 1,
+                                      "ell_softmax_bwd": 1,
+                                      "panel_softmax": 0,
+                                      "panel_softmax_bwd": 0,
                                       "bsr_spmm_panel": 2,
                                       "bsr_spmm_t_panel": 2})
     grads = [x.grad.cpu() for x in gpu]
@@ -2875,6 +3321,28 @@ def phase_flat_path(stt, torch, dev, wrappers, mat, w):
         _profile_steps(torch, "flat chain steps", lambda i: step())
     except Exception as e:  # a measurement, not a check of the path
         print(f"  torch.profiler gave no device times: {e!r}", flush=True)
+
+    @contextlib.contextmanager
+    def parent():
+        # the parent's backward: plain_ops.softmax_vjp (its forward kernel
+        # is gone: both routes run B5's forward mode)
+        keep = dispatch.ell_softmax_bwd_kernel
+
+        def vjp(row_offsets, row_ids, p, g, *, nnz):
+            with torch.profiler.record_function("B5 softmax"):
+                return plain_ops.softmax_vjp(p, g, row_ids,
+                                             row_offsets.numel() - 1)
+
+        dispatch.ell_softmax_bwd_kernel = vjp
+        try:
+            yield
+        finally:
+            dispatch.ell_softmax_bwd_kernel = keep
+
+    print("  flat chain step: B5's routes in turns (parent: the plain CSR "
+          "backward; B5: its backward mode)", flush=True)
+    _softmax_turns(torch, "flat chain step", step,
+                   {"parent": parent, "B5": contextlib.nullcontext})
 
     # (iii) a csr SparseLinear and the panel layer with the same weights
     lt = stt.SparseTopology.from_dense_mask(
@@ -4302,7 +4770,8 @@ def phase_compressed_path(stt, torch, dev, wrappers):
          "c_softmax_rowsum": 1, "c_softmax_grad": 1,
          "bsr_spmm_panel_c": 2, "bsr_spmm_t_panel_c": 2,
          "bsr_spmm_panel": 0, "bsr_spmm_t_panel": 0, "bsr_sddmm_panel": 0,
-         "ell_softmax": 0})
+         "ell_softmax": 0, "ell_softmax_bwd": 0, "panel_softmax": 0,
+         "panel_softmax_bwd": 0})
     if not (torch.all(w[-1] == 0) and torch.all(
             w[spec.meta(dev)["mask"] == 0] == 0)):
         _fail("compressed chain: the dump tile or a masked slot of the "
@@ -5066,6 +5535,7 @@ def main(argv=None) -> int:
         # the phases that also take bench.py's matrix (w, mat)
         mat_args = {"int8_kernels": lambda w, m: (w, m),
                     "softmax_kernel": lambda w, m: (m,),
+                    "softmax_routes": lambda w, m: (m,),
                     "flat_path": lambda w, m: (m, w)}
         for name in only:
             fn = globals()[f"phase_{name}"]

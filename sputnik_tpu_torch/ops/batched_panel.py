@@ -11,9 +11,10 @@ JAX package's ``custom_vjp`` algebra as ``torch.autograd.Function``s:
   * ``sddmm_bh``: ``[R, m, d]`` x ``[R, n, d]`` -> panels (B7); backward
     SpMM (B6) + transposed SpMM (B8) on the cotangent zeroed at masked and
     padded slots;
-  * ``sparse_softmax_bh``: panels -> panels, plain PyTorch as in JAX
-    (``panel_api.masked_softmax``, shared with ``sparse_softmax``);
-    backward ``p * (g - rowsum(p * g))``.
+  * ``sparse_softmax_bh``: panels -> panels on B5's panel rows
+    (``panel_api.masked_softmax``, shared with ``sparse_softmax``: the
+    stacked mask, replica ``r`` on mask ``r // heads``); backward ``p * (g
+    - rowsum(p * g))``, B5's backward mode.
 
 The ``heads`` replicas of a mask share its metadata: nothing is copied per
 head (the element mask broadcasts as ``[B, 1, ...]``). The spec also holds
@@ -35,7 +36,7 @@ from ..blocking import stack_block_meta
 from .kernels.batched_panel import (sddmm_bh_kernel, spmm_bh_kernel,
                                     spmm_t_bh_kernel)
 from .kernels.flash_sparse import build_flash_bwd_meta, build_flash_meta
-from .panel_api import masked_softmax
+from .panel_api import masked_softmax, work_dtype
 
 __all__ = ["BatchedPanelSpec", "spmm_bh", "sddmm_bh", "sparse_softmax_bh"]
 
@@ -258,5 +259,8 @@ def sparse_softmax_bh(spec: BatchedPanelSpec, panels):
     """Batched row softmax over each replica's mask, panels in and out; a
     row without nonzeros gives 0 (no NaN)."""
     _check_panels(spec, panels)
-    return masked_softmax(_by_mask(spec, panels),
-                          spec.mask_bh(panels.device)).reshape(panels.shape)
+    meta = spec.panel_meta(panels.device)
+    dt = panels.dtype
+    p = masked_softmax(panels.to(work_dtype(dt)), meta["mask"],
+                       meta["nblocks"], spec.heads)
+    return p.to(dt)

@@ -15,8 +15,9 @@ This module runs it on the kernels:
 The values <-> panel maps are differentiable index ops, so the gradients
 are ``panel_api``'s own: the SpMM's backward launches B4 (values) and B3
 (dense operand), the SDDMM's B1 and B3, with no transposed panel. The
-softmax is one autograd Function: B5 forward, ``p * (g - rowsum(p * g))``
-backward in plain PyTorch (``plain_ops.softmax_vjp``), as in JAX.
+softmax is one autograd Function on B5's CSR rows: its forward mode, and
+its backward mode ``p * (g - rowsum(p * g))`` (JAX's XLA VJP), one launch
+each.
 
 The index maps are device tensors, built once per device
 (``PanelSpec.flat_meta``), and the ``PanelSpec`` once per topology. The
@@ -37,8 +38,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import panel_api as P
-from . import plain_ops
-from .kernels.ell_softmax import ell_softmax_kernel
+from .kernels.ell_softmax import ell_softmax_bwd_kernel, ell_softmax_kernel
 
 __all__ = ["flat_spec", "to_panel", "to_values", "spmm", "spmm_bias_relu",
            "sddmm", "sparse_softmax"]
@@ -98,7 +98,7 @@ def sddmm(topo, lhs, rhs):
 
 class _SparseSoftmax(torch.autograd.Function):
     """B5 forward on ``values [R, nnz_pad]``; backward ``p * (g -
-    rowsum(p * g))`` (JAX ``_sparse_softmax_bwd``)."""
+    rowsum(p * g))`` (JAX ``_sparse_softmax_bwd``), B5's backward mode."""
 
     @staticmethod
     def forward(ctx, spec, values):
@@ -114,8 +114,10 @@ class _SparseSoftmax(torch.autograd.Function):
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
         spec = ctx.spec
-        row_ids = spec.flat_meta(g.device)["row_ids"]
-        return None, plain_ops.softmax_vjp(p, g, row_ids, spec.topo.m)
+        meta = spec.flat_meta(g.device)
+        return None, ell_softmax_bwd_kernel(
+            meta["row_offsets"], meta["row_ids"], p, g.contiguous(),
+            nnz=spec.topo.nnz)
 
 
 def sparse_softmax(topo, values):

@@ -65,7 +65,8 @@ def kernel_wrappers():
                                 bsr_spmm_t_panel_int8)
     from .bsr_spmm_t import bsr_spmm_t_panel
     from .decode_attention import decode_attention_kernel
-    from .ell_softmax import ell_softmax_kernel
+    from .ell_softmax import (ell_softmax_bwd_kernel, ell_softmax_kernel,
+                              panel_softmax_bwd_kernel, panel_softmax_kernel)
     from .flash_sparse import (flash_sparse_attention_fwd,
                                flash_sparse_bwd_dkv, flash_sparse_bwd_dq,
                                flash_sparse_bwd_fused,
@@ -93,6 +94,9 @@ def kernel_wrappers():
             "sddmm_bh": sddmm_bh_kernel,
             "spmm_t_bh": spmm_t_bh_kernel,
             "ell_softmax": ell_softmax_kernel,
+            "ell_softmax_bwd": ell_softmax_bwd_kernel,
+            "panel_softmax": panel_softmax_kernel,
+            "panel_softmax_bwd": panel_softmax_bwd_kernel,
             "bsr_spmm_panel_int8": bsr_spmm_panel_int8,
             "bsr_spmm_t_panel_int8": bsr_spmm_t_panel_int8,
             "bsr_sddmm_panel_int8": bsr_sddmm_panel_int8,

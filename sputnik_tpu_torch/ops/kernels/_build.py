@@ -53,7 +53,8 @@ _SIGNATURES = {
     "spmm_bh_f32": [_P] * 5 + [_I] * 9 + [_P],
     "sddmm_bh_f32": [_P] * 6 + [_I] * 9 + [_P],
     "spmm_t_bh_f32": [_P] * 6 + [_I] * 11 + [_P],
-    "ell_softmax_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "softmax_csr_f32": [_P] * 4 + [_I] * 7 + [_P],
+    "softmax_panel_f32": [_P] * 5 + [_I] * 10 + [_P],
     "quant_kmajor": [_P] * 4 + [_I] * 7 + [_P],
     "spmm_panel_int8": [_P] * 7 + [_I] * 8 + [_P],
     "spmm_t_panel_int8": [_P] * 9 + [_I] * 8 + [_P],

@@ -28,6 +28,7 @@ import torch
 
 from . import SMS, check_operands
 from ._build import check, library
+from .bsr_spmm_int8 import div127
 
 __all__ = ["decode_attention_kernel", "decode_attention_plain",
            "attend_slots_plain", "attend_slots_state", "split_keys",
@@ -127,7 +128,7 @@ def attend_slots_state(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
     int8 = k_rows.dtype == torch.int8
     qv = q.float() * scale
     if int8:
-        qs = qv.abs().amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
+        qs = div127(qv.abs().amax(-1, keepdim=True).clamp(min=1e-30))
         qv = torch.clamp(torch.round(qv / qs), -127, 127)
     kin = torch.arange(bk, device=dev)
     qpos = (kv_len.long()[rk][:, None] - qlen
@@ -151,7 +152,7 @@ def attend_slots_state(q, k_rows, v_rows, ks_rows, vs_rows, base, key0, live,
         l_new = l * corr + p.sum(-1)
         pv = p * vs_rows[rows][:, None]
         if int8:
-            ps = pv.amax(-1, keepdim=True).clamp(min=1e-30) / 127.0
+            ps = div127(pv.amax(-1, keepdim=True).clamp(min=1e-30))
             ctx = (torch.clamp(torch.round(pv / ps), 0, 127) @ vb) * ps
         else:
             ctx = pv @ vb

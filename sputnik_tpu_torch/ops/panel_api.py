@@ -10,7 +10,8 @@ over it:
   * ``spmm_t``: panel^T x dense -> dense (the transposed SpMM kernel, off
     the original panel through transposed block metadata)
   * ``sddmm``: dense x dense -> panel (the panel SDDMM kernel)
-  * ``sparse_softmax``: panel -> panel (plain PyTorch, as in JAX)
+  * ``sparse_softmax``: panel -> panel (B5's panel rows, forward and
+    backward one launch each)
 
 ``PanelSpec(..., compressed=True)`` selects the true-BSR layout
 (``blocking.CompressedView``): panels ``f32[num_blocks + 1, bm, bk]``, only
@@ -52,6 +53,7 @@ from torch.autograd.function import once_differentiable
 
 from ..blocking import build_compressed
 from .kernels import bsr_compressed as _c
+from .kernels import ell_softmax as _sm
 from .kernels.bsr_sddmm import bsr_sddmm_panel
 from .kernels.bsr_spmm import bsr_spmm_panel
 from .kernels.bsr_spmm_t import bsr_spmm_t_panel
@@ -413,17 +415,15 @@ class _SDDMM(torch.autograd.Function):
 
 
 class _MaskedSoftmax(torch.autograd.Function):
-    """Row softmax over the panel's row axes (-3, -1) where the bool
-    ``mask`` (broadcast against the panel) is set; backward (JAX
-    ``_softmax_bwd`` / ``_sm_bh_bwd``): ``p * (g - rowsum(p * g))``."""
+    """Row softmax over the panel rows (axes max_bpr, bk) of ``panel [R, mb,
+    max_bpr, bm, bk]`` where the spec's f32 ``mask [n_masks, ...]`` is set,
+    replica ``r`` on mask ``r // heads`` (B5's panel forward mode); backward
+    (JAX ``_softmax_bwd`` / ``_sm_bh_bwd``): ``p * (g - rowsum(p * g))``,
+    B5's panel backward mode. One launch each."""
 
     @staticmethod
-    def forward(ctx, panel, mask):
-        v = torch.where(mask, panel, _NEG_LARGE)
-        row_max = v.amax(dim=(-3, -1), keepdim=True).clamp(min=_NEG_LARGE)
-        e = torch.where(mask, torch.exp(v - row_max), 0.0)
-        denom = e.sum(dim=(-3, -1), keepdim=True)
-        p = e / denom.clamp(min=torch.finfo(panel.dtype).tiny)
+    def forward(ctx, panel, mask, nblocks, heads):
+        p = _sm.panel_softmax_kernel(mask, nblocks, panel, heads=heads)
         ctx.save_for_backward(p)
         return p
 
@@ -431,14 +431,16 @@ class _MaskedSoftmax(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
-        return p * (g - (p * g).sum(dim=(-3, -1), keepdim=True)), None
+        dx = _sm.panel_softmax_bwd_kernel(p, g.contiguous())
+        return dx, None, None, None
 
 
-def masked_softmax(panel, mask):
+def masked_softmax(panel, mask, nblocks, heads: int):
     """The masked row softmax of ``sparse_softmax`` and
-    ``batched_panel.sparse_softmax_bh``, over a bool ``mask`` that
-    broadcasts against ``panel``."""
-    return _MaskedSoftmax.apply(panel, mask)
+    ``batched_panel.sparse_softmax_bh``: ``panel [R, mb, max_bpr, bm, bk]``,
+    the spec's f32 ``mask [n_masks, mb, max_bpr, bm, bk]`` and ``nblocks
+    i32[n_masks, mb]`` (``R = n_masks * heads``)."""
+    return _MaskedSoftmax.apply(panel.contiguous(), mask, nblocks, heads)
 
 
 class _CompressedSoftmax(torch.autograd.Function):
@@ -557,5 +559,8 @@ def sparse_softmax(spec, panel):
     if spec.compressed:
         return _unrep(_CompressedSoftmax.apply(
             spec, _rep(panel, rep).contiguous()), rep).to(dt)
-    return masked_softmax(panel,
-                          spec.meta(panel.device)["mask"] != 0).to(dt)
+    meta = spec.meta(panel.device)
+    x = _rep(panel, rep)
+    p = masked_softmax(x, meta["mask"][None], meta["nblocks"][None],
+                       x.shape[0])
+    return _unrep(p, rep).to(dt)

@@ -266,6 +266,29 @@ def test_decode_attention_matches_jax(dtype, qlen, group, bk):
                                    atol=2e-3)
 
 
+def test_int8_oracle_scales_go_through_div127(monkeypatch):
+    """The int8 oracle's two scale sites (q's, and each table slot's p *
+    v_scale) divide through ``div127``, the true divide on every device
+    (a Python divisor becomes a reciprocal multiply on a CUDA tensor): one
+    call for q and one a slot, the output unchanged."""
+    from sputnik_tpu_torch.ops.kernels import decode_attention as da
+
+    got, _ = _attention_case("int8", 1, 1, 8)
+    calls, div127 = [], da.div127
+
+    def counted(x):
+        calls.append(tuple(x.shape))
+        return div127(x)
+
+    monkeypatch.setattr(da, "div127", counted)
+    again, _ = _attention_case("int8", 1, 1, 8)
+    tbl, _ = TD.decode_block_table(torch.tensor([77, 0, 40], dtype=torch.int32),
+                                   s_max=96, bk=8, window_blocks=2,
+                                   sink_blocks=1)
+    assert calls == [(3, 1, 1)] * (1 + tbl.shape[1])
+    np.testing.assert_array_equal(again, got)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_decode_attention_at_head_dim_256_matches_jax(dtype):
     """C2: ``decode_attention_kernel`` runs hd = 256 on the CPU (its plain

@@ -537,6 +537,10 @@ def test_decode_kernels_at_wide_head_dims(dev, dtype, hd, bk):
             return
         lim = max(1.0, ref.abs().max().item())
         err = (got - ref).abs()
+        print(f"int8 wide-head decode hd={hd} bk={bk}: max err "
+              f"{err.max().item() / lim:.3e} x max(1, max|plain|), "
+              f"{int((err > 1e-4 * lim).sum())} of {err.numel()} beyond "
+              f"1e-4 of it")
         assert err.max().item() <= 1e-3 * lim, (err.max().item(), lim)
         assert (err > 1e-4 * lim).float().mean().item() <= 1e-3
 
@@ -565,6 +569,53 @@ def test_decode_kernels_at_wide_head_dims(dev, dtype, hd, bk):
             pgot = paged_attention_kernel(*pargs, **kw)
             close(pgot, paged_attention_plain(*pargs, **kw))
             assert torch.equal(pgot, got)
+
+
+def test_decode_int8_oracle_scales_divide_exactly(dev, monkeypatch):
+    """The int8 decode oracle (``attend_slots_state``) takes q's scale and
+    each slot's p * v_scale scale as a true divide by 127 on the card, as
+    JAX and the kernel do: every scale equals numpy's f32 ``x / 127`` bit
+    for bit, at q rows whose max x (numpy-chosen) has x * (1 / 127) != x /
+    127 in f32, and q's codes equal numpy's from those scales."""
+    from sputnik_tpu_torch.ops.kernels import decode_attention as da
+
+    rng = np.random.RandomState(7)
+    hd, bk, qlen, group = 64, 32, 1, 1
+    cache, tbl, valid, q = _decode_problem(dev, "int8", hd, bk, qlen, group,
+                                           seed=7)
+    R = q.shape[0]
+    cand = (rng.rand(4096) * 4 + 0.5).astype(np.float32)
+    recip = cand * np.float32(1.0 / 127.0)
+    pick = cand[recip != cand / np.float32(127.0)][:R]
+    assert pick.size == R
+    qn = (rng.rand(R, qlen, hd).astype(np.float32) * 2 - 1) * pick[:, None,
+                                                                  None]
+    qn[:, :, 0] = pick[:, None]                    # each row's max |q|
+    q = torch.from_numpy(qn * np.float32(8.0)).to(dev)   # q * hd**-0.5 = qn
+    seen, div127 = [], da.div127
+
+    def spy(x):
+        out = div127(x)
+        seen.append((x.detach().cpu().numpy(), out.detach().cpu().numpy()))
+        return out
+
+    monkeypatch.setattr(da, "div127", spy)
+    da.decode_attention_plain(tbl, valid, cache.kv_len, q, cache.k, cache.v,
+                              cache.k_scale, cache.v_scale, bk=bk,
+                              qlen=qlen, group=group, scale=hd ** -0.5)
+    assert len(seen) == 1 + tbl.shape[1]          # q once, p once a slot
+    for x, out in seen:
+        want = x.astype(np.float32) / np.float32(127.0)
+        assert np.array_equal(out.view(np.int32), want.view(np.int32))
+    x_q, qs = seen[0]
+    np.testing.assert_array_equal(x_q[..., 0], np.maximum(pick[:, None],
+                                                          1e-30))
+    qv = q.float() * hd ** -0.5
+    codes = torch.clamp(torch.round(qv / torch.from_numpy(qs).to(dev)),
+                        -127, 127).cpu().numpy()
+    want = np.clip(np.rint(qn / (pick[:, None, None] / np.float32(127.0))),
+                   -127, 127)
+    np.testing.assert_array_equal(codes, want)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -1004,17 +1055,60 @@ def test_batched_ops_train_through_the_kernels(dev):
     assert torch.all(out[:heads, 7].detach() == 0)  # mask 0's empty row
 
 
+def _each_close(got, ref, scale=None):
+    """Each slot within 1e-4 x ``scale`` (|plain| unless given; floored at
+    f32 tiny, so an exact 0 must stay 0)."""
+    scale = (ref.abs() if scale is None else scale).clamp(
+        min=torch.finfo(torch.float32).tiny)
+    rel = ((got - ref).abs() / scale).max().item()
+    assert rel <= 1e-4, (rel, ref[ref != 0].abs().median().item())
+
+
+def _same_bits_and_replays(fn, want):
+    """A second call of ``fn`` and two replays of a CUDA graph that captured
+    it (outputs filled with NaN before each) give ``want``'s bits."""
+    assert torch.equal(fn().view(torch.int32), want.view(torch.int32))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    for _ in range(2):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+# B5's team shapes (lanes a row, chunks a lane in registers) through the
+# wrappers' measurement hook; (0, 0) is the kernel's own rule
+_B5_TEAMS = [(n, v) for n in (8, 16, 32) for v in (4, 8)] + [(0, 0)]
+
+
+def _refuses_other_dtypes(fn, *tensors):
+    for dt in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError):
+            fn(*(t.to(dt) for t in tensors))
+
+
 @pytest.mark.parametrize("m,n,density,R,pad_to", [
     (64, 2000, 0.9, 1, 4),       # rows past 512 slots: the strided path
     (512, 512, 0.1, 32, 4),      # the attention shape, 32 replicas
     (200, 700, 0.74, 3, 64),     # rows either side of 512, nnz_pad > nnz
     (1, 33, 1.0, 2, 8),          # one row
 ])
-def test_ell_softmax_kernel_matches_plain(dev, m, n, density, R, pad_to):
-    """B5 against its plain version: long rows, an empty row, a row of
-    -inf scores, replicas and padding slots (exact zeros)."""
-    from sputnik_tpu_torch.ops.kernels.ell_softmax import ell_softmax_kernel
-    from sputnik_tpu_torch.ops.plain_ops import sparse_softmax
+def test_ell_softmax_kernel_matches_plain(dev, monkeypatch, m, n, density,
+                                          R, pad_to):
+    """B5 on CSR rows, forward and backward, against the plain versions:
+    long rows (the two-pass path), an empty row, a row of -inf scores,
+    replicas, padding slots (exact zeros), every team shape (8, 16, 32
+    lanes a row; 4 or 8 chunks a lane in registers) and the kernel's own
+    rule; one launch each, the same bits twice and after graph replays;
+    f64 / bf16 operands refused."""
+    from sputnik_tpu_torch.ops.kernels import ell_softmax as K
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import (
+        ell_softmax_bwd_kernel, ell_softmax_kernel)
+    from sputnik_tpu_torch.ops.plain_ops import softmax_vjp, sparse_softmax
 
     rng = np.random.RandomState(m + n)
     mask = rng.rand(m, n) < density
@@ -1029,21 +1123,179 @@ def test_ell_softmax_kernel_matches_plain(dev, m, n, density, R, pad_to):
     row_offsets = torch.from_numpy(ro).to(dev)
     row_ids = torch.from_numpy(topo.row_ids.astype(np.int64)).to(dev)
     v = torch.from_numpy(vals).to(dev)
-    before = ell_softmax_kernel.launches
-    got = ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz)
-    torch.cuda.synchronize()
-    assert ell_softmax_kernel.launches == before + 1
+    g = torch.from_numpy(rng.randn(R, topo.nnz_pad).astype(np.float32)
+                         ).to(dev)
     ref = sparse_softmax(v, row_ids, row_ids < topo.m, topo.m)
-    assert torch.isfinite(got).all()
-    _close(got, ref)
-    # each slot at 1e-4 x |plain| (floored at f32 tiny): the outputs span
-    # many magnitudes below 1, where the max|plain| limit above is flat
-    scale = ref.abs().clamp(min=torch.finfo(torch.float32).tiny)
-    rel = ((got - ref).abs() / scale).max().item()
-    assert rel <= 1e-4, (rel, ref[ref != 0].abs().median().item())
-    assert torch.all(got[:, topo.nnz:] == 0)
-    if m > 3:
-        assert torch.all(got[:, ro[1]:ro[2]] == 0)
+    for team in _B5_TEAMS:           # the kernel's own rule last
+        monkeypatch.setattr(K, "_TEAM", team)
+        before = ell_softmax_kernel.launches
+        got = ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz)
+        torch.cuda.synchronize()
+        assert ell_softmax_kernel.launches == before + 1
+        assert torch.isfinite(got).all()
+        _close(got, ref)
+        # each slot at 1e-4 x |plain|: the outputs span many magnitudes
+        # below 1, where the max|plain| limit above is flat
+        _each_close(got, ref)
+        assert torch.all(got[:, topo.nnz:] == 0)
+        if m > 3:
+            assert torch.all(got[:, ro[1]:ro[2]] == 0)
+    p = got
+    _same_bits_and_replays(
+        lambda: ell_softmax_kernel(row_offsets, row_ids, v, nnz=topo.nnz), p)
+
+    ref = softmax_vjp(p, g, row_ids, topo.m)
+    # g - rowsum(p * g) cancels where g is near the row sum: there the sum's
+    # f32 rounding sets the error, so a slot's scale is |dx| + |p| x the
+    # row's sum of |p * g|
+    rs_abs = (p * g).abs().new_zeros(R, topo.m + 1).index_add_(
+        1, row_ids, (p * g).abs()).index_select(1, row_ids)
+    for team in _B5_TEAMS:           # the kernel's own rule last
+        monkeypatch.setattr(K, "_TEAM", team)
+        before = ell_softmax_bwd_kernel.launches
+        dx = ell_softmax_bwd_kernel(row_offsets, row_ids, p, g, nnz=topo.nnz)
+        torch.cuda.synchronize()
+        assert ell_softmax_bwd_kernel.launches == before + 1
+        _close(dx, ref)
+        _each_close(dx, ref, ref.abs() + p.abs() * rs_abs)
+        assert torch.all(dx[p == 0] == 0)
+    _same_bits_and_replays(lambda: ell_softmax_bwd_kernel(
+        row_offsets, row_ids, p, g, nnz=topo.nnz), dx)
+    _refuses_other_dtypes(lambda x: ell_softmax_kernel(
+        row_offsets, row_ids, x, nnz=topo.nnz), v)
+    _refuses_other_dtypes(lambda a, b: ell_softmax_bwd_kernel(
+        row_offsets, row_ids, a, b, nnz=topo.nnz), p, g)
+
+
+def _panel_softmax_problem(dev, layout, tiles, long_rows):
+    """Scores on an ELL panel with absent tiles: ``"ell"`` one mask (a
+    PanelSpec's, heads = R = 3), ``"batched"`` two masks x two heads (a
+    BatchedPanelSpec's). Causal masks of 200 (row blocks with absent tiles,
+    so rows span them), or with ``long_rows`` a 64 x 2000 mask whose rows
+    exceed the registers (the two-pass path); an emptied row, a row of -inf
+    scores."""
+    from sputnik_tpu_torch.many_mask import ManyMaskTopology
+
+    rng = np.random.RandomState(sum(tiles) + long_rows)
+    if long_rows:
+        masks = [rng.rand(64, 2000) < d for d in (0.9, 0.5)]
+    else:
+        masks = [np.tril(np.ones((200, 200))) * (rng.rand(200, 200) < d)
+                 for d in (1.0, 0.4)]
+    for mk in masks:
+        mk[7] = 0                                   # an emptied row
+    if layout == "ell":
+        spec = stt.PanelSpec(stt.SparseTopology.from_dense_mask(masks[0]),
+                             *tiles)
+        meta = spec.meta(dev)
+        mask, nblocks, heads = meta["mask"][None], meta["nblocks"][None], 3
+    else:
+        spec = stt.BatchedPanelSpec.from_many_mask(
+            ManyMaskTopology.from_dense_masks(np.stack(masks).astype(
+                np.float32)), heads=2, bm=tiles[0], bk=tiles[1])
+        meta = spec.panel_meta(dev)
+        mask, nblocks, heads = meta["mask"], meta["nblocks"], 2
+    shape = (mask.shape[0] * heads,) + tuple(mask.shape[1:])
+    x = torch.from_numpy((rng.randn(*shape) * 4).astype(np.float32)).to(dev)
+    x[:, 0, :, 3] = -float("inf")                   # row 3: -inf scores
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    return mask, nblocks, heads, x, g
+
+
+@pytest.mark.parametrize("long_rows", [False, True])
+@pytest.mark.parametrize("tiles", [(64, 64), (32, 96), (48, 48), (40, 18)])
+@pytest.mark.parametrize("layout", ["ell", "batched"])
+def test_panel_softmax_kernels_match_plain(dev, monkeypatch, layout, tiles,
+                                           long_rows):
+    """B5 on panel rows, forward and backward, against the plain versions,
+    at both mask layouts (one mask for every replica; a stacked mask a
+    batch element, ``heads`` replicas each): rows spanning absent tiles,
+    an emptied row, a row of -inf scores (exact zeros, as at every masked
+    slot), the 4-byte path (bk = 18), rows past the registers, every team
+    shape; a NaN cotangent at a masked slot reaches its row as in the plain
+    version; one launch each, the same bits twice and after graph replays;
+    f64 / bf16 operands refused."""
+    from sputnik_tpu_torch.ops.kernels import ell_softmax as K
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import (
+        masked_softmax_plain, masked_softmax_vjp_plain,
+        panel_softmax_bwd_kernel, panel_softmax_kernel)
+
+    mask, nblocks, heads, x, g = _panel_softmax_problem(dev, layout, tiles,
+                                                        long_rows)
+    live = (mask != 0).repeat_interleave(heads, 0)
+    assert int(nblocks.min()) < mask.shape[2] or long_rows  # absent tiles
+    ref = masked_softmax_plain(x, mask, heads)
+    for team in _B5_TEAMS:           # the kernel's own rule last
+        monkeypatch.setattr(K, "_TEAM", team)
+        before = panel_softmax_kernel.launches
+        p = panel_softmax_kernel(mask, nblocks, x, heads=heads)
+        torch.cuda.synchronize()
+        assert panel_softmax_kernel.launches == before + 1
+        assert torch.isfinite(p).all()
+        _close(p, ref)
+        _each_close(p, ref)
+        assert torch.all(p[~live] == 0) and torch.all(p[:, 0, :, 3] == 0)
+        assert torch.all(p[:, 0, :, 7] == 0)          # the emptied row
+    _same_bits_and_replays(
+        lambda: panel_softmax_kernel(mask, nblocks, x, heads=heads), p)
+
+    ref = masked_softmax_vjp_plain(p, g)
+    scale = ref.abs() + p.abs() * (p * g).abs().sum(
+        dim=(-3, -1), keepdim=True)
+    for team in _B5_TEAMS:           # the kernel's own rule last
+        monkeypatch.setattr(K, "_TEAM", team)
+        before = panel_softmax_bwd_kernel.launches
+        dx = panel_softmax_bwd_kernel(p, g)
+        torch.cuda.synchronize()
+        assert panel_softmax_bwd_kernel.launches == before + 1
+        _close(dx, ref)
+        _each_close(dx, ref, scale)
+        assert torch.all(dx[p == 0] == 0)
+    _same_bits_and_replays(lambda: panel_softmax_bwd_kernel(p, g), dx)
+
+    # a NaN cotangent at a masked slot of row 5 of row block 0, replica 0
+    gn = g.clone()
+    j = int((~live[0, 0, :, 5]).reshape(-1).nonzero()[0])
+    gn[0, 0, j // g.shape[-1], 5, j % g.shape[-1]] = float("nan")
+    got, want = (panel_softmax_bwd_kernel(p, gn),
+                 masked_softmax_vjp_plain(p, gn))
+    assert torch.isnan(got[0, 0, :, 5]).all()
+    assert torch.isnan(want[0, 0, :, 5]).all()
+    got[0, 0, :, 5] = want[0, 0, :, 5] = 0.0
+    _close(got, want)
+    _refuses_other_dtypes(lambda a: panel_softmax_kernel(
+        mask, nblocks, a, heads=heads), x)
+    _refuses_other_dtypes(lambda a, b: panel_softmax_bwd_kernel(a, b), p, g)
+
+
+def test_softmax_kernels_count_no_launch_on_empty_input(dev):
+    """B5's four wrappers on inputs with no slot (no replica, an empty
+    ``nnz_pad``, a panel with a dimension of size 0) return empty outputs
+    and leave their launch counters as they were: nothing was launched."""
+    from sputnik_tpu_torch.ops.kernels.ell_softmax import (
+        ell_softmax_bwd_kernel, ell_softmax_kernel, panel_softmax_bwd_kernel,
+        panel_softmax_kernel)
+
+    wr = (ell_softmax_kernel, ell_softmax_bwd_kernel, panel_softmax_kernel,
+          panel_softmax_bwd_kernel)
+    before = [w.launches for w in wr]
+    ro = torch.zeros(3, dtype=torch.int32, device=dev)     # 2 empty rows
+    ri = torch.zeros(0, dtype=torch.int64, device=dev)
+    for R, nnz_pad in ((0, 4), (2, 0)):
+        v = torch.zeros(R, nnz_pad, device=dev)
+        ids = ri if nnz_pad == 0 else torch.full((nnz_pad,), 2, device=dev)
+        assert ell_softmax_kernel(ro, ids, v, nnz=0).shape == v.shape
+        assert ell_softmax_bwd_kernel(ro, ids, v, v, nnz=0).shape == v.shape
+    for shape in ((0, 2, 2, 8, 8), (2, 2, 2, 0, 8), (2, 2, 0, 8, 8)):
+        x = torch.zeros(shape, device=dev)
+        mask = torch.zeros((1,) + shape[1:], device=dev)
+        nblocks = torch.zeros(1, shape[1], dtype=torch.int32, device=dev)
+        if shape[0]:
+            assert panel_softmax_kernel(mask, nblocks, x,
+                                        heads=shape[0]).shape == x.shape
+        assert panel_softmax_bwd_kernel(x, x).shape == x.shape
+    torch.cuda.synchronize()
+    assert [w.launches for w in wr] == before
 
 
 def test_flat_chain_trains_through_the_kernels(dev):

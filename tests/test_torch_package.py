@@ -106,7 +106,8 @@ def test_build_key_covers_every_source():
         "flash_sparse_bwd_dq_f32", "flash_sparse_bwd_dkv_f32",
         "decode_attention", "ragged_append", "paged_attention",
         "paged_append", "spmm_bh_f32", "sddmm_bh_f32", "spmm_t_bh_f32",
-        "ell_softmax_f32", "quant_kmajor", "spmm_panel_int8",
+        "softmax_csr_f32", "softmax_panel_f32", "quant_kmajor",
+        "spmm_panel_int8",
         "spmm_t_panel_int8", "sddmm_panel_int8", "flash_sparse_fwd_int8",
         "flash_sparse_bwd_dq_int8", "flash_sparse_bwd_dkv_int8",
         "spmm_panel_c_f32", "spmm_t_panel_c_f32", "sddmm_panel_c_f32",
@@ -207,7 +208,9 @@ def test_cpu_tensors_launch_no_kernel():
     stt.parallel.sharded_spmm_halo(hspec, panels, dense_sh).sum().backward()
     assert torch.isfinite(dense_sh.grad).all()
     assert {n: w.launches for n, w in wrappers.items()} == before
-    assert len(wrappers) == 31 and "ell_softmax" in wrappers
+    assert len(wrappers) == 34 and {"ell_softmax", "ell_softmax_bwd",
+                                    "panel_softmax",
+                                    "panel_softmax_bwd"} <= set(wrappers)
     assert {"bsr_spmm_panel_sel", "flash_sparse_ring_band_fwd",
             "flash_sparse_ring_band_bwd"} <= set(wrappers)
     assert {"bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
