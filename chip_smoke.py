@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the repository root, one CUDA GPU
     python3 chip_smoke.py --only moe_train,ring_path   # chosen phases only
     python3 chip_smoke.py --only decode_steps   # decode ms/token, launches
+    python3 chip_smoke.py --only serving,graph_decode   # graph vs eager
 
 Phases, each printing its lines:
   1. the device (name, power limit) and the kernels' nvcc build;
@@ -100,7 +101,11 @@ Phases, each printing its lines:
         prompt_lengths [1024, 900, 700, 512] (the ragged step), (d)
         decode_multi q=4 + rollback, (e) int8 cache, (f) GQA kv_heads=2 on
         2 layers, one KV append a layer a step on each; one decode_step
-        under the sync debug mode;
+        under the sync debug mode. generate replays one CUDA graph a
+        decode token: its wrappers count the eager warm-up step and the
+        capture (2 a layer), and torch.profiler's device kernels over a
+        generate show decode attention and the KV append layers x steps
+        times;
      d. paged serving from a KV page pool (LMServer(n_pages=)), one
         paged append a layer a step, (e) a paged decode_multi q=4 too;
         then four decode routes of the same model (contiguous bf16 and
@@ -138,6 +143,22 @@ Phases, each printing its lines:
         causal window 1024, q=512, 4 shards): the interior / halo split
         (B2 x 2 a shard; B4 + B3 a shard backward), then the ragged
         exchange (8000^2) and the all_gather (a random 4096^2 mask, B1);
+     l. decode as one CUDA graph replay a token against the parent's eager
+        loop (written here from the public decode_step calls) on phase c's
+        model: contiguous bf16 and int8, ragged and paged, greedy and
+        sampled tokens and lengths bit-equal, ms/token (t65 - t1) / 64 in
+        turns with its spread, device launches a token and busy share;
+        decode_loop at examples/generate.py's shape (P=2048) with f32 and
+        bf16-stored weights (cast_params), graph vs eager in turns, outputs
+        bit-equal; the bf16-weights logits vs the CPU; the example with
+        --bf16-params; examples/serve_continuous and serve_speculative at
+        their full configs with their self-checks;
+     m. remat: the driver config with remat False / True (gradients within
+        1e-4 x max(1, max|ref|), B9 called 6 / 12 times a step, step ms in
+        turns, peak memory), then b=1 s=8192;
+     n. the auto crossover: the driver's widths at 2 layers, the xla and
+        flash layouts at s = 128 ... 4096, forward and forward + backward
+        in turns: the readings behind _XLA_FLASH_CROSSOVER;
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -1707,6 +1728,42 @@ def _counted(wrappers, total, label, fn, expect):
     return out
 
 
+# the launches a wrapper counts in one generate or decode_loop call with two
+# or more decode steps: the eager warm-up step's and the capture's
+GRAPH_COUNTED = 2
+
+
+def _graph_kernels(torch, label, fn, want, addr, pos):
+    """``fn()`` (a generate) under torch.profiler: the device kernels of
+    decode attention on the ``addr`` route (B19: ``ContigAddr``, B20a:
+    ``PagedAddr``; its chunk pass, once a call) and of the KV append at
+    ``pos`` must each run ``want`` times (layers x decode steps), replays
+    included, where the wrappers count only the warm-up and the capture.
+    A kernel bypassed on the replays fails it. Returns ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    attn = append = 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        if ("decode_chunk" in e.key and addr in e.key
+                and "_int8<true" not in e.key):
+            attn += e.count
+        elif "kv_append_kernel" in e.key and pos in e.key:
+            append += e.count
+    print(f"  {label}: device kernels decode attention ({addr}) {attn}, "
+          f"KV append ({pos}) {append}; expected {want} each", flush=True)
+    if attn != want or append != want:
+        _fail(f"{label}: decode attention ran {attn} and the KV append "
+              f"{append} times on the device, expected {want} each")
+    return out
+
+
 def _teacher_forced_logits(server, prompt, tokens):
     """The head's logits at the prompt's last position, then after each of
     ``tokens[:, :-1]`` fed through ``decode_step``: ``[n, b, vocab]``. A
@@ -1774,26 +1831,32 @@ def phase_serving(stt, torch, dev, wrappers):
             _fail(f"serving {label}: tokens {tuple(toks.shape)} out of range")
 
     steps = n_new - 1
+    # generate replays one captured graph a decode token: the wrappers
+    # count the eager warm-up step and the capture (GRAPH_COUNTED a layer),
+    # the profiler every replayed kernel (_graph_kernels)
+    captured = {"flash_sparse_attention_fwd": layers,
+                "decode_attention": layers * GRAPH_COUNTED,
+                "ragged_append": layers * GRAPH_COUNTED}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     toks_a, caches_a = run("(a) greedy generate, bf16 cache",
-                           lambda: srv.generate(pd, n_new),
-                           {"flash_sparse_attention_fwd": layers,
-                            "decode_attention": layers * steps,
-                            "ragged_append": layers * steps})
+                           lambda: srv.generate(pd, n_new), captured)
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     check_tokens("(a)", toks_a, n_new)
     if caches_a[0].kv_len.tolist() != [P + steps] * (b * heads):
         _fail(f"serving (a): kv_len {caches_a[0].kv_len.tolist()[:4]}...")
+    again = _graph_kernels(torch, "serving (a) greedy generate",
+                           lambda: srv.generate(pd, n_new)[0], layers * steps,
+                           "ContigAddr", "UniformPos")
+    if not torch.equal(again, toks_a):
+        _fail("serving (a): a second greedy generate gave other tokens")
 
     gen = torch.Generator(device=dev)
     toks_b = run("(b) sampled generate T=0.8 top_k=40",
                  lambda: srv.generate(pd, n_new, gen.manual_seed(5),
                                       temperature=0.8, top_k=40)[0],
-                 {"flash_sparse_attention_fwd": layers,
-                  "decode_attention": layers * steps,
-                  "ragged_append": layers * steps})
+                 captured)
     check_tokens("(b)", toks_b, n_new)
     again = srv.generate(pd, n_new, gen.manual_seed(5), temperature=0.8,
                          top_k=40)[0]
@@ -1802,10 +1865,10 @@ def phase_serving(stt, torch, dev, wrappers):
 
     toks_c, caches_c = run(
         f"(c) generate, prompt_lengths={lens}",
-        lambda: srv.generate(pd, n_new, prompt_lengths=lens),
-        {"flash_sparse_attention_fwd": layers,
-         "decode_attention": layers * steps,
-         "ragged_append": layers * steps})
+        lambda: _graph_kernels(
+            torch, "serving (c) generate, prompt_lengths",
+            lambda: srv.generate(pd, n_new, prompt_lengths=lens),
+            layers * steps, "ContigAddr", "RaggedPos"), captured)
     check_tokens("(c)", toks_c, n_new)
     want_len = [n + steps for n in lens for _ in range(heads)]
     if caches_c[0].kv_len.tolist() != want_len:
@@ -1844,16 +1907,20 @@ def phase_serving(stt, torch, dev, wrappers):
 
     srv8 = server(dtype=torch.int8)
     toks_e = run("(e) greedy generate, int8 cache",
-                 lambda: srv8.generate(pd, n_new)[0],
-                 {"flash_sparse_attention_fwd": layers,
-                  "decode_attention": layers * steps,
-                  "ragged_append": layers * steps})
+                 lambda: _graph_kernels(
+                     torch, "serving (e) greedy generate, int8 cache",
+                     lambda: srv8.generate(pd, n_new)[0], layers * steps,
+                     "ContigAddr", "UniformPos"), captured)
     check_tokens("(e)", toks_e, n_new)
     gqa = server(gqa_lm)
     toks_f = run("(f) greedy generate, GQA kv_heads=2, 2 layers",
-                 lambda: gqa.generate(pd, 16)[0],
+                 lambda: _graph_kernels(
+                     torch, "serving (f) greedy generate, GQA",
+                     lambda: gqa.generate(pd, 16)[0], 2 * 15, "ContigAddr",
+                     "UniformPos"),
                  {"flash_sparse_attention_fwd": 2,
-                  "decode_attention": 2 * 15, "ragged_append": 2 * 15})
+                  "decode_attention": 2 * GRAPH_COUNTED,
+                  "ragged_append": 2 * GRAPH_COUNTED})
     if toks_f.shape != (b, 16):
         _fail("serving (f): token shape")
     agree = {k: float((t == toks_a).float().mean()) for k, t in
@@ -1973,8 +2040,14 @@ def phase_paged_serving(stt, torch, dev, wrappers, ctx):
         wrappers, total, "paged (a) greedy generate, bf16 pool",
         lambda: psrv.generate(pd, n_new),
         dict(none, flash_sparse_attention_fwd=layers,
-             paged_attention=layers * steps, paged_append=layers * steps))
+             paged_attention=layers * GRAPH_COUNTED,
+             paged_append=layers * GRAPH_COUNTED))
     gen_s = time.perf_counter() - t0
+    again = _graph_kernels(torch, "paged (a) greedy generate",
+                           lambda: psrv.generate(pd, n_new)[0],
+                           layers * steps, "PagedAddr", "PagedPos")
+    if not torch.equal(again, toks):
+        _fail("paged (a): a second greedy generate gave other tokens")
     same = int((toks == toks_a).sum())
     print(f"  paged greedy tokens equal to the contiguous server's: "
           f"{same}/{toks.numel()}; generate({n_new}) {gen_s:.3f} s wall",
@@ -5483,6 +5556,380 @@ def phase_dtype_repair(stt, torch, dev, wrappers):
           f"{layer.values.grad.dtype}", flush=True)
 
 
+# -- one graph replay a decode token; remat; the auto crossover ------------
+
+def _eager_generate(torch, srv, tokens, n_new, gen=None, lens=None, **samp):
+    """``LMServer.generate``'s loop built from the public calls with every
+    decode step eager (the parent's loop): prefill, the head at the last
+    real position, then ``decode_step`` / ``decode_step_ragged`` and
+    ``sample_logits`` a token. Returns ``(tokens [b, n_new], caches)``."""
+    from sputnik_tpu_torch.models import sample_logits
+
+    samp.setdefault("temperature", 0.0)       # generate's default: greedy
+    b, P = tokens.shape
+    with torch.no_grad():
+        caches = srv.init_caches(b)
+        if hasattr(srv.decoder, "reserve"):
+            caches = srv.decoder.reserve(caches, P + n_new)
+        lt = None if lens is None else torch.as_tensor(
+            lens, device=tokens.device).long()
+        y, caches = srv.decoder.prefill(srv.lm.embed(tokens), caches,
+                                        lengths=lt)
+        last = y[:, -1] if lt is None else y[torch.arange(b), lt - 1]
+        tok = sample_logits(srv.lm.head(last), gen, **samp)
+        out = [tok]
+        step = srv.decode_step if lt is None else srv.decode_step_ragged
+        for _ in range(n_new - 1):
+            logits, caches = step(tok, caches)
+            tok = sample_logits(logits, gen, **samp)
+            out.append(tok)
+    return torch.stack(out, 1), caches
+
+
+def _spread(v):
+    return (f"{statistics.median(v):.4f} (min {min(v):.4f}, max "
+            f"{max(v):.4f}, {len(v)} turns)")
+
+
+def _window_profile(torch, fn):
+    """torch.profiler over one ``fn()``: (wall ms, device kernel ms, device
+    launches); the wall time is the profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = launches = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev_ms += getattr(e, "device_time_total", 0.0) / 1e3
+            launches += e.count
+    return wall, dev_ms, launches
+
+
+def phase_graph_decode(stt, torch, dev, wrappers, ctx):
+    """Decode as one CUDA graph replay a token, against the parent's eager
+    loop (``_eager_generate``) on phase 3c's model: tokens (greedy and
+    sampled) and lengths bit-equal on four routes, ms/token in turns,
+    device kernels a token and busy share; decode_loop at
+    examples/generate.py's shape, also with bf16-stored weights
+    (cast_params), whose logits are held against the CPU; the example with
+    --bf16-params; the continuous-batching and speculative examples at
+    their full configs."""
+    from sputnik_tpu_torch.examples import (generate, serve_continuous,
+                                            serve_speculative)
+    from sputnik_tpu_torch.models import (LMServer, SparseDecoder,
+                                          SparseTransformer)
+    from sputnik_tpu_torch.patterns import causal_mask
+
+    lm, pd = ctx["lm"], ctx["pd"]
+    b, P, layers, n = 4, 1024, 6, 65
+    print(f"phase 3l: decode as one CUDA graph replay a token vs eager "
+          f"steps — phase 3c's SparseLM, generate(pd, {n}) and "
+          f"generate(pd, 1), ms/token = (t{n} - t1) / {n - 1}", flush=True)
+    total = {k: 0 for k in wrappers}
+    routes = {
+        "contiguous bf16": (dict(cache_dtype=torch.bfloat16), None),
+        "contiguous int8": (dict(cache_dtype=torch.int8), None),
+        "contiguous ragged bf16": (dict(cache_dtype=torch.bfloat16),
+                                   [1024, 900, 700, 512]),
+        "paged bf16": (dict(cache_dtype=torch.bfloat16, n_pages=96), None),
+    }
+    gen = torch.Generator(device=dev)
+    servers = {}
+    for name, (kw, lens) in routes.items():
+        srv = LMServer(lm, s_max=P + 64, bk=1024, **kw)
+        servers[name] = (srv, lens)
+        for samp in ({}, dict(temperature=0.8, top_k=40)):
+            seed = (lambda: gen.manual_seed(5)) if samp else (lambda: None)
+            want, wc = _eager_generate(torch, srv, pd, n, seed(), lens,
+                                       **samp)
+            got, gc = srv.generate(pd, n, seed(), prompt_lengths=lens,
+                                   **samp)
+            kind = "sampled T=0.8 top_k=40" if samp else "greedy"
+            same = int((got == want).sum())
+            lens_eq = all(torch.equal(c.kv_len, w.kv_len)
+                          for c, w in zip(gc, wc))
+            print(f"  {name}, {kind}: graph tokens equal to the eager "
+                  f"loop's {same}/{want.numel()}, lengths equal {lens_eq}",
+                  flush=True)
+            if same != want.numel() or not lens_eq:
+                _fail(f"graph decode {name} {kind}: tokens or lengths "
+                      f"differ from the eager loop's")
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # (t65 - t1) / 64 holds the warm-up step and the capture; (t65 - t33)
+    # / 32 is the steady replay a token
+    half = (n + 1) // 2
+    times = {(r, m): [] for r in routes for m in ("graph", "eager")}
+    steady = {(r, m): [] for r in routes for m in ("graph", "eager")}
+    for pair in range(5):
+        for name in (routes if pair % 2 == 0 else list(routes)[::-1]):
+            srv, lens = servers[name]
+            modes = (("graph", lambda k: srv.generate(
+                         pd, k, prompt_lengths=lens)),
+                     ("eager", lambda k: _eager_generate(
+                         torch, srv, pd, k, lens=lens)))
+            for mode, fn in (modes if pair % 2 == 0 else modes[::-1]):
+                t_n = host_ms(lambda: fn(n))
+                t_h = host_ms(lambda: fn(half))
+                t_1 = host_ms(lambda: fn(1))
+                times[(name, mode)].append((t_n - t_1) / (n - 1))
+                steady[(name, mode)].append((t_n - t_h) / (n - half))
+    result = {}
+    for name in routes:
+        srv, lens = servers[name]
+        line = []
+        for mode, fn in (("graph", lambda k: srv.generate(
+                              pd, k, prompt_lengths=lens)),
+                         ("eager", lambda k: _eager_generate(
+                             torch, srv, pd, k, lens=lens))):
+            _, d_n, l_n = _window_profile(torch, lambda: fn(n))
+            _, d_1, l_1 = _window_profile(torch, lambda: fn(1))
+            per = (l_n - l_1) / (n - 1)
+            dev_ms = (d_n - d_1) / (n - 1)
+            ms = times[(name, mode)]
+            result[(name, mode)] = statistics.median(ms)
+            line.append(f"{mode} {_spread(ms)} ms/token, steady "
+                        f"{_spread(steady[(name, mode)])}; {per:.1f} device "
+                        f"launches and {dev_ms:.4f} ms of kernels a token "
+                        f"(profiled), busy {dev_ms / statistics.median(ms):.1%}"
+                        f" of the median")
+        print(f"  decode {name}: " + "; ".join(line), flush=True)
+
+    # decode_loop at examples/generate.py's full shape, f32 and bf16 weights
+    Pg, hg, n_loop = 2048, 1024, 64
+    masks = np.broadcast_to(causal_mask(Pg), (b, Pg, Pg)).copy()
+    model = SparseTransformer.from_masks(
+        masks, num_layers=layers, hidden_size=hg, num_heads=8,
+        ffn_hidden_size=4096, use_residual=True, use_layernorm=True,
+        activation="gelu", generator=torch.Generator().manual_seed(0),
+        device=dev).eval()
+    cast = SparseDecoder.cast_params(copy.deepcopy(model))
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        b, Pg, hg).astype(np.float32) * 0.3).to(dev)
+    decs = {"f32 weights": SparseDecoder(model, s_max=Pg + n_loop, bk=1024),
+            "bf16 weights": SparseDecoder(cast, s_max=Pg + n_loop, bk=1024)}
+    starts = {}
+    for name, dec in decs.items():
+        y, caches = dec.prefill(x, dec.init_caches(b))
+        starts[name] = (y[:, -1:], caches)
+    loop_ms = {(k, m): [] for k in decs for m in ("graph", "eager")}
+
+    def eager_loop(dec, tok, caches):
+        ys = []
+        for _ in range(n_loop):
+            y, caches = dec.decode_step(tok, caches)
+            ys.append(y)
+            tok = y
+        return torch.stack(ys)
+
+    for name, dec in decs.items():
+        tok, caches = starts[name]
+        ys_g, _ = dec.decode_loop(tok, tuple(c.clone() for c in caches),
+                                  n_loop)
+        ys_e = eager_loop(dec, tok, tuple(c.clone() for c in caches))
+        if not torch.equal(ys_g, ys_e):
+            _fail(f"decode_loop {name}: the graph's outputs differ from "
+                  f"the eager steps' (max "
+                  f"{(ys_g - ys_e).abs().max().item():.3e})")
+    for pair in range(3):
+        for name in (decs if pair % 2 == 0 else list(decs)[::-1]):
+            dec = decs[name]
+            tok, caches = starts[name]
+            modes = (("graph", lambda c: dec.decode_loop(tok, c, n_loop)),
+                     ("eager", lambda c: eager_loop(dec, tok, c)))
+            for mode, fn in (modes if pair % 2 == 0 else modes[::-1]):
+                cl = tuple(c.clone() for c in caches)
+                loop_ms[(name, mode)].append(host_ms(lambda: fn(cl))
+                                             / n_loop)
+    for name in decs:
+        print(f"  decode_loop b={b} P={Pg} h={hg} {layers}L, {name}, "
+              f"{n_loop} tokens: graph {_spread(loop_ms[(name, 'graph')])} "
+              f"ms/token, eager {_spread(loop_ms[(name, 'eager')])} "
+              f"ms/token; outputs bit-equal", flush=True)
+    del decs, starts, model, cast
+
+    # bf16-stored weights on phase 3c's model against the CPU copy
+    k = 8
+    toks32 = ctx["mha32"][0][:, :k]
+    lm16 = SparseDecoder.cast_params(copy.deepcopy(lm))
+    cpu16 = SparseDecoder.cast_params(copy.deepcopy(ctx["cpu_lm"]))
+    gpu = _teacher_forced_logits(LMServer(lm16, s_max=P + 64, bk=1024,
+                                          cache_dtype=torch.float32),
+                                 pd, toks32).cpu()
+    cpu = _teacher_forced_logits(LMServer(cpu16, s_max=P + 64, bk=1024,
+                                          cache_dtype=torch.float32),
+                                 ctx["prompt"], toks32.cpu())
+    _compare(f"bf16-weights (cast_params) logits, {k} positions x {b} "
+             f"sequences, card vs the CPU", gpu, cpu, TOL_MODEL)
+    srv16 = LMServer(lm16, s_max=P + 64, bk=1024)
+    bf16_ms = []
+    for _ in range(3):
+        t_n = host_ms(lambda: srv16.generate(pd, n))
+        t_1 = host_ms(lambda: srv16.generate(pd, 1))
+        bf16_ms.append((t_n - t_1) / (n - 1))
+    print(f"  generate with bf16-stored weights (bf16 cache): "
+          f"{_spread(bf16_ms)} ms/token", flush=True)
+    del lm16, cpu16, srv16
+    _counted(wrappers, total, "examples/generate.py --bf16-params "
+             "--tokens 256", lambda: generate.main(["--bf16-params",
+                                                    "--tokens", "256"]),
+             # a 2-token decode_loop warm-up, then the timed loop
+             {"decode_attention": 2 * layers * GRAPH_COUNTED,
+              "ragged_append": 2 * layers * GRAPH_COUNTED})
+    out = _counted(wrappers, total, "examples/serve_continuous (full "
+                   "config)", lambda: serve_continuous.main([]), {})
+    print(f"  serve_continuous: {out}", flush=True)
+    out = _counted(wrappers, total, "examples/serve_speculative (full "
+                   "config)", lambda: serve_speculative.main([]), {})
+    print(f"  serve_speculative: plain {out['plain_ms_per_token']:.4f} "
+          f"ms/token; draft 0.02 {out['spec_0.02']}; early exit "
+          f"{out['spec_early_exit']}", flush=True)
+    torch.cuda.empty_cache()
+    return total, result
+
+
+def _driver_model(torch, dev, s, b=4, layers=6, **kw):
+    """The reference driver's SparseTransformer (h=512, 8 heads, ffn 2048,
+    residual, LayerNorm, gelu) over its masks at sequence ``s``."""
+    from sputnik_tpu_torch.models import SparseTransformer
+    from sputnik_tpu_torch.patterns import driver_masks
+
+    return SparseTransformer.from_masks(
+        driver_masks(b, s), num_layers=layers, hidden_size=512, num_heads=8,
+        ffn_hidden_size=2048, use_residual=True, use_layernorm=True,
+        activation="gelu", generator=torch.Generator().manual_seed(40),
+        device=dev, **kw)
+
+
+def phase_remat(stt, torch, dev, wrappers):
+    """SparseTransformer(remat=True) against remat=False on the driver
+    config: gradients of one step, B9's wrapper calls a step (6 -> 12),
+    step time in turns and peak memory; peak memory at s = 8192."""
+    flash = wrappers["flash_sparse_attention_fwd"]
+    total = {k: 0 for k in wrappers}
+    print("phase 3m: remat — the driver's SparseTransformer (6L b=4 s=512 "
+          "h=512 8 heads), remat=False vs True, forward + backward; then "
+          "b=1 s=8192", flush=True)
+    for b, s in ((4, 512), (1, 8192)):
+        models = {False: _driver_model(torch, dev, s, b)}
+        models[True] = copy.deepcopy(models[False])
+        models[True].remat = True
+        g = torch.Generator().manual_seed(41)
+        x = torch.randn(b, s, 512, generator=g).to(dev)
+        y = torch.randn(b, s, 512, generator=g).to(dev)
+
+        def step(m):
+            m.zero_grad(set_to_none=True)
+            torch.mean((m(x) - y) ** 2).backward()
+
+        grads, peak = {}, {}
+        for r, m in models.items():
+            step(m)                              # builds the metadata
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            calls = _counted(wrappers, total, f"remat={r} b={b} s={s} step",
+                             lambda: (step(m), flash.launches)[1],
+                             {"flash_sparse_attention_fwd": 12 if r else 6})
+            peak[r] = torch.cuda.max_memory_allocated(dev) - base
+            grads[r] = {k: p.grad.detach().clone()
+                        for k, p in m.named_parameters()}
+            print(f"  remat={r} b={b} s={s}: B9 wrapper calls a step "
+                  f"{calls}, peak device memory above the weights "
+                  f"{peak[r] / 2**20:.1f} MiB", flush=True)
+        worst = 0.0
+        for k, ref in grads[False].items():
+            err = (grads[True][k] - ref).abs().max().item()
+            bound = 1e-4 * max(1.0, ref.abs().max().item())
+            worst = max(worst, err / bound)
+            if not err <= bound:
+                _fail(f"remat b={b} s={s}: gradient {k} differs by {err} > "
+                      f"{bound}")
+        ms = {False: [], True: []}
+        for pair in range(5 if s == 512 else 2):
+            for r in ((False, True) if pair % 2 == 0 else (True, False)):
+                ms[r].extend(_step_times(torch, lambda: step(models[r]), 1))
+        print(f"  b={b} s={s}: gradients within 1e-4 x max(1, max|ref|) "
+              f"(worst {worst:.3f} of the bound); step ms remat=False "
+              f"{_spread(ms[False])}, remat=True {_spread(ms[True])}; peak "
+              f"memory ratio {peak[True] / peak[False]:.3f}", flush=True)
+        del models, grads
+        torch.cuda.empty_cache()
+    return total
+
+
+CROSSOVER_LENGTHS = (128, 256, 512, 1024, 2048, 4096)
+
+
+def phase_crossover(stt, torch, dev, wrappers):
+    """The xla and flash layouts of the driver's widths (b=4, h=512, 8
+    heads, ffn 2048; 2 layers), forward and forward + backward, in turns
+    at each length: the readings behind ``_XLA_FLASH_CROSSOVER``."""
+    from sputnik_tpu_torch.models import transformer as ttr
+
+    print(f"phase 3n: the auto crossover — driver widths, 2 layers, xla vs "
+          f"flash at s in {CROSSOVER_LENGTHS}, 3 turns each", flush=True)
+    total = {k: 0 for k in wrappers}
+    rows = []
+    for s in CROSSOVER_LENGTHS:
+        models = {"xla": _driver_model(torch, dev, s, layers=2,
+                                       attention_layout="xla")}
+        models["flash"] = _driver_model(torch, dev, s, layers=2)
+        g = torch.Generator().manual_seed(42)
+        x = torch.randn(4, s, 512, generator=g).to(dev)
+
+        def fwd(m):
+            with torch.no_grad():
+                m(x)
+
+        def step(m):
+            m.zero_grad(set_to_none=True)
+            m(x).square().mean().backward()
+
+        for m in models.values():
+            step(m)
+        got = {(k, w): [] for k in models for w in ("fwd", "step")}
+        for turn in range(3):
+            for k in (("xla", "flash") if turn % 2 == 0
+                      else ("flash", "xla")):
+                got[(k, "fwd")].append(_time_ms(lambda: fwd(models[k]),
+                                                reps=3, inner=3, warmup=1))
+                got[(k, "step")].append(_time_ms(lambda: step(models[k]),
+                                                 reps=3, inner=2, warmup=1))
+        med = {key: statistics.median(v) for key, v in got.items()}
+        rows.append((s, med))
+        print(f"  s={s}: forward xla {_spread(got[('xla', 'fwd')])} ms, "
+              f"flash {_spread(got[('flash', 'fwd')])} ms; forward + "
+              f"backward xla {_spread(got[('xla', 'step')])} ms, flash "
+              f"{_spread(got[('flash', 'step')])} ms", flush=True)
+        del models
+        torch.cuda.empty_cache()
+    # the least length from which flash is no slower, forward and step
+    cross = None
+    for s, med in reversed(rows):
+        if (med[("flash", "fwd")] <= med[("xla", "fwd")]
+                and med[("flash", "step")] <= med[("xla", "step")]):
+            cross = s
+        else:
+            break
+    print(f"  crossover read here: "
+          f"{cross if cross is not None else 'none tested'}; the package's "
+          f"_XLA_FLASH_CROSSOVER = {ttr._XLA_FLASH_CROSSOVER}", flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     """No arguments: every phase, then the kernels' JSON line and the
     device line. ``--only NAME[,NAME]`` runs just the named phase functions
@@ -5537,13 +5984,18 @@ def main(argv=None) -> int:
                     "softmax_kernel": lambda w, m: (m,),
                     "softmax_routes": lambda w, m: (m,),
                     "flat_path": lambda w, m: (m, w)}
+        ctx = None          # phase_serving's model, for the phases after it
         for name in only:
             fn = globals()[f"phase_{name}"]
             extra = (mat_args[name](*_bench_matrix(stt)) if name in mat_args
                      else ())
-            fn(stt, torch, dev, wrappers if name.endswith(
-                ("_path", "_train", "_serving", "_repair")) else kres,
-               *extra)
+            if name in ("paged_serving", "graph_decode"):
+                extra = (ctx,)
+            out = fn(stt, torch, dev, wrappers if name.endswith(
+                ("_path", "_train", "serving", "_repair", "graph_decode",
+                 "remat", "crossover")) else kres, *extra)
+            if name == "serving":
+                ctx = out[1]
         print(f"chip_smoke: --only {','.join(only)} done", flush=True)
         return 0
     phase_kernels(stt, torch, dev, kres)
@@ -5561,14 +6013,19 @@ def main(argv=None) -> int:
     train = phase_train(stt, torch, dev, wrappers)
     serve, ctx = phase_serving(stt, torch, dev, wrappers)
     paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
+    graph, _ = phase_graph_decode(stt, torch, dev, wrappers, ctx)
+    del ctx
+    remat = phase_remat(stt, torch, dev, wrappers)
+    cross = phase_crossover(stt, torch, dev, wrappers)
     moe = phase_moe_train(stt, torch, dev, wrappers)
     flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
     int8 = phase_int8_path(stt, torch, dev, wrappers)
     comp = phase_compressed_path(stt, torch, dev, wrappers)
     ring = phase_ring_path(stt, torch, dev, wrappers)
     halo = phase_halo_path(stt, torch, dev, wrappers)
-    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + moe[n] + flat[n]
-                + int8[n] + comp[n] + ring[n] + halo[n] for n in wrappers}
+    launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + graph[n]
+                + remat[n] + cross[n] + moe[n] + flat[n] + int8[n] + comp[n]
+                + ring[n] + halo[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

@@ -5,12 +5,15 @@ Builds a sparse transformer (causal masks), prefills a prompt through the
 sparse-flash kernel while filling every layer's block KV cache, then
 decodes one token at a time through the decode-attention kernel
 (``SparseDecoder.decode_loop``). Prints the prefill time and the decode
-time per token. The full config is the JAX example's (b=4, P=2048,
+time per token; on the card every decode step after the first two is one
+CUDA graph replay. The full config is the JAX example's (b=4, P=2048,
 h=1024, 8 heads, 6 layers, ffn 4096, bk=1024); ``--small`` is a CPU smoke
-config. ``--device`` never falls back by itself.
+config. ``--bf16-params`` serves bf16-stored weights
+(``SparseDecoder.cast_params``). ``--device`` never falls back by itself.
 
 Run:  python -m sputnik_tpu_torch.examples.generate [--small] [--int8]
-          [--kv-heads K] [--window W] [--tokens N] [--device cuda]
+          [--bf16-params] [--kv-heads K] [--window W] [--tokens N]
+          [--device cuda]
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ def main(argv=None):
                     help="tiny config for CPU smoke runs")
     ap.add_argument("--int8", action="store_true",
                     help="int8 KV cache (half the decode bytes of bf16)")
+    ap.add_argument("--bf16-params", action="store_true",
+                    help="serve with bf16-stored weights (half the weight "
+                         "bytes a token reads)")
     ap.add_argument("--kv-heads", type=int, default=0,
                     help="grouped-query attention: KV heads (0 = MHA)")
     ap.add_argument("--window", type=int, default=0,
@@ -67,6 +73,8 @@ def main(argv=None):
         model, s_max=P + n_new, bk=bk, window=args.window or None,
         sinks=1 if args.window else 0,
         cache_dtype=torch.int8 if args.int8 else torch.bfloat16)
+    if args.bf16_params:
+        SparseDecoder.cast_params(model)
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(b, P, h).astype(np.float32) * 0.3
                          ).to(device)
@@ -89,6 +97,8 @@ def main(argv=None):
     dt = (time.perf_counter() - t0) / n_new
 
     kv = "int8" if args.int8 else "bf16"
+    if args.bf16_params:
+        kv += "+bf16w"
     if args.kv_heads:
         kv += f"+gqa{args.kv_heads}"
     win = f"window={args.window}" if args.window else "causal"

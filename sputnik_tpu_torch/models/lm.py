@@ -11,9 +11,10 @@
     ``categorical`` is Gumbel-max too, but the two random streams differ,
     so only greedy decoding matches the JAX package token for token.
   * ``LMServer``: token-in / token-out generation over ``SparseDecoder``
-    (or ``PagedDecoder`` with ``n_pages=``); ``generate`` runs eagerly
-    (prefill, then a Python loop of decode steps with in-loop sampling,
-    all on the device).
+    (or ``PagedDecoder`` with ``n_pages=``); ``generate`` runs the prefill,
+    then one decode step a token, with the sampling between steps, all on
+    the device. On a CUDA device the steps after the first replay one
+    captured CUDA graph (``_step_graph.py``).
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .serving import SparseDecoder
+from ._step_graph import StepRunner
+from .serving import SparseDecoder, _layernorm
 from .serving_paged import PagedDecoder
-from .transformer import SparseTransformer, _linear
+from .transformer import SparseTransformer, _dense, _linear
 
 __all__ = ["SparseLM", "LMServer", "sample_logits",
            "apply_repetition_penalty"]
@@ -75,11 +77,14 @@ class SparseLM(nn.Module):
                    generator=generator, device=device)
 
     def head(self, x):
-        """Final LayerNorm + LM head on activations ``x [..., h]``."""
-        x = self.ln_f(x)
+        """Final LayerNorm + LM head on activations ``x [..., h]``. Weights
+        stored in another dtype (``SparseDecoder.cast_params``) meet ``x``
+        in the promoted dtype, as in JAX."""
+        x = _layernorm(self.ln_f, x)
         if self.tie_embeddings:
-            return F.linear(x, self.embed.weight)
-        return self.lm_head(x)
+            w = self.embed.weight
+            return F.linear(x, w.to(torch.promote_types(x.dtype, w.dtype)))
+        return _dense(self.lm_head, x)
 
     def forward(self, tokens):
         return self.head(self.core(self.embed(tokens)))
@@ -203,7 +208,14 @@ class LMServer:
         position and decode runs the ragged step. ``repetition_penalty``
         (HF semantics) penalises every token present so far (prompt and
         generated), greedy decoding included. The sampled token of the last
-        step is returned but never decoded."""
+        step is returned but never decoded.
+
+        On a CUDA device the first decode step runs eagerly, the second is
+        captured as a CUDA graph (from the token's embedding to the head's
+        logits), and each later token replays it; sampling stays outside
+        the graph, so a given generator draws the same tokens as eager
+        steps do. Every page is reserved before the loop (paged servers),
+        which the graph needs. A failed capture raises."""
         if n_new < 1:
             raise ValueError(f"n_new must be >= 1, got {n_new}")
         if temperature != 0.0 and generator is None:
@@ -254,8 +266,8 @@ class LMServer:
             step = self.decode_step_ragged
         tok, done, present = pick(self.lm.head(last), done, present)
         out = [tok]
+        run = StepRunner(step, caches, self.decoder.graph_pool)
         for _ in range(n_new - 1):
-            logits, caches = step(tok, caches)
-            tok, done, present = pick(logits, done, present)
+            tok, done, present = pick(run(tok), done, present)
             out.append(tok)
-        return torch.stack(out, dim=1), caches
+        return torch.stack(out, dim=1), run.caches

@@ -14,8 +14,13 @@ under ``torch.no_grad``: serving never differentiates. ``PagedDecoder``
 (``serving_paged.py``) keeps this prefill and overrides its two cache
 hooks, ``_prefill_setup`` and ``_prefill_write``.
 
-Not ported yet: ``cast_params`` (bf16-stored weights) and the
-tensor-parallel ``reduce_fn`` hook (ROADMAP A5, A9).
+``cast_params`` stores a model's weights in bf16 for serving, in place;
+the layers then compute as JAX's serving math does on such weights: an f32
+activation meets a bf16 weight's exact f32 values (``transformer._dense``).
+``decode_loop`` (and ``LMServer.generate``, ``models/lm.py``) replay one
+captured CUDA graph a token on a CUDA device (``_step_graph.py``); the
+single-step methods stay eager. Not ported yet: the tensor-parallel
+``reduce_fn`` hook (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -24,15 +29,34 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops.decode import (KVCache, QPAD, append_kv, append_kv_seq,
                           decode_attention, decode_block_table, init_kv_cache,
                           prefill_kv)
 from ..ops.fused_attention import fused_sparse_attention, warm_flash_meta
 from ..ops.kernels.flash_sparse import KERNEL_TILE
-from .transformer import SparseTransformer, cached_batched_spec
+from ._step_graph import GraphPool, StepRunner
+from .transformer import (_LN_EPS, SparseTransformer, _dense,
+                          cached_batched_spec)
 
 __all__ = ["SparseDecoder"]
+
+
+def _layernorm(ln, x):
+    """``ln`` (``nn.LayerNorm`` or ``nn.Identity``) on ``x``. An activation
+    narrower than the f32 LayerNorm (a bf16 embedding after
+    ``cast_params``) follows JAX's ``_layernorm`` as XLA compiles it: the
+    mean, the centred values and ``sqrt(var + eps)`` round to the
+    activation's dtype, the quotient stays f32 and meets the f32 scale."""
+    if isinstance(ln, nn.Identity) or x.dtype == ln.weight.dtype:
+        return ln(x)
+    dt, xf = x.dtype, x.float()
+    mu = xf.mean(-1, keepdim=True).to(dt)
+    var = xf.var(-1, unbiased=False, keepdim=True).to(dt)
+    den = torch.sqrt((var.float() + _LN_EPS).to(dt).float()).to(dt)
+    y = (x - mu).float() / den.float()
+    return y * ln.weight + ln.bias
 
 
 class SparseDecoder:
@@ -80,10 +104,30 @@ class SparseDecoder:
         # of the metadata shared with the model's forward
         self.spec = cached_batched_spec(model.mask_topology, model.num_heads,
                                         KERNEL_TILE, KERNEL_TILE)
+        # the memory pool of this decoder's step graphs (decode_loop and
+        # LMServer.generate capture one a call)
+        self.graph_pool = GraphPool()
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    # -- params ------------------------------------------------------------
+
+    @staticmethod
+    def cast_params(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+        """Store ``module``'s weights in ``dtype`` for serving (bf16 halves
+        the weight bytes a decode step reads), IN PLACE, and return it.
+        ``module`` is a ``SparseTransformer`` or a ``SparseLM`` (its
+        embedding and an untied head too). Parameters under a name that
+        starts with ``ln_`` (the LayerNorms) stay f32, as in JAX. The
+        decoders then compute JAX's promotion: the f32 activations meet the
+        weights' exact values in f32 products. The training forward is not
+        meant to run cast weights."""
+        for name, p in module.named_parameters():
+            if not any(part.startswith("ln_") for part in name.split(".")):
+                p.data = p.data.to(dtype)
+        return module
 
     # -- cache management --------------------------------------------------
 
@@ -102,7 +146,7 @@ class SparseDecoder:
         ``SparseSelfAttention.forward`` splits it."""
         b, s, _ = x.shape
         heads, kv, hd = self.model.num_heads, self.kv_heads, self.hd
-        qkv = layer.self_attention.query_key_value(x)
+        qkv = _dense(layer.self_attention.query_key_value, x)
         if kv == heads:
             return qkv.reshape(b, s, heads, 3 * hd).split(hd, dim=-1)
         q = qkv[..., : heads * hd].reshape(b, s, heads, hd)
@@ -126,10 +170,10 @@ class SparseDecoder:
     def _block(self, layer, x, attn_fn: Callable):
         """One transformer layer around the attention body ``attn_fn(q, k,
         v) -> [b, s, h]``; returns ``(y, (k, v))``."""
-        q, k, v = self._qkv(layer, layer.ln_attn(x))
-        attn = layer.self_attention.dense(attn_fn(q, k, v))
+        q, k, v = self._qkv(layer, _layernorm(layer.ln_attn, x))
+        attn = _dense(layer.self_attention.dense, attn_fn(q, k, v))
         x = x + attn if layer.use_residual else attn
-        mlp = layer.mlp(layer.ln_mlp(x))
+        mlp = layer.mlp(_layernorm(layer.ln_mlp, x))
         return (x + mlp if layer.use_residual else mlp), (k, v)
 
     # -- prefill -------------------------------------------------------------
@@ -288,14 +332,27 @@ class SparseDecoder:
     @torch.no_grad()
     def decode_loop(self, x_tok, caches: Sequence[KVCache], n_tokens: int,
                     next_input=None):
-        """``n_tokens`` decode steps in a Python loop. ``next_input(y) -> x``
-        maps a step's output to the next input (identity by default).
-        Returns ``(ys [n_tokens, b, 1, h], caches)``."""
+        """``n_tokens`` uniform decode steps. ``next_input(y) -> x`` maps a
+        step's output to the next input (identity by default; it runs
+        outside the graph). Returns ``(ys [n_tokens, b, 1, h], caches)``.
+
+        On a CUDA device the first step runs eagerly, the second is
+        captured as a CUDA graph and every later step replays it
+        (``_step_graph.StepRunner``): one host launch a token.
+        The graph keeps the caches' page tables as captured, so a paged
+        decoder's ``reserve(caches, n_tokens)`` comes first and no host
+        scheduler step (``reserve``, ``release``, ``share_prefix``,
+        ``insert_kv_slot``) may run inside the loop. A failed capture
+        raises. CPU tensors run the same steps eagerly."""
+        if n_tokens < 1:
+            raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
         nxt = next_input or (lambda y: y)
-        ys = []
-        caches = tuple(caches)
-        for _ in range(n_tokens):
-            y, caches = self.decode_step(x_tok, caches)
-            ys.append(y)
+        run = StepRunner(self.decode_step, caches, self.graph_pool)
+        ys = None
+        for i in range(n_tokens):
+            y = run(x_tok)
+            if ys is None:
+                ys = y.new_empty((n_tokens,) + tuple(y.shape))
+            ys[i].copy_(y)
             x_tok = nxt(y)
-        return torch.stack(ys), caches
+        return ys, run.caches

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import many_mask as mm
 from ..ops.batched_panel import (BatchedPanelSpec, sddmm_bh, spmm_bh,
@@ -42,14 +43,44 @@ __all__ = [
     "SparseTransformer",
     "cached_batched_spec",
     "dense_masks_for",
+    "divide",
+    "split_tensor_along_last_dim",
 ]
 
-_NOT_PORTED = {
-    "auto": "the xla/flash crossover, to be re-measured on the H100 "
-            "(ROADMAP A3)",
-}
-_LAYOUTS = ("flash", "xla", "panel", "csr")
+_LAYOUTS = ("flash", "xla", "panel", "csr", "auto")
 _LN_EPS = 1e-6   # flax nn.LayerNorm's default
+# sequence length at which layout="auto" leaves the dense-masked xla layout
+# for the flash kernels, on every device: the least tested length from
+# which flash was no slower, forward and forward + backward, in the
+# medians of five runs of chip_smoke.py's sweep (phase 3n: the driver's
+# widths, b=4, h=512, 8 heads, 2 layers, s = 128 ... 4096) on an H100 80GB
+# HBM3 at 700 W; single runs read 128 to 1024. Below it both layouts are
+# host-bound and level within their spread.
+_XLA_FLASH_CROSSOVER = 512
+
+
+def _dense(lin: nn.Linear, x):
+    """``lin`` on ``x`` as JAX applies a Dense: activation and weight meet
+    in their promoted dtype, so an f32 activation and bf16-stored weights
+    (``SparseDecoder.cast_params``) give an f32 product of the weights'
+    exact values; where the dtypes agree it is ``lin(x)``."""
+    dt = torch.promote_types(x.dtype, lin.weight.dtype)
+    b = None if lin.bias is None else lin.bias.to(dt)
+    return F.linear(x.to(dt), lin.weight.to(dt), b)
+
+
+def divide(numerator: int, denominator: int) -> int:
+    """Exact division, raising ``ValueError`` when it is not."""
+    if numerator % denominator != 0:
+        raise ValueError(f"{numerator} is not divisible by {denominator}")
+    return numerator // denominator
+
+
+def split_tensor_along_last_dim(tensor, num_partitions: int):
+    """Split the last dimension into ``num_partitions`` equal chunks
+    (``torch.split`` views); ``ValueError`` when it does not divide."""
+    return torch.split(tensor, divide(tensor.shape[-1], num_partitions),
+                       dim=-1)
 
 
 def _linear(fan_in: int, fan_out: int, generator, device,
@@ -94,19 +125,20 @@ def dense_masks_for(mt: mm.ManyMaskTopology, device) -> torch.Tensor:
 class SparseCoreAttention(nn.Module):
     """Masked softmax attention with per-batch masks (no parameters). The
     flash and panel layouts tile the masks at 64 x 64 and share one
-    ``BatchedPanelSpec``."""
+    ``BatchedPanelSpec``. ``layout="auto"`` runs ``"xla"`` below
+    ``_XLA_FLASH_CROSSOVER`` tokens, ``"flash"`` from there on.
+    ``flash_stream`` (``None`` or ``"bf16"``) is a TPU-only switch of the
+    JAX package: accepted, not checked, and without effect here."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, num_heads: int,
-                 layout: str = "flash"):
+                 layout: str = "flash", flash_stream: Optional[str] = None):
         super().__init__()
-        if layout in _NOT_PORTED:
-            raise NotImplementedError(
-                f"layout={layout!r} is not ported yet — {_NOT_PORTED[layout]}")
         if layout not in _LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}")
         self.mask_topology = mask_topology
         self.num_heads = num_heads
         self.layout = layout
+        self.flash_stream = flash_stream
 
     def forward(self, q, k, v):
         """q: ``[b, s, heads, head_dim]``; k, v: same, or with fewer
@@ -121,7 +153,10 @@ class SparseCoreAttention(nn.Module):
         if kv == 0 or h % kv:
             raise ValueError(f"kv heads {kv} must divide heads {h}")
         scale = 1.0 / float(np.sqrt(hd))
-        if self.layout == "xla":
+        layout = self.layout
+        if layout == "auto":
+            layout = "xla" if s < _XLA_FLASH_CROSSOVER else "flash"
+        if layout == "xla":
             if kv != h:
                 k = k.repeat_interleave(h // kv, dim=2)
                 v = v.repeat_interleave(h // kv, dim=2)
@@ -136,7 +171,7 @@ class SparseCoreAttention(nn.Module):
             return x.transpose(1, 2).reshape(b * x.shape[2], s, hd)
 
         spec = cached_batched_spec(mt, h, KERNEL_TILE, KERNEL_TILE)
-        if self.layout == "flash":
+        if layout == "flash":
             # GQA native in the kernel: query replicas read their KV replica
             warm_flash_meta(spec, q.device, backward=torch.is_grad_enabled(),
                             hd=hd)
@@ -148,7 +183,7 @@ class SparseCoreAttention(nn.Module):
                 k = k.repeat_interleave(h // kv, dim=2)
                 v = v.repeat_interleave(h // kv, dim=2)
             q3, k3, v3 = fold(q), fold(k), fold(v)
-            if self.layout == "panel":
+            if layout == "panel":
                 w = sparse_softmax_bh(spec, sddmm_bh(spec, q3, k3) * scale)
                 ctx = spmm_bh(spec, w, v3)
             else:
@@ -164,7 +199,8 @@ class SparseSelfAttention(nn.Module):
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, hidden_size: int,
                  num_heads: int, num_kv_heads: Optional[int] = None,
-                 attention_layout: str = "flash", *,
+                 attention_layout: str = "flash",
+                 flash_stream: Optional[str] = None, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if hidden_size % num_heads:
@@ -179,7 +215,7 @@ class SparseSelfAttention(nn.Module):
         self.query_key_value = _linear(hidden_size, (num_heads + 2 * kv) * hd,
                                        generator, device)
         self.core = SparseCoreAttention(mask_topology, num_heads,
-                                        attention_layout)
+                                        attention_layout, flash_stream)
         self.dense = _linear(hidden_size, hidden_size, generator, device)
 
     def forward(self, x):
@@ -213,12 +249,12 @@ class MLP(nn.Module):
         self.to_h = _linear(ffn_hidden_size, hidden_size, generator, device)
 
     def forward(self, x):
-        y = self.to_4h(x)
+        y = _dense(self.to_4h, x)
         if self.activation == "gelu":
             y = F.gelu(y, approximate="tanh")
         elif self.activation == "relu":
             y = F.relu(y)
-        return self.to_h(y)
+        return _dense(self.to_h, y)
 
 
 class TransformerLayer(nn.Module):
@@ -233,7 +269,8 @@ class TransformerLayer(nn.Module):
                  activation: Optional[str] = None, use_residual: bool = False,
                  use_layernorm: bool = False,
                  attention_layout: str = "flash",
-                 moe: Optional[dict] = None, *,
+                 moe: Optional[dict] = None,
+                 flash_stream: Optional[str] = None, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.use_residual = use_residual
@@ -245,7 +282,8 @@ class TransformerLayer(nn.Module):
         self.ln_attn = ln()
         self.self_attention = SparseSelfAttention(
             mask_topology, hidden_size, num_heads, num_kv_heads,
-            attention_layout, generator=generator, device=device)
+            attention_layout, flash_stream, generator=generator,
+            device=device)
         self.ln_mlp = ln()
         if moe is not None:
             from .moe import SparseMoE
@@ -269,7 +307,15 @@ class SparseTransformer(nn.Module):
     ``topo_out``, ``num_experts``, ...) with ``moe_every = k`` makes layers
     ``k-1, 2k-1, ...`` MoE layers, each with its own router and expert
     values (k = 2 is the Switch default). ``aux_loss()`` sums their router
-    aux losses of the last forward. Serving decoders reject MoE models."""
+    aux losses of the last forward. Serving decoders reject MoE models.
+
+    ``remat=True`` runs each layer under ``torch.utils.checkpoint`` (the
+    non-reentrant form) while grad is enabled: its activations are
+    recomputed in the backward instead of stored, one more forward of
+    work for memory that no longer grows with the layers' activations.
+    The parameters, and so state dicts, are the same in both modes; a MoE
+    layer's aux loss keeps its gradient (the recompute sets the same
+    ``aux_loss`` / ``last_experts`` again)."""
 
     def __init__(self, mask_topology: mm.ManyMaskTopology, num_layers: int,
                  hidden_size: int, num_heads: int, ffn_hidden_size: int,
@@ -277,7 +323,8 @@ class SparseTransformer(nn.Module):
                  activation: Optional[str] = None, use_residual: bool = False,
                  use_layernorm: bool = False,
                  attention_layout: str = "flash",
-                 moe: Optional[dict] = None, moe_every: int = 0, *,
+                 moe: Optional[dict] = None, moe_every: int = 0,
+                 flash_stream: Optional[str] = None, remat: bool = False, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         if moe_every and moe is None:
@@ -286,13 +333,15 @@ class SparseTransformer(nn.Module):
         self.num_layers, self.hidden_size = num_layers, hidden_size
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.attention_layout, self.moe_every = attention_layout, moe_every
+        self.flash_stream, self.remat = flash_stream, remat
         self.layers = nn.ModuleList([
             TransformerLayer(mask_topology, hidden_size, num_heads,
                              ffn_hidden_size, num_kv_heads, activation,
                              use_residual, use_layernorm, attention_layout,
                              moe if (moe_every and i % moe_every
                                      == moe_every - 1) else None,
-                             generator=generator, device=device)
+                             flash_stream, generator=generator,
+                             device=device)
             for i in range(num_layers)])
 
     @classmethod
@@ -303,7 +352,10 @@ class SparseTransformer(nn.Module):
 
     def forward(self, x):
         for layer in self.layers:
-            x = layer(x)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x)
         return x
 
     def aux_loss(self) -> torch.Tensor:

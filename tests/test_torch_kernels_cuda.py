@@ -2716,3 +2716,212 @@ def test_flash_dkv_tc_same_bits_and_never_plain(dev, hd, group, split,
     rk = heads // group                           # first KV replica of b=1
     assert torch.all(got[0][rk:, dead] == 0) and torch.all(
         got[1][rk:, dead] == 0)
+
+
+# -- one CUDA graph replay a decode token; remat on the card ---------------
+
+def _tiny_lm(dev, kv_heads=None, seed=31):
+    from sputnik_tpu_torch.models import SparseLM
+
+    P = 128
+    masks = np.broadcast_to(np.tril(np.ones((P, P), np.float32)),
+                            (2, P, P)).copy()
+    return SparseLM.from_masks(
+        masks, vocab_size=211, num_layers=2, hidden_size=64, num_heads=4,
+        num_kv_heads=kv_heads, ffn_hidden_size=96, use_residual=True,
+        use_layernorm=True, activation="gelu",
+        generator=torch.Generator().manual_seed(seed)).eval().to(dev)
+
+
+_GRAPH_ROUTES = {  # name -> (cache dtype, n_pages, prompt lengths)
+    "uniform": (torch.bfloat16, None, None),
+    "ragged": (torch.bfloat16, None, [128, 100]),
+    "paged": (torch.bfloat16, 20, None),
+    "int8": (torch.int8, None, None),
+}
+
+
+def _graph_server(dev, route, lm=None):
+    from sputnik_tpu_torch.models import LMServer
+
+    dtype, pages, lens = _GRAPH_ROUTES[route]
+    lm = lm if lm is not None else _tiny_lm(dev)
+    return LMServer(lm, s_max=256, bk=128, cache_dtype=dtype,
+                    n_pages=pages), lens
+
+
+def _eager_generate(srv, tokens, n_new, lens=None, gen=None, **samp):
+    """``LMServer.generate``'s loop from the public single-step calls,
+    every step eager (no repetition penalty, no EOS)."""
+    from sputnik_tpu_torch.models import sample_logits
+
+    samp.setdefault("temperature", 0.0)       # generate's default: greedy
+    b, P = tokens.shape
+    with torch.no_grad():
+        caches = srv.init_caches(b)
+        if hasattr(srv.decoder, "reserve"):
+            caches = srv.decoder.reserve(caches, P + n_new)
+        lt = None if lens is None else torch.as_tensor(
+            lens, device=tokens.device).long()
+        y, caches = srv.decoder.prefill(srv.lm.embed(tokens), caches,
+                                        lengths=lt)
+        last = y[:, -1] if lt is None else y[torch.arange(b), lt - 1]
+        tok = sample_logits(srv.lm.head(last), gen, **samp)
+        out = [tok]
+        step = srv.decode_step if lt is None else srv.decode_step_ragged
+        for _ in range(n_new - 1):
+            logits, caches = step(tok, caches)
+            tok = sample_logits(logits, gen, **samp)
+            out.append(tok)
+    return torch.stack(out, 1), caches
+
+
+def _route_kernels(srv):
+    from sputnik_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_kernel)
+    from sputnik_tpu_torch.ops.kernels.paged_append import (
+        paged_append_kernel)
+    from sputnik_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_kernel)
+    from sputnik_tpu_torch.ops.kernels.ragged_append import (
+        ragged_append_kernel)
+
+    if hasattr(srv.decoder, "reserve"):
+        return paged_attention_kernel, paged_append_kernel
+    return decode_attention_kernel, ragged_append_kernel
+
+
+@pytest.mark.parametrize("route", list(_GRAPH_ROUTES))
+def test_generate_graph_equals_eager_steps(dev, route):
+    """generate on the card replays one captured graph a token: greedy and
+    sampled (T = 0.8, top_k = 8, one generator seed) tokens and the
+    caches' lengths bit-equal to an eager loop of the public steps; the
+    wrappers count the warm-up step and the capture only (2 a layer)."""
+    srv, lens = _graph_server(dev, route)
+    P, n = 128, 24
+    tokens = torch.from_numpy(np.random.RandomState(32).randint(
+        0, 211, (2, P))).to(dev)
+    attn, append = _route_kernels(srv)
+    for samp in ({}, dict(temperature=0.8, top_k=8)):
+        gen = torch.Generator(device=dev) if samp else None
+        seed = (lambda: gen.manual_seed(9)) if samp else (lambda: None)
+        want, wc = _eager_generate(srv, tokens, n, lens, seed(), **samp)
+        a0, p0 = attn.launches, append.launches
+        got, gc = srv.generate(tokens, n, seed(), prompt_lengths=lens,
+                               **samp)
+        torch.cuda.synchronize()
+        assert attn.launches - a0 == 2 * 2 and append.launches - p0 == 2 * 2
+        assert torch.equal(got, want), (route, samp)
+        for c, w in zip(gc, wc):
+            assert torch.equal(c.kv_len, w.kv_len)
+            assert torch.equal(c.k, w.k) and torch.equal(c.v, w.v)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_loop_graph_equals_eager_steps(dev, paged):
+    """decode_loop's ys bit-equal to a loop of decode_step, next_input
+    applied outside the graph; the caches advance to the same lengths."""
+    from sputnik_tpu_torch.models import PagedDecoder, SparseDecoder
+
+    core = _tiny_lm(dev).core
+    kw = dict(s_max=256, bk=128, cache_dtype=torch.bfloat16)
+    dec = PagedDecoder(core, n_pages=20, **kw) if paged else \
+        SparseDecoder(core, **kw)
+    x = torch.from_numpy(np.random.RandomState(33).randn(
+        2, 128, 64).astype(np.float32)).to(dev)
+    n = 20
+
+    def fresh():
+        caches = dec.init_caches(2)
+        if paged:
+            caches = dec.reserve(caches, 128 + n)
+        y, caches = dec.prefill(x, caches)
+        return y[:, -1:], caches
+
+    def nxt(y):
+        return torch.tanh(y) * 0.5
+
+    tok, caches = fresh()
+    want = []
+    for _ in range(n):
+        y, caches = dec.decode_step(tok, caches)
+        want.append(y)
+        tok = nxt(y)
+    tok, caches_g = fresh()
+    ys, caches_g = dec.decode_loop(tok, caches_g, n, next_input=nxt)
+    assert ys.shape == (n, 2, 1, 64)
+    assert torch.equal(ys, torch.stack(want))
+    for c, w in zip(caches_g, caches):
+        assert torch.equal(c.kv_len, w.kv_len)
+
+
+def test_second_generate_leaves_earlier_caches_alone(dev):
+    """Each call captures into its own caches: a second generate (another
+    prompt) leaves the first call's returned caches bit-unchanged."""
+    srv, _ = _graph_server(dev, "uniform")
+    rng = np.random.RandomState(34)
+    t1, t2 = (torch.from_numpy(rng.randint(0, 211, (2, 128))).to(dev)
+              for _ in range(2))
+    _, c1 = srv.generate(t1, 16)
+    keep = [c.clone() for c in c1]
+    _, c2 = srv.generate(t2, 16)
+    torch.cuda.synchronize()
+    for c, k in zip(c1, keep):
+        for a, b in zip(dataclasses.astuple(c), dataclasses.astuple(k)):
+            assert torch.equal(a, b)
+    assert c2[0].k.data_ptr() != c1[0].k.data_ptr()
+
+
+def test_generate_capture_failure_raises(dev, monkeypatch):
+    """A step that cannot be captured (a host sync) raises from generate;
+    nothing falls back to eager steps, and the next call serves."""
+    srv, _ = _graph_server(dev, "uniform")
+    tokens = torch.from_numpy(np.random.RandomState(35).randint(
+        0, 211, (2, 128))).to(dev)
+    step = srv.decode_step
+    calls = []
+
+    def syncing(tok, caches):
+        out = step(tok, caches)
+        calls.append(float(out[0].sum().item()))   # a sync: not capturable
+        return out
+
+    monkeypatch.setattr(srv, "decode_step", syncing)
+    with pytest.raises(RuntimeError):
+        srv.generate(tokens, 8)
+    assert len(calls) == 1                 # the eager warm-up only
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    got, _ = srv.generate(tokens, 8)       # the card still serves
+    want, _ = _eager_generate(srv, tokens, 8)
+    assert torch.equal(got, want)
+
+
+def test_remat_gradients_match_on_the_card(dev):
+    """SparseTransformer(remat=True) on the flash kernels: gradients within
+    1e-4 x max(1, max|ref|) of remat=False (B10a's dk / dv atomics rule
+    out equal bits), B9 called twice a layer."""
+    from sputnik_tpu_torch.models import SparseTransformer
+
+    masks = driver_masks(2, 256)
+    cfg = dict(num_layers=2, hidden_size=128, num_heads=4,
+               ffn_hidden_size=256, use_residual=True, use_layernorm=True,
+               activation="gelu")
+    ref_m = SparseTransformer.from_masks(
+        masks, generator=torch.Generator().manual_seed(36), **cfg).to(dev)
+    rem = SparseTransformer.from_masks(masks, remat=True, **cfg).to(dev)
+    rem.load_state_dict(ref_m.state_dict())
+    rng = np.random.RandomState(37)
+    x = torch.from_numpy(rng.randn(2, 256, 128).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(2, 256, 128).astype(np.float32)).to(dev)
+    grads = []
+    for m in (ref_m, rem):
+        before = fs.flash_sparse_attention_fwd.launches
+        (m(x) * g).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(({n: p.grad for n, p in m.named_parameters()},
+                      fs.flash_sparse_attention_fwd.launches - before))
+    (g0, n0), (g1, n1) = grads
+    assert (n0, n1) == (2, 4)
+    for n in g0:
+        _close(g1[n], g0[n])

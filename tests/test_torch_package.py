@@ -35,6 +35,9 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.examples.train_sparse_transformer, "
              "sputnik_tpu_torch.examples.generate, "
              "sputnik_tpu_torch.examples.serve_paged, "
+             "sputnik_tpu_torch.examples.serve_continuous, "
+             "sputnik_tpu_torch.examples.serve_speculative, "
+             "sputnik_tpu_torch.models._step_graph, "
              "sputnik_tpu_torch.examples.train_moe_transformer, "
              "sputnik_tpu_torch.models.moe, "
              "sputnik_tpu_torch.ops.paged, "
