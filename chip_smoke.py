@@ -159,6 +159,25 @@ Phases, each printing its lines:
      n. the auto crossover: the driver's widths at 2 layers, the xla and
         flash layouts at s = 128 ... 4096, forward and forward + backward
         in turns: the readings behind _XLA_FLASH_CROSSOVER;
+     o. the sharded panel ops: sharded_spmm forward + backward at bench.py's
+        4096^3 d=0.1 on 1 and 8 shards (B1, B4, B3 a shard) against
+        stt.panel.spmm on the same topology and tiles, in turns (the seam's
+        cost); sparse_attention_sharded and its compressed twin (B4 / B14,
+        B5 / B15a + B15b, B1 / B13a, B3 / B13b a shard) on a +-256 window
+        of 32768 (hd = 64) and the skewed 4096^2 pattern, 8 shards, timed;
+     p. sharded flash attention at benchmarks/scaling.py's attention
+        problem (s = 32768, +-256 window, R = 4, hd = 64, 8 shards):
+        flash_attention_sharded at group 1 and 2 (B9, B10a a shard, the dk
+        / dv psums) and once on the two-kernel route (B10b + B10c), and
+        flash_attention_kv_sharded with the interior / halo split (B9 x 2 a
+        shard, B10b + B10c by the budget) and without (B9, B10a), group 1
+        and 2; the branch and halo rows printed; timed in turns against
+        fused_sparse_attention unsharded;
+     q. examples/train_seq_parallel.py at its full config (8 shards of
+        s = 16384, hd 64, R 4: the kv-sharded split over a 2048 window and
+        the natural ring, 4 SGD steps each, its self-checks), then
+        dryrun_sp at 4, 6, 8 and 16 shards (every sequence-parallel path's
+        gradient, DRYRUN_COMM, both halos ragged) against the CPU's losses;
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -169,7 +188,8 @@ Phases, each printing its lines:
      attention_qat(backward="int8") gradients under
      set_backend("pallas"); the compressed chain's output and gradients;
      the ring's output and gradients, also against dense causal attention
-     on the card; the halo SpMM's, banded also against the dense product),
+     on the card; the halo SpMM's, banded also against the dense product;
+     every sharded path of o and p at full size),
      and the forward / training-step / prefill /
      decode times and peak device memory.
 It prints one JSON line of per-kernel results, then, last, the device line
@@ -181,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import itertools
 import json
 import statistics
@@ -5930,6 +5951,311 @@ def phase_crossover(stt, torch, dev, wrappers):
     return total
 
 
+# -- the rest of the sequence-parallel op family --------------------------
+
+# benchmarks/scaling.py's attention problem: s = 32768, a +-256 window,
+# R = 4, hd = 64, on 8 shards of the one card
+SP_NDEV, SP_S, SP_W, SP_R, SP_HD = 8, 32768, 256, 4, 64
+
+
+def _grad_step(fn, xs, cot):
+    """One forward and backward of ``sum(fn(*xs) * cot)``, the inputs'
+    gradients cleared first; returns the output."""
+    def step():
+        for x in xs:
+            x.grad = None
+        out = fn(*xs)
+        (out * cot).sum().backward()
+        return out
+    return step
+
+
+def _against_cpu(torch, label, fn, xs, cot, out, names):
+    """The card's output and gradients (``xs[i].grad``) against the CPU
+    plain route on the same inputs, at full size."""
+    t0 = time.perf_counter()
+    cpu = [x.detach().cpu().requires_grad_() for x in xs]
+    ref = fn(*cpu)
+    (ref * cot.cpu()).sum().backward()
+    _compare(f"{label} output vs the CPU", out.detach().cpu(), ref.detach(),
+             TOL_MODEL)
+    for name, a, c in zip(names, xs, cpu):
+        _compare(f"{label} {name} vs the CPU", a.grad.cpu(), c.grad,
+                 TOL_MODEL, floor=0)
+    print(f"  CPU reference in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _in_turns(label, steps, order, **kw):
+    """Each named step timed by CUDA events (``_time_ms``) in ``order``;
+    prints and returns the readings by name."""
+    got = {name: [] for name in steps}
+    for name in order:
+        got[name].append(_time_ms(steps[name], **kw))
+    print(f"  {label} (forward + backward, CUDA events, in turns "
+          f"{' / '.join(order)}): " + "; ".join(
+              f"{n} {' / '.join(f'{t:.4f}' for t in v)} ms"
+              for n, v in got.items()), flush=True)
+    return got
+
+
+def phase_sharded_panel(stt, torch, dev, wrappers):
+    """Phases 3o / 4o: the replicated-operand sharded panel ops.
+    ``sharded_spmm`` forward + backward at bench.py's 4096^3 d=0.1 on 1 and
+    8 shards (B1, B4, B3 a shard, the psum of d_dense) against
+    ``stt.panel.spmm`` on the same topology and tiles, timed in turns (the
+    seam's cost); then ``sparse_attention_sharded`` and its compressed twin
+    (B4 / B14, B5 / B15a + B15b, B1 / B13a, B3 / B13b) on a +-256 window of
+    32768 (hd = 64) and on the skewed 4096^2 pattern (width 64), 8 shards,
+    each timed; every path against the CPU plain route."""
+    from sputnik_tpu_torch.patterns import local_window_topology
+
+    P = stt.parallel
+    total = {n: 0 for n in wrappers}
+    print(f"phase 3o: sharded panel ops — sharded_spmm at 4096^3 d=0.1 on 1 "
+          f"and {SP_NDEV} shards vs stt.panel.spmm; sparse_attention_"
+          f"sharded(_c) on 8 shards", flush=True)
+    _, mat = _bench_matrix(stt)
+    topo, n = mat.topology, 4096
+    rng = np.random.RandomState(140)
+    dense, cot = (torch.from_numpy(rng.randn(n, n).astype(np.float32)).to(
+        dev) for _ in range(2))
+    pspec = stt.PanelSpec(topo)
+    xs = [torch.from_numpy(stt.panel.values_to_panel_np(
+        topo, mat.values, 64, 64)).to(dev).requires_grad_(),
+        dense.clone().requires_grad_()]
+    steps = {"unsharded": _grad_step(
+        lambda p, d: stt.panel.spmm(pspec, p, d), xs, cot)}
+    want = _counted(wrappers, total, "stt.panel.spmm forward + backward",
+                    steps["unsharded"], {"bsr_spmm_panel": 1,
+                                         "bsr_sddmm_panel": 1,
+                                         "bsr_spmm_t_panel": 1}).detach()
+    d_want = xs[1].grad.clone()
+    for shards in (1, SP_NDEV):
+        spec = P.ShardedPanelSpec(P.RowPartition(topo, shards,
+                                                 balance=False))
+        sx = [torch.from_numpy(spec.stack_values(mat.values)).to(
+            dev).requires_grad_(), dense.clone().requires_grad_()]
+        c = cot.reshape(shards, n // shards, n)
+
+        def fn(p, d, spec=spec):
+            return P.sharded_spmm(spec, p, d)
+
+        steps[f"{shards} shards"] = _grad_step(fn, sx, c)
+        out = _counted(wrappers, total, f"sharded_spmm {shards} shards "
+                       f"forward + backward", steps[f"{shards} shards"],
+                       {"bsr_spmm_panel": shards, "bsr_sddmm_panel": shards,
+                        "bsr_spmm_t_panel": shards})
+        _compare(f"sharded_spmm {shards} shards vs stt.panel.spmm",
+                 out.detach().reshape(n, n), want, TOL_MODEL)
+        _compare(f"sharded_spmm {shards} shards d_dense vs stt.panel.spmm",
+                 sx[1].grad, d_want, TOL_MODEL, floor=0)
+        if shards == SP_NDEV:
+            _against_cpu(torch, f"sharded_spmm {shards} shards", fn, sx, c,
+                         out, ("d_panels", "d_dense"))
+    _in_turns("sharded_spmm at 4096^3 d=0.1", steps,
+              ["unsharded", "1 shards", "8 shards", "8 shards", "1 shards",
+               "unsharded"], reps=5, inner=3)
+    del steps, xs, sx
+
+    problems = {
+        f"window +-{SP_W} of {SP_S}": (local_window_topology(SP_S, SP_W),
+                                        False),
+        "skewed 4096^2": (stt.SparseTopology.from_dense_mask(
+            _skewed_mask()), True)}
+    for label, (topo, balance) in problems.items():
+        part = P.RowPartition(topo, SP_NDEV, balance=balance)
+        print(f"  {label}: {topo}, {SP_NDEV} shards (balance={balance}), "
+              f"m_loc {part.m_loc}", flush=True)
+        ax = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+              for s in ((SP_NDEV, part.m_loc, SP_HD), (topo.n, SP_HD),
+                        (topo.n, SP_HD), (SP_NDEV, part.m_loc, SP_HD))]
+        steps = {}
+        for layout in ("ELL", "compressed"):
+            if layout == "ELL":
+                spec, fn0 = P.ShardedPanelSpec(part), P.sparse_attention_sharded
+                kn = {"bsr_sddmm_panel": 2, "bsr_spmm_panel": 2,
+                      "bsr_spmm_t_panel": 2, "panel_softmax": 1,
+                      "panel_softmax_bwd": 1}
+            else:
+                spec = P.ShardedCompressedSpec(part)
+                fn0 = P.sparse_attention_sharded_c
+                kn = {"bsr_sddmm_panel_c": 2, "bsr_spmm_panel_c": 2,
+                      "bsr_spmm_t_panel_c": 2, "c_softmax_stats": 1,
+                      "c_softmax_apply": 1, "c_softmax_rowsum": 1,
+                      "c_softmax_grad": 1}
+            gx = [x.clone().requires_grad_() for x in ax[:3]]
+
+            def fn(q, k, v, spec=spec, fn0=fn0):
+                return fn0(spec, q, k, v)
+
+            steps[layout] = _grad_step(fn, gx, ax[3])
+            out = _counted(wrappers, total, f"{label} sparse_attention_"
+                           f"sharded {layout}", steps[layout],
+                           {k: c * SP_NDEV for k, c in kn.items()})
+            _against_cpu(torch, f"{label} {layout} attention", fn, gx, ax[3],
+                         out, ("dq", "dk", "dv"))
+        _in_turns(f"{label} sharded attention", steps,
+                  ["ELL", "compressed", "compressed", "ELL"], reps=5,
+                  inner=3)
+        try:
+            _profile_steps(torch, f"{label} ELL attention steps",
+                           lambda i: steps["ELL"](), n=4)
+        except Exception as e:  # a measurement, not a check of the path
+            print(f"  torch.profiler gave no device times: {e!r}",
+                  flush=True)
+    return total
+
+
+def phase_flash_sharded(stt, torch, dev, wrappers):
+    """Phases 3p / 4p: sequence-parallel flash attention at
+    benchmarks/scaling.py's attention problem (s = 32768, a +-256 window,
+    R = 4, hd = 64, 8 shards): ``flash_attention_sharded`` (K / V
+    replicated; B9, B10a, the dk / dv psums; at group 1 and 2, and once on
+    the two-kernel route B10b + B10c by setting the budget to 0) and
+    ``flash_attention_kv_sharded`` with the interior / halo split (B9 twice
+    a shard; the budget sends it to B10b + B10c) and without (B9, B10a),
+    at group 1 and 2, each against the CPU plain route, timed in turns
+    against ``fused_sparse_attention`` unsharded on the same topology."""
+    from sputnik_tpu_torch.ops import fused_attention as fa
+    from sputnik_tpu_torch.patterns import local_window_topology
+
+    P, nd = stt.parallel, SP_NDEV
+    total = {n: 0 for n in wrappers}
+    print(f"phase 3p: sharded flash attention — s={SP_S}, window +-{SP_W}, "
+          f"R={SP_R}, hd={SP_HD}, {nd} shards; fused_sparse_attention "
+          f"unsharded beside", flush=True)
+    topo = local_window_topology(SP_S, SP_W)
+    spec = P.ShardedFlashSpec(P.RowPartition(topo, nd, balance=False))
+    n_loc = spec.n_pad // nd
+    plan = spec.halo_plan(n_loc)
+    hd_pad = fa._hd_pad(SP_HD)
+    ov_fused = (2 * (n_loc // spec.bk + spec.kb) * spec.bk * hd_pad * 4
+                <= fa._FUSED_BWD_ACC_BYTES)
+    rep_fused = fa._use_fused_bwd(spec, hd_pad)
+    print(f"  halo rows {spec.halo_extents(n_loc)}, plan {plan}: "
+          f"kv-sharded takes the {'split' if plan and n_loc % 64 == 0 else 'monolithic'} "
+          f"branch by default; backward routes: replicated / monolithic "
+          f"{'B10a' if rep_fused else 'B10b + B10c'} (2 x {spec.n_pad} x "
+          f"{hd_pad} x 4 B vs {fa._FUSED_BWD_ACC_BYTES} B), split "
+          f"{'B10a' if ov_fused else 'B10b + B10c'}", flush=True)
+    rng = np.random.RandomState(150)
+
+    def sh(x):
+        R, s, hd = x.shape
+        return x.reshape(R, nd, s // nd, hd).transpose(0, 1).contiguous()
+
+    host = {g: [torch.from_numpy(rng.randn(r, SP_S, SP_HD).astype(
+        np.float32)).to(dev) for r in (SP_R, SP_R // g, SP_R // g)]
+        for g in (1, 2)}
+    cot = torch.from_numpy(rng.randn(SP_R, SP_S, SP_HD).astype(
+        np.float32)).to(dev)
+    bspec = stt.BatchedPanelSpec([topo], heads=SP_R)
+
+    def route(fused):
+        return ({"flash_sparse_bwd_fused": 1} if fused else
+                {"flash_sparse_bwd_dq": 1, "flash_sparse_bwd_dkv": 1})
+
+    cases = [("unsharded", 1, None), ("replicated", 1, None),
+             ("replicated", 2, None), ("replicated", 1, 0),
+             ("kv split", 1, None), ("kv split", 2, None),
+             ("kv monolithic", 1, None), ("kv monolithic", 2, None)]
+    steps, keep = {}, fa._FUSED_BWD_ACC_BYTES
+    for kind, g, budget in cases:
+        label = f"{kind} group {g}" + ("" if budget is None else
+                                       ", budget 0 (B10b + B10c)")
+        if kind == "unsharded":
+            xs = [x.clone().requires_grad_() for x in host[g]]
+            c = cot
+
+            def fn(q, k, v, g=g):
+                return stt.fused_sparse_attention(bspec, q, k, v, group=g)
+            n_walk, fused = 1, rep_fused
+        elif kind == "replicated":
+            xs = [sh(host[g][0]).requires_grad_()] + [
+                x.clone().requires_grad_() for x in host[g][1:]]
+            c = sh(cot)
+
+            def fn(q, k, v, g=g):
+                return P.flash_attention_sharded(spec, q, k, v, group=g)
+            n_walk, fused = nd, rep_fused and budget is None
+        else:
+            xs = [sh(x).requires_grad_() for x in host[g]]
+            c, ov = sh(cot), kind == "kv split"
+
+            def fn(q, k, v, g=g, ov=ov):
+                return P.flash_attention_kv_sharded(spec, q, k, v, group=g,
+                                                    overlap=ov)
+            n_walk = 2 * nd if ov else nd
+            fused = ov_fused if ov else rep_fused
+        step = _grad_step(fn, xs, c)
+        if budget is not None:
+            fa._FUSED_BWD_ACC_BYTES = budget
+        try:
+            out = _counted(wrappers, total, f"{label} forward + backward",
+                           step, {"flash_sparse_attention_fwd": n_walk,
+                                  **{k: v * n_walk for k, v in
+                                     route(fused).items()}})
+            _against_cpu(torch, label, fn, xs, c, out, ("dq", "dk", "dv"))
+            if g == 1 and budget is None:
+                steps[kind] = step
+        finally:
+            fa._FUSED_BWD_ACC_BYTES = keep
+    _in_turns("sharded flash at group 1", steps,
+              ["unsharded", "replicated", "kv split", "kv monolithic",
+               "kv monolithic", "kv split", "replicated", "unsharded"],
+              reps=5, inner=3)
+    for kind, step in steps.items():
+        try:
+            _profile_steps(torch, f"{kind} flash steps", lambda i: step(),
+                           n=4)
+        except Exception as e:  # a measurement, not a check of the path
+            print(f"  torch.profiler gave no device times: {e!r}",
+                  flush=True)
+    return total
+
+
+def phase_seq_parallel(stt, torch, dev, wrappers):
+    """Phase 3q: ``examples/train_seq_parallel.py`` at its full config (8
+    shards of s = 16384, hd 64, R 4; the kv-sharded split over a window of
+    2048, B9 twice a shard, B10a; the natural ring, B11a and B11b 64 times
+    a pass), its self-checks (dense attention at init, the loss falls),
+    then ``dryrun_sp`` at 4, 6, 8 and 16 shards, every path's loss against
+    the CPU's, both halos on the ragged exchange (B2 launched)."""
+    from sputnik_tpu_torch.dryrun import dryrun_sp
+    from sputnik_tpu_torch.examples import train_seq_parallel as ex
+
+    total = {n: 0 for n in wrappers}
+    cfg = ex.config(False)
+    print(f"phase 3q: examples/train_seq_parallel.py at its full config "
+          f"({ex.NDEV} shards, {cfg}); dryrun_sp at 4, 6, 8, 16", flush=True)
+    walks, steps = 2 * ex.NDEV, cfg["steps"]
+    ring = ex.NDEV * ex.NDEV
+    res = _counted(wrappers, total, "train_seq_parallel", lambda: ex.main(
+        ["--device", str(dev)]), {
+            "flash_sparse_attention_fwd": walks * (steps + 1),
+            "flash_sparse_bwd_fused": walks * steps,
+            "flash_sparse_ring_band_fwd": ring * (steps + 1),
+            "flash_sparse_ring_band_bwd": ring * steps})
+    for name, r in res.items():
+        print(f"  {name}: step ms {[round(t, 4) for t in r['step_ms']]}, "
+              f"losses {[round(v, 6) for v in r['losses']]}", flush=True)
+    for n in (4, 6, 8, 16):
+        got = _counted(wrappers, total, f"dryrun_sp({n})",
+                       lambda n=n: dryrun_sp(n, dev), {})
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = dryrun_sp(n, "cpu")
+        for path, v in got["losses"].items():
+            err = abs(v - ref["losses"][path])
+            if not err <= TOL_MODEL * max(1.0, abs(ref["losses"][path])):
+                _fail(f"dryrun_sp({n}) {path}: loss {v} vs the CPU's "
+                      f"{ref['losses'][path]}")
+        print(f"  dryrun_sp({n}): {len(got['losses'])} paths' losses within "
+              f"{TOL_MODEL} of the CPU's (relative)", flush=True)
+    if not total["bsr_spmm_panel_sel"]:
+        _fail("the dry runs' halo SpMM launched no B2")
+    return total
+
+
 def main(argv=None) -> int:
     """No arguments: every phase, then the kernels' JSON line and the
     device line. ``--only NAME[,NAME]`` runs just the named phase functions
@@ -5993,7 +6319,8 @@ def main(argv=None) -> int:
                 extra = (ctx,)
             out = fn(stt, torch, dev, wrappers if name.endswith(
                 ("_path", "_train", "serving", "_repair", "graph_decode",
-                 "remat", "crossover")) else kres, *extra)
+                 "remat", "crossover", "sharded_panel", "flash_sharded",
+                 "seq_parallel")) else kres, *extra)
             if name == "serving":
                 ctx = out[1]
         print(f"chip_smoke: --only {','.join(only)} done", flush=True)
@@ -6023,9 +6350,13 @@ def main(argv=None) -> int:
     comp = phase_compressed_path(stt, torch, dev, wrappers)
     ring = phase_ring_path(stt, torch, dev, wrappers)
     halo = phase_halo_path(stt, torch, dev, wrappers)
+    spanel = phase_sharded_panel(stt, torch, dev, wrappers)
+    sflash = phase_flash_sharded(stt, torch, dev, wrappers)
+    seq = phase_seq_parallel(stt, torch, dev, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + graph[n]
                 + remat[n] + cross[n] + moe[n] + flat[n] + int8[n] + comp[n]
-                + ring[n] + halo[n] for n in wrappers}
+                + ring[n] + halo[n] + spanel[n] + sflash[n] + seq[n]
+                for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

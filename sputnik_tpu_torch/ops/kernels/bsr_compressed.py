@@ -546,14 +546,17 @@ c_softmax_stats.launches = 0
 def c_softmax_rowsum_plain(block_offsets, p, g, mask):
     """Plain version of B15a's backward mode: each row's sum of ``p * g``
     over its nonzeros, ``g`` taken as 0 at masked slots and in the dump
-    tile (a NaN there does not reach the sum)."""
+    tile (a NaN there does not reach the sum). Tiles past the offsets' last
+    (a shard's padding up to the sharded layout's common tile count) are
+    not read."""
     R, T, bm, bk = p.shape
     _, count, _ = _walk(block_offsets)
     mb = count.numel()
+    n = int(block_offsets[-1].item())
     tile_rows = torch.repeat_interleave(
-        torch.arange(mb, device=p.device), count)           # [T - 1]
-    pg = torch.where(mask[:T - 1] != 0, p[:, :T - 1] * g[:, :T - 1],
-                     0.0).sum(dim=-1)                       # [R, T - 1, bm]
+        torch.arange(mb, device=p.device), count)           # [n]
+    pg = torch.where(mask[:n] != 0, p[:, :n] * g[:, :n],
+                     0.0).sum(dim=-1)                       # [R, n, bm]
     return p.new_zeros((R, mb, bm)).index_add_(1, tile_rows, pg).reshape(
         R, mb * bm)
 

@@ -454,17 +454,17 @@ class _CompressedSoftmax(torch.autograd.Function):
     product by B15b's pass (``c_softmax_grad``). The cotangent counts as 0
     at masked slots and at the dump tile (the output is 0 there whatever
     the input), so a NaN there cannot leak: the gradient is exactly 0 at
-    every masked slot and at the dump tile."""
+    every masked slot and at the dump tile. ``meta``: a compressed
+    ``PanelSpec.meta(device)`` (or one shard's of the sharded layout)."""
 
     @staticmethod
-    def forward(ctx, spec, panel):
-        meta = spec.meta(panel.device)
+    def forward(ctx, meta, panel):
         row_max, row_denom = _c.c_softmax_stats(
             meta["block_offsets"], panel, meta["mask"],
             plans=meta["split_plans"])
         p = _c.c_softmax_apply(meta["block_rows"], panel, meta["mask"],
                                row_max, row_denom)
-        ctx.spec = spec
+        ctx.meta = meta
         ctx.save_for_backward(p)
         return p
 
@@ -472,12 +472,20 @@ class _CompressedSoftmax(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (p,) = ctx.saved_tensors
-        meta = ctx.spec.meta(g.device)
+        meta = ctx.meta
         g = g.contiguous()
         rs = _c.c_softmax_rowsum(meta["block_offsets"], p, g, meta["mask"],
                                  plans=meta["split_plans"])
         return None, _c.c_softmax_grad(meta["block_rows"], p, g,
                                        meta["mask"], rs)
+
+
+def compressed_softmax(meta, panel):
+    """The masked row softmax of ``sparse_softmax`` on the compressed
+    layout: ``panel [R, num_blocks + 1, bm, bk]`` and the layout's metadata
+    on the panel's device (``block_offsets``, ``block_rows``, the f32
+    ``mask`` and ``split_plans``, as ``PanelSpec.meta`` holds them)."""
+    return _CompressedSoftmax.apply(meta, panel.contiguous())
 
 
 def _rep(x, rep):
@@ -557,8 +565,8 @@ def sparse_softmax(spec, panel):
     dt = panel.dtype
     panel = panel.to(work_dtype(dt))
     if spec.compressed:
-        return _unrep(_CompressedSoftmax.apply(
-            spec, _rep(panel, rep).contiguous()), rep).to(dt)
+        return _unrep(compressed_softmax(spec.meta(panel.device),
+                                         _rep(panel, rep)), rep).to(dt)
     meta = spec.meta(panel.device)
     x = _rep(panel, rep)
     p = masked_softmax(x, meta["mask"][None], meta["nblocks"][None],

@@ -22,7 +22,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 __all__ = ["check_devices", "shards", "ppermute", "all_gather", "psum",
-           "stack"]
+           "psum_scatter", "stack"]
 
 
 def check_devices(devices) -> None:
@@ -53,15 +53,23 @@ def ppermute(xs: Sequence[torch.Tensor],
             for x, o in zip(xs, out)]
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``jax.lax.all_gather(..., tiled=True)``: the shards concatenated
-    along their first axis, the same for every shard."""
-    return torch.cat(list(xs), 0)
+def all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """``jax.lax.all_gather(..., axis=dim, tiled=True)``: the shards
+    concatenated along ``dim``, the same for every shard."""
+    return torch.cat(list(xs), dim)
 
 
 def psum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """``jax.lax.psum``: the sum of the shards, the same for every shard."""
     return torch.stack(list(xs)).sum(0)
+
+
+def psum_scatter(xs: Sequence[torch.Tensor],
+                 dim: int = 0) -> List[torch.Tensor]:
+    """``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``, the
+    reverse of :func:`all_gather`: shard ``d`` receives slice ``d`` (of
+    ``len(xs)`` equal slices along ``dim``) of the shards' sum."""
+    return list(torch.stack(list(xs)).sum(0).chunk(len(xs), dim))
 
 
 def stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -2925,3 +2925,141 @@ def test_remat_gradients_match_on_the_card(dev):
     assert (n0, n1) == (2, 4)
     for n in g0:
         _close(g1[n], g0[n])
+
+
+def _counted_run(fn, *cpu):
+    """``fn`` forward and backward of ``sum(out ** 2)`` on the card and on
+    the CPU: the card's launches by kernel, and each output and gradient
+    held against the CPU's plain route."""
+    gpu = [t.detach().cuda().requires_grad_() for t in cpu]
+    wr = kernels.kernel_wrappers()
+    before = {n: w.launches for n, w in wr.items()}
+    out = fn(*gpu)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    got = {n: w.launches - before[n] for n, w in wr.items()
+           if w.launches != before[n]}
+    cpu = [t.detach().requires_grad_() for t in cpu]
+    ref = fn(*cpu)
+    ref.square().sum().backward()
+    _close(out.detach().cpu(), ref.detach())
+    for a, r in zip(gpu, cpu):
+        _close(a.grad.cpu(), r.grad)
+    return got, out.detach()
+
+
+def _sharded_layout(compressed, s=1024, ndev=4):
+    """A local window of 96 with a dense row, balanced over ``ndev`` shards,
+    in the ELL or the compressed sharded layout."""
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    mask = np.abs(i - j) < 96
+    mask[7] = True
+    part = stt.parallel.RowPartition(
+        stt.SparseTopology.from_dense_mask(mask), ndev)
+    cls = (stt.parallel.ShardedCompressedSpec if compressed
+           else stt.parallel.ShardedPanelSpec)
+    return cls(part)
+
+
+_SHARDED_KERNELS = {
+    False: ("bsr_spmm_panel", "bsr_spmm_t_panel", "bsr_sddmm_panel",
+            ("panel_softmax", "panel_softmax_bwd")),
+    True: ("bsr_spmm_panel_c", "bsr_spmm_t_panel_c", "bsr_sddmm_panel_c",
+           ("c_softmax_stats", "c_softmax_apply", "c_softmax_rowsum",
+            "c_softmax_grad")),
+}
+
+
+@pytest.mark.parametrize("op", ["spmm", "spmm_t", "sddmm", "softmax",
+                                "attention"])
+@pytest.mark.parametrize("compressed", [False, True], ids=["ell", "comp"])
+def test_sharded_panel_ops_train_through_the_kernels(dev, compressed, op):
+    """The replicated-operand sharded ops on the card against the CPU, one
+    launch a shard a kernel: SpMM (B1 / B13a), SpMM^T (B3 / B13b),
+    SDDMM (B4 / B14), the softmax (B5 / B15a + B15b)."""
+    spec = _sharded_layout(compressed)
+    P, ndev = stt.parallel, spec.part.ndev
+    spmm, spmm_t, sddmm, sm = _SHARDED_KERNELS[compressed]
+    rng = np.random.RandomState(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    n, rows = spec.part.topo.n, spec.m_pad_loc
+    panels = torch.from_numpy(spec.stack_values(
+        rng.randn(spec.part.topo.nnz_pad).astype(np.float32)))
+    runs = {
+        "spmm": (lambda p, d: P.sharded_spmm(spec, p, d), (panels, t(n, 48)),
+                 {spmm: ndev, sddmm: ndev, spmm_t: ndev}),
+        "spmm_t": (lambda p, g: P.sharded_spmm_t(spec, p, g),
+                   (panels, t(ndev, rows, 48)),
+                   {spmm_t: ndev, sddmm: ndev, spmm: ndev}),
+        "sddmm": (lambda a, b: P.sharded_sddmm(spec, a, b),
+                  (t(ndev, rows - 5, 64), t(n, 64)),
+                  {sddmm: ndev, spmm: ndev, spmm_t: ndev}),
+        "softmax": (lambda x: P.sharded_softmax(spec, x), (t(*panels.shape),),
+                    {k: ndev for k in sm}),
+        "attention": (lambda q, k, v: P.sparse_attention_sharded(
+            spec, q, k, v), (t(ndev, rows, 64), t(n, 64), t(n, 64)),
+            {spmm: 2 * ndev, spmm_t: 2 * ndev, sddmm: 2 * ndev,
+             **{k: ndev for k in sm}}),
+    }
+    fn, cpu, want = runs[op]
+    got, out = _counted_run(fn, *cpu)
+    assert got == want, got
+    if compressed and op == "sddmm":
+        for d, v in enumerate(spec.views):      # a shard's empty slots
+            assert not out[d, v.num_blocks:].any(), d
+
+
+def _flash_problem(branch, group, ndev=4):
+    s, hd, R = (512, 64, 2 * group)
+    i, j = np.arange(s)[:, None], np.arange(s)[None, :]
+    mask = (j <= i) if branch in ("replicated", "gathered") else (
+        (j <= i) & (j > i - 96))
+    spec = stt.parallel.ShardedFlashSpec(stt.parallel.RowPartition(
+        stt.SparseTopology.from_dense_mask(mask), ndev, balance=False))
+    n_loc = spec.n_pad // ndev
+    assert (spec.halo_plan(n_loc) is None) == (branch in ("replicated",
+                                                          "gathered"))
+    rng = np.random.RandomState(group)
+    q = torch.from_numpy(rng.randn(ndev, R, s // ndev, hd).astype(
+        np.float32))
+    if branch == "replicated":
+        kv = [torch.from_numpy(rng.randn(R // group, s, hd).astype(
+            np.float32)) for _ in range(2)]
+    else:
+        kv = [torch.from_numpy(rng.randn(ndev, R // group, n_loc, hd)
+                               .astype(np.float32)) for _ in range(2)]
+    return spec, [q] + kv
+
+
+@pytest.mark.parametrize("route", ["fused", "two"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("branch", ["replicated", "overlap", "monolithic",
+                                    "gathered"])
+def test_sharded_flash_trains_through_the_kernels(dev, branch, group, route,
+                                                  monkeypatch):
+    """flash_attention_sharded (replicated) and flash_attention_kv_sharded
+    in its three branches on the card against the CPU, at scale 0.3: B9 a
+    shard (twice in the overlap split), then B10a, or B10b + B10c."""
+    from sputnik_tpu_torch.ops import fused_attention as fa
+
+    if route == "two":
+        monkeypatch.setattr(fa, "_FUSED_BWD_ACC_BYTES", 0)
+    spec, cpu = _flash_problem(branch, group)
+    P, ndev = stt.parallel, spec.part.ndev
+    if branch == "replicated":
+        def fn(q, k, v):
+            return P.flash_attention_sharded(spec, q, k, v, scale=0.3,
+                                             group=group)
+    else:
+        def fn(q, k, v):
+            return P.flash_attention_kv_sharded(
+                spec, q, k, v, scale=0.3, group=group,
+                overlap=branch == "overlap")
+    got, _ = _counted_run(fn, *cpu)
+    n = 2 * ndev if branch == "overlap" else ndev
+    bwd = ({"flash_sparse_bwd_fused": n} if route == "fused" else
+           {"flash_sparse_bwd_dq": n, "flash_sparse_bwd_dkv": n})
+    assert got == {"flash_sparse_attention_fwd": n, **bwd}, got

@@ -52,6 +52,11 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.parallel.partition, "
              "sputnik_tpu_torch.parallel.ring_flash, "
              "sputnik_tpu_torch.parallel.sharded_ops, "
+             "sputnik_tpu_torch.parallel.sharded_compressed, "
+             "sputnik_tpu_torch.parallel.flash_sharded, "
+             "sputnik_tpu_torch.parallel.comm_model, "
+             "sputnik_tpu_torch.dryrun, "
+             "sputnik_tpu_torch.examples.train_seq_parallel, "
              "sputnik_tpu_torch.parallel._mesh\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
