@@ -178,6 +178,16 @@ Phases, each printing its lines:
         the natural ring, 4 SGD steps each, its self-checks), then
         dryrun_sp at 4, 6, 8 and 16 shards (every sequence-parallel path's
         gradient, DRYRUN_COMM, both halos ragged) against the CPU's losses;
+     r. tensor-parallel serving at c's full width: TPLMServer greedy (64
+        tokens, fp32 cache, eager steps) on one-device CUDA meshes at tp 2
+        and tp 4, contiguous (B9 a shard a layer, B19 + B21 a shard a layer
+        a step) and paged (B20a + B20b), dp 2 x tp 2 and GQA kv_heads=2 at
+        tp 2, each held against the unsharded LMServer on the card
+        (teacher-forced logits within 1e-3 x max(1, max|ref|), greedy tokens
+        its argmax unless the top-2 gap is below that), its bf16-cache
+        ms/token beside the unsharded server's; then an NCCL world of 1
+        (the mesh's collectives, TPLMServer at tp 1 through all_reduce,
+        tokens equal to the one-device mesh's) and dryrun_tp_serving(4);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -6256,6 +6266,215 @@ def phase_seq_parallel(stt, torch, dev, wrappers):
     return total
 
 
+def _tp_cases():
+    """Phase 3r's routes: (label, mesh axes, batch axis, KV heads, paged)."""
+    return [("tp 2", {"tp": 2}, None, None, False),
+            ("tp 2 paged", {"tp": 2}, None, None, True),
+            ("tp 4", {"tp": 4}, None, None, False),
+            ("tp 4 paged", {"tp": 4}, None, None, True),
+            ("dp 2 x tp 2", {"dp": 2, "tp": 2}, "dp", None, False),
+            ("GQA kv_heads=2, tp 2", {"tp": 2}, None, 2, False)]
+
+
+def _gen_ms(torch, gen, n_new):
+    """ms a decode token of ``gen(n)`` (a generate of n tokens): (wall of
+    n_new tokens - wall of 1) / (n_new - 1), each the median of 3
+    synchronised calls."""
+    def wall(n):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen(n)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    return (wall(n_new) - wall(1)) * 1e3 / (n_new - 1)
+
+
+def _nccl_world_of_one(torch, dev, lm, pd, n_new, kw, want, counted):
+    """An NCCL world of 1 (FileStore in a temporary directory): the mesh's
+    collectives on a CUDA tensor against the one-device mesh's, then
+    ``TPLMServer`` greedy at tp 1 through ``all_reduce`` under
+    ``counted(fn)`` (the launch count), its tokens equal to the one-device
+    mesh's (``want``). Returns the all_reduce count and the bf16-cache
+    ms/token there."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from sputnik_tpu_torch.parallel import Mesh, TPLMServer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = Mesh({"tp": 1}, distributed=True)
+            if mesh.device != dev:
+                _fail(f"NCCL mesh on {mesh.device}, expected {dev}")
+            one = Mesh({"tp": 1}, device=dev)
+            x = torch.arange(24.0, device=dev).reshape(4, 6)
+            for name, fn in (
+                    ("psum", lambda m: m.psum([x], "tp")),
+                    ("all_gather", lambda m: m.all_gather([x], "tp", 1)),
+                    ("psum_scatter", lambda m: m.psum_scatter([x], "tp")),
+                    ("ppermute", lambda m: m.ppermute([x], "tp",
+                                                      [(0, 0)]))):
+                if not torch.equal(fn(mesh)[0], fn(one)[0]):
+                    _fail(f"NCCL world of 1: {name} differs from the "
+                          f"one-device mesh's")
+            try:
+                mesh.psum([x.cpu()], "tp")
+                _fail("NCCL mesh took a CPU tensor")
+            except ValueError:
+                pass
+            calls = [0]
+            real = dist.all_reduce
+
+            def count_all_reduce(*a, **k):
+                calls[0] += 1
+                return real(*a, **k)
+
+            srv = TPLMServer(lm, mesh, **kw)
+            dist.all_reduce = count_all_reduce
+            try:
+                toks, _ = counted(lambda: srv.generate(pd, n_new))
+            finally:
+                dist.all_reduce = real
+            if not torch.equal(toks, want):
+                _fail("NCCL world of 1: TPLMServer tokens differ from the "
+                      "one-device mesh's")
+            srv = TPLMServer(lm, mesh, **dict(kw, cache_dtype=torch.bfloat16))
+            return calls[0], _gen_ms(
+                torch, lambda n: srv.generate(pd, n), n_new)
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_tp_serving(stt, torch, dev, wrappers):
+    """Phase 3r: tensor-parallel serving (``TPLMServer``) at
+    benchmarks/serving.py's full config on one-device CUDA meshes, each
+    route held against the unsharded ``LMServer`` on the card, then an
+    NCCL world of 1 and ``dryrun_tp_serving(4)``."""
+    from sputnik_tpu_torch.dryrun import dryrun_tp_serving
+    from sputnik_tpu_torch.models import LMServer, SparseLM
+    from sputnik_tpu_torch.parallel import Mesh, TPLMServer
+    from sputnik_tpu_torch.patterns import causal_mask
+
+    b, P, h, heads, layers, ffn, V, n_new, bk = (4, 1024, 1024, 8, 6, 4096,
+                                                 32000, 64, 1024)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"phase 3r: tensor-parallel serving — TPLMServer on one-device "
+          f"meshes, SparseLM {layers}L b={b} P={P} h={h} heads={heads} "
+          f"ffn={ffn} V={V}, s_max=P+64, bk={bk}, {n_new} new tokens, "
+          f"greedy; eager steps; on {smi}", flush=True)
+    masks = np.broadcast_to(causal_mask(P), (b, P, P)).copy()
+    pd = torch.from_numpy(np.random.RandomState(31).randint(
+        0, V, (b, P))).to(dev)
+    total = {n: 0 for n in wrappers}
+    models = {}
+
+    def model(kv):
+        if kv not in models:
+            models[kv] = SparseLM.from_masks(
+                masks, vocab_size=V, num_layers=layers, hidden_size=h,
+                num_heads=heads, num_kv_heads=kv, ffn_hidden_size=ffn,
+                use_residual=True, use_layernorm=True, activation="gelu",
+                generator=torch.Generator().manual_seed(30 + (kv or 0))
+            ).eval().to(dev)
+        return models[kv]
+
+    def kw(paged, dtype, batch_axis=None):
+        out = dict(s_max=P + 64, bk=bk, cache_dtype=dtype)
+        if batch_axis:
+            out["batch_axis"] = batch_axis
+        if paged:        # a pool a position: b rows x KV_l heads x 2 pages
+            out["n_pages"] = 2 * b * heads
+        return out
+
+    refs = {}
+    for label, axes, batch_axis, kv, paged in _tp_cases():
+        lm = model(kv)
+        if kv not in refs:
+            ref = LMServer(lm, **kw(False, torch.float32))
+            bf = LMServer(lm, **kw(False, torch.bfloat16))
+            refs[kv] = (ref, ref.generate(pd, n_new)[0], _gen_ms(
+                torch, lambda n: bf.generate(pd, n), n_new), _gen_ms(
+                torch, lambda n: _eager_generate(torch, bf, pd, n), n_new))
+            print(f"  unsharded LMServer (KV heads {kv or heads}), bf16 "
+                  f"cache: {refs[kv][2]:.4f} ms/token by CUDA graph, "
+                  f"{refs[kv][3]:.4f} eager, on {smi}", flush=True)
+        ref, ref_toks, ref_ms, ref_eager = refs[kv]
+        mesh = Mesh(axes, device=dev)
+        srv = TPLMServer(lm, mesh, **kw(paged, torch.float32, batch_axis))
+        n_sh = mesh.size
+        steps = layers * n_sh * (n_new - 1)
+        attn, app = (("paged_attention", "paged_append") if paged else
+                     ("decode_attention", "ragged_append"))
+        toks, _ = _counted(
+            wrappers, total, f"TPLMServer {label}",
+            lambda: srv.generate(pd, n_new),
+            {"flash_sparse_attention_fwd": layers * n_sh, attn: steps,
+             app: steps})
+        got = _teacher_forced_logits(srv, pd, toks).cpu()
+        want = _teacher_forced_logits(ref, pd, toks).cpu()
+        _compare(f"TPLMServer {label} teacher-forced logits vs the unsharded "
+                 f"LMServer (fp32 cache)", got, want, TOL_MODEL)
+        bound = TOL_MODEL * max(1.0, want.abs().max().item())
+        top2 = want.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        miss = (want.argmax(-1).T != toks.cpu()) & (gap.T >= bound)
+        if miss.any():
+            _fail(f"TPLMServer {label}: {int(miss.sum())} greedy tokens are "
+                  f"not the unsharded argmax with a top-2 gap >= {bound:.3e}")
+        same = float((toks == ref_toks).float().mean())
+        bf = TPLMServer(lm, mesh, **kw(paged, torch.bfloat16, batch_axis))
+        ms = _gen_ms(torch, lambda n: bf.generate(pd, n), n_new)
+        print(f"  TPLMServer {label}: all {toks.numel()} greedy tokens are "
+              f"the unsharded argmax (or within a top-2 gap < {bound:.3e}: "
+              f"{int((gap < bound).sum())} positions); share equal to the "
+              f"unsharded generate {same:.4f}; bf16 cache {ms:.4f} ms/token "
+              f"eager against the unsharded LMServer's {ref_eager:.4f} "
+              f"eager and {ref_ms:.4f} by CUDA graph, on {smi}", flush=True)
+        if label == "tp 2":
+            tp2_toks = toks
+
+    # an NCCL world of 1 through the same server, tp = 1
+    lm = model(None)
+    one = TPLMServer(lm, Mesh({"tp": 1}, device=dev),
+                     **kw(False, torch.float32))
+    want = one.generate(pd, n_new)[0]
+    one_bf = TPLMServer(lm, Mesh({"tp": 1}, device=dev),
+                        **kw(False, torch.bfloat16))
+    one_ms = _gen_ms(torch, lambda n: one_bf.generate(pd, n), n_new)
+    n_ar, nccl_ms = _nccl_world_of_one(
+        torch, dev, lm, pd, n_new, kw(False, torch.float32), want,
+        lambda fn: _counted(
+            wrappers, total, "TPLMServer tp 1 on an NCCL world of 1", fn,
+            {"flash_sparse_attention_fwd": layers,
+             "decode_attention": layers * (n_new - 1),
+             "ragged_append": layers * (n_new - 1)}))
+    if n_ar != 2 * layers * n_new:
+        _fail(f"NCCL world of 1: {n_ar} all_reduce calls, expected "
+              f"{2 * layers * n_new} (2 a layer, prefill + {n_new - 1} "
+              f"steps)")
+    same = float((want == tp2_toks).float().mean())
+    print(f"  NCCL world of 1: collectives equal to the one-device mesh's; "
+          f"TPLMServer tokens equal to the one-device tp 1 mesh's, "
+          f"{n_ar} all_reduce calls; tp 1 vs tp 2 tokens equal share "
+          f"{same:.4f}; bf16 cache tp 1 {nccl_ms:.4f} ms/token on NCCL, "
+          f"{one_ms:.4f} on the one-device mesh, on {smi}", flush=True)
+    diffs = _counted(wrappers, total, "dryrun_tp_serving(4)",
+                     lambda: dryrun_tp_serving(4, dev), {})
+    print(f"  dryrun_tp_serving(4): {len(diffs)} routes within 1e-4 of the "
+          f"unsharded decoder, max {max(diffs.values()):.3e}", flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     """No arguments: every phase, then the kernels' JSON line and the
     device line. ``--only NAME[,NAME]`` runs just the named phase functions
@@ -6353,9 +6572,10 @@ def main(argv=None) -> int:
     spanel = phase_sharded_panel(stt, torch, dev, wrappers)
     sflash = phase_flash_sharded(stt, torch, dev, wrappers)
     seq = phase_seq_parallel(stt, torch, dev, wrappers)
+    tps = phase_tp_serving(stt, torch, dev, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + graph[n]
                 + remat[n] + cross[n] + moe[n] + flat[n] + int8[n] + comp[n]
-                + ring[n] + halo[n] + spanel[n] + sflash[n] + seq[n]
+                + ring[n] + halo[n] + spanel[n] + sflash[n] + seq[n] + tps[n]
                 for n in wrappers}
     for n, c in launches.items():
         if c == 0:

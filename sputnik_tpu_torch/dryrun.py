@@ -19,6 +19,13 @@ either halo fell back to the dense gather. The shapes follow ``n`` so that
 every path's rule holds at any ``n``: the zigzag ring's ``n_pad % (2 * n *
 bk) == 0``, the key sharding's ``n_pad % n == 0``.
 
+:func:`dryrun_tp_serving` is the twin of ``_dryrun_tp_serving`` and
+``_dryrun_tp_serving_ragged_spec`` on the one-device mesh: tensor- (and,
+at an even ``n > 2``, data-) parallel prefill and decode, paged decode, a
+ragged freeze / resume and a speculative ``decode_multi`` + rollback,
+every output finite and within 1e-4 x max(1, max|ref|) of the unsharded
+decoder's.
+
 Run:  python -m sputnik_tpu_torch.dryrun [--n 4,6,8,16] [--device cuda]
 """
 
@@ -30,15 +37,17 @@ import json
 import numpy as np
 import torch
 
-from .parallel import (RingFlashSpec, RowPartition, ShardedCompressedSpec,
-                       ShardedFlashSpec, ShardedPanelSpec, comm_model,
+from .models import PagedDecoder, SparseDecoder, SparseTransformer
+from .parallel import (Mesh, PagedTPDecoder, RingFlashSpec, RowPartition,
+                       ShardedCompressedSpec, ShardedFlashSpec,
+                       ShardedPanelSpec, TPDecoder, comm_model,
                        flash_attention_kv_sharded, flash_attention_sharded,
                        ring_flash_attention, sharded_spmm_halo,
                        sparse_attention_sharded, sparse_attention_sharded_c)
 from .patterns import causal_topology, local_window_topology
 from .topology import SparseTopology
 
-__all__ = ["dryrun_sp", "main"]
+__all__ = ["dryrun_sp", "dryrun_tp_serving", "main"]
 
 TILE = 64          # the kernels' bm = bk
 HD, Q = 32, 48     # attention head dim, the halo SpMM's width
@@ -139,6 +148,99 @@ def dryrun_sp(n_devices: int, device="cuda", seed: int = 0) -> dict:
     return {"losses": losses, "comm": comm}
 
 
+def _tp_model(b, s, heads, layers, seed, device):
+    """``_dryrun_tp_serving``'s model: causal masks, one head a tp position
+    (``heads``), h = 8 heads, ffn = 16 heads."""
+    masks = np.broadcast_to(np.tril(np.ones((s, s), np.float32)),
+                            (b, s, s)).copy()
+    return SparseTransformer.from_masks(
+        masks, num_layers=layers, hidden_size=8 * heads, num_heads=heads,
+        ffn_hidden_size=16 * heads, use_residual=True, use_layernorm=True,
+        activation="gelu", generator=torch.Generator().manual_seed(seed),
+        device=device)
+
+
+def dryrun_tp_serving(n_devices: int, device="cuda", seed: int = 0) -> dict:
+    """Tensor-parallel serving at ``n_devices`` positions of a one-device
+    mesh on ``device``: dp 2 x tp n/2 where ``n`` is even and > 2, else tp
+    n, one head a tp position. Prefill and a decode step (contiguous), a
+    paged prefill + step, then at tp = n a ragged step freezing one slot, a
+    step resuming it, ``decode_multi`` of 3 drafts, a rollback of 1 and a
+    step. Each output is finite and within 1e-4 x max(1, max|ref|) of the
+    unsharded decoder's on the same inputs. Returns ``{route: max abs
+    difference}``."""
+    n, dev = int(n_devices), torch.device(device)
+    rng = np.random.RandomState(seed)
+    diffs = {}
+
+    def hold(route, got, ref):
+        d = float((got - ref).abs().max())
+        if not (torch.isfinite(got).all() and
+                d <= 1e-4 * max(1.0, float(ref.abs().max()))):
+            raise RuntimeError(f"dryrun_tp_serving({n}) {route}: "
+                               f"{d} from the unsharded decoder")
+        diffs[route] = d
+
+    def act(*shape):
+        return torch.from_numpy(
+            (rng.randn(*shape) * 0.3).astype(np.float32)).to(dev)
+
+    dp = 2 if n % 2 == 0 and n > 2 else 1
+    tp = n // dp
+    axes = {"dp": dp, "tp": tp} if dp > 1 else {"tp": tp}
+    batch_axis = "dp" if dp > 1 else None
+    mesh = Mesh(axes, device=dev)
+    b, s = 2 * dp, 16
+    kw = dict(s_max=s + 8, bk=8, cache_dtype=torch.float32)
+    model = _tp_model(b, s, tp, 2, seed, dev)
+    tpd = TPDecoder(model, mesh, batch_axis=batch_axis, **kw)
+    ref = SparseDecoder(model, **kw)
+    x = act(b, s, 8 * tp)
+    y, c = tpd.prefill(x, tpd.init_caches(b))
+    y_ref, c_ref = ref.prefill(x, ref.init_caches(b))
+    hold("prefill", y, y_ref)
+    y2, c = tpd.decode_step(y[:, -1:], c)
+    hold("decode_step", y2, ref.decode_step(y_ref[:, -1:], c_ref)[0])
+
+    # paged: one pool a position, prompts padded to the page size
+    s_p = 128
+    model_p = _tp_model(b, s_p, tp, 1, seed + 1, dev)
+    pkw = dict(s_max=s_p + 128, bk=128, cache_dtype=torch.float32)
+    ppd = PagedTPDecoder(model_p, mesh, n_pages=2 * (b // dp),
+                         batch_axis=batch_axis, **pkw)
+    pref = PagedDecoder(model_p, n_pages=2 * b * tp, **pkw)
+    xp = act(b, s_p, 8 * tp)
+    yp, pc = ppd.prefill(xp, ppd.init_caches(b))
+    yp_ref, pc_ref = pref.prefill(xp, pref.init_caches(b))
+    hold("paged prefill", yp, yp_ref)
+    yp2, pc = ppd.decode_step(yp[:, -1:], ppd.reserve(pc, 1))
+    hold("paged decode_step",
+         yp2, pref.decode_step(yp_ref[:, -1:], pref.reserve(pc_ref, 1))[0])
+
+    # ragged freeze / resume and speculative verification at tp = n
+    b = 2
+    model = _tp_model(b, s, n, 2, seed + 2, dev)
+    tpd = TPDecoder(model, Mesh({"tp": n}, device=dev), **kw)
+    ref = SparseDecoder(model, **kw)
+    x = act(b, s, 8 * n)
+    _, c = tpd.prefill(x, tpd.init_caches(b))
+    _, c_ref = ref.prefill(x, ref.init_caches(b))
+    tok = act(b, 1, 8 * n)
+    frozen = torch.tensor([True, False], device=dev)
+    for route, a in (("ragged frozen", frozen), ("ragged resumed", None)):
+        y, c = tpd.decode_step_ragged(tok, c, a)
+        y_ref, c_ref = ref.decode_step_ragged(tok, c_ref, a)
+        hold(route, y, y_ref)
+    drafts = act(b, 3, 8 * n)
+    ym, c = tpd.decode_multi(drafts, c)
+    ym_ref, c_ref = ref.decode_multi(drafts, c_ref)
+    hold("decode_multi", ym, ym_ref)
+    c, c_ref = tpd.rollback(c, 1), ref.rollback(c_ref, 1)
+    y, c = tpd.decode_step(ym[:, -2:-1], c)
+    hold("after rollback", y, ref.decode_step(ym_ref[:, -2:-1], c_ref)[0])
+    return diffs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", default="4,6,8,16",
@@ -150,7 +252,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested, but no CUDA "
                            f"device is available")
-    return {int(n): dryrun_sp(int(n), device)
+    return {int(n): (dryrun_sp(int(n), device),
+                     dryrun_tp_serving(int(n), device))
             for n in args.n.split(",")}
 
 

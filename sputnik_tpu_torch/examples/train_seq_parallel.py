@@ -17,7 +17,7 @@ tensor at the full config would be 4.3 GB), and the loss falls.
 
 Full config (the default): 8 shards of s = 16384, hd 64, R 4, a window of
 s / 8 = 2048 keys, 4 steps, the kernels' 64 x 64 tiles, on one card (the
-shards run one after another: ``ROADMAP.md`` A9c puts them on separate
+shards run one after another: ``ROADMAP.md`` A9d puts them on separate
 cards). ``--small``: the JAX example's small config, s = 1024, hd 16, R 2.
 Input from ``numpy.random.RandomState(seed)``.
 

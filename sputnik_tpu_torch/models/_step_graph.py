@@ -69,19 +69,23 @@ class StepRunner:
     ``kv_len`` tensor); ``pool``: the owner's ``GraphPool``. ``runner(x)``
     returns the step's output; under a graph that is the graph's static
     output, overwritten by the next call, so read or copy it first.
-    ``runner.caches`` holds the current caches."""
+    ``runner.caches`` holds the current caches. ``graph=False`` runs every
+    step eagerly on CUDA tensors too (the tensor-parallel servers, whose
+    graph is later work)."""
 
-    def __init__(self, step: Callable, caches: Sequence, pool: GraphPool):
+    def __init__(self, step: Callable, caches: Sequence, pool: GraphPool,
+                 graph: bool = True):
         self.step = step
         self.caches = tuple(caches)
         self.pool = pool
+        self.use_graph = graph
         self.calls = 0
         self.graph = None
         self._x = self._out = None
 
     def __call__(self, x):
         self.calls += 1
-        if not x.is_cuda:
+        if not (x.is_cuda and self.use_graph):
             out, self.caches = self.step(x, self.caches)
             return out
         if self.calls == 1:

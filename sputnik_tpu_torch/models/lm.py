@@ -11,10 +11,12 @@
     ``categorical`` is Gumbel-max too, but the two random streams differ,
     so only greedy decoding matches the JAX package token for token.
   * ``LMServer``: token-in / token-out generation over ``SparseDecoder``
-    (or ``PagedDecoder`` with ``n_pages=``); ``generate`` runs the prefill,
-    then one decode step a token, with the sampling between steps, all on
-    the device. On a CUDA device the steps after the first replay one
-    captured CUDA graph (``_step_graph.py``).
+    (or ``PagedDecoder`` with ``n_pages=``, or any decoder given as
+    ``decoder=``: ``parallel.TPLMServer`` passes a tensor-parallel one);
+    ``generate`` runs the prefill, then one decode step a token, with the
+    sampling between steps, all on the device. On a CUDA device the steps
+    after the first replay one captured CUDA graph (``_step_graph.py``).
+    ``reduce_fn`` is JAX's tensor-parallel hook, passed to the decoder.
 """
 
 from __future__ import annotations
@@ -142,20 +144,30 @@ class LMServer:
 
     ``n_pages``: serve from a KV page pool of that many pages per layer
     (``PagedDecoder``; ``s_max`` is then the per-sequence length cap and
-    ``bk`` the page size). ``decoder`` (tensor-parallel serving) is not
-    ported yet and raises ``NotImplementedError``."""
+    ``bk`` the page size). ``decoder``: an externally built runtime with
+    the decoder surface (``init_caches``, ``prefill``, ``decode_step``,
+    ``decode_step_ragged``, ``graph_pool``; ``reserve`` for a page pool),
+    e.g. one position's ``SparseDecoder`` or a tensor-parallel
+    ``parallel.TPDecoder``; the other decoder arguments are then unused."""
+
+    # generate replays one CUDA graph a decode step on a CUDA device
+    _graphs = True
 
     def __init__(self, lm: SparseLM, *, s_max: Optional[int] = None,
                  bk: int = 256, window: Optional[int] = None, sinks: int = 0,
                  cache_dtype=torch.bfloat16, n_pages: Optional[int] = None,
-                 decoder: Optional[SparseDecoder] = None):
-        if decoder is not None:
-            raise NotImplementedError(
-                "an external decoder (decoder=, tensor-parallel serving) is "
-                "not ported yet — ROADMAP A9")
-        if s_max is None:
-            raise ValueError("s_max is required")
+                 decoder=None):
         self.lm = lm
+        if decoder is not None:
+            missing = [m for m in ("init_caches", "prefill", "decode_step",
+                                   "decode_step_ragged")
+                       if not callable(getattr(decoder, m, None))]
+            if missing:
+                raise ValueError(f"decoder= lacks {missing}")
+            self.decoder = decoder
+            return
+        if s_max is None:
+            raise ValueError("s_max is required (unless decoder= is given)")
         kw = dict(s_max=s_max, bk=bk, window=window, sinks=sinks,
                   cache_dtype=cache_dtype)
         if n_pages is not None:
@@ -166,29 +178,40 @@ class LMServer:
     def init_caches(self, batch: int):
         return self.decoder.init_caches(batch)
 
+    @staticmethod
+    def _hook(reduce_fn):
+        return {} if reduce_fn is None else {"reduce_fn": reduce_fn}
+
     @torch.no_grad()
-    def prefill(self, tokens, caches, lengths=None):
+    def prefill(self, tokens, caches, lengths=None, reduce_fn=None):
         """Prompt pass: ``tokens [b, P] -> (logits [b, P, vocab], caches)``.
         With ``lengths`` read row ``s`` at ``lengths[s] - 1``."""
         y, caches = self.decoder.prefill(self.lm.embed(tokens), caches,
-                                         lengths=lengths)
+                                         lengths=lengths,
+                                         **self._hook(reduce_fn))
         return self.lm.head(y), caches
 
     @torch.no_grad()
-    def decode_step(self, tok, caches):
+    def decode_step(self, tok, caches, reduce_fn=None):
         """One token: ``tok [b] -> (logits [b, vocab], caches)``."""
         y, caches = self.decoder.decode_step(self.lm.embed(tok)[:, None],
-                                             caches)
+                                             caches, **self._hook(reduce_fn))
         return self.lm.head(y)[:, 0], caches
 
     @torch.no_grad()
-    def decode_step_ragged(self, tok, caches, active=None):
+    def decode_step_ragged(self, tok, caches, active=None, reduce_fn=None):
         """Continuous-batching step (per-slot cache positions, ``active``
         freezing finished slots): ``tok [b] -> (logits [b, vocab],
         caches)``; see ``SparseDecoder.decode_step_ragged``."""
         y, caches = self.decoder.decode_step_ragged(
-            self.lm.embed(tok)[:, None], caches, active)
+            self.lm.embed(tok)[:, None], caches, active,
+            **self._hook(reduce_fn))
         return self.lm.head(y)[:, 0], caches
+
+    def _sampler(self, generator, **sampling):
+        """The token choice of one ``generate`` call: ``logits [b, vocab]
+        -> tokens [b]``."""
+        return lambda logits: sample_logits(logits, generator, **sampling)
 
     @torch.no_grad()
     def generate(self, tokens, n_new: int,
@@ -196,7 +219,7 @@ class LMServer:
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  top_p: Optional[float] = None, eos_id: Optional[int] = None,
                  pad_id: int = 0, repetition_penalty: float = 1.0,
-                 prompt_lengths=None):
+                 prompt_lengths=None, reduce_fn=None):
         """Generate ``n_new`` tokens after the prompt ``tokens [b, P]``.
         Returns ``(new_tokens [b, n_new], caches)``.
 
@@ -215,7 +238,8 @@ class LMServer:
         logits), and each later token replays it; sampling stays outside
         the graph, so a given generator draws the same tokens as eager
         steps do. Every page is reserved before the loop (paged servers),
-        which the graph needs. A failed capture raises."""
+        which the graph needs. A failed capture raises. ``reduce_fn``: JAX's
+        tensor-parallel hook, passed to every decoder step."""
         if n_new < 1:
             raise ValueError(f"n_new must be >= 1, got {n_new}")
         if temperature != 0.0 and generator is None:
@@ -223,7 +247,7 @@ class LMServer:
         b = tokens.shape[0]
         dev = tokens.device
         caches = self.init_caches(b)
-        if isinstance(self.decoder, PagedDecoder):
+        if hasattr(self.decoder, "reserve"):
             # paged pool: the prompt's and every decode token's pages in ONE
             # host step, so the decode loop never syncs
             caches = self.decoder.reserve(caches, tokens.shape[1] + n_new)
@@ -247,8 +271,7 @@ class LMServer:
             if present is not None:
                 logits = apply_repetition_penalty(logits, present,
                                                   repetition_penalty)
-            tok = sample_logits(logits, generator, temperature=temperature,
-                                top_k=top_k, top_p=top_p)
+            tok = sample(logits)
             if eos_id is not None:
                 tok = torch.where(done, pad_id, tok)
                 done = done | (tok == eos_id)
@@ -256,17 +279,25 @@ class LMServer:
                 present[rows, tok] = True
             return tok, done, present
 
+        sample = self._sampler(generator, temperature=temperature,
+                               top_k=top_k, top_p=top_p)
+        hook = self._hook(reduce_fn)
         y, caches = self.decoder.prefill(self.lm.embed(tokens), caches,
-                                         lengths=lens)
+                                         lengths=lens, **hook)
         if lens is None:
             last = y[:, -1]
-            step = self.decode_step
+
+            def step(tok, caches):
+                return self.decode_step(tok, caches, **hook)
         else:
             last = y[rows, lens - 1]
-            step = self.decode_step_ragged
+
+            def step(tok, caches):
+                return self.decode_step_ragged(tok, caches, **hook)
         tok, done, present = pick(self.lm.head(last), done, present)
         out = [tok]
-        run = StepRunner(step, caches, self.decoder.graph_pool)
+        run = StepRunner(step, caches, self.decoder.graph_pool,
+                         graph=self._graphs)
         for _ in range(n_new - 1):
             tok, done, present = pick(run(tok), done, present)
             out.append(tok)

@@ -52,7 +52,7 @@ class SparseMoE(nn.Module):
       activation: ``"gelu"`` (tanh form), ``"relu"`` or ``None``.
       bank_tiles: ``(bm, bk)`` of the expert bank's panels; ``None`` is the
         port's 64 x 64 (``panel_api.DEFAULT_BLOCK``).
-      mesh: expert parallelism; not ported (ROADMAP A9).
+      mesh: expert parallelism; not ported (ROADMAP A9d).
       generator, device: initialisation (router LeCun-normal like flax
         ``nn.Dense``, expert values Kaiming-uniform over the nonzeros) and
         placement.
@@ -67,7 +67,7 @@ class SparseMoE(nn.Module):
         if mesh is not None:
             raise NotImplementedError(
                 "SparseMoE(mesh=...) is not ported yet — expert parallelism "
-                "over a device mesh, ROADMAP A9")
+                "over a device mesh, ROADMAP A9d")
         h, f = topo_in.n, topo_in.m
         if topo_out.m != h or topo_out.n != f:
             raise ValueError(f"topo_out must be [{h}, {f}], got "

@@ -19,8 +19,17 @@ the layers then compute as JAX's serving math does on such weights: an f32
 activation meets a bf16 weight's exact f32 values (``transformer._dense``).
 ``decode_loop`` (and ``LMServer.generate``, ``models/lm.py``) replay one
 captured CUDA graph a token on a CUDA device (``_step_graph.py``); the
-single-step methods stay eager. Not ported yet: the tensor-parallel
-``reduce_fn`` hook (ROADMAP A9).
+single-step methods stay eager.
+
+Every step is written once over a LIST of shards (:func:`run_steps`): each
+method builds its shard's :class:`Step` (its decoder, input, caches and
+attention body), and the layers run on every shard of the list in lockstep,
+layer by layer. ``reduce_fn`` (tensor parallelism, as in JAX) is applied to
+the attention output projection and the MLP down projection, the two
+row-sharded products whose partial sums are summed across the tp axis:
+here a function of one tensor (``all_reduce`` on a rank);
+``parallel/serving_tp.py`` runs the same steps over every position of a
+one-device mesh, where each reduce point is one ``psum`` over the list.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from ._step_graph import GraphPool, StepRunner
 from .transformer import (_LN_EPS, SparseTransformer, _dense,
                           cached_batched_spec)
 
-__all__ = ["SparseDecoder"]
+__all__ = ["SparseDecoder", "Step", "run_steps"]
 
 
 def _layernorm(ln, x):
@@ -57,6 +66,57 @@ def _layernorm(ln, x):
     den = torch.sqrt((var.float() + _LN_EPS).to(dt).float()).to(dt)
     y = (x - mu).float() / den.float()
     return y * ln.weight + ln.bias
+
+
+class Step:
+    """One shard's part of a decoder step: the decoder whose model it runs,
+    its input ``x``, its per-layer ``caches`` (replaced layer by layer as
+    the step writes them), ``attn(li, q, k, v) -> [b, s, heads * hd]`` (layer
+    ``li``'s attention body) and, for a prefill, ``write(li, k, v)`` (layer
+    ``li``'s cache write)."""
+
+    def __init__(self, dec, x, caches, attn: Callable,
+                 write: Optional[Callable] = None):
+        self.dec, self.x, self.caches = dec, x, list(caches)
+        self.attn, self.write = attn, write
+
+
+def run_steps(steps: Sequence[Step], reduce: Optional[Callable] = None):
+    """Run the layers of every shard's step in lockstep, layer by layer.
+    ``reduce(list of partial sums) -> list`` (one entry a shard) is applied
+    at the two reduce points of each layer, the attention output projection
+    and the MLP down projection (``None``: no reduction). Returns ``(ys,
+    caches)``, a list each, one entry a shard."""
+    xs = [s.x for s in steps]
+    for li in range(steps[0].dec.model.num_layers):
+        layers = [s.dec.model.layers[li] for s in steps]
+        qkv = [s.dec._qkv(layer, _layernorm(layer.ln_attn, x))
+               for s, layer, x in zip(steps, layers, xs)]
+        part = [_dense(layer.self_attention.dense, s.attn(li, *t))
+                for s, layer, t in zip(steps, layers, qkv)]
+        if reduce is not None:
+            part = reduce(part)
+        xs = [x + a if layer.use_residual else a
+              for x, a, layer in zip(xs, part, layers)]
+        part = [layer.mlp(_layernorm(layer.ln_mlp, x))
+                for layer, x in zip(layers, xs)]
+        if reduce is not None:
+            part = reduce(part)
+        xs = [x + m if layer.use_residual else m
+              for x, m, layer in zip(xs, part, layers)]
+        for s, (_, k, v) in zip(steps, qkv):
+            if s.write is not None:
+                s.write(li, k, v)
+    return xs, [tuple(s.caches) for s in steps]
+
+
+def _run_one(step: Step, reduce_fn=None):
+    """One shard's step; ``reduce_fn`` is JAX's hook, a function of one
+    tensor."""
+    red = None if reduce_fn is None else (
+        lambda ts: [reduce_fn(t) for t in ts])
+    (y,), (caches,) = run_steps([step], red)
+    return y, caches
 
 
 class SparseDecoder:
@@ -167,15 +227,6 @@ class SparseDecoder:
         return ctx.reshape(b, heads, s, self.hd).transpose(1, 2).reshape(
             b, s, heads * self.hd)
 
-    def _block(self, layer, x, attn_fn: Callable):
-        """One transformer layer around the attention body ``attn_fn(q, k,
-        v) -> [b, s, h]``; returns ``(y, (k, v))``."""
-        q, k, v = self._qkv(layer, _layernorm(layer.ln_attn, x))
-        attn = _dense(layer.self_attention.dense, attn_fn(q, k, v))
-        x = x + attn if layer.use_residual else attn
-        mlp = layer.mlp(_layernorm(layer.ln_mlp, x))
-        return (x + mlp if layer.use_residual else mlp), (k, v)
-
     # -- prefill -------------------------------------------------------------
 
     def _prefill_setup(self, caches, T: int):
@@ -188,8 +239,35 @@ class SparseDecoder:
         its cache (paged decoders write pool pages instead)."""
         return prefill_kv(cache, k3, v3, len_r)
 
+    def _plan_prefill(self, x, caches, lengths=None) -> "Step":
+        """This shard's prompt pass (see ``prefill``)."""
+        mt = self.model.mask_topology
+        T = x.shape[1]
+        if T != mt.m:
+            raise ValueError(f"prompt length {T} != mask rows {mt.m}")
+        caches = self._prefill_setup(caches, T)
+        len_r = None if lengths is None else torch.as_tensor(
+            lengths, device=x.device).to(torch.int32).repeat_interleave(
+                self.kv_heads)
+        if self.model.attention_layout == "panel":
+            # the model's own batched chain SDDMM -> softmax -> SpMM (the
+            # attention core has no parameters: every layer's is the same)
+            core = self.model.layers[0].self_attention.core
+            attn = (lambda li, q, k, v: core(q, k, v))
+        else:
+            warm_flash_meta(self.spec, x.device, backward=False)
+            attn = (lambda li, q, k, v: self._flash_attn(q, k, v))
+
+        def write(li, k, v):
+            step.caches[li] = self._prefill_write(
+                step.caches[li], self._fold(k), self._fold(v), len_r)
+
+        step = Step(self, x, caches, attn, write)
+        return step
+
     @torch.no_grad()
-    def prefill(self, x, caches: Sequence[KVCache], lengths=None):
+    def prefill(self, x, caches: Sequence[KVCache], lengths=None,
+                reduce_fn=None):
         """Run the prompt ``x [b, T, h]`` through the model (sparse-flash
         attention on the model's masks; the batched panel chain on a
         ``attention_layout="panel"`` model) and bulk-write every layer's K/V
@@ -200,28 +278,7 @@ class SparseDecoder:
         sequence's length never attend its pad positions; read sequence
         ``s``'s output at ``lengths[s] - 1``. ``kv_len`` is set per replica,
         so decoding continues through ``decode_step_ragged``."""
-        mt = self.model.mask_topology
-        b, T, _ = x.shape
-        if T != mt.m:
-            raise ValueError(f"prompt length {T} != mask rows {mt.m}")
-        caches = self._prefill_setup(caches, T)
-        len_r = None if lengths is None else torch.as_tensor(
-            lengths, device=x.device).to(torch.int32).repeat_interleave(
-                self.kv_heads)
-        if self.model.attention_layout == "panel":
-            # the model's own batched chain SDDMM -> softmax -> SpMM (the
-            # attention core has no parameters: every layer's is the same)
-            attn = self.model.layers[0].self_attention.core
-        else:
-            warm_flash_meta(self.spec, x.device, backward=False)
-            attn = self._flash_attn
-
-        new_caches = []
-        for layer, cache in zip(self.model.layers, caches):
-            x, (k, v) = self._block(layer, x, attn)
-            new_caches.append(self._prefill_write(cache, self._fold(k),
-                                                  self._fold(v), len_r))
-        return x, tuple(new_caches)
+        return _run_one(self._plan_prefill(x, caches, lengths), reduce_fn)
 
     def _flash_attn(self, q, k, v):
         """Prompt attention through the sparse-flash kernel (GQA native)."""
@@ -233,33 +290,41 @@ class SparseDecoder:
 
     # -- decode --------------------------------------------------------------
 
-    def _decode_layers(self, x, caches, append_fn, tbl, valid, qlen):
-        """Per layer: append this step's K/V (``append_fn(cache, k3, v3)``,
-        folded ``[R_kv, qlen, hd]``) and attend over the step's table."""
+    def _plan_decode(self, x, caches, append_fn, tbl, valid, qlen) -> "Step":
+        """A decode step's shard: per layer, append this step's K/V
+        (``append_fn(cache, k3, v3)``, folded ``[R_kv, qlen, hd]``) and
+        attend over the step's table."""
         b = x.shape[0]
         scale = 1.0 / float(np.sqrt(self.hd))
-        new_caches = []
-        for layer, cache in zip(self.model.layers, caches):
 
-            def attn(q, k, v):
-                nonlocal cache
-                cache = append_fn(cache, self._fold(k), self._fold(v))
-                ctx = decode_attention(self._fold(q), cache, tbl, valid,
-                                       bk=self.bk, qlen=qlen,
-                                       group=self.group, scale=scale)
-                return self._unfold(ctx, b)
+        def attn(li, q, k, v):
+            cache = step.caches[li] = append_fn(
+                step.caches[li], self._fold(k), self._fold(v))
+            ctx = decode_attention(self._fold(q), cache, tbl, valid,
+                                   bk=self.bk, qlen=qlen, group=self.group,
+                                   scale=scale)
+            return self._unfold(ctx, b)
 
-            x, _ = self._block(layer, x, attn)
-            new_caches.append(cache)
-        return x, tuple(new_caches)
+        step = Step(self, x, caches, attn)
+        return step
 
     def _table(self, kv_len):
         return decode_block_table(kv_len, s_max=self.s_max, bk=self.bk,
                                   window_blocks=self.window_blocks,
                                   sink_blocks=self.sink_blocks)
 
+    def _plan_step(self, x_tok, caches) -> "Step":
+        pos = caches[0].kv_len[0]
+        tbl, valid = self._table(
+            torch.clamp(caches[0].kv_len + 1, max=self.s_max))
+
+        def append(cache, k3, v3):
+            return append_kv(cache, k3[:, 0], v3[:, 0], pos=pos)
+
+        return self._plan_decode(x_tok, caches, append, tbl, valid, 1)
+
     @torch.no_grad()
-    def decode_step(self, x_tok, caches: Sequence[KVCache]):
+    def decode_step(self, x_tok, caches: Sequence[KVCache], reduce_fn=None):
         """Advance one token with every sequence at the same length:
         ``x_tok [b, 1, h]`` -> ``(y [b, 1, h], caches)``. The write position
         is ONE device scalar (``caches[0].kv_len[0]``, never read on the
@@ -268,25 +333,9 @@ class SparseDecoder:
         unclamped ``kv_len + 1`` would mark an out-of-range block valid
         (the JAX package measured a 0.127 output error without the
         clamp)."""
-        pos = caches[0].kv_len[0]
-        tbl, valid = self._table(
-            torch.clamp(caches[0].kv_len + 1, max=self.s_max))
+        return _run_one(self._plan_step(x_tok, caches), reduce_fn)
 
-        def append(cache, k3, v3):
-            return append_kv(cache, k3[:, 0], v3[:, 0], pos=pos)
-
-        return self._decode_layers(x_tok, caches, append, tbl, valid, 1)
-
-    @torch.no_grad()
-    def decode_step_ragged(self, x_tok, caches: Sequence[KVCache],
-                           active=None):
-        """One token per sequence with PER-SEQUENCE cache lengths (the
-        continuous-batching step): each slot appends at its own ``kv_len``
-        through the ragged-append kernel and attends its own table.
-        ``active`` (bool ``[b]``) freezes finished slots: their token is
-        computed but not written, and their cache and ``kv_len`` stay as
-        they were. A slot at ``kv_len == s_max`` keeps its cache too, but
-        gains no context: evict or rotate full slots (``insert_kv_slot``)."""
+    def _plan_ragged(self, x_tok, caches, active=None) -> "Step":
         act_r = None
         adv = 1
         if active is not None:
@@ -299,18 +348,21 @@ class SparseDecoder:
         def append(cache, k3, v3):
             return append_kv(cache, k3[:, 0], v3[:, 0], active=act_r)
 
-        return self._decode_layers(x_tok, caches, append, tbl, valid, 1)
+        return self._plan_decode(x_tok, caches, append, tbl, valid, 1)
 
     @torch.no_grad()
-    def decode_multi(self, x_toks, caches: Sequence[KVCache]):
-        """Speculative verification: advance ``q <= 8`` draft tokens at
-        once, ``x_toks [b, q, h]`` -> ``(y [b, q, h], caches)``, equal to
-        ``q`` sequential ``decode_step`` calls on the same inputs, with one
-        attention pass and one bulk cache write per layer. With a window,
-        rows before the last see up to ``q - 1`` extra trailing tokens.
-        If the draft does not fit below ``s_max`` nothing is written and
-        ``kv_len`` does not advance (the rejection signal; the outputs of
-        such a step are meaningless)."""
+    def decode_step_ragged(self, x_tok, caches: Sequence[KVCache],
+                           active=None, reduce_fn=None):
+        """One token per sequence with PER-SEQUENCE cache lengths (the
+        continuous-batching step): each slot appends at its own ``kv_len``
+        through the ragged-append kernel and attends its own table.
+        ``active`` (bool ``[b]``) freezes finished slots: their token is
+        computed but not written, and their cache and ``kv_len`` stay as
+        they were. A slot at ``kv_len == s_max`` keeps its cache too, but
+        gains no context: evict or rotate full slots (``insert_kv_slot``)."""
+        return _run_one(self._plan_ragged(x_tok, caches, active), reduce_fn)
+
+    def _plan_multi(self, x_toks, caches) -> "Step":
         qn = x_toks.shape[1]
         if qn > QPAD:
             raise ValueError(f"q {qn} > QPAD {QPAD}")
@@ -321,7 +373,20 @@ class SparseDecoder:
         def append(cache, k3, v3):
             return append_kv_seq(cache, k3, v3, pos)
 
-        return self._decode_layers(x_toks, caches, append, tbl, valid, qn)
+        return self._plan_decode(x_toks, caches, append, tbl, valid, qn)
+
+    @torch.no_grad()
+    def decode_multi(self, x_toks, caches: Sequence[KVCache],
+                     reduce_fn=None):
+        """Speculative verification: advance ``q <= 8`` draft tokens at
+        once, ``x_toks [b, q, h]`` -> ``(y [b, q, h], caches)``, equal to
+        ``q`` sequential ``decode_step`` calls on the same inputs, with one
+        attention pass and one bulk cache write per layer. With a window,
+        rows before the last see up to ``q - 1`` extra trailing tokens.
+        If the draft does not fit below ``s_max`` nothing is written and
+        ``kv_len`` does not advance (the rejection signal; the outputs of
+        such a step are meaningless)."""
+        return _run_one(self._plan_multi(x_toks, caches), reduce_fn)
 
     @staticmethod
     def rollback(caches: Sequence[KVCache], n: int) -> Tuple[KVCache, ...]:

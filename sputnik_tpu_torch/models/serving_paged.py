@@ -28,7 +28,7 @@ import torch
 
 from ..ops import paged as pg
 from ..ops.decode import decode_block_table
-from .serving import SparseDecoder
+from .serving import SparseDecoder, Step, _run_one
 
 __all__ = ["PagedDecoder"]
 
@@ -102,17 +102,19 @@ class PagedDecoder(SparseDecoder):
         return self.reserve(caches, T)          # pages for the whole prompt
 
     def _prefill_write(self, cache, k3, v3, len_r):
+        # the table's prompt blocks as DEVICE page ids (a device scatter,
+        # no host read): the prompt's pages were reserved by _prefill_setup
         T = k3.shape[1]
-        pages = cache.page_table[:, : T // self.bk].cpu().numpy()
-        return pg.write_prompt_pages(cache, k3, v3, replica_pages=pages,
-                                     lengths=len_r)
+        return pg.write_prompt_pages(
+            cache, k3, v3, replica_pages=cache.page_table[:, : T // self.bk],
+            lengths=len_r)
 
     # -- decode --------------------------------------------------------------
 
-    def _paged_decode_layers(self, x, caches, append_fn, qlen, advance):
-        """The decode layer loop shared by the uniform, ragged and
-        speculative steps: per layer, append through ``append_fn(cache, k3,
-        v3)`` and attend through the step's tables.
+    def _plan_paged(self, x, caches, append_fn, qlen, advance):
+        """The decode shard shared by the uniform, ragged and speculative
+        steps: per layer, append through ``append_fn(cache, k3, v3)`` and
+        attend through the step's tables.
 
         Both tables are built ONCE per step, not per layer: the logical one
         depends only on the lengths, and the physical one too, because
@@ -127,29 +129,19 @@ class PagedDecoder(SparseDecoder):
             kv_len1, s_max=self.s_max, bk=self.bk,
             window_blocks=self.window_blocks, sink_blocks=self.sink_blocks)
         phys, valid = pg.physical_table(c0, logical, valid)
-        new_caches = []
-        for layer, cache in zip(self.model.layers, caches):
 
-            def attn(q, k, v):
-                nonlocal cache
-                cache = append_fn(cache, self._fold(k), self._fold(v))
-                ctx = pg.paged_attention(self._fold(q), cache, phys, logical,
-                                         valid, group=self.group, qlen=qlen,
-                                         scale=scale)
-                return self._unfold(ctx, b)
+        def attn(li, q, k, v):
+            cache = step.caches[li] = append_fn(
+                step.caches[li], self._fold(k), self._fold(v))
+            ctx = pg.paged_attention(self._fold(q), cache, phys, logical,
+                                     valid, group=self.group, qlen=qlen,
+                                     scale=scale)
+            return self._unfold(ctx, b)
 
-            x, _ = self._block(layer, x, attn)
-            new_caches.append(cache)
-        return x, tuple(new_caches)
+        step = Step(self, x, caches, attn)
+        return step
 
-    @torch.no_grad()
-    def decode_step(self, x_tok, caches: Sequence[pg.PagedKVCache],
-                    active=None):
-        """One token per sequence (run ``reserve`` first): ``x_tok [b, 1,
-        h]`` -> ``(y [b, 1, h], caches)``. Paged appends are per replica by
-        construction (each replica's page differs), so uniform and ragged
-        batches share this step; ``active`` (bool ``[b]``) freezes finished
-        slots as the contiguous ragged step does."""
+    def _plan_step(self, x_tok, caches, active=None):
         act_r = None
         if active is not None:
             act_r = torch.as_tensor(active, device=x_tok.device).to(
@@ -158,28 +150,44 @@ class PagedDecoder(SparseDecoder):
         def append(cache, k3, v3):
             return pg.append_paged(cache, k3[:, 0], v3[:, 0], act_r)
 
-        return self._paged_decode_layers(
-            x_tok, caches, append, 1, act_r if act_r is not None else 1)
+        return self._plan_paged(x_tok, caches, append, 1,
+                                act_r if act_r is not None else 1)
 
-    def decode_step_ragged(self, x_tok, caches: Sequence[pg.PagedKVCache],
-                           active=None):
-        """The same step as ``decode_step``: paged appends are per replica
-        by construction."""
-        return self.decode_step(x_tok, caches, active=active)
+    _plan_ragged = _plan_step
+
+    def _plan_multi(self, x_toks, caches):
+        def append(cache, k3, v3):
+            return pg.append_paged_seq(cache, k3, v3)
+
+        qn = x_toks.shape[1]
+        return self._plan_paged(x_toks, caches, append, qn, qn)
 
     @torch.no_grad()
-    def decode_multi(self, x_toks, caches: Sequence[pg.PagedKVCache]):
+    def decode_step(self, x_tok, caches: Sequence[pg.PagedKVCache],
+                    active=None, reduce_fn=None):
+        """One token per sequence (run ``reserve`` first): ``x_tok [b, 1,
+        h]`` -> ``(y [b, 1, h], caches)``. Paged appends are per replica by
+        construction (each replica's page differs), so uniform and ragged
+        batches share this step; ``active`` (bool ``[b]``) freezes finished
+        slots as the contiguous ragged step does."""
+        return _run_one(self._plan_step(x_tok, caches, active), reduce_fn)
+
+    def decode_step_ragged(self, x_tok, caches: Sequence[pg.PagedKVCache],
+                           active=None, reduce_fn=None):
+        """The same step as ``decode_step``: paged appends are per replica
+        by construction."""
+        return self.decode_step(x_tok, caches, active=active,
+                                reduce_fn=reduce_fn)
+
+    @torch.no_grad()
+    def decode_multi(self, x_toks, caches: Sequence[pg.PagedKVCache],
+                     reduce_fn=None):
         """Speculative verification over the pool: advance ``q <= 8`` draft
         tokens at once (``reserve(caches, q)`` first). All or nothing per
         replica: a replica whose draft does not fit (pages or table) writes
         nothing and its ``kv_len`` stays, the rejection signal. Reject
         tokens with the per-slot ``rollback``."""
-        qn = x_toks.shape[1]
-
-        def append(cache, k3, v3):
-            return pg.append_paged_seq(cache, k3, v3)
-
-        return self._paged_decode_layers(x_toks, caches, append, qn, qn)
+        return _run_one(self._plan_multi(x_toks, caches), reduce_fn)
 
     def rollback(self, caches: Sequence[pg.PagedKVCache],
                  n) -> Tuple[pg.PagedKVCache, ...]:

@@ -14,9 +14,11 @@ Division of labour, as in the JAX package:
     (logical sinks + window table -> physical pages) and
     ``paged_attention`` through the paged-attention kernel.
   * HOST (the scheduler, between decode steps): ``PagePool``, a free list
-    with refcounts; ``ensure_pages``, ``free_pages_of``, ``share_prefix``
-    and ``write_prompt_pages``. They read ``kv_len`` / ``page_table`` to
-    the host, as JAX's do: each is a sync point by design.
+    with refcounts; ``ensure_pages``, ``free_pages_of`` and
+    ``share_prefix``. They read ``kv_len`` / ``page_table`` to the host, as
+    JAX's do: each is a sync point by design. ``write_prompt_pages`` takes
+    host page ids (checked) or device ids (a device scatter, as the
+    decoders' prefill passes them).
 
 **Writes are in place**, as in ``ops/decode.py``: the returned
 ``PagedKVCache`` shares the pool buffers (and, where only the pool changed,
@@ -284,28 +286,38 @@ def append_paged_seq(cache: PagedKVCache, k_new, v_new,
 
 def write_prompt_pages(cache: PagedKVCache, k_seq, v_seq, *,
                        replica_pages, lengths=None) -> PagedKVCache:
-    """Bulk prefill write through host-known page ids, in place.
+    """Bulk prefill write of each prompt block into its page, in place.
 
-    ``k_seq`` / ``v_seq``: ``[R_kv, T, hd]``; ``replica_pages``: host
+    ``k_seq`` / ``v_seq``: ``[R_kv, T, hd]``; ``replica_pages``:
     ``i32[R_kv, T // bk]``, the physical page of each prompt block (from
-    ``ensure_pages`` and the cache's table, read at admission).
-    ``lengths``: valid tokens per replica (pad tokens are zeroed before
-    quantising and never attended, thanks to ``kv_len``).
+    ``ensure_pages`` and the cache's table). ``lengths``: valid tokens per
+    replica (pad tokens are zeroed before quantising and never attended,
+    thanks to ``kv_len``).
 
-    JAX also takes a traced ``replica_pages`` for tensor-parallel serving
-    (a device scatter); that path waits for the distribution layer."""
+    Host ids (numpy, a list) are checked: an unallocated (< 0) id raises.
+    A ``torch.Tensor`` of ids is a DEVICE scatter, JAX's traced branch: no
+    host read, and an unallocated id writes the dump page instead of
+    raising, so the caller reserves the prompt's pages first (the decoders'
+    prefill does)."""
     R, T, hd = k_seq.shape
     bk = cache.bk
     if T % bk:
         raise ValueError(f"prompt length {T} must pad to page size {bk}")
     nb = T // bk
     dev = cache.k.device
-    pages = np.asarray(replica_pages).reshape(-1)          # [R * nb]
+    if isinstance(replica_pages, torch.Tensor):
+        pages = replica_pages.reshape(-1).to(dev)          # [R * nb]
+    else:
+        pages = np.asarray(replica_pages).reshape(-1)
     if pages.shape[0] != R * nb:
         raise ValueError(f"replica_pages holds {pages.shape[0]} ids, "
                          f"expected {R} x {nb}")
-    if (pages < 0).any():
+    if isinstance(pages, torch.Tensor):
+        idx = torch.where(pages < 0, cache.dump_page, pages).long()
+    elif (pages < 0).any():
         raise ValueError("unallocated page in replica_pages")
+    else:
+        idx = torch.from_numpy(pages.astype(np.int64)).to(dev)
     if lengths is None:
         lengths = torch.full((R,), T, dtype=torch.int32, device=dev)
     lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
@@ -313,7 +325,6 @@ def write_prompt_pages(cache: PagedKVCache, k_seq, v_seq, *,
     kq, vq, ks, vs = pad_quantize_tokens(
         torch.where(mask, k_seq.float(), 0.0),
         torch.where(mask, v_seq.float(), 0.0), cache.k.dtype)
-    idx = torch.from_numpy(pages.astype(np.int64)).to(dev)
     cache.k[idx] = kq.reshape(R * nb, bk, hd)
     cache.v[idx] = vq.reshape(R * nb, bk, hd)
     cache.k_scale[idx] = ks.reshape(R * nb, bk)

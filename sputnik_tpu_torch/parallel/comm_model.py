@@ -25,7 +25,7 @@ at 700 W (``NVIDIA H100 80GB HBM3, 700.00 W`` in ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``), not measurements.
 The one-card seam (``_mesh``) moves nothing between cards and overlaps
 nothing; the projections price the same exchanges on separate cards
-(``ROADMAP.md`` A9c).
+(``ROADMAP.md`` A9d puts them on ranks).
 """
 
 from __future__ import annotations
@@ -195,7 +195,7 @@ def project_scaling(t1_ms: float, comm_bytes_per_dev: float, ndev: int,
 # the halo cotangents back while the interior backward runs; the ring's
 # rotations read only the carry, but dk / dv board after their band's
 # kernels (half the backward's bytes); a psum consumes kernel outputs. The
-# one-card seam overlaps nothing until the transport of ROADMAP.md A9c.
+# one-card seam overlaps nothing until ROADMAP.md A9d moves it onto ranks.
 OVERLAP_FRACTIONS = {
     "spmm_halo_fwd": 1.0, "spmm_halo_bwd": 1.0,
     "attention_halo_fwd": 1.0, "attention_halo_bwd": 1.0,

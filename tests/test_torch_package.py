@@ -57,7 +57,10 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.parallel.comm_model, "
              "sputnik_tpu_torch.dryrun, "
              "sputnik_tpu_torch.examples.train_seq_parallel, "
-             "sputnik_tpu_torch.parallel._mesh\n"
+             "sputnik_tpu_torch.parallel._mesh, "
+             "sputnik_tpu_torch.parallel.serving_tp, "
+             "sputnik_tpu_torch.parallel.lm_tp, "
+             "sputnik_tpu_torch.examples.serve_tp\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
              "print(bad)")

@@ -216,7 +216,7 @@ def test_generate_greedy_tokens_equal_jax(lm_pair, case):
 
 def test_unported_server_options_raise(lm_pair):
     tlm = lm_pair[2]
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="decoder= lacks"):
         LMServer(tlm, s_max=32, decoder=object())
     with pytest.raises(ValueError, match="generator"):
         LMServer(tlm, s_max=32, bk=8).generate(
