@@ -188,6 +188,17 @@ Phases, each printing its lines:
         ms/token beside the unsharded server's; then an NCCL world of 1
         (the mesh's collectives, TPLMServer at tp 1 through all_reduce,
         tokens equal to the one-device mesh's) and dryrun_tp_serving(4);
+     s. training over a mesh: the GPipe pipeline (4 TransformerLayer stages
+        at the MoE example's width, h=512, 8 heads, ffn 2048, causal
+        s=512, flash; n_micro 4 and 8 microbatches of 2: B9 + B10a T x 4
+        times a step, T = n_micro + 3) against the sequential stack, and
+        the MoE example's full config at ep 4 on a one-device mesh (B6,
+        B7, B8 4 times a projection) against the unsharded model, each on
+        the card (outputs and losses within 1e-4 x max(1, max|ref|),
+        gradients within 1e-3 x max|ref|), the steps timed in turns
+        against it and profiled, the bubble read against n_micro / T; an
+        NCCL world of 1 (each collective's gradient, pp 1 and ep 1 through
+        all_reduce, counted); dryrun_pp(4) and dryrun_ep(4);
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -397,11 +408,12 @@ def _graph_ms(fn, reps: int = 10, inner: int = 8, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _compare(name, got, ref, tol, results=None, floor=1.0):
+def _compare(name, got, ref, tol, results=None, floor=1.0, quiet=False):
     """max |got - ref| against ``tol * max(floor, max |ref|)``; raises.
     ``floor=0`` makes the limit relative, for values far below 1 such as
     gradients; then an all-zero ``ref`` fails too, so that a zeroed ``got``
-    cannot pass."""
+    cannot pass. ``quiet`` prints nothing. Returns the share of the limit
+    used (0 for an exact match at a zero limit)."""
     import torch
 
     if got.shape != ref.shape:
@@ -411,14 +423,16 @@ def _compare(name, got, ref, tol, results=None, floor=1.0):
     err = (got.float() - ref.float()).abs().max().item()
     ref_max = ref.abs().max().item()
     bound = tol * max(floor, ref_max)
-    print(f"  {name}: max_abs_err {err:.3e} (bound {bound:.3e}, max|ref| "
-          f"{ref_max:.3e})", flush=True)
+    if not quiet:
+        print(f"  {name}: max_abs_err {err:.3e} (bound {bound:.3e}, max|ref| "
+              f"{ref_max:.3e})", flush=True)
     if floor == 0 and not ref_max > 0:
         _fail(f"{name}: the reference is all zeros")
     if not err <= bound:
         _fail(f"{name}: max_abs_err {err} > {bound}")
     if results is not None:
         results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
+    return err / bound if bound else 0.0
 
 
 def _nbytes(*tensors) -> int:
@@ -6475,6 +6489,338 @@ def phase_tp_serving(stt, torch, dev, wrappers):
     return total
 
 
+# -- training over a mesh: the pipeline and expert parallelism --------------
+
+# the pipeline's stages: 4 TransformerLayers at the MoE example's width
+PP_NDEV, PP_MB, PP_S, PP_H, PP_HEADS, PP_FFN = 4, 2, 512, 512, 8, 2048
+
+
+def _hold_grads(label, got, ref):
+    """Every gradient through :func:`_compare` (within TOL_MODEL x its
+    reference's max|.|, a zero reference failing), one line for all."""
+    worst, name = max((_compare(f"{label} {k}", got[k], r, TOL_MODEL,
+                                floor=0, quiet=True), k)
+                      for k, r in ref.items())
+    print(f"  {label}: {len(ref)} gradients within {TOL_MODEL} x max|ref|, "
+          f"the worst ({name}) at {worst:.3e} of its limit", flush=True)
+
+
+def _pp_problem(torch, dev, n_stages, seed):
+    """``n_stages`` full-width flash-layout TransformerLayers (causal s=512,
+    microbatches of 2): the template layer and the stacked stages."""
+    from sputnik_tpu_torch import ManyMaskTopology
+    from sputnik_tpu_torch.models import TransformerLayer
+    from sputnik_tpu_torch.parallel import stack_stage_params
+    from sputnik_tpu_torch.patterns import causal_mask
+
+    mt = ManyMaskTopology.from_dense_masks(np.broadcast_to(
+        causal_mask(PP_S), (PP_MB, PP_S, PP_S)).copy())
+    layers = [TransformerLayer(
+        mt, PP_H, PP_HEADS, PP_FFN, activation="gelu", use_residual=True,
+        use_layernorm=True, attention_layout="flash",
+        generator=torch.Generator().manual_seed(seed + i), device=dev)
+        for i in range(n_stages)]
+    return layers[0], {k: v.detach() for k, v in stack_stage_params(
+        [dict(l.named_parameters()) for l in layers]).items()}
+
+
+def _pp_steps(torch, mesh, layer, stacked):
+    """``(pipelined, sequential)``: each ``fn(n_micro, x, y)`` one forward
+    and backward of ``mean((out - y) ** 2)`` on fresh leaves of
+    ``stacked``, returning ``(out, loss, grads)``. The sequential step runs
+    each microbatch through the stages one after another."""
+    from torch.func import functional_call
+
+    from sputnik_tpu_torch.parallel import PipelineSpec, pipeline_apply
+
+    def stage(p, xm):
+        return functional_call(layer, p, (xm,))
+
+    def run(fwd, x, y):
+        leaves = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        out = fwd(leaves, x)
+        loss = (out - y).square().mean()
+        loss.backward()
+        return out.detach(), loss.detach(), {k: v.grad for k, v in
+                                             leaves.items()}
+
+    def pipelined(n_micro, x, y):
+        return run(lambda p, xx: pipeline_apply(
+            PipelineSpec(mesh, n_micro=n_micro), stage, p, xx), x, y)
+
+    def sequential(n_micro, x, y):
+        def fwd(p, xx):
+            outs = []
+            for xm in xx.chunk(n_micro):
+                for i in range(next(iter(p.values())).shape[0]):
+                    xm = stage({k: v[i] for k, v in p.items()}, xm)
+                outs.append(xm)
+            return torch.cat(outs)
+        return run(fwd, x, y)
+
+    return pipelined, sequential
+
+
+def _moe_step(model, x, y):
+    """One forward and backward of the MoE example's loss (MSE + 0.01 x
+    aux): ``(out, loss, {name: grad})``, the gradients kept."""
+    for p in model.parameters():
+        p.grad = None
+    out = model(x)
+    loss = (out - y).square().mean() + 0.01 * model.aux_loss()
+    loss.backward()
+    return out.detach(), loss.detach(), {
+        k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _counting_all_reduce():
+    """``dist.all_reduce`` wrapped with a call count; ``(calls, undo)``."""
+    import torch.distributed as dist
+
+    calls, real = [0], dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    dist.all_reduce = counted
+
+    def undo():
+        dist.all_reduce = real
+    return calls, undo
+
+
+def _nccl_training(torch, dev, smi, counted, ref_model, ref):
+    """An NCCL world of 1 (FileStore in a temporary directory): each
+    collective's gradient on a CUDA tensor against the one-device mesh's,
+    the pipeline at pp 1 against the one-device mesh and the sequential
+    stack, and the MoE example at ep 1 against the unsharded model
+    (``ref_model`` and its step ``ref``), ``dist.all_reduce`` calls
+    counted."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from sputnik_tpu_torch.examples import train_moe_transformer as ex
+    from sputnik_tpu_torch.parallel import Mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = Mesh({"pp": 1}, distributed=True)
+            one = Mesh({"pp": 1}, device=dev)
+            for name, fn in (
+                    ("psum", lambda m, x: m.psum([x], "pp")),
+                    ("pvary", lambda m, x: m.pvary([x], "pp")),
+                    ("all_gather", lambda m, x: m.all_gather([x], "pp", 1)),
+                    ("psum_scatter", lambda m, x: m.psum_scatter([x], "pp")),
+                    ("ppermute", lambda m, x: m.ppermute([x], "pp",
+                                                         [(0, 0)]))):
+                grads = []
+                for m in (mesh, one):
+                    x = torch.arange(24.0, device=dev).reshape(4, 6)
+                    x.requires_grad_()
+                    (fn(m, x)[0] * (x.detach() + 1)).sum().backward()
+                    grads.append(x.grad)
+                if not torch.equal(*grads):
+                    _fail(f"NCCL world of 1: {name}'s gradient differs from "
+                          f"the one-device mesh's")
+            layer, stacked = _pp_problem(torch, dev, 1, 60)
+            g = torch.Generator().manual_seed(61)
+            x = torch.randn(4 * PP_MB, PP_S, PP_H, generator=g).to(dev)
+            y = torch.randn(4 * PP_MB, PP_S, PP_H, generator=g).to(dev)
+            nccl_pipe, seq = _pp_steps(torch, mesh, layer, stacked)
+            one_pipe, _ = _pp_steps(torch, one, layer, stacked)
+            calls, undo = _counting_all_reduce()
+            try:
+                got = counted("pipeline pp 1 on an NCCL world of 1",
+                              lambda: nccl_pipe(4, x, y))
+            finally:
+                undo()
+            n_pp = calls[0]
+            for label, (o, l, gr) in (("the one-device mesh",
+                                       one_pipe(4, x, y)),
+                                      ("the sequential stack",
+                                       seq(4, x, y))):
+                _compare(f"pp 1 on NCCL: output vs {label}", got[0], o,
+                         1e-4)
+                _compare(f"pp 1 on NCCL: loss vs {label}", got[1][None],
+                         l[None], 1e-4)
+                _hold_grads(f"pp 1 on NCCL vs {label}", got[2], gr)
+
+            ep = Mesh({"ep": 1}, distributed=True)
+            model, xm, ym = ex.build(False, dev, mesh=ep)
+            model.load_state_dict(ref_model.state_dict())
+            calls, undo = _counting_all_reduce()
+            try:
+                got = counted("MoE example ep 1 on an NCCL world of 1",
+                              lambda: _moe_step(model, xm, ym))
+            finally:
+                undo()
+            n_ep = calls[0]
+            _compare("ep 1 on NCCL: output vs the unsharded model", got[0],
+                     ref[0], 1e-4)
+            _compare("ep 1 on NCCL: loss vs the unsharded model",
+                     got[1][None], ref[1][None], 1e-4)
+            _hold_grads("ep 1 on NCCL vs the unsharded model", got[2],
+                        ref[2])
+            n_moe = len(ex.moe_layers(ref_model))
+            # pp: the output's psum (x takes no gradient); ep: each MoE
+            # layer's psum forward, its input's and gates' pvary backward
+            if n_pp != 1 or n_ep != 3 * n_moe:
+                _fail(f"NCCL world of 1: {n_pp} / {n_ep} all_reduce calls, "
+                      f"expected 1 (pp) / {3 * n_moe} (ep)")
+            print(f"  NCCL world of 1: every collective's gradient equal to "
+                  f"the one-device mesh's; pp 1 {n_pp} all_reduce a step, "
+                  f"ep 1 {n_ep} ({n_moe} MoE layers: a psum forward, two "
+                  f"pvary backward), on {smi}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_mesh_training(stt, torch, dev, wrappers):
+    """Phase 3s: training over a mesh. The GPipe pipeline (4 full-width
+    flash-layout stages, n_micro 4 and 8 microbatches of 2) and the MoE
+    example's full config expert-parallel at ep 4, both on one-device CUDA
+    meshes, each held against the unsharded model on the card (outputs and
+    losses within 1e-4 x max(1, max|ref|), gradients within 1e-3 x
+    max|ref|), their steps timed in turns against it and profiled; then an
+    NCCL world of 1 (pp 1, ep 1) and ``dryrun_pp(4)`` / ``dryrun_ep(4)``."""
+    from sputnik_tpu_torch.dryrun import dryrun_ep, dryrun_pp
+    from sputnik_tpu_torch.examples import train_moe_transformer as ex
+    from sputnik_tpu_torch.parallel import Mesh
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"phase 3s: training over a mesh — the pipeline ({PP_NDEV} "
+          f"TransformerLayer stages, h={PP_H}, {PP_HEADS} heads, ffn "
+          f"{PP_FFN}, causal s={PP_S}, flash, microbatches of {PP_MB}) and "
+          f"the MoE example's full config at ep 4, on one-device meshes; "
+          f"on {smi}", flush=True)
+    total = {n: 0 for n in wrappers}
+
+    def counted(label, fn, expect=None):
+        return _counted(wrappers, total, label, fn, expect or {})
+
+    layer, stacked = _pp_problem(torch, dev, PP_NDEV, 50)
+    pipe, seq = _pp_steps(torch, Mesh({"pp": PP_NDEV}, device=dev), layer,
+                          stacked)
+    walls = {}
+    for n_micro in (4, 8):
+        T = n_micro + PP_NDEV - 1
+        g = torch.Generator().manual_seed(51 + n_micro)
+        x = torch.randn(n_micro * PP_MB, PP_S, PP_H, generator=g).to(dev)
+        y = torch.randn(n_micro * PP_MB, PP_S, PP_H, generator=g).to(dev)
+        got = {}
+        for name, fn in (("sequential", seq), ("pipeline", pipe)):
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            got[name] = fn(n_micro, x, y)
+            torch.cuda.synchronize()
+            got[name + " launches"] = {n: w.launches for n, w in
+                                       wrappers.items() if w.launches}
+            for n, w in wrappers.items():
+                total[n] += w.launches
+        want = {n: c * T // n_micro
+                for n, c in got["sequential launches"].items()}
+        print(f"  n_micro {n_micro}: launches a step, sequential "
+              f"{got['sequential launches']}, pipeline "
+              f"{got['pipeline launches']} (T = {T} steps of {PP_NDEV} "
+              f"stages)", flush=True)
+        if got["pipeline launches"] != want:
+            _fail(f"pipeline n_micro {n_micro}: launches "
+                  f"{got['pipeline launches']}, expected {want}")
+        (o, l, gr), (ro, rl, rg) = got["pipeline"], got["sequential"]
+        _compare(f"pipeline n_micro {n_micro} output vs the sequential "
+                 f"stack", o, ro, 1e-4)
+        _compare(f"pipeline n_micro {n_micro} loss vs the sequential stack",
+                 l[None], rl[None], 1e-4)
+        _hold_grads(f"pipeline n_micro {n_micro} vs the sequential stack",
+                    gr, rg)
+        steps = {"pipeline": lambda: pipe(n_micro, x, y),
+                 "sequential": lambda: seq(n_micro, x, y)}
+        turns = {k: [] for k in steps}
+        for name in ("pipeline", "sequential", "sequential", "pipeline"):
+            turns[name].append(statistics.median(
+                _step_times(torch, steps[name], 5)))
+        walls[n_micro] = turns
+        ratio = statistics.median(turns["pipeline"]) / statistics.median(
+            turns["sequential"])
+        print(f"  n_micro {n_micro}: step ms (forward + backward, host clock "
+              f"synchronized, median of 5, in turns pipeline / sequential / "
+              f"sequential / pipeline): pipeline "
+              f"{' / '.join(f'{t:.4f}' for t in turns['pipeline'])}, "
+              f"sequential "
+              f"{' / '.join(f'{t:.4f}' for t in turns['sequential'])}; "
+              f"ratio {ratio:.4f} against T / n_micro = {T / n_micro:.4f} "
+              f"(the analytic bubble share n_micro / T = {n_micro / T:.4f}, "
+              f"measured {1 / ratio:.4f}), on {smi}", flush=True)
+        if n_micro == 4:
+            for name in ("pipeline", "sequential"):
+                _profile_steps(torch, f"{name} steps, n_micro 4",
+                               lambda i, f=steps[name]: f(), 3)
+
+    # expert parallelism: the MoE example at ep 4 on the one-device mesh
+    model, x, y = ex.build(False, dev, mesh=Mesh({"ep": 4}, device=dev))
+    ref_model, _, _ = ex.build(False, dev)
+    for (k, a), b in zip(model.state_dict().items(),
+                         ref_model.state_dict().values()):
+        if not torch.equal(a, b):
+            _fail(f"ep 4 model: {k} differs from the unsharded model's")
+    n_moe, layers = len(ex.moe_layers(model)), len(model.layers)
+    bank = {"spmm_bh": 2 * n_moe, "sddmm_bh": 2 * n_moe,
+            "spmm_t_bh": 2 * n_moe, "flash_sparse_attention_fwd": layers,
+            "flash_sparse_bwd_fused": layers}
+    # the unsharded step's gradients, for the NCCL world of 1 too
+    ref = counted("MoE example step, unsharded", lambda: _moe_step(
+        ref_model, x, y), bank)
+    got = counted("MoE example step, ep 4 (one-device mesh)",
+                  lambda: _moe_step(model, x, y),
+                  dict(bank, spmm_bh=8 * n_moe, sddmm_bh=8 * n_moe,
+                       spmm_t_bh=8 * n_moe))
+    for i, m in ex.moe_layers(model).items():
+        if not torch.equal(m.last_experts, ref_model.layers[i].mlp
+                           .last_experts):
+            _fail(f"ep 4: MoE layer {i} routes differently")
+    _compare("ep 4 output vs the unsharded model", got[0], ref[0], 1e-4)
+    _compare("ep 4 loss vs the unsharded model", got[1][None], ref[1][None],
+             1e-4)
+    _hold_grads("ep 4 vs the unsharded model", got[2], ref[2])
+    opts = {"ep 4": torch.optim.Adam(model.parameters(), lr=1e-3),
+            "unsharded": torch.optim.Adam(ref_model.parameters(), lr=1e-3)}
+    steps = {"ep 4": lambda: ex.train_step(model, opts["ep 4"], x, y),
+             "unsharded": lambda: ex.train_step(ref_model,
+                                                opts["unsharded"], x, y)}
+    turns = {k: [] for k in steps}
+    for name in ("ep 4", "unsharded", "unsharded", "ep 4"):
+        turns[name].append(statistics.median(
+            _step_times(torch, steps[name], 5)))
+    print(f"  MoE example Adam step ms (host clock synchronized, median of "
+          f"5, in turns ep 4 / unsharded / unsharded / ep 4): ep 4 "
+          f"{' / '.join(f'{t:.4f}' for t in turns['ep 4'])}, unsharded "
+          f"{' / '.join(f'{t:.4f}' for t in turns['unsharded'])}, on {smi}",
+          flush=True)
+    for name in ("ep 4", "unsharded"):
+        _profile_steps(torch, f"MoE {name} steps",
+                       lambda i, f=steps[name]: f(), 3)
+    del model, opts
+
+    # the Adam steps moved the parameters: the unsharded step again
+    ref = _moe_step(ref_model, x, y)
+    _nccl_training(torch, dev, smi, counted, ref_model, ref)
+    for fn in (dryrun_pp, dryrun_ep):
+        got = counted(f"{fn.__name__}(4)", lambda f=fn: f(4, dev))
+        print(f"  {fn.__name__}(4): loss {got['loss']:.6f}, max difference "
+              f"from the unsharded {got['max_diff']:.3e}", flush=True)
+    print(f"  phase 3s in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     """No arguments: every phase, then the kernels' JSON line and the
     device line. ``--only NAME[,NAME]`` runs just the named phase functions
@@ -6539,44 +6885,54 @@ def main(argv=None) -> int:
             out = fn(stt, torch, dev, wrappers if name.endswith(
                 ("_path", "_train", "serving", "_repair", "graph_decode",
                  "remat", "crossover", "sharded_panel", "flash_sharded",
-                 "seq_parallel")) else kres, *extra)
+                 "seq_parallel", "mesh_training")) else kres, *extra)
             if name == "serving":
                 ctx = out[1]
         print(f"chip_smoke: --only {','.join(only)} done", flush=True)
         return 0
-    phase_kernels(stt, torch, dev, kres)
-    phase_flash_backward(stt, torch, dev, kres)
-    phase_serving_kernels(stt, torch, dev, kres)
-    phase_paged_kernels(stt, torch, dev, kres)
-    phase_batched_kernels(stt, torch, dev, kres)
+    seconds = {}
+
+    def run(fn, *args):
+        t = time.perf_counter()
+        out = fn(stt, torch, dev, *args)
+        seconds[fn.__name__[len("phase_"):]] = round(
+            time.perf_counter() - t, 1)
+        return out
+
+    run(phase_kernels, kres)
+    run(phase_flash_backward, kres)
+    run(phase_serving_kernels, kres)
+    run(phase_paged_kernels, kres)
+    run(phase_batched_kernels, kres)
     w, mat = _bench_matrix(stt)
-    phase_softmax_kernel(stt, torch, dev, kres, mat)
-    phase_int8_kernels(stt, torch, dev, kres, w, mat)
-    phase_compressed_kernels(stt, torch, dev, kres)
-    phase_parallel_kernels(stt, torch, dev, kres)
-    phase_dtype_repair(stt, torch, dev, wrappers)
-    fwd = phase_main_path(stt, torch, dev, wrappers)
-    train = phase_train(stt, torch, dev, wrappers)
-    serve, ctx = phase_serving(stt, torch, dev, wrappers)
-    paged = phase_paged_serving(stt, torch, dev, wrappers, ctx)
-    graph, _ = phase_graph_decode(stt, torch, dev, wrappers, ctx)
+    run(phase_softmax_kernel, kres, mat)
+    run(phase_int8_kernels, kres, w, mat)
+    run(phase_compressed_kernels, kres)
+    run(phase_parallel_kernels, kres)
+    run(phase_dtype_repair, wrappers)
+    fwd = run(phase_main_path, wrappers)
+    train = run(phase_train, wrappers)
+    serve, ctx = run(phase_serving, wrappers)
+    paged = run(phase_paged_serving, wrappers, ctx)
+    graph, _ = run(phase_graph_decode, wrappers, ctx)
     del ctx
-    remat = phase_remat(stt, torch, dev, wrappers)
-    cross = phase_crossover(stt, torch, dev, wrappers)
-    moe = phase_moe_train(stt, torch, dev, wrappers)
-    flat = phase_flat_path(stt, torch, dev, wrappers, mat, w)
-    int8 = phase_int8_path(stt, torch, dev, wrappers)
-    comp = phase_compressed_path(stt, torch, dev, wrappers)
-    ring = phase_ring_path(stt, torch, dev, wrappers)
-    halo = phase_halo_path(stt, torch, dev, wrappers)
-    spanel = phase_sharded_panel(stt, torch, dev, wrappers)
-    sflash = phase_flash_sharded(stt, torch, dev, wrappers)
-    seq = phase_seq_parallel(stt, torch, dev, wrappers)
-    tps = phase_tp_serving(stt, torch, dev, wrappers)
+    remat = run(phase_remat, wrappers)
+    cross = run(phase_crossover, wrappers)
+    moe = run(phase_moe_train, wrappers)
+    flat = run(phase_flat_path, wrappers, mat, w)
+    int8 = run(phase_int8_path, wrappers)
+    comp = run(phase_compressed_path, wrappers)
+    ring = run(phase_ring_path, wrappers)
+    halo = run(phase_halo_path, wrappers)
+    spanel = run(phase_sharded_panel, wrappers)
+    sflash = run(phase_flash_sharded, wrappers)
+    seq = run(phase_seq_parallel, wrappers)
+    tps = run(phase_tp_serving, wrappers)
+    mtrain = run(phase_mesh_training, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + graph[n]
                 + remat[n] + cross[n] + moe[n] + flat[n] + int8[n] + comp[n]
                 + ring[n] + halo[n] + spanel[n] + sflash[n] + seq[n] + tps[n]
-                for n in wrappers}
+                + mtrain[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")
@@ -6594,6 +6950,8 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    print(f"phase seconds (host clock, {time.perf_counter() - t0:.1f} s "
+          f"since the build started): {json.dumps(seconds)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

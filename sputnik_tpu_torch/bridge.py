@@ -15,7 +15,12 @@ takes) becomes a ``state_dict`` for ``load_state_dict``:
     two packages tile differently. CSR-layout values cross as they are;
   * an int8 ``QuantizedPanel`` crosses as it is (``quantized_panel``): its
     tiles are its quantisation grid, so the port uses the JAX panel's
-    ``(bm, bk)``.
+    ``(bm, bk)``;
+  * an expert-parallel ``SparseMoE`` on a rank takes its own experts'
+    slice of JAX's ``[E, ...]`` values (``SparseMoE.experts``);
+  * JAX's stacked pipeline stages (``stack_stage_params`` of flax
+    ``TransformerLayer`` params) become the port's stacked dict
+    (``stacked_stage_state_dict``).
 
 A flax gradient tree has the params' structure, so the same functions map
 JAX gradients onto the port's parameter names.
@@ -32,7 +37,7 @@ from .ops import panel_api as P
 
 __all__ = ["transformer_state_dict", "lm_state_dict", "moe_state_dict",
            "sparse_linear_state_dict", "sparse_attention_state_dict",
-           "quantized_panel"]
+           "stacked_stage_state_dict", "quantized_panel"]
 
 
 def _t(x) -> torch.Tensor:
@@ -44,20 +49,22 @@ def _unwrap(params):
 
 
 def _expert_panels(moe, panels, which: str) -> torch.Tensor:
-    """JAX expert-bank panels ``[E, mb, max_bpr, bm, bk]`` -> the port's."""
+    """JAX expert-bank panels ``[E, mb, max_bpr, bm, bk]`` -> the port's,
+    the experts ``moe`` holds."""
     panels = np.asarray(panels, np.float32)
     if panels.ndim != 5 or panels.shape[0] != moe.num_experts:
         raise ValueError(f"expected [{moe.num_experts}, mb, max_bpr, bm, bk] "
                          f"expert panels, got {panels.shape}")
     topo = moe.topo_in if which == "in" else moe.topo_out
     flat = [P.panel_to_values_np(topo, p, panels.shape[3], panels.shape[4])
-            for p in panels]
+            for p in panels[moe.experts.start:moe.experts.stop]]
     return _t(moe.panel_values(flat, which))
 
 
 def moe_state_dict(params, moe) -> dict:
     """Flax ``SparseMoE`` params -> the port's ``SparseMoE`` state_dict (the
-    router kernel transposed, the expert values re-tiled per expert)."""
+    router kernel transposed, the expert values re-tiled per expert). An
+    expert-parallel module on a rank gets its own experts' values."""
     p = _unwrap(params)
     return {"router.weight": _t(np.asarray(p["router"]["kernel"]).T),
             "w_in_values": _expert_panels(moe, p["w_in_values"], "in"),
@@ -65,11 +72,11 @@ def moe_state_dict(params, moe) -> dict:
 
 
 def transformer_state_dict(params, model=None) -> dict:
-    """Flax ``SparseTransformer`` params -> the port's ``SparseTransformer``
-    state_dict (dense layers, LayerNorms and MoE routers; the sparse
+    """Flax ``SparseTransformer`` (or ``TransformerLayer``) params -> the
+    port's state_dict (dense layers, LayerNorms and MoE routers; the sparse
     attention core has no parameters). MoE expert values need ``model``,
-    the port's ``SparseTransformer``: its ``SparseMoE`` layers hold the
-    topologies and the port's tiles."""
+    the port's module: its ``SparseMoE`` layers hold the topologies, the
+    port's tiles and, expert-parallel, the experts a rank holds."""
     out = {}
 
     def walk(node, path):
@@ -97,6 +104,29 @@ def transformer_state_dict(params, model=None) -> dict:
 
     walk(_unwrap(params), [])
     return out
+
+
+def _index(node, i):
+    """Leaf ``i`` of every leading axis in a (nested) parameter dict."""
+    if hasattr(node, "items"):
+        return {k: _index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def stacked_stage_state_dict(stacked, layer=None, position=None) -> dict:
+    """JAX's stacked pipeline stages (``stack_stage_params`` of flax
+    ``TransformerLayer`` params: every leaf ``[ndev, ...]``) -> the port's
+    stacked dict ``{name: [ndev, ...]}`` for ``pipeline_apply`` with
+    ``functional_call`` on ``layer`` (the port's ``TransformerLayer``,
+    needed for MoE expert values). ``position``: only that stage, as a
+    rank holds it (``[1, ...]``)."""
+    stacked = _unwrap(stacked)
+    leaf = stacked
+    while hasattr(leaf, "items"):
+        leaf = next(iter(leaf.values()))
+    stages = range(np.shape(leaf)[0]) if position is None else [position]
+    per = [transformer_state_dict(_index(stacked, i), layer) for i in stages]
+    return {k: torch.stack([sd[k] for sd in per]) for k in per[0]}
 
 
 def lm_state_dict(params) -> dict:

@@ -26,28 +26,49 @@ ragged freeze / resume and a speculative ``decode_multi`` + rollback,
 every output finite and within 1e-4 x max(1, max|ref|) of the unsharded
 decoder's.
 
+:func:`dryrun_pp` and :func:`dryrun_ep` are the twins of ``_dryrun_pp`` and
+``_dryrun_ep``: ``n`` pipelined ``TransformerLayer`` stages (mb=2, s=16,
+h=32, 2 heads, ffn 48, the panel layout, two microbatches) and a top-2
+``SparseMoE`` of ``n`` experts (h=32, f=48, density 0.4) over ``n``
+positions, one gradient of ``mean(out ** 2)`` each, finite and within 1e-4
+x max(1, max|ref|) of the unsharded sequential stack / module; on the
+ranks of a process-group mesh also within 1e-6 x max(1, max|ref|) of the
+one-device mesh's.
+
 Run:  python -m sputnik_tpu_torch.dryrun [--n 4,6,8,16] [--device cuda]
+
+or, the pipeline and expert parallelism over one position a rank (NCCL on
+cards, gloo on the CPU; ``torchrun`` sets the world on ``localhost``):
+
+      torchrun --nproc-per-node 4 -m sputnik_tpu_torch.dryrun [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import os
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
-from .models import PagedDecoder, SparseDecoder, SparseTransformer
-from .parallel import (Mesh, PagedTPDecoder, RingFlashSpec, RowPartition,
-                       ShardedCompressedSpec, ShardedFlashSpec,
+from .many_mask import ManyMaskTopology
+from .models import (PagedDecoder, SparseDecoder, SparseMoE,
+                     SparseTransformer, TransformerLayer)
+from .parallel import (Mesh, PagedTPDecoder, PipelineSpec, RingFlashSpec,
+                       RowPartition, ShardedCompressedSpec, ShardedFlashSpec,
                        ShardedPanelSpec, TPDecoder, comm_model,
                        flash_attention_kv_sharded, flash_attention_sharded,
-                       ring_flash_attention, sharded_spmm_halo,
-                       sparse_attention_sharded, sparse_attention_sharded_c)
+                       pipeline_apply, ring_flash_attention,
+                       sharded_spmm_halo, sparse_attention_sharded,
+                       sparse_attention_sharded_c, stack_stage_params)
 from .patterns import causal_topology, local_window_topology
 from .topology import SparseTopology
 
-__all__ = ["dryrun_sp", "dryrun_tp_serving", "main"]
+__all__ = ["dryrun_sp", "dryrun_tp_serving", "dryrun_pp", "dryrun_ep",
+           "main"]
 
 TILE = 64          # the kernels' bm = bk
 HD, Q = 32, 48     # attention head dim, the halo SpMM's width
@@ -148,6 +169,16 @@ def dryrun_sp(n_devices: int, device="cuda", seed: int = 0) -> dict:
     return {"losses": losses, "comm": comm}
 
 
+def _hold(label, got, ref, tol) -> float:
+    """max |got - ref|, raising unless finite and within ``tol`` x max(1,
+    max|ref|)."""
+    d = float((got - ref).abs().max())
+    if not (torch.isfinite(got).all() and
+            d <= tol * max(1.0, float(ref.abs().max()))):
+        raise RuntimeError(f"{label}: {d} from the reference")
+    return d
+
+
 def _tp_model(b, s, heads, layers, seed, device):
     """``_dryrun_tp_serving``'s model: causal masks, one head a tp position
     (``heads``), h = 8 heads, ffn = 16 heads."""
@@ -174,12 +205,8 @@ def dryrun_tp_serving(n_devices: int, device="cuda", seed: int = 0) -> dict:
     diffs = {}
 
     def hold(route, got, ref):
-        d = float((got - ref).abs().max())
-        if not (torch.isfinite(got).all() and
-                d <= 1e-4 * max(1.0, float(ref.abs().max()))):
-            raise RuntimeError(f"dryrun_tp_serving({n}) {route}: "
-                               f"{d} from the unsharded decoder")
-        diffs[route] = d
+        diffs[route] = _hold(f"dryrun_tp_serving({n}) {route}", got, ref,
+                             1e-4)
 
     def act(*shape):
         return torch.from_numpy(
@@ -241,19 +268,159 @@ def dryrun_tp_serving(n_devices: int, device="cuda", seed: int = 0) -> dict:
     return diffs
 
 
+def dryrun_pp(n_devices: int, device="cuda", seed: int = 0,
+              mesh: Mesh = None) -> dict:
+    """``_dryrun_pp``'s pipeline over ``n_devices`` positions of a one-device
+    mesh on ``device`` (or of ``mesh``, a process-group mesh with a ``pp``
+    axis of that size, also held against the one-device mesh in this
+    process). One gradient of ``mean(out ** 2)`` against the unsharded
+    sequential stack. Returns ``{"loss": ..., "max_diff": ...}``."""
+    n, dev = int(n_devices), torch.device(device)
+    mb, s, h, heads, ffn, n_micro = 2, 16, 32, 2, 48, 2
+    masks = np.broadcast_to(np.tril(np.ones((s, s), np.float32)),
+                            (mb, s, s)).copy()
+    mt = ManyMaskTopology.from_dense_masks(masks)
+    layers = [TransformerLayer(
+        mt, h, heads, ffn, activation="gelu", use_residual=True,
+        use_layernorm=True, attention_layout="panel",
+        generator=torch.Generator().manual_seed(seed + i), device=dev)
+        for i in range(n)]
+    stacked = stack_stage_params([dict(l.named_parameters())
+                                  for l in layers])
+    x = torch.from_numpy(np.random.RandomState(seed).randn(
+        n_micro * mb, s, h).astype(np.float32)).to(dev)
+
+    def stage(p, xm):
+        return functional_call(layers[0], p, (xm,))
+
+    def grad_of(m, fn):
+        held = m.held("pp", n) if m is not None else range(n)
+        leaves = {k: v[held.start:held.stop].detach().clone()
+                  .requires_grad_() for k, v in stacked.items()}
+        loss = fn(leaves)
+        loss.backward()
+        return loss.detach(), {k: v.grad for k, v in leaves.items()}
+
+    def pipelined(m):
+        return lambda p: pipeline_apply(PipelineSpec(m, n_micro=n_micro),
+                                        stage, p, x).square().mean()
+
+    def sequential(p):
+        outs = []
+        for j in range(n_micro):
+            y = x[j * mb:(j + 1) * mb]
+            for i in range(n):
+                y = stage({k: v[i] for k, v in p.items()}, y)
+            outs.append(y)
+        return torch.cat(outs).square().mean()
+
+    mesh = mesh or Mesh({"pp": n}, device=dev)
+    loss, grads = grad_of(mesh, pipelined(mesh))
+    ref_loss, ref = grad_of(None, sequential)
+    held = mesh.held("pp", n)
+    held = slice(held.start, held.stop)
+    label = f"dryrun_pp({n})"
+    diffs = [_hold(f"{label} loss", loss, ref_loss, 1e-4)]
+    diffs += [_hold(f"{label} grad {k}", g, ref[k][held], 1e-4)
+              for k, g in grads.items()]
+    if mesh.distributed:
+        one = Mesh({"pp": n}, device=mesh.device)
+        one_loss, one_g = grad_of(one, pipelined(one))
+        _hold(f"{label} loss vs the one-device mesh", loss, one_loss, 1e-6)
+        for k, g in grads.items():
+            _hold(f"{label} grad {k} vs the one-device mesh", g,
+                  one_g[k][held], 1e-6)
+    return {"loss": float(loss), "max_diff": max(diffs)}
+
+
+def dryrun_ep(n_devices: int, device="cuda", seed: int = 0,
+              mesh: Mesh = None) -> dict:
+    """``_dryrun_ep``'s expert-parallel ``SparseMoE`` (``n_devices`` experts,
+    top-2) over ``n_devices`` positions of a one-device mesh on ``device``
+    (or of ``mesh``, a process-group mesh with an ``ep`` axis of that size,
+    also held against the one-device mesh). One gradient of ``mean(out **
+    2)`` against the unsharded module. Returns ``{"loss": ...,
+    "max_diff": ...}``."""
+    n, dev = int(n_devices), torch.device(device)
+    rng = np.random.RandomState(seed)
+    h, f = 32, 48
+    topo_in = SparseTopology.from_dense_mask(
+        (rng.rand(f, h) < 0.4).astype(np.float32))
+    topo_out = SparseTopology.from_dense_mask(
+        (rng.rand(h, f) < 0.4).astype(np.float32))
+    x = torch.from_numpy(rng.randn(2, 16, h).astype(np.float32)).to(dev)
+
+    def grad_of(m):
+        moe = SparseMoE(topo_in, topo_out, n, top_k=2, mesh=m,
+                        generator=torch.Generator().manual_seed(seed),
+                        device=dev)
+        loss = moe(x).square().mean()
+        loss.backward()
+        return (loss.detach(), {k: p.grad for k, p in moe.named_parameters()},
+                slice(moe.experts.start, moe.experts.stop))
+
+    mesh = mesh or Mesh({"ep": n}, device=dev)
+    loss, grads, held = grad_of(mesh)
+    ref_loss, ref, _ = grad_of(None)
+    label = f"dryrun_ep({n})"
+
+    def mine(k, g):
+        return g[held] if k.startswith("w_") else g
+
+    diffs = [_hold(f"{label} loss", loss, ref_loss, 1e-4)]
+    diffs += [_hold(f"{label} grad {k}", g, mine(k, ref[k]), 1e-4)
+              for k, g in grads.items()]
+    if mesh.distributed:
+        one_loss, one_g, _ = grad_of(Mesh({"ep": n}, device=mesh.device))
+        _hold(f"{label} loss vs the one-device mesh", loss, one_loss, 1e-6)
+        for k, g in grads.items():
+            _hold(f"{label} grad {k} vs the one-device mesh", g,
+                  mine(k, one_g[k]), 1e-6)
+    return {"loss": float(loss), "max_diff": max(diffs)}
+
+
+def _on_ranks(device) -> dict:
+    """Under ``torchrun``: the pipeline and expert parallelism over one
+    position a rank, the world's size the axes'."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        n = dist.get_world_size()
+        pp = Mesh({"pp": n}, distributed=True)
+        got = {"pp": dryrun_pp(n, pp.device, mesh=pp)}
+        ep = Mesh({"ep": n}, distributed=True)
+        got["ep"] = dryrun_ep(n, ep.device, mesh=ep)
+        where = (torch.cuda.get_device_name(pp.device)
+                 if pp.device.type == "cuda" else "cpu")
+        print(f"DRYRUN_RANK {dist.get_rank()}/{n} {where} "
+              + json.dumps(got), flush=True)
+        return {n: got}
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", default="4,6,8,16",
-                    help="shard counts, comma-separated")
+                    help="shard counts, comma-separated (one device)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default: cuda)")
+                    help="torch device (default: cuda; a rank of an NCCL "
+                         "world runs on cuda:LOCAL_RANK)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested, but no CUDA "
                            f"device is available")
-    return {int(n): (dryrun_sp(int(n), device),
-                     dryrun_tp_serving(int(n), device))
+    if "RANK" in os.environ:
+        return _on_ranks(device)
+    return {int(n): {"sp": dryrun_sp(int(n), device),
+                     "tp_serving": dryrun_tp_serving(int(n), device),
+                     "pp": dryrun_pp(int(n), device),
+                     "ep": dryrun_ep(int(n), device)}
             for n in args.n.split(",")}
 
 

@@ -35,9 +35,10 @@ from sputnik_tpu_torch.topology import SparseTopology
 __all__ = ["build", "moe_layers", "train_step", "main"]
 
 
-def build(small: bool, device, seed: int = 0):
+def build(small: bool, device, seed: int = 0, mesh=None):
     """``(model, x, y)``: the example's config (``small``: the CPU smoke
-    config) on ``device``."""
+    config) on ``device``; ``mesh`` makes every MoE layer expert-parallel
+    over its ``ep`` axis (a one-device mesh keeps the same parameters)."""
     if small:
         b, s, h, f, layers, heads, E = 2, 64, 32, 48, 4, 2, 4
     else:
@@ -53,7 +54,8 @@ def build(small: bool, device, seed: int = 0):
         masks, num_layers=layers, hidden_size=h, num_heads=heads,
         ffn_hidden_size=f, use_residual=True, use_layernorm=True,
         activation="gelu",
-        moe=dict(topo_in=topo_in, topo_out=topo_out, num_experts=E, top_k=2),
+        moe=dict(topo_in=topo_in, topo_out=topo_out, num_experts=E, top_k=2,
+                 mesh=mesh),
         moe_every=2, generator=torch.Generator().manual_seed(seed),
         device=device)
     x = torch.from_numpy(rng.randn(b, s, h).astype(np.float32) * 0.5)

@@ -15,11 +15,25 @@ dispatch one-hot is built by comparison (``pos == arange(C)``), which gives
 a zero row for an unrouted (-1) or over-capacity (>= C) position as
 ``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` would raise).
 
+Expert parallelism (``mesh=``, ``axis="ep"``; JAX's ``shard_map`` at
+``moe.py:268-283``): position ``i`` of the ``ep`` axis computes experts
+``[i * E_loc, (i + 1) * E_loc)`` (``E_loc = E / n``) from its slice of
+``dispatch`` / ``combine`` (``[T, E_loc, C]``, one ``spmm_bh`` a projection
+on a ``BatchedPanelSpec`` of ``heads=E_loc``), and one ``Mesh.psum`` over
+the axis adds the positions' outputs. The router, the routing and
+everything outside the bank are replicated; the input and ``combine``
+enter the per-position work through ``Mesh.pvary``, so on a rank their
+gradients (and the router's) are the sum of the ranks' shares, equal on
+every rank. On a one-device mesh the module holds all ``E`` experts in the
+unsharded module's parameters, sliced a position, so its ``state_dict``
+is the unsharded one's; on a rank it holds only its ``[E_loc, ...]``
+values (initialised as the unsharded module's slice for the same
+generator).
+
 The aux loss of the last forward is ``self.aux_loss`` (flax sows it into
 ``intermediates``), and its routing is ``self.last_experts`` /
-``self.last_probs``. Not ported: expert parallelism (``mesh=``, ROADMAP
-A9) and the JAX package's bf16 operand streaming, which it turns on only
-on a TPU.
+``self.last_probs``. Not ported: the JAX package's bf16 operand streaming,
+which it turns on only on a TPU.
 """
 
 from __future__ import annotations
@@ -52,7 +66,9 @@ class SparseMoE(nn.Module):
       activation: ``"gelu"`` (tanh form), ``"relu"`` or ``None``.
       bank_tiles: ``(bm, bk)`` of the expert bank's panels; ``None`` is the
         port's 64 x 64 (``panel_api.DEFAULT_BLOCK``).
-      mesh: expert parallelism; not ported (ROADMAP A9d).
+      mesh / axis: expert parallelism over ``axis`` of a ``parallel.Mesh``
+        (``E`` divisible by its size); ``experts`` is then the range of
+        global expert indices this process holds (all ``E`` but on a rank).
       generator, device: initialisation (router LeCun-normal like flax
         ``nn.Dense``, expert values Kaiming-uniform over the nonzeros) and
         placement.
@@ -61,13 +77,20 @@ class SparseMoE(nn.Module):
     def __init__(self, topo_in, topo_out, num_experts: int, top_k: int = 1,
                  capacity_factor: float = 1.25,
                  activation: Optional[str] = "gelu",
-                 bank_tiles: Optional[Tuple[int, int]] = None, mesh=None, *,
+                 bank_tiles: Optional[Tuple[int, int]] = None, mesh=None,
+                 axis: str = "ep", *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        self.mesh, self.axis = mesh, axis
+        self.n_local, self.experts = num_experts, range(num_experts)
         if mesh is not None:
-            raise NotImplementedError(
-                "SparseMoE(mesh=...) is not ported yet — expert parallelism "
-                "over a device mesh, ROADMAP A9d")
+            from ..parallel._mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise ValueError(f"SparseMoE(mesh=) takes a parallel.Mesh, "
+                                 f"got {type(mesh).__name__}")
+            self.experts = mesh.held(axis, num_experts)
+            self.n_local = num_experts // mesh.shape[axis]
         h, f = topo_in.n, topo_in.m
         if topo_out.m != h or topo_out.n != f:
             raise ValueError(f"topo_out must be [{h}, {f}], got "
@@ -76,20 +99,20 @@ class SparseMoE(nn.Module):
             raise ValueError(f"top_k must be 1 or 2, got {top_k}")
         if activation not in (None, "gelu", "relu"):
             raise ValueError(f"unknown activation {activation}")
-        self.topo_in, self.topo_out = topo_in, topo_out
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor, self.activation = capacity_factor, activation
         bm, bk = bank_tiles or PA.DEFAULT_BLOCK
-        self.spec_in = BatchedPanelSpec([topo_in], heads=num_experts, bm=bm,
-                                        bk=bk)
-        self.spec_out = BatchedPanelSpec([topo_out], heads=num_experts,
-                                         bm=bm, bk=bk)
+        self.set_topology("in", topo_in, bm, bk)
+        self.set_topology("out", topo_out, bm, bk)
         self.router = _linear(h, num_experts, generator, device, bias=False)
 
         def bank(topo):
-            return nn.Parameter(torch.stack([
-                PA.panel_kaiming_values(topo, bm, bk, generator=generator)
-                for _ in range(num_experts)]).to(device))
+            # every expert drawn, then this process's kept: the same values
+            # as the unsharded module's for the same generator
+            full = [PA.panel_kaiming_values(topo, bm, bk, generator=generator)
+                    for _ in range(num_experts)]
+            return nn.Parameter(torch.stack(
+                full[self.experts.start:self.experts.stop]).to(device))
 
         self.w_in_values = bank(topo_in)
         self.w_out_values = bank(topo_out)
@@ -154,12 +177,45 @@ class SparseMoE(nn.Module):
         self.last_experts = experts.detach()
         self.last_probs = probs.detach()
 
-        # the expert bank: one batched panel SpMM per projection
-        xin = torch.einsum("tec,th->ehc", dispatch, xf)          # [E, h, C]
-        y1 = spmm_bh(self.spec_in, self.w_in_values, xin)        # [E, f, C]
-        y2 = spmm_bh(self.spec_out, self.w_out_values, self._act(y1))
-        out = torch.einsum("tec,ehc->th", combine, y2)           # [T, h]
+        if self.mesh is None:
+            out = self._bank(dispatch, combine, xf, self.w_in_values,
+                             self.w_out_values)
+        else:
+            # each position's experts from its slice of the routing; the
+            # replicated input and gates enter, the outputs add over the axis
+            mesh, ax, n = self.mesh, self.axis, self.n_local
+            k = len(mesh.positions)
+            parts = []
+            for i, xp, cp in zip(mesh.index(ax), mesh.pvary([xf] * k, ax),
+                                 mesh.pvary([combine] * k, ax)):
+                e = slice(i * n, (i + 1) * n)
+                v = slice(e.start - self.experts.start,
+                          e.stop - self.experts.start)
+                parts.append(self._bank(dispatch[:, e], cp[:, e], xp,
+                                        self.w_in_values[v],
+                                        self.w_out_values[v]))
+            out = mesh.psum(parts, ax)[0]
         return out.reshape(*lead, h)
+
+    def set_topology(self, which: str, topo, bm: int, bk: int) -> None:
+        """``topo_{which}`` and its specs at ``(bm, bk)`` tiles:
+        ``spec_{which}`` over all ``E`` experts, ``local_{which}`` over one
+        position's ``n_local`` (the same spec without a mesh). The values
+        are left as they are (a RigL update re-tiles them)."""
+        spec = BatchedPanelSpec([topo], heads=self.num_experts, bm=bm, bk=bk)
+        local = (spec if self.n_local == self.num_experts else
+                 BatchedPanelSpec([topo], heads=self.n_local, bm=bm, bk=bk))
+        setattr(self, f"topo_{which}", topo)
+        setattr(self, f"spec_{which}", spec)
+        setattr(self, f"local_{which}", local)
+
+    def _bank(self, dispatch, combine, xf, v_in, v_out):
+        """The expert bank: one batched panel SpMM per projection over the
+        experts of ``dispatch`` / ``combine`` ``[T, E', C]``."""
+        xin = torch.einsum("tec,th->ehc", dispatch, xf)          # [E', h, C]
+        y1 = spmm_bh(self.local_in, v_in, xin)                   # [E', f, C]
+        y2 = spmm_bh(self.local_out, v_out, self._act(y1))       # [E', h, C]
+        return torch.einsum("tec,ehc->th", combine, y2)          # [T, h]
 
     # -- value-layout boundary helpers -------------------------------------
 

@@ -23,18 +23,45 @@ rank it calls ``torch.distributed`` on that axis's group. A CUDA tensor on
 a gloo mesh, a CPU tensor on an NCCL mesh and a process-group mesh without
 an initialised world raise: nothing moves to another device by itself.
 
+Gradients follow JAX's transposition under ``shard_map``, so that a rank's
+gradients equal the one-device mesh's and the unsharded model's, once and
+not ``n`` times. A value is either *invariant* along an axis (the same on
+every position of a line, computed by each, such as a loss) or *varying*:
+
+  * ``psum`` (varying -> invariant) sums forward and hands each position
+    its own cotangent backward (JAX's ``pvary`` is its transpose): every
+    rank computes the loss from the same sum, so the cotangent each rank
+    holds is already the whole one;
+  * ``pvary`` (invariant -> varying), the entry of a replicated value into
+    per-position work: identity forward, the sum of the positions'
+    cotangents backward;
+  * ``all_gather`` and ``psum_scatter`` (varying -> varying) are each
+    other's transpose, and ``ppermute``'s is the inverse permutation.
+
+On one device these are plain tensor algebra and autograd gives the same:
+a line's members share one ``psum`` result (its cotangent reaches every
+summand once), and a replicated value is one tensor listed for every
+position (the cotangents of its uses add up). On a rank each collective is
+a ``torch.autograd.Function`` whose backward runs the transposed
+collective, so every rank must run the same backward graph: a tensor a
+rank drops from its graph (a received ``ppermute`` carry it ignores) skips
+that rank's half of an exchange and hangs its peers. Keep such a tensor in
+the graph with a zero cotangent (``torch.where``).
+
 The module-level functions below are the single-axis seam the
 sequence-parallel layer (A9a / A9b) runs on: a stacked ``[ndev, ...]``
 operand's shards, all on its one device, a rotation moving references and
-copying nothing. Those layers keep ``devices=None``; putting them on ranks
-(``ROADMAP.md`` A9d) moves them onto :class:`Mesh`.
+copying nothing. Those layers keep ``devices=None``; putting their specs on
+ranks (``ROADMAP.md`` A9d, its sequence-parallel half) moves them onto
+:class:`Mesh`.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Dict, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -48,9 +75,10 @@ def check_devices(devices) -> None:
     if devices is not None:
         raise ValueError(
             "the sequence-parallel layer runs every shard on one device "
-            "(devices=None); its shards on separate cards or processes are "
-            "ROADMAP.md A9d (A9c gave tensor-parallel serving the transport, "
-            "parallel._mesh.Mesh)")
+            "(devices=None); its specs on separate cards or processes are "
+            "the sequence-parallel half of ROADMAP.md A9d (A9c gave "
+            "tensor-parallel serving the transport, parallel._mesh.Mesh, "
+            "which the pipeline and expert parallelism train on too)")
 
 
 def shards(x: torch.Tensor) -> List[torch.Tensor]:
@@ -197,6 +225,20 @@ class Mesh:
         a = self._axis(axis)
         return [p[a] for p in self.positions]
 
+    def held(self, axis: str, size: int) -> range:
+        """The indices of ``size`` items split evenly along ``axis`` (stages,
+        experts) that this process holds: all of them on one device, its
+        position's ``size / n`` on a rank."""
+        self._axis(axis)
+        n = self.shape[axis]
+        if size % n:
+            raise ValueError(f"{size} not divisible by the {axis!r} axis "
+                             f"size {n}")
+        if not self.distributed:
+            return range(size)
+        lo = self.index(axis)[0] * (size // n)
+        return range(lo, lo + size // n)
+
     # -- collectives ----------------------------------------------------------
 
     def _check(self, xs: Sequence[torch.Tensor]) -> None:
@@ -212,6 +254,12 @@ class Mesh:
             if self.backend == "nccl" and not x.is_cuda:
                 raise ValueError("a CPU tensor on an NCCL mesh")
 
+    def _line(self, axis: str) -> "_Line":
+        """This rank's line of ``axis``: its group, ranks and index."""
+        self._axis(axis)
+        return _Line(self._groups[axis], self._line_ranks[axis],
+                     self.index(axis)[0])
+
     def _each_line(self, xs, axis, fn) -> List[torch.Tensor]:
         """One device: ``fn(line's tensors in axis order) -> one tensor or a
         list (one a member)`` on every line of ``axis``."""
@@ -226,69 +274,170 @@ class Mesh:
     def psum(self, xs: Sequence[torch.Tensor], axis: str
              ) -> List[torch.Tensor]:
         """``jax.lax.psum(x, axis)``: every position gets its line's sum. On
-        one device the members of a line share one result tensor."""
+        one device the members of a line share one result tensor; on a rank
+        the backward hands the rank's own cotangent through."""
         self._check(xs)
         if not self.distributed:
             return self._each_line(xs, axis, psum)
-        import torch.distributed as dist
+        return [_Psum.apply(xs[0], self._line(axis))]
 
-        y = xs[0].clone()
-        dist.all_reduce(y, group=self._groups[axis])
-        return [y]
+    def pvary(self, xs: Sequence[torch.Tensor], axis: str
+              ) -> List[torch.Tensor]:
+        """``jax.lax.pvary(x, axis)``: a value invariant along ``axis`` (the
+        same tensor on every position of a line) entering per-position work.
+        Identity forward; backward, the sum of the line's cotangents (on one
+        device autograd adds the uses of the one tensor by itself)."""
+        self._check(xs)
+        if not self.distributed:
+            self._axis(axis)
+            return list(xs)
+        return [_Pvary.apply(xs[0], self._line(axis))]
 
     def all_gather(self, xs: Sequence[torch.Tensor], axis: str,
                    dim: int = 0) -> List[torch.Tensor]:
         """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the line's
-        tensors concatenated along ``dim`` in axis order."""
+        tensors concatenated along ``dim`` in axis order. Its transpose is
+        :meth:`psum_scatter`."""
         self._check(xs)
         if not self.distributed:
             return self._each_line(xs, axis, lambda t: all_gather(t, dim))
-        import torch.distributed as dist
-
-        x = xs[0].contiguous()
-        parts = [torch.empty_like(x) for _ in self._line_ranks[axis]]
-        dist.all_gather(parts, x, group=self._groups[axis])
-        return [torch.cat(parts, dim)]
+        return [_AllGather.apply(xs[0], self._line(axis), dim)]
 
     def psum_scatter(self, xs: Sequence[torch.Tensor], axis: str,
                      dim: int = 0) -> List[torch.Tensor]:
         """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
         tiled=True)``: position ``i`` of a line gets slice ``i`` of the
         line's sum. A rank reduces the whole tensor and keeps its slice
-        (gloo has no reduce-scatter)."""
+        (gloo has no reduce-scatter). Its transpose is :meth:`all_gather`."""
         self._check(xs)
         if not self.distributed:
             return self._each_line(xs, axis,
                                    lambda t: psum_scatter(t, dim))
-        n = len(self._line_ranks[axis])
-        i = self.index(axis)[0]
-        return [self.psum(xs, axis)[0].chunk(n, dim)[i].contiguous()]
+        return [_PsumScatter.apply(xs[0], self._line(axis), dim)]
 
     def ppermute(self, xs: Sequence[torch.Tensor], axis: str,
                  pairs: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
         """``jax.lax.ppermute(x, axis, perm=pairs)``: along each line, index
         ``dst`` receives index ``src``'s tensor; an index that receives
         nothing gets zeros. A rank sends and receives with one
-        ``batch_isend_irecv``."""
+        ``batch_isend_irecv``; the backward sends the cotangents along the
+        inverse pairs."""
         self._check(xs)
         if not self.distributed:
             return self._each_line(xs, axis,
                                    lambda t: ppermute(t, pairs))
-        import torch.distributed as dist
+        return [_Ppermute.apply(xs[0], self._line(axis),
+                                tuple((int(s), int(d)) for s, d in pairs))]
 
-        me = self.index(axis)[0]
-        ranks, group = self._line_ranks[axis], self._groups[axis]
-        x = xs[0].contiguous()
-        out = torch.zeros_like(x)
-        ops = []
-        for src, dst in pairs:
-            if src == me and dst == me:
-                out = x.clone()
-            elif src == me:
-                ops.append(dist.P2POp(dist.isend, x, ranks[dst], group))
-            elif dst == me:
-                ops.append(dist.P2POp(dist.irecv, out, ranks[src], group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return [out]
+
+# -- a rank's collectives and their transposes --------------------------------
+
+class _Line(NamedTuple):
+    """A rank's line of one axis: the group, its ranks in axis order, and
+    the rank's index on it."""
+    group: object
+    ranks: List[int]
+    me: int
+
+
+def _all_reduce(x: torch.Tensor, line: _Line) -> torch.Tensor:
+    import torch.distributed as dist
+
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=line.group)
+    return y
+
+
+def _all_gather(x: torch.Tensor, line: _Line, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in line.ranks]
+    dist.all_gather(parts, x, group=line.group)
+    return torch.cat(parts, dim)
+
+
+def _scatter_sum(x: torch.Tensor, line: _Line, dim: int) -> torch.Tensor:
+    parts = _all_reduce(x, line).chunk(len(line.ranks), dim)
+    return parts[line.me].contiguous()
+
+
+def _permute(x: torch.Tensor, line: _Line, pairs) -> torch.Tensor:
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in pairs:
+        if src == line.me and dst == line.me:
+            out = x.clone()
+        elif src == line.me:
+            ops.append(dist.P2POp(dist.isend, x, line.ranks[dst],
+                                  line.group))
+        elif dst == line.me:
+            ops.append(dist.P2POp(dist.irecv, out, line.ranks[src],
+                                  line.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    """Sum forward; the rank's own cotangent backward (JAX: psum's
+    transpose is pvary)."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        return _all_reduce(x, line)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    """Identity forward; the sum of the line's cotangents backward."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.line), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _all_gather(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.line, ctx.dim), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _scatter_sum(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.line, ctx.dim), None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, pairs):
+        ctx.line, ctx.pairs = line, pairs
+        return _permute(x, line, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.pairs]
+        return _permute(g, ctx.line, inverse), None, None

@@ -32,7 +32,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.batched_panel import BatchedPanelSpec
 from ..topology import SparseTopology
 
 __all__ = [
@@ -418,7 +417,11 @@ def rigl_update_moe(moe, dense_grads_in, dense_grads_out, *,
     pre-aggregated ``[m, n]``); ``block=(bm, bk)`` drops and grows whole
     tiles. Values and the optimizer's value-shaped state go through the
     flat <-> panel helpers of ``SparseMoE`` per expert (grown slots 0).
-    Returns ``moe``."""
+    An expert-parallel module on a rank holds only its experts, so it
+    raises (its criteria would not see every expert). Returns ``moe``."""
+    if getattr(moe, "mesh", None) is not None and moe.mesh.distributed:
+        raise ValueError("rigl_update_moe needs every expert's values; a "
+                         "rank's expert-parallel SparseMoE holds its own")
 
     def agg(g, topo):
         g = np.asarray(g, np.float32)
@@ -429,7 +432,6 @@ def rigl_update_moe(moe, dense_grads_in, dense_grads_out, *,
                              f"{(topo.m, topo.n)}")
         return g
 
-    E = moe.num_experts
     for which, gd in (("in", dense_grads_in), ("out", dense_grads_out)):
         topo, spec = moe._topo_spec(which)
         param = getattr(moe, f"w_{which}_values")
@@ -445,10 +447,7 @@ def rigl_update_moe(moe, dense_grads_in, dense_grads_out, *,
                                       fraction=fraction)
         moments = _value_state(param, optimizer,
                                lambda v: moe.flat_values(v, which))
-        new_spec = BatchedPanelSpec([new_topo], heads=E, bm=spec.bm,
-                                    bk=spec.bk)
-        setattr(moe, f"topo_{which}", new_topo)
-        setattr(moe, f"spec_{which}", new_spec)
+        moe.set_topology(which, new_topo, spec.bm, spec.bk)
 
         def to_panels(f):
             return moe.panel_values(

@@ -14,10 +14,22 @@ cases on the one-device mesh, run here:
   * ``TPLMServer`` greedy, contiguous and paged, at tp 2 (2 ranks) and at
     dp 2 x tp 2 (4 ranks), and sampled at dp 2 x tp 2: each rank's tokens
     are the one-device mesh's rows of its dp slice, and every rank's
-    ``free_pages`` equal the one-device mesh's at its position.
+    ``free_pages`` equal the one-device mesh's at its position;
+  * the collectives' gradients (``psum``, ``pvary``, ``all_gather``,
+    ``psum_scatter``, both ``ppermute``s) over each axis, against the
+    one-device mesh's (integer operands and weights: bit for bit), so once
+    and not ``n`` times;
+  * ``pipeline_apply`` at pp 2 / pp 4 (panel layout, two microbatches a
+    stage: the backward's ``ppermute``s meet on every rank) and
+    ``SparseMoE`` at ep 2 / ep 4 through two Adam steps: each rank's output,
+    loss and gradients within 1e-6 x max(1, max|ref|) of the one-device
+    mesh's, every replicated parameter equal on every rank, a rank's
+    bridge state dict its own experts (and RigL on a rank's expert slice
+    raises).
 """
 
 import datetime
+import math
 import os
 import subprocess
 import sys
@@ -27,9 +39,14 @@ import numpy as np
 import pytest
 import torch
 
-from sputnik_tpu_torch.models import SparseLM
-from sputnik_tpu_torch.parallel import TPLMServer
+from torch.func import functional_call
+
+from sputnik_tpu_torch import ManyMaskTopology, SparseTopology, bridge
+from sputnik_tpu_torch.models import SparseLM, SparseMoE, TransformerLayer
+from sputnik_tpu_torch.parallel import (PipelineSpec, TPLMServer,
+                                        pipeline_apply, stack_stage_params)
 from sputnik_tpu_torch.parallel._mesh import Mesh
+from sputnik_tpu_torch.training import rigl_update_moe
 
 AXES = {2: {"tp": 2}, 4: {"dp": 2, "tp": 2}}
 DEADLINE = 150           # seconds for both worlds, start-up included
@@ -63,6 +80,125 @@ def _collectives(mesh, xs):
         out[f"ppermute ring {ax}"] = mesh.ppermute(xs, ax, ring)
         out[f"ppermute partial {ax}"] = mesh.ppermute(xs, ax, [(0, n - 1)])
     return out
+
+
+def _weight(pos, shape):
+    """A position's cotangent weights: small integers, distinct a position."""
+    k = 1 + sum(i * 3 ** j for j, i in enumerate(pos))
+    return (torch.arange(math.prod(shape), dtype=torch.float32)
+            .reshape(shape) % 5 + k)
+
+
+def _collective_grads(mesh):
+    """Each collective's operand gradients, one a local position: a psum's
+    loss counts a line's sum once (it is invariant), the others' add every
+    position's own weighted sum; pvary's operand is one tensor a line."""
+    out = {}
+    for ax, n in mesh.shape.items():
+        a = mesh.names.index(ax)
+
+        def line(p):
+            return p[:a] + (0,) + p[a + 1:]
+
+        for name, fn in (
+                ("psum", lambda xs: mesh.psum(xs, ax)),
+                ("pvary", lambda xs: mesh.pvary(xs, ax)),
+                ("all_gather", lambda xs: mesh.all_gather(xs, ax, dim=1)),
+                ("psum_scatter", lambda xs: mesh.psum_scatter(xs, ax, 0)),
+                ("ppermute ring", lambda xs: mesh.ppermute(
+                    xs, ax, [(i, (i + 1) % n) for i in range(n)])),
+                ("ppermute partial", lambda xs: mesh.ppermute(
+                    xs, ax, [(0, n - 1)]))):
+            if name == "pvary":
+                leaf = {line(p): _operand(line(p)).requires_grad_()
+                        for p in mesh.positions}
+                xs = [leaf[line(p)] for p in mesh.positions]
+            else:
+                xs = [_operand(p).requires_grad_() for p in mesh.positions]
+            ys = fn(xs)
+            if name == "psum":
+                once = {line(p): (y * _weight(line(p), y.shape)).sum()
+                        for p, y in zip(mesh.positions, ys)}
+                loss = sum(once.values())
+            else:
+                loss = sum((y * _weight(p, y.shape)).sum()
+                           for p, y in zip(mesh.positions, ys))
+            loss.backward()
+            # a position that sends nothing gets no gradient: zeros
+            out[f"{name} {ax}"] = [torch.zeros_like(x) if x.grad is None
+                                   else x.grad for x in xs]
+    return out
+
+
+def _moe_topos():
+    rng = np.random.RandomState(8)
+    return tuple(SparseTopology.from_dense_mask(
+        (rng.rand(m, n) < 0.4).astype(np.float32)) for m, n in ((48, 32),
+                                                                 (32, 48)))
+
+
+def _training(world, mesh_of):
+    """``pipeline_apply`` over pp = world and ``SparseMoE`` over ep = world
+    (``mesh_of(axes)`` builds the mesh): their outputs, losses and
+    gradients; the MoE's after two Adam steps. A rank's stacked stage and
+    expert values are its own slice."""
+    pp = mesh_of({"pp": world})
+    mb, s, h = 2, 16, 32
+    masks = np.broadcast_to(np.tril(np.ones((s, s), np.float32)),
+                            (mb, s, s)).copy()
+    mt = ManyMaskTopology.from_dense_masks(masks)
+    layers = [TransformerLayer(
+        mt, h, 2, 48, activation="gelu", use_residual=True,
+        use_layernorm=True, attention_layout="panel",
+        generator=torch.Generator().manual_seed(20 + i))
+        for i in range(world)]
+    stacked = stack_stage_params([l.state_dict() for l in layers])
+    held = pp.held("pp", world)
+    stacked = {k: v[held.start:held.stop].clone().requires_grad_()
+               for k, v in stacked.items()}
+    x = torch.from_numpy(np.random.RandomState(9).randn(
+        2 * mb, s, h).astype(np.float32) * 0.3).requires_grad_()
+    y = pipeline_apply(PipelineSpec(pp, n_micro=2),
+                       lambda p, xm: functional_call(layers[0], p, (xm,)),
+                       stacked, x)
+    (y ** 2).mean().backward()
+    res = {"pp out": y.detach(), "pp x grad": x.grad,
+           "pp grads": {k: v.grad for k, v in stacked.items()}}
+
+    ep = mesh_of({"ep": world})
+    moe, full = (SparseMoE(*_moe_topos(), 2 * world, top_k=2, mesh=m,
+                           bank_tiles=(16, 16),
+                           generator=torch.Generator().manual_seed(10))
+                 for m in (ep, None))
+    # the bridge hands the rank its experts of the unsharded [E, ...] values
+    sd = bridge.moe_state_dict(
+        {"router": {"kernel": full.router.weight.detach().numpy().T},
+         "w_in_values": full.w_in_values.detach().numpy(),
+         "w_out_values": full.w_out_values.detach().numpy()}, moe)
+    res["ep bridge"] = all(torch.equal(sd[k], v)
+                           for k, v in moe.state_dict().items())
+    opt = torch.optim.Adam(moe.parameters(), lr=1e-2)
+    xm = torch.from_numpy(np.random.RandomState(11).randn(
+        2, 16, h).astype(np.float32))
+    losses = []
+    for step in range(2):
+        opt.zero_grad()
+        loss = (moe(xm) ** 2).mean() + 0.01 * moe.aux_loss
+        loss.backward()
+        if step == 0:
+            res["ep grads"] = {k: p.grad.clone()
+                               for k, p in moe.named_parameters()}
+        opt.step()
+        losses.append(loss.detach())
+    res["ep losses"] = torch.stack(losses)
+    res["ep params"] = {k: v.detach().clone()
+                        for k, v in moe.state_dict().items()}
+    if ep.distributed:        # RigL's criteria need every expert's values
+        try:
+            rigl_update_moe(moe, np.ones((48, 32)), np.ones((32, 48)))
+        except ValueError as e:
+            res["ep rigl"] = str(e)
+    return res
 
 
 def _lm():
@@ -123,6 +259,9 @@ def _worker(rank: int, world: int, where: str) -> None:
         except ValueError as e:
             res["cuda_on_gloo"] = str(e)
         res.update(_serving(mesh))
+        res["coll grads"] = _collective_grads(mesh)
+        res.update(_training(world, lambda axes: Mesh(axes,
+                                                      distributed=True)))
         torch.save(res, os.path.join(where, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -175,6 +314,8 @@ def one_device():
             "positions": mesh.positions,
             "coll": _collectives(mesh, [_operand(p)
                                         for p in mesh.positions]),
+            "coll grads": _collective_grads(mesh),
+            **_training(world, Mesh),
             **_serving(mesh)}
     return out
 
@@ -196,6 +337,64 @@ def test_collectives_match_one_device(worlds, one_device, world):
             (g,) = got
             torch.testing.assert_close(g, ref["coll"][name][rank],
                                        rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("world", sorted(AXES))
+def test_collective_gradients_match_one_device(worlds, one_device, world):
+    """Each rank's operand gradient is the one-device mesh's at its
+    position, bit for bit: psum's cotangent once, pvary's summed over the
+    line, all_gather / psum_scatter each other's transpose, ppermute's
+    the inverse permutation."""
+    ref = one_device[world]["coll grads"]
+    for rank, res in enumerate(worlds[world]):
+        for name, (g,) in res["coll grads"].items():
+            torch.testing.assert_close(g, ref[name][rank], rtol=0, atol=0,
+                                       msg=name)
+    assert not torch.equal(ref["pvary tp"][0], ref["psum tp"][0])
+
+
+def _close(got, ref, what):
+    limit = 1e-6 * max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    assert err <= limit, f"{what}: {err} > {limit}"
+
+
+@pytest.mark.parametrize("world", sorted(AXES))
+def test_pipeline_ranks_match_one_device(worlds, one_device, world):
+    """pp = world: every rank gets the whole output, the input's gradient
+    (the first stage's, entered by pvary) and its own stage's gradients,
+    each the one-device mesh's."""
+    ref = one_device[world]
+    for rank, res in enumerate(worlds[world]):
+        _close(res["pp out"], ref["pp out"], f"rank {rank} output")
+        _close(res["pp x grad"], ref["pp x grad"], f"rank {rank} x grad")
+        for k, g in res["pp grads"].items():
+            assert g.shape[0] == 1
+            _close(g, ref["pp grads"][k][rank:rank + 1], f"rank {rank} {k}")
+    assert all(float(g.abs().max()) > 0 for g in ref["pp grads"].values())
+
+
+@pytest.mark.parametrize("world", sorted(AXES))
+def test_expert_parallel_ranks_match_one_device(worlds, one_device, world):
+    """ep = world, 2 experts a rank, two Adam steps: losses, first-step
+    gradients and final parameters the one-device mesh's (a rank's expert
+    values its slice, which the bridge hands it from the unsharded
+    values); the router equal on every rank."""
+    ref = one_device[world]
+    routers = []
+    for rank, res in enumerate(worlds[world]):
+        _close(res["ep losses"], ref["ep losses"], f"rank {rank} losses")
+        for key in ("ep grads", "ep params"):
+            for k, v in res[key].items():
+                want = ref[key][k]
+                if k.startswith("w_"):
+                    assert v.shape[0] == 2
+                    want = want[2 * rank: 2 * rank + 2]
+                _close(v, want, f"rank {rank} {key} {k}")
+        routers.append(res["ep params"]["router.weight"])
+        assert "every expert" in res["ep rigl"]
+        assert res["ep bridge"], rank
+    assert all(torch.equal(r, routers[0]) for r in routers)
 
 
 @pytest.mark.parametrize("world,case", [

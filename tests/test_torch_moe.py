@@ -95,6 +95,52 @@ def test_moe_matches_flax(top_k, capacity_factor):
         assert (y.detach().abs().sum(-1) == 0).any()
 
 
+@pytest.mark.parametrize("ep", [2, 8])
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_expert_parallel_moe_matches_flax(top_k, ep):
+    """``SparseMoE(mesh=Mesh({"ep": n}))`` on the one-device mesh against
+    JAX's ``SparseMoE(mesh=Mesh(devs[:n], ("ep",)))`` (8 experts, the
+    conftest's virtual CPU devices): forward and the gradients of input,
+    router and expert values (a rank's bridge slice: the gloo worlds of
+    ``test_torch_mesh_dist``)."""
+    from jax.sharding import Mesh as JMesh
+
+    rng = np.random.RandomState(10 + top_k)
+    m_in, m_out = _masks(rng)
+    E = 8
+    x = rng.randn(2, 16, 32).astype(np.float32)
+    kw = dict(num_experts=E, top_k=top_k)
+    topos = dict(topo_in=st.SparseTopology.from_dense_mask(m_in),
+                 topo_out=st.SparseTopology.from_dense_mask(m_out))
+    # the parameters are the unsharded module's (JAX's test does the same)
+    params = JMoE(**topos, **kw).init(jax.random.PRNGKey(0), x)
+    jm = JMoE(**topos, mesh=JMesh(np.array(jax.devices()[:ep]), ("ep",)),
+              axis="ep", **kw)
+
+    def loss(p, xx):
+        out = jm.apply(p, xx)
+        return jnp.mean(out ** 2), out
+
+    (_, ref), (g_p, g_x) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+
+    tm = SparseMoE(stt.SparseTopology.from_dense_mask(m_in),
+                   stt.SparseTopology.from_dense_mask(m_out),
+                   mesh=stt.parallel.Mesh({"ep": ep}), bank_tiles=(16, 32),
+                   **kw)
+    assert tm.n_local == E // ep and tm.experts == range(E)
+    tm.load_state_dict(bridge.moe_state_dict(params, tm))
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tm(tx)
+    (y ** 2).mean().backward()
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref), **FWD)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(g_x), **GRAD)
+    got = dict(tm.named_parameters())
+    for name, ref_g in bridge.moe_state_dict(g_p, tm).items():
+        np.testing.assert_allclose(got[name].grad.numpy(), ref_g.numpy(),
+                                   **GRAD, err_msg=name)
+
+
 def test_moe_expert_values_keep_their_pattern():
     """The expert values' gradient is exactly 0 off the topology, so Adam
     never moves a pruned weight."""
@@ -194,7 +240,7 @@ def test_moe_layers_own_their_parameters_and_bad_configs_raise():
     with pytest.raises(ValueError, match="no moe module"):
         stt.SparseTransformer(mt, 2, 16, 2, 32, moe_every=2)
     topo = stt.SparseTopology.from_dense_mask(np.ones((8, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="parallel.Mesh"):
         SparseMoE(topo, stt.SparseTopology.from_dense_mask(np.ones((4, 8))),
                   2, mesh=object())
     with pytest.raises(ValueError, match="transformer_state_dict|model"):

@@ -60,6 +60,7 @@ def test_import_loads_no_jax():
              "sputnik_tpu_torch.parallel._mesh, "
              "sputnik_tpu_torch.parallel.serving_tp, "
              "sputnik_tpu_torch.parallel.lm_tp, "
+             "sputnik_tpu_torch.parallel.pipeline, "
              "sputnik_tpu_torch.examples.serve_tp\n"
              "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'flax', 'optax', 'sputnik_tpu'))\n"
