@@ -199,6 +199,16 @@ Phases, each printing its lines:
         against it and profiled, the bubble read against n_micro / T; an
         NCCL world of 1 (each collective's gradient, pp 1 and ep 1 through
         all_reduce, counted); dryrun_pp(4) and dryrun_ep(4);
+     t. the sequence-parallel specs on ranks, dp x tp training and the
+        hierarchical mesh: dryrun_dp_tp(4) (one SGD step over a dp 2 x
+        tp 2 one-device mesh, B9 + B10a a position) and dryrun_hier(4)
+        (the kv-sharded flash over the sp axis of a ("host", "sp") 2 x 2
+        mesh) on the card, each loss and gradient against the CPU's; then
+        an NCCL world of 1 where every spec's public functions run on
+        Mesh({"sp": 1}, distributed=True) against the one-device mesh:
+        outputs and gradients the same bits (the flash and ring K / V
+        gradients, summed by float atomics, within 1e-6 x max(1,
+        max|ref|));
   4. the outputs, losses and gradients against the same modules' plain path
      on the CPU (serving: fp32-cache logits and greedy tokens, teacher
      forced, of the MHA model and of run (f)'s GQA model; the paged pool;
@@ -6821,6 +6831,175 @@ def phase_mesh_training(stt, torch, dev, wrappers):
     return total
 
 
+def _one_shard_problems(torch):
+    """Every sequence-parallel spec's public functions at one shard (64
+    tiles, s 256, hd 32): ``{name: (make_spec(mesh), fn, operands,
+    atomic)}``; ``atomic`` marks the operands whose gradients the flash
+    backward sums by float atomics (K and V)."""
+    from sputnik_tpu_torch import parallel as par
+    from sputnik_tpu_torch.dryrun import _banded_dense_rows
+    from sputnik_tpu_torch.patterns import (causal_topology,
+                                            local_window_topology)
+
+    g = torch.Generator().manual_seed(71)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g)
+
+    s, hd, q = 256, 32, 48
+    causal = par.RowPartition(causal_topology(s), 1, balance=False)
+    window = par.RowPartition(local_window_topology(s, 64), 1,
+                              balance=False)
+    comp = par.RowPartition(_banded_dense_rows(s, 512), 1)
+    zig = par.RowPartition(causal_topology(s), 1, zigzag=True)
+
+    def panel(part):
+        return lambda m: par.ShardedPanelSpec(part, mesh=m, axis="sp")
+
+    def cspec(m):
+        return par.ShardedCompressedSpec(comp, mesh=m, axis="sp")
+
+    def vals(make, part):
+        return torch.from_numpy(make(None).stack_values(
+            rand(part.topo.nnz_pad).numpy()))
+
+    out = {
+        "spmm": (panel(causal), par.sharded_spmm,
+                 [vals(panel(causal), causal), rand(s, q)], ()),
+        "spmm_t": (panel(causal), par.sharded_spmm_t,
+                   [vals(panel(causal), causal), rand(1, s, q)], ()),
+        "sddmm": (panel(causal), par.sharded_sddmm,
+                  [rand(1, s, hd), rand(s, hd)], ()),
+        "softmax": (panel(causal), par.sharded_softmax,
+                    [vals(panel(causal), causal)], ()),
+        "attention": (panel(causal), par.sparse_attention_sharded,
+                      [rand(1, s, hd), rand(s, hd), rand(s, hd)], ()),
+        "spmm_halo": (panel(window), par.sharded_spmm_halo,
+                      [vals(panel(window), window), rand(1, s, q)], ()),
+        "spmm_c": (cspec, par.sharded_spmm_c,
+                   [vals(cspec, comp), rand(512, q)], ()),
+        "spmm_t_c": (cspec, par.sharded_spmm_t_c,
+                     [vals(cspec, comp), rand(1, s, q)], ()),
+        "sddmm_c": (cspec, par.sharded_sddmm_c,
+                    [rand(1, s, hd), rand(512, hd)], ()),
+        "softmax_c": (cspec, par.sharded_softmax_c, [vals(cspec, comp)],
+                      ()),
+        "attention_c": (cspec, par.sparse_attention_sharded_c,
+                        [rand(1, s, hd), rand(512, hd), rand(512, hd)], ()),
+        "flash replicated": (
+            lambda m: par.ShardedFlashSpec(causal, mesh=m),
+            par.flash_attention_sharded,
+            [rand(1, 2, s, hd), rand(2, s, hd), rand(2, s, hd)], (1, 2)),
+        "flash kv": (
+            lambda m: par.ShardedFlashSpec(window, mesh=m),
+            par.flash_attention_kv_sharded,
+            [rand(1, 2, s, hd), rand(1, 2, s, hd), rand(1, 2, s, hd)],
+            (1, 2)),
+    }
+    for name, part in (("ring natural", causal), ("ring zigzag", zig)):
+        out[name] = (lambda m, p=part: par.RingFlashSpec(p, mesh=m),
+                     par.ring_flash_attention,
+                     [rand(1, 2, s, hd), rand(1, 2, s, hd),
+                      rand(1, 2, s, hd)], (1, 2))
+    return out
+
+
+def _nccl_seq_world(torch, dev, smi, counted):
+    """An NCCL world of 1 (FileStore in a temporary directory): each
+    sequence-parallel spec's public functions on ``Mesh({"sp": 1},
+    distributed=True)`` against the one-device mesh, output and operand
+    gradients the same bits, the K / V gradients the flash backward sums
+    by float atomics within 1e-6 x max(1, max|ref|)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from sputnik_tpu_torch.parallel import Mesh
+
+    problems = _one_shard_problems(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            meshes = {"NCCL": Mesh({"sp": 1}, distributed=True),
+                      "one-device": Mesh({"sp": 1}, device=dev)}
+            same = near = 0
+            for name, (make, fn, arrays, atomic) in problems.items():
+                got = {}
+                for where, mesh in meshes.items():
+                    spec = make(mesh)
+                    xs = [a.to(dev).requires_grad_() for a in arrays]
+
+                    def step(spec=spec, xs=xs):
+                        y = fn(spec, *xs)
+                        w = torch.cos(torch.arange(
+                            y.numel(), device=dev, dtype=torch.float32)
+                            .reshape(y.shape))
+                        (y * w).sum().backward()
+                        return [y.detach()] + [x.grad for x in xs]
+                    got[where] = counted(f"{name} on the {where} mesh",
+                                         step)
+                for i, (a, b) in enumerate(zip(got["NCCL"],
+                                               got["one-device"])):
+                    what = (f"{name} output" if i == 0 else
+                            f"{name} operand {i - 1} gradient")
+                    if torch.equal(a, b):
+                        same += 1
+                    elif i - 1 in atomic:
+                        _compare(f"{what}, NCCL vs the one-device mesh", a,
+                                 b, 1e-6)
+                        near += 1
+                    else:
+                        _fail(f"NCCL world of 1: {what} differs from the "
+                              f"one-device mesh's")
+            print(f"  NCCL world of 1: {len(problems)} sequence-parallel "
+                  f"cases, {same} outputs / gradients the same bits as the "
+                  f"one-device mesh's, {near} K / V gradients (float "
+                  f"atomics) within 1e-6, on {smi}", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_mesh_seq(stt, torch, dev, wrappers):
+    """Phase 3t: A9d's second half on the card. ``dryrun_dp_tp(4)`` and
+    ``dryrun_hier(4)`` on one-device CUDA meshes, each loss and gradient
+    against the same run on the CPU (losses within 1e-4 x max(1, |ref|),
+    gradients within TOL_MODEL x max|ref|); then the sequence-parallel
+    specs on an NCCL world of 1 against the one-device mesh."""
+    from sputnik_tpu_torch.dryrun import dryrun_dp_tp, dryrun_hier
+
+    t_phase = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"phase 3t: the sequence-parallel specs on ranks, dp x tp "
+          f"training and the hierarchical mesh, on {smi}", flush=True)
+    total = {n: 0 for n in wrappers}
+
+    def counted(label, fn, expect=None):
+        return _counted(wrappers, total, label, fn, expect or {})
+
+    for fn in (dryrun_dp_tp, dryrun_hier):
+        label = f"{fn.__name__}(4)"
+        with contextlib.redirect_stdout(io.StringIO()):
+            ref = fn(4, "cpu")
+        got = counted(f"{label} on the card", lambda f=fn: f(4, dev))
+        _compare(f"{label} loss vs the CPU", torch.tensor([got["loss"]]),
+                 torch.tensor([ref["loss"]]), 1e-4)
+        grads = got["grads"]
+        if isinstance(grads, list):
+            grads = dict(zip("qkv", grads))
+            ref["grads"] = dict(zip("qkv", ref["grads"]))
+        _hold_grads(f"{label} vs the CPU",
+                    {k: v.cpu() for k, v in grads.items()}, ref["grads"])
+    _nccl_seq_world(torch, dev, smi, counted)
+    if not total["flash_sparse_attention_fwd"]:
+        _fail("phase 3t launched no B9")
+    print(f"  phase 3t in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main(argv=None) -> int:
     """No arguments: every phase, then the kernels' JSON line and the
     device line. ``--only NAME[,NAME]`` runs just the named phase functions
@@ -6885,7 +7064,8 @@ def main(argv=None) -> int:
             out = fn(stt, torch, dev, wrappers if name.endswith(
                 ("_path", "_train", "serving", "_repair", "graph_decode",
                  "remat", "crossover", "sharded_panel", "flash_sharded",
-                 "seq_parallel", "mesh_training")) else kres, *extra)
+                 "seq_parallel", "mesh_training", "mesh_seq")) else kres,
+                 *extra)
             if name == "serving":
                 ctx = out[1]
         print(f"chip_smoke: --only {','.join(only)} done", flush=True)
@@ -6929,10 +7109,11 @@ def main(argv=None) -> int:
     seq = run(phase_seq_parallel, wrappers)
     tps = run(phase_tp_serving, wrappers)
     mtrain = run(phase_mesh_training, wrappers)
+    mseq = run(phase_mesh_seq, wrappers)
     launches = {n: fwd[n] + train[n] + serve[n] + paged[n] + graph[n]
                 + remat[n] + cross[n] + moe[n] + flat[n] + int8[n] + comp[n]
                 + ring[n] + halo[n] + spanel[n] + sflash[n] + seq[n] + tps[n]
-                + mtrain[n] for n in wrappers}
+                + mtrain[n] + mseq[n] for n in wrappers}
     for n, c in launches.items():
         if c == 0:
             _fail(f"kernel {n} was launched on none of the smoke's paths")

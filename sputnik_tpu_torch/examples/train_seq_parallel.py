@@ -15,25 +15,32 @@ three scalar weights at lr 0.5. Self-checks: each path against dense
 attention at init, computed on the device in row chunks (a full score
 tensor at the full config would be 4.3 GB), and the loss falls.
 
-Full config (the default): 8 shards of s = 16384, hd 64, R 4, a window of
-s / 8 = 2048 keys, 4 steps, the kernels' 64 x 64 tiles, on one card (the
-shards run one after another: ``ROADMAP.md`` A9d puts them on separate
-cards). ``--small``: the JAX example's small config, s = 1024, hd 16, R 2.
-Input from ``numpy.random.RandomState(seed)``.
+Full config (the default): s = 16384, hd 64, R 4, a window of s / 8 =
+2048 keys, 4 steps, the kernels' 64 x 64 tiles. The specs run on the
+``sp`` axis of a ``parallel.Mesh``: by default the one-device mesh of 8
+shards, which run one after another on one card; under ``torchrun`` one
+shard a rank (NCCL between cards, gloo on the CPU), the world's size the
+shard count, each rank holding its shard of the input and the loss a
+``psum`` over the ranks. ``--small``: the JAX example's small config, s =
+1024, hd 16, R 2. Input from ``numpy.random.RandomState(seed)``.
 
 Run:  python -m sputnik_tpu_torch.examples.train_seq_parallel [--small]
           [--device cuda]
+      torchrun --nproc-per-node 4 -m \
+          sputnik_tpu_torch.examples.train_seq_parallel [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 import time
 
 import numpy as np
 import torch
 
-from sputnik_tpu_torch.parallel import (RingFlashSpec, RowPartition,
+from sputnik_tpu_torch.parallel import (Mesh, RingFlashSpec, RowPartition,
                                         ShardedFlashSpec,
                                         flash_attention_kv_sharded,
                                         ring_flash_attention)
@@ -52,16 +59,19 @@ def config(small: bool) -> dict:
     return dict(s=s, hd=hd, R=R, steps=4, window=max(s // 8, TILE))
 
 
-def build(small: bool, device, seed: int = 0) -> dict:
-    """The two specs (``"halo/banded"``, ``"ring/causal"``), the input ``x``
-    ``[R, s, hd]`` and its query-sharded ``x_sh`` / target ``t_sh`` on
-    ``device``."""
+def build(small: bool, device, seed: int = 0, mesh: Mesh = None) -> dict:
+    """The two specs (``"halo/banded"``, ``"ring/causal"``) on the ``sp``
+    axis of ``mesh`` (``None``: the one-device mesh of ``NDEV`` shards),
+    the input ``x`` ``[R, s, hd]`` and this process's shards of the
+    query-sharded ``x_sh`` / target ``t_sh`` on ``device``."""
     cfg = config(small)
     s, hd, R = cfg["s"], cfg["hd"], cfg["R"]
+    ndev = mesh.shape["sp"] if mesh is not None else NDEV
     bspec = ShardedFlashSpec(RowPartition(
-        causal_topology(s, band=cfg["window"]), NDEV, balance=False))
-    rspec = RingFlashSpec(RowPartition(causal_topology(s), NDEV,
-                                       balance=False))
+        causal_topology(s, band=cfg["window"]), ndev, balance=False),
+        mesh=mesh)
+    rspec = RingFlashSpec(RowPartition(causal_topology(s), ndev,
+                                       balance=False), mesh=mesh)
     rng = np.random.RandomState(seed)
     x = (rng.randn(R, s, hd) * 0.5).astype(np.float32)
     target = np.roll(x, 1, axis=1)            # predict the previous position
@@ -90,16 +100,23 @@ def dense_reference(x, window, chunk: int = 2048):
     return out
 
 
-def train(attn, x_sh, t_sh, steps: int):
+def train(attn, spec, x_sh, t_sh, steps: int):
     """``steps`` SGD steps (lr 0.5) on ``mean((attn(x w_q, x w_k, x w_v) -
-    t) ** 2)`` from unit weights -> (losses, step ms)."""
+    t) ** 2)`` over every shard, from unit weights -> (losses, step ms).
+    ``spec``'s mesh hands each replicated weight to the shards' work
+    through ``pvary`` and sums the loss over its axis (on ranks: the
+    weights' gradients and the loss are the whole ones on every rank)."""
     w = {n: torch.ones((), device=x_sh.device, requires_grad=True)
          for n in "qkv"}
+    k, comm, ax = x_sh.shape[0], spec.comm, spec.axis
+    n_all = t_sh[0].numel() * spec.part.ndev
     losses, ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = (attn(x_sh * w["q"], x_sh * w["k"], x_sh * w["v"])
-                - t_sh).square().mean()
+        ws = {n: comm.pvary([p] * k, ax)[0] for n, p in w.items()}
+        sq = (attn(x_sh * ws["q"], x_sh * ws["k"], x_sh * ws["v"])
+              - t_sh).square()
+        loss = comm.psum(list(sq.flatten(1).sum(1)), ax)[0] / n_all
         loss.backward()
         with torch.no_grad():
             for p in w.values():
@@ -121,30 +138,51 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested, but no CUDA "
                            f"device is available")
-    b = build(args.small, device)
+    if "RANK" not in os.environ:
+        return _run(args, device, None)
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = Mesh({"sp": dist.get_world_size()}, distributed=True)
+        return _run(args, mesh.device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> dict:
+    b = build(args.small, device, mesh=mesh)
     cfg, rspec = b["cfg"], b["rspec"]
     paths = {
-        "halo/banded": (lambda q, k, v: flash_attention_kv_sharded(
-            b["bspec"], q, k, v), cfg["window"]),
-        "ring/causal": (lambda q, k, v: ring_flash_attention(
+        "halo/banded": (b["bspec"], lambda q, k, v:
+                        flash_attention_kv_sharded(b["bspec"], q, k, v),
+                        cfg["window"]),
+        "ring/causal": (rspec, lambda q, k, v: ring_flash_attention(
             rspec, q, k, v), None),
     }
     results = {}
-    for name, (attn, window) in paths.items():
+    for name, (spec, attn, window) in paths.items():
         with torch.no_grad():
-            got = rspec.unshard_output(attn(b["x_sh"], b["x_sh"], b["x_sh"]))
-            err = (got - dense_reference(b["x"], window)).abs().max().item()
+            got = attn(b["x_sh"], b["x_sh"], b["x_sh"])
+            want = rspec.shard_queries(dense_reference(b["x"], window))
+            err = (got - want).abs().max().item()
         if not err < 1e-3:
             raise RuntimeError(f"{name}: {err} from dense attention at init")
-        losses, ms = train(attn, b["x_sh"], b["t_sh"], cfg["steps"])
+        losses, ms = train(attn, spec, b["x_sh"], b["t_sh"], cfg["steps"])
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise RuntimeError(f"{name}: the loss did not fall ({losses})")
         results[name] = dict(err=err, losses=losses, step_ms=ms)
         print(f"{name}: oracle err {err:.2e}, loss {losses[0]:.6f} -> "
               f"{losses[-1]:.6f} over {cfg['steps']} steps, step ms "
               f"{', '.join(f'{t:.2f}' for t in ms)}", flush=True)
-    print(f"OK ({NDEV} shards of s={cfg['s']}, hd={cfg['hd']}, "
-          f"R={cfg['R']} on {device})", flush=True)
+    where = (f"shard {rspec.here[0]} of {rspec.part.ndev} on {device}"
+             if mesh is not None else
+             f"{rspec.part.ndev} shards on {device}")
+    print(f"OK ({where}, s={cfg['s']}, hd={cfg['hd']}, R={cfg['R']})",
+          flush=True)
     return results
 
 

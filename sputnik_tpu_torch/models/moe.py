@@ -47,7 +47,7 @@ from torch import nn
 
 from ..ops import panel_api as PA
 from ..ops.batched_panel import BatchedPanelSpec, spmm_bh
-from .transformer import _linear
+from .transformer import _dense, _linear
 
 __all__ = ["SparseMoE"]
 
@@ -138,7 +138,7 @@ class SparseMoE(nn.Module):
         C = max(int(np.ceil(T / E * self.top_k * self.capacity_factor)), 1)
 
         # router; the routing math stays int32 / f32
-        probs = torch.softmax(self.router(xf), dim=-1)          # [T, E]
+        probs = torch.softmax(_dense(self.router, xf), dim=-1)  # [T, E]
         gate1, expert1 = probs.max(dim=-1)                      # first max
         oh1 = F.one_hot(expert1, E).to(torch.int32)             # [T, E]
         frac = oh1.to(probs.dtype).mean(dim=0)
@@ -215,6 +215,9 @@ class SparseMoE(nn.Module):
         xin = torch.einsum("tec,th->ehc", dispatch, xf)          # [E', h, C]
         y1 = spmm_bh(self.local_in, v_in, xin)                   # [E', f, C]
         y2 = spmm_bh(self.local_out, v_out, self._act(y1))       # [E', h, C]
+        # JAX casts the bank's output to the input's dtype, then the
+        # combine promotes it against the f32 gates
+        y2 = y2.to(xf.dtype).to(combine.dtype)
         return torch.einsum("tec,ehc->th", combine, y2)          # [T, h]
 
     # -- value-layout boundary helpers -------------------------------------

@@ -69,6 +69,17 @@ def _dense(lin: nn.Linear, x):
     return F.linear(x.to(dt), lin.weight.to(dt), b)
 
 
+def _norm(ln, x):
+    """``ln`` (``nn.LayerNorm`` or ``nn.Identity``) on ``x`` as flax's
+    ``nn.LayerNorm`` promotes: a narrower activation is upcast to the
+    parameters' dtype first, so the statistics, the parameters and the
+    result are f32 (the serving decoders' ``_layernorm`` follows JAX's
+    plain serving function instead, which rounds its statistics)."""
+    if isinstance(ln, nn.Identity):
+        return ln(x)
+    return ln(x.to(torch.promote_types(x.dtype, ln.weight.dtype)))
+
+
 def divide(numerator: int, denominator: int) -> int:
     """Exact division, raising ``ValueError`` when it is not."""
     if numerator % denominator != 0:
@@ -224,7 +235,7 @@ class SparseSelfAttention(nn.Module):
             raise ValueError(f"hidden {hsz} != {self.hidden_size}")
         h, kv = self.num_heads, self.num_kv_heads
         hd = hsz // h
-        qkv = self.query_key_value(x)
+        qkv = _dense(self.query_key_value, x)
         if kv == h:
             # head-interleaved layout: [b, s, heads, (q | k | v)]
             q, k, v = qkv.reshape(b, s, h, 3 * hd).split(hd, dim=-1)
@@ -232,7 +243,7 @@ class SparseSelfAttention(nn.Module):
             q = qkv[..., : h * hd].reshape(b, s, h, hd)
             k = qkv[..., h * hd: (h + kv) * hd].reshape(b, s, kv, hd)
             v = qkv[..., (h + kv) * hd:].reshape(b, s, kv, hd)
-        return self.dense(self.core(q, k, v))
+        return _dense(self.dense, self.core(q, k, v))
 
 
 class MLP(nn.Module):
@@ -294,9 +305,9 @@ class TransformerLayer(nn.Module):
                            generator=generator, device=device)
 
     def forward(self, x):
-        attn = self.self_attention(self.ln_attn(x))
+        attn = self.self_attention(_norm(self.ln_attn, x))
         x = x + attn if self.use_residual else attn
-        mlp = self.mlp(self.ln_mlp(x))
+        mlp = self.mlp(_norm(self.ln_mlp, x))
         return x + mlp if self.use_residual else mlp
 
 

@@ -36,7 +36,7 @@ from ..blocking import stack_block_meta
 from .kernels.batched_panel import (sddmm_bh_kernel, spmm_bh_kernel,
                                     spmm_t_bh_kernel)
 from .kernels.flash_sparse import build_flash_bwd_meta, build_flash_meta
-from .panel_api import masked_softmax, work_dtype
+from .panel_api import _promote, masked_softmax, work_dtype
 
 __all__ = ["BatchedPanelSpec", "spmm_bh", "sddmm_bh", "sparse_softmax_bh"]
 
@@ -238,21 +238,27 @@ def _check_panels(spec, panels):
 
 
 def spmm_bh(spec: BatchedPanelSpec, panels, dense):
-    """Batched panel SpMM: ``[R, *panel] x [R, n, q] -> [R, m, q]``."""
+    """Batched panel SpMM: ``[R, *panel] x [R, n, q] -> [R, m, q]``, in the
+    promoted dtype of the pair, computed in its work dtype (a bf16 operand
+    meets f32 values in f32, as JAX promotes)."""
     _check_panels(spec, panels)
     _check(spec, "dense", dense, (spec.n, spec.n_pad))
-    return _SpMMBH.apply(spec, panels.contiguous(), dense.contiguous())
+    panels, dense, dt = _promote(panels, dense)
+    return _SpMMBH.apply(spec, panels.contiguous(),
+                         dense.contiguous()).to(dt)
 
 
 def sddmm_bh(spec: BatchedPanelSpec, lhs, rhs):
     """Batched sampled product: ``[R, m, d] x [R, n, d] -> [R, *panel]``;
-    masked elements and padded slots are exactly 0."""
+    masked elements and padded slots are exactly 0. Dtypes as
+    :func:`spmm_bh`."""
     _check(spec, "lhs", lhs, (spec.m, spec.m_pad))
     _check(spec, "rhs", rhs, (spec.n, spec.n_pad))
     if lhs.shape[2] != rhs.shape[2]:
         raise ValueError(f"lhs {tuple(lhs.shape)} and rhs {tuple(rhs.shape)} "
                          f"differ in their last dim")
-    return _SDDMMBH.apply(spec, lhs.contiguous(), rhs.contiguous())
+    lhs, rhs, dt = _promote(lhs, rhs)
+    return _SDDMMBH.apply(spec, lhs.contiguous(), rhs.contiguous()).to(dt)
 
 
 def sparse_softmax_bh(spec: BatchedPanelSpec, panels):

@@ -9,11 +9,13 @@ key-sharded with a halo exchange, or rotating in a ring), and the
 communication model. Expert parallelism is ``models.SparseMoE(mesh=)``.
 
 The JAX package runs them over a device mesh under ``shard_map``. Here
-serving, the pipeline and expert parallelism run over a ``Mesh``; the
-sequence-parallel layer runs the shards of a stacked ``[ndev, ...]``
-operand on its one device, each shard's work written as a rank-local step
-and every exchange routed through ``_mesh``. Putting those specs on ranks
-is the sequence-parallel half of ``ROADMAP.md`` A9d.
+every layer runs over a ``Mesh``: on one device (every position's shard in
+this process) or one position a ``torch.distributed`` rank. The
+sequence-parallel specs take JAX's ``mesh=`` / ``axis=`` (``None``: the
+one-device mesh over the partition's shards); a stacked ``[ndev, ...]``
+operand then holds this process's shards, each shard's work is a
+rank-local step, and every exchange is one of the mesh's collectives over
+the spec's axis.
 """
 
 from . import comm_model

@@ -48,12 +48,11 @@ rank drops from its graph (a received ``ppermute`` carry it ignores) skips
 that rank's half of an exchange and hangs its peers. Keep such a tensor in
 the graph with a zero cotangent (``torch.where``).
 
-The module-level functions below are the single-axis seam the
-sequence-parallel layer (A9a / A9b) runs on: a stacked ``[ndev, ...]``
-operand's shards, all on its one device, a rotation moving references and
-copying nothing. Those layers keep ``devices=None``; putting their specs on
-ranks (``ROADMAP.md`` A9d, its sequence-parallel half) moves them onto
-:class:`Mesh`.
+The sequence-parallel specs (``ShardedPanelSpec``, ``ShardedCompressedSpec``,
+``ShardedFlashSpec``, ``RingFlashSpec``) take ``mesh=`` and ``axis=`` and run
+over their own axis only (:meth:`Mesh.along`, JAX's ``shard_map`` manual
+over one axis): their hand-written backwards call the collectives raw, the
+transposes written out (a replicated operand's cotangent is one ``psum``).
 """
 
 from __future__ import annotations
@@ -65,32 +64,14 @@ from typing import (Dict, List, Mapping, NamedTuple, Optional,
 
 import torch
 
-__all__ = ["Mesh", "check_devices", "shards", "ppermute", "all_gather",
-           "psum", "psum_scatter", "stack"]
+__all__ = ["Mesh", "spec_mesh"]
 
 
-def check_devices(devices) -> None:
-    """The sequence-parallel specs take ``devices=None``: every shard on the
-    stacked operands' one device."""
-    if devices is not None:
-        raise ValueError(
-            "the sequence-parallel layer runs every shard on one device "
-            "(devices=None); its specs on separate cards or processes are "
-            "the sequence-parallel half of ROADMAP.md A9d (A9c gave "
-            "tensor-parallel serving the transport, parallel._mesh.Mesh, "
-            "which the pipeline and expert parallelism train on too)")
-
-
-def shards(x: torch.Tensor) -> List[torch.Tensor]:
-    """A stacked ``[ndev, ...]`` tensor's shards, as views."""
-    return list(x.unbind(0))
-
-
-def ppermute(xs: Sequence[torch.Tensor],
-             pairs: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """``jax.lax.ppermute``: shard ``dst`` receives shard ``src``'s tensor
-    for each ``(src, dst)`` pair; a shard that receives nothing gets
-    zeros."""
+def _route(xs: Sequence[torch.Tensor],
+           pairs: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """One line's ``ppermute`` on one device: index ``dst`` gets index
+    ``src``'s tensor (the reference, nothing copied); an index that
+    receives nothing gets zeros."""
     out = [None] * len(xs)
     for src, dst in pairs:
         out[dst] = xs[src]
@@ -98,28 +79,10 @@ def ppermute(xs: Sequence[torch.Tensor],
             for x, o in zip(xs, out)]
 
 
-def all_gather(xs: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
-    """``jax.lax.all_gather(..., axis=dim, tiled=True)``: the shards
-    concatenated along ``dim``, the same for every shard."""
-    return torch.cat(list(xs), dim)
-
-
-def psum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``jax.lax.psum``: the sum of the shards, the same for every shard."""
-    return torch.stack(list(xs)).sum(0)
-
-
-def psum_scatter(xs: Sequence[torch.Tensor],
-                 dim: int = 0) -> List[torch.Tensor]:
-    """``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``, the
-    reverse of :func:`all_gather`: shard ``d`` receives slice ``d`` (of
-    ``len(xs)`` equal slices along ``dim``) of the shards' sum."""
+def _scatter(xs: Sequence[torch.Tensor], dim: int) -> List[torch.Tensor]:
+    """One line's ``psum_scatter`` on one device: member ``i`` gets slice
+    ``i`` of the sum."""
     return list(torch.stack(list(xs)).sum(0).chunk(len(xs), dim))
-
-
-def stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per-shard results back into one stacked ``[ndev, ...]`` tensor."""
-    return torch.stack(list(xs))
 
 
 class Mesh:
@@ -239,6 +202,18 @@ class Mesh:
         lo = self.index(axis)[0] * (size // n)
         return range(lo, lo + size // n)
 
+    def along(self, axis: str) -> "Mesh":
+        """The mesh a layer manual over ``axis`` alone runs on (JAX's
+        ``shard_map`` with ``axis_names={axis}``): on a rank the mesh
+        itself (its collectives over ``axis`` run on the rank's line), on
+        one device the one-axis mesh ``{axis: n}``. The other axes split
+        the operands' replica or batch dims on the caller's side: on one
+        device those dims simply hold every slice."""
+        self._axis(axis)
+        if self.distributed or len(self.shape) == 1:
+            return self
+        return Mesh({axis: self.shape[axis]}, device=self.device)
+
     # -- collectives ----------------------------------------------------------
 
     def _check(self, xs: Sequence[torch.Tensor]) -> None:
@@ -278,7 +253,8 @@ class Mesh:
         the backward hands the rank's own cotangent through."""
         self._check(xs)
         if not self.distributed:
-            return self._each_line(xs, axis, psum)
+            return self._each_line(xs, axis,
+                                   lambda t: torch.stack(t).sum(0))
         return [_Psum.apply(xs[0], self._line(axis))]
 
     def pvary(self, xs: Sequence[torch.Tensor], axis: str
@@ -300,7 +276,7 @@ class Mesh:
         :meth:`psum_scatter`."""
         self._check(xs)
         if not self.distributed:
-            return self._each_line(xs, axis, lambda t: all_gather(t, dim))
+            return self._each_line(xs, axis, lambda t: torch.cat(t, dim))
         return [_AllGather.apply(xs[0], self._line(axis), dim)]
 
     def psum_scatter(self, xs: Sequence[torch.Tensor], axis: str,
@@ -311,8 +287,7 @@ class Mesh:
         (gloo has no reduce-scatter). Its transpose is :meth:`all_gather`."""
         self._check(xs)
         if not self.distributed:
-            return self._each_line(xs, axis,
-                                   lambda t: psum_scatter(t, dim))
+            return self._each_line(xs, axis, lambda t: _scatter(t, dim))
         return [_PsumScatter.apply(xs[0], self._line(axis), dim)]
 
     def ppermute(self, xs: Sequence[torch.Tensor], axis: str,
@@ -324,8 +299,7 @@ class Mesh:
         inverse pairs."""
         self._check(xs)
         if not self.distributed:
-            return self._each_line(xs, axis,
-                                   lambda t: ppermute(t, pairs))
+            return self._each_line(xs, axis, lambda t: _route(t, pairs))
         return [_Ppermute.apply(xs[0], self._line(axis),
                                 tuple((int(s), int(d)) for s, d in pairs))]
 
@@ -441,3 +415,23 @@ class _Ppermute(torch.autograd.Function):
     def backward(ctx, g):
         inverse = [(d, s) for s, d in ctx.pairs]
         return _permute(g, ctx.line, inverse), None, None
+
+
+def spec_mesh(mesh: Optional[Mesh], axis: str, ndev: int
+              ) -> Tuple[Mesh, Mesh]:
+    """A sequence-parallel spec's ``(mesh, comm)``: the mesh it was given
+    (``None``: the one-device mesh ``{axis: ndev}``, whose collectives run
+    on whatever device the operands are on) and the mesh its collectives
+    run on (:meth:`Mesh.along`). ``axis`` must be one of the mesh's, of
+    the partition's ``ndev`` positions."""
+    if mesh is None:
+        mesh = Mesh({axis: ndev})
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"mesh= takes a parallel.Mesh, got "
+                         f"{type(mesh).__name__}")
+    if axis not in mesh.shape:
+        raise ValueError(f"no axis {axis!r} in mesh {mesh.shape}")
+    if mesh.shape[axis] != ndev:
+        raise ValueError(f"the partition has {ndev} shards, the mesh's "
+                         f"{axis!r} axis {mesh.shape[axis]} positions")
+    return mesh, mesh.along(axis)

@@ -23,9 +23,11 @@ the gather of the dense operand that JAX leaves to XLA outside its count.
 ``H100`` holds NVIDIA's published datasheet figures of the H100 SXM5 80 GB
 at 700 W (``NVIDIA H100 80GB HBM3, 700.00 W`` in ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader``), not measurements.
-The one-card seam (``_mesh``) moves nothing between cards and overlaps
-nothing; the projections price the same exchanges on separate cards
-(``ROADMAP.md`` A9d puts them on ranks).
+The specs' exchanges are ``Mesh`` collectives over their axis: on the
+one-device mesh they move nothing between cards, and on ranks (NCCL
+between cards, gloo on the CPU) each is a blocking call between kernel
+launches, so neither backend overlaps anything yet; the projections price
+the same exchanges with the overlap their dataflow allows.
 """
 
 from __future__ import annotations
@@ -195,7 +197,8 @@ def project_scaling(t1_ms: float, comm_bytes_per_dev: float, ndev: int,
 # the halo cotangents back while the interior backward runs; the ring's
 # rotations read only the carry, but dk / dv board after their band's
 # kernels (half the backward's bytes); a psum consumes kernel outputs. The
-# one-card seam overlaps nothing until ROADMAP.md A9d moves it onto ranks.
+# port's collectives are blocking on either mesh backend: what it would
+# take to reach these fractions is a stream of its own for the exchanges.
 OVERLAP_FRACTIONS = {
     "spmm_halo_fwd": 1.0, "spmm_halo_bwd": 1.0,
     "attention_halo_fwd": 1.0, "attention_halo_bwd": 1.0,

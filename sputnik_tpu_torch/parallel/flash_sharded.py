@@ -4,17 +4,21 @@
 The score topology is row(= query)-partitioned (``RowPartition``), and
 each shard runs the sparse-flash kernels over its query band's occupied key
 blocks, one launch a shard: B9 forward; B10a, or B10b + B10c, backward.
+The shards are the positions of the spec's ``axis`` (default ``"sp"``) on
+its ``mesh``; a stacked operand holds this process's shards (all of them
+on the one-device mesh, one on a rank), as in ``sharded_ops``.
 
 * :func:`flash_attention_sharded`: K / V replicated. The forward needs no
   exchange. In the backward dk / dv, partial sums over the shared key
-  axis, take one ``_mesh.psum`` each.
+  axis, take one ``psum`` each: every rank gets K's and V's whole
+  gradient, once.
 * :func:`flash_attention_kv_sharded`: K / V key-sharded like the queries.
   Each shard fetches only the halo key rows its topology touches
   (:meth:`ShardedFlashSpec.halo_extents`, sliced shifts through
-  ``_mesh.ppermute``: ``sharded_ops``'s exchange on ``[R_kv, rows, hd]``
-  shards), or every row through ``_mesh.all_gather`` where the halo spans
-  the sequence. The backward sends the halo rows' dk / dv home by the
-  reverse shifts (``_mesh.psum_scatter`` after the gather): no psum. By
+  ``ppermute``: ``sharded_ops``'s exchange on ``[R_kv, rows, hd]`` shards),
+  or every row through ``all_gather`` where the halo spans the sequence.
+  The backward sends the halo rows' dk / dv home by the reverse shifts
+  (``psum_scatter`` after the gather): no psum. By
   default, where the halo pays and a shard's band is whole blocks, each
   shard's walk splits: interior blocks against its local K / V (no
   exchange) and halo blocks against the halo-only buffer, two B9 passes
@@ -40,10 +44,9 @@ from ..ops import fused_attention as fa
 from ..ops.kernels import flash_sparse as fs
 from ..ops.panel_api import work_dtype
 from ..topology import SparseTopology
-from . import _mesh
 from .partition import RowPartition
-from .sharded_ops import (_halo_assemble, _halo_extents, _halo_plan,
-                          _halo_scatter_back)
+from .sharded_ops import (_bind, _halo_assemble, _halo_extents, _halo_plan,
+                          _halo_scatter_back, _here, _stack)
 
 __all__ = ["ShardedFlashSpec", "flash_attention_sharded",
            "flash_attention_kv_sharded"]
@@ -90,25 +93,26 @@ def _stack_fmetas(fmetas, mb, kb):
         pmask=pmask, max_bpr=int(max_bpr), max_bpc=int(max_bpc))
 
 
-def _on_device(st, device) -> dict:
-    """Stacked tables (``_stack_fmetas``) as tensors on ``device``, with
-    their ``max_bpr`` / ``max_bpc``."""
-    got = {k: torch.as_tensor(st[k], device=device) for k in _KEYS}
+def _on_device(st, device, here) -> dict:
+    """The rows ``here`` of stacked tables (``_stack_fmetas``) as tensors on
+    ``device``, with their ``max_bpr`` / ``max_bpc``."""
+    got = {k: torch.as_tensor(st[k][np.asarray(here)], device=device)
+           for k in _KEYS}
     got.update(max_bpr=st["max_bpr"], max_bpc=st["max_bpc"])
     return got
 
 
 class ShardedFlashSpec:
     """Static bundle: a row partition and the per-shard flash metadata,
-    stacked ``[ndev, ...]`` (host numpy; on a device through :meth:`meta`).
-    Every replica shares its shard's topology; GQA is a call-time
-    ``group``. ``devices`` must be ``None``: every shard on the operands'
-    one device (``_mesh``). The CUDA kernels run ``bm = bk = 64``."""
+    stacked ``[ndev, ...]`` (host numpy for every shard; this process's
+    rows on a device through :meth:`meta`). Every replica shares its
+    shard's topology; GQA is a call-time ``group``. The shards are the
+    positions of ``axis`` on ``mesh`` (``None``: the one-device mesh). The
+    CUDA kernels run ``bm = bk = 64``."""
 
     def __init__(self, part: RowPartition, *, bm: int = fs.KERNEL_TILE,
-                 bk: int = fs.KERNEL_TILE, devices=None):
-        _mesh.check_devices(devices)
-        self.part = part
+                 bk: int = fs.KERNEL_TILE, mesh=None, axis: str = "sp"):
+        _bind(self, part, mesh, axis)
         self.bm, self.bk = bm, bk
         self.views = [s.block(bm, bk) for s in part.shards]
         v0 = self.views[0]
@@ -132,17 +136,17 @@ class ShardedFlashSpec:
         return _halo_plan(self, n_loc)
 
     def meta(self, device) -> dict:
-        """The stacked tables as tensors on ``device``, built once per
-        device (``meta[key][d]`` is shard ``d``'s), with ``max_bpr`` and
-        ``max_bpc``."""
+        """This process's rows of the stacked tables as tensors on
+        ``device``, built once per device (``meta[key][d]`` is shard
+        ``here[d]``'s), with ``max_bpr`` and ``max_bpc``."""
         device = torch.device(device)
         if device not in self._meta:
-            self._meta[device] = _on_device(vars(self), device)
+            self._meta[device] = _on_device(vars(self), device, self.here)
         return self._meta[device]
 
 
 def _tables(t, d, keys):
-    """Shard ``d``'s tables in the kernels' one-mask layout."""
+    """Local position ``d``'s tables in the kernels' one-mask layout."""
     return [t[k][d][None] for k in keys]
 
 
@@ -168,7 +172,7 @@ def _bwd(t, d, fused, q, k, v, g, m, l, D, scale, group):
 
 
 def _stack3(parts):
-    return tuple(_mesh.stack([p[i] for p in parts]) for i in range(3))
+    return tuple(_stack([p[i] for p in parts]) for i in range(3))
 
 
 # -- K / V replicated --------------------------------------------------------
@@ -183,7 +187,7 @@ class _FlashSharded(torch.autograd.Function):
     def forward(ctx, spec, scale, group, q_sh, k, v):
         t = spec.meta(q_sh.device)
         out, m, l = _stack3([_fwd(t, d, q, k, v, scale, group)
-                             for d, q in enumerate(_mesh.shards(q_sh))])
+                             for d, q in enumerate(_here(q_sh))])
         ctx.spec, ctx.scale, ctx.group = spec, scale, group
         ctx.save_for_backward(q_sh, k, v, out, m, l)
         return out
@@ -198,18 +202,19 @@ class _FlashSharded(torch.autograd.Function):
         t = spec.meta(q_sh.device)
         fused = fa._use_fused_bwd(spec, fa._hd_pad(q_sh.shape[-1]))
         parts = [_bwd(t, d, fused, q, k, v, *x, scale, group)
-                 for d, (q, *x) in enumerate(zip(*map(_mesh.shards, (
+                 for d, (q, *x) in enumerate(zip(*map(_here, (
                      q_sh, g, m, l, D))))]
-        dq = _mesh.stack([p[0] for p in parts]) * scale
-        dk = _mesh.psum([p[1] for p in parts])
-        dv = _mesh.psum([p[2] for p in parts])
+        dq = _stack([p[0] for p in parts]) * scale
+        # the replicated K / V: their cotangents summed over the axis, once
+        dk, dv = (spec.comm.psum([p[i] for p in parts], spec.axis)[0]
+                  for i in (1, 2))
         return None, None, None, dq, dk, dv
 
 
 def _check_q(spec, q_sh, kv_replicas, group):
-    if q_sh.dim() != 4 or q_sh.shape[0] != spec.part.ndev:
+    if q_sh.dim() != 4 or q_sh.shape[0] != len(spec.here):
         raise ValueError(f"q_sh {tuple(q_sh.shape)} must be "
-                         f"[{spec.part.ndev}, R, s_loc, hd]")
+                         f"[{len(spec.here)}, R, s_loc, hd]")
     if q_sh.shape[2] > spec.m_pad_loc:
         raise ValueError(f"q_sh has {q_sh.shape[2]} rows a shard, the "
                          f"partition {spec.m_pad_loc}")
@@ -298,7 +303,8 @@ def _ov_tables(spec, n_loc, device):
     key = ("ov", torch.device(device))
     if key not in spec._meta:
         st = _overlap_meta(spec, n_loc)
-        spec._meta[key] = {p: _on_device(st[p], device) for p in ("i", "h")}
+        spec._meta[key] = {p: _on_device(st[p], device, spec.here)
+                           for p in ("i", "h")}
     return spec._meta[key]["i"], spec._meta[key]["h"]
 
 
@@ -319,14 +325,14 @@ def _kv_assemble(spec, xs, n_loc, plan):
     """Each shard's globally indexed ``[R_kv, n_pad, hd]`` K or V buffer:
     the halo exchange, or the gathered sequence where there is no plan."""
     if plan is None:
-        return [_mesh.all_gather(xs, dim=-2)] * spec.part.ndev
+        return spec.comm.all_gather(xs, spec.axis, dim=-2)
     return _halo_assemble(spec, xs, n_loc, *plan)
 
 
 def _kv_scatter_back(spec, d_bufs, n_loc, plan):
     """The reverse of :func:`_kv_assemble` on the buffers' cotangents."""
     if plan is None:
-        return _mesh.psum_scatter(d_bufs, dim=-2)
+        return spec.comm.psum_scatter(d_bufs, spec.axis, dim=-2)
     return _halo_scatter_back(spec, d_bufs, n_loc, *plan)
 
 
@@ -338,7 +344,7 @@ class _FlashKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, n_loc, plan, split, scale, group, q_sh, k_sh,
                 v_sh):
-        qs, ks, vs = map(_mesh.shards, (q_sh, k_sh, v_sh))
+        qs, ks, vs = map(_here, (q_sh, k_sh, v_sh))
         if split:
             kb, vb = (_halo_assemble(spec, x, n_loc, *plan,
                                      include_own=False) for x in (ks, vs))
@@ -365,13 +371,13 @@ class _FlashKV(torch.autograd.Function):
         kb, vb = ctx.bufs
         g = g.contiguous()
         D = (g * out).sum(-1)
-        rows = list(zip(*map(_mesh.shards, (q_sh, g, M, L, D))))
+        rows = list(zip(*map(_here, (q_sh, g, M, L, D))))
         hd_pad = fa._hd_pad(q_sh.shape[-1])
         if ctx.split:
             ti, th = _ov_tables(spec, n_loc, q_sh.device)
             fused = (2 * (n_loc // spec.bk + spec.kb) * spec.bk * hd_pad * 4
                      <= fa._FUSED_BWD_ACC_BYTES)
-            ks, vs = _mesh.shards(k_sh), _mesh.shards(v_sh)
+            ks, vs = _here(k_sh), _here(v_sh)
             p_i = [_bwd(ti, d, fused, q, ks[d], vs[d], *x, scale, ctx.group)
                    for d, (q, *x) in enumerate(rows)]
             p_h = [_bwd(th, d, fused, q, kb[d], vb[d], *x, scale, ctx.group)
@@ -388,8 +394,7 @@ class _FlashKV(torch.autograd.Function):
             dq = [p[0] for p in parts]
             dk, dv = (_kv_scatter_back(spec, [p[i] for p in parts], n_loc,
                                        plan) for i in (1, 2))
-        return (None,) * 6 + (_mesh.stack(dq) * scale, _mesh.stack(dk),
-                              _mesh.stack(dv))
+        return (None,) * 6 + (_stack(dq) * scale, _stack(dk), _stack(dv))
 
 
 def flash_attention_kv_sharded(spec: ShardedFlashSpec, q_sh, k_sh, v_sh,
@@ -411,10 +416,10 @@ def flash_attention_kv_sharded(spec: ShardedFlashSpec, q_sh, k_sh, v_sh,
     taken where the halo plan is ragged and ``n_loc`` is whole blocks):
     the interior / halo split of each shard's walk, whose interior pass
     needs no exchange."""
-    ndev = q_sh.shape[0]
+    ndev = spec.part.ndev
     _check_q(spec, q_sh, (k_sh.shape[1], v_sh.shape[1]), group)
     if (k_sh.dim() != 4 or k_sh.shape != v_sh.shape
-            or k_sh.shape[0] != ndev):
+            or k_sh.shape[0] != q_sh.shape[0]):
         raise ValueError("k/v must carry the ndev axis (key-sharded)")
     if spec.n_pad % ndev:
         raise ValueError(

@@ -16,8 +16,12 @@ dv ride the ring with their band and are home after a full cycle: no psum.
 
 The per-(shard, band) block metadata is built once on the host by slicing
 each query shard's CSR to the band's key columns, so a strictly empty band
-(a future band under causality) costs a launch with no tiles. Every
-exchange between shards goes through ``_mesh``.
+(a future band under causality) costs a launch with no tiles. The shards
+are the positions of the spec's ``axis`` (default ``"sp"``) on its
+``mesh``; a stacked operand holds this process's shards (all of them on
+the one-device mesh, one on a rank), and every rotation is a ``ppermute``
+of ``spec.comm`` over the axis, the same four a backward step on every
+rank.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from torch.autograd.function import once_differentiable
 from ..ops.kernels import flash_sparse as fs
 from ..ops.panel_api import work_dtype
 from ..topology import SparseTopology
-from . import _mesh
 from .partition import RowPartition
+from .sharded_ops import _bind, _here, _rows, _stack
 
 __all__ = ["RingFlashSpec", "ring_flash_attention"]
 
@@ -74,13 +78,12 @@ class RingFlashSpec:
 
     Requires a natural-order (``RowPartition(balance=False)``) or zigzag
     (``RowPartition(zigzag=True)``) partition, and key padding that splits
-    into bands of whole blocks (``n_pad % (ndev * bk) == 0``). ``devices``
-    must be ``None``: every shard on the operands' one device (``_mesh``).
-    The CUDA kernels run ``bm = bk = 64``."""
+    into bands of whole blocks (``n_pad % (ndev * bk) == 0``). The shards
+    are the positions of ``axis`` on ``mesh`` (``None``: the one-device
+    mesh). The CUDA kernels run ``bm = bk = 64``."""
 
     def __init__(self, part: RowPartition, *, bm: int = fs.KERNEL_TILE,
-                 bk: int = fs.KERNEL_TILE, devices=None):
-        _mesh.check_devices(devices)
+                 bk: int = fs.KERNEL_TILE, mesh=None, axis: str = "sp"):
         if not (np.array_equal(part.perm, np.arange(len(part.perm)))
                 or part.zigzag):
             # a balanced permutation scatters query rows across shards, so
@@ -90,7 +93,7 @@ class RingFlashSpec:
                 "(RowPartition(..., balance=False)) or the zigzag "
                 "load-balanced one (RowPartition(..., zigzag=True) + "
                 "spec.shard_queries/unshard_output)")
-        self.part = part
+        _bind(self, part, mesh, axis)
         self.bm, self.bk = bm, bk
         ndev = part.ndev
         v0 = part.shards[0].block(bm, bk)
@@ -163,21 +166,24 @@ class RingFlashSpec:
         self._meta = {}
 
     def meta(self, device) -> dict:
-        """The stacked metadata as tensors on ``device``, built once per
-        device; ``meta[key][d, band]`` is shard ``d``'s table for ``band``."""
+        """This process's rows of the stacked metadata as tensors on
+        ``device``, built once per device; ``meta[key][d, band]`` is shard
+        ``here[d]``'s table for ``band``."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
             got = self._meta[device] = {
-                k: torch.as_tensor(getattr(self, k), device=device)
+                k: torch.as_tensor(_rows(getattr(self, k), self),
+                                   device=device)
                 for k in _META}
         return got
 
     # -- boundary sharding helpers: reshapes and one flip, no gathers -------
 
     def _zig_shard(self, x, n_total, zig):
-        """``x [R, s, hd]`` -> ``[ndev, R, n_total // ndev, hd]``; zigzag
-        gives shard ``d`` chunk ``d`` and its mirror ``2*ndev-1-d``."""
+        """``x [R, s, hd]`` -> this process's shards ``[len(here), R,
+        n_total // ndev, hd]``; zigzag gives shard ``d`` chunk ``d`` and
+        its mirror ``2*ndev-1-d``."""
         ndev = self.part.ndev
         R, s, hd = x.shape
         xp = F.pad(x, (0, 0, 0, n_total - s))
@@ -187,7 +193,7 @@ class RingFlashSpec:
             xs = torch.cat([xc[:, :ndev], xc[:, ndev:].flip(1)], dim=2)
         else:
             xs = xp.reshape(R, ndev, n_total // ndev, hd)
-        return xs.transpose(0, 1)
+        return xs.transpose(0, 1)[self.here]
 
     def _zig_unshard(self, x_sh, s, zig):
         ndev = self.part.ndev
@@ -200,7 +206,8 @@ class RingFlashSpec:
 
     def shard_queries(self, q):
         """``q [R, s, hd]`` (natural row order) -> the partition's
-        query-sharded layout ``[ndev, R, m_loc, hd]``."""
+        query-sharded layout ``[ndev, R, m_loc, hd]``: this process's
+        shards (all on the one-device mesh)."""
         return self._zig_shard(q, self.part.m_loc * self.part.ndev,
                                self.part.zigzag)
 
@@ -211,8 +218,9 @@ class RingFlashSpec:
         return self._zig_shard(k, self.n_pad, self.kv_zigzag)
 
     def unshard_output(self, out_sh, s: Optional[int] = None):
-        """Inverse of :meth:`shard_queries`: ``[ndev, R, m_loc, hd]`` ->
-        ``[R, s, hd]`` in natural row order."""
+        """Inverse of :meth:`shard_queries` on every shard (the one-device
+        mesh): ``[ndev, R, m_loc, hd]`` -> ``[R, s, hd]`` in natural row
+        order."""
         return self._zig_unshard(
             out_sh, self.part.topo.m if s is None else s, self.part.zigzag)
 
@@ -239,34 +247,35 @@ class RingFlashSpec:
         }
 
 
-def _band(meta, d, band, keys):
-    return [meta[k][d, band] for k in keys]
+def _band(meta, i, band, keys):
+    return [meta[k][i, band] for k in keys]
 
 
 _ROWS = ("block_cols", "nblocks", "mask_slot", "is_partial", "pmask")
 _COLS = ("t_src_i", "t_nblocks", "t_mask_slot", "t_is_partial", "pmask")
 
 
-def _fwd_step(spec, group, meta, d, t, q, k, v, carry):
-    """Shard ``d``'s step ``t``: B11a advances its carry over the band it
-    holds."""
-    band = (d - t) % spec.part.ndev
-    fs.flash_sparse_ring_band_fwd(*_band(meta, d, band, _ROWS), q, k, v,
+def _fwd_step(spec, group, meta, i, t, q, k, v, carry):
+    """Step ``t`` of local position ``i`` (shard ``d = here[i]``): B11a
+    advances its carry over the band it holds, ``(d - t) mod ndev``."""
+    band = (spec.here[i] - t) % spec.part.ndev
+    fs.flash_sparse_ring_band_fwd(*_band(meta, i, band, _ROWS), q, k, v,
                                   *carry, max_bpr=spec.max_bpr, group=group)
 
 
-def _bwd_step(spec, group, meta, d, t, q, k, v, g, m, l, D, dq, dk, dv):
-    """Shard ``d``'s backward step ``t``: the band's dq into ``dq``, its dk
-    / dv into the rotating accumulators ``dk`` / ``dv``, in place."""
-    band = (d - t) % spec.part.ndev
+def _bwd_step(spec, group, meta, i, t, q, k, v, g, m, l, D, dq, dk, dv):
+    """Backward step ``t`` of local position ``i``: the band's dq into
+    ``dq``, its dk / dv into the rotating accumulators ``dk`` / ``dv``, in
+    place."""
+    band = (spec.here[i] - t) % spec.part.ndev
     if group == 1:
-        fs.flash_sparse_ring_band_bwd(*_band(meta, d, band, _ROWS), q, k, v,
+        fs.flash_sparse_ring_band_bwd(*_band(meta, i, band, _ROWS), q, k, v,
                                       g, m, l, D, dq, dk, dv,
                                       max_bpr=spec.max_bpr)
         return
     R = q.shape[0]
-    rows = [x[None] for x in _band(meta, d, band, _ROWS)]
-    cols = [x[None] for x in _band(meta, d, band, _COLS)]
+    rows = [x[None] for x in _band(meta, i, band, _ROWS)]
+    cols = [x[None] for x in _band(meta, i, band, _COLS)]
     kw = dict(heads=R, scale=1.0, group=group)
     dq += fs.flash_sparse_bwd_dq(*rows, q, k, v, g, m, l, D,
                                  max_bpr=spec.max_bpr, **kw)
@@ -283,22 +292,22 @@ class _Ring(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, group, q_p, k_p, v_p):
-        ndev = spec.part.ndev
+        ndev, comm, ax = spec.part.ndev, spec.comm, spec.axis
         meta = spec.meta(q_p.device)
         ring = [(j, (j + 1) % ndev) for j in range(ndev)]
-        qs = _mesh.shards(q_p)
-        ks, vs = _mesh.shards(k_p), _mesh.shards(v_p)
+        qs, ks, vs = _here(q_p), _here(k_p), _here(v_p)
         carries = [(torch.zeros_like(q), q.new_full(q.shape[:2], _NEG_LARGE),
                     q.new_zeros(q.shape[:2])) for q in qs]
         for t in range(ndev):
-            for d in range(ndev):
-                _fwd_step(spec, group, meta, d, t, qs[d], ks[d], vs[d],
-                          carries[d])
-            ks, vs = _mesh.ppermute(ks, ring), _mesh.ppermute(vs, ring)
-        out = _mesh.stack([acc / l.clamp(min=1e-30)[..., None]
-                           for acc, _, l in carries])
-        M = _mesh.stack([m for _, m, _ in carries])
-        L = _mesh.stack([l for _, _, l in carries])
+            for i in range(len(qs)):
+                _fwd_step(spec, group, meta, i, t, qs[i], ks[i], vs[i],
+                          carries[i])
+            ks = comm.ppermute(ks, ax, ring)
+            vs = comm.ppermute(vs, ax, ring)
+        out = _stack([acc / l.clamp(min=1e-30)[..., None]
+                      for acc, _, l in carries])
+        M = _stack([m for _, m, _ in carries])
+        L = _stack([l for _, _, l in carries])
         ctx.spec, ctx.group = spec, group
         ctx.save_for_backward(q_p, k_p, v_p, out, M, L)
         return out
@@ -308,26 +317,26 @@ class _Ring(torch.autograd.Function):
     def backward(ctx, g):
         spec, group = ctx.spec, ctx.group
         q_p, k_p, v_p, out, M, L = ctx.saved_tensors
-        ndev = spec.part.ndev
+        ndev, comm, ax = spec.part.ndev, spec.comm, spec.axis
         meta = spec.meta(q_p.device)
         ring = [(j, (j + 1) % ndev) for j in range(ndev)]
         g = g.contiguous()
         D = (g * out).sum(-1)                      # [ndev, R, m_pad_loc]
-        qs, gs = _mesh.shards(q_p), _mesh.shards(g)
-        Ms, Ls, Ds = _mesh.shards(M), _mesh.shards(L), _mesh.shards(D)
-        ks, vs = _mesh.shards(k_p), _mesh.shards(v_p)
+        qs, gs, Ms, Ls, Ds = map(_here, (q_p, g, M, L, D))
+        ks, vs = _here(k_p), _here(v_p)
         dqs = [torch.zeros_like(q) for q in qs]
         dks = [torch.zeros_like(k) for k in ks]
         dvs = [torch.zeros_like(v) for v in vs]
         for t in range(ndev):
-            for d in range(ndev):
-                _bwd_step(spec, group, meta, d, t, qs[d], ks[d], vs[d],
-                          gs[d], Ms[d], Ls[d], Ds[d], dqs[d], dks[d], dvs[d])
-            # K / V rotate on; each band's dk / dv ride along with it
-            ks, vs = _mesh.ppermute(ks, ring), _mesh.ppermute(vs, ring)
-            dks, dvs = _mesh.ppermute(dks, ring), _mesh.ppermute(dvs, ring)
-        return (None, None, _mesh.stack(dqs), _mesh.stack(dks),
-                _mesh.stack(dvs))
+            for i in range(len(qs)):
+                _bwd_step(spec, group, meta, i, t, qs[i], ks[i], vs[i],
+                          gs[i], Ms[i], Ls[i], Ds[i], dqs[i], dks[i], dvs[i])
+            # K / V rotate on; each band's dk / dv ride along with it, in
+            # this order on every rank
+            ks, vs = comm.ppermute(ks, ax, ring), comm.ppermute(vs, ax, ring)
+            dks = comm.ppermute(dks, ax, ring)
+            dvs = comm.ppermute(dvs, ax, ring)
+        return None, None, _stack(dqs), _stack(dks), _stack(dvs)
 
 
 def ring_flash_attention(spec: RingFlashSpec, q_sh, k_sh, v_sh,
@@ -339,9 +348,11 @@ def ring_flash_attention(spec: RingFlashSpec, q_sh, k_sh, v_sh,
     Returns query-sharded ``[ndev, R, s_loc_q, hd]`` in ``q_sh``'s dtype
     (computed in float32). Use for full-causal (or otherwise full-span)
     topologies."""
-    ndev, R = q_sh.shape[0], q_sh.shape[1]
-    if ndev != spec.part.ndev:
-        raise ValueError(f"q ndev {ndev} != partition {spec.part.ndev}")
+    R = q_sh.shape[1]
+    if q_sh.shape[0] != len(spec.here):
+        raise ValueError(f"q ndev {q_sh.shape[0]} != the {len(spec.here)} "
+                         f"shards this process holds of the partition's "
+                         f"{spec.part.ndev}")
     if group < 1 or R % group:
         raise ValueError(f"group {group} must divide replicas {R}")
     R_kv = k_sh.shape[1]

@@ -56,13 +56,58 @@ from ..ops import paged as pg
 from ..ops.decode import KVCache
 from ._mesh import Mesh
 
-__all__ = ["TPDecoder", "PagedTPDecoder"]
+__all__ = ["TPDecoder", "PagedTPDecoder", "tp_slice"]
 
 
 def _fields(c) -> list:
     """A cache dataclass's tensors in field order (``dataclasses.astuple``
     would deep-copy them)."""
     return [getattr(c, f.name) for f in dataclasses.fields(c)]
+
+
+def tp_slice(params: Dict[str, torch.Tensor], t: int, tp: int, heads: int,
+             kv_heads: int, hd: int) -> Dict[str, torch.Tensor]:
+    """Tensor-parallel position ``t``'s share of one ``TransformerLayer``'s
+    parameters (``named_parameters()`` names), JAX's slicing: the QKV
+    projection's output rows of heads ``[t * heads / tp, (t + 1) * heads /
+    tp)`` (head-interleaved ``[q | k | v]`` a head; under GQA the flat
+    ``q``, ``k`` and ``v`` blocks, each its ``kv_heads / tp`` KV heads),
+    the output projection's matching input columns, ``to_4h``'s ``ffn /
+    tp`` output rows and ``to_h``'s matching input columns. Everything
+    else (the LayerNorms, the row-parallel layers' biases) is returned
+    whole. The values are slices of ``params``: a gradient through them
+    lands in the whole tensors."""
+    H_l, KV_l = heads // tp, kv_heads // tp
+    w = params["self_attention.query_key_value.weight"]
+    b = params["self_attention.query_key_value.bias"]
+    h = w.shape[1]
+    if kv_heads == heads:
+        # head-interleaved [H, 3hd] output rows
+        qkv_w = w.reshape(heads, 3 * hd, h)[t * H_l:(t + 1) * H_l]
+        qkv_b = b.reshape(heads, 3 * hd)[t * H_l:(t + 1) * H_l]
+        qkv_w, qkv_b = qkv_w.reshape(-1, h), qkv_b.reshape(-1)
+    else:
+        # flat [q | k | v] output blocks
+        def sl(a, lo, n):
+            return a[lo + t * n * hd: lo + (t + 1) * n * hd]
+
+        parts = ((0, H_l), (heads * hd, KV_l),
+                 ((heads + kv_heads) * hd, KV_l))
+        qkv_w = torch.cat([sl(w, lo, n) for lo, n in parts])
+        qkv_b = torch.cat([sl(b, lo, n) for lo, n in parts])
+    f_l = params["mlp.to_4h.weight"].shape[0] // tp
+    lo, hi = t * H_l * hd, (t + 1) * H_l * hd
+    out = dict(params)
+    out.update({
+        "self_attention.query_key_value.weight": qkv_w,
+        "self_attention.query_key_value.bias": qkv_b,
+        "self_attention.dense.weight":
+            params["self_attention.dense.weight"][:, lo:hi],
+        "mlp.to_4h.weight": params["mlp.to_4h.weight"][t * f_l:(t + 1) * f_l],
+        "mlp.to_4h.bias": params["mlp.to_4h.bias"][t * f_l:(t + 1) * f_l],
+        "mlp.to_h.weight": params["mlp.to_h.weight"][:, t * f_l:(t + 1) * f_l],
+    })
+    return out
 
 
 def _linear(w, b, device) -> nn.Linear:
@@ -196,48 +241,34 @@ class TPDecoder:
 
     def shard_params(self) -> Dict[int, _ModelView]:
         """Build each local tp position's view of the model from its current
-        weights (copies on the mesh's device; JAX's slicing) and bind the
-        local decoders to them. Returns ``{tp index: view}``."""
+        weights (copies on the mesh's device; JAX's slicing, ``tp_slice``)
+        and bind the local decoders to them. Returns ``{tp index: view}``."""
         tp, hd, dev = self.tp, self.hd, self.mesh.device
-        H, KV, H_l, KV_l, f_l = self.heads, self.kv, self.H_l, self.KV_l, \
-            self.f_l
         h = self.model.hidden_size
         core = None
         if self.model.attention_layout == "panel":
-            core = SparseCoreAttention(self._mt, H_l, "panel")
+            core = SparseCoreAttention(self._mt, self.H_l, "panel")
         views = {}
         for t in sorted({t for _, t in self._pos}):
             layers = []
             for layer in self.model.layers:
-                sa, mlp = layer.self_attention, layer.mlp
-                w, b = sa.query_key_value.weight, sa.query_key_value.bias
-                if KV == H:
-                    # head-interleaved [H, 3hd] output rows
-                    qkv_w = w.reshape(H, 3 * hd, h)[t * H_l:(t + 1) * H_l]
-                    qkv_b = b.reshape(H, 3 * hd)[t * H_l:(t + 1) * H_l]
-                    qkv_w, qkv_b = qkv_w.reshape(-1, h), qkv_b.reshape(-1)
-                else:
-                    # flat [q | k | v] output blocks
-                    def sl(a, lo, n):
-                        return a[lo + t * n * hd: lo + (t + 1) * n * hd]
-
-                    parts = ((0, H_l), (H * hd, KV_l), ((H + KV) * hd, KV_l))
-                    qkv_w = torch.cat([sl(w, lo, n) for lo, n in parts])
-                    qkv_b = torch.cat([sl(b, lo, n) for lo, n in parts])
-                lo, hi = t * H_l * hd, (t + 1) * H_l * hd
+                p = tp_slice(dict(layer.named_parameters()), t, tp,
+                             self.heads, self.kv, hd)
                 view_sa = nn.Module()
-                view_sa.query_key_value = _linear(qkv_w, qkv_b, dev)
-                view_sa.dense = _linear(sa.dense.weight[:, lo:hi],
-                                        sa.dense.bias / tp, dev)
+                view_sa.query_key_value = _linear(
+                    p["self_attention.query_key_value.weight"],
+                    p["self_attention.query_key_value.bias"], dev)
+                # the row-parallel biases: the psum adds them back
+                view_sa.dense = _linear(p["self_attention.dense.weight"],
+                                        p["self_attention.dense.bias"] / tp,
+                                        dev)
                 view_sa.core = core
                 with torch.device("meta"):
-                    view_mlp = MLP(h, f_l, mlp.activation)
-                view_mlp.to_4h = _linear(
-                    mlp.to_4h.weight[t * f_l:(t + 1) * f_l],
-                    mlp.to_4h.bias[t * f_l:(t + 1) * f_l], dev)
-                view_mlp.to_h = _linear(
-                    mlp.to_h.weight[:, t * f_l:(t + 1) * f_l],
-                    mlp.to_h.bias / tp, dev)       # the psum adds it back
+                    view_mlp = MLP(h, self.f_l, layer.mlp.activation)
+                view_mlp.to_4h = _linear(p["mlp.to_4h.weight"],
+                                         p["mlp.to_4h.bias"], dev)
+                view_mlp.to_h = _linear(p["mlp.to_h.weight"],
+                                        p["mlp.to_h.bias"] / tp, dev)
                 view = nn.Module()
                 view.use_residual = layer.use_residual
                 view.ln_attn = copy.deepcopy(layer.ln_attn).to(dev)
@@ -245,8 +276,8 @@ class TPDecoder:
                 view.ln_mlp = copy.deepcopy(layer.ln_mlp).to(dev)
                 view.mlp = view_mlp
                 layers.append(view)
-            views[t] = _ModelView(self.model, self._mt, H_l, KV_l, hd,
-                                  layers).requires_grad_(False)
+            views[t] = _ModelView(self.model, self._mt, self.H_l, self.KV_l,
+                                  hd, layers).requires_grad_(False)
         self.views = views
         for dec, (_, t) in zip(self.decoders, self._pos):
             dec.model = views[t]

@@ -13,9 +13,10 @@ output); its transposed walk names the dump as ``G``.
 
 The ops are the sharded panel ops of ``sharded_ops`` on this spec, which
 run the compressed kernels one launch a shard: SpMM B13a, SpMM^T B13b (then
-``_mesh.psum``), SDDMM B14, and the softmax B15a + B15b with its backward
-on their second modes (JAX takes the softmax in XLA with segment ops; the
-function is the same).
+a ``psum``), SDDMM B14, and the softmax B15a + B15b with its backward on
+their second modes (JAX takes the softmax in XLA with segment ops; the
+function is the same). The spec takes JAX's ``mesh=`` / ``axis=`` (default
+``"x"``) as ``ShardedPanelSpec`` does.
 """
 
 from __future__ import annotations
@@ -25,10 +26,10 @@ import torch
 
 from ..ops.kernels.bsr_compressed import SplitPlans
 from ..ops.panel_api import DEFAULT_BLOCK, _view, values_to_panel_np
-from . import _mesh
 from .partition import RowPartition
-from .sharded_ops import (sharded_sddmm, sharded_softmax, sharded_spmm,
-                          sharded_spmm_t, sparse_attention_sharded)
+from .sharded_ops import (_bind, _rows, sharded_sddmm, sharded_softmax,
+                          sharded_spmm, sharded_spmm_t,
+                          sparse_attention_sharded)
 
 __all__ = ["ShardedCompressedSpec", "sharded_spmm_c", "sharded_spmm_t_c",
            "sharded_sddmm_c", "sharded_softmax_c",
@@ -40,16 +41,15 @@ _META = ("block_offsets", "block_cols", "block_rows", "mask", "t_gblk",
 
 class ShardedCompressedSpec:
     """Static bundle: a partition and the compressed block metadata stacked
-    over shards at a common ``G`` (host numpy; on a device through
-    :meth:`meta`). ``devices`` must be ``None``: every shard on the
-    operands' one device (``_mesh``)."""
+    over shards at a common ``G`` (host numpy for every shard; this
+    process's rows on a device through :meth:`meta`). The shards are the
+    positions of ``axis`` on ``mesh`` (``None``: the one-device mesh)."""
 
     compressed = True
 
     def __init__(self, part: RowPartition, *, bm: int = DEFAULT_BLOCK[0],
-                 bk: int = DEFAULT_BLOCK[1], devices=None):
-        _mesh.check_devices(devices)
-        self.part = part
+                 bk: int = DEFAULT_BLOCK[1], mesh=None, axis: str = "x"):
+        _bind(self, part, mesh, axis)
         self.bm, self.bk = bm, bk
         views = [_view(s, bm, bk, compressed=True) for s in part.shards]
         self.views = views
@@ -121,17 +121,19 @@ class ShardedCompressedSpec:
         return out
 
     def meta(self, device) -> dict:
-        """The stacked metadata as tensors on ``device``, built once per
-        device (``meta[key][d]`` is shard ``d``'s), and ``split_plans``:
-        one ``SplitPlans`` a shard, from its own ``block_offsets``."""
+        """This process's rows of the stacked metadata as tensors on
+        ``device``, built once per device (``meta[key][d]`` is shard
+        ``here[d]``'s), and ``split_plans``: one ``SplitPlans`` a shard,
+        from its own ``block_offsets``."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
             got = self._meta[device] = {
-                k: torch.as_tensor(getattr(self, k), device=device)
+                k: torch.as_tensor(_rows(getattr(self, k), self),
+                                   device=device)
                 for k in _META}
-            got["split_plans"] = [SplitPlans(o, device)
-                                  for o in self.block_offsets]
+            got["split_plans"] = [SplitPlans(o, device) for o in
+                                  _rows(self.block_offsets, self)]
         return got
 
 

@@ -3,36 +3,46 @@ replicated or a row-sharded dense one (counterpart of
 ``sputnik_tpu/parallel/sharded_ops.py``).
 
 Shard ``d`` owns ``RowPartition`` shard ``d`` of the sparse operand: its
-panel and block metadata, stacked ``[ndev, ...]``.
+panel and block metadata. The shards are the positions of the spec's
+``axis`` on its ``mesh`` (a ``parallel.Mesh``; JAX's ``mesh=`` / ``axis=``,
+default ``"x"``). A stacked operand's leading dim holds this process's
+positions along the axis, in order (:attr:`ShardedPanelSpec.here`): all
+``ndev`` on the one-device mesh (``mesh=None``), one on a rank, which builds
+only its own row of the stacked metadata. Every exchange is a collective of
+``spec.comm`` (:meth:`Mesh.along`) over the axis; on a mesh of more axes the
+others split the operands' replica or batch dims on the caller's side.
 
 Against a REPLICATED dense operand (every shard reads all of it):
-``sharded_spmm`` (B1 a shard), ``sharded_spmm_t`` (B3 a shard, then
-``_mesh.psum``), ``sharded_sddmm`` (B4 a shard), ``sharded_softmax`` (B5's
+``sharded_spmm`` (B1 a shard), ``sharded_spmm_t`` (B3 a shard, then a
+``psum``), ``sharded_sddmm`` (B4 a shard), ``sharded_softmax`` (B5's
 panel rows a shard) and ``sparse_attention_sharded`` (SDDMM -> softmax ->
 SpMM, queries sharded, K / V replicated). Each is a
 ``torch.autograd.Function`` with JAX's VJP algebra: SpMM <- SDDMM + the
 psum'd SpMM^T, SpMM^T <- SDDMM + SpMM, SDDMM <- SpMM + the psum'd SpMM^T,
 softmax <- ``p * (g - rowsum(p * g))``. Only the transposed product
-crosses shards. On a ``ShardedCompressedSpec`` (``sharded_compressed``)
-the same Functions run the compressed kernels: B13a, B13b, B14 and the
-softmax B15a / B15b.
+crosses shards: the psum JAX's transposition of a replicated operand
+inserts, so every rank gets the replicated operand's whole cotangent,
+once. On a ``ShardedCompressedSpec`` (``sharded_compressed``) the same
+Functions run the compressed kernels: B13a, B13b, B14 and the softmax
+B15a / B15b.
 
 Against a ROW-SHARDED dense operand: ``sharded_spmm_halo``. Shard ``d``
 owns rows ``[d * n_loc, (d + 1) * n_loc)`` of it and fetches only the rows
 its block columns touch: the halo extents come from the block metadata
 (:meth:`ShardedPanelSpec.halo_extents`) and arrive as sliced shifts through
-``_mesh.ppermute``, ``lo + hi`` rows a shard. A topology whose halo would
-span the whole operand takes the dense ``all_gather`` instead. Where the
-halo pays and ``n_loc`` is a whole number of blocks, the forward splits
-each shard's walk (B2 twice): the interior tiles against the local shard,
-the halo tiles against the halo-only buffer, summed. The exchange
+``ppermute``, ``lo + hi`` rows a shard. A topology whose halo would span
+the whole operand takes the dense ``all_gather`` instead. Where the halo
+pays and ``n_loc`` is a whole number of blocks, the forward splits each
+shard's walk (B2 twice): the interior tiles against the local shard, the
+halo tiles against the halo-only buffer, summed. The exchange
 (``_halo_assemble`` / ``_halo_scatter_back``) works on any ``[..., rows,
 width]`` shard, which the K/V-sharded flash attention shares.
 
-Outputs are row-sharded ``[ndev, m_pad_loc, q]`` in the partition's
-permuted row order. JAX pads ``q`` and ``d`` to 128 lanes, and pads a
-short ``lhs_sh`` / ``g_sh`` to ``m_pad_loc`` rows; this package pads
-neither, as the kernels read rows past an operand's end as zeros.
+Outputs are row-sharded ``[ndev, m_pad_loc, q]`` (this process's shards)
+in the partition's permuted row order. JAX pads ``q`` and ``d`` to 128
+lanes, and pads a short ``lhs_sh`` / ``g_sh`` to ``m_pad_loc`` rows; this
+package pads neither, as the kernels read rows past an operand's end as
+zeros.
 """
 
 from __future__ import annotations
@@ -48,7 +58,7 @@ from ..ops.kernels.bsr_spmm import bsr_spmm_panel, bsr_spmm_panel_sel
 from ..ops.kernels.bsr_spmm_t import bsr_spmm_t_panel
 from ..ops.panel_api import (DEFAULT_BLOCK, _promote, compressed_softmax,
                              masked_softmax, work_dtype)
-from . import _mesh
+from ._mesh import spec_mesh
 from .partition import RowPartition
 
 __all__ = ["ShardedPanelSpec", "sharded_spmm", "sharded_spmm_halo",
@@ -78,18 +88,42 @@ def _halo_extents(spec, n_loc: int) -> tuple:
     return spec._halo_extents[n_loc]
 
 
+def _here(x) -> list:
+    """This process's shards of a stacked operand, as views."""
+    return list(x.unbind(0))
+
+
+def _stack(xs) -> torch.Tensor:
+    """Per-shard results back into one stacked tensor."""
+    return torch.stack(list(xs))
+
+
+def _rows(table: np.ndarray, spec) -> np.ndarray:
+    """The rows of a stacked ``[ndev, ...]`` host table that this process's
+    positions hold: a rank builds only its own."""
+    return table[np.asarray(spec.here)]
+
+
+def _bind(spec, part, mesh, axis) -> None:
+    """A spec's ``part``, ``axis``, ``mesh``, ``comm`` (the mesh its
+    collectives run on) and ``here`` (the global shard indices of this
+    process's positions, in the order of a stacked operand's rows)."""
+    spec.part, spec.axis = part, axis
+    spec.mesh, spec.comm = spec_mesh(mesh, axis, part.ndev)
+    spec.here = spec.comm.index(axis)
+
+
 class ShardedPanelSpec:
     """Static bundle: a partition, block tiles and the stacked kernel
-    metadata (host numpy; on a device through :meth:`meta`). ``devices``
-    must be ``None``: every shard on the operands' one device (``_mesh``).
-    """
+    metadata (host numpy for every shard; this process's rows on a device
+    through :meth:`meta`). The shards are the positions of ``axis`` on
+    ``mesh`` (``None``: the one-device mesh)."""
 
     compressed = False         # the ELL layout (``sharded_compressed``)
 
     def __init__(self, part: RowPartition, *, bm: int = DEFAULT_BLOCK[0],
-                 bk: int = DEFAULT_BLOCK[1], devices=None):
-        _mesh.check_devices(devices)
-        self.part = part
+                 bk: int = DEFAULT_BLOCK[1], mesh=None, axis: str = "x"):
+        _bind(self, part, mesh, axis)
         self.bm, self.bk = bm, bk
         views = [s.block(bm, bk) for s in part.shards]
         meta = stack_block_meta(views)
@@ -121,13 +155,15 @@ class ShardedPanelSpec:
                                        self.max_bpr)
 
     def meta(self, device) -> dict:
-        """The stacked metadata as tensors on ``device``, built once per
-        device; ``meta[key][d]`` is shard ``d``'s."""
+        """This process's rows of the stacked metadata as tensors on
+        ``device``, built once per device; ``meta[key][d]`` is shard
+        ``here[d]``'s."""
         device = torch.device(device)
         got = self._meta.get(device)
         if got is None:
             got = self._meta[device] = {
-                k: torch.as_tensor(getattr(self, k), device=device)
+                k: torch.as_tensor(_rows(getattr(self, k), self),
+                                   device=device)
                 for k in _META}
         return got
 
@@ -174,20 +210,21 @@ def _halo_assemble(spec, xs, n_loc, lo, hi, include_own=True):
     """Per shard ``x [..., n_loc, w]``, the globally indexed ``[..., n_pad,
     w]`` buffer: the shard's own rows (unless ``include_own=False``, the
     split's halo-only buffer) plus its ``lo`` / ``hi`` halo rows, received
-    through sliced ``_mesh.ppermute`` shifts; every other row is 0."""
+    through sliced ``ppermute`` shifts; every other row is 0. ``xs`` are
+    this process's shards."""
     ndev = spec.part.ndev
     bufs = [x.new_zeros(x.shape[:-2] + (spec.n_pad, x.shape[-1]))
             for x in xs]
     if include_own:
-        for me, (buf, x) in enumerate(zip(bufs, xs)):
+        for me, buf, x in zip(spec.here, bufs, xs):
             buf[..., me * n_loc: (me + 1) * n_loc, :] = x
     for k, take, below in _halo_moves(spec, n_loc, lo, hi):
         send = [x[..., n_loc - take:, :] if below else x[..., :take, :]
                 for x in xs]
         shift = k if below else -k
-        recv = _mesh.ppermute(send, [(j, (j + shift) % ndev)
-                                     for j in range(ndev)])
-        for me, (buf, r) in enumerate(zip(bufs, recv)):
+        recv = spec.comm.ppermute(send, spec.axis, [
+            (j, (j + shift) % ndev) for j in range(ndev)])
+        for me, buf, r in zip(spec.here, bufs, recv):
             start = _landing(spec, n_loc, me, k, take, below)
             if start is not None:
                 buf[..., start: start + take, :] = r
@@ -199,20 +236,21 @@ def _halo_scatter_back(spec, d_ext, n_loc, lo, hi, include_own=True):
     cotangent ``d_ext [..., n_pad, w]`` (zeros with ``include_own=False``),
     plus every halo slice's cotangent sent back to the shard it came from
     (reverse shifts) and added where the slice was cut. A dropped wrapped
-    slice sends zeros back."""
+    slice sends zeros back: every hop is a full cycle on every rank, forward
+    and back, so no peer waits for a send that never comes."""
     ndev = spec.part.ndev
     d_loc = [e[..., me * n_loc: (me + 1) * n_loc, :].clone() if include_own
              else e.new_zeros(e.shape[:-2] + (n_loc, e.shape[-1]))
-             for me, e in enumerate(d_ext)]
+             for me, e in zip(spec.here, d_ext)]
     for k, take, below in _halo_moves(spec, n_loc, lo, hi):
         back = []
-        for me, e in enumerate(d_ext):
+        for me, e in zip(spec.here, d_ext):
             start = _landing(spec, n_loc, me, k, take, below)
             back.append(e.new_zeros(e.shape[:-2] + (take, e.shape[-1]))
                         if start is None else e[..., start: start + take, :])
         shift = -k if below else k
-        got = _mesh.ppermute(back, [(j, (j + shift) % ndev)
-                                    for j in range(ndev)])
+        got = spec.comm.ppermute(back, spec.axis, [
+            (j, (j + shift) % ndev) for j in range(ndev)])
         for x, c in zip(d_loc, got):
             if below:
                 x[..., n_loc - take:, :] += c
@@ -278,12 +316,13 @@ def _ov_split_dev(spec, n_loc, device):
     if got is None:
         st = _ov_split_meta(spec, n_loc)
         got = spec._meta[key] = {
-            p: {k: torch.as_tensor(st[p][k], device=device)
+            p: {k: torch.as_tensor(_rows(st[p][k], spec), device=device)
                 for k in ("cols", "sel", "nblk")} for p in ("i", "h")}
     return got
 
 
 # -- per-shard kernel launches (rank-local), by the spec's layout ------------
+# ``d`` is a local position: row ``d`` of ``spec.meta``, shard ``here[d]``
 
 
 def _local_spmm(spec, meta, d, panel, dense):
@@ -338,25 +377,26 @@ def _raw_spmm(spec, panels, dense):
     """``A @ dense`` with the dense operand replicated ``[n, q]`` ->
     row-sharded ``[ndev, m_pad_loc, q]``."""
     meta = spec.meta(panels.device)
-    return _mesh.stack([_local_spmm(spec, meta, d, p, dense)
-                        for d, p in enumerate(_mesh.shards(panels))])
+    return _stack([_local_spmm(spec, meta, d, p, dense)
+                   for d, p in enumerate(_here(panels))])
 
 
 def _raw_spmm_t(spec, panels, g_sh):
     """``A^T @ G`` with G row-sharded ``[ndev, m_loc, q]``: the psum of the
     shards' partial products, ``[n_pad, q]``."""
     meta = spec.meta(panels.device)
-    return _mesh.psum([_local_spmm_t(spec, meta, d, p, g)
-                       for d, (p, g) in enumerate(zip(
-                           _mesh.shards(panels), _mesh.shards(g_sh)))])
+    return spec.comm.psum([_local_spmm_t(spec, meta, d, p, g)
+                           for d, (p, g) in enumerate(zip(
+                               _here(panels), _here(g_sh)))],
+                          spec.axis)[0]
 
 
 def _raw_sddmm(spec, lhs_sh, rhs):
     """``lhs`` row-sharded ``[ndev, m_loc, d]`` sampled against a replicated
     ``rhs [n, d]`` -> sharded panels ``[ndev, *panel_shape]``."""
     meta = spec.meta(lhs_sh.device)
-    return _mesh.stack([_local_sddmm(spec, meta, d, x, rhs)
-                        for d, x in enumerate(_mesh.shards(lhs_sh))])
+    return _stack([_local_sddmm(spec, meta, d, x, rhs)
+                   for d, x in enumerate(_here(lhs_sh))])
 
 
 # -- the replicated-operand ops ----------------------------------------------
@@ -433,18 +473,19 @@ class _ShSDDMM(torch.autograd.Function):
 
 def _check_panels(spec, panels):
     if (tuple(panels.shape[1:]) != spec.panel_shape
-            or panels.shape[0] != spec.part.ndev):
+            or panels.shape[0] != len(spec.here)):
         raise ValueError(f"panels {tuple(panels.shape)} != "
-                         f"[{spec.part.ndev}, *{spec.panel_shape}]")
+                         f"[{len(spec.here)}, *{spec.panel_shape}]")
 
 
 def _check_sharded(name, x, spec):
-    """A row-sharded operand: ``[ndev, rows, width]`` with rows at most the
-    shard's ``m_pad_loc`` (rows past it are zeros to the kernels)."""
-    if (x.dim() != 3 or x.shape[0] != spec.part.ndev
+    """A row-sharded operand: ``[shards here, rows, width]`` with rows at
+    most the shard's ``m_pad_loc`` (rows past it are zeros to the
+    kernels)."""
+    if (x.dim() != 3 or x.shape[0] != len(spec.here)
             or x.shape[1] > spec.m_pad_loc):
         raise ValueError(f"{name} {tuple(x.shape)} must be "
-                         f"[{spec.part.ndev}, rows <= {spec.m_pad_loc}, "
+                         f"[{len(spec.here)}, rows <= {spec.m_pad_loc}, "
                          f"width]")
 
 
@@ -464,7 +505,7 @@ def sharded_spmm(spec, panels, dense):
     row-sharded ``[ndev, m_pad_loc, q]`` in the partition's permuted row
     order, in the promoted dtype of the pair, computed in float32.
     Differentiable in both operands; only ``d_dense`` crosses shards (a
-    psum)."""
+    psum: every rank gets the whole gradient)."""
     _check_panels(spec, panels)
     _check_replicated("dense", dense, spec)
     panels, dense, dt = _promote(panels, dense)
@@ -508,8 +549,8 @@ def sharded_softmax(spec, panels):
     dt = panels.dtype
     panels = panels.to(work_dtype(dt))
     meta = spec.meta(panels.device)
-    return _mesh.stack([_local_softmax(spec, meta, d, p) for d, p in
-                        enumerate(_mesh.shards(panels))]).to(dt)
+    return _stack([_local_softmax(spec, meta, d, p) for d, p in
+                   enumerate(_here(panels))]).to(dt)
 
 
 def sparse_attention_sharded(spec, q, k, v, *, scale=None):
@@ -535,7 +576,7 @@ def _raw_spmm_halo(spec, panels, dense_sh):
     gathered branch)."""
     n_loc = dense_sh.shape[1]
     meta = spec.meta(panels.device)
-    ps, d_loc = _mesh.shards(panels), _mesh.shards(dense_sh)
+    ps, d_loc = _here(panels), _here(dense_sh)
     plan = _halo_plan(spec, n_loc)
     if plan is not None and n_loc % spec.bk == 0:
         # the split: the interior pass reads the local shard, the halo
@@ -543,22 +584,21 @@ def _raw_spmm_halo(spec, panels, dense_sh):
         sm = _ov_split_dev(spec, n_loc, panels.device)
         bufs = _halo_assemble(spec, d_loc, n_loc, *plan, include_own=False)
         out = []
-        for d in range(spec.part.ndev):
+        for d, me in enumerate(spec.here):
             ii, hh = sm["i"], sm["h"]
             out_i = bsr_spmm_panel_sel(ii["cols"][d], ii["nblk"][d],
                                        ii["sel"][d], ps[d], d_loc[d])
             out_h = bsr_spmm_panel_sel(hh["cols"][d], hh["nblk"][d],
                                        hh["sel"][d], ps[d], bufs[d])
             out.append(out_i + out_h)
-            bufs[d][d * n_loc: (d + 1) * n_loc] = d_loc[d]
-        return _mesh.stack(out), bufs
+            bufs[d][me * n_loc: (me + 1) * n_loc] = d_loc[d]
+        return _stack(out), bufs
     if plan is None:
-        full = _mesh.all_gather(d_loc)
-        ext, saved = [full] * spec.part.ndev, None
+        ext, saved = spec.comm.all_gather(d_loc, spec.axis), None
     else:
         ext = saved = _halo_assemble(spec, d_loc, n_loc, *plan)
-    return _mesh.stack([_local_spmm(spec, meta, d, ps[d], ext[d])
-                        for d in range(spec.part.ndev)]), saved
+    return _stack([_local_spmm(spec, meta, d, p, ext[d])
+                   for d, p in enumerate(ps)]), saved
 
 
 class _SpMMHalo(torch.autograd.Function):
@@ -579,25 +619,28 @@ class _SpMMHalo(torch.autograd.Function):
     def backward(ctx, g):
         spec, ext = ctx.spec, ctx.ext
         panels, dense_sh = ctx.saved_tensors
-        ndev, n_loc, q = dense_sh.shape
+        _, n_loc, q = dense_sh.shape
+        ndev = spec.part.ndev
         g = g.contiguous()
         need = ctx.needs_input_grad
         if ext is None:
-            d_full = _mesh.all_gather(_mesh.shards(dense_sh))
+            d_full = spec.comm.all_gather(_here(dense_sh), spec.axis)[0]
             d_panels = _raw_sddmm(spec, g, d_full) if need[1] else None
+            # the psum'd A^T g re-sharded: this process's rows
             d_dense = (_raw_spmm_t(spec, panels, g)[: ndev * n_loc]
-                       .reshape(ndev, n_loc, q) if need[2] else None)
+                       .reshape(ndev, n_loc, q)[spec.here]
+                       if need[2] else None)
             return None, d_panels, d_dense
         meta = spec.meta(panels.device)
-        ps, gs = _mesh.shards(panels), _mesh.shards(g)
-        d_panels = (_mesh.stack([
-            _local_sddmm(spec, meta, d, gs[d], ext[d])
-            for d in range(ndev)]) if need[1] else None)
+        ps, gs = _here(panels), _here(g)
+        d_panels = (_stack([_local_sddmm(spec, meta, d, x, ext[d])
+                            for d, x in enumerate(gs)])
+                    if need[1] else None)
         d_dense = None
         if need[2]:
-            d_ext = [_local_spmm_t(spec, meta, d, ps[d], gs[d])
-                     for d in range(ndev)]
-            d_dense = _mesh.stack(_halo_scatter_back(
+            d_ext = [_local_spmm_t(spec, meta, d, p, gs[d])
+                     for d, p in enumerate(ps)]
+            d_dense = _stack(_halo_scatter_back(
                 spec, d_ext, n_loc, *_halo_plan(spec, n_loc)))
         return None, d_panels, d_dense
 
@@ -615,10 +658,10 @@ def sharded_spmm_halo(spec: ShardedPanelSpec, panels, dense_sh):
         raise ValueError("sharded_spmm_halo runs on a ShardedPanelSpec (the "
                          "ELL layout)")
     _check_panels(spec, panels)
-    if (dense_sh.dim() != 3 or dense_sh.shape[0] != spec.part.ndev
+    if (dense_sh.dim() != 3 or dense_sh.shape[0] != len(spec.here)
             or spec.part.ndev * dense_sh.shape[1] > spec.n_pad):
         raise ValueError(f"dense_sh {tuple(dense_sh.shape)} must be "
-                         f"[{spec.part.ndev}, n_loc, q] with ndev * n_loc "
+                         f"[{len(spec.here)}, n_loc, q] with ndev * n_loc "
                          f"<= n_pad = {spec.n_pad}")
     dt = torch.promote_types(panels.dtype, dense_sh.dtype)
     w = work_dtype(dt)

@@ -7,9 +7,10 @@ on the CPU.
     operands' own widths, JAX's padded);
   * ``project_scaling`` and ``project_scaling_hier`` equal JAX's at the
     same link rates; ``H100`` holds the datasheet's figures;
-  * every byte count equals the bytes the ``_mesh`` calls move in a CPU
-    run of that path, forward and backward apart (``_mesh`` counted by a
-    monkeypatch): the halo SpMM's three branches, the replicated-operand
+  * every byte count equals the bytes the ``Mesh`` collectives move in a
+    CPU run of that path, forward and backward apart (the one-device
+    mesh's methods counted by a monkeypatch): the halo SpMM's three
+    branches, the replicated-operand
     SpMM and attention chain, flash attention replicated and in the
     kv-sharded branches, and the ring;
   * ``dryrun_sp`` at 6 shards: every path's gradient finite and both halos
@@ -132,20 +133,20 @@ def test_projections_equal_jax_at_the_same_rates():
 
 @pytest.fixture
 def moved(monkeypatch):
-    """Per-shard bytes through ``_mesh`` by the model's conventions (every
-    shard sends one equal slice a shift)."""
+    """Per-shard bytes through the ``Mesh`` collectives by the model's
+    conventions (every shard sends one equal slice a shift)."""
     box = [0.0]
 
     def nb(x):
         return x.numel() * x.element_size()
 
     def wrap(name, count):
-        real = getattr(_mesh, name)
+        real = getattr(_mesh.Mesh, name)
 
-        def counted(xs, *a, **k):
+        def counted(self, xs, *a, **k):
             box[0] += count(list(xs))
-            return real(xs, *a, **k)
-        monkeypatch.setattr(_mesh, name, counted)
+            return real(self, xs, *a, **k)
+        monkeypatch.setattr(_mesh.Mesh, name, counted)
 
     wrap("ppermute", lambda xs: nb(xs[0]))
     wrap("all_gather", lambda xs: cm.all_gather_bytes(nb(xs[0]), len(xs)))

@@ -243,7 +243,7 @@ def test_interior_pass_reads_no_halo_buffer_row():
     n_loc = spec.n_pad // spec.part.ndev
     plan = spec.halo_plan(n_loc)
     ti, th = fsh._ov_tables(spec, n_loc, "cpu")
-    ks, vs, qs = (so._mesh.shards(torch.from_numpy(x)) for x in (k, v, q))
+    ks, vs, qs = (so._here(torch.from_numpy(x)) for x in (k, v, q))
     kb, vb = (so._halo_assemble(spec, x, n_loc, *plan, include_own=False)
               for x in (ks, vs))
     hit = so._halo_assemble(spec, [torch.ones_like(x) for x in ks], n_loc,
@@ -276,7 +276,7 @@ def test_edge_shards_drop_wrapped_hops():
     rows = torch.arange(spec.n_pad, dtype=torch.float32) + 1
     x = rows.view(ndev, 1, n_loc, 1).expand(ndev, 2, n_loc, 3).contiguous()
     for own in (True, False):
-        bufs = so._halo_assemble(spec, so._mesh.shards(x), n_loc, lo, hi,
+        bufs = so._halo_assemble(spec, so._here(x), n_loc, lo, hi,
                                  include_own=own)
         for d, buf in enumerate(bufs):
             keep = (rows > d * n_loc - lo) & (rows <= (d + 1) * n_loc + hi)
@@ -287,7 +287,7 @@ def test_edge_shards_drop_wrapped_hops():
     # the reverse: each shard's rows get their cotangent back once per
     # shard that holds them, never from a wrapped hop
     back = so._halo_scatter_back(spec, so._halo_assemble(
-        spec, so._mesh.shards(x), n_loc, lo, hi), n_loc, lo, hi)
+        spec, so._here(x), n_loc, lo, hi), n_loc, lo, hi)
     counts = torch.stack(back)[:, 0, :, 0] / x[:, 0, :, 0]
     assert torch.equal(counts[0, :n_loc - hi], torch.ones(n_loc - hi))
     assert torch.equal(counts[0, n_loc - hi:], torch.full((hi,), 2.0))
@@ -307,8 +307,10 @@ def test_validation_and_jax_errors():
     with pytest.raises(ValueError, match="per-device key rows"):
         flash_attention_kv_sharded(spec, q, torch.zeros(NDEV, 4, 49, 16),
                                    torch.zeros(NDEV, 4, 49, 16))
-    with pytest.raises(ValueError, match="A9c"):
-        ShardedFlashSpec(spec.part, devices=["cuda:0"])
+    with pytest.raises(ValueError, match="partition has"):
+        ShardedFlashSpec(spec.part, mesh=stt.parallel.Mesh({"sp": 2}))
+    with pytest.raises(ValueError, match="no axis 'sp'"):
+        ShardedFlashSpec(spec.part, mesh=stt.parallel.Mesh({"x": NDEV}))
     # 6 shards of n_pad = 256 keys break the key-sharding rule: both
     # packages raise the same text
     jspec6, spec6 = _specs(_causal(200), ndev=6)

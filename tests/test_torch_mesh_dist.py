@@ -25,7 +25,19 @@ cases on the one-device mesh, run here:
     loss and gradients within 1e-6 x max(1, max|ref|) of the one-device
     mesh's, every replicated parameter equal on every rank, a rank's
     bridge state dict its own experts (and RigL on a rank's expert slice
-    raises).
+    raises);
+  * every public function of the four sequence-parallel specs on
+    ``Mesh({"sp": world}, distributed=True)`` (the sharded panel and
+    compressed ops, the halo SpMM's three branches, replicated and
+    kv-sharded flash attention in each branch, the ring natural and
+    zigzag, GQA included), at tiny shapes: each rank's output and every
+    operand's gradient within 1e-6 x max(1, max|ref|) of the one-device
+    mesh's, a replicated operand's gradient the whole one on every rank
+    (the check shown to fail on a zero and on a ``world``-fold gradient);
+  * on 4 ranks, ``dryrun_dp_tp`` (dp 2 x tp 2: loss, gradients and
+    updated parameters, a rank's its ``tp_slice`` share) and
+    ``dryrun_hier`` (``{"host": 2, "sp": 2}``: loss and q / k / v
+    gradients) against the one-device mesh.
 """
 
 import datetime
@@ -42,10 +54,14 @@ import torch
 from torch.func import functional_call
 
 from sputnik_tpu_torch import ManyMaskTopology, SparseTopology, bridge
+from sputnik_tpu_torch import parallel as par
+from sputnik_tpu_torch.dryrun import dryrun_dp_tp, dryrun_hier
 from sputnik_tpu_torch.models import SparseLM, SparseMoE, TransformerLayer
 from sputnik_tpu_torch.parallel import (PipelineSpec, TPLMServer,
                                         pipeline_apply, stack_stage_params)
 from sputnik_tpu_torch.parallel._mesh import Mesh
+from sputnik_tpu_torch.parallel.serving_tp import tp_slice
+from sputnik_tpu_torch.patterns import causal_topology, local_window_topology
 from sputnik_tpu_torch.training import rigl_update_moe
 
 AXES = {2: {"tp": 2}, 4: {"dp": 2, "tp": 2}}
@@ -201,6 +217,140 @@ def _training(world, mesh_of):
     return res
 
 
+T8 = dict(bm=8, bk=8)     # tiny tiles: every path's plain version takes any
+
+
+def _band_dense_row(m, n):
+    mask = np.zeros((m, n), np.float32)
+    for i in range(m):
+        lo = max(0, i * n // m - 4)
+        mask[i, lo: lo + 8] = 1
+    mask[3] = 1
+    return SparseTopology.from_dense_mask(mask)
+
+
+def _seq_problems(world):
+    """Every sequence-parallel spec's public functions at tiny shapes:
+    ``{name: (make_spec(mesh), fn(spec, *operands), operands (whole,
+    numpy), each operand sharded?, output sharded?)}``."""
+    rng = np.random.RandomState(30 + world)
+
+    def rand(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    s, hd, q = 64, 8, 6
+    m_loc = s // world
+    causal = par.RowPartition(causal_topology(s), world, bm=8, balance=False)
+    window = par.RowPartition(local_window_topology(s, 8), world, bm=8,
+                            balance=False)
+    ragged = par.RowPartition(local_window_topology(60, 8), world, bm=8,
+                            balance=False)
+    comp = par.RowPartition(_band_dense_row(s, 48), world, bm=8)
+    zig = par.RowPartition(causal_topology(s), world, bm=8, zigzag=True)
+    c_loc = comp.m_loc
+
+    def panel(part):
+        return lambda m: par.ShardedPanelSpec(part, mesh=m, axis="sp", **T8)
+
+    def flash(part):
+        return lambda m: par.ShardedFlashSpec(part, mesh=m, **T8)
+
+    def ring(part):
+        return lambda m: par.RingFlashSpec(part, mesh=m, **T8)
+
+    def cspec(m):
+        return par.ShardedCompressedSpec(comp, mesh=m, axis="sp", **T8)
+
+    def values(make, part):
+        return make(None).stack_values(rand(part.topo.nnz_pad))
+
+    SR, SRR, SS = (True, False), (True, False, False), (True, True)
+    out = {
+        "spmm": (panel(causal), par.sharded_spmm,
+                 [values(panel(causal), causal), rand(s, q)], SR, True),
+        "spmm_t": (panel(causal), par.sharded_spmm_t,
+                   [values(panel(causal), causal), rand(world, m_loc, q)],
+                   SS, False),
+        "sddmm": (panel(causal), par.sharded_sddmm,
+                  [rand(world, m_loc, hd), rand(s, hd)], SR, True),
+        "softmax": (panel(causal), par.sharded_softmax,
+                    [values(panel(causal), causal)], (True,), True),
+        "attention": (panel(causal), par.sparse_attention_sharded,
+                      [rand(world, m_loc, hd), rand(s, hd), rand(s, hd)],
+                      SRR, True),
+        "spmm_c": (cspec, par.sharded_spmm_c,
+                   [values(cspec, comp), rand(48, q)], SR, True),
+        "spmm_t_c": (cspec, par.sharded_spmm_t_c,
+                     [values(cspec, comp), rand(world, c_loc, q)], SS,
+                     False),
+        "sddmm_c": (cspec, par.sharded_sddmm_c,
+                    [rand(world, c_loc, hd), rand(48, hd)], SR, True),
+        "softmax_c": (cspec, par.sharded_softmax_c, [values(cspec, comp)],
+                      (True,), True),
+        "attention_c": (cspec, par.sparse_attention_sharded_c,
+                        [rand(world, c_loc, hd), rand(48, hd),
+                         rand(48, hd)], SRR, True),
+    }
+    for name, part, n_loc in (("halo split", window, m_loc),
+                              ("halo ragged", ragged, 60 // world),
+                              ("halo gathered", causal, m_loc)):
+        out[name] = (panel(part), par.sharded_spmm_halo,
+                     [values(panel(part), part), rand(world, n_loc, q)],
+                     SS, True)
+    for g in (1, 2):
+        kv = [rand(4 // g, s, hd), rand(4 // g, s, hd)]
+        out[f"flash replicated g{g}"] = (
+            flash(causal), lambda sp, a, b, c, g=g:
+            par.flash_attention_sharded(sp, a, b, c, group=g),
+            [rand(world, 4, m_loc, hd)] + kv, SRR, True)
+        for branch, part, ov in (("split", window, True),
+                                 ("monolithic", window, False),
+                                 ("gathered", causal, True)):
+            out[f"flash kv {branch} g{g}"] = (
+                flash(part), lambda sp, a, b, c, g=g, o=ov:
+                par.flash_attention_kv_sharded(sp, a, b, c, group=g,
+                                             overlap=o),
+                [rand(world, 4, m_loc, hd), rand(world, 4 // g, m_loc, hd),
+                 rand(world, 4 // g, m_loc, hd)], (True,) * 3, True)
+        for order, part in (("natural", causal), ("zigzag", zig)):
+            out[f"ring {order} g{g}"] = (
+                ring(part), lambda sp, a, b, c, g=g:
+                par.ring_flash_attention(sp, a, b, c, group=g),
+                [rand(world, 4, m_loc, hd), rand(world, 4 // g, m_loc, hd),
+                 rand(world, 4 // g, m_loc, hd)], (True,) * 3, True)
+    return out
+
+
+def _weight_of(out, here):
+    """A fixed cotangent weight: of each shard's index and the position in
+    it, so that a rank's is the one-device mesh's rows ``here`` (``None``:
+    a replicated output, the same everywhere)."""
+    shape = out.shape if here is None else out.shape[1:]
+    base = torch.arange(math.prod(shape), dtype=torch.float32).reshape(shape)
+    if here is None:
+        return torch.cos(0.37 * base)
+    return torch.stack([torch.cos(0.37 * base + d) for d in here])
+
+
+def _seq_cases(world, mesh):
+    """Each problem's output and operand gradients on ``mesh``'s ``sp``
+    axis (``None``: the one-device mesh): this process's shards of the
+    sharded operands and outputs, the replicated ones whole."""
+    res = {}
+    for name, (make, fn, arrays, sharded, out_sharded) in \
+            _seq_problems(world).items():
+        spec = make(mesh)
+        here = np.asarray(spec.here)
+        xs = [torch.from_numpy(a[here] if sh else a).requires_grad_()
+              for a, sh in zip(arrays, sharded)]
+        y = fn(spec, *xs)
+        (y * _weight_of(y, spec.here if out_sharded else None)
+         ).sum().backward()
+        res[name] = {"out": y.detach(), "grads": [x.grad for x in xs],
+                     "sharded": sharded, "out_sharded": out_sharded}
+    return res
+
+
 def _lm():
     masks = np.broadcast_to(np.tril(np.ones((P, P), np.float32)),
                             (B, P, P)).copy()
@@ -262,6 +412,13 @@ def _worker(rank: int, world: int, where: str) -> None:
         res["coll grads"] = _collective_grads(mesh)
         res.update(_training(world, lambda axes: Mesh(axes,
                                                       distributed=True)))
+        res["seq"] = _seq_cases(world, Mesh({"sp": world},
+                                            distributed=True))
+        if world == 4:
+            res["dp_tp"] = dryrun_dp_tp(4, "cpu", mesh=Mesh(
+                {"dp": 2, "tp": 2}, distributed=True))
+            res["hier"] = dryrun_hier(4, "cpu", mesh=Mesh(
+                {"host": 2, "sp": 2}, distributed=True))
         torch.save(res, os.path.join(where, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -315,8 +472,11 @@ def one_device():
             "coll": _collectives(mesh, [_operand(p)
                                         for p in mesh.positions]),
             "coll grads": _collective_grads(mesh),
+            "seq": _seq_cases(world, None),
             **_training(world, Mesh),
             **_serving(mesh)}
+    out[4]["dp_tp"] = dryrun_dp_tp(4, "cpu")
+    out[4]["hier"] = dryrun_hier(4, "cpu")
     return out
 
 
@@ -416,6 +576,75 @@ def test_tplm_ranks_match_one_device(worlds, one_device, world, case):
                                          for layer in ref["free_pages"]]
     if case == "sampled":     # the dp slices were given the same prompt
         assert not torch.equal(ref[case][:rows], ref[case][rows:])
+
+
+def _replicated_close(got, ref, what, world):
+    """A replicated operand's gradient is the one-device mesh's, summed
+    over the axis once: the same check fails on a zero gradient (the psum
+    left out) and on a ``world``-fold one (summed on every rank)."""
+    _close(got, ref, what)
+    for wrong in (torch.zeros_like(ref), world * ref):
+        with pytest.raises(AssertionError):
+            _close(wrong, ref, what)
+
+
+@pytest.mark.parametrize("world", sorted(AXES))
+def test_sequence_parallel_specs_on_ranks_match_one_device(worlds,
+                                                           one_device,
+                                                           world):
+    """Every spec's public functions on ``{"sp": world}`` ranks: each
+    rank's output and operand gradients are the one-device mesh's (its
+    shard of the sharded ones; a replicated operand's whole gradient, not
+    zero and not ``world`` times), in every halo / flash / ring branch."""
+    ref = one_device[world]["seq"]
+    for rank, res in enumerate(worlds[world]):
+        assert set(res["seq"]) == set(ref)
+        mine = slice(rank, rank + 1)
+        for name, got in res["seq"].items():
+            want = ref[name]
+            _close(got["out"], want["out"][mine] if got["out_sharded"]
+                   else want["out"], f"rank {rank} {name} output")
+            for i, (g, r, sh) in enumerate(zip(got["grads"], want["grads"],
+                                               got["sharded"])):
+                what = f"rank {rank} {name} operand {i} gradient"
+                if sh:
+                    assert g.shape[0] == 1, what
+                    _close(g, r[mine], what)
+                else:
+                    _replicated_close(g, r, what, world)
+
+
+def test_dp_tp_step_and_hier_on_ranks_match_one_device(worlds, one_device):
+    """4 ranks. The dp 2 x tp 2 SGD step: a rank's loss, gradients and
+    updated parameters are its ``tp_slice`` share of the one-device mesh's
+    (a replicated parameter's gradient whole: not zero, not 4-fold). The
+    ("host", "sp") 2 x 2 kv-sharded flash attention: the loss, the q / k /
+    v gradients of the rank's sp shard and host replica, and
+    ``DRYRUN_COMM_HIER``'s numbers."""
+    ref_tp, ref_h = one_device[4]["dp_tp"], one_device[4]["hier"]
+    for rank, res in enumerate(worlds[4]):
+        got = res["dp_tp"]
+        _close(torch.tensor(got["loss"]), torch.tensor(ref_tp["loss"]),
+               f"rank {rank} dp_tp loss")
+        for key in ("grads", "params"):
+            whole = {k[len("layers.0."):]: v for k, v in ref_tp[key].items()}
+            share = tp_slice(whole, rank % 2, 2, 2, 2, 32)
+            assert set(got[key]) == {f"layers.0.{k}" for k in share}
+            for k, v in share.items():
+                what = f"rank {rank} dp_tp {key} {k}"
+                mine = got[key][f"layers.0.{k}"]
+                if key == "grads" and v.shape == whole[k].shape:
+                    _replicated_close(mine, v, what, 4)
+                else:
+                    _close(mine, v, what)
+        got = res["hier"]
+        h, sp = divmod(rank, 2)
+        _close(torch.tensor(got["loss"]), torch.tensor(ref_h["loss"]),
+               f"rank {rank} hier loss")
+        for w, g, r in zip("qkv", got["grads"], ref_h["grads"]):
+            assert g.shape[:2] == (1, 1)
+            _close(g, r[sp:sp + 1, h:h + 1], f"rank {rank} hier {w} grad")
+        assert got["comm"] == ref_h["comm"]
 
 
 if __name__ == "__main__":

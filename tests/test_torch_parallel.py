@@ -220,8 +220,13 @@ def test_sharded_spmm_halo_matches_jax(case):
 
 def test_sharded_validation():
     A, mat, jpart, part, _ = _problem("ragged")
-    with pytest.raises(ValueError, match="A9c"):
-        ShardedPanelSpec(part, bm=BM, bk=BK, devices=["cuda:0"])
+    # the shards are a mesh axis's positions: JAX's mesh= / axis=
+    with pytest.raises(ValueError, match="partition has"):
+        ShardedPanelSpec(part, bm=BM, bk=BK, mesh=stt.parallel.Mesh(
+            {"x": part.ndev + 1}))
+    with pytest.raises(ValueError, match="no axis 'x'"):
+        ShardedPanelSpec(part, bm=BM, bk=BK, mesh=stt.parallel.Mesh(
+            {"sp": part.ndev}))
     spec = ShardedPanelSpec(part, bm=BM, bk=BK)
     panels = torch.from_numpy(spec.stack_values(mat.values))
     with pytest.raises(ValueError, match="panels"):

@@ -344,8 +344,9 @@ def test_ring_validation():
         RingFlashSpec(RowPartition(topo, NDEV, bm=BM, zigzag=True), bm=BM,
                       bk=BK)
     part = RowPartition(topo, NDEV, bm=BM, balance=False)
-    with pytest.raises(ValueError, match="A9c"):
-        RingFlashSpec(part, bm=BM, bk=BK, devices=["cuda:0", "cuda:1"])
+    with pytest.raises(ValueError, match="partition has"):
+        RingFlashSpec(part, bm=BM, bk=BK, mesh=stt.parallel.Mesh(
+            {"sp": NDEV // 2}))
     spec = RingFlashSpec(part, bm=BM, bk=BK)
     rng = np.random.RandomState(8)
     q = torch.from_numpy(rng.randn(NDEV, 4, s // NDEV, HD).astype(
